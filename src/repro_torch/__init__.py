@@ -1,0 +1,9 @@
+"""PyTorch/CUDA port of the BLS DLRM serving system.
+
+Mirrors the layout of the JAX reference package ``repro`` module by module.
+It imports ``torch``, ``numpy`` and the standard library only.  The
+embedding bags and the dot interaction run through hand-written CUDA
+kernels for Hopper (``kernels/csrc``), built with ``nvcc`` at first use.
+Entry points run on the card (``device="cuda"``) unless the caller asks
+for the CPU, where every kernel wrapper takes its plain PyTorch version.
+"""

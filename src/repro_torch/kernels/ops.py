@@ -1,0 +1,78 @@
+"""Dispatch over the kernels, selected by ``DLRMConfig.sparse_backend``
+(the port of ``repro/kernels/ops.py``):
+
+- ``ref``: the plain PyTorch version;
+- ``pallas``: the CUDA kernel; raises for a tensor that is not on the card;
+- ``interpret``: the plain version (there is no GPU interpreter);
+- ``auto``: the kernel for a CUDA tensor, the plain version for a CPU one.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.dot_interaction import DOT, dot_interaction
+from repro_torch.kernels.embedding_bag import (POOL, embedding_bag,
+                                               embedding_bag_rows,
+                                               embedding_bag_stacked)
+
+IMPLS = ("ref", "pallas", "interpret", "auto")
+
+
+def kernels():
+    """Every hand-written kernel of the port, by name."""
+    return {"embedding_bag_pool": POOL, "dot_interaction": DOT}
+
+
+def reset_launches() -> None:
+    for k in kernels().values():
+        k.launches = 0
+
+
+def use_kernel(impl: str, t) -> bool:
+    """Whether ``impl`` sends tensor ``t`` to the CUDA kernel."""
+    if impl in ("ref", "interpret"):
+        return False
+    if impl == "pallas":
+        if t.device.type != "cuda":
+            raise RuntimeError(
+                f"impl='pallas' runs the CUDA kernel and needs a CUDA "
+                f"tensor, got one on {t.device}")
+        return True
+    if impl == "auto":
+        return t.device.type == "cuda"
+    raise ValueError(f"unknown impl {impl!r}; have {IMPLS}")
+
+
+def dot_interaction_op(z, *, impl: str = "auto", batch_tile: int = 128):
+    if not use_kernel(impl, z):
+        return ref.dot_interaction_ref(z)
+    return dot_interaction(z, batch_tile=batch_tile)
+
+
+def embedding_bag_op(table, idx, mask, *, impl: str = "auto",
+                     batch_tile: int = 64, row_block: int = 0,
+                     pool_mode: str = "auto", plan=None):
+    if not use_kernel(impl, table):
+        return ref.embedding_bag_ref(table, idx, mask)
+    return embedding_bag(table, idx, mask, batch_tile=batch_tile,
+                         row_block=row_block, pool_mode=pool_mode, plan=plan)
+
+
+def embedding_bag_stacked_op(tables, idx, mask, *, impl: str = "auto",
+                             batch_tile: int = 64, row_block: int = 0,
+                             pool_mode: str = "auto", plan=None):
+    """(T,R,s) stacked embedding bags -> (B,T,s); the model hot path."""
+    if not use_kernel(impl, tables):
+        return ref.embedding_bag_stacked_ref(tables, idx, mask)
+    return embedding_bag_stacked(tables, idx, mask, batch_tile=batch_tile,
+                                 row_block=row_block, pool_mode=pool_mode,
+                                 plan=plan)
+
+
+def embedding_bag_rows_op(tables, tid, idx, mask, *, impl: str = "auto",
+                          row_tile: int = 64, row_block: int = 0,
+                          pool_mode: str = "auto"):
+    """(N, hot) packed rows pooled against their own tables -> (N, s)."""
+    if not use_kernel(impl, tables):
+        return ref.embedding_bag_rows_ref(tables, tid, idx, mask)
+    return embedding_bag_rows(tables, tid, idx, mask, row_tile=row_tile,
+                              row_block=row_block, pool_mode=pool_mode)
