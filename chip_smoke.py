@@ -8,16 +8,36 @@ Run from the repository root with no arguments:
 Phases, each on lines of its own:
   1. the card's identity and the float32 matmul settings (TF32 off);
   2. the CUDA kernels built from ``src/repro_torch/kernels/csrc`` with nvcc
-     into ``build/kernels/``;
-  3. every kernel held against its plain PyTorch version at full
+     into ``build/kernels/`` (one nvcc per source, all at once);
+  3. the DLRM kernels held against their plain PyTorch versions at full
      ``dlrm-kaggle`` width (rtol = atol = 1e-5: the summation order
-     differs), two runs of it bit-identical, and its time beside the plain
-     version's, a library call's and the least time the card could take;
+     differs), two runs of each bit-identical, and each one's time beside
+     the plain version's, a library call's and the least time the card
+     could take;
   4. full-width ``dlrm-kaggle`` serving of 4 x 512 hetero requests through
      ``DLRMEngine(bound=2, microbatches=4)`` on a one-rank NCCL group: the
      CTRs finite, in (0, 1), bit-identical to ``bound=0`` and within
-     1e-5 of the plain-PyTorch forward, and every kernel launched by it;
-  5. one JSON line of kernel numbers, the card's name and power limit, and
+     1e-5 of the plain-PyTorch forward, and every DLRM kernel launched by
+     it;
+  5. the flash-attention kernel held against its plain version in bf16
+     (rtol 1e-2, atol 5e-3, and the relative Frobenius error under 5e-3:
+     the plain version computes in f32 on the same bf16 inputs) at the
+     served gemma2-9b local and global layers and at qwen3-14b's heads
+     (B 2, S 4608, q drawn at 4x unit scale so each softmax is peaked and
+     the softcap bends the largest scores), two runs bit-identical, timed
+     as in 3; the plain version without the softcap, and without the
+     window, must fail the same check;
+  6. gemma2-9b at full width in f32, depth cut to 4 layers: prefill of
+     2 x 4608 tokens through the kernel held against the plain attention,
+     and one decode step from each prefill's cache (rtol = atol = 1e-4);
+  7. full gemma2-9b (42 layers, bf16) served by ``LMEngine``: first the
+     kernel held against its plain version, as in 5, on the q, k and v the
+     served model gives its first local and first global layer for the
+     prompts; then 2 prompts of 4608 tokens, 16 greedy tokens, twice;
+     tokens in range and identical across the runs, the prefill's logits
+     finite, the flash kernel launched 42 times per prefill (21 local,
+     21 global); prefill and decode times;
+  8. one JSON line of kernel numbers, the card's name and power limit, and
      last ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or with any phase failing, it exits non-zero and
 prints no result.
@@ -39,13 +59,32 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 TOL = {"rtol": 1e-5, "atol": 1e-5}
-# H100 SXM data-sheet peaks (700 W): device memory and f32 outside the
-# tensor cores, which is what these kernels use
+# H100 SXM data-sheet peaks (700 W): device memory, f32 outside the tensor
+# cores (the DLRM kernels) and bf16 on the tensor cores (flash attention)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 BATCH = 512
 N_BATCHES = 4
 PACKED_ROWS = 4096
+# the kernels of the DLRM serving path (flash attention is the LM path's)
+DLRM_KERNELS = ("embedding_bag_pool", "dot_interaction")
+# the LM phases: 2 prompts of 4608 tokens (512 past gemma2's 4096 window),
+# a cache of 4864 positions, 16 greedy tokens
+LM_BATCH, LM_PROMPT, LM_MAX_LEN, LM_NEW = 2, 4608, 4864, 16
+# the bf16 kernel feeds the probabilities to the tensor cores in bf16, as
+# flash attention does, so each p_j carries up to 2^-8 of relative rounding
+# that the plain version (f32 throughout) does not: a few 1e-3 on outputs
+# of order 1, beside the 2^-8 relative rounding of the output itself.  The
+# relative Frobenius error of the whole output is held as well.
+FLASH_TOL = {"rtol": 1e-2, "atol": 5e-3}
+FLASH_REL = 5e-3
+# q drawn at 4x unit scale: each row's softmax is peaked (typical |out|
+# ~0.25, not ~0.02 as over thousands of near-equal scores) and the softcap
+# of 50 bends the largest scores by several percent
+FLASH_Q_SCALE = 4.0
+LM_TOL = {"rtol": 1e-4, "atol": 1e-4}
+PARITY_LAYERS = 4
 
 
 def log(*parts) -> None:
@@ -86,8 +125,30 @@ def time_ms(fn, *, reps: int = 20, warmup: int = 3, flush=None) -> float:
     return statistics.median(times)
 
 
+def errors(out, plain, rtol: float):
+    """(max abs error, relative Frobenius error, the least atol that
+    passes at ``rtol``) of ``out`` against ``plain``."""
+    d = (out.float() - plain.float()).abs()
+    p = plain.float()
+    return (d.max().item(), (d.norm() / p.norm()).item(),
+            (d - rtol * p.abs()).max().item())
+
+
+def hold(name, out, plain, tol, rel=None):
+    """Fail unless ``out`` is within ``tol`` of ``plain`` elementwise and,
+    with ``rel``, its relative Frobenius error is at most ``rel``; returns
+    :func:`errors`."""
+    torch.testing.assert_close(out, plain, **tol)
+    err = errors(out, plain, tol["rtol"])
+    if rel is not None and err[1] > rel:
+        raise AssertionError(f"{name}: relative Frobenius error {err[1]:.3e} "
+                             f"> {rel}")
+    return err
+
+
 def check_kernel(name, replaces, source, kernel_fn, plain_fn, library_fn,
-                 *, n_bytes, flops, flush):
+                 *, n_bytes, flops, flush, tol=TOL, rel=None,
+                 peak_flops=F32_FLOPS):
     """Hold one kernel against its plain version and time the three."""
     out = kernel_fn()
     again = kernel_fn()
@@ -95,11 +156,13 @@ def check_kernel(name, replaces, source, kernel_fn, plain_fn, library_fn,
     torch.cuda.synchronize()
     if not torch.equal(out, again):
         raise AssertionError(f"{name}: two kernel runs differ")
-    torch.testing.assert_close(out, plain, **TOL)
+    err, fro, need = hold(name, out, plain, tol, rel)
     if library_fn is not None:
-        torch.testing.assert_close(library_fn(), plain, **TOL)
-    err = (out - plain).abs().max().item()
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+        hold(f"{name} library", library_fn(), plain, tol, rel)
+    log(f"[kernel] {name}: relative Frobenius error {fro:.3e}, least atol "
+        f"passing at rtol {tol['rtol']}: {need:.3e}, median |plain| "
+        f"{plain.float().abs().median().item():.3e}")
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak_flops
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": 0, "max_abs_err": err,
            "ms": time_ms(kernel_fn, flush=flush),
@@ -272,7 +335,7 @@ def serve_phase(params, cfg, dev, backend, card):
         serve(params, cfg, warm, 2, dev)
         ops.reset_launches()
         ctr, eng = serve(params, cfg, batch, 2, dev)
-        launches = {k: v.launches for k, v in ops.kernels().items()}
+        launches = {k: ops.kernels()[k].launches for k in DLRM_KERNELS}
         ctr0, eng0 = serve(params, cfg, batch, 0, dev)
         profile_flush(params, cfg, warm, dev)
     finally:
@@ -302,6 +365,274 @@ def serve_phase(params, cfg, dev, backend, card):
             f"flush p50_ms={e.monitor.percentile(0.5) * 1e3:.3f} "
             f"p99_ms={e.monitor.percentile(0.99) * 1e3:.3f} card={card!r}")
     return launches
+
+
+def admitted_pairs(s: int, window: int) -> int:
+    """(query, key) pairs a causal layer of length s admits."""
+    live = np.arange(1, s + 1)
+    return int((np.minimum(live, window) if window else live).sum())
+
+
+def flash_phase(dev):
+    """Phase 5: the flash kernel against its plain version at the served
+    layer shapes, in bf16, timed warm (q, k, v are written just before it
+    on the prefill path).  Returns (row, launch key) pairs."""
+    from repro_torch.configs.gemma2_9b import CONFIG as GEMMA
+    from repro_torch.configs.qwen3_14b import CONFIG as QWEN
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    b, s = LM_BATCH, LM_PROMPT
+    rows = []
+    for label, cfg, window, cap in (
+            ("gemma2_local", GEMMA, GEMMA.sliding_window,
+             GEMMA.attn_logit_softcap),
+            ("gemma2_global", GEMMA, 0, GEMMA.attn_logit_softcap),
+            ("qwen3_heads", QWEN, 0, QWEN.attn_logit_softcap)):
+        h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        q, k, v = ((torch.randn((b, s, n, hd), generator=gen, device=dev)
+                    * scale).to(torch.bfloat16)
+                   for n, scale in ((h, FLASH_Q_SCALE), (kh, 1.0), (kh, 1.0)))
+        library = None
+        if not cap and not window:
+            # one PyTorch call computes this layer's function (no softcap):
+            # the yardstick, used nowhere in the port
+            def library(q=q, k=k, v=v):
+                return F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    is_causal=True, enable_gqa=True).transpose(1, 2)
+        name = f"flash_attention/{label}"
+        rows.append((check_kernel(
+            name, "src/repro/kernels/flash_attention.py:97",
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            lambda: fa.flash_attention(q, k, v, window=window, softcap=cap),
+            lambda: ref.flash_attention_ref(q, k, v, window=window,
+                                            softcap=cap),
+            library, n_bytes=2 * (2 * q.numel() + 2 * k.numel()),
+            flops=4 * hd * admitted_pairs(s, window) * b * h, flush=None,
+            tol=FLASH_TOL, rel=FLASH_REL, peak_flops=BF16_FLOPS),
+            fa.launch_key(h, kh, hd, window)))
+        # the check sees each branch: a kernel that dropped the softcap or
+        # the window would fail it
+        plain = ref.flash_attention_ref(q, k, v, window=window, softcap=cap)
+        branches = []
+        if cap:
+            branches.append(("softcap", {"window": window, "softcap": 0.0}))
+        if window:
+            branches.append(("window", {"window": 0, "softcap": cap}))
+        for branch, kw in branches:
+            wrong = ref.flash_attention_ref(q, k, v, **kw)
+            if torch.allclose(wrong, plain, **FLASH_TOL):
+                raise AssertionError(f"{name}: the plain version without the "
+                                     f"{branch} passes the check")
+            err, fro, _ = errors(wrong, plain, FLASH_TOL["rtol"])
+            log(f"[kernel] {name}: the plain version without the {branch} "
+                f"fails the check (max_abs_err {err:.3e}, relative "
+                f"Frobenius error {fro:.3e})")
+            del wrong
+        del q, k, v, library, plain
+        torch.cuda.empty_cache()
+    return rows
+
+
+def lm_prompts(vocab: int) -> np.ndarray:
+    return np.random.default_rng(SEED).integers(
+        0, vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+
+
+def lm_parity_phase(dev):
+    """Phase 6: full-width gemma2-9b in f32, depth cut to 4 layers (one
+    local and one global group): prefill through the kernel against the
+    plain attention, and one (plain) decode step from each one's cache."""
+    from repro_torch.configs.gemma2_9b import CONFIG as GEMMA
+    from repro_torch.models import transformer as T
+
+    cfg = GEMMA.replace(n_layers=PARITY_LAYERS, dtype="float32")
+    params = T.init_lm(SEED, cfg, dev)
+    toks = torch.from_numpy(lm_prompts(cfg.vocab_size)).to(dev)
+    out = {}
+    for impl in ("auto", "ref"):
+        logits, cache = T.prefill(params, cfg, toks, pad_to=LM_PROMPT + 1,
+                                  attn_impl=impl)
+        nxt = toks[:, -1:]
+        step, _ = T.decode_step(params, cfg, nxt, cache)
+        out[impl] = (logits, cache, step)
+    (la, ca, da), (lr, cr, dr) = out["auto"], out["ref"]
+    torch.testing.assert_close(la, lr, **LM_TOL)
+    torch.testing.assert_close(ca["k"], cr["k"], **LM_TOL)
+    torch.testing.assert_close(ca["v"], cr["v"], **LM_TOL)
+    torch.testing.assert_close(da, dr, **LM_TOL)
+    errs = [(a - r).abs().max().item() for a, r in
+            ((la, lr), (ca["k"], cr["k"]), (ca["v"], cr["v"]), (da, dr))]
+    log(f"[lm-parity] gemma2-9b full width, f32, depth cut 42 -> "
+        f"{PARITY_LAYERS} layers, B {LM_BATCH} x {LM_PROMPT} tokens: kernel "
+        f"vs plain attention max_abs_err prefill logits {errs[0]:.3e}, cache "
+        f"k {errs[1]:.3e} v {errs[2]:.3e}, decode logits {errs[3]:.3e} "
+        f"(rtol = atol = 1e-4)")
+    del params, out, la, ca, da, lr, cr, dr
+    torch.cuda.empty_cache()
+
+
+def profile_device(label, fn, top: int = 8):
+    """Device time by kernel, and the card's share of the wall time, over
+    one call of ``fn`` that ends in a synchronise."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us()
+    if not by_name:
+        log(f"[lm-profile] {label}: the profiler saw no device activity: "
+            "device time not measured")
+        return
+    busy = sum(by_name.values())
+    log(f"[lm-profile] {label}: wall {wall_us:.0f} us, device activity "
+        f"{busy:.0f} us ({100 * busy / wall_us:.1f}% of wall), "
+        f"{len(by_name)} kernel names")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        log(f"[lm-profile]   {us:10.1f} us  {name[:90]}")
+
+
+def served_layers_check(params, cfg, toks):
+    """The kernel against its plain version on the q, k and v the served
+    model computes for the prompts at its first local and first global
+    layer (group 0 of each sublayer), at the tolerance of phase 5."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    x = T.embed_inputs(params, cfg, toks)
+    positions = torch.arange(toks.shape[1], device=toks.device)[None, :]
+    for i, kind in enumerate(T.layer_pattern(cfg)):
+        sub = T._map(lambda a: a[0], params["layers"][f"sub{i}"])
+        window = cfg.sliding_window if kind == "local" else 0
+        h = L.rmsnorm(sub["ln1"], x, cfg.norm_eps, cfg.norm_plus_one)
+        q, k, v = A._project_qkv(sub["attn"], cfg, h, positions)
+        kw = {"window": window, "softcap": cfg.attn_logit_softcap}
+        out = fa.flash_attention(q, k, v, **kw)
+        plain = ref.flash_attention_ref(q, k, v, **kw)
+        err, fro, need = hold(f"served layer {i} ({kind})", out, plain,
+                              FLASH_TOL, FLASH_REL)
+        log(f"[lm-layer] gemma2-9b layer {i} ({kind}, {cfg.dtype}, the "
+            f"served prompts): kernel vs plain max_abs_err {err:.3e}, relative "
+            f"Frobenius error {fro:.3e}, least atol passing at rtol "
+            f"{FLASH_TOL['rtol']}: {need:.3e}, median |plain| "
+            f"{plain.float().abs().median().item():.3e}")
+        del h, q, k, v, out, plain
+        x, _, _ = T.block_full(sub, cfg, x, kind)
+    del x
+    torch.cuda.empty_cache()
+
+
+def lm_serve_phase(dev, card):
+    """Phase 7: full gemma2-9b served by LMEngine; returns each kernel's
+    launches on one generate run, and the flash kernel's by launch key."""
+    from repro_torch.configs.gemma2_9b import CONFIG as GEMMA
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import LMEngine
+    from repro_torch.train import steps as steps_mod
+
+    cfg = GEMMA
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_lm(SEED, cfg, dev)
+    torch.cuda.synchronize()
+    n_bytes = sum(a.numel() * a.element_size()
+                  for a in _leaves(params))
+    log(f"[lm-init] gemma2-9b {cfg.n_layers} layers, {cfg.dtype}, "
+        f"{n_bytes / 1e9:.3f} GB of weights in "
+        f"{time.perf_counter() - t0:.2f} s")
+    prompts = lm_prompts(cfg.vocab_size)
+    toks = torch.from_numpy(prompts).to(dev)
+    served_layers_check(params, cfg, toks)
+
+    prefill_ms = []
+    for _ in range(3):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        logits, cache = T.prefill(params, cfg, toks, pad_to=LM_MAX_LEN)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        if ops.kernels()["flash_attention"].launches != cfg.n_layers:
+            raise AssertionError(
+                f"prefill launched the flash kernel "
+                f"{ops.kernels()['flash_attention'].launches} times, not "
+                f"{cfg.n_layers}")
+        if not torch.isfinite(logits).all():
+            raise AssertionError("prefill logits not finite")
+        del logits, cache
+    profile_device("one prefill",
+                   lambda: T.prefill(params, cfg, toks, pad_to=LM_MAX_LEN))
+
+    eng = LMEngine(params, cfg, max_len=LM_MAX_LEN, device=dev)
+    ops.reset_launches()
+    first = eng.generate(prompts, LM_NEW)
+    launches = {k: v.launches for k, v in ops.kernels().items()}
+    by_key = dict(fa.FLASH.by_key)
+    eng.monitor.reset()
+    t0 = time.perf_counter()
+    second = eng.generate(prompts, LM_NEW)
+    gen_s = time.perf_counter() - t0
+    if first.shape != (LM_BATCH, LM_NEW):
+        raise AssertionError(f"generated shape {first.shape}")
+    if not ((first >= 0) & (first < cfg.vocab_size)).all():
+        raise AssertionError("generated tokens out of range")
+    if not np.array_equal(first, second):
+        raise AssertionError("two generate runs differ")
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    want = {fa.launch_key(*heads, cfg.sliding_window): cfg.n_layers // 2,
+            fa.launch_key(*heads, 0): cfg.n_layers // 2}
+    if launches["flash_attention"] != cfg.n_layers or by_key != want:
+        raise AssertionError(f"generate launched {launches}, flash by key "
+                             f"{by_key}, not {want}")
+    step = steps_mod.make_serve_step(cfg)
+    _, cache = T.prefill(params, cfg, toks, pad_to=LM_MAX_LEN)
+    last = toks[:, -1:]
+    profile_device("one decode step",
+                   lambda: step(params, last, cache)[0].cpu())
+    del cache
+    steps = sorted(eng.monitor.lat)
+    warm = prefill_ms[1:]
+    log(f"[lm-serve] gemma2-9b B {LM_BATCH} x prompt {LM_PROMPT}, "
+        f"{LM_NEW} greedy tokens, cache {LM_MAX_LEN}: prefill ms "
+        f"{prefill_ms[0]:.1f} first, {statistics.median(warm):.1f} warm "
+        f"({LM_BATCH * LM_PROMPT / statistics.median(warm) * 1e3:.0f} "
+        f"prefill tokens/s); decode ms/token p50 "
+        f"{eng.monitor.percentile(0.5) * 1e3:.3f} p99 "
+        f"{eng.monitor.percentile(0.99) * 1e3:.3f} min "
+        f"{steps[0] * 1e3:.3f}; generated tokens/s "
+        f"{LM_BATCH * LM_NEW / sum(steps):.1f} (decode steps only), "
+        f"generate wall {gen_s * 1e3:.1f} ms; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; card {card!r}")
+    log(f"[lm-serve] tokens identical across two runs; first row "
+        f"{first[0].tolist()}; launches per generate {launches}; flash "
+        f"launches by (H, Kh, hd, window) {by_key}")
+    log(f"[lm-serve] decode weight-read bound {n_bytes / HBM_BYTES_PER_S * 1e3:.3f} "
+        f"ms/token ({n_bytes / 1e9:.3f} GB at 3.35 TB/s)")
+    return launches, by_key
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def main() -> int:
@@ -344,9 +675,19 @@ def main() -> int:
         rows = kernel_phase(params, CONFIG, dev, l2.zero_)
         del l2
         launches = serve_phase(params, CONFIG, dev, "nccl", card)
-    for row in rows:
-        key = row["name"].split("/")[0]
-        row["launches"] = launches[key]
+        for row in rows:
+            row["launches"] = launches[row["name"].split("/")[0]]
+        # the LM phases need the card's memory: drop the 7.33 GB stack
+        del params
+        torch.cuda.empty_cache()
+        flash_rows = flash_phase(dev)
+        lm_parity_phase(dev)
+        _, by_key = lm_serve_phase(dev, card)
+    # each flash row takes the served launches of its own shape: qwen3's
+    # heads are timed but not served, so its row reads 0
+    for row, key in flash_rows:
+        row["launches"] = by_key.get(key, 0)
+        rows.append(row)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(card)

@@ -1,9 +1,11 @@
-"""PyTorch/CUDA port of the BLS DLRM serving system.
+"""PyTorch/CUDA port of the BLS DLRM serving system and of its dense-LM
+serving path.
 
 Mirrors the layout of the JAX reference package ``repro`` module by module.
 It imports ``torch``, ``numpy`` and the standard library only.  The
-embedding bags and the dot interaction run through hand-written CUDA
-kernels for Hopper (``kernels/csrc``), built with ``nvcc`` at first use.
-Entry points run on the card (``device="cuda"``) unless the caller asks
-for the CPU, where every kernel wrapper takes its plain PyTorch version.
+embedding bags, the dot interaction and flash attention run through
+hand-written CUDA kernels for Hopper (``kernels/csrc``), built with
+``nvcc`` at first use.  Entry points run on the card (``device="cuda"``)
+unless the caller asks for the CPU, where every kernel wrapper takes its
+plain PyTorch version.
 """

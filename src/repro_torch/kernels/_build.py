@@ -15,11 +15,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+from collections import Counter
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("embedding_bag.cu", "dot_interaction.cu")
+SOURCES = ("embedding_bag.cu", "dot_interaction.cu", "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -88,14 +89,20 @@ class Kernel:
     launches on the stream it is given and returns ``cudaGetLastError()``;
     a call raises when that is not 0, and counts one launch otherwise —
     ``launches`` is how a run shows that its path went through the
-    kernel."""
+    kernel.  A call given a ``key`` (the wrapper's shape or variant) also
+    counts it in ``by_key``, so a run can tell which shapes it launched."""
 
     def __init__(self, source: str, symbol: str, argtypes: list):
         self.source, self.symbol, self.argtypes = source, symbol, argtypes
         self.launches = 0
+        self.by_key: Counter = Counter()
         self._fn = None
 
-    def __call__(self, *args) -> None:
+    def reset(self) -> None:
+        self.launches = 0
+        self.by_key.clear()
+
+    def __call__(self, *args, key=None) -> None:
         if self._fn is None:
             fn = getattr(library(self.source), self.symbol)
             fn.argtypes = self.argtypes
@@ -106,3 +113,5 @@ class Kernel:
             msg = library(self.source).cuda_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
         self.launches += 1
+        if key is not None:
+            self.by_key[key] += 1

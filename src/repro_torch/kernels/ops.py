@@ -1,5 +1,6 @@
-"""Dispatch over the kernels, selected by ``DLRMConfig.sparse_backend``
-(the port of ``repro/kernels/ops.py``):
+"""Dispatch over the kernels (the port of ``repro/kernels/ops.py``), selected
+by ``DLRMConfig.sparse_backend`` for the bags and the interaction and by the
+model's ``attn_impl`` argument for attention:
 
 - ``ref``: the plain PyTorch version;
 - ``pallas``: the CUDA kernel; raises for a tensor that is not on the card;
@@ -13,18 +14,20 @@ from repro_torch.kernels.dot_interaction import DOT, dot_interaction
 from repro_torch.kernels.embedding_bag import (POOL, embedding_bag,
                                                embedding_bag_rows,
                                                embedding_bag_stacked)
+from repro_torch.kernels.flash_attention import FLASH, flash_attention
 
 IMPLS = ("ref", "pallas", "interpret", "auto")
 
 
 def kernels():
     """Every hand-written kernel of the port, by name."""
-    return {"embedding_bag_pool": POOL, "dot_interaction": DOT}
+    return {"embedding_bag_pool": POOL, "dot_interaction": DOT,
+            "flash_attention": FLASH}
 
 
 def reset_launches() -> None:
     for k in kernels().values():
-        k.launches = 0
+        k.reset()
 
 
 def use_kernel(impl: str, t) -> bool:
@@ -76,3 +79,14 @@ def embedding_bag_rows_op(tables, tid, idx, mask, *, impl: str = "auto",
         return ref.embedding_bag_rows_ref(tables, tid, idx, mask)
     return embedding_bag_rows(tables, tid, idx, mask, row_tile=row_tile,
                               row_block=row_block, pool_mode=pool_mode)
+
+
+def flash_attention_op(q, k, v, *, causal: bool = True, window: int = 0,
+                       softcap: float = 0.0, impl: str = "auto"):
+    """q (B,S,H,hd), k/v (B,T,Kh,hd) GQA -> (B,S,H,hd); every prefill
+    layer's attention."""
+    if not use_kernel(impl, q):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       softcap=softcap)
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           softcap=softcap)

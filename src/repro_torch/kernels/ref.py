@@ -46,3 +46,34 @@ def embedding_bag_rows_ref(tables, tid, idx, mask):
     t, r, _ = tables.shape
     rows = tables[_clamped(tid, t)[:, None], _clamped(idx, r)]
     return (rows * mask[..., None].to(rows.dtype)).sum(1)
+
+
+# the Pallas kernel's finite mask sentinel (flash_attention.py:22)
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0):
+    """q:(B,S,H,hd) k,v:(B,T,Kh,hd) -> (B,S,H,hd) in q's type: the function
+    of the Pallas flash kernel.  Scores in f32 times hd**-0.5, then the tanh
+    softcap, then the causal/window mask; p = exp(s - max) on admitted keys,
+    0 elsewhere; out = (p @ v) / max(sum p, 1e-30) in f32.  Query head h
+    reads kv head h // (H / Kh).  Materializes the (B, H, S, T) scores."""
+    b, s, h, hd = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, s, kh, h // kh, hd)
+    sc = torch.einsum("bskgd,btkd->bkgst", qf, k.float()).mul_(hd ** -0.5)
+    if softcap:
+        sc.div_(softcap).tanh_().mul_(softcap)
+    qi = torch.arange(s, device=q.device)[:, None]
+    kj = torch.arange(t, device=q.device)[None, :]
+    ok = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kj <= qi
+    if window:
+        ok &= (qi - kj) < window
+    sc.masked_fill_(~ok, NEG_INF)
+    sc.sub_(sc.amax(-1, keepdim=True)).exp_().masked_fill_(~ok, 0.0)
+    den = sc.sum(-1, keepdim=True).clamp_min_(1e-30)
+    out = torch.einsum("bkgst,btkd->bkgsd", sc, v.float()).div_(den)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd).to(q.dtype)

@@ -1,0 +1,51 @@
+"""Uniform model facade (the port of ``repro/models/api.py``): one entry
+point per family for init / forward / cache / decode.  The port runs the
+dense family; the others raise ``NotImplementedError`` naming their ROADMAP
+item.
+
+Batch dict convention: ``tokens`` (B, S) int, always present.
+"""
+from __future__ import annotations
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+
+UNPORTED = {"ssm": "ROADMAP A14 and B6, models/rwkv6.py",
+            "hybrid": "ROADMAP A14, models/zamba2.py",
+            "audio": "ROADMAP A14, models/whisper.py"}
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` unless the port runs ``cfg``."""
+    if cfg.family in UNPORTED:
+        raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} family is "
+                                  f"not ported yet ({UNPORTED[cfg.family]})")
+    transformer.check_ported(cfg)
+
+
+def init(seed: int, cfg: ModelConfig, device="cuda"):
+    check_ported(cfg)
+    return transformer.init_lm(seed, cfg, device)
+
+
+def forward(params, cfg: ModelConfig, batch: dict, *,
+            last_only: bool = False, attn_impl: str = "auto"):
+    """-> (logits, aux)."""
+    check_ported(cfg)
+    return transformer.forward(params, cfg, batch["tokens"],
+                               last_only=last_only, attn_impl=attn_impl)
+
+
+def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+               device="cuda"):
+    check_ported(cfg)
+    return transformer.make_cache(cfg, batch, max_len, dtype, device)
+
+
+def decode_step(params, cfg: ModelConfig, tokens, cache, *,
+                attn_impl: str = "auto"):
+    """-> (logits, cache).  ``attn_impl`` changes nothing: decode attention
+    is plain for every value (see ``transformer.decode_step``)."""
+    check_ported(cfg)
+    return transformer.decode_step(params, cfg, tokens, cache,
+                                   attn_impl=attn_impl)

@@ -1,14 +1,20 @@
-"""Dense layers of the port (the ``truncated_normal``/``init_dense``/
-``dense`` subset of ``repro/models/layers.py``).
+"""Shared layers of the port (the port of ``repro/models/layers.py``
+without ``layernorm`` and the plain ``mlp``): dense projections, RMSNorm,
+activations and softcap, the GLU MLP, rotary embeddings, the vocab
+embedding and the LM heads.
 
-Parameters keep the reference's ``{"kernel": (d_in, d_out), "bias":
-(d_out,)}`` layout, so converting a reference parameter is a plain copy.
+Parameters keep the reference's layouts (``{"kernel": (d_in, d_out),
+"bias": (d_out,)}``, ``{"scale": (d,)}``, ``{"table": (vocab, d)}``, ...),
+so converting a reference parameter is a plain copy.  Each ``init_*``
+draws from a ``torch.Generator``: the reference's distributions, other
+draws.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -43,3 +49,137 @@ def dense(params, x):
     if "bias" in params:
         y = y + params["bias"]
     return y
+
+
+# ---------------------------------------------------------------------------
+# norms, activations, softcap
+# ---------------------------------------------------------------------------
+
+
+def init_rmsnorm(dim: int, dtype: str, device, plus_one: bool = False):
+    """gemma2 stores the weight as w and applies (1 + w): zeros with
+    ``plus_one``, ones without."""
+    fill = torch.zeros if plus_one else torch.ones
+    return {"scale": fill((dim,), dtype=dtype_of(dtype), device=device)}
+
+
+def rmsnorm(params, x, eps: float = 1e-6, plus_one: bool = False):
+    """f32 inside, cast back to x's type."""
+    xf = x.float()
+    xn = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    w = params["scale"].float()
+    if plus_one:
+        w = 1.0 + w
+    return (xn * w).to(x.dtype)
+
+
+def activation(name: str):
+    if name == "silu":
+        return F.silu
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "relu2":
+        return lambda x: torch.relu(x).square()
+    raise ValueError(name)
+
+
+def softcap(x, cap: float):
+    """gemma2 logit soft-capping: cap * tanh(x / cap) in f32; cap == 0 is
+    the identity."""
+    if not cap:
+        return x
+    return (cap * torch.tanh(x.float() / cap)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GLU MLP (SwiGLU / GeGLU)
+# ---------------------------------------------------------------------------
+
+
+def init_glu_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype: str,
+                 device):
+    dt = dtype_of(dtype)
+    return {
+        "gate": truncated_normal(gen, (d_model, d_ff), d_model ** -0.5, dt,
+                                 device),
+        "up": truncated_normal(gen, (d_model, d_ff), d_model ** -0.5, dt,
+                               device),
+        "down": truncated_normal(gen, (d_ff, d_model), d_ff ** -0.5, dt,
+                                 device),
+    }
+
+
+def glu_mlp(params, x, act: str = "silu"):
+    h = activation(act)(x @ params["gate"]) * (x @ params["up"])
+    return h @ params["down"]
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float, fraction: float = 1.0,
+                     device=None):
+    """Inverse frequencies (f32) of the rotated sub-dimension, and its
+    width."""
+    rot = int(head_dim * fraction)
+    rot -= rot % 2
+    exps = torch.arange(0, rot, 2, dtype=torch.float32, device=device) / rot
+    return 1.0 / (theta ** exps), rot
+
+
+def apply_rope(x, positions, theta: float, fraction: float = 1.0,
+               style: str = "neox"):
+    """x: (..., seq, heads, head_dim); positions: broadcastable to (...,
+    seq).  f32 inside, cast back to x's type."""
+    inv, rot = rope_frequencies(x.shape[-1], theta, fraction, x.device)
+    ang = positions[..., :, None].float() * inv         # (..., seq, rot/2)
+    cos = torch.cos(ang)[..., :, None, :]               # heads axis
+    sin = torch.sin(ang)[..., :, None, :]
+    xr, xp = x[..., :rot].float(), x[..., rot:]
+    if style == "neox":
+        a, b = xr[..., : rot // 2], xr[..., rot // 2:]
+        out = torch.cat([a * cos - b * sin, b * cos + a * sin], dim=-1)
+    elif style == "glm2d":
+        a, b = xr[..., 0::2], xr[..., 1::2]
+        out = torch.stack([a * cos - b * sin, b * cos + a * sin],
+                          dim=-1).reshape(xr.shape)
+    else:
+        raise ValueError(style)
+    return torch.cat([out.to(x.dtype), xp], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# vocab embedding + LM head
+# ---------------------------------------------------------------------------
+
+
+def init_embedding(gen: torch.Generator, vocab: int, d_model: int,
+                   dtype: str, device):
+    return {"table": truncated_normal(gen, (vocab, d_model), 1.0,
+                                      dtype_of(dtype), device)}
+
+
+def embed_tokens(params, tokens, scale: Optional[float] = None):
+    """Rows of the table; the ``scale`` multiply is in f32.  An id outside
+    [0, vocab) raises (JAX would clamp it)."""
+    out = params["table"][tokens]
+    if scale is not None:
+        out = (out.float() * scale).to(out.dtype)
+    return out
+
+
+def init_lm_head(gen: torch.Generator, d_model: int, vocab: int, dtype: str,
+                 device):
+    return {"kernel": truncated_normal(gen, (d_model, vocab),
+                                       d_model ** -0.5, dtype_of(dtype),
+                                       device)}
+
+
+def lm_head(params, x, cap: float = 0.0):
+    return softcap(x @ params["kernel"], cap)
+
+
+def tied_lm_head(embed_params, x, cap: float = 0.0):
+    return softcap(x @ embed_params["table"].T, cap)

@@ -1,7 +1,7 @@
-"""Batched CTR serving engine (the port of the core of
-``repro/serving/engine.py``'s ``DLRMEngine``).
+"""Serving engines (the port of the core of ``repro/serving/engine.py``):
+``DLRMEngine`` for CTRs and ``LMEngine`` for greedy LM decoding.
 
-Requests (dense, sparse) accumulate into fixed-size batches; each flush
+CTR requests (dense, sparse) accumulate into fixed-size batches; each flush
 runs the BLS forward over microbatches on the model group and returns
 ``sigmoid(logits)``; per-batch latency feeds the straggler monitor whose
 recommendation can retune the bound between batches.
@@ -16,14 +16,17 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs.base import DLRMConfig
+from repro_torch.configs.base import DLRMConfig, ModelConfig
 from repro_torch.core import alltoallv as a2a_mod
 from repro_torch.core import bls as bls_mod
 from repro_torch.device import resolve_device
 from repro_torch.launch import mesh as mesh_mod
+from repro_torch.models import api
 from repro_torch.models import dlrm as dlrm_mod
 from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 from repro_torch.runtime.straggler import StragglerMonitor
+from repro_torch.train import steps as steps_mod
 
 
 @dataclasses.dataclass
@@ -193,3 +196,42 @@ class DLRMEngine:
         :meth:`slot_bytes`."""
         return self.monitor.recommend_bound(slot_bytes=self.slot_bytes(),
                                             memory_budget=memory_budget)
+
+
+class LMEngine:
+    """Batched greedy decoding for the LM families (the port serves the
+    dense one): prefill the prompts into a cache of ``max_len`` positions,
+    then one serve step per token, each step's latency observed by the
+    straggler monitor."""
+
+    def __init__(self, params, cfg: ModelConfig, *, max_len: int = 256,
+                 device="cuda"):
+        api.check_ported(cfg)
+        self.device = resolve_device(device)
+        leaf = params["embed"]["table"]
+        if leaf.device != self.device:
+            raise ValueError(f"parameters are on {leaf.device}, the engine "
+                             f"serves on {self.device}")
+        self.params, self.cfg, self.max_len = params, cfg, max_len
+        self._serve = steps_mod.make_serve_step(cfg)
+        self.monitor = StragglerMonitor()
+
+    def generate(self, prompts: np.ndarray, n_tokens: int) -> np.ndarray:
+        """prompts: (B, P) int32 -> (B, n_tokens) greedy continuation.  As
+        in the reference, the first serve step feeds the prompt's last token
+        again, at position P.  A step's latency ends when its tokens reach
+        the host."""
+        dev = self.device
+        with torch.no_grad():
+            _, cache = T.prefill(self.params, self.cfg,
+                                 torch.from_numpy(prompts).to(dev),
+                                 pad_to=self.max_len)
+        tok = torch.from_numpy(np.ascontiguousarray(prompts[:, -1:])).to(dev)
+        outs = []
+        for _ in range(n_tokens):
+            t0 = time.perf_counter()
+            tok, cache = self._serve(self.params, tok, cache)
+            host = tok.cpu().numpy()
+            self.monitor.observe(time.perf_counter() - t0)
+            outs.append(host)
+        return np.concatenate(outs, axis=1)

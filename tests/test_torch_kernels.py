@@ -4,8 +4,10 @@ reference on the same numpy inputs, on the CPU.
 On the CPU the port's wrappers take their plain PyTorch versions; the JAX
 side runs its oracles and its Pallas kernels in interpret mode.  Bags and
 the interaction are held at f32 rtol=1e-5, atol=1e-6: both sides sum in
-f32 in different orders.  The CUDA kernels themselves are checked on the
-card by chip_smoke.py.
+f32 in different orders.  Flash attention is held at f32 atol=1e-5 against
+the interpret-mode Pallas kernel, whose online softmax sums in another
+order.  The CUDA kernels themselves are checked on the card by
+chip_smoke.py.
 """
 import ast
 import ctypes
@@ -16,12 +18,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs.base import ModelConfig
 from repro.kernels import dot_interaction as jdot
 from repro.kernels import embedding_bag as jeb
+from repro.kernels import flash_attention as jfa
 from repro.kernels import ref as jref
+from repro.models import attention as jattn
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import dot_interaction as tdot
 from repro_torch.kernels import embedding_bag as teb
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ref as tref
 
 TOL = {"rtol": 1e-5, "atol": 1e-6}
@@ -163,6 +169,71 @@ class TestDotInteraction:
         assert list(zip(ii[:4], jj[:4])) == [(1, 0), (2, 0), (2, 1), (3, 0)]
 
 
+def _qkv(seed, b, s, h, kh, hd):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape, dtype=np.float32)
+                 for shape in ((b, s, h, hd), (b, s, kh, hd), (b, s, kh, hd)))
+
+
+class TestFlashAttention:
+    # a subset of the reference's own sweep (tests/test_flash_kernel.py);
+    # one interpret-mode call takes seconds here
+    @pytest.mark.parametrize("h,kh,window,causal,softcap", [
+        (4, 4, 0, True, 0.0), (4, 2, 32, True, 0.0), (8, 1, 0, False, 0.0),
+        (4, 2, 0, True, 50.0), (8, 1, 32, True, 50.0), (4, 4, 0, False, 50.0),
+    ])
+    def test_matches_jax_kernel_interpret(self, h, kh, window, causal,
+                                          softcap):
+        q, k, v = _qkv(h * 10 + kh, 2, 128, h, kh, 16)
+        port = tfa.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                                   causal=causal, window=window,
+                                   softcap=softcap)
+        out = jfa.flash_attention_pallas(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+            window=window, softcap=softcap, cq=32, ck=32, interpret=True)
+        np.testing.assert_allclose(port.numpy(), np.asarray(out), atol=1e-5)
+
+    @pytest.mark.parametrize("s,window", [(45, 0), (77, 16)])
+    def test_ragged_length_matches_jax_sdpa(self, s, window):
+        # S not a multiple of the Pallas tile: the reference's kernel asserts
+        # S % cq == 0, so hold the port against its dense _sdpa path
+        q, k, v = _qkv(s, 2, s, 4, 2, 32)
+        cfg = ModelConfig(name="t", family="dense", n_layers=1, d_model=64,
+                          n_heads=4, n_kv_heads=2, d_ff=64, vocab_size=64,
+                          attn_logit_softcap=50.0, dtype="float32")
+        want = jattn._sdpa(cfg, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           jattn.causal_mask(s, s, window))
+        port = ops.flash_attention_op(*map(torch.from_numpy, (q, k, v)),
+                                      window=window, softcap=50.0)
+        np.testing.assert_allclose(port.reshape(2, s, -1).numpy(),
+                                   np.asarray(want), atol=1e-5)
+
+    def test_bf16_stays_bf16(self):
+        q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _qkv(5, 1, 40, 2, 1, 16))
+        out = tfa.flash_attention(q, k, v, window=8)
+        assert out.dtype == torch.bfloat16
+        want = tref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                        window=8)
+        torch.testing.assert_close(out.float(), want, rtol=0, atol=2e-2)
+
+    @pytest.mark.parametrize("change,err", [
+        ({"hd": 24}, NotImplementedError), ({"dtype": torch.float16},
+                                            NotImplementedError),
+        ({"kh": 3}, ValueError), ({"transpose": True}, ValueError),
+    ])
+    def test_launcher_rejects_what_the_kernel_does_not_take(self, change,
+                                                            err):
+        hd, kh = change.get("hd", 16), change.get("kh", 2)
+        q, k, v = (torch.from_numpy(a).to(change.get("dtype", torch.float32))
+                   for a in _qkv(6, 1, 8, 4, kh, hd))
+        if change.get("transpose"):
+            q = q.transpose(1, 2)
+        with pytest.raises(err):
+            tfa.attend(q, k, v)
+        assert tfa.FLASH.launches == 0
+
+
 class TestDispatch:
     def test_pallas_on_cpu_raises(self):
         tables, idx, mask = _stack(11)
@@ -171,6 +242,9 @@ class TestDispatch:
             ops.embedding_bag_stacked_op(*args, impl="pallas")
         with pytest.raises(RuntimeError, match="CUDA"):
             ops.dot_interaction_op(torch.zeros(2, 3, 4), impl="pallas")
+        q, k, v = map(torch.from_numpy, _qkv(0, 1, 8, 2, 1, 16))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ops.flash_attention_op(q, k, v, impl="pallas")
 
     def test_kernel_launchers_refuse_cpu_tensors(self):
         t = torch.zeros(8, 4)
@@ -179,7 +253,10 @@ class TestDispatch:
             teb.pool_rows(t, i, torch.zeros(2, 3), rows=8, n_tables=1)
         with pytest.raises(RuntimeError, match="CUDA"):
             tdot.interact(torch.zeros(2, 3, 4))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tfa.attend(*map(torch.from_numpy, _qkv(0, 1, 8, 2, 1, 16)))
         assert teb.POOL.launches == 0 and tdot.DOT.launches == 0
+        assert tfa.FLASH.launches == 0
 
     @pytest.mark.parametrize("impl", ["ref", "interpret", "auto"])
     def test_cpu_impls_take_the_plain_version(self, impl):
@@ -187,6 +264,9 @@ class TestDispatch:
         args = tuple(map(torch.from_numpy, (tables, idx, mask)))
         assert torch.equal(ops.embedding_bag_stacked_op(*args, impl=impl),
                            tref.embedding_bag_stacked_ref(*args))
+        qkv = tuple(map(torch.from_numpy, _qkv(1, 1, 20, 4, 2, 16)))
+        assert torch.equal(ops.flash_attention_op(*qkv, window=4, impl=impl),
+                           tref.flash_attention_ref(*qkv, window=4))
 
     def test_unknown_impl_raises(self):
         with pytest.raises(ValueError):
@@ -195,15 +275,33 @@ class TestDispatch:
     def test_reset_launches(self):
         for k in ops.kernels().values():
             k.launches = 3
+            k.by_key["x"] = 3
         ops.reset_launches()
-        assert all(k.launches == 0 for k in ops.kernels().values())
+        assert all(k.launches == 0 and not k.by_key
+                   for k in ops.kernels().values())
+
+    def test_launches_count_by_key(self):
+        # a stub entry point that reports success stands in for the library
+        k = _build.Kernel("flash_attention.cu", "flash_attention_launch", [])
+        k._fn = lambda *args: 0
+        local, glob = tfa.launch_key(16, 8, 256, 4096), tfa.launch_key(
+            16, 8, 256, 0)
+        for key in (local, glob, local, None):
+            k(0, key=key)
+        assert k.launches == 4
+        assert dict(k.by_key) == {local: 2, glob: 1}
+        k.reset()
+        assert k.launches == 0 and not k.by_key
 
     def test_kernel_argtypes_match_the_c_entry_points(self):
         # the C signatures: (table, idx, w, tid, out, n_bags, hot, s, rows,
-        # n_tables, stream) and (z, out, batch, f, s, stream)
+        # n_tables, stream), (z, out, batch, f, s, stream) and (q, k, v, out,
+        # dtype, b, s, t, h, kh, hd, causal, window, scale, softcap, stream)
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        f = ctypes.c_float
         assert teb.POOL.argtypes == [p] * 5 + [i64, i, i, i64, i, p]
         assert tdot.DOT.argtypes == [p, p, i, i, i, p]
+        assert tfa.FLASH.argtypes == [p] * 4 + [i] * 9 + [f, f, p]
         for k in ops.kernels().values():
             src = (_build.CSRC / k.source).read_text()
             assert f'extern "C" int {k.symbol}(' in src
