@@ -37,7 +37,27 @@ Phases, each on lines of its own:
      tokens in range and identical across the runs, the prefill's logits
      finite, the flash kernel launched 42 times per prefill (21 local,
      21 global); prefill and decode times;
-  8. one JSON line of kernel numbers, the card's name and power limit, and
+  8. after freeing gemma2-9b, the RWKV-6 WKV kernel held against its plain
+     (chunked) version in f32 at the served rwkv6-1.6b prefill (B 1,
+     S 32768, H 32, K = V = 64) and at B 8 x S 4096, with a nonzero
+     state0, plus a long-memory and an extreme (logw = -50) decay: out and
+     the final state within rtol 1e-4, atol 2e-3 and a relative Frobenius
+     error of 1e-5; two runs bit-identical; the plain version without the
+     u bonus, and with state0 ignored, must fail that check; timed as in 3;
+  9. full-width rwkv6-1.6b in f32 on 4096 tokens, first at 4 layers: the
+     forward's logits and every layer's state through the kernel held
+     against the plain WKV (rtol = atol = 1e-4), and 128 tokens decoded one
+     at a time held against the forward's logits (atol 2e-3, the
+     reference's own); then at all 24 layers, through which f32 rounding
+     differences grow layer by layer in the random model: the kernel
+     path's logits and states within a relative Frobenius error of 1e-3 of
+     the plain path's, and its logits within a quarter of the plain
+     forward's own distance from decode;
+ 10. full rwkv6-1.6b in bf16: ``make_prefill_step`` on a 32768-token
+     prompt (finite logits, the WKV kernel launched 24 times), a profile of
+     one prefill, and ``LMEngine`` on 2 prompts of 64 tokens, 16 greedy
+     tokens, twice, identical;
+ 11. one JSON line of kernel numbers, the card's name and power limit, and
      last ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or with any phase failing, it exits non-zero and
 prints no result.
@@ -85,6 +105,28 @@ FLASH_REL = 5e-3
 FLASH_Q_SCALE = 4.0
 LM_TOL = {"rtol": 1e-4, "atol": 1e-4}
 PARITY_LAYERS = 4
+# the rwkv6 phases: the kernel at the served prefill (the prefill_32k
+# cell's length, one sequence) and at the train_4k length over 8 sequences;
+# f32 parity on 4096 tokens, 128 of them decoded; bf16 serving of one
+# 32768-token prompt, then 2 x 64-token prompts and 16 greedy tokens
+WKV_SHAPES = (("prefill_32k", 1, 32_768), ("b8_s4096", 8, 4_096))
+WKV_HEADS = 32
+# kernel and plain version both compute the chunked form in f32, in other
+# orders and with other exponentials (ex2.approx in the kernel): on the CPU
+# each f32 chunked form lies ~1.3e-6 (relative Frobenius) from a float64
+# recurrence, up to 2e-4 in single elements of |out| up to ~90
+WKV_TOL = {"rtol": 1e-4, "atol": 2e-3}
+WKV_REL = 1e-5
+RWKV_PARITY_LEN, RWKV_DECODE_CHECK = 4_096, 128
+RWKV_DECODE_TOL = {"rtol": 0.0, "atol": 2e-3}
+# the 1e-4 and decode checks hold on 4 layers (kernel vs plain 4.0e-5);
+# at 24 layers the plain forward and decode differ by 0.145 (relative
+# Frobenius 3.4e-3), kernel and plain forward by 4.5e-3 (9.3e-5)
+RWKV_PARITY_LAYERS = 4
+RWKV_DEPTH_REL = 1e-3
+RWKV_DEPTH_SHARE = 0.25
+RWKV_PROMPT = 32_768
+RWKV_GEN_BATCH, RWKV_GEN_PROMPT, RWKV_NEW = 2, 64, 16
 
 
 def log(*parts) -> None:
@@ -475,9 +517,10 @@ def lm_parity_phase(dev):
     torch.cuda.empty_cache()
 
 
-def profile_device(label, fn, top: int = 8):
+def profile_device(label, fn, top: int = 8, tag: str = "lm-profile"):
     """Device time by kernel, and the card's share of the wall time, over
-    one call of ``fn`` that ends in a synchronise."""
+    one call of ``fn`` that ends in a synchronise; returns the device time
+    by kernel name (empty when the profiler saw none)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -493,15 +536,16 @@ def profile_device(label, fn, top: int = 8):
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us()
     if not by_name:
-        log(f"[lm-profile] {label}: the profiler saw no device activity: "
+        log(f"[{tag}] {label}: the profiler saw no device activity: "
             "device time not measured")
-        return
+        return by_name
     busy = sum(by_name.values())
-    log(f"[lm-profile] {label}: wall {wall_us:.0f} us, device activity "
+    log(f"[{tag}] {label}: wall {wall_us:.0f} us, device activity "
         f"{busy:.0f} us ({100 * busy / wall_us:.1f}% of wall), "
         f"{len(by_name)} kernel names")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
-        log(f"[lm-profile]   {us:10.1f} us  {name[:90]}")
+        log(f"[{tag}]   {us:10.1f} us  {name[:90]}")
+    return by_name
 
 
 def served_layers_check(params, cfg, toks):
@@ -627,6 +671,305 @@ def lm_serve_phase(dev, card):
     return launches, by_key
 
 
+def wkv_inputs(b, s, gen, dev, *, regime="default"):
+    """Seeded WKV inputs at H 32, K = V = 64: r, k, v ~ N(0,1); logw =
+    -exp(N(0,1)) (default), -exp(N(-4,1)) (long memory) or -50 (each
+    token's state dies at the next); u ~ 0.5 N(0,1); state0 ~ 0.1 N(0,1)."""
+    h, kk = WKV_HEADS, 64
+    r, k, v = (torch.randn((b, s, h, kk), generator=gen, device=dev)
+               for _ in range(3))
+    if regime == "extreme":
+        logw = torch.full((b, s, h, kk), -50.0, device=dev)
+    else:
+        mean = -4.0 if regime == "long" else 0.0
+        logw = -torch.exp(torch.randn((b, s, h, kk), generator=gen,
+                                      device=dev) + mean)
+    u = 0.5 * torch.randn((h, kk), generator=gen, device=dev)
+    s0 = 0.1 * torch.randn((b, h, kk, kk), generator=gen, device=dev)
+    return r, k, v, logw, u, s0
+
+
+def hold_wkv(name, got, plain):
+    """Fail unless out and the final state are within ``WKV_TOL`` and
+    ``WKV_REL`` of the plain version's; returns the errors of each."""
+    return [hold(f"{name} {part}", g, p, WKV_TOL, WKV_REL)
+            for part, g, p in zip(("out", "state"), got, plain)]
+
+
+def wkv_phase(dev):
+    """Phase 8: the WKV kernel against its plain chunked version at the
+    served prefill shape and at B 8 x S 4096, timed warm (r, k, v and logw
+    are written just before it on the prefill path); the plain version at
+    S 32768 walks 1,024 chunks from Python, so it is timed over 3 runs.
+    Returns (row, launch key) pairs."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_wkv as wk
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    rows = []
+    for label, b, s in WKV_SHAPES:
+        x = wkv_inputs(b, s, gen, dev)
+        out = wk.rwkv6_wkv(*x)
+        again = wk.rwkv6_wkv(*x)
+        plain = ref.rwkv6_wkv_chunked_ref(*x)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(out, again)):
+            raise AssertionError(f"rwkv6_wkv/{label}: two kernel runs differ")
+        (err, fro, need), (s_err, s_fro, _) = hold_wkv(
+            f"rwkv6_wkv/{label}", out, plain)
+        name = f"rwkv6_wkv/{label}"
+        log(f"[kernel] {name}: out max_abs_err {err:.3e}, relative Frobenius "
+            f"error {fro:.3e}, least atol passing at rtol {WKV_TOL['rtol']}: "
+            f"{need:.3e}, median |plain| "
+            f"{plain[0].abs().median().item():.3e}, max |plain| "
+            f"{plain[0].abs().max().item():.3e}; final state max_abs_err "
+            f"{s_err:.3e}, relative Frobenius error {s_fro:.3e}")
+        # the check sees the bonus and the carried-in state: a kernel that
+        # dropped either would fail it
+        controls = (
+            ("u bonus", ref.rwkv6_wkv_chunked_ref(*x[:4], torch.zeros_like(
+                x[4]), x[5])),
+            ("state0", ref.rwkv6_wkv_chunked_ref(*x[:5], torch.zeros_like(
+                x[5]))))
+        for branch, wrong in controls:
+            passes = all(torch.allclose(w, p, **WKV_TOL)
+                         for w, p in zip(wrong, plain))
+            errs = [errors(w, p, WKV_TOL["rtol"])[:2]
+                    for w, p in zip(wrong, plain)]
+            if passes and all(e[1] <= WKV_REL for e in errs):
+                raise AssertionError(f"{name}: the plain version without the "
+                                     f"{branch} passes the check")
+            log(f"[kernel] {name}: the plain version without the {branch} "
+                f"fails the check (out max_abs_err {errs[0][0]:.3e}, "
+                f"relative Frobenius error {errs[0][1]:.3e}; state "
+                f"{errs[1][0]:.3e}, {errs[1][1]:.3e})")
+        del controls
+        n_bytes = 5 * x[0].numel() * 4 + x[4].numel() * 4 \
+            + 2 * x[5].numel() * 4
+        flops = 4 * 64 * 64 * b * s * WKV_HEADS
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+        row = {"name": name, "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
+               "replaces": "src/repro/kernels/rwkv6_wkv.py:94",
+               "launches": 0, "max_abs_err": max(err, s_err),
+               "ms": time_ms(lambda: wk.rwkv6_wkv(*x)),
+               "plain_ms": time_ms(lambda: ref.rwkv6_wkv_chunked_ref(*x),
+                                   reps=3, warmup=1),
+               "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": None}
+        log(f"[kernel] {name}: max_abs_err={row['max_abs_err']:.3e} "
+            f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+            f"library_ms=None (no PyTorch call computes WKV-6) "
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
+        rows.append((row, wk.launch_key(b, s, WKV_HEADS)))
+        del x, out, again, plain
+        torch.cuda.empty_cache()
+
+    # two more decay regimes at the B 8 x S 4096 shape
+    _, b, s = WKV_SHAPES[1]
+    for regime in ("long", "extreme"):
+        x = wkv_inputs(b, s, gen, dev, regime=regime)
+        out = wk.rwkv6_wkv(*x)
+        if not torch.isfinite(out[0]).all():
+            raise AssertionError(f"rwkv6_wkv {regime} decay: not finite")
+        (err, fro, need), (s_err, s_fro, _) = hold_wkv(
+            f"rwkv6_wkv {regime} decay", out, ref.rwkv6_wkv_chunked_ref(*x))
+        log(f"[kernel] rwkv6_wkv/b8_s4096 {regime} decay: out max_abs_err "
+            f"{err:.3e}, relative Frobenius error {fro:.3e}, least atol "
+            f"{need:.3e}; state max_abs_err {s_err:.3e}, relative Frobenius "
+            f"error {s_fro:.3e}")
+        del x, out
+    torch.cuda.empty_cache()
+    return rows
+
+
+def rwkv_prompt(vocab: int, b: int, s: int, seed: int = SEED) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, vocab, (b, s)).astype(
+        np.int32)
+
+
+def rwkv_parity_phase(dev):
+    """Phase 9: full-width rwkv6-1.6b in f32 (6.3 GB of weights) on 4096
+    tokens.  f32 rounding differences grow layer by layer through this
+    random model, whichever exact WKV evaluator makes them, so
+    the 1e-4 checks run on the first RWKV_PARITY_LAYERS layers (kernel vs
+    plain WKV; 128 decoded tokens vs the forward) and the full 24 layers are
+    held against the spread between the reference's own two exact
+    evaluators (the plain chunked forward vs token-by-token decode)."""
+    from repro_torch.configs.rwkv6_1_6b import CONFIG as RWKV
+    from repro_torch.models import rwkv6 as R
+    from repro_torch.models import transformer as T
+
+    full = RWKV.replace(dtype="float32")
+    params = R.init_rwkv6(SEED, full, dev)
+    toks = torch.from_numpy(rwkv_prompt(full.vocab_size, 1,
+                                        RWKV_PARITY_LEN)).to(dev)
+    for cfg in (full.replace(n_layers=RWKV_PARITY_LAYERS), full):
+        n = cfg.n_layers
+        p = dict(params, layers=T._map(lambda a: a[:n], params["layers"]))
+        la, _, sa = R.forward(p, cfg, toks, collect_cache=True)
+        lr, _, sr = R.forward(p, cfg, toks, collect_cache=True,
+                              wkv_impl="ref")
+        st = R.make_state(cfg, 1, device=dev)
+        outs = []
+        for t in range(RWKV_DECODE_CHECK):
+            lg, st = R.decode_step(p, cfg, toks[:, t:t + 1], st)
+            outs.append(lg)
+        dec = torch.cat(outs, 1)
+        head = la[:, :RWKV_DECODE_CHECK]
+        errs = {"logits": errors(la, lr, 0.0)[:2]}
+        errs.update({key: errors(sa[key], sr[key], 0.0)[:2]
+                     for key in ("tm_shift", "cm_shift", "wkv")})
+        d_kernel = errors(head, dec, 0.0)[:2]
+        d_plain = errors(lr[:, :RWKV_DECODE_CHECK], dec, 0.0)[:2]
+        if n == RWKV_PARITY_LAYERS:
+            torch.testing.assert_close(la, lr, **LM_TOL)
+            for key in ("tm_shift", "cm_shift", "wkv"):
+                torch.testing.assert_close(sa[key], sr[key], **LM_TOL)
+            torch.testing.assert_close(head, dec, **RWKV_DECODE_TOL)
+            held = "rtol = atol = 1e-4; decode atol 2e-3"
+        else:
+            limit = min(RWKV_DEPTH_REL, RWKV_DEPTH_SHARE * d_plain[1])
+            if errs["logits"][1] > limit or errs["wkv"][1] > RWKV_DEPTH_REL:
+                raise AssertionError(
+                    f"rwkv6 {n} layers: kernel vs plain WKV relative "
+                    f"Frobenius error logits {errs['logits'][1]:.3e}, wkv "
+                    f"state {errs['wkv'][1]:.3e}, over {limit:.3e}")
+            held = (f"relative Frobenius error of logits and wkv states "
+                    f"under {RWKV_DEPTH_REL}, and of logits under "
+                    f"{RWKV_DEPTH_SHARE} x the plain forward's vs decode")
+        log(f"[rwkv-parity] rwkv6-1.6b full width, {n} layers, f32, B 1 x "
+            f"{RWKV_PARITY_LEN} tokens: kernel vs plain WKV (max_abs_err, "
+            f"relative Frobenius) logits {errs['logits'][0]:.3e}, "
+            f"{errs['logits'][1]:.3e}; states tm_shift "
+            f"{errs['tm_shift'][0]:.3e}, cm_shift {errs['cm_shift'][0]:.3e}, "
+            f"wkv {errs['wkv'][0]:.3e}, {errs['wkv'][1]:.3e}; first "
+            f"{RWKV_DECODE_CHECK} tokens decoded one at a time vs the "
+            f"forward: kernel path {d_kernel[0]:.3e}, {d_kernel[1]:.3e}, "
+            f"plain path {d_plain[0]:.3e}, {d_plain[1]:.3e}; max |logit| "
+            f"{la.abs().max().item():.3e}; held: {held}")
+        del la, lr, sa, sr, dec, outs, st, head
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+
+
+def device_split(by_name) -> dict:
+    """Device time (us) of one profiled call, split into matrix products,
+    the WKV kernel and everything else (elementwise, copies, reductions)."""
+    out = {"gemm": 0.0, "wkv": 0.0, "other": 0.0}
+    for name, us in by_name.items():
+        low = name.lower()
+        if "rwkv6_wkv" in low:
+            out["wkv"] += us
+        elif any(t in low for t in ("gemm", "nvjet", "cutlass", "xmma",
+                                    "sm90_")):
+            out["gemm"] += us
+        else:
+            out["other"] += us
+    return out
+
+
+def rwkv_serve_phase(dev, card):
+    """Phase 10: full rwkv6-1.6b in bf16: prefill steps of one 32768-token
+    prompt, then LMEngine; returns the WKV kernel's launches by key on one
+    served prefill."""
+    from repro_torch.configs.rwkv6_1_6b import CONFIG as RWKV
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rwkv6_wkv as wk
+    from repro_torch.models import api
+    from repro_torch.serving.engine import LMEngine
+    from repro_torch.train import steps as steps_mod
+
+    cfg = RWKV
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(SEED, cfg, dev)
+    torch.cuda.synchronize()
+    n_bytes = sum(a.numel() * a.element_size() for a in _leaves(params))
+    log(f"[rwkv-init] rwkv6-1.6b {cfg.n_layers} layers, {cfg.dtype}, "
+        f"{n_bytes / 1e9:.3f} GB of weights in "
+        f"{time.perf_counter() - t0:.2f} s")
+    batch = {"tokens": torch.from_numpy(
+        rwkv_prompt(cfg.vocab_size, 1, RWKV_PROMPT)).to(dev)}
+    step = steps_mod.make_prefill_step(cfg)
+    prefill_ms, by_key = [], None
+    for _ in range(3):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        logits = step(params, batch)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        by_key = dict(wk.WKV.by_key)
+        want = {wk.launch_key(1, RWKV_PROMPT, WKV_HEADS): cfg.n_layers}
+        if wk.WKV.launches != cfg.n_layers or by_key != want:
+            raise AssertionError(f"prefill launched the WKV kernel "
+                                 f"{wk.WKV.launches} times ({by_key}), not "
+                                 f"{want}")
+        if logits.shape != (1, 1, cfg.vocab_size) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError(f"prefill logits {tuple(logits.shape)} not "
+                                 "finite or of the wrong shape")
+        del logits
+    prefill_peak = torch.cuda.max_memory_allocated()
+    split = device_split(profile_device(
+        "one rwkv6-1.6b prefill", lambda: step(params, batch),
+        tag="rwkv-profile"))
+    log(f"[rwkv-profile] device time by kind (us): matrix products "
+        f"{split['gemm']:.1f}, WKV kernel {split['wkv']:.1f}, other "
+        f"{split['other']:.1f}")
+
+    prompts = rwkv_prompt(cfg.vocab_size, RWKV_GEN_BATCH, RWKV_GEN_PROMPT,
+                          SEED + 1)
+    eng = LMEngine(params, cfg, max_len=RWKV_GEN_PROMPT + RWKV_NEW,
+                   device=dev)
+    ops.reset_launches()
+    first = eng.generate(prompts, RWKV_NEW)
+    gen_launches = {k: v.launches for k, v in ops.kernels().items()}
+    eng.monitor.reset()
+    t0 = time.perf_counter()
+    second = eng.generate(prompts, RWKV_NEW)
+    gen_s = time.perf_counter() - t0
+    if first.shape != (RWKV_GEN_BATCH, RWKV_NEW):
+        raise AssertionError(f"generated shape {first.shape}")
+    if not ((first >= 0) & (first < cfg.vocab_size)).all():
+        raise AssertionError("generated tokens out of range")
+    if not np.array_equal(first, second):
+        raise AssertionError("two generate runs differ")
+    if any(gen_launches.values()):
+        raise AssertionError(f"recurrent decode launched {gen_launches}: it "
+                             "runs the plain recurrence, as the reference")
+    serve = steps_mod.make_serve_step(cfg)
+    state = api.make_cache(cfg, RWKV_GEN_BATCH, 0, device=dev)
+    last = torch.from_numpy(prompts[:, -1:]).to(dev)
+    profile_device("one rwkv6-1.6b decode step",
+                   lambda: serve(params, last, state)[0].cpu(),
+                   tag="rwkv-profile")
+    steps = sorted(eng.monitor.lat)
+    warm = statistics.median(prefill_ms[1:])
+    log(f"[rwkv-serve] rwkv6-1.6b bf16 prefill of 1 x {RWKV_PROMPT} tokens "
+        f"(make_prefill_step): ms {prefill_ms[0]:.1f} first, {warm:.1f} warm "
+        f"({RWKV_PROMPT / warm * 1e3:.0f} prefill tokens/s), "
+        f"{cfg.n_layers} WKV launches each, max_memory_allocated "
+        f"{prefill_peak / 1e9:.3f} GB; card {card!r}")
+    log(f"[rwkv-serve] LMEngine B {RWKV_GEN_BATCH} x prompt "
+        f"{RWKV_GEN_PROMPT} (fed token by token), {RWKV_NEW} greedy tokens: "
+        f"decode ms/token p50 {eng.monitor.percentile(0.5) * 1e3:.3f} p99 "
+        f"{eng.monitor.percentile(0.99) * 1e3:.3f} min {steps[0] * 1e3:.3f}; "
+        f"generated tokens/s {RWKV_GEN_BATCH * RWKV_NEW / sum(steps):.1f} "
+        f"(decode steps only), generate wall {gen_s * 1e3:.1f} ms (prompt "
+        f"{(gen_s - sum(steps)) * 1e3:.1f} ms); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    log(f"[rwkv-serve] tokens identical across two runs; first row "
+        f"{first[0].tolist()}; kernel launches per generate {gen_launches}")
+    log(f"[rwkv-serve] decode weight-read bound "
+        f"{n_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms/token ({n_bytes / 1e9:.3f} "
+        f"GB at 3.35 TB/s)")
+    return by_key
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -683,10 +1026,20 @@ def main() -> int:
         flash_rows = flash_phase(dev)
         lm_parity_phase(dev)
         _, by_key = lm_serve_phase(dev, card)
-    # each flash row takes the served launches of its own shape: qwen3's
-    # heads are timed but not served, so its row reads 0
+        # the rwkv6 phases need the card's memory: gemma2-9b went with
+        # lm_serve_phase's frame
+        torch.cuda.empty_cache()
+        wkv_rows = wkv_phase(dev)
+        rwkv_parity_phase(dev)
+        wkv_by_key = rwkv_serve_phase(dev, card)
+    # each flash or WKV row takes the served launches of its own shape:
+    # qwen3's heads and the B 8 WKV shape are timed but not served, so
+    # their rows read 0
     for row, key in flash_rows:
         row["launches"] = by_key.get(key, 0)
+        rows.append(row)
+    for row, key in wkv_rows:
+        row["launches"] = wkv_by_key.get(key, 0)
         rows.append(row)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))

@@ -5,8 +5,8 @@ The fields keep the reference's names, defaults and meanings, so a config
 built here describes the same model as its reference twin.  Options the
 port does not implement yet are still carried (the port's entry points
 raise ``NotImplementedError`` when one is set, naming the ROADMAP item).
-The registry holds the archs the port has configs for: the DLRM ones and
-the dense LMs ``gemma2-9b`` and ``qwen3-14b``.
+The registry holds the archs the port has configs for: the DLRM ones, the
+dense LMs ``gemma2-9b`` and ``qwen3-14b``, and ``rwkv6-1.6b``.
 """
 from __future__ import annotations
 
@@ -172,4 +172,5 @@ def _ensure_loaded() -> None:
         dlrm_kaggle,
         gemma2_9b,
         qwen3_14b,
+        rwkv6_1_6b,
     )

@@ -20,7 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("embedding_bag.cu", "dot_interaction.cu", "flash_attention.cu")
+SOURCES = ("embedding_bag.cu", "dot_interaction.cu", "flash_attention.cu",
+           "rwkv6_wkv.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

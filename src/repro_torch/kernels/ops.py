@@ -1,6 +1,7 @@
 """Dispatch over the kernels (the port of ``repro/kernels/ops.py``), selected
-by ``DLRMConfig.sparse_backend`` for the bags and the interaction and by the
-model's ``attn_impl`` argument for attention:
+by ``DLRMConfig.sparse_backend`` for the bags and the interaction, by the
+model's ``attn_impl`` argument for attention and by ``wkv_impl`` for the
+RWKV-6 WKV:
 
 - ``ref``: the plain PyTorch version;
 - ``pallas``: the CUDA kernel; raises for a tensor that is not on the card;
@@ -15,6 +16,7 @@ from repro_torch.kernels.embedding_bag import (POOL, embedding_bag,
                                                embedding_bag_rows,
                                                embedding_bag_stacked)
 from repro_torch.kernels.flash_attention import FLASH, flash_attention
+from repro_torch.kernels.rwkv6_wkv import WKV, rwkv6_wkv
 
 IMPLS = ("ref", "pallas", "interpret", "auto")
 
@@ -22,7 +24,7 @@ IMPLS = ("ref", "pallas", "interpret", "auto")
 def kernels():
     """Every hand-written kernel of the port, by name."""
     return {"embedding_bag_pool": POOL, "dot_interaction": DOT,
-            "flash_attention": FLASH}
+            "flash_attention": FLASH, "rwkv6_wkv": WKV}
 
 
 def reset_launches() -> None:
@@ -90,3 +92,12 @@ def flash_attention_op(q, k, v, *, causal: bool = True, window: int = 0,
                                        softcap=softcap)
     return flash_attention(q, k, v, causal=causal, window=window,
                            softcap=softcap)
+
+
+def rwkv6_wkv_op(r, k, v, logw, u, state0, *, impl: str = "auto"):
+    """r, k, logw (B,S,H,K), v (B,S,H,V), u (H,K), state0 (B,H,K,V) ->
+    (out (B,S,H,V), final state (B,H,K,V)); every rwkv6 prefill layer's
+    WKV.  The plain version is the chunked form (chunk 32)."""
+    if not use_kernel(impl, r):
+        return ref.rwkv6_wkv_chunked_ref(r, k, v, logw, u, state0)
+    return rwkv6_wkv(r, k, v, logw, u, state0)

@@ -3,6 +3,9 @@
 the tests hold the port against the reference with them, and
 ``chip_smoke.py`` compares every kernel with them on the card.
 
+The WKV has two: the exact recurrence (the oracle, and the model's decode
+path) and the chunked form (the CUDA kernel's plain version).
+
 Ids are clamped to ``[0, R-1]`` (and table ids to ``[0, T-1]``) explicitly:
 JAX clamps out-of-bounds gathers silently, torch indexing raises.
 """
@@ -77,3 +80,56 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     den = sc.sum(-1, keepdim=True).clamp_min_(1e-30)
     out = torch.einsum("bkgst,btkd->bkgsd", sc, v.float()).div_(den)
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd).to(q.dtype)
+
+
+def rwkv6_wkv_ref(r, k, v, logw, u, state):
+    """Exact WKV recurrence, token by token.  r, k, logw:(B,S,H,K)
+    v:(B,S,H,V) u:(H,K) state:(B,H,K,V) -> (out (B,S,H,V), final state):
+    out_t = r_t . (S + diag(u) k_t v_t^T);  S <- diag(exp(logw_t)) S +
+    k_t v_t^T."""
+    uu = u[None, :, :, None]
+    outs = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]        # (B,H,K,V)
+        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t], state + uu * kv))
+        state = torch.exp(logw[:, t])[..., None] * state + kv
+    return torch.stack(outs, dim=1), state
+
+
+def rwkv6_wkv_chunked_ref(r, k, v, logw, u, state, chunk: int = 32):
+    """The same function in chunk-parallel form (the reference model's
+    ``wkv_chunked``).  Every exponential is of a difference L_a - L_s of
+    cumulative log-decays with s <= a, so <= 0: exact, no overflow.
+    Materializes the (B, C, C, H, K) in-chunk decay the kernel keeps on
+    chip.  A ragged S is padded to a multiple of ``chunk`` with tokens of
+    zero r, k, v and log-decay, which leave the state as it is."""
+    b, s, h, kk = r.shape
+    vv = v.shape[-1]
+    pad = -s % chunk
+    if pad:
+        r, k, v, logw = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+                         for x in (r, k, v, logw))
+    nc = (s + pad) // chunk
+    rs = r.reshape(b, nc, chunk, h, kk)
+    ks = k.reshape(b, nc, chunk, h, kk)
+    vs = v.reshape(b, nc, chunk, h, vv)
+    ws = logw.reshape(b, nc, chunk, h, kk).float()
+    below = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                  device=r.device), -1)[None, :, :, None, None]
+    outs = []
+    for c in range(nc):
+        rc, kc, vc, wc = rs[:, c], ks[:, c], vs[:, c], ws[:, c]
+        linc = torch.cumsum(wc, dim=1)            # inclusive cum log decay
+        lexc = linc - wc                          # exclusive
+        ltot = linc[:, -1:]                       # (B,1,H,K)
+        cross = torch.einsum("bthk,bhkv->bthv", rc * torch.exp(lexc), state)
+        diff = lexc[:, :, None] - linc[:, None, :, :, :]     # (B,t,s,H,K)
+        wdiff = torch.exp(diff.masked_fill(~below, float("-inf")))
+        scores = torch.einsum("bthk,bshk,btshk->bhts", rc, kc, wdiff)
+        intra = torch.einsum("bhts,bshv->bthv", scores, vc)
+        bonus = (rc * u[None, None] * kc).sum(-1)
+        outs.append(cross + intra + bonus[..., None] * vc)
+        kdec = kc * torch.exp(ltot - linc)
+        state = torch.exp(ltot[:, 0])[..., None] * state + \
+            torch.einsum("bshk,bshv->bhkv", kdec, vc)
+    return torch.cat(outs, dim=1)[:, :s], state

@@ -1,5 +1,5 @@
 """Shared layers of the port (the port of ``repro/models/layers.py``
-without ``layernorm`` and the plain ``mlp``): dense projections, RMSNorm,
+without the plain ``mlp``): dense projections, RMSNorm, LayerNorm,
 activations and softcap, the GLU MLP, rotary embeddings, the vocab
 embedding and the LM heads.
 
@@ -71,6 +71,21 @@ def rmsnorm(params, x, eps: float = 1e-6, plus_one: bool = False):
     if plus_one:
         w = 1.0 + w
     return (xn * w).to(x.dtype)
+
+
+def init_layernorm(dim: int, dtype: str, device):
+    return {"scale": torch.ones((dim,), dtype=dtype_of(dtype), device=device),
+            "bias": torch.zeros((dim,), dtype=dtype_of(dtype), device=device)}
+
+
+def layernorm(params, x, eps: float = 1e-5):
+    """f32 inside with the population variance (``jnp.var``; torch's
+    default would be the sample variance), cast back to x's type."""
+    xf = x.float()
+    var, mu = torch.var_mean(xf, dim=-1, keepdim=True, correction=0)
+    xf = (xf - mu) * torch.rsqrt(var + eps)
+    return (xf * params["scale"].float()
+            + params["bias"].float()).to(x.dtype)
 
 
 def activation(name: str):

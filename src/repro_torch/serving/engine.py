@@ -199,10 +199,11 @@ class DLRMEngine:
 
 
 class LMEngine:
-    """Batched greedy decoding for the LM families (the port serves the
-    dense one): prefill the prompts into a cache of ``max_len`` positions,
-    then one serve step per token, each step's latency observed by the
-    straggler monitor."""
+    """Batched greedy decoding for the LM families the port runs: the dense
+    family prefills the prompts into a cache of ``max_len`` positions, the
+    recurrent one (rwkv6) consumes them token by token through
+    ``decode_step``, as the reference does; then one serve step per token,
+    each step's latency observed by the straggler monitor."""
 
     def __init__(self, params, cfg: ModelConfig, *, max_len: int = 256,
                  device="cuda"):
@@ -222,10 +223,18 @@ class LMEngine:
         again, at position P.  A step's latency ends when its tokens reach
         the host."""
         dev = self.device
+        b, p = prompts.shape
         with torch.no_grad():
-            _, cache = T.prefill(self.params, self.cfg,
-                                 torch.from_numpy(prompts).to(dev),
-                                 pad_to=self.max_len)
+            if self.cfg.family in ("dense", "moe", "vlm"):
+                _, cache = T.prefill(self.params, self.cfg,
+                                     torch.from_numpy(prompts).to(dev),
+                                     pad_to=self.max_len)
+            else:
+                cache = api.make_cache(self.cfg, b, self.max_len, device=dev)
+                toks = torch.from_numpy(prompts).to(dev)
+                for t in range(p):
+                    _, cache = api.decode_step(self.params, self.cfg,
+                                               toks[:, t:t + 1], cache)
         tok = torch.from_numpy(np.ascontiguousarray(prompts[:, -1:])).to(dev)
         outs = []
         for _ in range(n_tokens):

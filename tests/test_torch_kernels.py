@@ -6,8 +6,10 @@ side runs its oracles and its Pallas kernels in interpret mode.  Bags and
 the interaction are held at f32 rtol=1e-5, atol=1e-6: both sides sum in
 f32 in different orders.  Flash attention is held at f32 atol=1e-5 against
 the interpret-mode Pallas kernel, whose online softmax sums in another
-order.  The CUDA kernels themselves are checked on the card by
-chip_smoke.py.
+order.  The RWKV-6 WKV's chunked forms are held at atol 5e-4 (the reference
+suite's own tolerance) and a relative Frobenius error of 1e-5, its
+recurrences at 1e-5 (see ``WKV_TOL``).  The CUDA kernels
+themselves are checked on the card by chip_smoke.py.
 """
 import ast
 import ctypes
@@ -22,13 +24,16 @@ from repro.configs.base import ModelConfig
 from repro.kernels import dot_interaction as jdot
 from repro.kernels import embedding_bag as jeb
 from repro.kernels import flash_attention as jfa
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models import attention as jattn
+from repro.models import rwkv6 as jrwkv
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import dot_interaction as tdot
 from repro_torch.kernels import embedding_bag as teb
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rwkv6_wkv as twkv
 
 TOL = {"rtol": 1e-5, "atol": 1e-6}
 ROOT = Path(__file__).resolve().parents[1]
@@ -234,6 +239,112 @@ class TestFlashAttention:
         assert tfa.FLASH.launches == 0
 
 
+def _wkv_inputs(seed, b, s, h, kk=64, logw=None, s0_scale=0.1):
+    """The reference suite's distributions (tests/test_kernels.py), from
+    numpy: r, k, v ~ N(0,1), logw = -exp(N(0,1)), u ~ 0.5 N(0,1), and a
+    nonzero state0."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((b, s, h, kk), dtype=np.float32)
+               for _ in range(3))
+    w = -np.exp(rng.standard_normal((b, s, h, kk), dtype=np.float32)) \
+        if logw is None else np.full((b, s, h, kk), logw, np.float32)
+    u = 0.5 * rng.standard_normal((h, kk), dtype=np.float32)
+    s0 = s0_scale * rng.standard_normal((b, h, kk, kk), dtype=np.float32)
+    return r, k, v, w, u, s0
+
+
+# Each f32 chunked form (the port's, JAX's, the interpret-mode kernel)
+# lies ~1.3e-6 (relative Frobenius) from a float64 recurrence on these
+# inputs, but up to 2e-4 away in single elements of |out| up to ~90: the
+# in-chunk decays are exponentials of differences of cumulative sums.  So
+# the chunked forms are held elementwise at the reference suite's 5e-4 and
+# as a whole at a relative Frobenius error of 1e-5; the two recurrences,
+# which sum in the same order, at 1e-5 elementwise.
+WKV_TOL = {"rtol": 1e-5, "atol": 5e-4}
+WKV_REL = 1e-5
+WKV_REC_TOL = {"rtol": 1e-5, "atol": 1e-5}
+WKV_SHAPES = [(2, 64, 2, 16), (1, 128, 4, 32), (3, 96, 1, 32),
+              (2, 256, 2, 64)]
+
+
+def _close_pair(port, want, tol=WKV_TOL, rel=WKV_REL):
+    for p, w in zip(port, want):
+        p, w = p.numpy(), np.asarray(w)
+        np.testing.assert_allclose(p, w, **tol)
+        assert np.linalg.norm(p - w) <= rel * np.linalg.norm(w)
+
+
+class TestRwkv6Wkv:
+    @pytest.mark.parametrize("b,s,h,chunk", WKV_SHAPES)
+    def test_plain_matches_jax_chunked(self, b, s, h, chunk):
+        x = _wkv_inputs(b * s + h, b, s, h)
+        port = tref.rwkv6_wkv_chunked_ref(*map(torch.from_numpy, x))
+        _close_pair(port, jrwkv.wkv_chunked(*map(jnp.asarray, x), chunk=32))
+
+    @pytest.mark.parametrize("b,s,h,chunk", WKV_SHAPES)
+    def test_op_matches_jax_kernel_interpret(self, b, s, h, chunk):
+        x = _wkv_inputs(b * s + h + 1, b, s, h)
+        port = ops.rwkv6_wkv_op(*map(torch.from_numpy, x))
+        want = jops.rwkv6_wkv_op(*map(jnp.asarray, x), chunk=chunk)
+        _close_pair(port, want)
+
+    @pytest.mark.parametrize("b,s,h,chunk", WKV_SHAPES[:2])
+    def test_recurrence_matches_jax(self, b, s, h, chunk):
+        x = _wkv_inputs(b * s + h + 2, b, s, h)
+        rec = tref.rwkv6_wkv_ref(*map(torch.from_numpy, x))
+        _close_pair(rec, jref.rwkv6_wkv_ref(*map(jnp.asarray, x)),
+                    WKV_REC_TOL)
+        chunked = twkv.rwkv6_wkv(*map(torch.from_numpy, x))
+        _close_pair(chunked, [a.numpy() for a in rec])
+
+    def test_extreme_decay_stays_finite_and_exact(self):
+        # the state dies each step: upper-triangle exponents would be
+        # +2200, so the mask must come before the exp
+        x = _wkv_inputs(3, 1, 64, 1, logw=-50.0, s0_scale=0.0)
+        port = twkv.rwkv6_wkv(*map(torch.from_numpy, x))
+        assert torch.isfinite(port[0]).all()
+        _close_pair(port, jref.rwkv6_wkv_ref(*map(jnp.asarray, x)),
+                    {"rtol": 0.0, "atol": 1e-4})
+        _close_pair(port, jops.rwkv6_wkv_op(*map(jnp.asarray, x), chunk=16),
+                    {"rtol": 0.0, "atol": 1e-4})
+
+    @pytest.mark.parametrize("s", [45, 7])
+    def test_ragged_length_pads_exactly(self, s):
+        x = tuple(map(torch.from_numpy, _wkv_inputs(s, 2, s, 2)))
+        out, st = twkv.rwkv6_wkv(*x)
+        assert out.shape == (2, s, 2, 64)
+        _close_pair((out, st), [a.numpy() for a in tref.rwkv6_wkv_ref(*x)])
+
+    def test_bf16_u_is_taken_to_f32(self):
+        r, k, v, w, u, s0 = map(torch.from_numpy, _wkv_inputs(4, 1, 32, 2))
+        ub = u.to(torch.bfloat16)
+        got = twkv.rwkv6_wkv(r, k, v, w, ub, s0)
+        want = twkv.rwkv6_wkv(r, k, v, w, ub.float(), s0)
+        assert got[0].dtype == torch.float32
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+    @pytest.mark.parametrize("change,err", [
+        ({"kk": 32}, NotImplementedError),
+        ({"dtype": torch.bfloat16}, NotImplementedError),
+        ({"u_heads": 3}, ValueError), ({"state_b": 2}, ValueError),
+        ({"transpose": True}, ValueError), ({}, RuntimeError),
+    ])
+    def test_launcher_rejects_what_the_kernel_does_not_take(self, change,
+                                                            err):
+        r, k, v, w, u, s0 = map(torch.from_numpy, _wkv_inputs(
+            5, 1, 8, 2, kk=change.get("kk", 64)))
+        r = r.to(change.get("dtype", torch.float32))
+        if "u_heads" in change:
+            u = torch.zeros(change["u_heads"], u.shape[1])
+        if "state_b" in change:
+            s0 = s0.expand(change["state_b"], -1, -1, -1)
+        if change.get("transpose"):
+            k = k.transpose(1, 2).contiguous().transpose(1, 2)
+        with pytest.raises(err):      # ({}: the CPU tensors themselves)
+            twkv.wkv(r, k, v, w, u, s0)
+        assert twkv.WKV.launches == 0
+
+
 class TestDispatch:
     def test_pallas_on_cpu_raises(self):
         tables, idx, mask = _stack(11)
@@ -245,6 +356,9 @@ class TestDispatch:
         q, k, v = map(torch.from_numpy, _qkv(0, 1, 8, 2, 1, 16))
         with pytest.raises(RuntimeError, match="CUDA"):
             ops.flash_attention_op(q, k, v, impl="pallas")
+        wkv_args = tuple(map(torch.from_numpy, _wkv_inputs(0, 1, 32, 1)))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ops.rwkv6_wkv_op(*wkv_args, impl="pallas")
 
     def test_kernel_launchers_refuse_cpu_tensors(self):
         t = torch.zeros(8, 4)
@@ -255,8 +369,10 @@ class TestDispatch:
             tdot.interact(torch.zeros(2, 3, 4))
         with pytest.raises(RuntimeError, match="CUDA"):
             tfa.attend(*map(torch.from_numpy, _qkv(0, 1, 8, 2, 1, 16)))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            twkv.wkv(*map(torch.from_numpy, _wkv_inputs(0, 1, 8, 1)))
         assert teb.POOL.launches == 0 and tdot.DOT.launches == 0
-        assert tfa.FLASH.launches == 0
+        assert tfa.FLASH.launches == 0 and twkv.WKV.launches == 0
 
     @pytest.mark.parametrize("impl", ["ref", "interpret", "auto"])
     def test_cpu_impls_take_the_plain_version(self, impl):
@@ -267,6 +383,10 @@ class TestDispatch:
         qkv = tuple(map(torch.from_numpy, _qkv(1, 1, 20, 4, 2, 16)))
         assert torch.equal(ops.flash_attention_op(*qkv, window=4, impl=impl),
                            tref.flash_attention_ref(*qkv, window=4))
+        wkv_args = tuple(map(torch.from_numpy, _wkv_inputs(1, 1, 32, 2)))
+        for got, want in zip(ops.rwkv6_wkv_op(*wkv_args, impl=impl),
+                             tref.rwkv6_wkv_chunked_ref(*wkv_args)):
+            assert torch.equal(got, want)
 
     def test_unknown_impl_raises(self):
         with pytest.raises(ValueError):
@@ -295,13 +415,15 @@ class TestDispatch:
 
     def test_kernel_argtypes_match_the_c_entry_points(self):
         # the C signatures: (table, idx, w, tid, out, n_bags, hot, s, rows,
-        # n_tables, stream), (z, out, batch, f, s, stream) and (q, k, v, out,
+        # n_tables, stream), (z, out, batch, f, s, stream), (q, k, v, out,
         # dtype, b, s, t, h, kh, hd, causal, window, scale, softcap, stream)
+        # and (r, k, v, logw, u, state0, out, state, b, s, h, stream)
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         f = ctypes.c_float
         assert teb.POOL.argtypes == [p] * 5 + [i64, i, i, i64, i, p]
         assert tdot.DOT.argtypes == [p, p, i, i, i, p]
         assert tfa.FLASH.argtypes == [p] * 4 + [i] * 9 + [f, f, p]
+        assert twkv.WKV.argtypes == [p] * 8 + [i] * 3 + [p]
         for k in ops.kernels().values():
             src = (_build.CSRC / k.source).read_text()
             assert f'extern "C" int {k.symbol}(' in src
@@ -315,6 +437,13 @@ class TestBuild:
             tgt = _build.target(src)
             assert tgt.parent == ROOT / "build" / "kernels"
             assert tgt.name.startswith(Path(src).stem + "-")
+
+    def test_every_kernel_is_built_from_a_source(self):
+        assert sorted(k.source for k in ops.kernels().values()) == \
+            sorted(_build.SOURCES)
+        assert "rwkv6_wkv.cu" in _build.SOURCES
+        for src in _build.SOURCES:
+            assert (_build.CSRC / src).is_file()
 
     def test_missing_nvcc_raises(self, monkeypatch, tmp_path):
         monkeypatch.setenv("PATH", str(tmp_path))

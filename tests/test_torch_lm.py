@@ -238,7 +238,7 @@ def test_params_from_jax_casts_f32_leaves():
 
 
 @pytest.mark.parametrize("change,match", [
-    ({"family": "ssm"}, "B6"),
+    ({"frontend": "audio_frames"}, "frontend"),
     ({"family": "hybrid"}, "zamba2"),
     ({"family": "audio"}, "whisper"),
     ({"family": "moe", "moe": "set"}, "moe"),
