@@ -8,7 +8,11 @@ Run from the repository root with no arguments:
 Phases, each on lines of its own:
   1. the card's identity and the float32 matmul settings (TF32 off);
   2. the CUDA kernels built from ``src/repro_torch/kernels/csrc`` with nvcc
-     into ``build/kernels/`` (one nvcc per source, all at once);
+     into ``build/kernels/`` (one nvcc per source, all at once), and one
+     line per kernel of registers and stack/spill bytes from ptxas, with
+     the dynamic shared memory of the wgmma flash body (and its key tile
+     and K/V stages) and of the two WKV passes; the wgmma body must not
+     spill;
   3. the DLRM kernels held against their plain PyTorch versions at full
      ``dlrm-kaggle`` width (rtol = atol = 1e-5: the summation order
      differs), two runs of each bit-identical, and each one's time beside
@@ -25,8 +29,9 @@ Phases, each on lines of its own:
      served gemma2-9b local and global layers and at qwen3-14b's heads
      (B 2, S 4608, q drawn at 4x unit scale so each softmax is peaked and
      the softcap bends the largest scores), two runs bit-identical, timed
-     as in 3; the plain version without the softcap, and without the
-     window, must fail the same check;
+     as in 3, the qwen3 row beside scaled_dot_product_attention; the plain
+     version without the softcap, and without the window, must fail the
+     same check;
   6. gemma2-9b at full width in f32, depth cut to 4 layers: prefill of
      2 x 4608 tokens through the kernel held against the plain attention,
      and one decode step from each prefill's cache (rtol = atol = 1e-4);
@@ -43,7 +48,9 @@ Phases, each on lines of its own:
      state0, plus a long-memory and an extreme (logw = -50) decay: out and
      the final state within rtol 1e-4, atol 2e-3 and a relative Frobenius
      error of 1e-5; two runs bit-identical; the plain version without the
-     u bonus, and with state0 ignored, must fail that check; timed as in 3;
+     u bonus, and with state0 ignored, must fail that check; timed as in 3,
+     and its state pass and output pass timed alone, with the bytes of the
+     chunk-start-state scratch;
   9. full-width rwkv6-1.6b in f32 on 4096 tokens, first at 4 layers: the
      forward's logits and every layer's state through the kernel held
      against the plain WKV (rtol = atol = 1e-4), and 128 tokens decoded one
@@ -64,7 +71,9 @@ prints no result.
 """
 from __future__ import annotations
 
+import ctypes
 import json
+import re
 import socket
 import statistics
 import subprocess
@@ -217,6 +226,60 @@ def check_kernel(name, replaces, source, kernel_fn, plain_fn, library_fn,
         f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']} "
         f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
     return row
+
+
+KERNEL_NAMES = re.compile(r"(flash_wgmma|flash_bf16|flash_f32|"
+                          r"wkv_state_pass|wkv_output_pass|bag_pool_f32|"
+                          r"dot_interaction_f32)(?:ILi(\d+)E)?")
+# the wgmma flash body keeps its 128 (hd 256) accumulator registers only
+# if nothing spills: its report must show no stack and no spill stores
+NO_SPILL = ("flash_wgmma",)
+
+
+def ptxas_report(text: str) -> list:
+    """(kernel, template argument, ptxas "Used ..." line, stack bytes,
+    spill-store bytes) for every function in an nvcc -Xptxas -v log."""
+    out, name, arg, spill = [], None, None, 0
+    for line in text.splitlines():
+        if "Function properties for" in line:
+            m = KERNEL_NAMES.search(line.split("Function properties for")[1])
+            name, arg = (m.group(1), m.group(2)) if m else ("?", None)
+            spill = 0
+        elif "spill stores" in line:
+            spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif "Used" in line and name is not None:
+            stack = re.search(r"(\d+) bytes (?:cumulative )?stack", line)
+            out.append((name, arg, line.split("info    :")[-1].strip(),
+                        int(stack.group(1)) if stack else 0, spill))
+            name = None
+    return out
+
+
+def build_report(logs: dict) -> None:
+    """One [build] line per kernel built: registers and stack/spill bytes
+    from ptxas, the dynamic shared memory of the wgmma flash body and the
+    two WKV passes, and the flash tiling; fails if the wgmma body
+    spills."""
+    from repro_torch.kernels import _build
+
+    for src, text in logs.items():
+        lib = _build.library(src)
+        for name, arg, used, stack, spill in ptxas_report(text):
+            extra = ""
+            if name == "flash_wgmma":
+                bk, st, sm = (ctypes.c_int(), ctypes.c_int(), ctypes.c_int())
+                lib.flash_attention_tiling(int(arg), ctypes.byref(bk),
+                                           ctypes.byref(st), ctypes.byref(sm))
+                extra = (f"; BK {bk.value} keys, {st.value} K/V stages, "
+                         f"{sm.value} bytes of dynamic shared memory")
+            elif name in ("wkv_state_pass", "wkv_output_pass"):
+                extra = (f"; {lib.rwkv6_wkv_smem(1 if 'state' in name else 2)}"
+                         f" bytes of dynamic shared memory")
+            log(f"[build] {src} {name}{f'<{arg}>' if arg else ''}: {used}; "
+                f"stack {stack} bytes, spill stores {spill} bytes{extra}")
+            if name in NO_SPILL and (stack or spill):
+                raise AssertionError(f"{name}<{arg}> spills: stack {stack} "
+                                     f"bytes, spill stores {spill} bytes")
 
 
 def bag_bytes(gid, n_out, s) -> int:
@@ -456,6 +519,11 @@ def flash_phase(dev):
             flops=4 * hd * admitted_pairs(s, window) * b * h, flush=None,
             tol=FLASH_TOL, rel=FLASH_REL, peak_flops=BF16_FLOPS),
             fa.launch_key(h, kh, hd, window)))
+        row = rows[-1][0]
+        if row["library_ms"] is not None:
+            log(f"[kernel] {name}: kernel {row['ms']:.4f} ms beside "
+                f"scaled_dot_product_attention {row['library_ms']:.4f} ms in "
+                f"this run ({row['ms'] / row['library_ms']:.2f}x)")
         # the check sees each branch: a kernel that dropped the softcap or
         # the window would fail it
         plain = ref.flash_attention_ref(q, k, v, window=window, softcap=cap)
@@ -764,7 +832,17 @@ def wkv_phase(dev):
             f"library_ms=None (no PyTorch call computes WKV-6) "
             f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
         rows.append((row, wk.launch_key(b, s, WKV_HEADS)))
-        del x, out, again, plain
+        # the two passes alone, on the chunk-start states one run wrote
+        args = wk.check_args(*x)
+        bufs = wk.run_passes(*args)
+        p1, p2 = (time_ms(lambda n=n: wk.run_passes(*args, passes=n,
+                                                    buffers=bufs))
+                  for n in (wk.STATE_PASS, wk.OUTPUT_PASS))
+        scratch = bufs[2].numel() * bufs[2].element_size()
+        log(f"[kernel] {name}: scratch of chunk-start states {scratch} bytes "
+            f"({scratch / 1e6:.1f} MB); state pass {p1:.4f} ms, output pass "
+            f"{p2:.4f} ms, each timed alone")
+        del x, out, again, plain, args, bufs
         torch.cuda.empty_cache()
 
     # two more decay regimes at the B 8 x S 4096 shape
@@ -858,11 +936,12 @@ def rwkv_parity_phase(dev):
 
 def device_split(by_name) -> dict:
     """Device time (us) of one profiled call, split into matrix products,
-    the WKV kernel and everything else (elementwise, copies, reductions)."""
+    the WKV kernel (its state and output passes) and everything else
+    (elementwise, copies, reductions)."""
     out = {"gemm": 0.0, "wkv": 0.0, "other": 0.0}
     for name, us in by_name.items():
         low = name.lower()
-        if "rwkv6_wkv" in low:
+        if "wkv_state_pass" in low or "wkv_output_pass" in low:
             out["wkv"] += us
         elif any(t in low for t in ("gemm", "nvjet", "cutlass", "xmma",
                                     "sm90_")):
@@ -1001,10 +1080,7 @@ def main() -> int:
     logs = _build.build()
     log(f"[build] {len(logs)} kernels built in "
         f"{time.perf_counter() - t0:.2f} s into {_build.BUILD_DIR}")
-    for src, text in logs.items():
-        for line in text.splitlines():
-            if "ptxas info" in line and ("Used" in line or "spill" in line):
-                log(f"[build] {src}: {line.strip()}")
+    build_report(logs)
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()

@@ -79,7 +79,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0) -> torch.Tensor:
     """q (B, S, H, hd), k and v (B, T, Kh, hd) -> (B, S, H, hd).  The
     reference's ``cq``/``ck`` TPU tiles have no counterpart: the kernel
-    tiles by 64 queries and takes any S and T."""
+    tiles by 128 queries at head dims 128 and 256 (64 below) and takes any
+    S and T."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap)

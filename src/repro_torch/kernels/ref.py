@@ -133,3 +133,68 @@ def rwkv6_wkv_chunked_ref(r, k, v, logw, u, state, chunk: int = 32):
         state = torch.exp(ltot[:, 0])[..., None] * state + \
             torch.einsum("bshk,bshv->bhkv", kdec, vc)
     return torch.cat(outs, dim=1)[:, :s], state
+
+
+def _chunked_decays(logw, chunk: int):
+    """Zero-pad the log-decay to whole chunks: (B, nc, C, H, K) inclusive
+    cumulative log-decays ``linc`` within each chunk and their totals
+    ``ltot`` (B, nc, 1, H, K)."""
+    b, s, h, kk = logw.shape
+    pad = -s % chunk
+    w = torch.nn.functional.pad(logw.float(), (0, 0, 0, 0, 0, pad))
+    linc = torch.cumsum(w.reshape(b, -1, chunk, h, kk), dim=2)
+    return linc, linc[:, :, -1:]
+
+
+def _chunks(x, chunk: int):
+    b, s, h, d = x.shape
+    x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, -s % chunk))
+    return x.reshape(b, -1, chunk, h, d)
+
+
+def wkv_chunk_states_ref(k, v, logw, state0, chunk: int = 32):
+    """Pass 1 of the two-pass WKV (the CUDA kernel's state pass): the only
+    sequential part, S <- diag(e^L_{C-1}) S + sum_s (k_s e^(L_{C-1} - L_s))
+    v_s^T, chunk by chunk, with no pairwise scores.  k, logw (B,S,H,K),
+    v (B,S,H,V), state0 (B,H,K,V) -> (the state at the start of every
+    chunk (B, H, n_chunks, K, V), the final state (B,H,K,V))."""
+    linc, ltot = _chunked_decays(logw, chunk)
+    kdec = _chunks(k, chunk) * torch.exp(ltot - linc)       # (B,nc,C,H,K)
+    upd = torch.einsum("bcshk,bcshv->bchkv", kdec, _chunks(v, chunk))
+    etot = torch.exp(ltot[:, :, 0])[..., None]              # (B,nc,H,K,1)
+    starts, state = [], state0
+    for c in range(linc.shape[1]):
+        starts.append(state)
+        state = etot[:, c] * state + upd[:, c]
+    return torch.stack(starts, dim=2), state
+
+
+def wkv_chunk_outputs_ref(r, k, v, logw, u, starts, chunk: int = 32):
+    """Pass 2 of the two-pass WKV (the CUDA kernel's output pass): every
+    chunk at once from its chunk-start state ``starts`` (B, H, n_chunks, K,
+    V), out_t = (r_t e^L_{t-1}) S_c + sum_{s<t} score_ts v_s +
+    (r_t . (u k_t)) v_t, with the pairwise decay exponentiated per
+    (t, s, k) from L_{t-1} - L_s <= 0.  -> out (B,S,H,V)."""
+    s = r.shape[1]
+    linc, _ = _chunked_decays(logw, chunk)
+    lexc = linc - _chunks(logw.float(), chunk)
+    rc, kc, vc = (_chunks(x, chunk) for x in (r, k, v))
+    cross = torch.einsum("bcthk,bhckv->bcthv", rc * torch.exp(lexc), starts)
+    below = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                  device=r.device), -1)[:, :, None, None]
+    diff = lexc[:, :, :, None] - linc[:, :, None]           # (B,nc,t,s,H,K)
+    wdiff = torch.exp(diff.masked_fill(~below, float("-inf")))
+    scores = torch.einsum("bcthk,bcshk,bctshk->bchts", rc, kc, wdiff)
+    intra = torch.einsum("bchts,bcshv->bcthv", scores, vc)
+    bonus = (rc * u[None, None, None] * kc).sum(-1, keepdim=True)
+    out = cross + intra + bonus * vc
+    return out.reshape(r.shape[0], -1, *out.shape[3:])[:, :s]
+
+
+def rwkv6_wkv_two_pass_ref(r, k, v, logw, u, state0, chunk: int = 32):
+    """The WKV split as the CUDA kernel splits it: the chunk-start states
+    by :func:`wkv_chunk_states_ref`, then every chunk's outputs from them
+    by :func:`wkv_chunk_outputs_ref`.  Same arguments and result as
+    :func:`rwkv6_wkv_chunked_ref`; ragged S is padded with zero tokens."""
+    starts, state = wkv_chunk_states_ref(k, v, logw, state0, chunk)
+    return wkv_chunk_outputs_ref(r, k, v, logw, u, starts, chunk), state

@@ -14,9 +14,11 @@ from repro_torch.kernels import ref
 from repro_torch.kernels._build import Kernel
 
 WKV = Kernel("rwkv6_wkv.cu", "rwkv6_wkv_launch",
-             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 HEAD_SIZE = 64
+CHUNK = 32          # the kernel's tokens per chunk
+STATE_PASS, OUTPUT_PASS, BOTH_PASSES = 1, 2, 3
 
 
 def launch_key(b: int, s: int, h: int) -> tuple:
@@ -24,13 +26,51 @@ def launch_key(b: int, s: int, h: int) -> tuple:
     return (b, s, h)
 
 
+def scratch_shape(b: int, s: int, h: int) -> tuple:
+    """The chunk-start states the state pass writes and the output pass
+    reads: (B, H, ceil(S / 32), 64, 64) float32."""
+    return (b, h, -(-s // CHUNK), HEAD_SIZE, HEAD_SIZE)
+
+
 def wkv(r, k, v, logw, u, state0):
     """The CUDA kernel: r, k, logw (B, S, H, 64), v (B, S, H, 64),
     u (H, 64) and state0 (B, H, 64, 64), contiguous and float32 on one card
     (u may be any float type: it is taken to float32) -> (out (B, S, H, 64),
     final state (B, H, 64, 64)), both float32.  Any S: the kernel masks its
-    ragged last chunk.  Each launch is counted on ``WKV`` under
-    :func:`launch_key`."""
+    ragged last chunk.  Both passes run in one launch of the entry point,
+    counted once on ``WKV`` under :func:`launch_key`; the chunk-start
+    states go through a scratch of :func:`scratch_shape`, freed on
+    return."""
+    args = check_args(r, k, v, logw, u, state0)
+    if v.numel() == 0:
+        return torch.empty_like(v), state0.clone()
+    out, state, _ = run_passes(*args)
+    return out, state
+
+
+def run_passes(r, k, v, logw, u, state0, *, passes: int = BOTH_PASSES,
+               buffers=None):
+    """Launch the state pass, the output pass or both (``passes`` 1, 2 or
+    3) on checked arguments; ``buffers`` (out, state, scratch) from an
+    earlier call are reused, so the output pass alone can be run again on
+    the scratch a state pass wrote.  Returns (out, state, scratch)."""
+    b, s, h, _ = r.shape
+    if buffers is None:
+        buffers = (torch.empty_like(v), torch.empty_like(state0),
+                   torch.empty(scratch_shape(b, s, h), dtype=torch.float32,
+                               device=r.device))
+    out, state, scratch = buffers
+    with torch.cuda.device(r.device):
+        WKV(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+            u.data_ptr(), state0.data_ptr(), out.data_ptr(),
+            state.data_ptr(), scratch.data_ptr(), b, s, h, passes,
+            torch.cuda.current_stream(r.device).cuda_stream,
+            key=launch_key(b, s, h))
+    return out, state, scratch
+
+
+def check_args(r, k, v, logw, u, state0):
+    """The arguments the kernel takes, u in float32; raises on any other."""
     if r.dim() != 4:
         raise ValueError(f"r must be (B, S, H, K), got shape {tuple(r.shape)}")
     b, s, h, kk = r.shape
@@ -59,17 +99,7 @@ def wkv(r, k, v, logw, u, state0):
                                f"{name} is on {x.device}")
         if x.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
-    out = torch.empty_like(v)
-    state = torch.empty_like(state0)
-    if out.numel() == 0:
-        return out, state.copy_(state0)
-    with torch.cuda.device(r.device):
-        WKV(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
-            args["u"].data_ptr(), state0.data_ptr(), out.data_ptr(),
-            state.data_ptr(), b, s, h,
-            torch.cuda.current_stream(r.device).cuda_stream,
-            key=launch_key(b, s, h))
-    return out, state
+    return r, k, v, logw, args["u"], state0
 
 
 def rwkv6_wkv(r, k, v, logw, u, state0):

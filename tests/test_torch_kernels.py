@@ -239,14 +239,16 @@ class TestFlashAttention:
         assert tfa.FLASH.launches == 0
 
 
-def _wkv_inputs(seed, b, s, h, kk=64, logw=None, s0_scale=0.1):
+def _wkv_inputs(seed, b, s, h, kk=64, logw=None, s0_scale=0.1,
+                logw_mean=0.0):
     """The reference suite's distributions (tests/test_kernels.py), from
-    numpy: r, k, v ~ N(0,1), logw = -exp(N(0,1)), u ~ 0.5 N(0,1), and a
-    nonzero state0."""
+    numpy: r, k, v ~ N(0,1), logw = -exp(N(logw_mean,1)) (a constant
+    ``logw`` when given), u ~ 0.5 N(0,1), and a nonzero state0."""
     rng = np.random.default_rng(seed)
     r, k, v = (rng.standard_normal((b, s, h, kk), dtype=np.float32)
                for _ in range(3))
-    w = -np.exp(rng.standard_normal((b, s, h, kk), dtype=np.float32)) \
+    w = -np.exp(rng.standard_normal((b, s, h, kk), dtype=np.float32)
+                + np.float32(logw_mean)) \
         if logw is None else np.full((b, s, h, kk), logw, np.float32)
     u = 0.5 * rng.standard_normal((h, kk), dtype=np.float32)
     s0 = s0_scale * rng.standard_normal((b, h, kk, kk), dtype=np.float32)
@@ -314,6 +316,63 @@ class TestRwkv6Wkv:
         out, st = twkv.rwkv6_wkv(*x)
         assert out.shape == (2, s, 2, 64)
         _close_pair((out, st), [a.numpy() for a in tref.rwkv6_wkv_ref(*x)])
+
+    # the CUDA kernel's split (a sequential state pass, then every chunk's
+    # outputs from its chunk-start state) across the decay regimes, a
+    # ragged S, state0 zero or not, and chunks of 32 and 64
+    TWO_PASS_CASES = {
+        "default": dict(b=2, s=64, h=2, chunk=32),
+        "chunk64": dict(b=1, s=128, h=3, chunk=64),
+        "long_memory": dict(b=2, s=96, h=2, chunk=32, logw_mean=-4.0),
+        "extreme_decay": dict(b=1, s=64, h=2, chunk=32, logw=-50.0),
+        "ragged": dict(b=2, s=45, h=2, chunk=32),
+        "ragged_chunk64": dict(b=1, s=77, h=2, chunk=64, logw_mean=-4.0),
+        "zero_state0": dict(b=1, s=64, h=2, chunk=64, s0_scale=0.0),
+    }
+
+    @staticmethod
+    def _two_pass_inputs(case):
+        kw = dict(TestRwkv6Wkv.TWO_PASS_CASES[case])
+        b, s, h, chunk = (kw.pop(n) for n in ("b", "s", "h", "chunk"))
+        return _wkv_inputs(sum(map(ord, case)), b, s, h, **kw), chunk
+
+    @pytest.mark.parametrize("case", sorted(TWO_PASS_CASES))
+    def test_two_pass_matches_jax(self, case):
+        x, chunk = self._two_pass_inputs(case)
+        port = tref.rwkv6_wkv_two_pass_ref(*map(torch.from_numpy, x),
+                                           chunk=chunk)
+        _close_pair(port, jrwkv.wkv_recurrent(*map(jnp.asarray, x)))
+        if x[0].shape[1] % chunk == 0:
+            _close_pair(port, jrwkv.wkv_chunked(*map(jnp.asarray, x),
+                                                chunk=chunk))
+        plain = tref.rwkv6_wkv_chunked_ref(*map(torch.from_numpy, x),
+                                           chunk=chunk)
+        _close_pair(port, [a.numpy() for a in plain])
+        assert all(torch.isfinite(a).all() for a in port)
+
+    @pytest.mark.parametrize("case", sorted(TWO_PASS_CASES))
+    def test_two_pass_chunk_starts_are_the_recurrence_states(self, case):
+        (r, k, v, w, u, s0), chunk = self._two_pass_inputs(case)
+        starts, final = tref.wkv_chunk_states_ref(
+            *map(torch.from_numpy, (k, v, w, s0)), chunk=chunk)
+        n_chunks = -(-r.shape[1] // chunk)
+        assert starts.shape == (r.shape[0], r.shape[2], n_chunks, 64, 64)
+        np.testing.assert_array_equal(starts[:, :, 0].numpy(), s0)
+        for c in range(1, n_chunks):
+            t = c * chunk
+            _, want = jrwkv.wkv_recurrent(*(jnp.asarray(a[:, :t])
+                                            for a in (r, k, v, w)),
+                                          jnp.asarray(u), jnp.asarray(s0))
+            np.testing.assert_allclose(starts[:, :, c].numpy(),
+                                       np.asarray(want), **WKV_TOL)
+        _, want = jrwkv.wkv_recurrent(*map(jnp.asarray, (r, k, v, w, u, s0)))
+        np.testing.assert_allclose(final.numpy(), np.asarray(want),
+                                   **WKV_TOL)
+
+    @pytest.mark.parametrize("b,s,h,chunks", [(1, 32768, 32, 1024),
+                                              (2, 45, 3, 2), (1, 1, 1, 1)])
+    def test_scratch_holds_one_state_per_chunk(self, b, s, h, chunks):
+        assert twkv.scratch_shape(b, s, h) == (b, h, chunks, 64, 64)
 
     def test_bf16_u_is_taken_to_f32(self):
         r, k, v, w, u, s0 = map(torch.from_numpy, _wkv_inputs(4, 1, 32, 2))
@@ -417,13 +476,14 @@ class TestDispatch:
         # the C signatures: (table, idx, w, tid, out, n_bags, hot, s, rows,
         # n_tables, stream), (z, out, batch, f, s, stream), (q, k, v, out,
         # dtype, b, s, t, h, kh, hd, causal, window, scale, softcap, stream)
-        # and (r, k, v, logw, u, state0, out, state, b, s, h, stream)
+        # and (r, k, v, logw, u, state0, out, state, scratch, b, s, h,
+        # passes, stream)
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         f = ctypes.c_float
         assert teb.POOL.argtypes == [p] * 5 + [i64, i, i, i64, i, p]
         assert tdot.DOT.argtypes == [p, p, i, i, i, p]
         assert tfa.FLASH.argtypes == [p] * 4 + [i] * 9 + [f, f, p]
-        assert twkv.WKV.argtypes == [p] * 8 + [i] * 3 + [p]
+        assert twkv.WKV.argtypes == [p] * 9 + [i] * 4 + [p]
         for k in ops.kernels().values():
             src = (_build.CSRC / k.source).read_text()
             assert f'extern "C" int {k.symbol}(' in src
@@ -444,6 +504,15 @@ class TestBuild:
         assert "rwkv6_wkv.cu" in _build.SOURCES
         for src in _build.SOURCES:
             assert (_build.CSRC / src).is_file()
+
+    def test_tensor_maps_need_no_driver_library(self):
+        # the TMA kernels fetch cuTensorMapEncodeTiled through the runtime,
+        # so the libraries link against the runtime alone
+        assert "-lcuda" not in _build.NVCC_FLAGS
+        for src in ("flash_attention.cu", "rwkv6_wkv.cu"):
+            text = (_build.CSRC / src).read_text()
+            assert "cuTensorMapEncodeTiled" in text
+            assert "cudaGetDriverEntryPoint" in text
 
     def test_missing_nvcc_raises(self, monkeypatch, tmp_path):
         monkeypatch.setenv("PATH", str(tmp_path))
