@@ -15,15 +15,23 @@ Phases, each on lines of its own:
      spill;
   3. the DLRM kernels held against their plain PyTorch versions at full
      ``dlrm-kaggle`` width (rtol = atol = 1e-5: the summation order
-     differs), two runs of each bit-identical, and each one's time beside
-     the plain version's, a library call's and the least time the card
-     could take;
-  4. full-width ``dlrm-kaggle`` serving of 4 x 512 hetero requests through
+     differs), two runs of each bit-identical and each bit-identical to
+     the CPU model of its summation order, at the served microbatch (128
+     samples a launch: ``stacked_hot100_mb128``, ``dot_interaction/mb128``)
+     and at 512 samples a call; each one's time beside the plain version's,
+     a library call's and the least time the card could take, each bag's
+     all-slot read rate and the interaction's launch floor (an empty kernel
+     on its grid);
+  4. the bag and interaction kernels on their edge cases (ids and table ids
+     out of range, all-masked bags, a NaN row under weight 0, every vector
+     width and lane count, bags split over groups, F 2 and 27, S 4, 6, 64,
+     small-integer inputs bit-exact);
+  5. full-width ``dlrm-kaggle`` serving of 4 x 512 hetero requests through
      ``DLRMEngine(bound=2, microbatches=4)`` on a one-rank NCCL group: the
      CTRs finite, in (0, 1), bit-identical to ``bound=0`` and within
-     1e-5 of the plain-PyTorch forward, and every DLRM kernel launched by
-     it;
-  5. the flash-attention kernel held against its plain version in bf16
+     1e-5 of the plain-PyTorch forward, and both DLRM kernels launched at
+     the served microbatch shape once per microbatch;
+  6. the flash-attention kernel held against its plain version in bf16
      (rtol 1e-2, atol 5e-3, and the relative Frobenius error under 5e-3:
      the plain version computes in f32 on the same bf16 inputs) at the
      served gemma2-9b local and global layers and at qwen3-14b's heads
@@ -32,17 +40,17 @@ Phases, each on lines of its own:
      as in 3, the qwen3 row beside scaled_dot_product_attention; the plain
      version without the softcap, and without the window, must fail the
      same check;
-  6. gemma2-9b at full width in f32, depth cut to 4 layers: prefill of
+  7. gemma2-9b at full width in f32, depth cut to 4 layers: prefill of
      2 x 4608 tokens through the kernel held against the plain attention,
      and one decode step from each prefill's cache (rtol = atol = 1e-4);
-  7. full gemma2-9b (42 layers, bf16) served by ``LMEngine``: first the
-     kernel held against its plain version, as in 5, on the q, k and v the
+  8. full gemma2-9b (42 layers, bf16) served by ``LMEngine``: first the
+     kernel held against its plain version, as in 6, on the q, k and v the
      served model gives its first local and first global layer for the
      prompts; then 2 prompts of 4608 tokens, 16 greedy tokens, twice;
      tokens in range and identical across the runs, the prefill's logits
      finite, the flash kernel launched 42 times per prefill (21 local,
      21 global); prefill and decode times;
-  8. after freeing gemma2-9b, the RWKV-6 WKV kernel held against its plain
+  9. after freeing gemma2-9b, the RWKV-6 WKV kernel held against its plain
      (chunked) version in f32 at the served rwkv6-1.6b prefill (B 1,
      S 32768, H 32, K = V = 64) and at B 8 x S 4096, with a nonzero
      state0, plus a long-memory and an extreme (logw = -50) decay: out and
@@ -51,7 +59,7 @@ Phases, each on lines of its own:
      u bonus, and with state0 ignored, must fail that check; timed as in 3,
      and its state pass and output pass timed alone, with the bytes of the
      chunk-start-state scratch;
-  9. full-width rwkv6-1.6b in f32 on 4096 tokens, first at 4 layers: the
+ 10. full-width rwkv6-1.6b in f32 on 4096 tokens, first at 4 layers: the
      forward's logits and every layer's state through the kernel held
      against the plain WKV (rtol = atol = 1e-4), and 128 tokens decoded one
      at a time held against the forward's logits (atol 2e-3, the
@@ -60,11 +68,11 @@ Phases, each on lines of its own:
      path's logits and states within a relative Frobenius error of 1e-3 of
      the plain path's, and its logits within a quarter of the plain
      forward's own distance from decode;
- 10. full rwkv6-1.6b in bf16: ``make_prefill_step`` on a 32768-token
+ 11. full rwkv6-1.6b in bf16: ``make_prefill_step`` on a 32768-token
      prompt (finite logits, the WKV kernel launched 24 times), a profile of
      one prefill, and ``LMEngine`` on 2 prompts of 64 tokens, 16 greedy
      tokens, twice, identical;
- 11. one JSON line of kernel numbers, the card's name and power limit, and
+ 12. one JSON line of kernel numbers, the card's name and power limit, and
      last ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or with any phase failing, it exits non-zero and
 prints no result.
@@ -95,6 +103,12 @@ F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 BATCH = 512
 N_BATCHES = 4
+# DLRMEngine(batch_size=512, microbatches=4) pools and interacts 128 samples
+# a launch: the served shape of both DLRM kernels
+SERVED_MB = BATCH // 4
+# the kernel rows at that shape: each must count one launch per microbatch
+SERVED_ROWS = ("embedding_bag_pool/stacked_hot100_mb128",
+               "dot_interaction/mb128")
 PACKED_ROWS = 4096
 # the kernels of the DLRM serving path (flash attention is the LM path's)
 DLRM_KERNELS = ("embedding_bag_pool", "dot_interaction")
@@ -230,20 +244,25 @@ def check_kernel(name, replaces, source, kernel_fn, plain_fn, library_fn,
 
 KERNEL_NAMES = re.compile(r"(flash_wgmma|flash_bf16|flash_f32|"
                           r"wkv_state_pass|wkv_output_pass|bag_pool_f32|"
-                          r"dot_interaction_f32)(?:ILi(\d+)E)?")
+                          r"dot_interaction_f32|"
+                          r"dot_interaction_empty_kernel)((?:I?Li\d+E)*)")
 # the wgmma flash body keeps its 128 (hd 256) accumulator registers only
-# if nothing spills: its report must show no stack and no spill stores
-NO_SPILL = ("flash_wgmma",)
+# if nothing spills, and the bag keeps two batches of rows in flight in
+# registers: their reports must show no stack and no spill stores
+NO_SPILL = ("flash_wgmma", "bag_pool_f32")
 
 
 def ptxas_report(text: str) -> list:
-    """(kernel, template argument, ptxas "Used ..." line, stack bytes,
-    spill-store bytes) for every function in an nvcc -Xptxas -v log."""
+    """(kernel, template arguments ("4,8") or None, ptxas "Used ..." line,
+    stack bytes, spill-store bytes) for every function in an nvcc -Xptxas
+    -v log."""
     out, name, arg, spill = [], None, None, 0
     for line in text.splitlines():
         if "Function properties for" in line:
             m = KERNEL_NAMES.search(line.split("Function properties for")[1])
-            name, arg = (m.group(1), m.group(2)) if m else ("?", None)
+            name, arg = ((m.group(1), ",".join(re.findall(r"Li(\d+)E",
+                                                         m.group(2)))
+                          or None) if m else ("?", None))
             spill = 0
         elif "spill stores" in line:
             spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
@@ -258,8 +277,8 @@ def ptxas_report(text: str) -> list:
 def build_report(logs: dict) -> None:
     """One [build] line per kernel built: registers and stack/spill bytes
     from ptxas, the dynamic shared memory of the wgmma flash body and the
-    two WKV passes, and the flash tiling; fails if the wgmma body
-    spills."""
+    two WKV passes, and the flash tiling; fails if the wgmma body or the
+    bag spills."""
     from repro_torch.kernels import _build
 
     for src, text in logs.items():
@@ -289,12 +308,53 @@ def bag_bytes(gid, n_out, s) -> int:
     return rows * s * 4 + 2 * gid.numel() * 4 + n_out * s * 4
 
 
+def hold_bag_model(name, out, table_flat, ids, w, *, rows, n_tables,
+                   tid=None, rows_form=False):
+    """Fail unless the kernel's output equals, bit for bit, the CPU model
+    of its summation order (``ref.embedding_bag_split_ref``) run on the
+    card with the groups per bag the launcher planned; returns the plan."""
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import ref
+
+    n, hot = ids.shape
+    plan = eb.launch_plan(n, hot, table_flat.shape[1], n_tables,
+                          rows_form=rows_form)
+    model = ref.embedding_bag_split_ref(table_flat, ids, w, rows=rows,
+                                        n_tables=n_tables, tid=tid,
+                                        groups=plan["groups"])
+    if not torch.equal(torch.isnan(out), torch.isnan(model)) or not \
+            torch.equal(out.nan_to_num(), model.nan_to_num()):
+        raise AssertionError(f"{name}: kernel differs from its summation "
+                             f"model (plan {plan})")
+    return plan
+
+
+def hold_dot_model(name, out, z):
+    """Fail unless the interaction equals, bit for bit, the CPU model of
+    its summation order (``ref.dot_interaction_split_ref``, fused
+    multiply-adds included) run on the card with the launcher's KP; returns
+    KP."""
+    from repro_torch.kernels import dot_interaction as di
+    from repro_torch.kernels import ref
+
+    _, f, s = z.shape
+    kp = di.kparts(f, s)
+    if not torch.equal(out, ref.dot_interaction_split_ref(z, kp)):
+        raise AssertionError(f"{name}: kernel differs from its summation "
+                             f"model (KP {kp})")
+    return kp
+
+
 def kernel_phase(params, cfg, dev, flush):
     """Phase 3: each kernel against its plain version at the main path's
-    shapes.  ``flush`` evicts L2 before each timed bag call (served bags
-    read random rows of a 7 GB stack); the interaction is timed warm, as
-    its input was written just before it on the serving path."""
+    shapes: the served microbatch (128 samples, what ``DLRMEngine`` with 4
+    microbatches of 512 launches) and, for continuity, 512 samples a call.
+    ``flush`` evicts L2 before each timed bag call (served bags read random
+    rows of a 7 GB stack); the interaction is timed warm, as its input was
+    written just before it on the serving path.  Returns (row, launch key)
+    pairs."""
     from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels import _build
     from repro_torch.kernels import dot_interaction as di
     from repro_torch.kernels import embedding_bag as eb
     from repro_torch.kernels import ref
@@ -306,69 +366,197 @@ def kernel_phase(params, cfg, dev, flush):
     t, r, s = tables.shape
     flat = tables.reshape(t * r, s)
     rows = []
-    for mode, replaces, label in (("uniform", f"{eb_py}:867", "hot1"),
-                                  ("hetero", f"{eb_py}:619", "hot100")):
-        b = make_batch(cfg, BATCH, mode=mode, seed=SEED)
-        idx = torch.from_numpy(b.idx).to(dev)
-        mask = torch.from_numpy(b.mask).to(dev)
+
+    def bag_row(name, replaces, kernel_fn, plain_fn, library_fn, gid, ids,
+                w, n_out, key, *, tid=None, table=flat, n_tables=t,
+                extra_bytes=0):
+        row = check_kernel(name, replaces, bag_src, kernel_fn, plain_fn,
+                           library_fn,
+                           n_bytes=bag_bytes(gid, n_out, s) + extra_bytes,
+                           flops=2 * gid.numel() * s, flush=flush)
+        plan = hold_bag_model(name, kernel_fn().reshape(n_out, s), table,
+                              ids, w, rows=r, n_tables=n_tables, tid=tid,
+                              rows_form=tid is not None)
+        slot_bytes = gid.numel() * s * 4
+        log(f"[kernel] {name}: bit-identical to its summation model; plan "
+            f"{plan}; all-slot bytes {slot_bytes / 1e6:.1f} MB, "
+            f"{slot_bytes / row['ms'] / 1e9:.3f} TB/s all-slot rate")
+        rows.append((row, key))
+
+    for mode, replaces, label, b in (
+            ("uniform", f"{eb_py}:867", "hot1", BATCH),
+            ("hetero", f"{eb_py}:619", "hot100", BATCH),
+            ("hetero", f"{eb_py}:619", "hot100_mb128", SERVED_MB)):
+        batch = make_batch(cfg, BATCH, mode=mode, seed=SEED)
+        idx = torch.from_numpy(batch.idx[:b]).to(dev).contiguous()
+        mask = torch.from_numpy(batch.mask[:b]).to(dev).contiguous()
         hot = idx.shape[2]
         gid = (torch.arange(t, device=dev)[None, :, None] * r
-               + idx.long().clamp(0, r - 1)).reshape(BATCH * t, hot)
-        w = mask.reshape(BATCH * t, hot)
-        rows.append(check_kernel(
-            f"embedding_bag_pool/stacked_{label}", replaces, bag_src,
-            lambda: eb.embedding_bag_stacked(tables, idx, mask),
-            lambda: ref.embedding_bag_stacked_ref(tables, idx, mask),
-            lambda: F.embedding_bag(gid, flat, mode="sum",
-                                    per_sample_weights=w)
-            .reshape(BATCH, t, s),
-            n_bytes=bag_bytes(gid, BATCH * t, s),
-            flops=2 * gid.numel() * s, flush=flush))
+               + idx.long().clamp(0, r - 1)).reshape(b * t, hot)
+        w = mask.reshape(b * t, hot)
+        bag_row(f"embedding_bag_pool/stacked_{label}", replaces,
+                lambda idx=idx, mask=mask: eb.embedding_bag_stacked(
+                    tables, idx, mask),
+                lambda idx=idx, mask=mask: ref.embedding_bag_stacked_ref(
+                    tables, idx, mask),
+                lambda gid=gid, w=w, b=b: F.embedding_bag(
+                    gid, flat, mode="sum", per_sample_weights=w)
+                .reshape(b, t, s),
+                gid, idx.reshape(b * t, hot), w, b * t,
+                eb.launch_key(b * t, hot, s, t))
+        if label == "hot100":
+            hetero_idx, hetero_mask = idx, mask
 
     # the rows form on a packed set of (sample, table) rows of the hetero
     # batch, and the single-table form on the largest table
+    idx, mask = hetero_idx, hetero_mask
+    hot = idx.shape[2]
     pick = torch.from_numpy(np.random.default_rng(SEED).choice(
         BATCH * t, PACKED_ROWS, replace=False)).to(dev)
     tid = (pick % t).to(torch.int32)
     idx_r = idx.reshape(BATCH * t, hot)[pick]
     mask_r = mask.reshape(BATCH * t, hot)[pick]
     gid_r = tid.long()[:, None] * r + idx_r.long().clamp(0, r - 1)
-    rows.append(check_kernel(
-        "embedding_bag_pool/rows", f"{eb_py}:619", bag_src,
-        lambda: eb.embedding_bag_rows(tables, tid, idx_r, mask_r),
-        lambda: ref.embedding_bag_rows_ref(tables, tid, idx_r, mask_r),
-        lambda: F.embedding_bag(gid_r, flat, mode="sum",
-                                per_sample_weights=mask_r),
-        n_bytes=bag_bytes(gid_r, PACKED_ROWS, s) + PACKED_ROWS * 4,
-        flops=2 * gid_r.numel() * s, flush=flush))
+    bag_row("embedding_bag_pool/rows", f"{eb_py}:619",
+            lambda: eb.embedding_bag_rows(tables, tid, idx_r, mask_r),
+            lambda: ref.embedding_bag_rows_ref(tables, tid, idx_r, mask_r),
+            lambda: F.embedding_bag(gid_r, flat, mode="sum",
+                                    per_sample_weights=mask_r),
+            gid_r, idx_r, mask_r, PACKED_ROWS,
+            eb.launch_key(PACKED_ROWS, hot, s, t, True), tid=tid,
+            extra_bytes=PACKED_ROWS * 4)
     big = int(np.argmax(cfg.table_sizes))
     table = tables[big]
     idx_1 = idx[:, big].contiguous()
     mask_1 = mask[:, big].contiguous()
     gid_1 = idx_1.long().clamp(0, r - 1)
-    rows.append(check_kernel(
-        "embedding_bag_pool/single", f"{eb_py}:742", bag_src,
-        lambda: eb.embedding_bag(table, idx_1, mask_1),
-        lambda: ref.embedding_bag_ref(table, idx_1, mask_1),
-        lambda: F.embedding_bag(gid_1, table, mode="sum",
-                                per_sample_weights=mask_1),
-        n_bytes=bag_bytes(gid_1, BATCH, s), flops=2 * gid_1.numel() * s,
-        flush=flush))
+    bag_row("embedding_bag_pool/single", f"{eb_py}:742",
+            lambda: eb.embedding_bag(table, idx_1, mask_1),
+            lambda: ref.embedding_bag_ref(table, idx_1, mask_1),
+            lambda: F.embedding_bag(gid_1, table, mode="sum",
+                                    per_sample_weights=mask_1),
+            gid_1, idx_1, mask_1, BATCH, eb.launch_key(BATCH, hot, s, 1),
+            table=table, n_tables=1)
 
     f = cfg.n_tables + 1
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    z = torch.randn((BATCH, f, s), generator=gen, device=dev)
     ii, jj = torch.tril_indices(f, f, -1, device=dev)
     n_out = f * (f - 1) // 2
-    rows.append(check_kernel(
-        "dot_interaction", "src/repro/kernels/dot_interaction.py:52",
-        dot_src, lambda: di.dot_interaction(z),
-        lambda: ref.dot_interaction_ref(z),
-        lambda: torch.bmm(z, z.transpose(1, 2))[:, ii, jj],
-        n_bytes=(BATCH * f * s + BATCH * n_out) * 4,
-        flops=2 * BATCH * n_out * s, flush=None))
+    empty = _build.library("dot_interaction.cu").dot_interaction_empty
+    empty.argtypes, empty.restype = [ctypes.c_int, ctypes.c_void_p], \
+        ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, b in (("dot_interaction", BATCH),
+                    ("dot_interaction/mb128", SERVED_MB)):
+        z = torch.randn((b, f, s), generator=gen, device=dev)
+        row = check_kernel(
+            name, "src/repro/kernels/dot_interaction.py:52", dot_src,
+            lambda z=z: di.dot_interaction(z),
+            lambda z=z: ref.dot_interaction_ref(z),
+            lambda z=z: torch.bmm(z, z.transpose(1, 2))[:, ii, jj],
+            n_bytes=(b * f * s + b * n_out) * 4,
+            flops=2 * b * n_out * s, flush=None)
+        kp = hold_dot_model(name, di.dot_interaction(z), z)
+        floor = time_ms(lambda b=b: empty(b, stream))
+        log(f"[kernel] {name}: bit-identical to its summation model (KP "
+            f"{kp}); an empty kernel on the same grid ({b} blocks) takes "
+            f"{floor:.4f} ms in this harness (the launch-and-ramp floor); "
+            f"the kernel {row['ms'] - floor:.4f} ms above it")
+        rows.append((row, di.launch_key(b, f, s)))
     return rows
+
+
+def dlrm_edge_phase(dev) -> None:
+    """Phase 4: the bag and interaction kernels on their edge cases, on
+    small seeded tables: ids -7 and R + 10^4 clamp; a table id out of range
+    clamps in the rows form; an all-masked bag is exactly 0; a NaN row
+    under weight 0 gives NaN in that bag, as the plain version does; hot in
+    {1, 7, 100, 300} (300: split over groups, ids staged in two chunks at
+    s 16) and s in {5, 6, 16, 64, 128} (every vector width, every lane
+    count); stacked (table-major), rows and single-table forms.  Each is
+    held against the plain version at 1e-5 and bit for bit against its
+    summation model.  The interaction at F in {2, 27} x S in {4, 6, 64}:
+    seeded normals at 1e-5 (and, at S 4 and 64, bit for bit against its
+    summation model), small integers (exact dots) bit for bit."""
+    from repro_torch.kernels import dot_interaction as di
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    t, r, b = 5, 300, 24
+    cases = 0
+    for s in (5, 6, 16, 64, 128):
+        for hot in (1, 7, 100, 300):
+            tables = torch.randn((t, r, s), generator=gen, device=dev)
+            tables[2, 11] = float("nan")
+            idx = torch.randint(0, r, (b, t, hot), generator=gen,
+                                device=dev, dtype=torch.int32)
+            mask = (torch.rand((b, t, hot), generator=gen, device=dev)
+                    < 0.5).float()
+            # row 11 of table 2 is NaN: only the one weight-0 slot names it
+            idx[:, 2][idx[:, 2] == 11] = 12
+            idx[:, :, 0] = -7
+            if hot > 1:
+                idx[:, :, 1] = r + 10_000
+            mask[3] = 0.0                      # sample 3: every bag empty
+            idx[5, 2, hot - 1], mask[5, 2, hot - 1] = 11, 0.0  # NaN row, w 0
+            out = eb.embedding_bag_stacked(tables, idx, mask)
+            plain = ref.embedding_bag_stacked_ref(tables, idx, mask)
+            torch.cuda.synchronize()
+            label = f"s {s} hot {hot}"
+            torch.testing.assert_close(out, plain, equal_nan=True, **TOL)
+            if not torch.equal(out[3], torch.zeros_like(out[3])):
+                raise AssertionError(f"bag edge {label}: all-masked bags "
+                                     "are not exactly 0")
+            if not (torch.isnan(out[5, 2]).all()
+                    and torch.isnan(plain[5, 2]).all()):
+                raise AssertionError(f"bag edge {label}: NaN row under "
+                                     "weight 0 did not give NaN")
+            flat = tables.reshape(t * r, s)
+            hold_bag_model(f"bag edge {label}", out.reshape(b * t, s), flat,
+                           idx.reshape(b * t, hot), mask.reshape(b * t, hot),
+                           rows=r, n_tables=t)
+            tid = torch.randint(-2, t + 3, (b,), generator=gen, device=dev,
+                                dtype=torch.int32)
+            tid[0], tid[1] = -1, t + 7
+            ridx, rmask = idx[:, 0].contiguous(), mask[:, 1].contiguous()
+            out_r = eb.embedding_bag_rows(tables, tid, ridx, rmask)
+            torch.testing.assert_close(
+                out_r, ref.embedding_bag_rows_ref(tables, tid, ridx, rmask),
+                equal_nan=True, **TOL)
+            hold_bag_model(f"bag edge rows {label}", out_r, flat, ridx,
+                           rmask, rows=r, n_tables=t, tid=tid,
+                           rows_form=True)
+            out_1 = eb.embedding_bag(tables[1], ridx, rmask)
+            torch.testing.assert_close(
+                out_1, ref.embedding_bag_ref(tables[1], ridx, rmask),
+                equal_nan=True, **TOL)
+            hold_bag_model(f"bag edge single {label}", out_1, tables[1],
+                           ridx, rmask, rows=r, n_tables=1)
+            cases += 1
+    log(f"[edge] bag: {cases} (s, hot) cases x stacked, rows and single "
+        f"forms: ids -7 and R + 10^4 clamp, table ids -1 and T + 7 clamp, "
+        f"all-masked bags exactly 0, a NaN row under weight 0 NaN as in the "
+        f"plain version; within 1e-5 of the plain version and bit-identical "
+        f"to the summation model")
+    for f in (2, 27):
+        for s in (4, 6, 64):
+            z = torch.randn((SERVED_MB, f, s), generator=gen, device=dev)
+            out = di.dot_interaction(z)
+            torch.testing.assert_close(out, ref.dot_interaction_ref(z), **TOL)
+            if s % 4 == 0:
+                hold_dot_model(f"interaction edge F {f} S {s}", out, z)
+            zi = torch.randint(-3, 4, (SERVED_MB, f, s), generator=gen,
+                               device=dev).float()
+            if not torch.equal(di.dot_interaction(zi),
+                               ref.dot_interaction_ref(zi)):
+                raise AssertionError(f"interaction F {f} S {s}: small "
+                                     "integers not bit-exact")
+    log("[edge] interaction: F in {2, 27} x S in {4, 6, 64} at B 128 within "
+        "1e-5 of the plain version, bit-identical to the summation model at "
+        "S 4 and 64, small-integer inputs bit-exact")
 
 
 def serve(params, cfg, batch, bound, dev):
@@ -422,8 +610,9 @@ def profile_flush(params, cfg, batch, dev):
 
 
 def serve_phase(params, cfg, dev, backend, card):
-    """Phase 4: serve full-width hetero traffic through the BLS engine on a
-    one-rank process group; returns each kernel's launches on that run."""
+    """Phase 5: serve full-width hetero traffic through the BLS engine on a
+    one-rank process group; returns each DLRM kernel's launches on that run
+    by launch key (shape)."""
     from repro_torch.data.synthetic import make_batch
     from repro_torch.kernels import ops
     from repro_torch.launch import mesh
@@ -441,11 +630,13 @@ def serve_phase(params, cfg, dev, backend, card):
         ops.reset_launches()
         ctr, eng = serve(params, cfg, batch, 2, dev)
         launches = {k: ops.kernels()[k].launches for k in DLRM_KERNELS}
+        by_key = {k: dict(ops.kernels()[k].by_key) for k in DLRM_KERNELS}
         ctr0, eng0 = serve(params, cfg, batch, 0, dev)
         profile_flush(params, cfg, warm, dev)
     finally:
         mesh.destroy_model_group()
-    log(f"[serve] launches on the bound=2 run: {launches}")
+    log(f"[serve] launches on the bound=2 run: {launches}; by shape "
+        f"{by_key}")
     if ctr.shape != (N_BATCHES * BATCH,):
         raise AssertionError(f"CTR shape {ctr.shape}")
     if not (np.isfinite(ctr).all() and (ctr > 0).all() and (ctr < 1).all()):
@@ -469,7 +660,7 @@ def serve_phase(params, cfg, dev, backend, card):
         log(f"[serve] bound={k} ServeStats {json.dumps(e.stats.to_dict())} "
             f"flush p50_ms={e.monitor.percentile(0.5) * 1e3:.3f} "
             f"p99_ms={e.monitor.percentile(0.99) * 1e3:.3f} card={card!r}")
-    return launches
+    return by_key
 
 
 def admitted_pairs(s: int, window: int) -> int:
@@ -479,7 +670,7 @@ def admitted_pairs(s: int, window: int) -> int:
 
 
 def flash_phase(dev):
-    """Phase 5: the flash kernel against its plain version at the served
+    """Phase 6: the flash kernel against its plain version at the served
     layer shapes, in bf16, timed warm (q, k, v are written just before it
     on the prefill path).  Returns (row, launch key) pairs."""
     from repro_torch.configs.gemma2_9b import CONFIG as GEMMA
@@ -553,7 +744,7 @@ def lm_prompts(vocab: int) -> np.ndarray:
 
 
 def lm_parity_phase(dev):
-    """Phase 6: full-width gemma2-9b in f32, depth cut to 4 layers (one
+    """Phase 7: full-width gemma2-9b in f32, depth cut to 4 layers (one
     local and one global group): prefill through the kernel against the
     plain attention, and one (plain) decode step from each one's cache."""
     from repro_torch.configs.gemma2_9b import CONFIG as GEMMA
@@ -619,7 +810,7 @@ def profile_device(label, fn, top: int = 8, tag: str = "lm-profile"):
 def served_layers_check(params, cfg, toks):
     """The kernel against its plain version on the q, k and v the served
     model computes for the prompts at its first local and first global
-    layer (group 0 of each sublayer), at the tolerance of phase 5."""
+    layer (group 0 of each sublayer), at the tolerance of phase 6."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.models import attention as A
@@ -650,7 +841,7 @@ def served_layers_check(params, cfg, toks):
 
 
 def lm_serve_phase(dev, card):
-    """Phase 7: full gemma2-9b served by LMEngine; returns each kernel's
+    """Phase 8: full gemma2-9b served by LMEngine; returns each kernel's
     launches on one generate run, and the flash kernel's by launch key."""
     from repro_torch.configs.gemma2_9b import CONFIG as GEMMA
     from repro_torch.kernels import flash_attention as fa
@@ -765,7 +956,7 @@ def hold_wkv(name, got, plain):
 
 
 def wkv_phase(dev):
-    """Phase 8: the WKV kernel against its plain chunked version at the
+    """Phase 9: the WKV kernel against its plain chunked version at the
     served prefill shape and at B 8 x S 4096, timed warm (r, k, v and logw
     are written just before it on the prefill path); the plain version at
     S 32768 walks 1,024 chunks from Python, so it is timed over 3 runs.
@@ -869,7 +1060,7 @@ def rwkv_prompt(vocab: int, b: int, s: int, seed: int = SEED) -> np.ndarray:
 
 
 def rwkv_parity_phase(dev):
-    """Phase 9: full-width rwkv6-1.6b in f32 (6.3 GB of weights) on 4096
+    """Phase 10: full-width rwkv6-1.6b in f32 (6.3 GB of weights) on 4096
     tokens.  f32 rounding differences grow layer by layer through this
     random model, whichever exact WKV evaluator makes them, so
     the 1e-4 checks run on the first RWKV_PARITY_LAYERS layers (kernel vs
@@ -952,7 +1143,7 @@ def device_split(by_name) -> dict:
 
 
 def rwkv_serve_phase(dev, card):
-    """Phase 10: full rwkv6-1.6b in bf16: prefill steps of one 32768-token
+    """Phase 11: full rwkv6-1.6b in bf16: prefill steps of one 32768-token
     prompt, then LMEngine; returns the WKV kernel's launches by key on one
     served prefill."""
     from repro_torch.configs.rwkv6_1_6b import CONFIG as RWKV
@@ -1091,11 +1282,27 @@ def main() -> int:
 
     l2 = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     with torch.no_grad():
-        rows = kernel_phase(params, CONFIG, dev, l2.zero_)
+        dlrm_rows = kernel_phase(params, CONFIG, dev, l2.zero_)
         del l2
-        launches = serve_phase(params, CONFIG, dev, "nccl", card)
-        for row in rows:
-            row["launches"] = launches[row["name"].split("/")[0]]
+        dlrm_edge_phase(dev)
+        dlrm_by_key = serve_phase(params, CONFIG, dev, "nccl", card)
+        # each DLRM row takes the served launches of its own shape: the
+        # served path pools and interacts 128 samples a launch, once per
+        # microbatch, so the two served rows must read N_BATCHES x 4 and
+        # the 512-sample rows, the rows form and the single table read 0
+        rows = []
+        for row, key in dlrm_rows:
+            row["launches"] = dlrm_by_key[row["name"].split("/")[0]].get(
+                key, 0)
+            rows.append(row)
+        served = {row["name"]: row["launches"] for row, _ in dlrm_rows
+                  if row["name"] in SERVED_ROWS}
+        if served != dict.fromkeys(SERVED_ROWS, N_BATCHES * BATCH
+                                   // SERVED_MB):
+            raise AssertionError(f"served-shape rows read {served} launches "
+                                 f"on the served run, not {N_BATCHES} "
+                                 f"batches x {BATCH // SERVED_MB} "
+                                 f"microbatches each")
         # the LM phases need the card's memory: drop the 7.33 GB stack
         del params
         torch.cuda.empty_cache()

@@ -19,13 +19,39 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import _build, ref
 from repro_torch.kernels._build import Kernel
 
 POOL = Kernel("embedding_bag.cu", "embedding_bag_pool_f32",
               [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int,
                                        ctypes.c_int, ctypes.c_int64,
                                        ctypes.c_int, ctypes.c_void_p])
+
+
+def launch_key(n_bags: int, hot: int, s: int, n_tables: int,
+               rows_form: bool = False) -> tuple:
+    """What ``POOL.by_key`` counts a launch under: its bags, slots per bag,
+    width, tables and whether it is the rows form."""
+    return (n_bags, hot, s, n_tables, rows_form)
+
+
+def launch_plan(n_bags: int, hot: int, s: int, n_tables: int, *,
+                rows_form: bool = False) -> dict:
+    """The plan the CUDA launcher picks for a call of these shapes on the
+    current card (it reads the card's SM count, so it needs one): lanes
+    per row, groups per bag (``ref.embedding_bag_split_ref``'s
+    ``groups``), whether the schedule is table-major, blocks and bytes of
+    dynamic shared memory."""
+    fn = _build.library("embedding_bag.cu").embedding_bag_plan
+    fn.argtypes = [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int64 * 5)()
+    err = fn(n_bags, hot, s, n_tables, int(rows_form), out)
+    if err:
+        raise RuntimeError(f"embedding_bag_plan: CUDA error {err}")
+    return dict(zip(("lanes", "groups", "table_major", "blocks", "smem"),
+                    map(int, out)))
 
 
 def resolve_row_block(row_block: int) -> int:
@@ -101,7 +127,8 @@ def pool_rows(table_flat, idx, w, *, rows: int, n_tables: int, tid=None):
         POOL(table_flat.data_ptr(), idx.data_ptr(), w.data_ptr(),
              None if tid is None else tid.data_ptr(), out.data_ptr(),
              n, hot, s, rows, n_tables,
-             torch.cuda.current_stream(dev).cuda_stream)
+             torch.cuda.current_stream(dev).cuda_stream,
+             key=launch_key(n, hot, s, n_tables, tid is not None))
     return out
 
 
@@ -130,7 +157,8 @@ def _no_plan(plan):
 def embedding_bag(table, idx, mask, *, batch_tile: int = 64,
                   row_block: int = 0, pool_mode: str = "auto", plan=None):
     """table:(R,S) idx:(B,hot) mask:(B,hot) -> (B,S).  ``batch_tile`` is
-    the TPU grid tile and has no counterpart (one warp pools one bag)."""
+    the TPU grid tile and has no counterpart (the kernel plans its own
+    grid)."""
     resolve_row_block(row_block)
     resolve_pool_mode(pool_mode)
     _no_plan(plan)

@@ -4,7 +4,10 @@ the tests hold the port against the reference with them, and
 ``chip_smoke.py`` compares every kernel with them on the card.
 
 The WKV has two: the exact recurrence (the oracle, and the model's decode
-path) and the chunked form (the CUDA kernel's plain version).
+path) and the chunked form (the CUDA kernel's plain version).  The bag, the
+interaction and the WKV kernels also have a CPU model of the order in which
+each kernel sums (``embedding_bag_split_ref``, ``dot_interaction_split_ref``,
+``rwkv6_wkv_two_pass_ref``), held against the reference by the tests.
 
 Ids are clamped to ``[0, R-1]`` (and table ids to ``[0, T-1]``) explicitly:
 JAX clamps out-of-bounds gathers silently, torch indexing raises.
@@ -22,6 +25,51 @@ def dot_interaction_ref(z: torch.Tensor) -> torch.Tensor:
     zz = torch.bmm(zf, zf.transpose(1, 2))
     ii, jj = torch.tril_indices(f, f, -1, device=z.device)
     return zz[:, ii, jj].to(z.dtype)
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor) -> torch.Tensor:
+    """float32 fused multiply-add, a * b + c rounded once (to nearest, ties
+    to even), as the card's ``fmaf``.  The product of two float32 values is
+    exact in float64; the float64 sum s and its error e (TwoSum) give the
+    exact a * b + c = s + e.  Rounding s to float32 is then right unless s
+    lies exactly halfway between two float32 values while e is not 0: the
+    sign of e picks the side.  Finite values only."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    r = s.float()
+    toward = torch.where(s > r.double(), torch.inf, -torch.inf).float()
+    other = torch.nextafter(r, toward)
+    tie = (s == (r.double() + other.double()) / 2) & (e != 0)
+    side = torch.where(e > 0, torch.maximum(r, other),
+                       torch.minimum(r, other))
+    return torch.where(tie, side, r)
+
+
+def dot_interaction_split_ref(z: torch.Tensor, kparts: int) -> torch.Tensor:
+    """CPU model of the CUDA interaction kernel's summation order, bit-exact
+    to its float4 schedule: the features are cut into float4 columns,
+    thread kp of a pair's ``kparts`` (``dot_interaction.kparts`` reads the
+    launcher's) takes columns kp, kp + kparts, ... and keeps one running
+    fused multiply-add per float4 component from 0; each thread folds its
+    four as (x + y) + (z + w), and the threads meet in an xor tree (1, 2, 4,
+    ...).  S must be a multiple of 4."""
+    b, f, s = z.shape
+    zf = z.float().reshape(b, f, s // 4, 4)
+    ii, jj = torch.tril_indices(f, f, -1, device=z.device)
+    zi, zj = zf[:, ii], zf[:, jj]                            # (B, P, S/4, 4)
+    parts = []
+    for kp in range(kparts):
+        acc = torch.zeros_like(zi[:, :, 0])                  # (B, P, 4)
+        for v in range(kp, s // 4, kparts):
+            acc = fma_f32(zi[:, :, v], zj[:, :, v], acc)
+        parts.append((acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3]))
+    while len(parts) > 1:
+        parts = [parts[i] + parts[i + 1] for i in range(0, len(parts), 2)]
+    return parts[0].to(z.dtype)
 
 
 def _clamped(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -49,6 +97,32 @@ def embedding_bag_rows_ref(tables, tid, idx, mask):
     t, r, _ = tables.shape
     rows = tables[_clamped(tid, t)[:, None], _clamped(idx, r)]
     return (rows * mask[..., None].to(rows.dtype)).sum(1)
+
+
+def embedding_bag_split_ref(table_flat, idx, w, *, rows: int, n_tables: int,
+                            tid=None, groups: int = 1):
+    """CPU model of the CUDA bag kernel's summation order, over the flat
+    (n_tables * rows, s) row space as the kernel sees it: bag n pools
+    against table clamp(tid[n]) (or n % n_tables without tid); its slots
+    are split over ``groups`` groups, group k adding the rounded products
+    of slots k, k + groups, ... in order to a sum that starts at 0, and the
+    group sums are added in order 0, 1, ....  Bit-exact to the kernel with
+    the same ``groups`` (``embedding_bag.launch_plan`` reads the kernel's)."""
+    n, hot = idx.shape
+    if tid is None:
+        t = torch.arange(n, device=idx.device) % n_tables
+    else:
+        t = _clamped(tid, n_tables)
+    x = table_flat[t[:, None] * rows + _clamped(idx, rows)] \
+        * w[..., None].to(table_flat.dtype)                   # (N, hot, s)
+    out = None
+    for k in range(groups):
+        acc = torch.zeros((n, table_flat.shape[1]), dtype=table_flat.dtype,
+                          device=table_flat.device)
+        for h in range(k, hot, groups):
+            acc = acc + x[:, h]
+        out = acc if out is None else out + acc
+    return out
 
 
 # the Pallas kernel's finite mask sentinel (flash_attention.py:22)

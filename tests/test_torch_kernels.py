@@ -13,6 +13,7 @@ themselves are checked on the card by chip_smoke.py.
 """
 import ast
 import ctypes
+from fractions import Fraction
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -140,6 +141,57 @@ class TestEmbeddingBag:
                                       pool_mode=pool_mode),
             teb.embedding_bag_stacked(*args))
 
+    # the CPU model of the CUDA kernel's order (slots split over groups,
+    # partial sums added in group order), on the smoke shapes above and a
+    # hot-100 case at the served width s = 64, held at the kernel's own
+    # rtol = atol = 1e-5: 50 unit-normal rows summed in two f32 orders
+    # differ by up to ~5e-6
+    @pytest.mark.parametrize("groups", [1, 2, 4, 8])
+    @pytest.mark.parametrize("seed,hot,r,s", [(0, 1, 40, 8), (1, 5, 40, 8),
+                                              (2, 33, 40, 8),
+                                              (11, 100, 300, 64)])
+    def test_split_model_matches_jax_ref(self, groups, seed, hot, r, s):
+        tables, idx, mask = _stack(seed, r=r, s=s, hot=hot, p_mask=0.5)
+        t, b = tables.shape[0], idx.shape[0]
+        port = tref.embedding_bag_split_ref(
+            torch.from_numpy(tables.reshape(t * r, s)),
+            torch.from_numpy(idx.reshape(b * t, hot)),
+            torch.from_numpy(mask.reshape(b * t, hot)),
+            rows=r, n_tables=t, groups=groups)
+        np.testing.assert_allclose(
+            port.reshape(b, t, s).numpy(),
+            np.asarray(jref.embedding_bag_stacked_ref(tables, idx, mask)),
+            rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("groups", [1, 4])
+    def test_split_model_rows_form_clamps_like_jax(self, groups):
+        tables, idx, mask = _stack(12, r=32, hot=9)
+        t, r, s = tables.shape
+        tid = np.array([-3, 0, 2, 99, 1], np.int32)
+        ridx = idx[:5, 0].copy()
+        ridx[:, 0], ridx[:, 1] = -7, r + 10_000
+        port = tref.embedding_bag_split_ref(
+            torch.from_numpy(tables.reshape(t * r, s)),
+            torch.from_numpy(ridx), torch.from_numpy(mask[:5, 0]),
+            rows=r, n_tables=t, tid=torch.from_numpy(tid), groups=groups)
+        _close(port, jref.embedding_bag_rows_ref(
+            *map(jnp.asarray, (tables, tid, ridx, mask[:5, 0]))))
+
+    def test_split_model_nan_row_under_zero_weight_stays_nan(self):
+        tables, idx, mask = _stack(13, hot=6)
+        t, r, s = tables.shape
+        tables[1, 5] = np.nan
+        idx[0, 1, 2], mask[0, 1, 2] = 5, 0.0
+        args = (torch.from_numpy(tables.reshape(t * r, s)),
+                torch.from_numpy(idx.reshape(-1, 6)),
+                torch.from_numpy(mask.reshape(-1, 6)))
+        got = tref.embedding_bag_split_ref(*args, rows=r, n_tables=t,
+                                           groups=2).reshape(-1, t, s)
+        plain = tref.embedding_bag_stacked_ref(
+            *map(torch.from_numpy, (tables, idx, mask)))
+        assert torch.isnan(got[0, 1]).all() and torch.isnan(plain[0, 1]).all()
+        assert torch.equal(torch.isnan(got), torch.isnan(plain))
+
     def test_plan_is_not_ported(self):
         tables, idx, mask = _stack(10)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -160,6 +212,62 @@ class TestDotInteraction:
         _close(port, jdot.dot_interaction(jnp.asarray(z), batch_tile=4,
                                           interpret=True))
         _close(port, jref.dot_interaction_ref(z))
+
+    # the CPU model of the CUDA kernel's order (float4 columns split over
+    # kparts threads, four fused multiply-add chains each, an xor tree over
+    # threads)
+    @pytest.mark.parametrize("kparts", [1, 2, 4])
+    @pytest.mark.parametrize("b,f,s", [(16, 9, 16), (7, 27, 64), (5, 24, 8),
+                                       (3, 2, 4)])
+    def test_split_model_matches_jax(self, kparts, b, f, s):
+        z = 0.25 * np.random.default_rng(b * f).standard_normal(
+            (b, f, s), dtype=np.float32)
+        port = tref.dot_interaction_split_ref(torch.from_numpy(z), kparts)
+        _close(port, jdot.dot_interaction(jnp.asarray(z), batch_tile=4,
+                                          interpret=True))
+        _close(port, jref.dot_interaction_ref(z))
+
+    def test_fma_model_rounds_once_where_float64_rounds_twice(self):
+        # a * b + c = 1 + 2^-23 + 2^-24 - 2^-70: float64 rounds it to the
+        # float32 midpoint 1 + 2^-23 + 2^-24, whose tie goes to the even
+        # 1 + 2^-22; rounded once it is 1 + 2^-23
+        a, b, c = (torch.tensor([x], dtype=torch.float32) for x in (
+            2.0 ** -24 * (1 + 2.0 ** -23), 1 - 2.0 ** -23, 1 + 2.0 ** -23))
+        assert (a.double() * b.double() + c.double()).float().item() \
+            == 1 + 2.0 ** -22
+        assert tref.fma_f32(a, b, c).item() == 1 + 2.0 ** -23
+
+    @pytest.mark.parametrize("near_ties", [False, True])
+    def test_fma_model_matches_exact_rounding(self, near_ties):
+        # against a * b + c in exact rationals rounded to the nearest
+        # float32 (ties to even); near_ties puts a * b within a few float32
+        # ulps of half an ulp of c, where rounding twice goes wrong
+        rng = np.random.default_rng(int(near_ties))
+        n = 2000
+        if near_ties:
+            c = (1 + rng.integers(0, 1 << 23, n) * 2.0 ** -23)
+            a = 2.0 ** -24 * (1 + rng.integers(-4, 5, n) * 2.0 ** -23)
+            b = 1 + rng.integers(-4, 5, n) * 2.0 ** -23
+            c = c * rng.choice([-1.0, 1.0], n)
+        else:
+            a = rng.standard_normal(n) * 2.0 ** rng.integers(-30, 30, n)
+            b = rng.standard_normal(n) * 2.0 ** rng.integers(-30, 30, n)
+            c = rng.standard_normal(n) * 2.0 ** rng.integers(-60, 60, n)
+        a, b, c = (x.astype(np.float32) for x in (a, b, c))
+        got = tref.fma_f32(*map(torch.from_numpy, (a, b, c))).numpy()
+
+        def nearest(x):
+            f = np.float32(float(x))
+            cands = (f, np.nextafter(f, np.float32(np.inf)),
+                     np.nextafter(f, np.float32(-np.inf)))
+            return min(cands, key=lambda y: (
+                abs(Fraction(float(y)) - x),
+                int(np.frombuffer(y.tobytes(), np.uint32)[0]) & 1))
+
+        want = np.array([nearest(Fraction(float(x)) * Fraction(float(y))
+                                 + Fraction(float(z)))
+                         for x, y, z in zip(a, b, c)], np.float32)
+        np.testing.assert_array_equal(got, want)
 
     def test_pair_order_is_tril_row_major(self):
         # small integers: every dot is exact, so the order is all that
