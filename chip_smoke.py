@@ -31,6 +31,19 @@ Phases, each on lines of its own:
      CTRs finite, in (0, 1), bit-identical to ``bound=0`` and within
      1e-5 of the plain-PyTorch forward, and both DLRM kernels launched at
      the served microbatch shape once per microbatch;
+ 5b. on the same group, a 4096-row hot cache calibrated on powerlaw_hetero
+     traffic and 8 x 512 powerlaw_hetero requests served (1) by an
+     ``exchange='auto'`` engine retuning every 2 flushes, which must move
+     onto the ragged exchange, (2) ragged at the cap it settled on, on the
+     float32, bf16 and int8 wires, mono and ring, (3) f32 ragged at bound
+     0: CTRs finite in (0, 1), ring == mono and bound 2 == bound 0 bit for
+     bit, f32 within 1e-5 of the plain forward, bf16 and int8 logits within
+     5e-2 and 1e-1 of it, zero drops, the engine's live_max equal to the
+     host's count, and the rows kernel, the pooled hits and the
+     interaction launched once per microbatch on every ragged run; the
+     exchanged bytes per codec, ServeStats and flush p50/p99 per run, one
+     profiled ragged flush, and the rows kernel held and timed at the
+     served shape (the packed residual of one microbatch at the cap);
   6. the flash-attention kernel held against its plain version in bf16
      (rtol 1e-2, atol 5e-3, and the relative Frobenius error under 5e-3:
      the plain version computes in f32 on the same bf16 inputs) at the
@@ -79,6 +92,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import re
@@ -110,6 +124,13 @@ SERVED_MB = BATCH // 4
 SERVED_ROWS = ("embedding_bag_pool/stacked_hot100_mb128",
                "dot_interaction/mb128")
 PACKED_ROWS = 4096
+# phase 5b: a 4096-row hot cache per table and 8 served batches of 512
+CACHE_ROWS = 4096
+RAGGED_BATCHES = 8
+CODECS = ("float32", "bfloat16", "int8")
+# the reference's logit tolerances of the lossy wires
+# (tests/test_ragged_exchange.py)
+RAGGED_LOGIT_TOL = {"float32": 1e-4, "bfloat16": 5e-2, "int8": 1e-1}
 # the kernels of the DLRM serving path (flash attention is the LM path's)
 DLRM_KERNELS = ("embedding_bag_pool", "dot_interaction")
 # the LM phases: 2 prompts of 4608 tokens (512 past gemma2's 4096 window),
@@ -345,6 +366,32 @@ def hold_dot_model(name, out, z):
     return kp
 
 
+BAG_SRC = "src/repro_torch/kernels/csrc/embedding_bag.cu"
+DOT_SRC = "src/repro_torch/kernels/csrc/dot_interaction.cu"
+EB_PY = "src/repro/kernels/embedding_bag.py"
+
+
+def bag_kernel_row(name, replaces, kernel_fn, plain_fn, library_fn, gid,
+                   ids, w, n_out, *, table, rows, n_tables, flush, tid=None,
+                   extra_bytes=0):
+    """One bag row: the kernel held against its plain version and timed
+    (:func:`check_kernel`), then bit for bit against its summation model
+    with the launcher's plan; returns the row."""
+    s = table.shape[1]
+    row = check_kernel(name, replaces, BAG_SRC, kernel_fn, plain_fn,
+                       library_fn,
+                       n_bytes=bag_bytes(gid, n_out, s) + extra_bytes,
+                       flops=2 * gid.numel() * s, flush=flush)
+    plan = hold_bag_model(name, kernel_fn().reshape(n_out, s), table, ids,
+                          w, rows=rows, n_tables=n_tables, tid=tid,
+                          rows_form=tid is not None)
+    slot_bytes = gid.numel() * s * 4
+    log(f"[kernel] {name}: bit-identical to its summation model; plan "
+        f"{plan}; all-slot bytes {slot_bytes / 1e6:.1f} MB, "
+        f"{slot_bytes / row['ms'] / 1e9:.3f} TB/s all-slot rate")
+    return row
+
+
 def kernel_phase(params, cfg, dev, flush):
     """Phase 3: each kernel against its plain version at the main path's
     shapes: the served microbatch (128 samples, what ``DLRMEngine`` with 4
@@ -359,9 +406,6 @@ def kernel_phase(params, cfg, dev, flush):
     from repro_torch.kernels import embedding_bag as eb
     from repro_torch.kernels import ref
 
-    bag_src = "src/repro_torch/kernels/csrc/embedding_bag.cu"
-    dot_src = "src/repro_torch/kernels/csrc/dot_interaction.cu"
-    eb_py = "src/repro/kernels/embedding_bag.py"
     tables = params["tables"][:cfg.n_tables]
     t, r, s = tables.shape
     flat = tables.reshape(t * r, s)
@@ -370,23 +414,15 @@ def kernel_phase(params, cfg, dev, flush):
     def bag_row(name, replaces, kernel_fn, plain_fn, library_fn, gid, ids,
                 w, n_out, key, *, tid=None, table=flat, n_tables=t,
                 extra_bytes=0):
-        row = check_kernel(name, replaces, bag_src, kernel_fn, plain_fn,
-                           library_fn,
-                           n_bytes=bag_bytes(gid, n_out, s) + extra_bytes,
-                           flops=2 * gid.numel() * s, flush=flush)
-        plan = hold_bag_model(name, kernel_fn().reshape(n_out, s), table,
-                              ids, w, rows=r, n_tables=n_tables, tid=tid,
-                              rows_form=tid is not None)
-        slot_bytes = gid.numel() * s * 4
-        log(f"[kernel] {name}: bit-identical to its summation model; plan "
-            f"{plan}; all-slot bytes {slot_bytes / 1e6:.1f} MB, "
-            f"{slot_bytes / row['ms'] / 1e9:.3f} TB/s all-slot rate")
-        rows.append((row, key))
+        rows.append((bag_kernel_row(
+            name, replaces, kernel_fn, plain_fn, library_fn, gid, ids, w,
+            n_out, table=table, rows=r, n_tables=n_tables, flush=flush,
+            tid=tid, extra_bytes=extra_bytes), key))
 
     for mode, replaces, label, b in (
-            ("uniform", f"{eb_py}:867", "hot1", BATCH),
-            ("hetero", f"{eb_py}:619", "hot100", BATCH),
-            ("hetero", f"{eb_py}:619", "hot100_mb128", SERVED_MB)):
+            ("uniform", f"{EB_PY}:867", "hot1", BATCH),
+            ("hetero", f"{EB_PY}:619", "hot100", BATCH),
+            ("hetero", f"{EB_PY}:619", "hot100_mb128", SERVED_MB)):
         batch = make_batch(cfg, BATCH, mode=mode, seed=SEED)
         idx = torch.from_numpy(batch.idx[:b]).to(dev).contiguous()
         mask = torch.from_numpy(batch.mask[:b]).to(dev).contiguous()
@@ -417,7 +453,7 @@ def kernel_phase(params, cfg, dev, flush):
     idx_r = idx.reshape(BATCH * t, hot)[pick]
     mask_r = mask.reshape(BATCH * t, hot)[pick]
     gid_r = tid.long()[:, None] * r + idx_r.long().clamp(0, r - 1)
-    bag_row("embedding_bag_pool/rows", f"{eb_py}:619",
+    bag_row("embedding_bag_pool/rows", f"{EB_PY}:619",
             lambda: eb.embedding_bag_rows(tables, tid, idx_r, mask_r),
             lambda: ref.embedding_bag_rows_ref(tables, tid, idx_r, mask_r),
             lambda: F.embedding_bag(gid_r, flat, mode="sum",
@@ -430,7 +466,7 @@ def kernel_phase(params, cfg, dev, flush):
     idx_1 = idx[:, big].contiguous()
     mask_1 = mask[:, big].contiguous()
     gid_1 = idx_1.long().clamp(0, r - 1)
-    bag_row("embedding_bag_pool/single", f"{eb_py}:742",
+    bag_row("embedding_bag_pool/single", f"{EB_PY}:742",
             lambda: eb.embedding_bag(table, idx_1, mask_1),
             lambda: ref.embedding_bag_ref(table, idx_1, mask_1),
             lambda: F.embedding_bag(gid_1, table, mode="sum",
@@ -451,7 +487,7 @@ def kernel_phase(params, cfg, dev, flush):
                     ("dot_interaction/mb128", SERVED_MB)):
         z = torch.randn((b, f, s), generator=gen, device=dev)
         row = check_kernel(
-            name, "src/repro/kernels/dot_interaction.py:52", dot_src,
+            name, "src/repro/kernels/dot_interaction.py:52", DOT_SRC,
             lambda z=z: di.dot_interaction(z),
             lambda z=z: ref.dot_interaction_ref(z),
             lambda z=z: torch.bmm(z, z.transpose(1, 2))[:, ii, jj],
@@ -559,13 +595,23 @@ def dlrm_edge_phase(dev) -> None:
         "S 4 and 64, small-integer inputs bit-exact")
 
 
-def serve(params, cfg, batch, bound, dev):
+def serve(params, cfg, batch, bound, dev, *, calibrate=None,
+          before_flush=None, **engine_kw):
+    """Serve ``batch`` through a ``DLRMEngine`` at ``BATCH`` a flush.
+    ``calibrate`` (idx, mask, cache rows) builds the engine's cache with
+    ``calibrate_cache`` first; ``before_flush(engine, j)`` runs before batch
+    j's last request.  Returns (CTRs, the engine)."""
     from repro_torch.serving.engine import DLRMEngine
 
     eng = DLRMEngine(params, cfg, batch_size=BATCH, bound=bound,
-                     microbatches=4, device=dev)
+                     microbatches=4, device=dev, **engine_kw)
+    if calibrate is not None:
+        idx, mask, rows = calibrate
+        eng.calibrate_cache(idx, mask, cache_rows=rows)
     outs = []
     for i in range(batch.dense.shape[0]):
+        if before_flush is not None and i % BATCH == BATCH - 1:
+            before_flush(eng, i // BATCH)
         o = eng.submit(batch.dense[i], batch.idx[i], batch.mask[i])
         if o is not None:
             outs.append(o)
@@ -575,7 +621,7 @@ def serve(params, cfg, batch, bound, dev):
     return np.concatenate(outs), eng
 
 
-def profile_flush(params, cfg, batch, dev):
+def profile_flush(params, cfg, batch, dev, tag="profile", **engine_kw):
     """One more served batch under torch.profiler: device time by kernel
     and the kernels' share of the flush's wall time."""
     from torch.autograd import DeviceType
@@ -584,7 +630,7 @@ def profile_flush(params, cfg, batch, dev):
     from repro_torch.serving.engine import DLRMEngine
 
     eng = DLRMEngine(params, cfg, batch_size=BATCH, bound=2,
-                     microbatches=4, device=dev)
+                     microbatches=4, device=dev, **engine_kw)
     for i in range(BATCH - 1):
         eng.submit(batch.dense[i], batch.idx[i], batch.mask[i])
     last = BATCH - 1
@@ -594,47 +640,74 @@ def profile_flush(params, cfg, batch, dev):
         eng.submit(batch.dense[last], batch.idx[last], batch.mask[last])
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict = {}
+    n_device = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
+            n_device += 1
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us()
     busy = sum(by_name.values())
     if not by_name:
-        log("[profile] the profiler saw no device activity: device time "
+        log(f"[{tag}] the profiler saw no device activity: device time "
             "not measured")
         return
-    log(f"[profile] one flush: wall {wall_us:.0f} us, device activity "
+    log(f"[{tag}] one flush: wall {wall_us:.0f} us, device activity "
         f"{busy:.0f} us ({100 * busy / wall_us:.1f}% of wall)")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        log(f"[profile]   {us:9.1f} us  {name[:90]}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        log(f"[{tag}]   {us:9.1f} us  {name[:90]}")
+    # the host side: how many device operations the flush issued, and the
+    # host operations that took the most of its own time
+    host = [a for a in prof.key_averages()
+            if a.key.startswith("aten::") and a.self_cpu_time_total > 0]
+    host.sort(key=lambda a: -a.self_cpu_time_total)
+    log(f"[{tag}] host: {n_device} device operations (kernels and "
+        f"copies); {sum(a.count for a in host)} aten calls taking "
+        f"{sum(a.self_cpu_time_total for a in host):.0f} us of self CPU "
+        f"time; most: " + ", ".join(
+            f"{a.key} {a.self_cpu_time_total:.0f} us x{a.count}"
+            for a in host[:8]))
 
 
-def serve_phase(params, cfg, dev, backend, card):
-    """Phase 5: serve full-width hetero traffic through the BLS engine on a
-    one-rank process group; returns each DLRM kernel's launches on that run
-    by launch key (shape)."""
-    from repro_torch.data.synthetic import make_batch
-    from repro_torch.kernels import ops
+@contextlib.contextmanager
+def model_group(backend):
+    """A one-rank model group on a free localhost port for phases 5 and
+    5b; destroyed on the way out."""
     from repro_torch.launch import mesh
-    from repro_torch.models import dlrm
 
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
     mesh.init_model_group(backend, 1, 0, f"tcp://localhost:{port}")
     try:
-        batch = make_batch(cfg, N_BATCHES * BATCH, mode="hetero", seed=SEED)
-        # warm-up: the first collective sets up the communicator
-        warm = make_batch(cfg, BATCH, mode="hetero", seed=SEED + 1)
-        serve(params, cfg, warm, 2, dev)
-        ops.reset_launches()
-        ctr, eng = serve(params, cfg, batch, 2, dev)
-        launches = {k: ops.kernels()[k].launches for k in DLRM_KERNELS}
-        by_key = {k: dict(ops.kernels()[k].by_key) for k in DLRM_KERNELS}
-        ctr0, eng0 = serve(params, cfg, batch, 0, dev)
-        profile_flush(params, cfg, warm, dev)
+        yield
     finally:
         mesh.destroy_model_group()
+
+
+def log_serve(tag, label, eng, card):
+    log(f"[{tag}] {label} ServeStats {json.dumps(eng.stats.to_dict())} "
+        f"flush p50_ms={eng.monitor.percentile(0.5) * 1e3:.3f} "
+        f"p99_ms={eng.monitor.percentile(0.99) * 1e3:.3f} card={card!r}")
+
+
+def serve_phase(params, cfg, dev, card):
+    """Phase 5: serve full-width hetero traffic through the BLS engine on
+    the one-rank process group; returns each DLRM kernel's launches on that
+    run by launch key (shape)."""
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import dlrm
+
+    batch = make_batch(cfg, N_BATCHES * BATCH, mode="hetero", seed=SEED)
+    # warm-up: the first collective sets up the communicator
+    warm = make_batch(cfg, BATCH, mode="hetero", seed=SEED + 1)
+    serve(params, cfg, warm, 2, dev)
+    ops.reset_launches()
+    ctr, eng = serve(params, cfg, batch, 2, dev)
+    launches = {k: ops.kernels()[k].launches for k in DLRM_KERNELS}
+    by_key = {k: dict(ops.kernels()[k].by_key) for k in DLRM_KERNELS}
+    ctr0, eng0 = serve(params, cfg, batch, 0, dev)
+    profile_flush(params, cfg, warm, dev)
     log(f"[serve] launches on the bound=2 run: {launches}; by shape "
         f"{by_key}")
     if ctr.shape != (N_BATCHES * BATCH,):
@@ -657,10 +730,243 @@ def serve_phase(params, cfg, dev, backend, card):
     log(f"[serve] ctr bound=2 == bound=0 bit-identical; within 1e-5 of "
         f"the plain forward; range [{ctr.min():.6f}, {ctr.max():.6f}]")
     for k, e in ((2, eng), (0, eng0)):
-        log(f"[serve] bound={k} ServeStats {json.dumps(e.stats.to_dict())} "
-            f"flush p50_ms={e.monitor.percentile(0.5) * 1e3:.3f} "
-            f"p99_ms={e.monitor.percentile(0.99) * 1e3:.3f} card={card!r}")
+        log_serve("serve", f"bound={k}", e, card)
     return by_key
+
+
+def host_live(slot_of, idx, mask):
+    """(live (N, T) bags with >= 1 miss, the most live rows of any
+    microbatch in each flush of ``BATCH``): the diagnostics' count at
+    P = 1, taken with numpy from the cache's slot map."""
+    t = idx.shape[1]
+    slots = slot_of[np.arange(t)[None, :, None],
+                    np.clip(idx, 0, slot_of.shape[1] - 1)]
+    live = ((mask > 0) & (slots < 0)).any(-1)
+    per_mb = live.reshape(-1, SERVED_MB * t).sum(1)
+    return live, per_mb.reshape(-1, BATCH // SERVED_MB).max(1).tolist()
+
+
+def check_ragged_run(label, ctr, eng, by_key, live_want, cap, t, hot, s):
+    """Gates every ragged (or autotuned) run shares: CTRs finite in
+    (0, 1), zero drops, the engine's live_max equal to the host's count
+    flush by flush and, where ``cap`` is given, the rows kernel launched
+    once per microbatch at (cap, hot) and nowhere else, and the pooled
+    hits and the interaction once per microbatch."""
+    from repro_torch.kernels import dot_interaction as di
+    from repro_torch.kernels import embedding_bag as eb
+
+    if not (np.isfinite(ctr).all() and (ctr > 0).all() and (ctr < 1).all()):
+        raise AssertionError(f"{label}: CTRs not finite or not in (0, 1)")
+    if eng.cap_tuner.total_drops:
+        raise AssertionError(f"{label}: {eng.cap_tuner.total_drops} drops")
+    if list(eng.cap_tuner.live) != live_want:
+        raise AssertionError(f"{label}: live_max {list(eng.cap_tuner.live)}"
+                             f" != host {live_want}")
+    if cap is None:
+        return
+    n_mb = RAGGED_BATCHES * (BATCH // SERVED_MB)
+    rows_keys = {k: v for k, v in by_key["embedding_bag_pool"].items()
+                 if k[4]}
+    want = {eb.launch_key(cap, hot, s, t, rows_form=True): n_mb}
+    if rows_keys != want:
+        raise AssertionError(f"{label}: rows-form launches {rows_keys}, "
+                             f"not {want}")
+    hits = by_key["embedding_bag_pool"].get(
+        eb.launch_key(SERVED_MB * t, hot, s, t), 0)
+    inter = by_key["dot_interaction"].get(di.launch_key(SERVED_MB, t + 1, s),
+                                          0)
+    if (hits, inter) != (n_mb, n_mb):
+        raise AssertionError(f"{label}: pooled-hit launches {hits}, "
+                             f"interaction {inter}, not {n_mb} each")
+
+
+def ragged_phase(params, cfg, dev, card):
+    """Phase 5b: the hot-row cache and the ragged miss-residual exchange
+    at full ``dlrm-kaggle`` width on the phase-5 group.  A 4096-row cache
+    is calibrated on a powerlaw_hetero batch (seed 1); 8 x 512 requests
+    (seed 0) are served at bound 2 over 4 microbatches (1) by an
+    ``exchange='auto'`` engine retuning every 2 flushes (its cache from
+    ``DLRMEngine.calibrate_cache``), which must move onto the ragged
+    exchange, (2) at the cap it settles on, ragged, with that cache, on
+    each wire codec, mono and ring, (3) f32 ragged at bound 0.  Gates:
+    :func:`check_ragged_run` on each; ring == mono and bound 2 == bound 0
+    bit for bit; f32 CTRs within 1e-5 of the plain forward, bf16 and int8
+    logits within 5e-2 and 1e-1 of it.  Then the exchanged bytes, a
+    profiled ragged flush and the rows kernel's row at the served shape
+    (the packed residual of microbatch 0 at the settled cap).  Returns
+    that row."""
+    from repro_torch.core import alltoallv as a2a
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import dlrm
+    from repro_torch.serving import hot_cache as hc
+
+    tables = params["tables"][:cfg.n_tables]
+    t, r, s = tables.shape
+    hot = cfg.max_hot
+    traffic = make_batch(cfg, RAGGED_BATCHES * BATCH,
+                         mode="powerlaw_hetero", seed=SEED)
+    warm = make_batch(cfg, BATCH, mode="powerlaw_hetero", seed=SEED + 1)
+    dense_rows = SERVED_MB * t
+
+    # run 1: 'auto' with a cache calibrated on the warm batch, retuning
+    # every 2 flushes
+    exchanges = []
+    t_cal = []
+
+    def note(eng, j):
+        if j == 0:
+            t_cal.append(time.perf_counter() - t0)
+        exchanges.append(dlrm.resolve_exchange(
+            eng.exchange, use_cache=True, cap=eng.ragged_cap,
+            dense_rows=dense_rows))
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    ctr_auto, eng_auto = serve(params, cfg, traffic, 2, dev,
+                               calibrate=(warm.idx, warm.mask, CACHE_ROWS),
+                               exchange="auto", retune_every=2,
+                               before_flush=note)
+    auto_keys = {k: dict(ops.kernels()[k].by_key) for k in DLRM_KERNELS}
+    cap, cache = eng_auto.ragged_cap, eng_auto.cache
+    slot_host = cache.slot_of.cpu().numpy()
+    live, live_want = host_live(slot_host, traffic.idx, traffic.mask)
+    whole = sum(1 for n in cfg.table_sizes if n <= CACHE_ROWS)
+    log(f"[ragged] cache of {CACHE_ROWS} rows a table calibrated on 512 "
+        f"powerlaw_hetero requests (calibrate_cache; engine set-up and "
+        f"calibration to the first flush {t_cal[0]:.2f} s): hot block "
+        f"{cache.hot_rows.numel() * 4 / 1e6:.1f} MB, slot map "
+        f"{cache.slot_of.numel() * 4 / 1e6:.1f} MB; {whole} of {t} tables "
+        f"cached whole; on the served traffic hit rate "
+        f"{hc.hit_rate(cache, traffic.idx, traffic.mask):.4f}, live share "
+        f"{live.mean():.4f} of the (sample, table) bags; host live_max per "
+        f"flush {live_want}")
+    check_ragged_run("auto", ctr_auto, eng_auto, auto_keys, live_want, None,
+                     t, hot, s)
+    want_rows: dict = {}
+    for use, c in exchanges:
+        if use:
+            key = eb.launch_key(c, hot, s, t, rows_form=True)
+            want_rows[key] = want_rows.get(key, 0) + BATCH // SERVED_MB
+    got_rows = {k: v for k, v in auto_keys["embedding_bag_pool"].items()
+                if k[4]}
+    ends_ragged = dlrm.resolve_exchange("auto", use_cache=True, cap=cap,
+                                        dense_rows=dense_rows)[0]
+    if eng_auto.stats.retunes < 1 or not ends_ragged or got_rows != \
+            want_rows:
+        raise AssertionError(
+            f"auto: retunes {eng_auto.stats.retunes}, cap {cap} of "
+            f"{dense_rows} dense rows, exchange per flush {exchanges}, "
+            f"rows-form launches {got_rows} (expected {want_rows})")
+    log(f"[ragged] auto: {eng_auto.stats.retunes} retunes, settled cap "
+        f"{cap} of {dense_rows} dense rows a destination; exchange per "
+        f"flush {[('ragged' if u else 'dense', c) for u, c in exchanges]}; "
+        f"rows-form launches {got_rows}; tuner "
+        f"{eng_auto.cap_tuner.recommend(dense_rows=dense_rows, peek=True)}")
+    log_serve("ragged", "auto bound=2 float32 mono", eng_auto, card)
+
+    # run 2: ragged at the settled cap, each codec, mono and ring; run 3:
+    # f32 ragged at bound 0
+    runs = {}
+    for wire, pipe, bound in [(w, p, 2) for w in CODECS
+                              for p in ("mono", "ring")] + \
+            [("float32", "mono", 0)]:
+        ops.reset_launches()
+        ctr, eng = serve(params, cfg, traffic, bound, dev, cache=cache,
+                         exchange="ragged", ragged_cap=cap, wire_dtype=wire,
+                         exchange_pipeline=pipe)
+        by_key = {k: dict(ops.kernels()[k].by_key) for k in DLRM_KERNELS}
+        label = f"ragged bound={bound} {wire} {pipe}"
+        check_ragged_run(label, ctr, eng, by_key, live_want, cap, t, hot,
+                         s)
+        log_serve("ragged", label, eng, card)
+        runs[wire, pipe, bound] = (ctr, by_key)
+    for wire in CODECS:
+        if not np.array_equal(runs[wire, "ring", 2][0],
+                              runs[wire, "mono", 2][0]):
+            raise AssertionError(f"ragged {wire}: ring CTRs differ from mono")
+    if not np.array_equal(runs["float32", "mono", 0][0],
+                          runs["float32", "mono", 2][0]):
+        raise AssertionError("ragged: bound=2 CTRs differ from bound=0")
+    plain_cfg = cfg.replace(sparse_backend="ref")
+    errs = {w: 0.0 for w in CODECS}
+    for j in range(RAGGED_BATCHES):
+        sl = slice(j * BATCH, (j + 1) * BATCH)
+        logits = dlrm.forward_local(
+            params, plain_cfg, torch.from_numpy(traffic.dense[sl]).to(dev),
+            torch.from_numpy(traffic.idx[sl]).to(dev),
+            torch.from_numpy(traffic.mask[sl]).to(dev)).cpu()
+        for ctr in (ctr_auto, runs["float32", "mono", 2][0]):
+            torch.testing.assert_close(torch.from_numpy(ctr[sl]),
+                                       torch.sigmoid(logits), **TOL)
+        for w in CODECS:
+            # the logit of a float32 CTR, in float64: off by ~1e-6 at most
+            got = torch.logit(torch.from_numpy(
+                runs[w, "mono", 2][0][sl]).double())
+            errs[w] = max(errs[w],
+                          (got - logits.double()).abs().max().item())
+    for w, tol in RAGGED_LOGIT_TOL.items():
+        if errs[w] > tol:
+            raise AssertionError(f"ragged {w}: logits {errs[w]:.3e} from "
+                                 f"the plain forward, over {tol}")
+    log(f"[ragged] ring == mono per codec and bound=2 == bound=0 "
+        f"bit-identical; f32 CTRs (auto and ragged) within 1e-5 of the "
+        f"plain forward; max |logit - plain| f32 {errs['float32']:.3e}, "
+        f"bf16 {errs['bfloat16']:.3e} (<= 5e-2), int8 {errs['int8']:.3e} "
+        f"(<= 1e-1); zero drops; live_max equal to the host count on every "
+        f"run; the rows kernel, the pooled hits and the interaction "
+        f"launched once per microbatch on every ragged run")
+
+    slots = slot_host[np.arange(t)[None, :, None],
+                      np.clip(traffic.idx, 0, r - 1)]
+    miss = traffic.mask * (slots < 0)
+    n_ex = RAGGED_BATCHES * BATCH // SERVED_MB
+    for w in CODECS:
+        dense_b = a2a.dense_wire_bytes(1, SERVED_MB, t, s, w)
+        ragged_b = a2a.ragged_wire_bytes(1, cap, s, w,
+                                         n_slots=SERVED_MB * t)
+        ws = a2a.wire_stats(miss, s, w)
+        log(f"[ragged] {w} wire, bytes a member moves per exchange (one "
+            f"microbatch): dense layout {dense_b}, ragged layout at cap "
+            f"{cap} {ragged_b} ({ragged_b / dense_b:.4f} of dense); the "
+            f"live rows carry {ws.live_bytes / n_ex:.1f} on average "
+            f"(wire_stats), the dense exchange {ws.dense_bytes / n_ex:.1f}, "
+            f"the f32 reference {ws.ref_bytes / n_ex:.1f}")
+    profile_flush(params, cfg, traffic, dev, tag="profile-ragged",
+                  cache=cache, exchange="ragged", ragged_cap=cap)
+
+    # the rows kernel at the served shape: what the ragged pack hands it
+    # for microbatch 0 (live rows of the miss residual, cap-padded)
+    ix = torch.from_numpy(traffic.idx[:SERVED_MB]).to(dev)
+    mk = torch.from_numpy(traffic.mask[:SERVED_MB]).to(dev)
+    res = hc.miss_mask_of(cache.slot_of, ix, mk)
+    flat_n = SERVED_MB * t
+    packed, counts, drops = a2a.pack_ragged_segments(
+        {"idx": ix.reshape(flat_n, hot), "mask": res.reshape(flat_n, hot),
+         "tid": torch.arange(flat_n, device=dev, dtype=torch.int32) % t},
+        (res > 0).any(-1).reshape(-1), 1, cap)
+    tid = packed["tid"].reshape(cap).contiguous()
+    pidx = packed["idx"].reshape(cap, hot).contiguous()
+    pmask = packed["mask"].reshape(cap, hot).contiguous()
+    gid = tid.long()[:, None] * r + pidx.long().clamp(0, r - 1)
+    flat = tables.reshape(t * r, s)
+    l2 = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    name = f"embedding_bag_pool/rows_hot{hot}_cap{cap}"
+    row = bag_kernel_row(
+        name, f"{EB_PY}:619",
+        lambda: eb.embedding_bag_rows(tables, tid, pidx, pmask),
+        lambda: ref.embedding_bag_rows_ref(tables, tid, pidx, pmask),
+        lambda: F.embedding_bag(gid, flat, mode="sum",
+                                per_sample_weights=pmask),
+        gid, pidx, pmask, cap, table=flat, rows=r, n_tables=t,
+        flush=l2.zero_, tid=tid, extra_bytes=cap * 4)
+    row["launches"] = runs["float32", "mono", 2][1]["embedding_bag_pool"] \
+        .get(eb.launch_key(cap, hot, s, t, rows_form=True), 0)
+    log(f"[kernel] {name}: microbatch 0 packs {int(counts.sum())} live rows "
+        f"into cap {cap} ({int(drops)} dropped); launches on the f32 mono "
+        f"ragged run {row['launches']}")
+    return row
 
 
 def admitted_pairs(s: int, window: int) -> int:
@@ -1285,7 +1591,9 @@ def main() -> int:
         dlrm_rows = kernel_phase(params, CONFIG, dev, l2.zero_)
         del l2
         dlrm_edge_phase(dev)
-        dlrm_by_key = serve_phase(params, CONFIG, dev, "nccl", card)
+        with model_group("nccl"):
+            dlrm_by_key = serve_phase(params, CONFIG, dev, card)
+            ragged_row = ragged_phase(params, CONFIG, dev, card)
         # each DLRM row takes the served launches of its own shape: the
         # served path pools and interacts 128 samples a launch, once per
         # microbatch, so the two served rows must read N_BATCHES x 4 and
@@ -1295,6 +1603,7 @@ def main() -> int:
             row["launches"] = dlrm_by_key[row["name"].split("/")[0]].get(
                 key, 0)
             rows.append(row)
+        rows.append(ragged_row)
         served = {row["name"]: row["launches"] for row, _ in dlrm_rows
                   if row["name"] in SERVED_ROWS}
         if served != dict.fromkeys(SERVED_ROWS, N_BATCHES * BATCH

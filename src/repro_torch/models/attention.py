@@ -95,12 +95,15 @@ def decode_step(params, cfg: ModelConfig, x, cache_k, cache_v, pos: int, *,
     new token occupies (all sequences aligned).  Writes the new k, v into
     the cache in place (the reference returns updated copies; in place
     spares copying the whole cache every step) and returns (out,
-    (cache_k, cache_v))."""
+    (cache_k, cache_v)).  Past the cache's end the write lands in the last
+    slot, as the reference's ``dynamic_update_slice`` clamps it, while the
+    rope position and the mask keep the true ``pos``."""
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                            device=x.device)
     q, k, v = _project_qkv(params, cfg, x, positions)
-    cache_k[:, pos] = k[:, 0]
-    cache_v[:, pos] = v[:, 0]
+    slot = min(pos, cache_k.shape[1] - 1)
+    cache_k[:, slot] = k[:, 0]
+    cache_v[:, slot] = v[:, 0]
     kj = torch.arange(cache_k.shape[1], device=x.device)
     m = kj <= pos
     if window:

@@ -1,6 +1,7 @@
 """DLRM (Naumov et al., arXiv:1906.00091) — the port of
-``repro/models/dlrm.py``: the single-device forward and the core of the
-table-parallel forward (dense exchange, mono pipeline, float32 wire).
+``repro/models/dlrm.py``: the single-device forward and the table-parallel
+forward with the hot-row cache, the dense and ragged exchanges, the mono
+and ring pipelines and the float32, bf16 and int8 wire codecs.
 
 Architecture: dense features -> bottom MLP; categorical features ->
 embedding bags over (T_pad, R_max, s) stacked tables; pairwise dot
@@ -12,10 +13,15 @@ Distribution follows the reference: tables are TABLE-parallel across the
 model-axis process group (each member owns T_pad/P whole tables), each
 member pools its tables for the WHOLE batch, and one fused all_to_all hands
 every member the full feature set for its 1/P batch slice, under the BLS
-bound k (``core/bls.py``).
+bound k (``core/bls.py``).  With a cache each member pools its own slice's
+hits locally and only the miss residual rides the wire; the ragged exchange
+ships only the live (sample, table) rows, pooled through the bag kernel's
+rows form.
 """
 from __future__ import annotations
 
+import dataclasses
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -29,6 +35,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import layers as L
+from repro_torch.serving import hot_cache as hc_mod
 
 # ---------------------------------------------------------------------------
 # params
@@ -124,6 +131,122 @@ def apply_emb(tables, idx, mask, backend: str = "ref", row_block: int = 0,
                                         pool_mode=pool_mode)
 
 
+@dataclasses.dataclass
+class ExchangeDiag:
+    """Per-step exchange diagnostics (the cap autotuner's observation).
+    ``live_max``, ``drops`` and ``approx_rows`` are 0-dim int32 tensors
+    (reduced over the model group) or ints; ``approx_rows`` counts bags
+    served from a degraded member's fallback and stays 0 until degraded
+    serving is ported (ROADMAP A8)."""
+    live_max: object        # max per-(microbatch, dest) live rows
+    drops: object           # rows the cap dropped (0 when dense)
+    approx_rows: object = 0
+    exchange: str = "dense"  # resolved decision: dense | ragged | local
+    cap: int = 0
+    dense_rows: int = 0     # what the dense butterfly moves per destination
+
+
+def apply_emb_rows(tables, tid, idx, mask, backend: str = "ref",
+                   row_block: int = 0, pool_mode: str = "auto"):
+    """Row-wise embedding bags: tables (T,R,s), tid (N,), idx/mask (N,hot)
+    -> (N,s) masked sums, each row against its own table.  The packed
+    analogue of :func:`apply_emb`: it pools ONLY the rows that ride the
+    ragged exchange (O(P·cap·hot) gathers instead of O(B·T·hot)), through
+    the bag kernel's rows form on the card."""
+    impl = resolve_sparse_backend(backend, tables.device)
+    return ops.embedding_bag_rows_op(tables, tid, idx, mask, impl=impl,
+                                     row_block=row_block,
+                                     pool_mode=pool_mode)
+
+
+def resolve_pipeline(pipeline: str, n_shards: int) -> str:
+    """'mono' is one fused all_to_all per exchange; 'ring' decomposes it
+    into P−1 point-to-point rounds consumed per peer.  'auto' goes ring at
+    P >= 4, as in the reference."""
+    if pipeline not in ("mono", "ring", "auto"):
+        raise ValueError(f"unknown exchange_pipeline {pipeline!r}")
+    if pipeline == "auto":
+        return "ring" if n_shards >= 4 else "mono"
+    return pipeline
+
+
+def resolve_exchange(exchange: str, *, use_cache: bool, cap: int,
+                     dense_rows: int) -> tuple[bool, int]:
+    """Exchange selection -> (use_ragged, cap).  ``dense_rows`` (= bs ·
+    t_loc) is what the dense butterfly moves per destination; ``cap`` 0
+    means dense-equivalent (lossless).  'auto' goes ragged only when a
+    cache shrinks the live set AND the cap undercuts the dense buffer."""
+    if exchange not in ("dense", "ragged", "auto"):
+        raise ValueError(f"unknown exchange {exchange!r}")
+    cap = max(1, min(int(cap), dense_rows)) if cap else dense_rows
+    if exchange == "dense":
+        return False, cap
+    if exchange == "ragged":
+        return True, cap
+    return bool(use_cache) and cap < dense_rows, cap
+
+
+def ragged_exchange_pack(tables, idx, miss_mask, *, n_dest: int, cap: int,
+                         wire: str = "float32", backend: str = "ref",
+                         row_block: int = 0, pool_mode: str = "auto"):
+    """Stage-a half of the ragged miss-residual exchange for ONE member.
+
+    idx/miss_mask (B_mb, t_loc, hot) cover this member's local tables for
+    every destination's batch slice (B_mb = n_dest · bs).  Live rows (>= 1
+    surviving index) are packed into cap-padded per-destination buckets
+    BEFORE pooling, only the packed rows are pooled (:func:`apply_emb_rows`)
+    and the pooled vectors are codec-encoded.  Returns (payload, drops),
+    payload {"q" (n_dest, cap, s) [, "scale"], "ids" (n_dest, cap),
+    "counts" (n_dest, 1) int32}, already the fused wire's field shapes; an
+    id is sample-within-slice · t_loc + local table, in the narrowest dtype
+    addressing the bs·t_loc slots."""
+    b_mb, t_loc, hot = idx.shape
+    bs = b_mb // n_dest
+    dev = idx.device
+    live = (miss_mask > 0).any(dim=-1)                     # (B_mb, t_loc)
+    samp = torch.arange(b_mb, dtype=torch.int32, device=dev)[:, None]
+    lt = torch.arange(t_loc, dtype=torch.int32, device=dev)[None, :]
+    ids = ((samp % bs) * t_loc + lt).to(a2a_mod.slot_id_dtype(bs * t_loc))
+    rows = {"idx": idx.reshape(b_mb * t_loc, hot).to(torch.int32),
+            "mask": miss_mask.reshape(b_mb * t_loc, hot),
+            "ids": ids.reshape(-1)}
+    # the flattened (sample, table) order is destination-grouped
+    # (destination = sample // bs), so the sort-free segment pack applies
+    packed, counts, drops = a2a_mod.pack_ragged_segments(
+        rows, live.reshape(-1), n_dest, cap)
+    # dead slots carry ids 0 / mask 0 and pool to an exact zero
+    tid = packed["ids"] % t_loc
+    pooled = apply_emb_rows(tables, tid.reshape(-1),
+                            packed["idx"].reshape(n_dest * cap, hot),
+                            packed["mask"].reshape(n_dest * cap, hot),
+                            backend=backend, row_block=row_block,
+                            pool_mode=pool_mode)
+    payload = a2a_mod.encode_wire(pooled.reshape(n_dest, cap, -1), wire)
+    payload.update(ids=packed["ids"], counts=counts.reshape(n_dest, 1))
+    return payload, drops
+
+
+def ragged_exchange_unpack(recv, *, t_loc: int, bs: int,
+                           out_dtype=torch.float32):
+    """Stage-b half: decode the received buckets and scatter them into the
+    dense (bs, t_pad, s) layout.  Bucket q came from source q, which owns
+    global tables [q·t_loc, (q+1)·t_loc); rows nobody sent (all-hit or
+    empty bags) stay exactly zero, as they pool in the dense exchange.
+    Narrow ids widen here, after the exchange."""
+    n_dest, _ = recv["ids"].shape
+    t_pad = n_dest * t_loc
+    rows = a2a_mod.decode_wire(
+        {k: v for k, v in recv.items() if k in ("q", "scale")}, out_dtype)
+    ids = recv["ids"].long()
+    src = torch.arange(n_dest, device=ids.device)[:, None]
+    samp = ids // t_loc
+    table = src * t_loc + ids % t_loc
+    flat = samp * t_pad + table
+    out = a2a_mod.unpack_ragged(rows, flat, recv["counts"].reshape(-1),
+                                bs * t_pad)
+    return out.reshape(bs, t_pad, rows.shape[-1])
+
+
 def dot_interaction(z, backend: str = "auto"):
     """z:(B,F,s) -> (B, F(F-1)/2) lower-triangle pairwise dots.  The
     reference computes this with ``einsum``; the port sends it through the
@@ -154,39 +277,30 @@ def _unported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
-def resolve_slice(cfg: DLRMConfig, *, cache=None,
-                  wire_dtype: Optional[str] = None,
+def resolve_slice(cfg: DLRMConfig, *, wire_dtype: Optional[str] = None,
                   exchange: Optional[str] = None,
                   exchange_pipeline: Optional[str] = None) -> str:
-    """Check that a configuration stays on the slice the port serves —
-    dense exchange, mono pipeline, float32 wire, no cache — and return its
-    wire codec.  Anything else raises ``NotImplementedError``.
-    ``exchange='auto'`` resolves dense without a cache, as in the
-    reference.  ``exchange_pipeline='auto'`` resolves mono: the reference
-    goes ring at P >= 4, whose output it proves bit-identical to mono."""
-    if cache is not None:
-        raise _unported("the hot-row cache", "'the hot cache'")
-    wire = a2a_mod.require_float32_wire(
+    """Validate the exchange options and return the canonical wire codec.
+    Unknown exchanges, pipelines and codecs raise ``ValueError``; every
+    value the reference takes serves."""
+    wire = a2a_mod.canon_wire(
         wire_dtype if wire_dtype is not None else cfg.wire_dtype)
     ex = exchange if exchange is not None else cfg.exchange
     if ex not in ("dense", "ragged", "auto"):
         raise ValueError(f"unknown exchange {ex!r}")
-    if ex == "ragged":
-        raise _unported("exchange='ragged'",
-                        "'the ragged exchange with apply_emb_rows'")
     pipe = exchange_pipeline if exchange_pipeline is not None \
         else cfg.exchange_pipeline
     if pipe not in ("mono", "ring", "auto"):
         raise ValueError(f"unknown exchange_pipeline {pipe!r}")
-    if pipe == "ring":
-        raise _unported("exchange_pipeline='ring'", "'the ring pipeline'")
     return wire
 
 
 def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
                         bound: int = 0, microbatches: int = 1,
+                        restore_order: bool = True,
                         cache=None, wire_dtype: Optional[str] = None,
                         exchange: Optional[str] = None,
+                        ragged_cap: Optional[int] = None,
                         exchange_pipeline: Optional[str] = None,
                         row_block: Optional[int] = None,
                         pool_mode: Optional[str] = None,
@@ -197,24 +311,32 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
     """dense:(B, n_dense) idx/mask:(B, T_pad, hot), the same full batch on
     every member; ``params["tables"]`` either the full (T_pad, R, s) stack
     or this member's (T_pad/P, R, s) shard.  Returns (B,) CTR logits in
-    input order on every member.
+    input order on every member (and an :class:`ExchangeDiag` with
+    ``return_diag``).
 
-    Each member pools its t_loc tables for the whole batch of every
-    microbatch, reshapes the result destination-major and fuses it into one
-    (P, slot_bytes) uint8 buffer; one ``all_to_all_single`` per microbatch
-    moves it; each member then defuses its (P, bs, t_loc, s) source-major
-    block into (bs, T_pad, s), runs the interaction and the top MLP for its
-    own bs-row slice, and the slices are all-gathered.  bound > 0 runs the
-    BLS pipeline over the ``microbatches`` slices; the bound changes the
-    schedule, never the values.  With one data row the pipeline's order is
-    input order, so the reference's ``restore_order`` has no counterpart.
+    Per microbatch, stage_a on member m pools the cache hits of its own
+    bs-row batch slice over ALL tables from the replicated hot block
+    (``cache``, a ``serving/hot_cache.HotCache`` over the full stack),
+    then either packs the live rows of its t_loc tables for the whole
+    microbatch and pools only those (the ragged exchange) or pools the
+    miss residual dense; the payload goes through the ``wire_dtype`` codec
+    and is fused into one (P, slot_bytes) uint8 buffer.  The exchange is
+    one ``all_to_all_single`` ('mono') or P−1 point-to-point rounds inside
+    stage_b ('ring'); stage_b decodes each source's chunk, scatters it if
+    ragged, adds that source's pooled hits, then runs the interaction and
+    the top MLP for its slice.  The slices are all-gathered.  bound > 0
+    runs the BLS pipeline over the ``microbatches`` slices; the bound
+    changes the schedule, never the values, and ring and mono give the
+    same bits.  With one data row the pipeline's order is input order, so
+    ``restore_order`` changes nothing.
 
+    ``exchange``: 'dense', 'ragged' (``ragged_cap`` rows a destination, 0
+    meaning dense-equivalent) or 'auto' (:func:`resolve_exchange`).
     ``group`` defaults to the model group of ``launch/mesh.py``; with none
     the forward falls back to :func:`forward_local`, as the reference does
-    without a model mesh.  The riders, degraded serving, plans and
-    diagnostics raise ``NotImplementedError``."""
-    wire = resolve_slice(cfg, cache=cache, wire_dtype=wire_dtype,
-                         exchange=exchange,
+    without a model mesh.  The riders, degraded serving, wire checks,
+    table placement and plans raise ``NotImplementedError``."""
+    wire = resolve_slice(cfg, wire_dtype=wire_dtype, exchange=exchange,
                          exchange_pipeline=exchange_pipeline)
     if plan is not None:
         raise _unported("plan=", "'StreamPlan builders and plan_pipeline'")
@@ -223,12 +345,20 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
     for name, val in riders.items():
         if val is not None:
             raise _unported(f"{name}=", "A8-A12 (riders and chaos)")
-    if wire_check or degraded_members or return_diag:
-        raise _unported("wire_check / degraded_members / return_diag",
+    if wire_check or degraded_members:
+        raise _unported("wire_check / degraded_members",
                         "A8-A12 (riders and chaos)")
     group = group if group is not None else mesh_mod.current_group()
     if group is None:
-        return forward_local(params, cfg, dense, idx, mask)
+        if cache is not None or (wire_dtype or cfg.wire_dtype) != "float32":
+            warnings.warn(
+                "forward_distributed: no model group set up — falling back "
+                "to forward_local; cache/wire_dtype are inactive (set one "
+                "up with launch/mesh.py)", stacklevel=2)
+        logits = forward_local(params, cfg, dense, idx, mask)
+        if return_diag:
+            return logits, ExchangeDiag(0, 0, 0, "local")
+        return logits
 
     n_shards = dist.get_world_size(group)
     m = dist.get_rank(group)
@@ -237,6 +367,12 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
         raise ValueError(f"{t_pad} padded tables do not split over "
                          f"{n_shards} members (use padded_tables)")
     t_loc = t_pad // n_shards
+    use_cache = cache is not None and cache.cache_rows > 0
+    if use_cache and cache.slot_of.shape[0] != t_pad:
+        raise ValueError(
+            f"cache covers {cache.slot_of.shape[0]} tables but idx has "
+            f"{t_pad} (padded) — build the cache over the full (T_pad, R, "
+            f"s) stack")
     tables = params["tables"]
     if tables.shape[0] == t_pad:
         tables = tables[m * t_loc:(m + 1) * t_loc]
@@ -257,32 +393,106 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
     emb_dtype = tables.dtype
     s = tables.shape[2]
     t = cfg.n_tables
+    dense_rows = bs * t_loc
+    use_ragged, cap = resolve_exchange(
+        exchange if exchange is not None else cfg.exchange,
+        use_cache=use_cache,
+        cap=ragged_cap if ragged_cap is not None else cfg.ragged_cap,
+        dense_rows=dense_rows)
+    pipe = resolve_pipeline(
+        exchange_pipeline if exchange_pipeline is not None
+        else cfg.exchange_pipeline, n_shards)
+    # the ONE layout both exchange halves (and the BLS ring slot) agree on
     layout = a2a_mod.exchange_wire_layout(
-        ragged=False, n_dest=n_shards, cap=bs * t_loc, bs=bs, t_loc=t_loc,
+        ragged=use_ragged, n_dest=n_shards, cap=cap, bs=bs, t_loc=t_loc,
         embed_dim=s, wire_dtype=wire, emb_dtype=emb_dtype)
-    idx_loc = idx[:, m * t_loc:(m + 1) * t_loc]
-    mask_loc = mask[:, m * t_loc:(m + 1) * t_loc]
+    cols = slice(m * t_loc, (m + 1) * t_loc)
+    hit_impl = resolve_sparse_backend(backend, tables.device)
+
+    def local_miss(ix, mk):
+        """This member's local-table (idx, residual mask) slice."""
+        ix_loc, mk_loc = ix[:, cols], mk[:, cols]
+        if not use_cache:
+            return ix_loc, mk_loc
+        return ix_loc, hc_mod.miss_mask_of(cache.slot_of[cols], ix_loc,
+                                           mk_loc)
 
     def stage_a(j):
         rows = slice(j * b_mb, (j + 1) * b_mb)
-        pooled = apply_emb(tables, idx_loc[rows], mask_loc[rows], backend,
-                           row_block=rblk, pool_mode=pool)
-        # destination-major: all_to_all's split groups are the leading
-        # bs-row blocks, a free reshape
-        payload = {k: v.reshape(n_shards, bs, *v.shape[1:])
-                   for k, v in a2a_mod.encode_wire(pooled, wire).items()}
+        ix, mk = idx[rows], mask[rows]
+        ix_loc, miss_mk = local_miss(ix, mk)
+        hits = None
+        if use_cache:
+            # member m's own batch slice over ALL tables: pool the cache
+            # hits locally from the replicated hot block
+            mine = slice(m * bs, (m + 1) * bs)
+            hits = hc_mod.pooled_hits_of(cache.hot_rows, cache.slot_of,
+                                         ix[mine], mk[mine],
+                                         impl=hit_impl).to(emb_dtype)
+        if use_ragged:
+            # pack the live rows first, pool only what ships
+            payload, _ = ragged_exchange_pack(
+                tables, ix_loc, miss_mk, n_dest=n_shards, cap=cap,
+                wire=wire, backend=backend, row_block=rblk, pool_mode=pool)
+        else:
+            pooled = apply_emb(tables, ix_loc, miss_mk, backend,
+                               row_block=rblk, pool_mode=pool)
+            # destination-major: all_to_all's split groups are the leading
+            # bs-row blocks, a free reshape
+            payload = {k: v.reshape(n_shards, bs, *v.shape[1:])
+                       for k, v in a2a_mod.encode_wire(pooled, wire).items()}
         buf = a2a_mod.fuse_wire(payload, layout)
         # member m's dense rows of microbatch j (matches a2a delivery)
         dm = dense[j * b_mb + m * bs:j * b_mb + (m + 1) * bs]
-        return buf, apply_mlp(params["bot"], dm)               # (bs, s)
+        return buf, (apply_mlp(params["bot"], dm), hits)      # z0 (bs, s)
 
     def collective(buf):
+        if pipe == "ring":
+            # the exchange is deferred to stage_b's rounds: the send buffer
+            # itself rides the BLS ring slot
+            return bls_mod.Issued(buf)
         return a2a_mod.alltoallv_fused(buf, group)
 
-    def stage_b(recv, z0):
-        q = a2a_mod.decode_wire(a2a_mod.defuse_wire(recv, layout), emb_dtype)
-        # (P, bs, t_loc, s) source-major -> (bs, t_pad, s)
-        emb_all = q.permute(1, 0, 2, 3).reshape(bs, n_shards * t_loc, s)
+    def chunk_slice(chunk, hits, src):
+        """One source's contribution as its dense (bs, t_loc, s) table
+        slice: defuse, decode (and scatter if ragged), add that source's
+        pooled hits.  Sources own disjoint table ranges, so per-peer
+        consumption gives the monolithic defuse's bits."""
+        f = a2a_mod.defuse_wire(chunk, layout)
+        if use_ragged:
+            # a one-source exchange: the flat slot is the shipped id
+            sl = ragged_exchange_unpack({k: v[None] for k, v in f.items()},
+                                        t_loc=t_loc, bs=bs,
+                                        out_dtype=emb_dtype)
+        else:
+            sl = a2a_mod.decode_wire(f, emb_dtype)             # (bs, t_loc, s)
+        if use_cache:
+            sl = sl + hits[:, src * t_loc:(src + 1) * t_loc]
+        return sl
+
+    def stage_b(recv, side):
+        z0, hits = side
+        if pipe == "ring":
+            def consume(emb, src, chunk):
+                emb[:, src * t_loc:(src + 1) * t_loc] = chunk_slice(
+                    chunk, hits, src)
+                return emb
+
+            emb_all = a2a_mod.ring_exchange(
+                recv, group, n_shards, consume,
+                torch.empty((bs, t_pad, s), dtype=emb_dtype,
+                            device=recv.device))
+        else:
+            f = a2a_mod.defuse_wire(recv, layout)
+            if use_ragged:
+                emb_all = ragged_exchange_unpack(f, t_loc=t_loc, bs=bs,
+                                                 out_dtype=emb_dtype)
+            else:
+                # (P, bs, t_loc, s) source-major -> (bs, t_pad, s)
+                q = a2a_mod.decode_wire(f, emb_dtype)
+                emb_all = q.permute(1, 0, 2, 3).reshape(bs, t_pad, s)
+            if use_cache:
+                emb_all = emb_all + hits              # pooled-hit correction
         z = torch.cat([z0[:, None, :], emb_all[:, :t]], dim=1)
         inter = dot_interaction(z, backend)
         top_in = torch.cat([z0, inter.to(z0.dtype)], dim=-1)
@@ -293,5 +503,22 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
     out = torch.stack(outs)                                    # (mb, bs)
     parts = [torch.empty_like(out) for _ in range(n_shards)]
     dist.all_gather(parts, out, group=group)
-    # (P, mb, bs) -> input order (mb, P, bs)
-    return torch.stack(parts).permute(1, 0, 2).reshape(-1)
+    # (P, mb, bs) -> input order (mb, P, bs): with one data row this is
+    # also the pipeline order, so restore_order changes nothing
+    logits = torch.stack(parts).permute(1, 0, 2).reshape(-1)
+    if not return_diag:
+        return logits
+    # live-count / drop diagnostics for the cap autotuner: per
+    # (microbatch, destination) live rows of this member's tables, the max
+    # and the overflow reduced over the group
+    _, miss_all = local_miss(idx, mask)
+    cnt = (miss_all > 0).any(dim=-1).reshape(mb, n_shards, bs, t_loc) \
+        .sum(dim=(2, 3)).to(torch.int32)
+    live_max = cnt.max()
+    drops = (cnt - cap).clamp(min=0).sum().to(torch.int32) if use_ragged \
+        else torch.zeros((), dtype=torch.int32, device=cnt.device)
+    dist.all_reduce(live_max, op=dist.ReduceOp.MAX, group=group)
+    dist.all_reduce(drops, op=dist.ReduceOp.SUM, group=group)
+    return logits, ExchangeDiag(live_max, drops, 0,
+                                "ragged" if use_ragged else "dense", cap,
+                                dense_rows)

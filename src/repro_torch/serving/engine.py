@@ -4,7 +4,9 @@
 CTR requests (dense, sparse) accumulate into fixed-size batches; each flush
 runs the BLS forward over microbatches on the model group and returns
 ``sigmoid(logits)``; per-batch latency feeds the straggler monitor whose
-recommendation can retune the bound between batches.
+recommendation can retune the bound between batches, and the exchange's
+live-row counts feed the cap autotuner that moves an ``exchange='auto'``
+engine with a hot-row cache onto the ragged exchange.
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ from repro_torch.models import api
 from repro_torch.models import dlrm as dlrm_mod
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.runtime.straggler import StragglerMonitor
+from repro_torch.runtime.straggler import CapAutotuner, StragglerMonitor
+from repro_torch.serving import hot_cache as hc_mod
 from repro_torch.train import steps as steps_mod
 
 
@@ -34,6 +37,7 @@ class ServeStats:
     batches: int = 0
     requests: int = 0
     total_s: float = 0.0
+    retunes: int = 0          # caps the autotuner adopted
 
     @property
     def throughput_rps(self) -> float:
@@ -48,22 +52,30 @@ class ServeStats:
 class DLRMEngine:
     """Fixed-batch CTR serving with the BLS-enabled forward.
 
-    ``wire_dtype``, ``exchange``, ``exchange_pipeline``, ``row_block`` and
-    ``pool_mode`` default to the config's and must stay on the ported slice
-    (float32 wire, dense exchange, mono pipeline).  ``device`` is where the
-    batches go and the parameters must live; ``group`` the model group
-    (default: the one ``launch/mesh.py`` set up, or single-device without
-    one).  The reference's cache, plan pipeline, chaos, freshness,
+    ``wire_dtype``, ``exchange``, ``ragged_cap``, ``exchange_pipeline``,
+    ``row_block`` and ``pool_mode`` default to the config's.  ``cache`` (a
+    ``serving/hot_cache.HotCache`` over the full table stack) or one built
+    by :meth:`calibrate_cache` moves the skewed head of the traffic off the
+    wire.  Under ``exchange='auto'`` with a cache every flush feeds the
+    exchange's live-count and drop diagnostics to a ``CapAutotuner``, and
+    every ``retune_every`` batches :meth:`retune_cap` adopts its cap, which
+    moves the engine between the dense and the ragged exchange; the port
+    has no jit, so a retune takes effect at the next flush.  ``device`` is
+    where the batches go and the parameters must live; ``group`` the model
+    group (default: the one ``launch/mesh.py`` set up, or single-device
+    without one).  The reference's plan pipeline, chaos, freshness,
     resharding and scrubbing options raise ``NotImplementedError``."""
 
     def __init__(self, params, cfg: DLRMConfig, *, batch_size: int = 512,
                  bound: int = 0, microbatches: int = 1,
-                 wire_dtype: Optional[str] = None,
+                 wire_dtype: Optional[str] = None, cache=None,
                  exchange: Optional[str] = None,
+                 ragged_cap: Optional[int] = None,
                  exchange_pipeline: Optional[str] = None,
+                 retune_every: int = 8,
                  row_block: Optional[int] = None,
                  pool_mode: Optional[str] = None,
-                 device="cuda", group=None, cache=None,
+                 device="cuda", group=None,
                  plan_pipeline: bool = False, faults=None, freshness=None,
                  rebalance: bool = False, scrub_budget: int = 0):
         self.device = resolve_device(device)
@@ -80,10 +92,14 @@ class DLRMEngine:
             raise ValueError(f"parameters are on {params['tables'].device}, "
                              f"the engine serves on {self.device}")
         self.wire_dtype = dlrm_mod.resolve_slice(
-            cfg, cache=cache, wire_dtype=wire_dtype, exchange=exchange,
+            cfg, wire_dtype=wire_dtype, exchange=exchange,
             exchange_pipeline=exchange_pipeline)
+        self.cache = cache
         self.exchange = exchange or cfg.exchange
+        self.ragged_cap = ragged_cap if ragged_cap is not None \
+            else cfg.ragged_cap
         self.exchange_pipeline = exchange_pipeline or cfg.exchange_pipeline
+        self.retune_every = retune_every
         self.row_block = row_block if row_block is not None \
             else cfg.row_block
         self.pool_mode = pool_mode if pool_mode is not None \
@@ -92,9 +108,23 @@ class DLRMEngine:
         self.bound, self.microbatches = int(bound), microbatches
         self.group = group
         self.monitor = StragglerMonitor()
+        self.cap_tuner = CapAutotuner()
         self.stats = ServeStats()
         self._pending: list = []
         self._last_finish_t = 0.0
+
+    def calibrate_cache(self, idx: np.ndarray, mask: np.ndarray,
+                        cache_rows: Optional[int] = None):
+        """Build the hot-row cache from an observed (idx, mask) sample;
+        ``cache_rows`` defaults to cfg.cache_rows."""
+        rows = cache_rows if cache_rows is not None else self.cfg.cache_rows
+        self.cache = hc_mod.build_from_batch(self.params["tables"], idx,
+                                             mask, rows)
+        return self.cache
+
+    def adopt_cache(self, cache):
+        """Swap in an externally built hot-row cache (None drops it)."""
+        self.cache = cache
 
     def _group(self):
         return self.group if self.group is not None \
@@ -124,22 +154,34 @@ class DLRMEngine:
         t0 = time.perf_counter()
         d, i, m = self._fit_batch(d, i, m)
         dev = self.device
+        # the diagnostics cost a re-probe of the misses and two small
+        # collectives: only when something reads them (drop monitoring under
+        # 'ragged', the autotuner under 'auto' with a cache)
+        diag_on = self.exchange == "ragged" or (
+            self.exchange == "auto" and self.cache is not None)
         with torch.no_grad():
-            logits = dlrm_mod.forward_distributed(
+            res = dlrm_mod.forward_distributed(
                 self.params, self.cfg, torch.from_numpy(d).to(dev),
                 torch.from_numpy(i).to(dev), torch.from_numpy(m).to(dev),
                 bound=self.bound, microbatches=self.microbatches,
-                wire_dtype=self.wire_dtype, exchange=self.exchange,
+                cache=self.cache, wire_dtype=self.wire_dtype,
+                exchange=self.exchange, ragged_cap=self.ragged_cap,
                 exchange_pipeline=self.exchange_pipeline,
                 row_block=self.row_block, pool_mode=self.pool_mode,
-                group=self._group())
+                return_diag=diag_on, group=self._group())
+            logits, diag = res if diag_on else (res, None)
             out = torch.sigmoid(logits).cpu().numpy()   # waits for the card
         end = time.perf_counter()
         self.monitor.observe(end - t0)
+        if diag is not None:
+            self.cap_tuner.observe(int(diag.live_max), int(diag.drops))
         self.stats.batches += 1
         self.stats.requests += n
         self.stats.total_s += end - max(t0, self._last_finish_t)
         self._last_finish_t = max(self._last_finish_t, end)
+        if self.exchange == "auto" and \
+                self.stats.batches % self.retune_every == 0:
+            self.retune_cap()
         return out[:n]
 
     def drain(self):
@@ -176,20 +218,52 @@ class DLRMEngine:
         """Adopt a new BLS bound from the next flush on."""
         self.bound = int(bound)
 
+    def retune_cap(self):
+        """Under ``exchange='auto'``: adopt the autotuner's cap: growth
+        (drops seen, or the live tail drifted up) at once, a shrink only
+        past 25%.  Each adoption counts in ``stats.retunes`` and serves
+        from the next flush.  Under a forced exchange this only reads a
+        peeked recommendation.  Returns the recommendation, or None before
+        any observation."""
+        if not len(self.cap_tuner):
+            return None
+        _, _, _, dense_rows = self._exchange_geometry()
+        cur = self.ragged_cap or dense_rows
+        rec = self.cap_tuner.recommend(dense_rows=dense_rows,
+                                       current_cap=self.ragged_cap or None,
+                                       peek=self.exchange != "auto")
+        if self.exchange != "auto":
+            return rec
+        grow = rec.cap > cur
+        shrink = rec.cap * 4 <= cur * 3
+        if grow or shrink:
+            self.ragged_cap = rec.cap
+            self.stats.retunes += 1
+        return rec
+
     def slot_bytes(self) -> int:
         """Bytes ONE BLS ring slot buffers: the fused (P, slot_bytes) uint8
-        receive buffer plus the buffered bottom-MLP activations."""
-        p, t_pad, bs, _ = self._exchange_geometry()
+        buffer of the exchange the engine resolves to (dense or ragged, at
+        its codec), the buffered bottom-MLP activations and, with a cache,
+        the (bs, t_pad, s) pooled hits."""
+        p, t_pad, bs, dense_rows = self._exchange_geometry()
         s = self.cfg.embed_dim
+        emb_dtype = self.params["tables"].dtype
+        use_cache = self.cache is not None and self.cache.cache_rows > 0
+        use_ragged, cap = dlrm_mod.resolve_exchange(
+            self.exchange, use_cache=use_cache, cap=self.ragged_cap,
+            dense_rows=dense_rows)
         layout = a2a_mod.exchange_wire_layout(
-            ragged=False, n_dest=p, cap=0, bs=bs, t_loc=t_pad // p,
-            embed_dim=s, wire_dtype=self.wire_dtype,
-            emb_dtype=self.params["tables"].dtype)
+            ragged=use_ragged, n_dest=p, cap=cap, bs=bs, t_loc=t_pad // p,
+            embed_dim=s, wire_dtype=self.wire_dtype, emb_dtype=emb_dtype)
         recv = torch.empty((p, layout.slot_bytes), dtype=torch.uint8,
                            device="meta")
-        side = torch.empty((bs, s), dtype=L.dtype_of(self.cfg.dtype),
-                           device="meta")
-        return bls_mod.ring_slot_bytes(recv, [side])
+        side = [torch.empty((bs, s), dtype=L.dtype_of(self.cfg.dtype),
+                            device="meta")]
+        if use_cache:
+            side.append(torch.empty((bs, t_pad, s), dtype=emb_dtype,
+                                    device="meta"))
+        return bls_mod.ring_slot_bytes(recv, side)
 
     def recommend_bound(self, memory_budget: int = 64 << 20):
         """Memory-budget -> bound recommendation, sized by

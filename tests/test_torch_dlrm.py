@@ -28,6 +28,7 @@ from repro_torch.core import bls as tbls
 from repro_torch.data import synthetic as tsyn
 from repro_torch.models import dlrm as tdlrm
 from repro_torch.runtime import straggler as tstrag
+from repro_torch.serving import hot_cache as thc
 from repro_torch.serving.engine import DLRMEngine
 
 LOGIT_TOL = {"rtol": 1e-5, "atol": 1e-5}
@@ -160,12 +161,9 @@ def test_no_group_falls_back_to_forward_local():
 
 
 @pytest.mark.parametrize("kw", [
-    {"wire_dtype": "bfloat16"}, {"wire_dtype": "int8"},
-    {"exchange": "ragged"}, {"exchange_pipeline": "ring"},
-    {"cache": object()}, {"plan": object()}, {"deltas": {}},
-    {"migration": {}}, {"repair": {}}, {"quarantine": [1]},
-    {"table_inv": [0]}, {"wire_check": True}, {"degraded_members": (1,)},
-    {"return_diag": True}])
+    {"plan": object()}, {"deltas": {}}, {"migration": {}}, {"repair": {}},
+    {"quarantine": [1]}, {"table_inv": [0]}, {"wire_check": True},
+    {"degraded_members": (1,)}])
 def test_forward_distributed_refuses_unported_options(kw):
     jcfg, tcfg = _cfgs("smoke")
     _, tp = _params(jcfg)
@@ -176,15 +174,54 @@ def test_forward_distributed_refuses_unported_options(kw):
 
 
 @pytest.mark.parametrize("kw", [
-    {"cache": object()}, {"plan_pipeline": True}, {"faults": object()},
-    {"freshness": object()}, {"rebalance": True}, {"scrub_budget": 4},
-    {"wire_dtype": "bf16"}, {"exchange": "ragged"},
-    {"exchange_pipeline": "ring"}])
+    {"wire_dtype": "bfloat16"}, {"wire_dtype": "int8"},
+    {"exchange": "ragged"}, {"exchange_pipeline": "ring"},
+    {"cache": "calibrated"}, {"return_diag": True}])
+def test_forward_distributed_serves_the_exchange_options(kw):
+    """Without a model group these options fall back to forward_local, as
+    in the reference, warning where a cache or a lossy wire is inactive."""
+    jcfg, tcfg = _cfgs("smoke")
+    _, tp = _params(jcfg)
+    b = tsyn.make_batch(tcfg, 8, mode="hetero", seed=0)
+    args = _t(b.dense, b.idx, b.mask)
+    if kw.get("cache") == "calibrated":
+        kw = {"cache": thc.build_from_batch(tp["tables"], b.idx, b.mask, 4)}
+    want = tdlrm.forward_local(tp, tcfg, *args)
+    if "cache" in kw or kw.get("wire_dtype", "float32") != "float32":
+        with pytest.warns(UserWarning, match="inactive"):
+            got = tdlrm.forward_distributed(tp, tcfg, *args, **kw)
+    else:
+        got = tdlrm.forward_distributed(tp, tcfg, *args, **kw)
+    if kw.get("return_diag"):
+        got, diag = got
+        assert (diag.exchange, diag.live_max, diag.drops) == ("local", 0, 0)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kw", [
+    {"plan_pipeline": True}, {"faults": object()}, {"freshness": object()},
+    {"rebalance": True}, {"scrub_budget": 4}])
 def test_engine_refuses_unported_options(kw):
     jcfg, tcfg = _cfgs("smoke")
     _, tp = _params(jcfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DLRMEngine(tp, tcfg, batch_size=8, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    {"wire_dtype": "bf16"}, {"wire_dtype": "int8"}, {"exchange": "ragged"},
+    {"exchange_pipeline": "ring"}, {"exchange": "auto", "ragged_cap": 8}])
+def test_engine_takes_the_exchange_options(kw):
+    jcfg, tcfg = _cfgs("smoke")
+    _, tp = _params(jcfg)
+    eng = DLRMEngine(tp, tcfg, batch_size=8, device="cpu", retune_every=2,
+                     **kw)
+    b = tsyn.make_batch(tcfg, 8, mode="hetero", seed=1)
+    cache = eng.calibrate_cache(b.idx, b.mask, 4)
+    assert eng.cache is cache and cache.cache_rows == 4
+    eng.adopt_cache(None)
+    assert eng.cache is None
+    assert eng.retune_cap() is None             # nothing observed yet
 
 
 def test_entry_points_default_to_cuda():
@@ -265,8 +302,15 @@ def test_wire_codecs():
     x = torch.randn(3, 4)
     assert ta2a.encode_wire(x, "float32")["q"] is x
     for codec in ("bfloat16", "int8"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ta2a.encode_wire(x, codec)
+        jp = ja2a.encode_wire(jnp.asarray(x.numpy()), codec)
+        tp = ta2a.encode_wire(x, codec)
+        assert sorted(tp) == sorted(jp)
+        for k in jp:
+            np.testing.assert_array_equal(
+                tp[k].view(torch.int16 if tp[k].dtype == torch.bfloat16
+                           else tp[k].dtype).numpy(),
+                np.asarray(jp[k]).view(np.int16 if k == "scale" or
+                                       codec == "bfloat16" else np.int8))
     with pytest.raises(ValueError):
         ta2a.fuse_wire({"q": x}, ta2a.wire_layout(3, {"q": ((4,),
                                                            torch.int32)}))
@@ -360,6 +404,24 @@ def test_engine_slot_bytes_match_reference(batch, mb):
                               bound=2)
     teng = DLRMEngine(tp, tcfg, batch_size=batch, microbatches=mb, bound=2,
                       device="cpu")
+    assert teng.slot_bytes() == jeng.slot_bytes()
+
+
+@pytest.mark.parametrize("exchange,cap", [("dense", 0), ("ragged", 0),
+                                           ("ragged", 40), ("auto", 40),
+                                           ("auto", 0)])
+@pytest.mark.parametrize("wire", ["float32", "bfloat16", "int8"])
+def test_engine_slot_bytes_with_a_cache_match_reference(wire, exchange, cap):
+    jcfg, tcfg = _cfgs("smoke")
+    jp, tp = _params(jcfg)
+    b = tsyn.make_batch(tcfg, 64, mode="powerlaw_hetero", seed=3)
+    kw = dict(batch_size=64, microbatches=4, bound=2, wire_dtype=wire,
+              exchange=exchange, ragged_cap=cap)
+    jeng = jengine.DLRMEngine(jp, jcfg, **kw)
+    teng = DLRMEngine(tp, tcfg, device="cpu", **kw)
+    assert teng.slot_bytes() == jeng.slot_bytes()
+    jeng.calibrate_cache(b.idx, b.mask, 8)
+    teng.calibrate_cache(b.idx, b.mask, 8)
     assert teng.slot_bytes() == jeng.slot_bytes()
 
 

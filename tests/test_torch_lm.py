@@ -186,6 +186,19 @@ def test_lm_engine_generate_matches_jax(arch):
     assert len(eng.monitor.lat) == STEPS
 
 
+def test_lm_engine_generate_past_max_len_matches_jax():
+    """Decoding past the cache's end writes the last slot, as the
+    reference's ``dynamic_update_slice`` clamps it, while rope and the mask
+    keep the true position: 6-token prompts, ``max_len`` 8, 5 tokens."""
+    jcfg, tcfg, jp, tp = _model("gemma2")
+    prompts = np.random.default_rng(14).integers(
+        0, jcfg.vocab_size, (2, 6)).astype(np.int32)
+    want = jengine.LMEngine(jp, jcfg, max_len=8).generate(prompts, 5)
+    got = LMEngine(tp, tcfg, max_len=8, device="cpu").generate(prompts, 5)
+    assert got.shape == (2, 5)
+    np.testing.assert_array_equal(got, want)
+
+
 def test_serve_step_takes_the_first_largest_logit():
     jcfg, tcfg, jp, tp = _model("qwen3")
     cache = tT.make_cache(tcfg, 2, 8, device="cpu")
