@@ -44,6 +44,23 @@ Phases, each on lines of its own:
      exchanged bytes per codec, ServeStats and flush p50/p99 per run, one
      profiled ragged flush, and the rows kernel held and timed at the
      served shape (the packed residual of one microbatch at the cap);
+ 5c. on the same group, at full width with 4 x 512 hetero requests over 4
+     microbatches: ``build_forward_plans`` gives plans (the whole stack
+     streams, the reference's geometry picks 'sort'), their build time on
+     a side stream; ``forward_distributed(plan=...)`` bit-identical to
+     inline planning at bound 0 / 1 microbatch and bound 2 / 4, a plan of
+     another ``row_block`` refused; an inline and a ``plan_pipeline``
+     engine serving the same requests to bit-identical CTRs (the pipeline
+     one flush late, ``drain`` returning the last batch, a ``stage_plan``
+     adopted) with each one's flush p50; then chaos at P = 1: a seeded
+     jitter-and-spike ``FaultPlan`` through ``FaultInjector`` leaving the
+     CTRs bit-identical with the injected delay equal to the plan's, and a
+     bound-0 engine under a deadline below every flush
+     (``on_deadline='degrade'``) counting the breaches and raising its
+     bound (one member flags no straggler), CTRs bit-identical;
+     ``predict_absorption`` at bounds 0 and 2; on every engine run the bag
+     and interaction kernels launched once per microbatch at the served
+     shape and at no other;
   6. the flash-attention kernel held against its plain version in bf16
      (rtol 1e-2, atol 5e-3, and the relative Frobenius error under 5e-3:
      the plain version computes in f32 on the same bf16 inputs) at the
@@ -969,6 +986,199 @@ def ragged_phase(params, cfg, dev, card):
     return row
 
 
+def served_launches(label, cfg):
+    """The DLRM kernels' launches by shape since the last reset; fails
+    unless the bag and the interaction each ran once per microbatch of
+    the ``N_BATCHES`` served batches at the served shape, and at no
+    other."""
+    from repro_torch.kernels import dot_interaction as di
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import ops
+
+    t, hot, s = cfg.n_tables, cfg.max_hot, cfg.embed_dim
+    by_key = {k: dict(ops.kernels()[k].by_key) for k in DLRM_KERNELS}
+    n_mb = N_BATCHES * (BATCH // SERVED_MB)
+    want = {"embedding_bag_pool": {eb.launch_key(SERVED_MB * t, hot, s, t):
+                                   n_mb},
+            "dot_interaction": {di.launch_key(SERVED_MB, t + 1, s): n_mb}}
+    if by_key != want:
+        raise AssertionError(f"{label}: launches by shape {by_key}, not "
+                             f"{want}")
+    return by_key
+
+
+def plans_chaos_phase(params, cfg, dev, card):
+    """Phase 5c: precomputed stream plans with the pipelined engine, and
+    the chaos path at P = 1, at full ``dlrm-kaggle`` width on the phase-5
+    group (see the module docstring)."""
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import ops
+    from repro_torch.models import dlrm
+    from repro_torch.runtime.faults import (FaultInjector, FaultPlan,
+                                            predict_absorption)
+    from repro_torch.serving.engine import DLRMEngine
+
+    batch = make_batch(cfg, N_BATCHES * BATCH, mode="hetero", seed=SEED)
+    first = [torch.from_numpy(a[:BATCH]).to(dev)
+             for a in (batch.dense, batch.idx, batch.mask)]
+
+    # the plans: exist, stream the whole stack, sort
+    plan = dlrm.build_forward_plans(params, cfg, first[1], microbatches=4)
+    if plan is None:
+        raise AssertionError("build_forward_plans gave no plan at full "
+                             "width")
+    _, tiles, L = plan.sid.shape
+    n_blocks = -(-plan.total_rows // plan.rb)
+    method = eb._resolve_plan_method("auto", L, n_blocks, tiles)
+    if method != "sort" or plan.total_rows != cfg.n_tables * \
+            params["tables"].shape[1]:
+        raise AssertionError(f"plan over {plan.total_rows} rows by "
+                             f"{method}: not the whole stack by 'sort'")
+    side = torch.cuda.Stream(dev)
+    build_ms, wall_ms = [], []
+    for _ in range(7):
+        side.wait_stream(torch.cuda.current_stream(dev))
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        with torch.cuda.stream(side):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            dlrm.build_forward_plans(params, cfg, first[1], microbatches=4)
+            e1.record()
+        wall_ms.append((time.perf_counter() - w0) * 1e3)
+        e1.synchronize()
+        build_ms.append(e0.elapsed_time(e1))
+    log(f"[plans] build_forward_plans at 4 microbatches of 128: leaves "
+        f"{tuple(plan.sid.shape)} (sid/pos/inv/cum) and "
+        f"{tuple(plan.off.shape)} (off/seg0/seg1), rb {plan.rb}, "
+        f"{plan.total_rows} rows in {n_blocks} blocks, 'auto' -> {method} "
+        f"({tiles} tiles x L {L} x {n_blocks} blocks); on a side stream "
+        f"median {statistics.median(build_ms):.3f} ms of card time, "
+        f"{statistics.median(wall_ms):.3f} ms of host time to enqueue "
+        f"(7 builds) card={card!r}")
+
+    # plan vs inline at bound 0 / 1 microbatch and bound 2 / 4
+    for bound, mb in ((0, 1), (2, 4)):
+        p = dlrm.build_forward_plans(params, cfg, first[1], microbatches=mb)
+        a = dlrm.forward_distributed(params, cfg, *first, bound=bound,
+                                     microbatches=mb, plan=p)
+        b = dlrm.forward_distributed(params, cfg, *first, bound=bound,
+                                     microbatches=mb)
+        if p is None or not torch.equal(a, b):
+            raise AssertionError(f"plan at bound {bound} / {mb} "
+                                 f"microbatches: logits differ from inline")
+    other = dlrm.build_forward_plans(params, cfg, first[1], microbatches=4,
+                                     row_block=4096)
+    try:
+        dlrm.forward_distributed(params, cfg, *first, bound=2,
+                                 microbatches=4, plan=other)
+        raise AssertionError("a plan for row_block 4096 was accepted")
+    except ValueError:
+        pass
+    log("[plans] forward_distributed(plan=...) bit-identical to inline "
+        "planning at bound 0 / 1 microbatch and bound 2 / 4; a plan built "
+        "for row_block 4096 refused")
+
+    # an inline and a pipelined engine on the same requests, after one
+    # warm-up batch through the pipeline (its plan buffers, pinned blocks)
+    warm = make_batch(cfg, BATCH, mode="hetero", seed=SEED + 1)
+    serve(params, cfg, warm, 2, dev, plan_pipeline=True)
+    ops.reset_launches()
+    ctr_inline, eng_inline = serve(params, cfg, batch, 2, dev)
+    keys = served_launches("inline engine", cfg)
+    ops.reset_launches()
+    pipe = DLRMEngine(params, cfg, batch_size=BATCH, bound=2,
+                      microbatches=4, device=dev, plan_pipeline=True)
+    outs = []
+    for i in range(N_BATCHES * BATCH):
+        if i == BATCH:
+            # batch 1's plans, staged while batch 0 is in flight
+            pipe.stage_plan(list(batch.idx[BATCH:2 * BATCH]))
+        o = pipe.submit(batch.dense[i], batch.idx[i], batch.mask[i])
+        if o is not None:
+            outs.append(o)
+    late = len(outs)
+    tail = pipe.drain()
+    served_launches("pipelined engine", cfg)
+    if late != N_BATCHES - 1 or tail is None or tail.shape != (BATCH,) or \
+            pipe.drain() is not None:
+        got = None if tail is None else tail.shape
+        raise AssertionError(f"pipelined engine: {late} batches before "
+                             f"drain, then {got}")
+    ctr_pipe = np.concatenate(outs + [tail])
+    if not np.array_equal(ctr_pipe, ctr_inline):
+        raise AssertionError("pipelined CTRs differ from inline")
+    if pipe.stats.batches != N_BATCHES or pipe.plan_stage_hits < 1:
+        raise AssertionError(f"pipelined engine: {pipe.stats.batches} "
+                             f"batches, {pipe.plan_stage_hits} staged plans "
+                             f"adopted")
+    log(f"[plans] inline and plan_pipeline engines: 4 x 512 CTRs "
+        f"bit-identical; the pipeline returned {late} batches one flush "
+        f"late and drain the last; {pipe.plan_stage_hits} staged plan "
+        f"adopted; launches per run by shape {keys}")
+    for label, e in (("inline bound=2", eng_inline),
+                     ("plan_pipeline bound=2", pipe)):
+        log_serve("plans", label, e, card)
+
+    # chaos at P = 1: a transient plan leaves the CTRs bit-identical
+    fplan = FaultPlan.none(1, 8, seed=SEED).with_jitter(0.001) \
+        .with_spike(0, 1, 0.002)
+    inj = FaultInjector(fplan)
+    ops.reset_launches()
+    ctr_fault, eng_fault = serve(params, cfg, batch, 2, dev, faults=inj)
+    served_launches("faulted engine", cfg)
+    planned = sum(fplan.delay_of(0, k) for k in range(N_BATCHES))
+    if not np.array_equal(ctr_fault, ctr_inline):
+        raise AssertionError("CTRs under the transient fault plan differ")
+    if inj.injected_delay_s != planned:
+        raise AssertionError(f"injected {inj.injected_delay_s} s, the plan "
+                             f"has {planned} s")
+    # a deadline under every flush: each breach is transient (one member
+    # flags no straggler), so the engine raises its bound
+    deadline = 0.5 * min(eng_inline.monitor.lat)
+    inj2 = FaultInjector(fplan)
+    ops.reset_launches()
+    ctr_dl, eng_dl = serve(params, cfg, batch, 0, dev, faults=inj2,
+                           deadline_s=deadline, on_deadline="degrade")
+    served_launches("deadline engine", cfg)
+    st = eng_dl.stats
+    if not np.array_equal(ctr_dl, ctr_inline) or \
+            st.deadline_breaches != N_BATCHES or eng_dl.bound < 1 or \
+            eng_dl.degraded_members or st.degraded_batches:
+        raise AssertionError(
+            f"deadline engine: breaches {st.deadline_breaches}, bound "
+            f"{eng_dl.bound}, degraded {eng_dl.degraded_members}, CTRs "
+            f"equal {np.array_equal(ctr_dl, ctr_inline)}")
+    try:
+        dlrm.forward_distributed(params, cfg, *first, degraded_members=(0,))
+        raise AssertionError("degrading the only member was accepted")
+    except ValueError:
+        pass
+    pred = {k: predict_absorption(fplan, k) for k in (0, 2)}
+    log(f"[chaos] FaultPlan.none(1, 8).with_jitter(0.001).with_spike(0, 1, "
+        f"0.002): injected {inj.injected_delay_s * 1e3:.3f} ms over "
+        f"{N_BATCHES} flushes (the plan's {planned * 1e3:.3f} ms), CTRs "
+        f"bit-identical to the fault-free run card={card!r}")
+    log(f"[chaos] deadline {deadline * 1e3:.3f} ms (half the fastest "
+        f"fault-free flush), on_deadline='degrade', bound 0: "
+        f"{st.deadline_breaches} breaches, bound raised to {eng_dl.bound}, "
+        f"nothing degraded, CTRs bit-identical card={card!r}")
+    for k, r in pred.items():
+        log(f"[chaos] predict_absorption bound {k}: absorbed {r.absorbed}, "
+            f"blocked {r.blocked_s * 1e3:.3f} ms (fault-free "
+            f"{r.baseline_blocked_s * 1e3:.3f}), makespan "
+            f"{r.makespan_s * 1e3:.3f} ms (fault-free "
+            f"{r.baseline_makespan_s * 1e3:.3f})")
+    log("[chaos] P = 1 cannot degrade or evict: degrading the only member "
+        "is refused and eviction would leave none; those paths are held "
+        "on gloo at P = 4 by tests/test_torch_faults.py")
+    for label, e in (("faults bound=2", eng_fault),
+                     ("deadline bound=0->" + str(eng_dl.bound), eng_dl)):
+        log_serve("chaos", label, e, card)
+
+
 def admitted_pairs(s: int, window: int) -> int:
     """(query, key) pairs a causal layer of length s admits."""
     live = np.arange(1, s + 1)
@@ -1594,6 +1804,7 @@ def main() -> int:
         with model_group("nccl"):
             dlrm_by_key = serve_phase(params, CONFIG, dev, card)
             ragged_row = ragged_phase(params, CONFIG, dev, card)
+            plans_chaos_phase(params, CONFIG, dev, card)
         # each DLRM row takes the served launches of its own shape: the
         # served path pools and interacts 128 samples a launch, once per
         # microbatch, so the two served rows must read N_BATCHES x 4 and

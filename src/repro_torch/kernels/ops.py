@@ -12,7 +12,9 @@ from __future__ import annotations
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.dot_interaction import DOT, dot_interaction
-from repro_torch.kernels.embedding_bag import (POOL, embedding_bag,
+from repro_torch.kernels.embedding_bag import (POOL, check_plan,
+                                               check_stacked_plan,
+                                               embedding_bag,
                                                embedding_bag_rows,
                                                embedding_bag_stacked)
 from repro_torch.kernels.flash_attention import FLASH, flash_attention
@@ -47,6 +49,14 @@ def use_kernel(impl: str, t) -> bool:
     raise ValueError(f"unknown impl {impl!r}; have {IMPLS}")
 
 
+def _no_ref_plan(impl: str) -> None:
+    """A plan on the plain path: 'ref' has none to consume, as in the
+    reference; the other impls check it against the call."""
+    if impl == "ref":
+        raise ValueError("a precomputed stream plan only applies to the "
+                         "kernel backends, not 'ref'")
+
+
 def dot_interaction_op(z, *, impl: str = "auto", batch_tile: int = 128):
     if not use_kernel(impl, z):
         return ref.dot_interaction_ref(z)
@@ -57,6 +67,13 @@ def embedding_bag_op(table, idx, mask, *, impl: str = "auto",
                      batch_tile: int = 64, row_block: int = 0,
                      pool_mode: str = "auto", plan=None):
     if not use_kernel(impl, table):
+        if plan is not None:
+            _no_ref_plan(impl)
+            r, s = table.shape
+            check_plan(plan, n_tables=1, rows=r, s=s,
+                       itemsize=table.element_size(), n_bags=idx.shape[0],
+                       hot=idx.shape[1], tile=batch_tile,
+                       row_block=row_block)
         return ref.embedding_bag_ref(table, idx, mask)
     return embedding_bag(table, idx, mask, batch_tile=batch_tile,
                          row_block=row_block, pool_mode=pool_mode, plan=plan)
@@ -67,6 +84,10 @@ def embedding_bag_stacked_op(tables, idx, mask, *, impl: str = "auto",
                              pool_mode: str = "auto", plan=None):
     """(T,R,s) stacked embedding bags -> (B,T,s); the model hot path."""
     if not use_kernel(impl, tables):
+        if plan is not None:
+            _no_ref_plan(impl)
+            check_stacked_plan(plan, tables, idx, batch_tile=batch_tile,
+                               row_block=row_block)
         return ref.embedding_bag_stacked_ref(tables, idx, mask)
     return embedding_bag_stacked(tables, idx, mask, batch_tile=batch_tile,
                                  row_block=row_block, pool_mode=pool_mode,

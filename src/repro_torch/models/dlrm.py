@@ -1,7 +1,9 @@
 """DLRM (Naumov et al., arXiv:1906.00091) — the port of
 ``repro/models/dlrm.py``: the single-device forward and the table-parallel
 forward with the hot-row cache, the dense and ragged exchanges, the mono
-and ring pipelines and the float32, bf16 and int8 wire codecs.
+and ring pipelines, the float32, bf16 and int8 wire codecs, precomputed
+stream plans (:func:`build_forward_plans`) and degraded serving around
+slow members.
 
 Architecture: dense features -> bottom MLP; categorical features ->
 embedding bags over (T_pad, R_max, s) stacked tables; pairwise dot
@@ -32,6 +34,7 @@ from repro_torch.configs.base import DLRMConfig
 from repro_torch.core import alltoallv as a2a_mod
 from repro_torch.core import bls as bls_mod
 from repro_torch.device import resolve_device
+from repro_torch.kernels import embedding_bag as eb
 from repro_torch.kernels import ops
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import layers as L
@@ -120,24 +123,21 @@ def resolve_sparse_backend(backend: str, device) -> str:
 def apply_emb(tables, idx, mask, backend: str = "ref", row_block: int = 0,
               pool_mode: str = "auto", plan=None):
     """Embedding bags.  tables:(T,R,s) idx:(B,T,hot) mask:(B,T,hot)
-    -> (B,T,s).  The paper's dominant stage (its Fig. 5 flame graph)."""
-    if plan is not None:
-        raise NotImplementedError(
-            "apply_emb: precomputed stream plans are not ported (ROADMAP "
-            "'StreamPlan builders and plan_pipeline')")
+    -> (B,T,s).  The paper's dominant stage (its Fig. 5 flame graph).
+    ``plan`` (``kernels.embedding_bag.stacked_stream_plan``) is checked
+    against the call; the 'ref' backend has none to consume and raises."""
     impl = resolve_sparse_backend(backend, tables.device)
     return ops.embedding_bag_stacked_op(tables, idx, mask, impl=impl,
                                         row_block=row_block,
-                                        pool_mode=pool_mode)
+                                        pool_mode=pool_mode, plan=plan)
 
 
 @dataclasses.dataclass
 class ExchangeDiag:
     """Per-step exchange diagnostics (the cap autotuner's observation).
     ``live_max``, ``drops`` and ``approx_rows`` are 0-dim int32 tensors
-    (reduced over the model group) or ints; ``approx_rows`` counts bags
-    served from a degraded member's fallback and stays 0 until degraded
-    serving is ported (ROADMAP A8)."""
+    (reduced over the model group) or ints; ``approx_rows`` counts the live
+    (sample, table) bags served from a degraded member's fallback."""
     live_max: object        # max per-(microbatch, dest) live rows
     drops: object           # rows the cap dropped (0 when dense)
     approx_rows: object = 0
@@ -307,6 +307,7 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
                         plan=None, deltas=None, migration=None, repair=None,
                         quarantine=None, wire_check: bool = False,
                         table_inv=None, degraded_members: tuple = (),
+                        degraded_fallback: str = "zero",
                         return_diag: bool = False, group=None):
     """dense:(B, n_dense) idx/mask:(B, T_pad, hot), the same full batch on
     every member; ``params["tables"]`` either the full (T_pad, R, s) stack
@@ -332,22 +333,35 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
 
     ``exchange``: 'dense', 'ragged' (``ragged_cap`` rows a destination, 0
     meaning dense-equivalent) or 'auto' (:func:`resolve_exchange`).
+    ``plan`` is this member's :func:`build_forward_plans` (leaves stacked
+    over microbatches): each microbatch's bags are checked against their
+    plan and pooled as without one, bit for bit; a plan with an exchange
+    that resolves ragged raises ``ValueError``.
+
+    ``degraded_members`` (group ranks) serves around slow or suspect
+    members: every member still takes part in the collective, but a
+    degraded source's chunk is masked on receipt, so its tables' miss
+    residual is served from ``degraded_fallback``: 'zero' (the residual
+    vanishes; cache hits, which never ride the wire, still land) or 'mean'
+    (each table's mean row times the residual weight sum; needs a cache).
+    ``approx_rows`` in the diagnostics counts exactly the live bags so
+    served, summed over the group.
+
     ``group`` defaults to the model group of ``launch/mesh.py``; with none
     the forward falls back to :func:`forward_local`, as the reference does
-    without a model mesh.  The riders, degraded serving, wire checks,
-    table placement and plans raise ``NotImplementedError``."""
+    without a model mesh.  The riders, wire checks and table placement
+    raise ``NotImplementedError``."""
     wire = resolve_slice(cfg, wire_dtype=wire_dtype, exchange=exchange,
                          exchange_pipeline=exchange_pipeline)
-    if plan is not None:
-        raise _unported("plan=", "'StreamPlan builders and plan_pipeline'")
     riders = {"deltas": deltas, "migration": migration, "repair": repair,
               "quarantine": quarantine, "table_inv": table_inv}
+    items = {"deltas": "A10", "migration": "A11", "table_inv": "A11",
+             "repair": "A12", "quarantine": "A12"}
     for name, val in riders.items():
         if val is not None:
-            raise _unported(f"{name}=", "A8-A12 (riders and chaos)")
-    if wire_check or degraded_members:
-        raise _unported("wire_check / degraded_members",
-                        "A8-A12 (riders and chaos)")
+            raise _unported(f"{name}=", items[name])
+    if wire_check:
+        raise _unported("wire_check", "A12")
     group = group if group is not None else mesh_mod.current_group()
     if group is None:
         if cache is not None or (wire_dtype or cfg.wire_dtype) != "float32":
@@ -406,6 +420,42 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
     layout = a2a_mod.exchange_wire_layout(
         ragged=use_ragged, n_dest=n_shards, cap=cap, bs=bs, t_loc=t_loc,
         embed_dim=s, wire_dtype=wire, emb_dtype=emb_dtype)
+    if plan is not None:
+        if use_ragged:
+            raise ValueError(
+                "forward_distributed: precomputed stream plans describe the "
+                "dense pooling path; the ragged exchange packs a data-"
+                "dependent row set per step — build plans only when the "
+                "exchange resolves dense")
+        if not isinstance(plan, eb.StreamPlan) or plan.sid.dim() < 1 or \
+                plan.sid.shape[0] != mb:
+            raise ValueError(f"plan must be build_forward_plans' StreamPlan "
+                             f"with {mb} microbatches")
+    deg = tuple(sorted({int(d) for d in degraded_members}))
+    fb_rows = None
+    if deg:
+        if degraded_fallback not in ("zero", "mean"):
+            raise ValueError(
+                f"unknown degraded_fallback {degraded_fallback!r}")
+        if any(d < 0 or d >= n_shards for d in deg):
+            raise ValueError(f"degraded_members {deg} out of range for "
+                             f"{n_shards} members")
+        if len(deg) >= n_shards:
+            raise ValueError("forward_distributed: every member degraded — "
+                             "nothing would serve the exchange; evict "
+                             "instead")
+        if degraded_fallback == "mean":
+            if not use_cache:
+                raise ValueError(
+                    "degraded_fallback='mean' needs the cache layout: the "
+                    "fallback weight sums come from each member's own "
+                    "(idx, mask) slice over ALL tables, which only the "
+                    "cache path reads — use 'zero' or serve with a cache")
+            fb_rows = table_means(params["tables"], t_pad, group)
+    deg_mask = [1 if i in deg else 0 for i in range(n_shards)]
+    # 1 on every table column a degraded member owns
+    deg_cols = torch.tensor(deg_mask, device=idx.device) \
+        .repeat_interleave(t_loc) if deg else None
     cols = slice(m * t_loc, (m + 1) * t_loc)
     hit_impl = resolve_sparse_backend(backend, tables.device)
 
@@ -429,6 +479,14 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
             hits = hc_mod.pooled_hits_of(cache.hot_rows, cache.slot_of,
                                          ix[mine], mk[mine],
                                          impl=hit_impl).to(emb_dtype)
+            if fb_rows is not None:
+                # degraded tables' residuals never arrive: fold in mean
+                # row x residual weight sum with the hit correction, zero
+                # exactly where nothing was live
+                w = hc_mod.miss_mask_of(cache.slot_of, ix[mine],
+                                        mk[mine]).sum(-1)
+                hits = hits + ((w * deg_cols.to(w.dtype))[..., None]
+                               * fb_rows[None]).to(emb_dtype)
         if use_ragged:
             # pack the live rows first, pool only what ships
             payload, _ = ragged_exchange_pack(
@@ -436,7 +494,9 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
                 wire=wire, backend=backend, row_block=rblk, pool_mode=pool)
         else:
             pooled = apply_emb(tables, ix_loc, miss_mk, backend,
-                               row_block=rblk, pool_mode=pool)
+                               row_block=rblk, pool_mode=pool,
+                               plan=None if plan is None
+                               else plan.map(lambda a: a[j]))
             # destination-major: all_to_all's split groups are the leading
             # bs-row blocks, a free reshape
             payload = {k: v.reshape(n_shards, bs, *v.shape[1:])
@@ -466,6 +526,8 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
                                         out_dtype=emb_dtype)
         else:
             sl = a2a_mod.decode_wire(f, emb_dtype)             # (bs, t_loc, s)
+        if deg_mask[src]:
+            sl = torch.zeros_like(sl)
         if use_cache:
             sl = sl + hits[:, src * t_loc:(src + 1) * t_loc]
         return sl
@@ -491,6 +553,11 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
                 # (P, bs, t_loc, s) source-major -> (bs, t_pad, s)
                 q = a2a_mod.decode_wire(f, emb_dtype)
                 emb_all = q.permute(1, 0, 2, 3).reshape(bs, t_pad, s)
+            if deg:
+                # drop degraded sources' table columns (x * 1.0 is
+                # bit-exact for the survivors)
+                emb_all = emb_all * (1 - deg_cols.to(emb_all.dtype))[
+                    None, :, None]
             if use_cache:
                 emb_all = emb_all + hits              # pooled-hit correction
         z = torch.cat([z0[:, None, :], emb_all[:, :t]], dim=1)
@@ -517,8 +584,75 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
     live_max = cnt.max()
     drops = (cnt - cap).clamp(min=0).sum().to(torch.int32) if use_ragged \
         else torch.zeros((), dtype=torch.int32, device=cnt.device)
+    # the degraded ledger: every live residual bag of a degraded member's
+    # tables was served from the fallback; counted on the owning member
+    approx = cnt.sum().to(torch.int32) * deg_mask[m]
     dist.all_reduce(live_max, op=dist.ReduceOp.MAX, group=group)
     dist.all_reduce(drops, op=dist.ReduceOp.SUM, group=group)
-    return logits, ExchangeDiag(live_max, drops, 0,
+    if deg:
+        dist.all_reduce(approx, op=dist.ReduceOp.SUM, group=group)
+    return logits, ExchangeDiag(live_max, drops, approx,
                                 "ragged" if use_ragged else "dense", cap,
                                 dense_rows)
+
+
+def table_means(tables, t_pad: int, group):
+    """(t_pad, s) per-table mean rows, the degraded 'mean' fallback (what a
+    deployment keeps as the cold-start embedding).  A member holding only
+    its shard gathers the other members' means over ``group``."""
+    means = tables.float().mean(dim=1).to(tables.dtype)
+    if means.shape[0] == t_pad:
+        return means
+    parts = [torch.empty_like(means)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, means.contiguous(), group=group)
+    return torch.cat(parts)
+
+
+def build_forward_plans(params, cfg: DLRMConfig, idx, *,
+                        microbatches: int = 1, batch_tile: int = 64,
+                        cache=None, exchange: Optional[str] = None,
+                        ragged_cap: Optional[int] = None,
+                        row_block: Optional[int] = None,
+                        plan_method: str = "auto", group=None):
+    """This member's embedding-bag StreamPlans for
+    ``forward_distributed(..., plan=...)``: the plans of its table slice
+    for each microbatch of ``idx`` (B, T_pad, hot), leaves stacked over the
+    microbatches (the reference returns every member's, for its
+    ``shard_map`` to hand out).  None where the reference has no plan to
+    build: no model group, the 'ref' backend, a resident regime, or an
+    exchange that resolves ragged.  Plans are built from indices alone, so
+    a cache's miss masks never invalidate them."""
+    group = group if group is not None else mesh_mod.current_group()
+    if group is None:
+        return None
+    tables = params["tables"]
+    if resolve_sparse_backend(cfg.sparse_backend, tables.device) == "ref":
+        return None
+    n_shards = dist.get_world_size(group)
+    m = dist.get_rank(group)
+    mb = microbatches
+    rblk = row_block if row_block is not None else cfg.row_block
+    r, s = tables.shape[1], tables.shape[2]
+    item = tables.element_size()
+    try:
+        streamed, _ = eb.resolve_row_block(r, s, item, rblk)
+    except ValueError:
+        return None                 # the forward raises on its own terms
+    if not streamed:
+        return None
+    use_cache = cache is not None and cache.cache_rows > 0
+    b, t_pad, hot = idx.shape
+    t_loc = t_pad // n_shards
+    use_ragged, _ = resolve_exchange(
+        exchange if exchange is not None else cfg.exchange,
+        use_cache=use_cache,
+        cap=ragged_cap if ragged_cap is not None else cfg.ragged_cap,
+        dense_rows=(b // (mb * n_shards)) * t_loc)
+    if use_ragged:
+        return None
+    ix = idx[:, m * t_loc:(m + 1) * t_loc]
+    return eb.stacked_stream_plan(t_loc, r, s, item,
+                                  ix.reshape(mb, b // mb, t_loc, hot),
+                                  batch_tile=batch_tile, row_block=rblk,
+                                  plan_method=plan_method)

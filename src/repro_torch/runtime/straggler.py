@@ -6,7 +6,8 @@ transient per-host delay up to k iterations of slack (paper §IV).  The
 monitor observes per-step latency jitter and recommends the smallest k
 whose absorption window covers the tail, capped by the memory budget (ring
 bytes are linear in k).  ``CapAutotuner`` plays the same game for the
-ragged exchange's bucket cap."""
+ragged exchange's bucket cap; :func:`detect_stragglers` flags the
+consistent stragglers no bound masks."""
 from __future__ import annotations
 
 import collections
@@ -117,3 +118,19 @@ class CapAutotuner:
                   f"({'ragged' if ragged else 'dense: cap*P >= B*T'}"
                   f"{f', {drops} drops seen' if drops else ''})")
         return CapRecommendation(cap, ragged, q, drops, reason)
+
+
+def detect_stragglers(per_host_latencies: dict, threshold: float = 1.5
+                      ) -> list:
+    """Hosts above ``threshold`` x the median latency are CONSISTENT
+    stragglers — the case the paper shows BLS cannot mask: flag them for
+    degraded serving or eviction instead.  An empty dict or a singleton
+    flags nobody (one slow host alone is indistinguishable from a slow
+    workload); an even count uses the true median, so a 2-host pod with
+    one straggler still flags it."""
+    if len(per_host_latencies) < 2:
+        return []
+    xs = sorted(per_host_latencies.values())
+    n = len(xs)
+    med = xs[n // 2] if n % 2 else 0.5 * (xs[n // 2 - 1] + xs[n // 2])
+    return [h for h, v in per_host_latencies.items() if v > threshold * med]

@@ -6,11 +6,15 @@ runs the BLS forward over microbatches on the model group and returns
 ``sigmoid(logits)``; per-batch latency feeds the straggler monitor whose
 recommendation can retune the bound between batches, and the exchange's
 live-row counts feed the cap autotuner that moves an ``exchange='auto'``
-engine with a hot-row cache onto the ragged exchange.
+engine with a hot-row cache onto the ragged exchange.  ``plan_pipeline``
+builds each batch's stream plans off the critical path and returns results
+one flush late; the chaos options (``faults``, ``deadline_s``,
+``on_deadline``) serve around stragglers and evict crashed members.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Optional
 
@@ -27,7 +31,10 @@ from repro_torch.models import api
 from repro_torch.models import dlrm as dlrm_mod
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.runtime.straggler import CapAutotuner, StragglerMonitor
+from repro_torch.runtime import elastic
+from repro_torch.runtime.elastic import Evicted, NodeFailure
+from repro_torch.runtime.straggler import (CapAutotuner, StragglerMonitor,
+                                           detect_stragglers)
 from repro_torch.serving import hot_cache as hc_mod
 from repro_torch.train import steps as steps_mod
 
@@ -38,6 +45,13 @@ class ServeStats:
     requests: int = 0
     total_s: float = 0.0
     retunes: int = 0          # caps the autotuner adopted
+    # -- chaos ledger (deadline policy / degraded serving / eviction) ------
+    deadline_breaches: int = 0  # flushes that exceeded deadline_s
+    degraded_batches: int = 0   # batches served with degraded_members set
+    approx_rows: int = 0        # live bags served from the fallback, total
+    evictions: int = 0          # evict() recoveries (crash or policy)
+    replays: int = 0            # batches dispatched again after a NodeFailure
+    recovery_s: float = 0.0     # wall time inside evict()
 
     @property
     def throughput_rps(self) -> float:
@@ -47,6 +61,27 @@ class ServeStats:
         d = dataclasses.asdict(self)
         d["throughput_rps"] = self.throughput_rps
         return d
+
+
+# one side stream per card for plan builds, shared by every engine: the
+# caching allocator keeps blocks per stream, so a stream of its own would
+# make each new engine allocate its plan buffers afresh
+_PLAN_STREAMS: dict = {}
+
+
+def _plan_stream(device) -> "torch.cuda.Stream":
+    if device not in _PLAN_STREAMS:
+        _PLAN_STREAMS[device] = torch.cuda.Stream(device)
+    return _PLAN_STREAMS[device]
+
+
+def _fit_tables(a, t_pad: int, fill=0):
+    """Crop or pad a (T_pad_old, ...) stack to ``t_pad`` tables: padding
+    tables carry mask 0 and are never indexed, so this is exact."""
+    if a.shape[0] >= t_pad:
+        return a[:t_pad]
+    pad = a.new_full((t_pad - a.shape[0],) + tuple(a.shape[1:]), fill)
+    return torch.cat([a, pad])
 
 
 class DLRMEngine:
@@ -63,8 +98,33 @@ class DLRMEngine:
     has no jit, so a retune takes effect at the next flush.  ``device`` is
     where the batches go and the parameters must live; ``group`` the model
     group (default: the one ``launch/mesh.py`` set up, or single-device
-    without one).  The reference's plan pipeline, chaos, freshness,
-    resharding and scrubbing options raise ``NotImplementedError``."""
+    without one).
+
+    ``plan_pipeline=True`` builds each batch's embedding-bag stream plans
+    (:func:`~repro_torch.models.dlrm.build_forward_plans`) on a side stream
+    the compute stream waits on, dispatches the forward without waiting
+    for the card, and returns the PREVIOUS batch's CTRs: results arrive
+    one flush late, and :meth:`drain` returns the last ones.
+    :meth:`stage_plan` builds the plans of a batch before it is flushed.
+    Where no plan exists (the 'ref' backend, a resident regime, a ragged
+    exchange) the plan is None and the pipeline only defers the harvest;
+    the CTRs are the same either way.
+
+    Chaos: ``deadline_s`` arms a per-flush deadline with policy
+    ``on_deadline``: 'block' only counts breaches, 'degrade' serves around
+    confirmed sustained stragglers (``degraded_members`` with
+    ``degraded_fallback``, the loss ledgered in ``ServeStats.approx_rows``)
+    and 'evict' removes them from the group.  A breach that
+    ``detect_stragglers`` does not confirm for ``confirm_after``
+    consecutive breaching flushes is transient: the bound rises toward
+    :meth:`recommend_bound` instead.  ``faults`` (a
+    ``runtime.faults.FaultInjector``) sleeps the plan's delays before each
+    flush and raises ``NodeFailure`` at crash steps; the engine then backs
+    off, evicts the crashed member and dispatches the same batch again (up
+    to ``max_retries`` times), so no request is lost.  With a deadline
+    armed the members agree on each flush's latency (the slowest one's),
+    so every member takes the same decision.  ``freshness``, ``rebalance``
+    and ``scrub_budget`` raise ``NotImplementedError``."""
 
     def __init__(self, params, cfg: DLRMConfig, *, batch_size: int = 512,
                  bound: int = 0, microbatches: int = 1,
@@ -76,17 +136,38 @@ class DLRMEngine:
                  row_block: Optional[int] = None,
                  pool_mode: Optional[str] = None,
                  device="cuda", group=None,
-                 plan_pipeline: bool = False, faults=None, freshness=None,
+                 plan_pipeline: bool = False,
+                 deadline_s: Optional[float] = None,
+                 on_deadline: str = "block", faults=None, freshness=None,
+                 degraded_fallback: str = "zero", confirm_after: int = 2,
+                 max_retries: int = 2, retry_backoff_s: float = 0.0,
                  rebalance: bool = False, scrub_budget: int = 0):
         self.device = resolve_device(device)
-        unported = {"plan_pipeline": plan_pipeline, "faults": faults,
-                    "freshness": freshness, "rebalance": rebalance,
-                    "scrub_budget": scrub_budget}
-        for name, val in unported.items():
+        if on_deadline not in ("block", "degrade", "evict"):
+            raise ValueError(f"unknown on_deadline {on_deadline!r}")
+        if degraded_fallback not in ("zero", "mean"):
+            raise ValueError(
+                f"unknown degraded_fallback {degraded_fallback!r}")
+        for name, val, path in (
+                ("faults", faults, "drives recovery through the "
+                 "synchronous flush path"),
+                ("freshness", freshness, "applies deltas atomically "
+                 "BETWEEN synchronous flushes"),
+                ("rebalance", rebalance, "migrates rows through the "
+                 "synchronous flush path"),
+                ("scrub_budget", scrub_budget, "audits and repairs "
+                 "through the synchronous flush path")):
+            if val and plan_pipeline:
+                raise ValueError(
+                    f"{name} {path}; plan_pipeline's deferred harvest would "
+                    f"tear that boundary — run {name} without plan_pipeline")
+        for name, val, item in (("freshness", freshness, "A10"),
+                                ("rebalance", rebalance, "A11"),
+                                ("scrub_budget", scrub_budget, "A12")):
             if val:
                 raise NotImplementedError(
                     f"DLRMEngine({name}=...) is not ported yet (ROADMAP "
-                    "'StreamPlan builders and plan_pipeline', A8-A12)")
+                    f"{item})")
         self.params, self.cfg = params, cfg
         if params["tables"].device != self.device:
             raise ValueError(f"parameters are on {params['tables'].device}, "
@@ -107,11 +188,29 @@ class DLRMEngine:
         self.batch_size = batch_size
         self.bound, self.microbatches = int(bound), microbatches
         self.group = group
+        self.plan_pipeline = plan_pipeline
+        self.deadline_s = deadline_s
+        self.on_deadline = on_deadline
+        self.faults = faults
+        self.degraded_fallback = degraded_fallback
+        self.confirm_after = max(1, int(confirm_after))
+        self.max_retries = max(0, int(max_retries))
+        self.retry_backoff_s = float(retry_backoff_s)
+        self.degraded_members: tuple = ()
+        self._flushes = 0              # fault-plan step counter
+        self._streak: dict = {}        # straggler confirmation streaks
+        self._evicted = False          # this process left the group
         self.monitor = StragglerMonitor()
         self.cap_tuner = CapAutotuner()
         self.stats = ServeStats()
         self._pending: list = []
-        self._last_finish_t = 0.0
+        # (CTRs, diag, n, t0, watcher, done, step_no) of the batch in
+        # flight under plan_pipeline; always None otherwise
+        self._inflight = None
+        self._last_finish_t = 0.0      # end of the last harvested batch
+        # (fitted idx, plan) staged by stage_plan() for the next flush
+        self._staged_plan = None
+        self.plan_stage_hits = 0       # flushes served a staged plan
 
     def calibrate_cache(self, idx: np.ndarray, mask: np.ndarray,
                         cache_rows: Optional[int] = None):
@@ -120,28 +219,177 @@ class DLRMEngine:
         rows = cache_rows if cache_rows is not None else self.cfg.cache_rows
         self.cache = hc_mod.build_from_batch(self.params["tables"], idx,
                                              mask, rows)
+        self._staged_plan = None       # plan applicability may change
         return self.cache
 
     def adopt_cache(self, cache):
         """Swap in an externally built hot-row cache (None drops it)."""
         self.cache = cache
+        self._staged_plan = None
 
     def _group(self):
         return self.group if self.group is not None \
             else mesh_mod.current_group()
 
+    # -- stream plans off the critical path --------------------------------
+
+    def _plan_fn(self, idx):
+        return dlrm_mod.build_forward_plans(
+            self.params, self.cfg, idx, microbatches=self.microbatches,
+            cache=self.cache, exchange=self.exchange,
+            ragged_cap=self.ragged_cap, row_block=self.row_block,
+            group=self._group())
+
+    def _build_plan(self, idx):
+        """The batch's plans, built on the CPU inline and on the card on a
+        side stream that the compute stream waits on through an event, so
+        the build overlaps the work already queued."""
+        if idx.device.type != "cuda":
+            return self._plan_fn(idx)
+        main = torch.cuda.current_stream(idx.device)
+        side = _plan_stream(idx.device)
+        side.wait_stream(main)                 # idx's upload
+        with torch.cuda.stream(side):
+            plan = self._plan_fn(idx)
+            built = torch.cuda.Event()
+            built.record()
+        idx.record_stream(side)
+        main.wait_event(built)
+        return plan
+
+    def stage_plan(self, idx_rows) -> bool:
+        """Build the stream plans of a PROSPECTIVE batch before it is
+        flushed: ``idx_rows`` are its per-request index rows (n <=
+        batch_size, padded as :meth:`flush` pads).  The next pipelined
+        flush whose batch matches adopts them (``plan_stage_hits``); a
+        mismatch plans inline.  Returns True when plans were staged."""
+        if not self.plan_pipeline:
+            return False
+        rows = list(idx_rows)
+        if not rows or len(rows) > self.batch_size:
+            return False
+        i = np.stack(rows + [rows[-1]] * (self.batch_size - len(rows)))
+        _, i, _ = self._fit_batch(None, i, np.zeros(i.shape, np.float32))
+        (idx,) = self._upload(i)
+        self._staged_plan = (i, self._build_plan(idx))
+        return True
+
+    # -- serving ------------------------------------------------------------
+
     def submit(self, dense: np.ndarray, idx: np.ndarray, mask: np.ndarray):
-        """Queue one request (row).  Returns CTRs when a batch fills."""
+        """Queue one request (row).  Returns CTRs when a batch fills (the
+        PREVIOUS batch's CTRs under ``plan_pipeline``)."""
         self._pending.append((dense, idx, mask))
         if len(self._pending) >= self.batch_size:
             return self.flush()
         return None
 
-    def flush(self):
-        """Run the pending batch (padded with copies of its last request)
-        and return its CTRs, or None when nothing is pending."""
-        if not self._pending:
+    def _upload(self, *arrays):
+        """Host arrays to the engine's device.  Under ``plan_pipeline`` on
+        the card they go through pinned memory without blocking the host."""
+        quiet = self.plan_pipeline and self.device.type == "cuda"
+        out = []
+        for a in arrays:
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            if quiet:
+                t = t.pin_memory()
+            out.append(t.to(self.device, non_blocking=quiet))
+        return tuple(out)
+
+    def _dispatch(self, dense, idx, mask, plan=None):
+        """One forward on the model group: (CTRs, diagnostics or None),
+        both left where they were computed.  The diagnostics cost a
+        re-probe of the misses and small collectives: only when something
+        reads them (drop monitoring under 'ragged', the autotuner under
+        'auto' with a cache, the degraded ledger)."""
+        diag_on = self.exchange == "ragged" or (
+            self.exchange == "auto" and self.cache is not None) or \
+            bool(self.degraded_members)
+        with torch.no_grad():
+            res = dlrm_mod.forward_distributed(
+                self.params, self.cfg, dense, idx, mask,
+                bound=self.bound, microbatches=self.microbatches,
+                cache=self.cache, wire_dtype=self.wire_dtype,
+                exchange=self.exchange, ragged_cap=self.ragged_cap,
+                exchange_pipeline=self.exchange_pipeline,
+                row_block=self.row_block, pool_mode=self.pool_mode,
+                plan=plan, degraded_members=self.degraded_members,
+                degraded_fallback=self.degraded_fallback,
+                return_diag=diag_on, group=self._group())
+        logits, diag = res if diag_on else (res, None)
+        return torch.sigmoid(logits), diag
+
+    def _agreed(self, seconds: float) -> float:
+        """A lockstep flush takes its slowest member's time: with a
+        deadline armed the members adopt the group's maximum, so each
+        takes the same policy decision."""
+        group = self._group()
+        if self.deadline_s is None or group is None or \
+                dist.get_world_size(group) == 1:
+            return seconds
+        t = torch.tensor([seconds], dtype=torch.float64, device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+        return float(t.item())
+
+    def _finish_batch(self, out, diag, n, t0, done_t=None, step_no=None):
+        """Bring one batch's CTRs to the host and account for it.
+        ``done_t`` (pipelined batches: when the card completed it)
+        keeps the monitor observing dispatch-to-completion latency;
+        ``total_s`` clips each interval at the previous batch's end."""
+        out = out.cpu().numpy()                  # waits for the card
+        end = done_t if done_t is not None else time.perf_counter()
+        elapsed = self._agreed(end - t0)
+        self.monitor.observe(elapsed)
+        if diag is not None:
+            self.cap_tuner.observe(int(diag.live_max), int(diag.drops))
+            self.stats.approx_rows += int(diag.approx_rows)
+        if self.degraded_members:
+            self.stats.degraded_batches += 1
+        self.stats.batches += 1
+        self.stats.requests += n
+        self.stats.total_s += end - max(t0, self._last_finish_t)
+        self._last_finish_t = max(self._last_finish_t, end)
+        if self.exchange == "auto" and \
+                self.stats.batches % self.retune_every == 0:
+            self.retune_cap()
+        if step_no is not None:
+            self._after_flush(step_no, elapsed)
+        return out[:n]
+
+    def _harvest(self):
+        """The in-flight batch of a pipelined flush, if any.  An error the
+        watcher saw on the card surfaces here, with the batch's context,
+        after the in-flight entry is cleared."""
+        if self._inflight is None:
             return None
+        out, diag, n, t0, watcher, done, step_no = self._inflight
+        self._inflight = None
+        if watcher is not None:
+            watcher.join()
+        if done["err"] is not None:
+            err = done["err"]
+            raise RuntimeError(
+                f"pipelined step failed in flight (batch of {n} requests, "
+                f"flush #{step_no}): {err!r}") from err
+        done_t = done["t"]
+        if done_t is None:
+            # the start event ran when the card reached it: at t0, or at
+            # the previous batch's completion if the card was still busy
+            started, finished = done["events"]
+            done_t = max(t0, self._last_finish_t) + \
+                started.elapsed_time(finished) / 1e3
+        return self._finish_batch(out, diag, n, t0, done_t,
+                                  step_no=step_no)
+
+    def flush(self):
+        """Run the pending batch (padded with copies of its last request).
+        Inline it returns its CTRs; under ``plan_pipeline`` the batch is
+        dispatched and the previous one's CTRs are returned.  With nothing
+        pending it harvests the batch in flight, if any, else None."""
+        if not self._pending:
+            return self._harvest()
+        if self._evicted:
+            raise Evicted("this process was evicted from the model group")
         n = len(self._pending)
         pad = self.batch_size - n
         d = np.stack([p[0] for p in self._pending] +
@@ -151,48 +399,85 @@ class DLRMEngine:
         m = np.stack([p[2] for p in self._pending] +
                      [self._pending[-1][2]] * pad)
         self._pending.clear()
+        step_no = self._flushes
+        self._flushes += 1
         t0 = time.perf_counter()
-        d, i, m = self._fit_batch(d, i, m)
-        dev = self.device
-        # the diagnostics cost a re-probe of the misses and two small
-        # collectives: only when something reads them (drop monitoring under
-        # 'ragged', the autotuner under 'auto' with a cache)
-        diag_on = self.exchange == "ragged" or (
-            self.exchange == "auto" and self.cache is not None)
-        with torch.no_grad():
-            res = dlrm_mod.forward_distributed(
-                self.params, self.cfg, torch.from_numpy(d).to(dev),
-                torch.from_numpy(i).to(dev), torch.from_numpy(m).to(dev),
-                bound=self.bound, microbatches=self.microbatches,
-                cache=self.cache, wire_dtype=self.wire_dtype,
-                exchange=self.exchange, ragged_cap=self.ragged_cap,
-                exchange_pipeline=self.exchange_pipeline,
-                row_block=self.row_block, pool_mode=self.pool_mode,
-                return_diag=diag_on, group=self._group())
-            logits, diag = res if diag_on else (res, None)
-            out = torch.sigmoid(logits).cpu().numpy()   # waits for the card
-        end = time.perf_counter()
-        self.monitor.observe(end - t0)
-        if diag is not None:
-            self.cap_tuner.observe(int(diag.live_max), int(diag.drops))
-        self.stats.batches += 1
-        self.stats.requests += n
-        self.stats.total_s += end - max(t0, self._last_finish_t)
-        self._last_finish_t = max(self._last_finish_t, end)
-        if self.exchange == "auto" and \
-                self.stats.batches % self.retune_every == 0:
-            self.retune_cap()
-        return out[:n]
+        if not self.plan_pipeline:
+            out, diag = self._run_batch(d, i, m, step_no)
+            return self._finish_batch(out, diag, n, t0, step_no=step_no)
+        on_card = self.device.type == "cuda"
+        if on_card:
+            started = torch.cuda.Event(enable_timing=True)
+            started.record()
+        fd, fi, fm = self._fit_batch(d, i, m)
+        dense, idx, mask = self._upload(fd, fi, fm)
+        staged, self._staged_plan = self._staged_plan, None
+        if staged is not None and staged[0].shape == fi.shape and \
+                np.array_equal(staged[0], fi):
+            plan = staged[1]
+            self.plan_stage_hits += 1
+        else:
+            plan = self._build_plan(idx)
+        out, diag = self._dispatch(dense, idx, mask, plan)
+        # a watcher synchronizes on the batch's completion off the main
+        # thread (an error on the card surfaces at the harvest); the
+        # latency is dispatch to completion on the card's clock, which a
+        # thread waiting for the interpreter lock would stretch
+        done = {"t": None, "err": None}
+        watcher = None
+        if on_card:
+            finished = torch.cuda.Event(enable_timing=True)
+            finished.record()
+
+            def _watch(ev=finished, d=done):
+                try:
+                    ev.synchronize()
+                except Exception as e:   # surfaces at the next harvest
+                    d["err"] = e
+
+            done["events"] = (started, finished)
+            watcher = threading.Thread(target=_watch, daemon=True)
+            watcher.start()
+        else:
+            done["t"] = time.perf_counter()
+        prev = self._harvest()
+        self._inflight = (out, diag, n, t0, watcher, done, step_no)
+        return prev
 
     def drain(self):
-        """Flush whatever is pending: its CTRs, or None when nothing is
-        outstanding (idempotent)."""
-        return self.flush()
+        """Flush the pending queue and the pipeline: every CTR not yet
+        returned (concatenated), or None when nothing is outstanding
+        (idempotent)."""
+        if not self._pending and self._inflight is None:
+            return None
+        outs = [o for o in (self.flush(), self._harvest()) if o is not None]
+        return np.concatenate(outs) if outs else None
+
+    def _run_batch(self, d, i, m, step_no):
+        """Dispatch one batch under fault injection with bounded-retry
+        eviction: a ``NodeFailure`` evicts the crashed member and the same
+        batch is dispatched again on the survivors."""
+        for attempt in range(self.max_retries + 1):
+            try:
+                if self.faults is not None:
+                    self.faults.on_flush(step_no, self._group(),
+                                         exclude=self.degraded_members)
+                return self._dispatch(*self._upload(
+                    *self._fit_batch(d, i, m)))
+            except NodeFailure as e:
+                if attempt >= self.max_retries:
+                    raise
+                if self.retry_backoff_s:
+                    time.sleep(self.retry_backoff_s * (2 ** attempt))
+                self.evict(e.surviving_ranks)
+                self.stats.replays += 1
+        raise AssertionError("unreachable")
 
     def _fit_batch(self, d, i, m):
         """Re-fit the sparse tensors to the group's table padding:
-        t_pad = padded_tables(cfg, P).  Padding tables carry mask 0 and are
-        never indexed, so cropping or zero-padding them is exact."""
+        t_pad = padded_tables(cfg, P), which changes with an eviction.
+        Padding tables carry mask 0 and are never indexed, so cropping or
+        zero-padding them is exact."""
         _, t_pad, _, _ = self._exchange_geometry()
         have = i.shape[1]
         if have > t_pad:
@@ -204,6 +489,131 @@ class DLRMEngine:
             m = np.concatenate([m, mz], axis=1)
         return d, i, m
 
+    # -- chaos: deadline policy, degraded serving, eviction ----------------
+
+    def _after_flush(self, step_no, elapsed):
+        """Deadline policy.  Members that ``detect_stragglers`` flags for
+        ``confirm_after`` CONSECUTIVE breaching flushes are sustained
+        stragglers, which no bound masks: degrade or evict them per
+        ``on_deadline``.  Any other breach is transient: raise the bound
+        toward :meth:`recommend_bound`."""
+        if self.deadline_s is None:
+            return
+        if elapsed <= self.deadline_s:
+            self._streak.clear()
+            return
+        self.stats.deadline_breaches += 1
+        if self.on_deadline == "block":
+            return
+        confirmed = self._confirmed_stragglers(step_no, elapsed)
+        if not confirmed:
+            rec = self.recommend_bound()
+            k = min(rec.bound, max(self.microbatches - 1, 0))
+            if k > self.bound:
+                self.set_bound(k)
+            return
+        if self.on_deadline == "degrade":
+            self.degrade(tuple(set(self.degraded_members) | set(confirmed)))
+        else:
+            worst = max(confirmed, key=lambda h: self._streak.get(h, 0))
+            self.evict_member(worst)
+
+    def _confirmed_stragglers(self, step_no, elapsed):
+        """Per-member latency telemetry (synthesized by the injector) ->
+        ``detect_stragglers`` -> streaks; the members confirmed."""
+        if self.faults is None:
+            return []
+        base = self.monitor.percentile(0.5) or max(elapsed, 1e-6)
+        flagged = detect_stragglers(self.faults.latencies(step_no, base))
+        for h in flagged:
+            self._streak[h] = self._streak.get(h, 0) + 1
+        for h in list(self._streak):
+            if h not in flagged:
+                del self._streak[h]
+        return [h for h in flagged
+                if self._streak[h] >= self.confirm_after]
+
+    def set_bound(self, bound: int):
+        """Adopt a new BLS bound from the next flush on."""
+        self.bound = int(bound)
+
+    def degrade(self, members):
+        """Serve around the given group ranks: their chunks are masked on
+        receipt and their tables' bags fall back per
+        ``degraded_fallback``; the fault injector stops waiting on them.
+        Pass () to serve exactly again."""
+        self.degraded_members = tuple(sorted({int(x) for x in members}))
+
+    def evict_member(self, pos: int):
+        """Evict the member at group rank ``pos``: :meth:`evict` rebuilds
+        the group on the others, and the fault injector retires it."""
+        group = self._group()
+        if group is None:
+            raise ValueError("evict_member needs a model group")
+        keep = [r for j, r in enumerate(elastic.group_ranks(group))
+                if j != pos]
+        if not keep:
+            raise ValueError("cannot evict the last member")
+        if self.faults is not None and pos < len(self.faults.live):
+            orig = self.faults.live[pos]
+            self.faults.fired.add(orig)
+            self.faults.live.remove(orig)
+        self.evict(keep)
+
+    def evict(self, survivors):
+        """Recover onto the global ranks ``survivors``: a new model group
+        over them becomes the engine's own, the table stack and the cache
+        are refit to ``padded_tables(cfg, P')``, and the degraded state,
+        the streaks, the autotuner and the monitor start afresh.  Every
+        process of the default group must call this (the group's creation
+        is collective); one outside ``survivors`` raises ``Evicted`` and
+        serves no more.  The wall time goes to ``ServeStats.recovery_s``.
+        The engine must hold the whole (T_pad, R, s) stack: from its own
+        shard it could not rebuild the lost member's tables."""
+        if not survivors:
+            raise ValueError("evict: no surviving members")
+        t_rec = time.perf_counter()
+        survivors = sorted(int(r) for r in survivors)
+        p_new = len(survivors)
+        if self.batch_size % (self.microbatches * p_new):
+            raise ValueError(
+                f"batch_size {self.batch_size} does not divide the post-"
+                f"eviction geometry (microbatches {self.microbatches} x "
+                f"members {p_new})")
+        _, t_pad_old, _, _ = self._exchange_geometry()
+        tables = self.params["tables"]
+        if tables.shape[0] != t_pad_old:
+            raise ValueError(
+                f"evict: the engine holds {tables.shape[0]} of "
+                f"{t_pad_old} tables, its own shard; the lost member's "
+                f"tables cannot be recovered from it — serve with the "
+                f"whole (T_pad, R, s) stack to recover by eviction")
+        group = elastic.make_group_from(survivors)
+        if dist.get_rank() not in survivors:
+            self._evicted = True
+            raise Evicted(f"rank {dist.get_rank()} was evicted from the "
+                          f"model group")
+        t_pad = dlrm_mod.padded_tables(self.cfg, p_new)
+        self.params = dict(self.params, tables=_fit_tables(tables, t_pad))
+        c = self.cache
+        if c is not None:
+            self.cache = hc_mod.HotCache(
+                hot_ids=None if c.hot_ids is None
+                else _fit_tables(c.hot_ids, t_pad),
+                hot_rows=_fit_tables(c.hot_rows, t_pad),
+                # -1 = miss: resurrected padding tables stay cold
+                slot_of=_fit_tables(c.slot_of, t_pad, fill=-1))
+        self.group = group
+        self.degraded_members = ()     # ranks renumbered: start clean
+        self._streak.clear()
+        self._staged_plan = None
+        self.cap_tuner.reset()
+        self.monitor.reset()
+        self.stats.evictions += 1
+        self.stats.recovery_s += time.perf_counter() - t_rec
+
+    # -- ragged-exchange cap autotuning ------------------------------------
+
     def _exchange_geometry(self):
         """(P, t_pad, bs, dense_rows): bs is the per-(member, microbatch)
         batch slice and dense_rows = bs·t_loc what the exchange moves per
@@ -213,10 +623,6 @@ class DLRMEngine:
         t_pad = dlrm_mod.padded_tables(self.cfg, p)
         bs = max(1, self.batch_size // (self.microbatches * p))
         return p, t_pad, bs, bs * (t_pad // p)
-
-    def set_bound(self, bound: int):
-        """Adopt a new BLS bound from the next flush on."""
-        self.bound = int(bound)
 
     def retune_cap(self):
         """Under ``exchange='auto'``: adopt the autotuner's cap: growth
@@ -239,6 +645,7 @@ class DLRMEngine:
         if grow or shrink:
             self.ragged_cap = rec.cap
             self.stats.retunes += 1
+            self._staged_plan = None   # the exchange may now be ragged
         return rec
 
     def slot_bytes(self) -> int:

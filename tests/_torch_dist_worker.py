@@ -7,8 +7,11 @@ Reads ``<dir>/inputs.npz`` (reference parameters and batches, flattened by
 writes ``<dir>/out_<rank>.npz``: per config, ``forward_distributed``
 logits at bound 0 and 2 (2 microbatches) and the CTRs of a
 ``DLRMEngine(bound=2, microbatches=2)`` on the same batch.  Imports only
-the port (``src`` on PYTHONPATH).
+the port (``src`` on PYTHONPATH).  :func:`run_members` starts the members
+of any such worker from a test.
 """
+import os
+import subprocess
 import sys
 from pathlib import Path
 
@@ -34,6 +37,34 @@ def unflatten(prefix, data):
                                  for k in ("kernel", "bias")})
             i += 1
     return params
+
+
+def run_members(worker: Path, world: int, inputs: dict, d: Path,
+                timeout: float = 300.0) -> list:
+    """Write ``inputs`` to ``d/inputs.npz``, run ``world`` members of
+    ``worker`` (each ``worker rank world d``) and return each member's
+    ``out_<rank>.npz`` as a dict; a member that fails fails the caller
+    with its log."""
+    np.savez(d / "inputs.npz", **inputs)
+    src = Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=str(src), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, str(worker), str(r),
+                               str(world), str(d)], env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log
+    return [dict(np.load(d / f"out_{r}.npz")) for r in range(world)]
 
 
 def main(rank, world, d):

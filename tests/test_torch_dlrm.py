@@ -161,9 +161,8 @@ def test_no_group_falls_back_to_forward_local():
 
 
 @pytest.mark.parametrize("kw", [
-    {"plan": object()}, {"deltas": {}}, {"migration": {}}, {"repair": {}},
-    {"quarantine": [1]}, {"table_inv": [0]}, {"wire_check": True},
-    {"degraded_members": (1,)}])
+    {"deltas": {}}, {"migration": {}}, {"repair": {}},
+    {"quarantine": [1]}, {"table_inv": [0]}, {"wire_check": True}])
 def test_forward_distributed_refuses_unported_options(kw):
     jcfg, tcfg = _cfgs("smoke")
     _, tp = _params(jcfg)
@@ -199,13 +198,53 @@ def test_forward_distributed_serves_the_exchange_options(kw):
 
 
 @pytest.mark.parametrize("kw", [
-    {"plan_pipeline": True}, {"faults": object()}, {"freshness": object()},
-    {"rebalance": True}, {"scrub_budget": 4}])
+    {"freshness": object()}, {"rebalance": True}, {"scrub_budget": 4}])
 def test_engine_refuses_unported_options(kw):
     jcfg, tcfg = _cfgs("smoke")
     _, tp = _params(jcfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DLRMEngine(tp, tcfg, batch_size=8, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    {"faults": object()}, {"freshness": object()}, {"rebalance": True},
+    {"scrub_budget": 4}])
+def test_engine_refuses_options_with_the_plan_pipeline(kw):
+    """The reference's mutual exclusions: each of these drives the
+    synchronous flush path, which the pipeline's deferred harvest would
+    tear."""
+    jcfg, tcfg = _cfgs("smoke")
+    jp, tp = _params(jcfg)
+    with pytest.raises(ValueError, match="plan_pipeline"):
+        DLRMEngine(tp, tcfg, batch_size=8, device="cpu", plan_pipeline=True,
+                   **kw)
+    with pytest.raises(ValueError, match="plan_pipeline"):
+        jengine.DLRMEngine(jp, jcfg, batch_size=8, plan_pipeline=True, **kw)
+
+
+@pytest.mark.parametrize("kw", [{"plan_pipeline": True},
+                                {"faults": "injector"},
+                                {"deadline_s": 0.5, "on_deadline": "evict"}])
+def test_engine_serves_plans_and_chaos_options(kw):
+    """Without a model group these engines serve forward_local's CTRs (the
+    plan pipeline one flush late)."""
+    from repro_torch.runtime.faults import FaultInjector, FaultPlan
+
+    jcfg, tcfg = _cfgs("smoke")
+    _, tp = _params(jcfg)
+    if kw.get("faults") == "injector":
+        kw = {"faults": FaultInjector(FaultPlan.none(1, 4))}
+    b = tsyn.make_batch(tcfg, 16, mode="hetero", seed=3)
+    eng = DLRMEngine(tp, tcfg, batch_size=8, device="cpu", **kw)
+    got = [o for i in range(16)
+           if (o := eng.submit(b.dense[i], b.idx[i], b.mask[i])) is not None]
+    tail = eng.drain()
+    if tail is not None:
+        got.append(tail)
+    want = torch.sigmoid(tdlrm.forward_local(tp, tcfg,
+                                             *_t(b.dense, b.idx, b.mask)))
+    assert torch.equal(torch.from_numpy(np.concatenate(got)), want)
+    assert eng.stats.batches == 2
 
 
 @pytest.mark.parametrize("kw", [

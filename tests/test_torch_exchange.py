@@ -17,9 +17,6 @@ with the reference's own ``init_dlrm`` and ``make_batch``.  Held:
 - an ``exchange='auto'`` engine retuning onto the ragged exchange.
 """
 import itertools
-import os
-import subprocess
-import sys
 from pathlib import Path
 
 import jax
@@ -28,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_dist_worker import flatten
+from _torch_dist_worker import flatten, run_members
 from _torch_exchange_worker import CODECS, EXCHANGES, PIPES, SCHEDULES, key
 from repro.configs import dlrm_kaggle as jkaggle
 from repro.configs.base import DLRMConfig
@@ -37,7 +34,6 @@ from repro.models import dlrm as jdlrm
 from repro.serving import hot_cache as jhc
 from repro_torch.models import dlrm as tdlrm
 
-ROOT = Path(__file__).resolve().parents[1]
 BATCH = 32
 # the reference's tolerances (tests/test_ragged_exchange.py)
 MAX_ERR = {"float32": 1e-4, "bfloat16": 5e-2, "int8": 1e-1}
@@ -66,26 +62,8 @@ def host_live(slot_of, idx, mask, p, mb):
 
 
 def _run(world, inputs, d):
-    np.savez(d / "inputs.npz", **inputs)
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
-    worker = Path(__file__).with_name("_torch_exchange_worker.py")
-    procs = [subprocess.Popen([sys.executable, str(worker), str(r),
-                               str(world), str(d)], env=env,
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for r in range(world)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=300)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for p, log in zip(procs, logs):
-        assert p.returncode == 0, log
-    return [dict(np.load(d / f"out_{r}.npz")) for r in range(world)]
+    return run_members(Path(__file__).with_name("_torch_exchange_worker.py"),
+                       world, inputs, d)
 
 
 _RUNS: dict = {}

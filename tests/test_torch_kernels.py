@@ -193,10 +193,20 @@ class TestEmbeddingBag:
         assert torch.equal(torch.isnan(got), torch.isnan(plain))
 
     def test_plan_is_not_ported(self):
+        """Plans are ported (tests/test_torch_plans.py): what is not a
+        plan of this call's geometry is refused with ValueError, and a
+        resident call takes no plan."""
         tables, idx, mask = _stack(10)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            teb.embedding_bag_stacked(
-                *map(torch.from_numpy, (tables, idx, mask)), plan=object())
+        args = tuple(map(torch.from_numpy, (tables, idx, mask)))
+        with pytest.raises(ValueError, match="StreamPlan"):
+            teb.embedding_bag_stacked(*args, row_block=8, plan=object())
+        t, r, s = tables.shape
+        plan = teb.stacked_stream_plan(t, r, s, 4, args[1], row_block=8)
+        with pytest.raises(ValueError, match="resident"):
+            teb.embedding_bag_stacked(*args, plan=plan)
+        assert torch.equal(
+            teb.embedding_bag_stacked(*args, row_block=8, plan=plan),
+            teb.embedding_bag_stacked(*args))
 
 
 class TestDotInteraction:

@@ -7,9 +7,6 @@ runs safely beside others.  Logits are held at f32 rtol=1e-5, atol=1e-5
 against JAX ``forward_local`` on the same parameters; bounds are held
 bit-identical to each other.
 """
-import os
-import subprocess
-import sys
 from pathlib import Path
 
 import jax
@@ -17,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_dist_worker import flatten
+from _torch_dist_worker import flatten, run_members
 from repro.configs import dlrm_kaggle as jkaggle
 from repro.data import synthetic as jsyn
 from repro.models import dlrm as jdlrm
@@ -29,7 +26,6 @@ TOL = {"rtol": 1e-5, "atol": 1e-5}
 CFGS = ("smoke", "smoke_alicpp")
 WORLD = 2
 BATCH = 16
-ROOT = Path(__file__).resolve().parents[1]
 
 
 def _jax_logits(name, n_shards, mode, seed, batch=BATCH):
@@ -54,26 +50,8 @@ def two_members(tmp_path_factory):
         flatten(name, params, inputs)
         inputs.update({f"{name}/dense": b.dense, f"{name}/idx": b.idx,
                        f"{name}/mask": b.mask})
-    np.savez(d / "inputs.npz", **inputs)
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
-    worker = Path(__file__).with_name("_torch_dist_worker.py")
-    procs = [subprocess.Popen([sys.executable, str(worker), str(r),
-                               str(WORLD), str(d)], env=env,
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for r in range(WORLD)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=120)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for p, log in zip(procs, logs):
-        assert p.returncode == 0, log
-    outs = [dict(np.load(d / f"out_{r}.npz")) for r in range(WORLD)]
+    outs = run_members(Path(__file__).with_name("_torch_dist_worker.py"),
+                       WORLD, inputs, d, timeout=120)
     return want, outs
 
 
