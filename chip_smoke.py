@@ -61,6 +61,34 @@ Phases, each on lines of its own:
      ``predict_absorption`` at bounds 0 and 2; on every engine run the bag
      and interaction kernels launched once per microbatch at the served
      shape and at no other;
+ 5d. on the same group, the serving frontend and online embedding
+     freshness at full width: (1) the engine's capacity (the fastest of 4
+     warm flushes of 512 hetero requests), then 8192 hetero requests
+     offered open loop in real time at 1.5x that capacity (burstiness
+     0.3) to a ``ServingFrontend`` (SLO 100 ms, queue bound 2048, SLO
+     admission): the accounting exact, every served CTR finite in (0, 1)
+     and within 1e-5 of the plain forward; the ledger, queue delay and e2e
+     p50/p99 and the frontend's host time a request printed; (2) 1024
+     hetero requests on a virtual clock through admission 'none': the
+     first 32 flushed alone bit-identical to their batched CTRs, and a
+     ``plan_pipeline`` engine under a lookahead frontend bit-identical with
+     a staged plan adopted; (3) a ``FreshnessManager`` (16 powerlaw
+     versions of 32 rows, k_fresh 2, slices of 8, 4 rows of member 0
+     corrupted at flush 2) on a copy of the stack with phase 5b's cache,
+     512 powerlaw_hetero requests a flush until committed (at most 32):
+     versions_behind <= k_fresh throughout, every row applied, the
+     corrupted ones rejected and applied again, no rollback, ServeStats
+     equal to the manager's counters, the stack bit-identical to
+     ``oracle_tables`` and the cache's rows to the oracle's, a fresh batch
+     bit-identical to a new engine on the oracle stack, the same
+     collective calls a flush with and without deltas, flush 4's stale
+     bags equal to a host recount; the apply window's device time (from
+     the profiler trace), its wall time on the stream and its host time,
+     flush p50/p99 with and without freshness, ``slot_bytes`` with and
+     without the delta field, and the host cost of
+     ``count_stale_served`` printed.  Every engine run launches the bag
+     and the interaction once per microbatch at the served shape and at no
+     other (the bag twice with the cache: pooled hits and residual);
   6. the flash-attention kernel held against its plain version in bf16
      (rtol 1e-2, atol 5e-3, and the relative Frobenius error under 5e-3:
      the plain version computes in f32 on the same bf16 inputs) at the
@@ -641,13 +669,20 @@ def serve(params, cfg, batch, bound, dev, *, calibrate=None,
 def profile_flush(params, cfg, batch, dev, tag="profile", **engine_kw):
     """One more served batch under torch.profiler: device time by kernel
     and the kernels' share of the flush's wall time."""
+    from repro_torch.serving.engine import DLRMEngine
+
+    profile_batch(DLRMEngine(params, cfg, batch_size=BATCH, bound=2,
+                             microbatches=4, device=dev, **engine_kw),
+                  batch, tag)
+
+
+def profile_batch(eng, batch, tag):
+    """Submit ``batch``'s first BATCH requests to ``eng``, the flushing
+    one under torch.profiler; print the device time by kernel, the
+    kernels' share of the flush's wall time and the host's operations."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.serving.engine import DLRMEngine
-
-    eng = DLRMEngine(params, cfg, batch_size=BATCH, bound=2,
-                     microbatches=4, device=dev, **engine_kw)
     for i in range(BATCH - 1):
         eng.submit(batch.dense[i], batch.idx[i], batch.mask[i])
     last = BATCH - 1
@@ -658,8 +693,11 @@ def profile_flush(params, cfg, batch, dev, tag="profile", **engine_kw):
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict = {}
     n_device = 0
+    ranges = {e.name for e in prof.events()
+              if e.device_type != DeviceType.CUDA and e.is_user_annotation}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # a profiler range's span on the device is no device work
+        if e.device_type == DeviceType.CUDA and e.name not in ranges:
             n_device += 1
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us()
@@ -667,7 +705,7 @@ def profile_flush(params, cfg, batch, dev, tag="profile", **engine_kw):
     if not by_name:
         log(f"[{tag}] the profiler saw no device activity: device time "
             "not measured")
-        return
+        return None
     log(f"[{tag}] one flush: wall {wall_us:.0f} us, device activity "
         f"{busy:.0f} us ({100 * busy / wall_us:.1f}% of wall)")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
@@ -683,6 +721,7 @@ def profile_flush(params, cfg, batch, dev, tag="profile", **engine_kw):
         f"time; most: " + ", ".join(
             f"{a.key} {a.self_cpu_time_total:.0f} us x{a.count}"
             for a in host[:8]))
+    return prof
 
 
 @contextlib.contextmanager
@@ -983,23 +1022,25 @@ def ragged_phase(params, cfg, dev, card):
     log(f"[kernel] {name}: microbatch 0 packs {int(counts.sum())} live rows "
         f"into cap {cap} ({int(drops)} dropped); launches on the f32 mono "
         f"ragged run {row['launches']}")
-    return row
+    return row, cache
 
 
-def served_launches(label, cfg):
+def served_launches(label, cfg, n_flushes=N_BATCHES, bags_per_mb=1):
     """The DLRM kernels' launches by shape since the last reset; fails
     unless the bag and the interaction each ran once per microbatch of
-    the ``N_BATCHES`` served batches at the served shape, and at no
-    other."""
+    the ``n_flushes`` served batches at the served shape, and at no other
+    (with a cache and the dense exchange the bag runs twice a microbatch
+    at that shape: the pooled hits and the miss residual,
+    ``bags_per_mb=2``)."""
     from repro_torch.kernels import dot_interaction as di
     from repro_torch.kernels import embedding_bag as eb
     from repro_torch.kernels import ops
 
     t, hot, s = cfg.n_tables, cfg.max_hot, cfg.embed_dim
     by_key = {k: dict(ops.kernels()[k].by_key) for k in DLRM_KERNELS}
-    n_mb = N_BATCHES * (BATCH // SERVED_MB)
+    n_mb = n_flushes * (BATCH // SERVED_MB)
     want = {"embedding_bag_pool": {eb.launch_key(SERVED_MB * t, hot, s, t):
-                                   n_mb},
+                                   bags_per_mb * n_mb},
             "dot_interaction": {di.launch_key(SERVED_MB, t + 1, s): n_mb}}
     if by_key != want:
         raise AssertionError(f"{label}: launches by shape {by_key}, not "
@@ -1177,6 +1218,445 @@ def plans_chaos_phase(params, cfg, dev, card):
     for label, e in (("faults bound=2", eng_fault),
                      ("deadline bound=0->" + str(eng_dl.bound), eng_dl)):
         log_serve("chaos", label, e, card)
+
+
+# phase 5d: the frontend open loop (8192 hetero requests, seed 7, at 1.5x
+# the measured capacity, SLO 100 ms, queue bound 2048), its bit-identity
+# check on a virtual clock (1024 hetero requests, seed 21, the first 32
+# flushed alone), and freshness (16 powerlaw versions of 32 rows, seed 7,
+# k_fresh 2, slices of 8, 4 rows of member 0 corrupted at flush 2, at most
+# 32 flushes of 512 powerlaw_hetero requests)
+FE_REQUESTS, FE_OVERLOAD, FE_SLO_S, FE_QUEUE = 8192, 1.5, 0.100, 2048
+FE_VCLOCK_REQUESTS, FE_VCLOCK_RPS, FE_VCLOCK_STEP_S = 1024, 2000.0, 0.00025
+FE_SINGLE = 32
+FRESH_VERSIONS, FRESH_ROWS, FRESH_K, FRESH_CAP = 16, 32, 2, 8
+FRESH_MAX_FLUSHES = 32
+FRESH_PROFILED = 8           # the freshness flush traced by the profiler
+FRESH_RECOUNT = 4            # the freshness flush whose stale bags the
+                             # host model recounts
+COUNTED = ("all_to_all_single", "batch_isend_irecv", "all_gather",
+           "all_reduce")
+
+
+class VClock:
+    """A clock that moves only when its caller moves it."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """Counts the calls of each ``torch.distributed`` collective the
+    forward makes, while the block runs."""
+    import torch.distributed as dist
+
+    counts = dict.fromkeys(COUNTED, 0)
+    orig = {k: getattr(dist, k) for k in COUNTED}
+
+    def counted(name):
+        def call(*a, **kw):
+            counts[name] += 1
+            return orig[name](*a, **kw)
+        return call
+
+    for k in COUNTED:
+        setattr(dist, k, counted(k))
+    try:
+        yield counts
+    finally:
+        for k, f in orig.items():
+            setattr(dist, k, f)
+
+
+def plain_ctrs(params, cfg, dev, dense, idx, mask):
+    """sigmoid of the plain-PyTorch forward, BATCH requests at a time."""
+    from repro_torch.models import dlrm
+
+    plain_cfg = cfg.replace(sparse_backend="ref")
+    out = []
+    for k in range(0, len(dense), BATCH):
+        sl = slice(k, k + BATCH)
+        out.append(torch.sigmoid(dlrm.forward_local(
+            params, plain_cfg, torch.from_numpy(dense[sl]).to(dev),
+            torch.from_numpy(idx[sl]).to(dev),
+            torch.from_numpy(mask[sl]).to(dev))).cpu())
+    return torch.cat(out)
+
+
+def ms(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))] * 1e3
+
+
+def frontend_fresh_phase(params, cfg, dev, card, cache):
+    """Phase 5d: the serving frontend and online embedding freshness at
+    full ``dlrm-kaggle`` width on the phase-5 group, with phase 5b's
+    4096-row cache for the freshness run (see the module docstring)."""
+    import itertools
+
+    from repro_torch.data.synthetic import (delta_stream, make_batch,
+                                            make_delta_batch,
+                                            request_stream)
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.faults import FaultInjector, FaultPlan
+    from repro_torch.runtime.freshness import (FreshnessManager,
+                                               oracle_tables)
+    from repro_torch.serving import hot_cache as hc
+    from repro_torch.serving.engine import DLRMEngine
+    from repro_torch.serving.frontend import ServingFrontend
+
+    def engine(p=params, **kw):
+        return DLRMEngine(p, cfg, batch_size=BATCH, bound=2, microbatches=4,
+                          exchange="dense", device=dev, **kw)
+
+    # 1. the open loop in real time, at 1.5x the measured capacity
+    warm = make_batch(cfg, BATCH, mode="hetero", seed=7)
+    eng = engine()
+    ops.reset_launches()
+    flush_s = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        for i in range(BATCH):
+            eng.submit(warm.dense[i], warm.idx[i], warm.mask[i])
+        eng.drain()
+        flush_s.append(time.perf_counter() - t0)
+    served_launches("capacity engine", cfg, 4)
+    flush = min(flush_s)
+    capacity = BATCH / flush
+    rate = FE_OVERLOAD * capacity
+    reqs = request_stream(cfg, FE_REQUESTS, rate_rps=rate, burstiness=0.3,
+                          mode="hetero", seed=7)
+    eng = engine()
+    fe = ServingFrontend(eng, slo_s=FE_SLO_S, max_queue=FE_QUEUE,
+                         admission="slo", init_flush_s=flush)
+    ops.reset_launches()
+    which, completed, nxt, submit_s = {}, [], 0, 0.0
+    t0 = time.perf_counter()
+    while nxt < len(reqs):
+        # the reference example's drive: everything that has arrived by
+        # now enters, backdated to its arrival, before the next round
+        now = time.perf_counter()
+        while nxt < len(reqs) and t0 + reqs[nxt].t_arrive <= now:
+            r = reqs[nxt]
+            s0 = time.perf_counter()
+            res = fe.try_submit(r.dense, r.idx, r.mask, now=t0 + r.t_arrive)
+            submit_s += time.perf_counter() - s0
+            if res.admitted:
+                which[res.request_id] = nxt
+            nxt += 1
+        completed += fe.pump()
+    completed += fe.drain()
+    wall = time.perf_counter() - t0
+    st = fe.stats
+    served_launches("frontend engine", cfg, st.batches)
+    if not (st.accounted and st.queued == 0 and st.inflight == 0
+            and len(completed) == st.completed
+            and st.admitted == st.served + st.degraded_served + st.shed):
+        raise AssertionError(f"frontend accounting drifted: "
+                             f"{st.to_dict()}")
+    ctr = np.array([c.ctr for c in completed], np.float32)
+    if not (np.isfinite(ctr).all() and (ctr > 0).all() and (ctr < 1).all()):
+        raise AssertionError("frontend CTRs not finite or not in (0, 1)")
+    sel = [which[c.request_id] for c in completed]
+    want = plain_ctrs(params, cfg, dev,
+                      *(np.stack([getattr(reqs[i], k) for i in sel])
+                        for k in ("dense", "idx", "mask")))
+    torch.testing.assert_close(torch.from_numpy(ctr), want, **TOL)
+    qd, e2e = st.queue_delay, st.e2e
+    host_us = (wall - st.total_s) / st.offered * 1e6
+    log(f"[frontend] capacity {capacity:.1f} req/s (fastest of 4 warm "
+        f"flushes of 512 hetero requests: {flush * 1e3:.3f} ms); offered "
+        f"{FE_OVERLOAD}x = {rate:.1f} req/s, burstiness 0.3, "
+        f"{FE_REQUESTS} requests, SLO {FE_SLO_S * 1e3:.0f} ms, queue bound "
+        f"{FE_QUEUE}, admission 'slo' card={card!r}")
+    log(f"[frontend] offered {st.offered}, admitted {st.admitted}, "
+        f"rejected {st.rejected} (retried {st.retried}), shed {st.shed}, "
+        f"served {st.served} (+{st.degraded_served} degraded), late "
+        f"{st.served_late}; escalations {st.escalations}, de-escalations "
+        f"{st.deescalations}; {st.batches} flushes; shed share "
+        f"{st.shed / st.offered:.4f}, rejected share "
+        f"{st.rejected / st.offered:.4f}")
+    log(f"[frontend] queue delay p50 {qd.percentile(0.5) * 1e3:.3f} ms p99 "
+        f"{qd.percentile(0.99) * 1e3:.3f} ms; e2e p50 "
+        f"{e2e.percentile(0.5) * 1e3:.3f} ms p99 "
+        f"{e2e.percentile(0.99) * 1e3:.3f} ms; engine flush p50 "
+        f"{eng.monitor.percentile(0.5) * 1e3:.3f} ms card={card!r}")
+    log(f"[frontend] host: the drive took {wall * 1e3:.3f} ms, "
+        f"{st.total_s * 1e3:.3f} of them in the engine's flushes; "
+        f"frontend host time {host_us:.2f} us a request outside the "
+        f"flushes (try_submit {submit_s / st.offered * 1e6:.2f} us a call); "
+        f"arrivals {1e6 / rate:.2f} us apart on average")
+    log(f"[frontend] accounting exact (admitted {st.admitted} == served "
+        f"{st.served} + degraded {st.degraded_served} + shed {st.shed}); "
+        f"{len(completed)} CTRs finite in (0, 1) and within 1e-5 of the "
+        f"plain forward; launches at the served shape only")
+    log_serve("frontend", "open loop bound=2", eng, card)
+
+    # 2. bit-identity on a virtual clock: batched == alone, inline ==
+    # pipelined with lookahead
+    vreqs = request_stream(cfg, FE_VCLOCK_REQUESTS, rate_rps=FE_VCLOCK_RPS,
+                           mode="hetero", seed=21)
+
+    def vdrive(e, lookahead):
+        clock = VClock()
+        f = ServingFrontend(e, slo_s=FE_SLO_S, admission="none", shed=False,
+                            lookahead=lookahead, init_flush_s=flush,
+                            clock=clock)
+        done, k = [], 0
+        while k < len(vreqs):
+            while k < len(vreqs) and vreqs[k].t_arrive <= clock.t:
+                r = vreqs[k]
+                f.try_submit(r.dense, r.idx, r.mask)
+                k += 1
+            done += f.pump()
+            clock.t += FE_VCLOCK_STEP_S
+        done += f.drain()
+        if not f.stats.accounted or f.stats.completed != len(vreqs):
+            raise AssertionError(f"virtual-clock frontend: "
+                                 f"{f.stats.to_dict()}")
+        return {c.request_id: c.ctr for c in done}, f
+
+    ops.reset_launches()
+    eng_v = engine()
+    inline, fe_v = vdrive(eng_v, False)
+    served_launches("virtual-clock frontend", cfg, eng_v.stats.batches)
+    ops.reset_launches()
+    alone = engine()
+    for i in range(FE_SINGLE):
+        r = vreqs[i]
+        alone.submit(r.dense, r.idx, r.mask)
+        out = alone.flush()
+        if out.shape != (1,) or np.float64(out[0]) != inline[i]:
+            raise AssertionError(f"request {i}: flushed alone {out}, in its "
+                                 f"frontend batch {inline[i]}")
+    served_launches("single-request flushes", cfg, FE_SINGLE)
+    ops.reset_launches()
+    pipe = engine(plan_pipeline=True)
+    piped, fe_p = vdrive(pipe, True)
+    served_launches("pipelined frontend", cfg, pipe.stats.batches)
+    if piped != inline:
+        raise AssertionError("pipelined frontend CTRs differ from inline")
+    if fe_p.stats.plans_staged < 1 or pipe.plan_stage_hits < 1:
+        raise AssertionError(f"lookahead: {fe_p.stats.plans_staged} plans "
+                             f"staged, {pipe.plan_stage_hits} adopted")
+    log(f"[frontend] virtual clock, {FE_VCLOCK_REQUESTS} hetero requests "
+        f"(seed 21) at {FE_VCLOCK_RPS:.0f} req/s, admission 'none': "
+        f"{eng_v.stats.batches} flushes; the first {FE_SINGLE} requests "
+        f"flushed alone bit-identical to their batched CTRs; a "
+        f"plan_pipeline engine under a lookahead frontend bit-identical "
+        f"({fe_p.stats.plans_staged} plans staged, "
+        f"{pipe.plan_stage_hits} adopted, {pipe.stats.batches} flushes)")
+
+    # 3. freshness on a copy of the stack, with phase 5b's cache
+    base = params["tables"]
+    fparams = dict(params, tables=base.clone())
+    fcache = hc.HotCache(hot_ids=cache.hot_ids,
+                         hot_rows=cache.hot_rows.clone(),
+                         slot_of=cache.slot_of)
+    versions = [make_delta_batch(cfg, v, rows_per_version=FRESH_ROWS,
+                                 mode="powerlaw", seed=7)
+                for v in range(1, FRESH_VERSIONS + 1)]
+    fm = FreshnessManager(itertools.islice(delta_stream(
+        cfg, rows_per_version=FRESH_ROWS, mode="powerlaw", seed=7),
+        FRESH_VERSIONS), k_fresh=FRESH_K, slice_cap=FRESH_CAP)
+    fplan = FaultPlan.none(1, 64).with_delta_corruption(0, 2, n_rows=4)
+    feng = engine(fparams, cache=fcache, freshness=fm,
+                  faults=FaultInjector(fplan, time_scale=0.0))
+    stale = {"n": 0, "recount": None, "flush": None}
+    host = {k: [] for k in ("apply", "next_wire", "ingest",
+                            "count_stale_served")}
+
+    def timed(name):
+        # the manager's host time a flush, method by method, each call a
+        # profiler range
+        fn = getattr(fm, name)
+
+        def call(*a):
+            if name == "count_stale_served" and \
+                    len(host[name]) == FRESH_RECOUNT:
+                # the pending rows as the manager's count sees them
+                stale["recount"] = host_stale_count(
+                    fm, fparams["tables"].shape[1], *a[1:])
+            s0 = time.perf_counter()
+            with torch.profiler.record_function(f"fresh.{name}"):
+                out = fn(*a)
+            host[name].append(time.perf_counter() - s0)
+            if name == "count_stale_served":
+                stale["n"] += out
+                if len(host[name]) == FRESH_RECOUNT + 1:
+                    stale["flush"] = out
+            return out
+        return call
+
+    for name in host:
+        setattr(fm, name, timed(name))
+    ops.reset_launches()
+    served = []
+    prof = None
+    for step in range(FRESH_MAX_FLUSHES):
+        b = make_batch(cfg, BATCH, mode="powerlaw_hetero", seed=SEED + 2,
+                       step=step)
+        served.append(b)
+        if step == FRESH_PROFILED:
+            # one flush mid-stream, rows pending and applied, profiled
+            prof = profile_batch(feng, b, "profile-fresh")
+        else:
+            for i in range(BATCH):
+                feng.submit(b.dense[i], b.idx[i], b.mask[i])
+        if fm.fully_committed:
+            break
+    served_launches("freshness engine", cfg, len(served), bags_per_mb=2)
+    # the profiled and the recounted flushes are left out of the flush
+    # times, on both sides
+    left_out = sorted((FRESH_PROFILED, FRESH_RECOUNT), reverse=True)
+    with_lat = list(feng.monitor.lat)
+    for i in left_out:
+        with_lat.pop(i)
+    if stale["recount"] is None or stale["recount"] != stale["flush"] or \
+            stale["flush"] < 1:
+        raise AssertionError(
+            f"rows_stale_served of flush {FRESH_RECOUNT}: the manager "
+            f"counted {stale['flush']}, the host model "
+            f"{stale['recount']}")
+    fs = feng.stats
+    n_rows = sum(v.n_rows for v in versions)
+    if not fm.fully_committed:
+        raise AssertionError(f"freshness: not committed after "
+                             f"{FRESH_MAX_FLUSHES} flushes")
+    if any(v > FRESH_K for v in fm.behind_trace):
+        raise AssertionError(f"versions_behind {fm.behind_trace} over "
+                             f"k_fresh {FRESH_K}")
+    if fm.rows_applied != n_rows or fm.delta_rejects < 1 or fm.rollbacks:
+        raise AssertionError(f"freshness: rows_applied {fm.rows_applied} "
+                             f"of {n_rows}, rejects {fm.delta_rejects}, "
+                             f"rollbacks {fm.rollbacks}")
+    mirrored = (fs.rows_applied, fs.delta_rejects, fs.apply_rollbacks,
+                fs.versions_behind, fs.rows_stale_served)
+    if mirrored != (fm.rows_applied, fm.delta_rejects, fm.rollbacks,
+                    fm.ledger.versions_behind, stale["n"]):
+        raise AssertionError(f"ServeStats {mirrored} differ from the "
+                             f"manager's")
+    oracle = oracle_tables(base, versions)
+    if not torch.equal(fparams["tables"], oracle):
+        raise AssertionError("freshness: the stack differs from "
+                             "oracle_tables")
+    ids = fcache.hot_ids.long()
+    want_rows = oracle[torch.arange(ids.shape[0], device=dev)[:, None], ids]
+    if fm.cache_refreshed < 1 or not torch.equal(fcache.hot_rows,
+                                                 want_rows):
+        raise AssertionError(f"freshness: {fm.cache_refreshed} cached rows "
+                             f"refreshed; cache equal to the oracle's rows "
+                             f"{torch.equal(fcache.hot_rows, want_rows)}")
+    # a fresh batch: this engine against a new one on the oracle stack
+    oeng = engine(dict(params, tables=oracle),
+                  cache=hc.HotCache(hot_ids=fcache.hot_ids,
+                                    hot_rows=want_rows,
+                                    slot_of=fcache.slot_of))
+    probe = make_batch(cfg, BATCH, mode="powerlaw_hetero", seed=SEED + 3)
+    ops.reset_launches()
+    got = {}
+    for label, e in (("fresh", feng), ("oracle", oeng)):
+        with count_collectives() as calls:
+            for i in range(BATCH):
+                o = e.submit(probe.dense[i], probe.idx[i], probe.mask[i])
+        got[label] = (o, dict(calls))
+    served_launches("probe flushes", cfg, 2, bags_per_mb=2)
+    if not np.array_equal(got["fresh"][0], got["oracle"][0]):
+        raise AssertionError("a fresh batch served by the freshness engine "
+                             "differs from a new engine on the oracle stack")
+    if got["fresh"][1] != got["oracle"][1]:
+        raise AssertionError(f"collective calls a flush with deltas "
+                             f"{got['fresh'][1]}, without "
+                             f"{got['oracle'][1]}")
+    # the same requests without freshness, for the flush times
+    plain = engine(cache=cache)
+    for b in served:
+        for i in range(BATCH):
+            plain.submit(b.dense[i], b.idx[i], b.mask[i])
+    card_ms = [a.elapsed_time(z) for _, a, z in fm.apply_trace
+               if a is not None] or [float("nan")]
+    host_ms = [h * 1e3 for h, _, _ in fm.apply_trace]
+    without_lat = list(plain.monitor.lat)
+    for i in left_out:
+        without_lat.pop(i)
+    slot_with, slot_without = feng.slot_bytes(), oeng.slot_bytes()
+    log(f"[fresh] {FRESH_VERSIONS} powerlaw versions x {FRESH_ROWS} rows "
+        f"({n_rows} after dedup), k_fresh {FRESH_K}, slices of "
+        f"{FRESH_CAP}, 4 rows of member 0 corrupted at flush 2, phase 5b's "
+        f"{CACHE_ROWS}-row cache: committed after {len(served)} flushes of "
+        f"512 powerlaw_hetero requests; rows_applied {fm.rows_applied}, "
+        f"delta_rejects {fm.delta_rejects}, rollbacks {fm.rollbacks}, "
+        f"applies {fm.applies}, cache_refreshed {fm.cache_refreshed}, "
+        f"source_blocked {fm.source_blocked}, rows_stale_served "
+        f"{stale['n']}; versions_behind per flush {fm.behind_trace}")
+    traced = {k: range_device_us(prof, f"fresh.{k}") for k in host}
+    log(f"[fresh] apply window (in place with an undo log): device time "
+        f"{traced['apply'][0]:.1f} us in the profiled flush's window "
+        f"({traced['apply'][1]} device operations, from the trace); wall "
+        f"on the stream between CUDA events p50 "
+        f"{statistics.median(card_ms):.4f} ms max {max(card_ms):.4f} ms, "
+        f"host ms p50 {statistics.median(host_ms):.4f} max "
+        f"{max(host_ms):.4f} over {len(fm.apply_trace)} windows "
+        f"card={card!r}")
+    log("[fresh] device time of the profiled flush's other manager calls "
+        "(from the trace): " + ", ".join(
+            f"{k} {us:.1f} us ({n} device operations)"
+            for k, (us, n) in traced.items() if k != "apply"))
+    log(f"[fresh] flush p50 {ms(with_lat, 0.5):.3f} ms p99 "
+        f"{ms(with_lat, 0.99):.3f} ms with deltas; the same requests "
+        f"without freshness p50 {ms(without_lat, 0.5):.3f} ms p99 "
+        f"{ms(without_lat, 0.99):.3f} ms card={card!r}")
+    log(f"[fresh] slot_bytes {slot_with} with the xdelta field, "
+        f"{slot_without} without ({slot_with - slot_without} B a slot)")
+    log("[fresh] the manager's host ms a flush, p50 / max: " + ", ".join(
+        f"{k} {ms(v, 0.5):.4f} / {max(v) * 1e3:.4f}"
+        for k, v in host.items()) + f" (over {len(host['ingest'])} "
+        f"flushes; apply counts every call, empty windows included)")
+    log(f"[fresh] the stack bit-identical to oracle_tables (compared on the "
+        f"card against a {base.numel() * base.element_size() / 1e9:.2f} GB "
+        f"copy); the cache's rows equal the oracle's at hot_ids; a fresh "
+        f"batch bit-identical to a new engine on the oracle stack; "
+        f"collective calls a flush with and without deltas "
+        f"{got['fresh'][1]}; launches at the served shape only, the bag "
+        f"twice a microbatch (pooled hits and residual)")
+    log_serve("fresh", "freshness bound=2", feng, card)
+    log_serve("fresh", "no freshness bound=2", plain, card)
+
+
+def host_stale_count(fm, r: int, idx, mask) -> int:
+    """The plain host model of ``count_stale_served``: the (sample, table)
+    bags of the batch whose live ids hit a row pending in ``fm``, by
+    ``np.isin`` on the host."""
+    pend = [g for gids in fm._remaining.values() for g in gids]
+    if not pend:
+        return 0
+    i, m = idx.cpu().numpy(), mask.cpu().numpy()
+    t = np.arange(i.shape[1], dtype=np.int64)[None, :, None]
+    hit = np.isin(t * r + i.astype(np.int64),
+                  np.asarray(pend, np.int64)) & (m > 0)
+    return int(hit.any(axis=-1).sum())
+
+
+def range_device_us(prof, name: str):
+    """(device us, device operations) of the kernels and copies launched
+    inside the profiler range ``name``, the range's own span on the
+    device left out; (nan, 0) without a trace."""
+    if prof is None:
+        return float("nan"), 0
+    us, n = 0.0, 0
+    stack = [e for e in prof.events() if e.name == name
+             and e.device_type != torch.autograd.DeviceType.CUDA]
+    while stack:
+        e = stack.pop()
+        work = [k for k in e.kernels if k.name != name]
+        us += sum(k.duration for k in work)
+        n += len(work)
+        stack.extend(e.cpu_children)
+    return us, n
 
 
 def admitted_pairs(s: int, window: int) -> int:
@@ -1803,8 +2283,10 @@ def main() -> int:
         dlrm_edge_phase(dev)
         with model_group("nccl"):
             dlrm_by_key = serve_phase(params, CONFIG, dev, card)
-            ragged_row = ragged_phase(params, CONFIG, dev, card)
+            ragged_row, cache = ragged_phase(params, CONFIG, dev, card)
             plans_chaos_phase(params, CONFIG, dev, card)
+            frontend_fresh_phase(params, CONFIG, dev, card, cache)
+            del cache
         # each DLRM row takes the served launches of its own shape: the
         # served path pools and interacts 128 samples a launch, once per
         # microbatch, so the two served rows must read N_BATCHES x 4 and

@@ -2,8 +2,8 @@
 ``repro/models/dlrm.py``: the single-device forward and the table-parallel
 forward with the hot-row cache, the dense and ragged exchanges, the mono
 and ring pipelines, the float32, bf16 and int8 wire codecs, precomputed
-stream plans (:func:`build_forward_plans`) and degraded serving around
-slow members.
+stream plans (:func:`build_forward_plans`), degraded serving around
+slow members and versioned embedding-row deltas riding the exchange.
 
 Architecture: dense features -> bottom MLP; categorical features ->
 embedding bags over (T_pad, R_max, s) stacked tables; pairwise dot
@@ -144,6 +144,7 @@ class ExchangeDiag:
     exchange: str = "dense"  # resolved decision: dense | ragged | local
     cap: int = 0
     dense_rows: int = 0     # what the dense butterfly moves per destination
+    staged: object = None   # the harvested delta rows (forward's deltas=)
 
 
 def apply_emb_rows(tables, tid, idx, mask, backend: str = "ref",
@@ -347,22 +348,46 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
     ``approx_rows`` in the diagnostics counts exactly the live bags so
     served, summed over the group.
 
+    ``deltas`` threads versioned embedding-row updates through the SAME
+    fused exchange: a dict of ``(P, microbatches, ...)`` leaves built by
+    ``runtime.freshness.FreshnessManager.next_wire`` (``dvec`` (.., dcap,
+    s) new rows, ``dgid`` flat table·R+row ids, ``dcs`` source-stamped
+    checksums, ``dcnt``/``dver`` each slice's count and version).  Member
+    m repacks its slices ``[m]`` by owning member (every microbatch in one
+    pack) and each microbatch's stage_a fuses its buckets into the
+    ``"xdelta"`` field (a slice holds <= dcap rows, so nothing drops); the
+    rows travel in the table's dtype whatever the codec.  stage_b keeps
+    each source's sub-blob, and the harvest of every member, leaves
+    ``(P_dst, microbatches, P_src, ...)``, is the diagnostics' ``staged``
+    (so deltas need ``return_diag``): it rides the all-gather of the
+    logits, as the diagnostics' counters do, so neither adds a collective.
+    The forward never writes a table; the manager's apply window does.
+
     ``group`` defaults to the model group of ``launch/mesh.py``; with none
     the forward falls back to :func:`forward_local`, as the reference does
-    without a model mesh.  The riders, wire checks and table placement
-    raise ``NotImplementedError``."""
+    without a model mesh (``deltas`` then raise ``ValueError``).  The other
+    riders, wire checks and table placement raise
+    ``NotImplementedError``."""
     wire = resolve_slice(cfg, wire_dtype=wire_dtype, exchange=exchange,
                          exchange_pipeline=exchange_pipeline)
-    riders = {"deltas": deltas, "migration": migration, "repair": repair,
+    riders = {"migration": migration, "repair": repair,
               "quarantine": quarantine, "table_inv": table_inv}
-    items = {"deltas": "A10", "migration": "A11", "table_inv": "A11",
-             "repair": "A12", "quarantine": "A12"}
+    items = {"migration": "A11", "table_inv": "A11", "repair": "A12",
+             "quarantine": "A12"}
     for name, val in riders.items():
         if val is not None:
             raise _unported(f"{name}=", items[name])
     if wire_check:
         raise _unported("wire_check", "A12")
     group = group if group is not None else mesh_mod.current_group()
+    if deltas is not None and group is None:
+        raise ValueError(
+            "forward_distributed: deltas ride the model-group exchange — "
+            "set up a model group with launch/mesh.py")
+    if deltas is not None and not return_diag:
+        raise ValueError(
+            "forward_distributed: the delta harvest is returned as the "
+            "diagnostics' staged field — pass return_diag=True")
     if group is None:
         if cache is not None or (wire_dtype or cfg.wire_dtype) != "float32":
             warnings.warn(
@@ -416,10 +441,18 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
     pipe = resolve_pipeline(
         exchange_pipeline if exchange_pipeline is not None
         else cfg.exchange_pipeline, n_shards)
-    # the ONE layout both exchange halves (and the BLS ring slot) agree on
+    has_delta = deltas is not None
+    dlayout, dbytes = None, 0
+    if has_delta:
+        dcap = int(deltas["dgid"].shape[-1])
+        dlayout = a2a_mod.delta_wire_layout(n_shards, dcap, s, emb_dtype)
+        dbytes = dlayout.slot_bytes
+    # the ONE layout both exchange halves (and the BLS ring slot) agree on,
+    # the delta rows included as the opaque "xdelta" bytes
     layout = a2a_mod.exchange_wire_layout(
         ragged=use_ragged, n_dest=n_shards, cap=cap, bs=bs, t_loc=t_loc,
-        embed_dim=s, wire_dtype=wire, emb_dtype=emb_dtype)
+        embed_dim=s, wire_dtype=wire, emb_dtype=emb_dtype,
+        delta_bytes=dbytes)
     if plan is not None:
         if use_ragged:
             raise ValueError(
@@ -467,6 +500,38 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
         return ix_loc, hc_mod.miss_mask_of(cache.slot_of[cols], ix_loc,
                                            mk_loc)
 
+    def pack_deltas():
+        """This member's delta slices -> every microbatch's "xdelta"
+        sub-blobs, (mb, P, sub-slot bytes): each valid row routed to the
+        member owning its table and repacked into dcap-row buckets (a
+        slice holds <= dcap rows, so nothing drops), one pack for all the
+        microbatches (bucket j·P + owner).  The checksums ride verbatim:
+        stamped at the source, verified by the receiving host."""
+        dl = {k: v[m] for k, v in deltas.items()}     # leaves (mb, ...)
+        gid = dl["dgid"].to(torch.int32)
+        dev = gid.device
+        valid = torch.arange(dcap, device=dev)[None] < dl["dcnt"]
+        owner = gid // tables.shape[1] // t_loc
+        j = torch.arange(mb, device=dev)[:, None]
+        dest = torch.where(valid, j * n_shards + owner, -1).reshape(-1)
+        # the checksums travel as int32 bits: the pack gathers rows, and
+        # uint32 is a reinterpretation of the same bytes
+        bk, cnts, _ = a2a_mod.pack_ragged_tree(
+            {"dvec": dl["dvec"].to(emb_dtype).reshape(mb * dcap, s),
+             "dgid": gid.reshape(-1),
+             "dcs": dl["dcs"].view(torch.int32).reshape(-1)},
+            dest, mb * n_shards, dcap)
+        ver = dl["dver"].to(torch.int32).reshape(mb, 1, 1) \
+            .expand(mb, n_shards, 1).reshape(mb * n_shards, 1)
+        return a2a_mod.fuse_wire(
+            {"dvec": bk["dvec"], "dgid": bk["dgid"],
+             "dcs": bk["dcs"].view(torch.uint32),
+             "dcnt": cnts.reshape(-1, 1), "dver": ver},
+            a2a_mod.delta_wire_layout(mb * n_shards, dcap, s, emb_dtype)
+        ).reshape(mb, n_shards, -1)
+
+    xdelta = pack_deltas() if has_delta else None
+
     def stage_a(j):
         rows = slice(j * b_mb, (j + 1) * b_mb)
         ix, mk = idx[rows], mask[rows]
@@ -501,6 +566,8 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
             # bs-row blocks, a free reshape
             payload = {k: v.reshape(n_shards, bs, *v.shape[1:])
                        for k, v in a2a_mod.encode_wire(pooled, wire).items()}
+        if has_delta:
+            payload["xdelta"] = xdelta[j]
         buf = a2a_mod.fuse_wire(payload, layout)
         # member m's dense rows of microbatch j (matches a2a delivery)
         dm = dense[j * b_mb + m * bs:j * b_mb + (m + 1) * bs]
@@ -534,18 +601,27 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
 
     def stage_b(recv, side):
         z0, hits = side
+        # the delta harvest stays bytes, (P_src, sub-slot bytes; 0 without
+        # deltas), until every member's is gathered
+        harvest = torch.empty((n_shards, dbytes), dtype=torch.uint8,
+                              device=recv.device)
         if pipe == "ring":
-            def consume(emb, src, chunk):
+            def consume(carry, src, chunk):
+                emb, got = carry
                 emb[:, src * t_loc:(src + 1) * t_loc] = chunk_slice(
                     chunk, hits, src)
-                return emb
+                if has_delta:
+                    got[src] = a2a_mod.defuse_wire(chunk, layout)["xdelta"]
+                return emb, got
 
-            emb_all = a2a_mod.ring_exchange(
+            emb_all, harvest = a2a_mod.ring_exchange(
                 recv, group, n_shards, consume,
-                torch.empty((bs, t_pad, s), dtype=emb_dtype,
-                            device=recv.device))
+                (torch.empty((bs, t_pad, s), dtype=emb_dtype,
+                             device=recv.device), harvest))
         else:
             f = a2a_mod.defuse_wire(recv, layout)
+            if has_delta:
+                harvest = f["xdelta"]
             if use_ragged:
                 emb_all = ragged_exchange_unpack(f, t_loc=t_loc, bs=bs,
                                                  out_dtype=emb_dtype)
@@ -563,37 +639,53 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
         z = torch.cat([z0[:, None, :], emb_all[:, :t]], dim=1)
         inter = dot_interaction(z, backend)
         top_in = torch.cat([z0, inter.to(z0.dtype)], dim=-1)
-        return apply_mlp(params["top"], top_in)[..., 0]
+        logit = apply_mlp(params["top"], top_in)[..., 0]
+        return logit, harvest
 
     outs, _ = bls_mod.bls_pipeline(stage_a, collective, stage_b,
                                    list(range(mb)), bound)
+    outs, harvest = zip(*outs)
     out = torch.stack(outs)                                    # (mb, bs)
-    parts = [torch.empty_like(out) for _ in range(n_shards)]
-    dist.all_gather(parts, out, group=group)
+    words = torch.empty(0, dtype=torch.int32, device=out.device)
+    if return_diag:
+        # live-count / drop diagnostics for the cap autotuner: per
+        # (microbatch, destination) live rows of this member's tables; the
+        # degraded ledger: every live residual bag of a degraded member's
+        # tables was served from the fallback, counted on the owning member
+        _, miss_all = local_miss(idx, mask)
+        cnt = (miss_all > 0).any(dim=-1).reshape(mb, n_shards, bs, t_loc) \
+            .sum(dim=(2, 3)).to(torch.int32)
+        over = (cnt - cap).clamp(min=0).sum() if use_ragged \
+            else cnt.new_zeros(())
+        words = torch.stack([w.to(torch.int32) for w in (
+            cnt.max(), over, cnt.sum() * deg_mask[m])])
+    # ONE all-gather carries every member's logits, diagnostic words and
+    # delta harvest as bytes, so neither adds a collective
+    n_out = out.numel() * out.element_size()
+    n_w = words.numel() * 4
+    flat = torch.cat([out.view(torch.uint8).reshape(-1),
+                      words.view(torch.uint8), torch.stack(harvest)
+                      .reshape(-1)])
+    got = [torch.empty_like(flat) for _ in range(n_shards)]
+    dist.all_gather(got, flat, group=group)
+    got = torch.stack(got)
     # (P, mb, bs) -> input order (mb, P, bs): with one data row this is
     # also the pipeline order, so restore_order changes nothing
-    logits = torch.stack(parts).permute(1, 0, 2).reshape(-1)
+    logits = got[:, :n_out].contiguous().view(out.dtype) \
+        .reshape((n_shards,) + out.shape).permute(1, 0, 2).reshape(-1)
     if not return_diag:
         return logits
-    # live-count / drop diagnostics for the cap autotuner: per
-    # (microbatch, destination) live rows of this member's tables, the max
-    # and the overflow reduced over the group
-    _, miss_all = local_miss(idx, mask)
-    cnt = (miss_all > 0).any(dim=-1).reshape(mb, n_shards, bs, t_loc) \
-        .sum(dim=(2, 3)).to(torch.int32)
-    live_max = cnt.max()
-    drops = (cnt - cap).clamp(min=0).sum().to(torch.int32) if use_ragged \
-        else torch.zeros((), dtype=torch.int32, device=cnt.device)
-    # the degraded ledger: every live residual bag of a degraded member's
-    # tables was served from the fallback; counted on the owning member
-    approx = cnt.sum().to(torch.int32) * deg_mask[m]
-    dist.all_reduce(live_max, op=dist.ReduceOp.MAX, group=group)
-    dist.all_reduce(drops, op=dist.ReduceOp.SUM, group=group)
-    if deg:
-        dist.all_reduce(approx, op=dist.ReduceOp.SUM, group=group)
-    return logits, ExchangeDiag(live_max, drops, approx,
-                                "ragged" if use_ragged else "dense", cap,
-                                dense_rows)
+    ctr = got[:, n_out:n_out + n_w].contiguous().view(torch.int32)
+    staged = None
+    if has_delta:
+        # every member's harvest, (P_dst, mb, P_src, ...) a leaf
+        rows = got[:, n_out + n_w:].reshape(-1, dbytes)
+        staged = {k: v.reshape((n_shards, mb, n_shards) + v.shape[1:])
+                  for k, v in a2a_mod.defuse_wire(rows, dlayout).items()}
+    return logits, ExchangeDiag(
+        ctr[:, 0].max(), ctr[:, 1].sum(dtype=torch.int32),
+        ctr[:, 2].sum(dtype=torch.int32),
+        "ragged" if use_ragged else "dense", cap, dense_rows, staged)
 
 
 def table_means(tables, t_pad: int, group):

@@ -9,7 +9,8 @@ live-row counts feed the cap autotuner that moves an ``exchange='auto'``
 engine with a hot-row cache onto the ragged exchange.  ``plan_pipeline``
 builds each batch's stream plans off the critical path and returns results
 one flush late; the chaos options (``faults``, ``deadline_s``,
-``on_deadline``) serve around stragglers and evict crashed members.
+``on_deadline``) serve around stragglers and evict crashed members;
+``freshness`` applies versioned embedding-row updates between flushes.
 """
 from __future__ import annotations
 
@@ -38,6 +39,9 @@ from repro_torch.runtime.straggler import (CapAutotuner, StragglerMonitor,
 from repro_torch.serving import hot_cache as hc_mod
 from repro_torch.train import steps as steps_mod
 
+# the delta wire leaves, in the order FreshnessManager.next_wire emits them
+DELTA_KEYS = ("dcnt", "dcs", "dgid", "dvec", "dver")
+
 
 @dataclasses.dataclass
 class ServeStats:
@@ -52,13 +56,23 @@ class ServeStats:
     evictions: int = 0          # evict() recoveries (crash or policy)
     replays: int = 0            # batches dispatched again after a NodeFailure
     recovery_s: float = 0.0     # wall time inside evict()
+    # -- freshness ledger (versioned delta updates) ------------------------
+    rows_applied: int = 0       # delta rows committed into the tables
+    rows_stale_served: int = 0  # bags served that touched a pending row
+    versions_behind: int = 0    # ledger spread after the last flush
+    delta_rejects: int = 0      # checksum-rejected (re-shipped) delta rows
+    apply_rollbacks: int = 0    # applies abandoned by a mid-apply crash
 
     @property
     def throughput_rps(self) -> float:
         return self.requests / self.total_s if self.total_s else 0.0
 
     def to_dict(self) -> dict:
-        d = dataclasses.asdict(self)
+        """Plain-JSON view of the ledger: every ``ServeStats`` field and
+        the derived throughput (``serving.frontend.FrontendStats`` extends
+        it with its own counters and histograms)."""
+        d = {f.name: getattr(self, f.name)
+             for f in dataclasses.fields(ServeStats)}
         d["throughput_rps"] = self.throughput_rps
         return d
 
@@ -123,11 +137,29 @@ class DLRMEngine:
     off, evicts the crashed member and dispatches the same batch again (up
     to ``max_retries`` times), so no request is lost.  With a deadline
     armed the members agree on each flush's latency (the slowest one's),
-    so every member takes the same decision.  ``freshness``, ``rebalance``
-    and ``scrub_budget`` raise ``NotImplementedError``."""
+    so every member takes the same decision.
+
+    ``freshness`` (a ``runtime.freshness.FreshnessManager``) serves
+    versioned embedding-row updates: before each flush its apply window
+    commits the rows harvested on earlier flushes, then this flush's delta
+    slices ride the exchange as the ``"xdelta"`` field (no extra
+    collective) and are harvested for a later apply; the five freshness
+    counters of :class:`ServeStats` mirror the manager's.  The rows are
+    written into ``params["tables"]`` (and the cache) in place: pass a
+    copy of the stack to keep the original.
+    ``layout_version`` counts the layout changes (evictions), on which a
+    frontend resets its flush-time estimate.
+
+    ``unroll`` is the reference's BLS scan unroll (None or >= 1).  The
+    reference compiles microbatches in an unrolled scan differently unless
+    ``unroll=1``, so a request's CTR there depends on its position in the
+    batch; here every microbatch runs the same code at the same shape, so
+    it never does, and the value changes nothing.  ``rebalance`` and
+    ``scrub_budget`` raise ``NotImplementedError``."""
 
     def __init__(self, params, cfg: DLRMConfig, *, batch_size: int = 512,
                  bound: int = 0, microbatches: int = 1,
+                 unroll: Optional[int] = None,
                  wire_dtype: Optional[str] = None, cache=None,
                  exchange: Optional[str] = None,
                  ragged_cap: Optional[int] = None,
@@ -143,6 +175,10 @@ class DLRMEngine:
                  max_retries: int = 2, retry_backoff_s: float = 0.0,
                  rebalance: bool = False, scrub_budget: int = 0):
         self.device = resolve_device(device)
+        if unroll is not None and (isinstance(unroll, bool) or
+                                   not isinstance(unroll, int) or unroll < 1):
+            raise ValueError(f"unroll must be None or an int >= 1, got "
+                             f"{unroll!r}")
         if on_deadline not in ("block", "degrade", "evict"):
             raise ValueError(f"unknown on_deadline {on_deadline!r}")
         if degraded_fallback not in ("zero", "mean"):
@@ -161,8 +197,7 @@ class DLRMEngine:
                 raise ValueError(
                     f"{name} {path}; plan_pipeline's deferred harvest would "
                     f"tear that boundary — run {name} without plan_pipeline")
-        for name, val, item in (("freshness", freshness, "A10"),
-                                ("rebalance", rebalance, "A11"),
+        for name, val, item in (("rebalance", rebalance, "A11"),
                                 ("scrub_budget", scrub_budget, "A12")):
             if val:
                 raise NotImplementedError(
@@ -187,11 +222,13 @@ class DLRMEngine:
             else cfg.pool_mode
         self.batch_size = batch_size
         self.bound, self.microbatches = int(bound), microbatches
+        self.unroll = unroll
         self.group = group
         self.plan_pipeline = plan_pipeline
         self.deadline_s = deadline_s
         self.on_deadline = on_deadline
         self.faults = faults
+        self.freshness = freshness
         self.degraded_fallback = degraded_fallback
         self.confirm_after = max(1, int(confirm_after))
         self.max_retries = max(0, int(max_retries))
@@ -211,6 +248,14 @@ class DLRMEngine:
         # (fitted idx, plan) staged by stage_plan() for the next flush
         self._staged_plan = None
         self.plan_stage_hits = 0       # flushes served a staged plan
+        # bumped on every layout change (eviction): the frontend's flush
+        # estimate keys off it to recalibrate
+        self.layout_version = 0
+        if freshness is not None and \
+                params["tables"].shape[0] != self._exchange_geometry()[1]:
+            raise ValueError(
+                "freshness writes its rows into the whole (T_pad, R, s) "
+                "stack; the engine holds one member's shard")
 
     def calibrate_cache(self, idx: np.ndarray, mask: np.ndarray,
                         cache_rows: Optional[int] = None):
@@ -296,15 +341,17 @@ class DLRMEngine:
             out.append(t.to(self.device, non_blocking=quiet))
         return tuple(out)
 
-    def _dispatch(self, dense, idx, mask, plan=None):
-        """One forward on the model group: (CTRs, diagnostics or None),
-        both left where they were computed.  The diagnostics cost a
-        re-probe of the misses and small collectives: only when something
+    def _dispatch(self, dense, idx, mask, plan=None, deltas=None):
+        """One forward on the model group: (CTRs, diagnostics or None,
+        the harvested delta rows or None), left where they were computed.
+        The diagnostics cost a re-probe of the misses: only when something
         reads them (drop monitoring under 'ragged', the autotuner under
-        'auto' with a cache, the degraded ledger)."""
+        'auto' with a cache, the degraded ledger) or when deltas, which
+        come back in them, ride the exchange."""
         diag_on = self.exchange == "ragged" or (
             self.exchange == "auto" and self.cache is not None) or \
             bool(self.degraded_members)
+        want = diag_on or deltas is not None
         with torch.no_grad():
             res = dlrm_mod.forward_distributed(
                 self.params, self.cfg, dense, idx, mask,
@@ -313,11 +360,13 @@ class DLRMEngine:
                 exchange=self.exchange, ragged_cap=self.ragged_cap,
                 exchange_pipeline=self.exchange_pipeline,
                 row_block=self.row_block, pool_mode=self.pool_mode,
-                plan=plan, degraded_members=self.degraded_members,
+                plan=plan, deltas=deltas,
+                degraded_members=self.degraded_members,
                 degraded_fallback=self.degraded_fallback,
-                return_diag=diag_on, group=self._group())
-        logits, diag = res if diag_on else (res, None)
-        return torch.sigmoid(logits), diag
+                return_diag=want, group=self._group())
+        logits, diag = res if want else (res, None)
+        return (torch.sigmoid(logits), diag if diag_on else None,
+                diag.staged if want else None)
 
     def _agreed(self, seconds: float) -> float:
         """A lockstep flush takes its slowest member's time: with a
@@ -418,7 +467,7 @@ class DLRMEngine:
             self.plan_stage_hits += 1
         else:
             plan = self._build_plan(idx)
-        out, diag = self._dispatch(dense, idx, mask, plan)
+        out, diag, _ = self._dispatch(dense, idx, mask, plan)
         # a watcher synchronizes on the batch's completion off the main
         # thread (an error on the card surfaces at the harvest); the
         # latency is dispatch to completion on the card's clock, which a
@@ -459,11 +508,30 @@ class DLRMEngine:
         batch is dispatched again on the survivors."""
         for attempt in range(self.max_retries + 1):
             try:
+                fr = self.freshness
+                if fr is not None:
+                    # the apply window sits BETWEEN flushes: rows harvested
+                    # earlier commit (or roll back) before this batch goes
+                    fr.apply(self, step_no)
                 if self.faults is not None:
                     self.faults.on_flush(step_no, self._group(),
                                          exclude=self.degraded_members)
-                return self._dispatch(*self._upload(
-                    *self._fit_batch(d, i, m)))
+                dense, idx, mask = self._upload(*self._fit_batch(d, i, m))
+                if fr is None:
+                    return self._dispatch(dense, idx, mask)[:2]
+                dw = fr.next_wire(self, step_no)
+                deltas = dict(zip(DELTA_KEYS, self._upload(
+                    *(dw[k] for k in DELTA_KEYS))))
+                out, diag, staged = self._dispatch(dense, idx, mask,
+                                                   deltas=deltas)
+                fr.ingest(staged, self, step_no)
+                self.stats.rows_stale_served += \
+                    fr.count_stale_served(self, idx, mask)
+                self.stats.rows_applied = fr.rows_applied
+                self.stats.delta_rejects = fr.delta_rejects
+                self.stats.apply_rollbacks = fr.rollbacks
+                self.stats.versions_behind = fr.ledger.versions_behind
+                return out, diag
             except NodeFailure as e:
                 if attempt >= self.max_retries:
                     raise
@@ -607,8 +675,13 @@ class DLRMEngine:
         self.degraded_members = ()     # ranks renumbered: start clean
         self._streak.clear()
         self._staged_plan = None
+        self.layout_version += 1
         self.cap_tuner.reset()
         self.monitor.reset()
+        if self.freshness is not None:
+            # uncommitted delta rows queue again; their owners follow the
+            # new geometry at the next ship
+            self.freshness.on_evict(self)
         self.stats.evictions += 1
         self.stats.recovery_s += time.perf_counter() - t_rec
 
@@ -651,8 +724,9 @@ class DLRMEngine:
     def slot_bytes(self) -> int:
         """Bytes ONE BLS ring slot buffers: the fused (P, slot_bytes) uint8
         buffer of the exchange the engine resolves to (dense or ragged, at
-        its codec), the buffered bottom-MLP activations and, with a cache,
-        the (bs, t_pad, s) pooled hits."""
+        its codec, with the ``xdelta`` rows under ``freshness``), the
+        buffered bottom-MLP activations and, with a cache, the (bs, t_pad,
+        s) pooled hits."""
         p, t_pad, bs, dense_rows = self._exchange_geometry()
         s = self.cfg.embed_dim
         emb_dtype = self.params["tables"].dtype
@@ -660,9 +734,14 @@ class DLRMEngine:
         use_ragged, cap = dlrm_mod.resolve_exchange(
             self.exchange, use_cache=use_cache, cap=self.ragged_cap,
             dense_rows=dense_rows)
+        delta_bytes = 0
+        if self.freshness is not None:
+            delta_bytes = a2a_mod.delta_wire_layout(
+                p, self.freshness.slice_cap, s, emb_dtype).slot_bytes
         layout = a2a_mod.exchange_wire_layout(
             ragged=use_ragged, n_dest=p, cap=cap, bs=bs, t_loc=t_pad // p,
-            embed_dim=s, wire_dtype=self.wire_dtype, emb_dtype=emb_dtype)
+            embed_dim=s, wire_dtype=self.wire_dtype, emb_dtype=emb_dtype,
+            delta_bytes=delta_bytes)
         recv = torch.empty((p, layout.slot_bytes), dtype=torch.uint8,
                            device="meta")
         side = [torch.empty((bs, s), dtype=L.dtype_of(self.cfg.dtype),

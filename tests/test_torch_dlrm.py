@@ -28,6 +28,7 @@ from repro_torch.core import bls as tbls
 from repro_torch.data import synthetic as tsyn
 from repro_torch.models import dlrm as tdlrm
 from repro_torch.runtime import straggler as tstrag
+from repro_torch.runtime.freshness import FreshnessManager
 from repro_torch.serving import hot_cache as thc
 from repro_torch.serving.engine import DLRMEngine
 
@@ -167,9 +168,17 @@ def test_forward_distributed_refuses_unported_options(kw):
     jcfg, tcfg = _cfgs("smoke")
     _, tp = _params(jcfg)
     b = tsyn.make_batch(tcfg, 8, seed=0)
+    args = _t(b.dense, b.idx, b.mask)
+    if "deltas" in kw:
+        # ported (ROADMAP A10): the rider needs a model group, as the
+        # reference's needs a mesh, and still refuses the unported riders
+        with pytest.raises(ValueError, match="model group"):
+            tdlrm.forward_distributed(tp, tcfg, *args, **kw)
+        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+            tdlrm.forward_distributed(tp, tcfg, *args, migration={}, **kw)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdlrm.forward_distributed(tp, tcfg, *_t(b.dense, b.idx, b.mask),
-                                  **kw)
+        tdlrm.forward_distributed(tp, tcfg, *args, **kw)
 
 
 @pytest.mark.parametrize("kw", [
@@ -198,10 +207,20 @@ def test_forward_distributed_serves_the_exchange_options(kw):
 
 
 @pytest.mark.parametrize("kw", [
-    {"freshness": object()}, {"rebalance": True}, {"scrub_budget": 4}])
+    {"freshness": "manager"}, {"rebalance": True}, {"scrub_budget": 4}])
 def test_engine_refuses_unported_options(kw):
     jcfg, tcfg = _cfgs("smoke")
     _, tp = _params(jcfg)
+    if "freshness" in kw:
+        # ported (ROADMAP A10): a manager is accepted, and the unported
+        # options beside it are still refused
+        fm = FreshnessManager(iter(()))
+        eng = DLRMEngine(tp, tcfg, batch_size=8, device="cpu", freshness=fm)
+        assert eng.freshness is fm
+        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+            DLRMEngine(tp, tcfg, batch_size=8, device="cpu", freshness=fm,
+                       rebalance=True)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DLRMEngine(tp, tcfg, batch_size=8, device="cpu", **kw)
 

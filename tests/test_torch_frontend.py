@@ -1,0 +1,1005 @@
+"""The port's serving frontend (``repro_torch/serving/frontend.py``)
+against the reference's, on the CPU.
+
+  * the reference's policy tests (``tests/test_frontend.py``), ported onto
+    the port's frontend with the same virtual clock and fake engine:
+    accounting, shedding, backpressure, the ladder, shaping, traffic
+    faults, arrivals, weighted fairness and the real engine;
+  * a parity scenario: one virtual-clock run through the reference's
+    ``ServingFrontend`` and the port's, each over its own fake engine,
+    with seeded bursty traffic, SLO admission, shedding, three weighted
+    tenants and a fault plan with a queue delay and an arrival burst:
+    identical ``SubmitResult``s, the same served sequence, equal
+    ``to_dict()`` on the shared keys;
+  * real engines: the port's frontend over the port's ``DLRMEngine`` and
+    the reference's over the reference's ``DLRMEngine(unroll=1)``, CTRs
+    within 1e-5;
+  * the repairs of the port's engine: ``unroll``, ``layout_version`` and
+    the freshness counters of ``ServeStats``; and the copies of the data
+    functions, bit for bit.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+
+from repro.configs.base import DLRMConfig as JConfig
+from repro.data import synthetic as jsyn
+from repro.models import dlrm as jdlrm
+from repro.runtime import faults as jfaults
+from repro.serving import engine as jengine
+from repro.serving import frontend as jfrontend
+from repro_torch.configs.base import DLRMConfig
+from repro_torch.data import synthetic as S
+from repro_torch.models import dlrm as tdlrm
+from repro_torch.runtime.faults import FaultInjector, FaultPlan
+from repro_torch.serving.engine import DLRMEngine, ServeStats
+from repro_torch.serving.frontend import (RETRY_AFTER, ServingFrontend)
+
+
+class VClock:
+    """Virtual monotonic clock: time moves only when a test says so."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+    def advance(self, dt: float) -> None:
+        self.t += dt
+
+
+class FakeEngine:
+    """Minimal DLRMEngine stand-in honoring the frontend's contract:
+    submit() auto-flushes at batch_size, flush() returns the pending
+    batch's CTRs (or, with ``deferred=True``, the PREVIOUS batch's — the
+    plan-pipeline calling convention).  Each request's "CTR" is its
+    submission ordinal so attribution is checkable bit-for-bit; flushing
+    advances the shared virtual clock by ``service_s``."""
+
+    def __init__(self, clock: VClock, *, batch_size=8, service_s=0.005,
+                 deferred=False):
+        self.clock = clock
+        self.batch_size = batch_size
+        self.service_s = service_s
+        self.deferred = deferred
+        self.plan_pipeline = deferred
+        self.cache = None
+        self.stats = ServeStats()
+        self.degraded_members: tuple = ()
+        self.degrade_calls: list = []
+        self._pending: list = []
+        self._inflight = None
+        self._n = 0
+        self.staged: list = []
+
+    def submit(self, dense, idx, mask):
+        self._pending.append(self._n)
+        self._n += 1
+        if len(self._pending) >= self.batch_size:
+            return self.flush()
+        return None
+
+    def flush(self):
+        if not self._pending:
+            if self._inflight is not None:
+                out, self._inflight = self._inflight, None
+                return out
+            return None
+        out = np.asarray(self._pending, np.float64)
+        self._pending.clear()
+        self.clock.advance(self.service_s)
+        self.stats.batches += 1
+        self.stats.requests += len(out)
+        if self.deferred:
+            prev, self._inflight = self._inflight, out
+            return prev
+        return out
+
+    def drain(self):
+        outs = [o for o in (self.flush(), self.flush()) if o is not None]
+        return np.concatenate(outs) if outs else None
+
+    def degrade(self, members):
+        self.degraded_members = tuple(members)
+        self.degrade_calls.append(tuple(members))
+
+    def stage_plan(self, idx_rows):
+        self.staged.append(len(list(idx_rows)))
+        return True
+
+
+def drive(fe, clock, requests, *, idle_dt=0.001):
+    """Open-loop drive on the virtual clock: submit each request at its
+    arrival time, pump in between, drain at the end.  Returns (completed,
+    submit_results)."""
+    completed, results = [], []
+    for r in requests:
+        if r.t_arrive > clock.t:
+            clock.t = r.t_arrive
+        results.append(fe.try_submit(r.dense, r.idx, r.mask))
+        got = fe.pump()
+        completed += got
+        assert fe.stats.accounted, "invariant broke mid-stream"
+        if not got:
+            clock.advance(idle_dt)
+    completed += fe.drain()
+    return completed, results
+
+
+def _reqs(n, *, rate=2000.0, burstiness=0.5, seed=0):
+    cfg = DLRMConfig("t", table_sizes=(40, 60, 30), embed_dim=4,
+                     n_dense_features=2, bottom_mlp=(4,), top_mlp=(4, 1))
+    return S.request_stream(cfg, n, rate_rps=rate, burstiness=burstiness,
+                            seed=seed)
+
+
+# ---------------------------------------------------------------------------
+# deterministic policy tests (virtual clock + fake engine)
+# ---------------------------------------------------------------------------
+
+
+class TestAccounting:
+    def test_invariant_under_seeded_bursty_traffic(self):
+        clock = VClock()
+        eng = FakeEngine(clock, batch_size=8, service_s=0.004)
+        fe = ServingFrontend(eng, slo_s=0.05, max_queue=24,
+                             admission="slo", init_flush_s=0.004,
+                             clock=clock, seed=1)
+        completed, results = drive(fe, clock, _reqs(300, seed=11))
+        st = fe.stats
+        assert st.offered == 300
+        assert st.admitted + st.rejected == st.offered
+        assert st.admitted == sum(r.admitted for r in results)
+        # zero lost-or-unaccounted: exact conservation after drain
+        assert st.queued == 0 and st.inflight == 0
+        assert st.admitted == st.served + st.degraded_served + st.shed
+        assert len(completed) == st.completed
+        # every completed request is unique (never double-served)
+        rids = [c.request_id for c in completed]
+        assert len(rids) == len(set(rids))
+        assert st.accounted
+
+    def test_pipelined_attribution_is_fifo_exact(self):
+        clock = VClock()
+        eng = FakeEngine(clock, batch_size=4, service_s=0.002,
+                         deferred=True)
+        fe = ServingFrontend(eng, slo_s=1.0, admission="none", shed=False,
+                             init_flush_s=0.002, clock=clock,
+                             lookahead=False)
+        completed, _ = drive(fe, clock, _reqs(37, burstiness=0.0, seed=2))
+        assert fe.stats.admitted == 37 == fe.stats.completed
+        # the fake CTR is the submission ordinal == frontend request id:
+        # deferred (one-flush-late) results must still map 1:1
+        for c in completed:
+            assert c.ctr == float(c.request_id)
+
+    def test_histograms_and_to_dict_are_plain_json(self):
+        clock = VClock()
+        eng = FakeEngine(clock)
+        fe = ServingFrontend(eng, slo_s=0.1, clock=clock,
+                             init_flush_s=0.005)
+        drive(fe, clock, _reqs(50, seed=3))
+        d = fe.stats.to_dict()
+        js = json.loads(json.dumps(d))          # round-trips as plain JSON
+        assert js["admitted"] == fe.stats.admitted
+        assert js["e2e"]["count"] == fe.stats.completed
+        assert js["queue_delay"]["p99_ms"] >= 0
+        assert js["accounted"] is True
+        # engine-level ledger rides the SAME object (shared stats)
+        assert js["batches"] == eng.stats.batches
+        assert eng.stats is fe.stats
+
+
+class TestShedding:
+    def test_shed_decision_is_deadline_monotone(self):
+        clock = VClock()
+        eng = FakeEngine(clock, batch_size=32, service_s=0.010)
+        fe = ServingFrontend(eng, slo_s=10.0, admission="queue",
+                             init_flush_s=0.010, clock=clock, shed=True)
+        reqs = _reqs(20, burstiness=0.0, seed=4)
+        deadlines = np.linspace(0.001, 0.040, 20)
+        for r, dl in zip(reqs, deadlines):
+            assert fe.try_submit(r.dense, r.idx, r.mask,
+                                 deadline_s=float(dl)).admitted
+        clock.advance(0.015)    # some deadlines are now unservable
+        cutoff = fe.shed_cutoff(clock())
+        # absolute deadlines (all admitted at t=0): shed iff dl < cutoff
+        expect_shed = int(sum(dl < cutoff for dl in deadlines))
+        completed = fe.pump() + fe.drain()
+        assert fe.stats.shed == expect_shed > 0
+        assert fe.stats.completed == 20 - expect_shed
+        # monotonicity: every shed deadline precedes every served deadline
+        served_dl = [c.deadline for c in completed]
+        assert min(served_dl) >= cutoff - 1e-12
+        assert 0 < expect_shed < 20        # the cutoff actually split them
+
+    def test_no_shed_when_disabled(self):
+        clock = VClock()
+        eng = FakeEngine(clock, batch_size=8, service_s=0.050)
+        fe = ServingFrontend(eng, slo_s=0.001, admission="none",
+                             shed=False, init_flush_s=0.050, clock=clock)
+        completed, _ = drive(fe, clock, _reqs(30, seed=5))
+        assert fe.stats.shed == 0
+        assert fe.stats.completed == 30       # everything served, late
+        assert fe.stats.served_late > 0
+
+
+class TestBackpressure:
+    def test_retry_hints_grow_and_are_honored(self):
+        clock = VClock()
+        eng = FakeEngine(clock, batch_size=4, service_s=0.002)
+        fe = ServingFrontend(eng, slo_s=1.0, max_queue=4,
+                             admission="queue", init_flush_s=0.002,
+                             clock=clock, retry_base_s=0.004, seed=7)
+        r = _reqs(1, seed=6)[0]
+        for _ in range(4):
+            assert fe.try_submit(r.dense, r.idx, r.mask).admitted
+        # queue full: rejections with exponentially growing jittered hints
+        hints = [fe.try_submit(r.dense, r.idx, r.mask) for _ in range(4)]
+        assert all(h.status == RETRY_AFTER for h in hints)
+        assert all(h.retry_after_s > 0 for h in hints)
+        # jitter is < 1.5x, so two doublings always dominate it
+        assert hints[2].retry_after_s > hints[0].retry_after_s
+        assert hints[3].retry_after_s > hints[1].retry_after_s
+        assert fe.stats.rejected == 4
+        # honor the hint: wait it out, let the queue drain, resubmit
+        clock.advance(max(h.retry_after_s for h in hints))
+        fe.pump()
+        got = fe.try_submit(r.dense, r.idx, r.mask)
+        assert got.admitted
+        assert fe.stats.retried == 1          # backpressure round-trip
+        # streak reset: the next rejection starts small again
+        for _ in range(3):
+            fe.try_submit(r.dense, r.idx, r.mask)
+        h2 = fe.try_submit(r.dense, r.idx, r.mask)
+        assert h2.status == RETRY_AFTER
+        assert h2.retry_after_s <= fe.retry_base_s * 1.5 + 1e-12
+
+    def test_slo_admission_rejects_predicted_breach(self):
+        clock = VClock()
+        eng = FakeEngine(clock, batch_size=4, service_s=0.020)
+        fe = ServingFrontend(eng, slo_s=0.025, max_queue=1000,
+                             admission="slo", init_flush_s=0.020,
+                             clock=clock)
+        r = _reqs(1, seed=8)[0]
+        oks = [fe.try_submit(r.dense, r.idx, r.mask) for _ in range(12)]
+        # one batch ahead fits the SLO; three batches ahead cannot
+        assert oks[0].admitted
+        assert any(not o.admitted for o in oks)
+        first_reject = next(i for i, o in enumerate(oks) if not o.admitted)
+        # the predicate is queue-depth monotone: everything after the
+        # first rejection point with the same deadline is also rejected
+        assert all(o.admitted for o in oks[:first_reject])
+
+
+class TestLadder:
+    def _overload(self, fe, clock, eng, n=60):
+        r = _reqs(1, seed=9)[0]
+        for _ in range(n):
+            fe.try_submit(r.dense, r.idx, r.mask)
+            fe.pump()
+            clock.advance(0.0005)
+
+    def test_escalates_under_sustained_overload_and_recovers(self):
+        clock = VClock()
+        eng = FakeEngine(clock, batch_size=4, service_s=0.030)
+        fe = ServingFrontend(eng, slo_s=0.010, admission="none",
+                             shed=False, init_flush_s=0.030, clock=clock,
+                             degrade_members=(1,), escalate_after=2,
+                             deescalate_after=3, window=16)
+        self._overload(fe, clock, eng)
+        assert fe.stats.level >= 1
+        assert fe.stats.escalations >= 1
+        # DEGRADED engaged the engine's approximate serve
+        assert (1,) in eng.degrade_calls
+        assert fe.stats.degraded_served > 0
+        # recovery: fast service, idle pumps -> de-escalate to FULL and
+        # restore exact serving
+        eng.service_s = 0.0001
+        fe._recent_e2e.clear()
+        for _ in range(40):
+            fe.pump()
+            clock.advance(0.001)
+        fe.drain()
+        assert fe.stats.level == 0
+        assert fe.stats.deescalations >= 1
+        assert eng.degraded_members == ()
+
+    def test_degraded_served_counted_separately(self):
+        clock = VClock()
+        eng = FakeEngine(clock, batch_size=4, service_s=0.030)
+        fe = ServingFrontend(eng, slo_s=0.010, admission="none",
+                             shed=False, init_flush_s=0.030, clock=clock,
+                             escalate_after=1, window=8)
+        self._overload(fe, clock, eng, n=40)
+        fe.drain()
+        st = fe.stats
+        assert st.degraded_served > 0 and st.served > 0
+        assert st.served + st.degraded_served + st.shed == st.admitted
+
+
+class TestShaping:
+    def test_partial_batch_waits_then_dispatches_on_budget(self):
+        clock = VClock()
+        eng = FakeEngine(clock, batch_size=8, service_s=0.010)
+        fe = ServingFrontend(eng, slo_s=0.100, admission="queue",
+                             init_flush_s=0.010, clock=clock,
+                             linger_s=10.0)       # linger can't be the cause
+        r = _reqs(1, seed=10)[0]
+        fe.try_submit(r.dense, r.idx, r.mask)
+        # plenty of slack: the frontend lingers for batch-mates
+        assert fe.pump() == []
+        assert fe.stats.queued == 1
+        clock.t = 0.050                           # still affordable
+        assert fe.pump() == []
+        # budget exhausted: deadline minus EWMA*headroom reached -> go
+        clock.t = 0.100 - 0.010 * fe.dispatch_headroom + 1e-6
+        got = fe.pump()
+        assert len(got) == 1
+        assert fe.stats.queued == 0
+
+    def test_linger_bounds_the_wait(self):
+        clock = VClock()
+        eng = FakeEngine(clock, batch_size=8, service_s=0.001)
+        fe = ServingFrontend(eng, slo_s=10.0, admission="queue",
+                             init_flush_s=0.001, clock=clock,
+                             linger_s=0.020)
+        r = _reqs(1, seed=15)[0]
+        fe.try_submit(r.dense, r.idx, r.mask)
+        assert fe.pump() == []                    # deadline is far away
+        clock.advance(0.021)                      # ...but linger expired
+        assert len(fe.pump()) == 1
+
+    def test_full_batch_dispatches_immediately(self):
+        clock = VClock()
+        eng = FakeEngine(clock, batch_size=4, service_s=0.001)
+        fe = ServingFrontend(eng, slo_s=1.0, admission="queue",
+                             init_flush_s=0.001, clock=clock)
+        r = _reqs(1, seed=12)[0]
+        for _ in range(4):
+            fe.try_submit(r.dense, r.idx, r.mask)
+        assert len(fe.pump()) == 4
+
+    def test_lookahead_stages_plans_for_peeked_requests(self):
+        clock = VClock()
+        eng = FakeEngine(clock, batch_size=4, service_s=0.001,
+                         deferred=True)
+        fe = ServingFrontend(eng, slo_s=1.0, admission="queue",
+                             init_flush_s=0.001, clock=clock,
+                             lookahead=True)
+        r = _reqs(1, seed=13)[0]
+        for _ in range(3):
+            fe.try_submit(r.dense, r.idx, r.mask)
+            fe.pump()
+        assert fe.stats.plans_staged >= 1
+        assert eng.staged and all(n <= 4 for n in eng.staged)
+
+
+# ---------------------------------------------------------------------------
+# traffic-fault plans + injector hook
+# ---------------------------------------------------------------------------
+
+
+class TestTrafficFaults:
+    def test_arrival_burst_composes_multiplicatively(self):
+        p = FaultPlan.none(2, 8).with_arrival_burst(2, 3, 4.0) \
+            .with_arrival_burst(3, 2, 2.0)
+        assert p.arrival_factor(1) == 1.0
+        assert p.arrival_factor(2) == 4.0
+        assert p.arrival_factor(3) == 8.0
+        assert p.arrival_factor(4) == 8.0
+        assert p.arrival_factor(5) == 1.0
+        with pytest.raises(ValueError):
+            p.with_arrival_burst(0, 1, 0.0)
+
+    def test_queue_delay_windows_add(self):
+        p = FaultPlan.none(2, 8).with_queue_delay(1, 2, 0.01) \
+            .with_queue_delay(2, 2, 0.02)
+        assert p.queue_delay_of(0) == 0.0
+        assert p.queue_delay_of(1) == pytest.approx(0.01)
+        assert p.queue_delay_of(2) == pytest.approx(0.03)
+        assert p.queue_delay_of(3) == pytest.approx(0.02)
+        # traffic faults do not make a plan non-transient (member regime)
+        assert p.transient_only()
+
+    def test_injector_on_dequeue_stalls_and_ledgers(self):
+        p = FaultPlan.none(2, 4).with_queue_delay(1, 1, 0.003)
+        inj = FaultInjector(p, time_scale=1.0)
+        assert inj.on_dequeue(0) == 0.0
+        d = inj.on_dequeue(1)
+        assert d == pytest.approx(0.003)
+        assert inj.injected_queue_delay_s == pytest.approx(0.003)
+
+    def test_frontend_pays_the_injected_queue_delay(self):
+        clock = VClock()
+        eng = FakeEngine(clock, batch_size=2, service_s=0.001)
+        plan = FaultPlan.none(1, 4).with_queue_delay(0, 4, 0.002)
+        inj = FaultInjector(plan)
+        fe = ServingFrontend(eng, slo_s=1.0, admission="queue",
+                             init_flush_s=0.001, clock=clock, faults=inj)
+        r = _reqs(1, seed=14)[0]
+        for _ in range(2):
+            fe.try_submit(r.dense, r.idx, r.mask)
+        fe.pump()
+        assert inj.injected_queue_delay_s > 0
+
+
+# ---------------------------------------------------------------------------
+# open-loop arrival generator
+# ---------------------------------------------------------------------------
+
+
+class TestArrivals:
+    def test_deterministic_and_sorted(self):
+        a = S.open_loop_arrivals(200, rate_rps=1000.0, burstiness=0.3,
+                                 seed=5)
+        b = S.open_loop_arrivals(200, rate_rps=1000.0, burstiness=0.3,
+                                 seed=5)
+        c = S.open_loop_arrivals(200, rate_rps=1000.0, burstiness=0.3,
+                                 seed=6)
+        assert np.array_equal(a, b)
+        assert not np.array_equal(a, c)
+        assert (np.diff(a) >= 0).all() and (a > 0).all()
+
+    def test_burstiness_raises_gap_dispersion(self):
+        smooth = S.open_loop_arrivals(2000, rate_rps=1000.0,
+                                      burstiness=0.0, seed=1)
+        bursty = S.open_loop_arrivals(2000, rate_rps=1000.0,
+                                      burstiness=0.5, seed=1)
+        def cv(t):
+            g = np.diff(t)
+            return g.std() / g.mean()
+        assert cv(bursty) > cv(smooth)
+
+    def test_fault_plan_burst_compresses_arrivals(self):
+        plan = FaultPlan.none(1, 10).with_arrival_burst(1, 1, 50.0)
+        base = S.open_loop_arrivals(300, rate_rps=1000.0, seed=2)
+        f = S.open_loop_arrivals(
+            300, rate_rps=1000.0, seed=2,
+            factor_of=lambda i: plan.arrival_factor(i // 100))
+        g0, gf = np.diff(base), np.diff(f)
+        # the burst window's gaps shrink ~50x; outside it, identical
+        assert np.allclose(gf[:99], g0[:99])
+        assert gf[100:199].mean() < g0[100:199].mean() / 10
+        assert np.allclose(gf[200:], g0[200:])
+
+    def test_request_stream_shapes(self):
+        cfg = DLRMConfig("t", table_sizes=(40, 60, 30), embed_dim=4,
+                         n_dense_features=2, bottom_mlp=(4,),
+                         top_mlp=(4, 1))
+        reqs = S.request_stream(cfg, 10, rate_rps=100.0, t_pad=4, seed=0)
+        assert len(reqs) == 10
+        assert reqs[0].idx.shape == (4, cfg.max_hot)
+        assert reqs[0].dense.shape == (2,)
+        assert all(a.t_arrive <= b.t_arrive
+                   for a, b in zip(reqs, reqs[1:]))
+
+
+# ---------------------------------------------------------------------------
+# real engine integration
+# ---------------------------------------------------------------------------
+
+
+_REAL = dict(table_sizes=(40, 60, 30, 50, 20, 70), embed_dim=8,
+             n_dense_features=4, bottom_mlp=(16, 8), top_mlp=(16, 1),
+             sparse_backend="ref")
+
+
+def _real_engine(batch_size=16, **kw):
+    """The port's engine on the CPU over the reference's parameters (no
+    model group: the forward is the single-device one, as the reference's
+    is without a mesh)."""
+    cfg = DLRMConfig("t", **_REAL)
+    jp = jdlrm.init_dlrm(jax.random.PRNGKey(0), JConfig("t", **_REAL),
+                         n_shards=1)
+    params = tdlrm.params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    eng = DLRMEngine(params, cfg, batch_size=batch_size, bound=2,
+                     microbatches=4, exchange="dense", device="cpu", **kw)
+    return eng, cfg, params
+
+
+class TestRealEngine:
+    def test_admitted_ctrs_bit_identical_to_individual_flushes(self):
+        eng, cfg, params = _real_engine()
+        fe = ServingFrontend(eng, slo_s=10.0, admission="none",
+                             shed=False, lookahead=False)
+        reqs = S.request_stream(cfg, 48, rate_rps=1e6, seed=21)
+        completed = []
+        for r in reqs:
+            fe.try_submit(r.dense, r.idx, r.mask)
+            completed += fe.pump()
+        completed += fe.drain()
+        assert fe.stats.completed == 48 and fe.stats.accounted
+        by_rid = {c.request_id: c.ctr for c in completed}
+        # individually flushed oracle on a FRESH engine
+        eng2, _, _ = _real_engine()
+        for rid, r in enumerate(reqs):
+            eng2.submit(r.dense, r.idx, r.mask)
+            single = eng2.flush()
+            assert single.shape == (1,)
+            assert np.float64(single[0]) == by_rid[rid], \
+                f"request {rid}: batched CTR != individually flushed CTR"
+
+    def test_drain_is_idempotent_no_op_when_empty(self):
+        for pp in (False, True):
+            eng, cfg, _ = _real_engine(plan_pipeline=pp)
+            assert eng.drain() is None and eng.drain() is None
+            r = S.request_stream(cfg, 1, rate_rps=1.0, seed=1)[0]
+            eng.submit(r.dense, r.idx, r.mask)
+            out = eng.drain()
+            assert out is not None and out.shape == (1,)
+            assert eng.drain() is None        # second drain: clean no-op
+            assert eng.flush() is None        # empty flush too
+
+    def test_plan_stage_hit_on_matching_batch(self):
+        eng, cfg, _ = _real_engine(batch_size=8, plan_pipeline=True)
+        fe = ServingFrontend(eng, slo_s=10.0, admission="none",
+                             shed=False, lookahead=True)
+        # 20 = 2 full batches + a 4-request tail: the tail is peeked (and
+        # its plan staged) by the pumps after the second dispatch, then
+        # drain() dispatches EXACTLY that peeked set -> staged-plan hit
+        reqs = S.request_stream(cfg, 20, rate_rps=1e6, seed=22)
+        completed = []
+        for r in reqs:
+            fe.try_submit(r.dense, r.idx, r.mask)
+            completed += fe.pump()
+        completed += fe.drain()
+        # lookahead staged plans for prospective batches, and at least
+        # one later flush dispatched exactly that batch
+        assert fe.stats.plans_staged >= 1
+        assert eng.plan_stage_hits >= 1
+        assert fe.stats.completed == 20 and fe.stats.accounted
+        # staged-plan serving is bit-identical to inline planning
+        eng2, _, _ = _real_engine(batch_size=8, plan_pipeline=True)
+        outs = []
+        for r in reqs:
+            got = eng2.submit(r.dense, r.idx, r.mask)
+            if got is not None:
+                outs.append(got)
+        tail = eng2.drain()
+        if tail is not None:
+            outs.append(tail)
+        ref = np.concatenate(outs)
+        got = np.asarray(sorted((c.request_id, c.ctr) for c in completed))
+        assert np.array_equal(got[:, 1], ref.astype(np.float64))
+
+    def test_engine_stats_to_dict_plain_json(self):
+        eng, cfg, _ = _real_engine()
+        r = S.request_stream(cfg, 16, rate_rps=1e6, seed=23)
+        for q in r:
+            eng.submit(q.dense, q.idx, q.mask)
+        d = eng.stats.to_dict()
+        js = json.loads(json.dumps(d))
+        assert js["batches"] == 1 and js["requests"] == 16
+        assert "throughput_rps" in js
+        assert set(f.name for f in dataclasses.fields(ServeStats)) \
+            <= set(js)
+
+
+# ---------------------------------------------------------------------------
+# per-tenant weighted-fair dequeue (deficit round-robin)
+# ---------------------------------------------------------------------------
+
+
+class TestWeightedFairness:
+    def _fe(self, clock, *, weights, batch_size=8, **kw):
+        eng = FakeEngine(clock, batch_size=batch_size, service_s=0.004)
+        kw.setdefault("admission", "none")
+        kw.setdefault("shed", False)
+        return eng, ServingFrontend(eng, slo_s=10.0, clock=clock,
+                                    tenant_weights=weights, **kw)
+
+    def _submit(self, fe, tenant, n):
+        r = next(iter(_reqs(1, seed=3)))
+        for _ in range(n):
+            assert fe.try_submit(r.dense, r.idx, r.mask,
+                                 tenant=tenant).admitted
+
+    def test_slot_shares_converge_to_weight_ratio(self):
+        """Sustained contention between a weight-3 and a weight-1 tenant:
+        every batch of 8 carries slots in the 3:1 ratio (6 vs 2)."""
+        clock = VClock()
+        eng, fe = self._fe(clock, weights={"a": 3, "b": 1})
+        self._submit(fe, "a", 32)
+        self._submit(fe, "b", 32)
+        for _ in range(4):
+            done = fe.pump()
+            by = {t: sum(1 for c in done if c.tenant == t)
+                  for t in ("a", "b")}
+            assert by == {"a": 6, "b": 2}, by
+
+    def test_fifo_preserved_within_each_tenant(self):
+        clock = VClock()
+        eng, fe = self._fe(clock, weights={"a": 2, "b": 1})
+        self._submit(fe, "a", 20)
+        self._submit(fe, "b", 20)
+        done = []
+        while fe.stats.queued:
+            done += fe.pump()
+        done += fe.drain()
+        for t in ("a", "b"):
+            rids = [c.request_id for c in done if c.tenant == t]
+            assert rids == sorted(rids), t
+
+    def test_light_tenant_never_starves(self):
+        """A 10:1 weight ratio (quantum larger than the batch) still
+        reaches the light tenant: the round-robin cursor rotates across
+        batches, so within any two consecutive batches the light tenant
+        lands at least one slot — starvation is bounded, never
+        indefinite."""
+        clock = VClock()
+        eng, fe = self._fe(clock, weights={"heavy": 10, "light": 1},
+                           batch_size=8)
+        self._submit(fe, "heavy", 40)
+        self._submit(fe, "light", 8)
+        light_per_batch = []
+        for _ in range(6):
+            done = fe.pump()
+            light_per_batch.append(
+                sum(1 for c in done if c.tenant == "light"))
+        for i in range(len(light_per_batch) - 1):
+            assert light_per_batch[i] + light_per_batch[i + 1] >= 1, \
+                (i, light_per_batch)
+
+    def test_idle_tenant_banks_no_credit(self):
+        """A tenant whose queue EMPTIES forfeits its deficit: coming back
+        after sitting out rounds, it gets its fair share, not a burst of
+        banked slots."""
+        clock = VClock()
+        eng, fe = self._fe(clock, weights={"a": 1, "b": 1})
+        self._submit(fe, "a", 16)
+        while fe.stats.queued:          # two all-"a" batches; "b" is idle
+            fe.pump()
+        self._submit(fe, "a", 8)
+        self._submit(fe, "b", 8)
+        done = fe.pump()
+        by = {t: sum(1 for c in done if c.tenant == t) for t in ("a", "b")}
+        assert by == {"a": 4, "b": 4}, by
+
+    def test_single_tenant_drr_equals_global_fifo(self):
+        """With one tenant the weighted queue degenerates to the global
+        FIFO: identical completion order to the weights-None frontend
+        under the same virtual-clock schedule."""
+        orders = []
+        for weights in (None, {"default": 2}):
+            clock = VClock()
+            eng = FakeEngine(clock, batch_size=8, service_s=0.004)
+            fe = ServingFrontend(eng, slo_s=0.05, max_queue=24,
+                                 admission="slo", init_flush_s=0.004,
+                                 clock=clock, seed=1,
+                                 tenant_weights=weights)
+            completed, _ = drive(fe, clock, _reqs(200, seed=11))
+            assert fe.stats.accounted
+            orders.append([(c.request_id, c.ctr) for c in completed])
+        assert orders[0] == orders[1]
+
+    def test_conservation_invariant_with_weights_under_load(self):
+        """The exact accounting invariant survives weighted multi-tenant
+        traffic with admission + shedding active."""
+        clock = VClock()
+        eng = FakeEngine(clock, batch_size=8, service_s=0.004)
+        fe = ServingFrontend(eng, slo_s=0.03, max_queue=16,
+                             admission="slo", shed=True,
+                             init_flush_s=0.004, clock=clock, seed=2,
+                             tenant_weights={"a": 3, "b": 1},
+                             default_weight=2)
+        rng = np.random.default_rng(5)
+        completed = []
+        for i, r in enumerate(_reqs(300, seed=13)):
+            if r.t_arrive > clock.t:
+                clock.t = r.t_arrive
+            fe.try_submit(r.dense, r.idx, r.mask,
+                          tenant=str(rng.choice(["a", "b", "c"])))
+            completed += fe.pump()
+            assert fe.stats.accounted, "invariant broke mid-stream"
+        completed += fe.drain()
+        st = fe.stats
+        assert st.queued == 0 and st.inflight == 0
+        assert st.admitted == st.served + st.degraded_served + st.shed
+        rids = [c.request_id for c in completed]
+        assert len(rids) == len(set(rids)) == st.completed
+
+    def test_shed_pass_reaches_every_tenant_queue(self):
+        clock = VClock()
+        eng, fe = self._fe(clock, weights={"a": 1, "b": 1}, shed=True)
+        self._submit(fe, "a", 4)
+        self._submit(fe, "b", 4)
+        clock.advance(100.0)            # every queued deadline expires
+        fe._observe_flush(0.004)
+        done = fe.pump()
+        assert done == [] and fe.stats.shed == 8
+        assert fe.stats.accounted
+
+    def test_invalid_weights_rejected(self):
+        clock = VClock()
+        eng = FakeEngine(clock)
+        with pytest.raises(ValueError):
+            ServingFrontend(eng, slo_s=1.0, clock=clock,
+                            tenant_weights={"a": 0})
+        with pytest.raises(ValueError):
+            ServingFrontend(eng, slo_s=1.0, clock=clock,
+                            tenant_weights={"a": 1}, default_weight=0)
+
+
+def test_serve_example_frontend_smoke():
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src, OMP_NUM_THREADS="2")
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.examples.serve_dlrm_bls",
+         "--frontend", "--batches", "2", "--batch-size", "32",
+         "--bound", "1", "--microbatches", "2", "--open-requests", "96",
+         "--overload", "2.0", "--burstiness", "0.4", "--slo-ms", "200",
+         "--device", "cpu"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, f"stdout:\n{r.stdout}\nstderr:\n{r.stderr}"
+    assert "accounting" in r.stdout and "exact" in r.stdout
+
+
+# ---------------------------------------------------------------------------
+# the port against the reference
+# ---------------------------------------------------------------------------
+
+
+class _QueueDelay:
+    """An injector whose ``on_dequeue`` moves the virtual clock by the
+    plan's queue delay instead of sleeping."""
+
+    def __init__(self, plan, clock):
+        self.plan, self.clock = plan, clock
+
+    def on_dequeue(self, step):
+        d = self.plan.queue_delay_of(step)
+        self.clock.advance(d)
+        return d
+
+
+def _fake_engine(stats_cls, clock, **kw):
+    eng = FakeEngine(clock, **kw)
+    eng.stats = stats_cls()
+    return eng
+
+
+def _parity_run(fmod, stats_cls, plan, layout_bump=None):
+    """One scripted virtual-clock run; returns (submit results, served
+    sequence, to_dict, EWMA after each pump)."""
+    clock = VClock()
+    eng = _fake_engine(stats_cls, clock, batch_size=8, service_s=0.004)
+    eng.layout_version = 0
+    fe = fmod.ServingFrontend(
+        eng, slo_s=0.03, max_queue=16, admission="slo", shed=True,
+        init_flush_s=0.004, clock=clock, seed=4,
+        tenant_weights={"a": 3, "b": 1, "c": 2}, escalate_after=2,
+        deescalate_after=3, window=16, faults=_QueueDelay(plan, clock))
+    times = S.open_loop_arrivals(
+        400, rate_rps=500.0, burstiness=0.1, seed=9,
+        factor_of=lambda i: plan.arrival_factor(i // 8))
+    tenants = np.random.default_rng(6).choice(["a", "b", "c"], size=400)
+    r0 = _reqs(1, seed=3)[0]
+    results, served, ewma = [], [], []
+    nxt = 0
+    while nxt < len(times):
+        # open-loop drive: every arrival due by now enters, backdated to
+        # its arrival time, before the next scheduling round
+        while nxt < len(times) and times[nxt] <= clock.t:
+            res = fe.try_submit(r0.dense, r0.idx, r0.mask,
+                                tenant=str(tenants[nxt]),
+                                now=float(times[nxt]))
+            results.append(dataclasses.astuple(res))
+            nxt += 1
+        if layout_bump is not None and len(ewma) == layout_bump:
+            eng.layout_version += 1
+        got = fe.pump()
+        served += got
+        ewma.append(fe._ewma_flush)
+        assert fe.stats.accounted
+        if not got:
+            clock.advance(0.0005)
+    served += fe.drain()
+    seq = [(c.request_id, c.tenant, c.ctr, c.t_dispatch, c.t_done,
+            c.degraded) for c in served]
+    return results, seq, fe.stats.to_dict(), ewma
+
+
+# ServeStats keys of the reference that wait for ROADMAP A11 (placement)
+# and A12 (scrub)
+LATER_KEYS = {"reshards", "reshard_aborts", "migrated_rows",
+              "imbalance_ratio", "flush_time_ratio", "member_rows",
+              "member_bytes", "blocks_scrubbed", "detections",
+              "repaired_rows", "quarantined_served", "wire_rejects",
+              "detection_lag_flushes"}
+
+
+def test_frontend_parity_scenario_matches_reference():
+    """The same scripted run through both frontends: identical verdicts
+    (retry hints included), the same served sequence and equal ledgers on
+    the shared keys; the keys the port lacks are exactly A11's and A12's."""
+    tplan = FaultPlan.none(1, 64).with_queue_delay(3, 4, 0.006) \
+        .with_arrival_burst(10, 6, 4.0)
+    jplan = jfaults.FaultPlan.none(1, 64).with_queue_delay(3, 4, 0.006) \
+        .with_arrival_burst(10, 6, 4.0)
+    from repro_torch.serving import frontend as tfrontend
+    got = _parity_run(tfrontend, ServeStats, tplan)
+    want = _parity_run(jfrontend, jengine.ServeStats, jplan)
+    assert got[0] == want[0]
+    assert any(r[0] == RETRY_AFTER for r in got[0])   # backpressure fired
+    assert got[1] == want[1]
+    gd, wd = got[2], want[2]
+    assert gd["shed"] > 0 and gd["rejected"] > 0 and gd["escalations"] > 0
+    assert set(wd) - set(gd) == LATER_KEYS
+    assert set(gd) <= set(wd)
+    for k in gd:
+        assert gd[k] == wd[k], k
+    assert got[3] == want[3]
+
+
+def test_layout_change_resets_the_ewma_as_the_reference():
+    """A ``layout_version`` bump (an eviction) mid-stream: both frontends
+    forget their flush estimate at the same pump and skip the observation
+    of the flush that spans the change."""
+    tplan = FaultPlan.none(1, 64)
+    jplan = jfaults.FaultPlan.none(1, 64)
+    from repro_torch.serving import frontend as tfrontend
+    got = _parity_run(tfrontend, ServeStats, tplan, layout_bump=100)
+    want = _parity_run(jfrontend, jengine.ServeStats, jplan, layout_bump=100)
+    assert got[3] == want[3]
+    assert got[3][99] is not None and None in got[3][100:]
+    assert got[1] == want[1]
+
+
+def test_real_engines_agree_with_the_reference():
+    """The port's frontend over the port's engine and the reference's over
+    ``DLRMEngine(unroll=1)``: the same 48 requests (seed 21), CTRs within
+    1e-5, the port's batched CTRs equal to single flushes bit for bit, and
+    ``drain`` idempotent."""
+    eng, cfg, _ = _real_engine()
+    jcfg = JConfig("t", **_REAL)
+    jparams = jdlrm.init_dlrm(jax.random.PRNGKey(0), jcfg, n_shards=1)
+    jeng = jengine.DLRMEngine(jparams, jcfg, batch_size=16, bound=2,
+                              microbatches=4, exchange="dense", unroll=1)
+    reqs = S.request_stream(cfg, 48, rate_rps=1e6, seed=21)
+    jreqs = jsyn.request_stream(jcfg, 48, rate_rps=1e6, seed=21)
+    ctrs = []
+    for e, fmod, rs in ((eng, None, reqs), (jeng, jfrontend, jreqs)):
+        fcls = ServingFrontend if fmod is None else fmod.ServingFrontend
+        fe = fcls(e, slo_s=10.0, admission="none", shed=False,
+                  lookahead=False)
+        done = []
+        for r in rs:
+            fe.try_submit(r.dense, r.idx, r.mask)
+            done += fe.pump()
+        done += fe.drain()
+        assert fe.stats.completed == 48 and fe.stats.accounted
+        assert e.drain() is None and e.drain() is None
+        assert fe.drain() == []
+        ctrs.append(np.array([c.ctr for c in sorted(
+            done, key=lambda c: c.request_id)]))
+    np.testing.assert_allclose(ctrs[0], ctrs[1], rtol=0, atol=1e-5)
+    single, _, _ = _real_engine()
+    for rid, r in enumerate(reqs):
+        single.submit(r.dense, r.idx, r.mask)
+        assert np.float64(single.flush()[0]) == ctrs[0][rid], rid
+
+
+class TestEngineRepairs:
+    @pytest.mark.parametrize("unroll", [None, 1, 4])
+    def test_unroll_accepted(self, unroll):
+        eng, _, _ = _real_engine(unroll=unroll)
+        assert eng.unroll == unroll
+
+    @pytest.mark.parametrize("unroll", [0, -1, 1.5, True, "1"])
+    def test_unroll_refused(self, unroll):
+        with pytest.raises(ValueError):
+            _real_engine(unroll=unroll)
+
+    def test_unroll_changes_no_ctr(self):
+        reqs = S.request_stream(DLRMConfig("t", **_REAL), 32, rate_rps=1e6,
+                                seed=5)
+        outs = []
+        for unroll in (None, 1, 3):
+            eng, _, _ = _real_engine(unroll=unroll)
+            got = [eng.submit(r.dense, r.idx, r.mask) for r in reqs]
+            outs.append(np.concatenate([g for g in got if g is not None]))
+        np.testing.assert_array_equal(outs[0], outs[1])
+        np.testing.assert_array_equal(outs[0], outs[2])
+
+    def test_freshness_counters_and_layout_version(self):
+        jkeys = {f.name for f in dataclasses.fields(jengine.ServeStats)}
+        tkeys = {f.name for f in dataclasses.fields(ServeStats)}
+        fresh = {"rows_applied", "rows_stale_served", "versions_behind",
+                 "delta_rejects", "apply_rollbacks"}
+        assert fresh <= tkeys and jkeys - tkeys == LATER_KEYS
+        assert tkeys <= jkeys
+        assert fresh <= set(ServeStats().to_dict())
+        eng, _, _ = _real_engine()
+        assert eng.layout_version == 0
+
+    @pytest.mark.parametrize("opt,item", [("rebalance", "A11"),
+                                          ("scrub_budget", "A12")])
+    def test_later_options_still_refused(self, opt, item):
+        with pytest.raises(NotImplementedError, match=item):
+            _real_engine(**{opt: 1})
+
+    def test_example_rebalance_refused(self):
+        from repro_torch.examples import serve_dlrm_bls
+        with pytest.raises(NotImplementedError, match="A11"):
+            serve_dlrm_bls.main(["--rebalance", "--device", "cpu"])
+
+
+class TestDataCopies:
+    """The port's copies of the request and delta streams, bit for bit."""
+
+    @pytest.mark.parametrize("kw", [
+        dict(rate_rps=1000.0), dict(rate_rps=500.0, burstiness=0.4, seed=3),
+        dict(rate_rps=2e4, burstiness=0.7, burst_factor=4.0,
+             mean_burst_len=5, seed=8)])
+    def test_open_loop_arrivals(self, kw):
+        np.testing.assert_array_equal(
+            S.open_loop_arrivals(300, **kw),
+            jsyn.open_loop_arrivals(300, **kw))
+        tp = FaultPlan.none(1, 8).with_arrival_burst(1, 2, 6.0)
+        jp = jfaults.FaultPlan.none(1, 8).with_arrival_burst(1, 2, 6.0)
+        np.testing.assert_array_equal(
+            S.open_loop_arrivals(300, factor_of=lambda i:
+                                 tp.arrival_factor(i // 50), **kw),
+            jsyn.open_loop_arrivals(300, factor_of=lambda i:
+                                    jp.arrival_factor(i // 50), **kw))
+
+    @pytest.mark.parametrize("mode", ["hetero", "powerlaw_hetero"])
+    def test_request_stream(self, mode):
+        kw = dict(table_sizes=(40, 60, 30), embed_dim=4, n_dense_features=2,
+                  bottom_mlp=(4,), top_mlp=(4, 1))
+        got = S.request_stream(DLRMConfig("t", **kw), 64, rate_rps=800.0,
+                               burstiness=0.3, mode=mode, t_pad=4, seed=2)
+        want = jsyn.request_stream(JConfig("t", **kw), 64, rate_rps=800.0,
+                                   burstiness=0.3, mode=mode, t_pad=4,
+                                   seed=2)
+        for g, w in zip(got, want):
+            assert g.t_arrive == w.t_arrive
+            for k in ("dense", "idx", "mask"):
+                np.testing.assert_array_equal(getattr(g, k), getattr(w, k))
+                assert getattr(g, k).dtype == getattr(w, k).dtype
+        assert len(got) == len(want) == 64
+
+    @pytest.mark.parametrize("mode", ["powerlaw", "uniform"])
+    def test_delta_batches_and_stream(self, mode):
+        kw = dict(table_sizes=(40, 60, 30, 1000), embed_dim=8,
+                  n_dense_features=4, bottom_mlp=(16, 8), top_mlp=(16, 1))
+        tcfg, jcfg = DLRMConfig("t", **kw), JConfig("t", **kw)
+        for v in (1, 2, 7):
+            g = S.make_delta_batch(tcfg, v, rows_per_version=48, mode=mode,
+                                   seed=5)
+            w = jsyn.make_delta_batch(jcfg, v, rows_per_version=48,
+                                      mode=mode, seed=5)
+            assert g.version == w.version and g.n_rows == w.n_rows
+            for k in ("tab", "row", "vec"):
+                np.testing.assert_array_equal(getattr(g, k), getattr(w, k))
+                assert getattr(g, k).dtype == getattr(w, k).dtype
+        ts = S.delta_stream(tcfg, rows_per_version=6, mode=mode, seed=3,
+                            start_version=2)
+        js = jsyn.delta_stream(jcfg, rows_per_version=6, mode=mode, seed=3,
+                               start_version=2)
+        for _ in range(4):
+            g, w = next(ts), next(js)
+            assert g.version == w.version
+            np.testing.assert_array_equal(g.vec, w.vec)
+        with pytest.raises(ValueError):
+            S.make_delta_batch(tcfg, 0)
+
+    def test_batch_stream_and_hot_counts(self):
+        kw = dict(table_sizes=(40, 60, 30), embed_dim=4, n_dense_features=2,
+                  bottom_mlp=(4,), top_mlp=(4, 1))
+        got = list(S.batch_stream(DLRMConfig("t", **kw), 16, 3,
+                                  mode="hetero", seed=4))
+        want = list(jsyn.batch_stream(JConfig("t", **kw), 16, 3,
+                                      mode="hetero", seed=4))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.idx, w.idx)
+            assert S.hot_counts_stats(g) == jsyn.hot_counts_stats(w)
