@@ -89,6 +89,31 @@ Phases, each on lines of its own:
      ``count_stale_served`` printed.  Every engine run launches the bag
      and the interaction once per microbatch at the served shape and at no
      other (the bag twice with the cache: pooled hits and residual);
+  5e. on the same group, skew-aware placement, online resharding and
+     integrity scrubbing at full width: (a) phase 5's 4 x 512 hetero
+     requests through ``forward_distributed`` on the stack in the reversed
+     slot order with ``table_inv``: CTRs bit-identical to phase 5's; (b) a
+     hand-built ``MigrationPlan`` rotating the slots of the 8 smallest
+     tables (206 rows), started with ``start_reshard`` on a
+     ``DLRMEngine(rebalance=True, mig_slice_cap=8)``, 12 flushes of 512
+     drift requests beside a static engine: every CTR bit-identical,
+     ``reshards`` 1, ``migrated_rows`` 206, ``layout_version`` one higher,
+     the same collective calls a flush with the ``xmig`` rider as without;
+     the cutover's wall and device time (profiler trace) against its byte
+     bound and the card's peak memory; (c) ``DLRMEngine(scrub_budget=
+     65536, scrub_block_rows=32, quarantine_cap=64)`` with phase 5b's
+     cache on a copy of the stack, flips in real rows of tables 0, 2 and
+     3 and in a cached copy, and one corrupted segment, 8 flushes of 512
+     powerlaw_hetero requests beside a clean engine: each flip detected
+     within its predicted lag, quarantined and repaired from the mirror
+     through ``xrep``, ``quarantined_served`` equal to a host recount
+     (``np.isin``), the repaired rows equal to the mirror and a full sweep
+     equal to the boot ledger, the flushes after the repair bit-identical
+     to the clean engine's, ``wire_rejects`` one a microbatch of the
+     corrupted flush, the same collective calls as without scrub; the
+     ledger's boot time, the mirror copy, the sweep's and the audit's
+     device times against their bounds, the ``wcs`` stamp and verify, and
+     flush p50 with and without scrub;
   6. the flash-attention kernel held against its plain version in bf16
      (rtol 1e-2, atol 5e-3, and the relative Frobenius error under 5e-3:
      the plain version computes in f32 on the same bf16 inputs) at the
@@ -749,7 +774,7 @@ def log_serve(tag, label, eng, card):
 def serve_phase(params, cfg, dev, card):
     """Phase 5: serve full-width hetero traffic through the BLS engine on
     the one-rank process group; returns each DLRM kernel's launches on that
-    run by launch key (shape)."""
+    run by launch key (shape), and the bound-2 CTRs."""
     from repro_torch.data.synthetic import make_batch
     from repro_torch.kernels import ops
     from repro_torch.models import dlrm
@@ -787,7 +812,7 @@ def serve_phase(params, cfg, dev, card):
         f"the plain forward; range [{ctr.min():.6f}, {ctr.max():.6f}]")
     for k, e in ((2, eng), (0, eng0)):
         log_serve("serve", f"bound={k}", e, card)
-    return by_key
+    return by_key, ctr
 
 
 def host_live(slot_of, idx, mask):
@@ -1497,18 +1522,24 @@ def frontend_fresh_phase(params, cfg, dev, card, cache):
     ops.reset_launches()
     served = []
     prof = None
-    for step in range(FRESH_MAX_FLUSHES):
-        b = make_batch(cfg, BATCH, mode="powerlaw_hetero", seed=SEED + 2,
-                       step=step)
-        served.append(b)
-        if step == FRESH_PROFILED:
-            # one flush mid-stream, rows pending and applied, profiled
-            prof = profile_batch(feng, b, "profile-fresh")
-        else:
-            for i in range(BATCH):
-                feng.submit(b.dense[i], b.idx[i], b.mask[i])
-        if fm.fully_committed:
-            break
+    try:
+        for step in range(FRESH_MAX_FLUSHES):
+            b = make_batch(cfg, BATCH, mode="powerlaw_hetero",
+                           seed=SEED + 2, step=step)
+            served.append(b)
+            if step == FRESH_PROFILED:
+                # one flush mid-stream, rows pending and applied, profiled
+                prof = profile_batch(feng, b, "profile-fresh")
+            else:
+                for i in range(BATCH):
+                    feng.submit(b.dense[i], b.idx[i], b.mask[i])
+            if fm.fully_committed:
+                break
+    finally:
+        # the wrappers refer to the manager and to the stack's copy: drop
+        # them, so nothing holds the copy once the phase returns
+        for name in host:
+            delattr(fm, name)
     served_launches("freshness engine", cfg, len(served), bags_per_mb=2)
     # the profiled and the recounted flushes are left out of the flush
     # times, on both sides
@@ -1663,6 +1694,456 @@ def admitted_pairs(s: int, window: int) -> int:
     """(query, key) pairs a causal layer of length s admits."""
     live = np.arange(1, s + 1)
     return int((np.minimum(live, window) if window else live).sum())
+
+
+# phase 5e: placement (phase 5's 4 x 512 hetero requests under the
+# reversed slot order), an online reshard at P = 1 (a hand-built plan
+# rotating the slots of the 8 smallest tables, 206 rows, installments of
+# 8 rows a microbatch slice, 12 flushes of 512 drift requests, seed 7),
+# and scrubbing (budget 65,536 blocks of 32 rows and as many cache slots a
+# flush, phase 5b's cache, 8 flushes of 512 powerlaw_hetero requests, seed
+# 9) with three resident flips, one cached-copy flip and one corrupted
+# segment
+RESHARD_FLUSHES, RESHARD_CAP = 12, 8
+SCRUB_FLUSHES, SCRUB_BUDGET, SCRUB_BLOCK, SCRUB_QCAP = 8, 65536, 32, 64
+# (table, row, bit, flush) of each resident flip, and the flush its block
+# is dispatched at: the cursor walks (table, block) table-major, 65,536
+# blocks a flush, 34,416 blocks a table; the harvest comes one flush later
+SCRUB_FLIPS = ((0, 700, 13, 0), (2, 500_000, 5, 0), (3, 1_000_000, 30, 0))
+SCRUB_WIRE_FLUSH = 2
+SCRUB_PROFILED = 1           # the scrub flush traced by the profiler
+
+
+def rotation_plan(cfg, plc):
+    """A hand-built ``MigrationPlan`` at P = 1: the slots of the 8
+    smallest tables rotate by one, each move ``(t, 0, 0, rows)``."""
+    sizes = np.asarray(cfg.table_sizes)
+    small = sorted(np.argsort(sizes, kind="stable")[:8].tolist())
+    perm = list(range(len(sizes)))
+    for i, t in enumerate(small):
+        perm[t] = small[(i + 1) % len(small)]
+    moves = tuple((int(t), 0, 0, int(sizes[t])) for t in sorted(
+        small, key=lambda t: perm.index(t)))
+    return plc.MigrationPlan(
+        new_map=plc.PartitionMap(tuple(perm)), moves=tuple(sorted(moves)),
+        row_splits=(), load_before=(1.0,), load_after=(1.0,))
+
+
+def add_launches(total, label, cfg, n_flushes, bags_per_mb=1):
+    """Check the launches since the last reset (:func:`served_launches`)
+    and add them to ``total``, by kernel and shape."""
+    from repro_torch.kernels import ops
+
+    for k, by in served_launches(label, cfg, n_flushes,
+                                 bags_per_mb).items():
+        for key, n in by.items():
+            total.setdefault(k, {})
+            total[k][key] = total[k].get(key, 0) + n
+    ops.reset_launches()
+
+
+def reshard_scrub_phase(params, cfg, dev, card, cache, ctr5):
+    """Phase 5e: skew-aware placement, online resharding and integrity
+    scrubbing at full ``dlrm-kaggle`` width on the phase-5 group (see the
+    module docstring).  ``ctr5`` are phase 5's bound-2 CTRs.  Returns the
+    DLRM kernels' launches of the phase by shape."""
+    from repro_torch.core import integrity as integ
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import dlrm
+    from repro_torch.runtime import placement as plc
+    from repro_torch.runtime import reshard as reshard_mod
+    from repro_torch.runtime.faults import FaultInjector, FaultPlan
+    from repro_torch.serving import hot_cache as hc
+    from repro_torch.serving.engine import DLRMEngine
+
+    def engine(p, **kw):
+        return DLRMEngine(p, cfg, batch_size=BATCH, bound=2, microbatches=4,
+                          device=dev, **kw)
+
+    launches: dict = {}
+    base = params["tables"]
+    t = cfg.n_tables
+    stack_gb = base.numel() * base.element_size() / 1e9
+    log(f"[reshard] device memory allocated at the phase's start "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB (the stack "
+        f"{stack_gb:.2f} GB)")
+
+    # (a) placement: the reversed slot order, phase 5's requests
+    ops.reset_launches()
+    perm = tuple(range(t))[::-1]
+    pm = plc.PartitionMap(perm)
+    p_perm = torch.from_numpy(pm.perm_array().astype(np.int64)).to(dev)
+    placed = dict(params, tables=base[p_perm])
+    batch = make_batch(cfg, N_BATCHES * BATCH, mode="hetero", seed=SEED)
+    outs = []
+    for j in range(N_BATCHES):
+        sl = slice(j * BATCH, (j + 1) * BATCH)
+        dense, idx, mask = (torch.from_numpy(a[sl]).to(dev) for a in (
+            batch.dense, batch.idx, batch.mask))
+        logits = dlrm.forward_distributed(
+            placed, cfg, dense, idx[:, p_perm], mask[:, p_perm], bound=2,
+            microbatches=4, table_inv=pm.inv_array())
+        outs.append(torch.sigmoid(logits).cpu().numpy())
+    del placed
+    got = np.concatenate(outs)
+    if not np.array_equal(got, ctr5):
+        raise AssertionError(
+            f"placement: CTRs under the reversed slot order differ from "
+            f"phase 5's (max {np.abs(got - ctr5).max():.3e})")
+    add_launches(launches, "placement", cfg, N_BATCHES)
+    log(f"[reshard] (a) {N_BATCHES} x {BATCH} hetero requests under the "
+        f"reversed slot order (table_inv): CTRs bit-identical to phase 5's")
+
+    # (b) an online reshard at P = 1 onto a hand-built plan
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    plan = rotation_plan(cfg, plc)
+    eng = engine(dict(params), rebalance=True, mig_slice_cap=RESHARD_CAP)
+    static = engine(dict(params))
+    commit = {}
+    install = reshard_mod.install_stack
+
+    def timed_install(*a):
+        # the cutover's device work: gather, zero, scatter of the stack
+        from torch.profiler import ProfilerActivity, profile
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            ev[0].record()
+            new = install(*a)
+            ev[1].record()
+            torch.cuda.synchronize()
+            commit["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        commit["event_ms"] = ev[0].elapsed_time(ev[1])
+        kern = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        commit["device_ms"] = sum(e.time_range.elapsed_us()
+                                  for e in kern) / 1e3 if kern else None
+        commit["ops"] = len(kern)
+        return new
+
+    reshard_mod.install_stack = timed_install
+    lv0 = eng.layout_version
+    calls = {"mig": [], "static": []}
+    flush_ms = {"mig": [], "static": []}
+    mig_flushes = 0
+    cut = None
+    try:
+        for s in range(RESHARD_FLUSHES):
+            if s == 1:
+                eng.start_reshard(plan)
+            b = make_batch(cfg, BATCH, mode="drift", seed=7, step=s)
+            riding = eng.reshard is not None and eng.reshard.active
+            mig_flushes += riding
+            res = {}
+            for key, e in (("mig", eng), ("static", static)):
+                with count_collectives() as n:
+                    t0 = time.perf_counter()
+                    for i in range(BATCH):
+                        o = e.submit(b.dense[i], b.idx[i], b.mask[i])
+                    flush_ms[key].append((time.perf_counter() - t0) * 1e3)
+                if riding:
+                    calls[key].append(dict(n))
+                res[key] = o
+            if cut is None and eng.stats.reshards:
+                cut = s
+            if not np.array_equal(res["mig"], res["static"]):
+                raise AssertionError(
+                    f"reshard: flush {s} CTRs differ from the static "
+                    f"engine's (migration in flight {riding})")
+    finally:
+        reshard_mod.install_stack = install
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    st = eng.stats
+    if (st.reshards, st.migrated_rows, eng.layout_version - lv0) != \
+            (1, plan.moved_rows, 1):
+        raise AssertionError(
+            f"reshard: reshards {st.reshards}, migrated_rows "
+            f"{st.migrated_rows} of {plan.moved_rows}, layout_version "
+            f"{lv0} -> {eng.layout_version}")
+    if eng.pmap.perm != plan.new_map.perm or not commit:
+        raise AssertionError("reshard: the cutover did not land")
+    if not calls["mig"] or calls["mig"] != calls["static"]:
+        raise AssertionError(f"reshard: collective calls a flush with the "
+                             f"xmig rider {calls['mig']}, without "
+                             f"{calls['static']}")
+    add_launches(launches, "reshard engines", cfg, 2 * RESHARD_FLUSHES)
+    bound_ms = 2 * stack_gb * 1e9 / HBM_BYTES_PER_S * 1e3
+    log(f"[reshard] (b) a hand-built plan rotating the slots of the 8 "
+        f"smallest tables ({plan.moved_rows} rows, moves {plan.moves}), "
+        f"installments of {RESHARD_CAP} rows a slice: the xmig rider rode "
+        f"{mig_flushes} flushes, cut over on flush {cut}: reshards "
+        f"{st.reshards}, "
+        f"migrated_rows {st.migrated_rows}, layout_version {lv0} -> "
+        f"{eng.layout_version}; every CTR bit-identical to a static engine "
+        f"before, during and after the cutover; collective calls a flush "
+        f"with the rider {calls['mig'][0]}, without "
+        f"{calls['static'][0]}")
+    log(f"[reshard] cutover (install_stack: gather {stack_gb:.2f} GB into "
+        f"the new slot order, zero the moved slots, scatter the banked "
+        f"rows): wall {commit['wall_ms']:.3f} ms, device "
+        f"{commit['device_ms']} ms over {commit['ops']} device operations "
+        f"(profiler trace), stream span {commit['event_ms']:.3f} ms "
+        f"between CUDA events, byte bound {bound_ms:.2f} ms (read and "
+        f"write {stack_gb:.2f} GB at 3.35 TB/s); peak device memory "
+        f"{peak_gb:.2f} GB; flush p50 {ms([x / 1e3 for x in flush_ms['mig']], 0.5):.3f} "
+        f"ms with the reshard, {ms([x / 1e3 for x in flush_ms['static']], 0.5):.3f} "
+        f"ms static card={card!r}")
+    del eng, static
+    torch.cuda.empty_cache()
+
+    # (c) scrubbing with phase 5b's cache
+    torch.cuda.reset_peak_memory_stats()
+    c_row = int(cache.hot_ids[0, 0])
+    # slots the scrubber will invalidate: the flipped copy's, and those of
+    # flipped base rows that are cached (their copy no longer matches)
+    inval = [(0, c_row)] + [(tb, row) for tb, row, _, _ in SCRUB_FLIPS
+                            if int(cache.slot_of[tb, row]) >= 0]
+    fp = FaultPlan.none(1, 64)
+    for tb, row, bit, when in SCRUB_FLIPS:
+        fp = fp.with_bitflip(0, tb, row, bit, when=when)
+    fp = fp.with_bitflip(0, 0, c_row, 3, when=0, target="cache") \
+        .with_wire_corruption(0, 0, when=SCRUB_WIRE_FLUSH)
+    scache = hc.HotCache(hot_ids=cache.hot_ids,
+                         hot_rows=cache.hot_rows.clone(),
+                         slot_of=cache.slot_of)
+    seng = engine(dict(params, tables=base.clone()), cache=scache,
+                  exchange="dense", faults=FaultInjector(fp, time_scale=0.0),
+                  scrub_budget=SCRUB_BUDGET, scrub_block_rows=SCRUB_BLOCK,
+                  quarantine_cap=SCRUB_QCAP)
+    sc = seng.scrub
+    boot_cs = sc.ledger.block_cs.copy()
+    boot = dict(sc.boot)
+    # the clean engine: the same cache with the flipped copy's slot
+    # invalidated, as the scrubber leaves it
+    ccache, _ = hc.invalidate(cache, [tb for tb, _ in inval],
+                              [row for _, row in inval])
+    clean = engine(dict(params), cache=ccache, exchange="dense")
+    detected: dict = {}
+    recount = {"n": 0, "host": 0}
+    host_ms: dict = {}
+
+    def ranged(name, fn):
+        # a profiler range and the host time of every call
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            with torch.profiler.record_function(name):
+                out = fn(*a, **kw)
+            host_ms.setdefault(name, []).append(
+                (time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    audit = ranged("scrub.audit", sc.audit)
+    count = ranged("scrub.count_quarantined_served",
+                   sc.count_quarantined_served)
+
+    def audited(e, step):
+        newly = audit(e, step)
+        for g in newly:
+            detected.setdefault(g, step)
+        return newly
+
+    def counted(e, idx, mask):
+        n = count(e, idx, mask)
+        if sc.quarantined:
+            r = e.params["tables"].shape[1]
+            i, m = idx.cpu().numpy(), mask.cpu().numpy()
+            tt = np.arange(i.shape[1], dtype=np.int64)[None, :, None]
+            hit = np.isin(tt * r + i.astype(np.int64),
+                          np.fromiter(sc.quarantined, np.int64)) & (m > 0)
+            recount["host"] += int(hit.any(axis=-1).sum())
+        recount["n"] += n
+        return n
+
+    # instance attributes over the scrubber's and the engines' methods,
+    # deleted in the finally below (they refer to their owners)
+    wrapped = [(sc, "audit", audited), (sc, "count_quarantined_served",
+                                        counted)]
+    for name in ("_harvest", "_dispatch_blocks", "_dispatch_cache",
+                 "bank_audit", "quarantine_phys", "apply", "next_wire",
+                 "ingest"):
+        wrapped.append((sc, name, ranged(f"scrub.{name}",
+                                         getattr(sc, name))))
+    for key, e in (("scrub", seng), ("clean", clean)):
+        for name in ("_run_batch", "_dispatch", "_finish_batch"):
+            wrapped.append((e, name, ranged(f"{key}.engine.{name}",
+                                            getattr(e, name))))
+    for obj, name, fn in wrapped:
+        setattr(obj, name, fn)
+    stamp, verify = integ.wire_stamp, integ.wire_verify
+    integ.wire_stamp = ranged("scrub.wire_stamp", stamp)
+    integ.wire_verify = ranged("scrub.wire_verify", verify)
+    served = {"scrub": [], "clean": []}
+    calls = {}
+    prof = None
+    try:
+        for s in range(SCRUB_FLUSHES):
+            b = make_batch(cfg, BATCH, mode="powerlaw_hetero", seed=9,
+                           step=s)
+            for key, e in (("scrub", seng), ("clean", clean)):
+                with count_collectives() as n:
+                    if key == "scrub" and s == SCRUB_PROFILED:
+                        prof = profile_batch(e, b, "profile-scrub")
+                        o = None
+                    else:
+                        for i in range(BATCH):
+                            o = e.submit(b.dense[i], b.idx[i], b.mask[i])
+                calls.setdefault(key, dict(n))
+                served[key].append(o)
+    finally:
+        integ.wire_stamp, integ.wire_verify = stamp, verify
+        for obj, name, _ in wrapped:
+            delattr(obj, name)
+    add_launches(launches, "scrub engines", cfg, 2 * SCRUB_FLUSHES,
+                 bags_per_mb=2)
+    r = base.shape[1]
+    st = seng.stats
+    want_lag, when_of = {}, {c_row: 0}
+    nb = sc.ledger.n_blocks
+    for tb, row, _, when in SCRUB_FLIPS:
+        pos = tb * nb + row // SCRUB_BLOCK
+        want_lag[tb * r + row] = pos // SCRUB_BUDGET + 1 - when
+        when_of[tb * r + row] = when
+    want_lag[c_row] = 1                  # slot (0, 0): the first sweep
+    bad = {g: (detected.get(g), want_lag[g]) for g in want_lag
+           if detected.get(g) is None
+           or detected[g] - when_of[g] > want_lag[g]}
+    if bad:
+        raise AssertionError(f"scrub: flips detected late or never "
+                             f"(gid: (flush, predicted lag)) {bad}")
+    if st.repaired_rows != len(SCRUB_FLIPS) or not sc.fully_repaired:
+        raise AssertionError(f"scrub: repaired {st.repaired_rows} of "
+                             f"{len(SCRUB_FLIPS)}, fully repaired "
+                             f"{sc.fully_repaired}")
+    if sc.cache_invalidations != len(inval) or any(
+            int(seng.cache.slot_of[tb, row]) >= 0 for tb, row in inval):
+        raise AssertionError(f"scrub: {sc.cache_invalidations} cached "
+                             f"copies invalidated, not those of {inval}")
+    if recount["n"] != recount["host"] or recount["n"] < 1 or \
+            st.quarantined_served != recount["n"]:
+        raise AssertionError(f"scrub: quarantined_served "
+                             f"{st.quarantined_served}, counted "
+                             f"{recount['n']}, host recount "
+                             f"{recount['host']}")
+    if st.wire_rejects != seng.microbatches:
+        raise AssertionError(f"scrub: wire_rejects {st.wire_rejects}, not "
+                             f"one a microbatch of flush {SCRUB_WIRE_FLUSH}")
+    if calls["scrub"] != calls["clean"]:
+        raise AssertionError(f"scrub: collective calls a flush with scrub "
+                             f"{calls['scrub']}, without {calls['clean']}")
+    if any(o is None or not np.isfinite(o).all() or o.shape != (BATCH,)
+           for o in served["scrub"][:SCRUB_PROFILED]
+           + served["scrub"][SCRUB_PROFILED + 1:]):
+        raise AssertionError("scrub: a flush lost requests or served a "
+                             "non-finite CTR")
+    settled = max(detected.values()) + 3
+    for s in range(settled, SCRUB_FLUSHES):
+        if not np.array_equal(served["scrub"][s], served["clean"][s]):
+            raise AssertionError(f"scrub: flush {s}, after the repair, "
+                                 f"differs from the clean engine's")
+    tables = seng.params["tables"]
+    for tb, row, _, _ in SCRUB_FLIPS:
+        if tables[tb, row].cpu().numpy().tobytes() != \
+                sc.mirror[tb, row].tobytes():
+            raise AssertionError(f"scrub: row ({tb}, {row}) differs from "
+                                 f"the mirror after the repair")
+    # a full sweep of the repaired stack against the boot ledger
+    blk = np.arange(nb, dtype=np.int64)
+    offs = (blk[:, None] * SCRUB_BLOCK + np.arange(SCRUB_BLOCK)[None])
+    sweep = []
+    offs_d = torch.from_numpy(offs).to(dev)
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as sprof:
+        for tb in range(t):
+            ix = torch.full((nb,), tb, dtype=torch.int64, device=dev)
+            sweep.append(integ.fold_blocks(tables, ix, offs_d, ix))
+        torch.cuda.synchronize()
+    kern = [e for e in sprof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    sweep_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3 \
+        if kern else float("nan")
+    words = torch.stack(sweep).cpu().numpy()
+    if not np.array_equal(words, boot_cs):
+        raise AssertionError(f"scrub: a full sweep after the repair differs "
+                             f"from the boot ledger in "
+                             f"{int((words != boot_cs).sum())} blocks")
+    audit_bound = SCRUB_BUDGET * SCRUB_BLOCK * cfg.embed_dim * 4 \
+        / HBM_BYTES_PER_S * 1e3
+    sweep_bound = stack_gb * 1e9 / HBM_BYTES_PER_S * 1e3
+    traced = {k: range_device_us(prof, f"scrub.{k}") for k in (
+        "audit", "_dispatch_blocks", "_dispatch_cache", "_harvest",
+        "bank_audit", "apply", "next_wire", "ingest", "quarantine_phys",
+        "count_quarantined_served", "wire_stamp", "wire_verify")}
+    scrub_lat = [x for i, x in enumerate(seng.monitor.lat)
+                 if i != SCRUB_PROFILED]
+    clean_lat = [x for i, x in enumerate(clean.monitor.lat)
+                 if i != SCRUB_PROFILED]
+    log(f"[scrub] budget {SCRUB_BUDGET} blocks of {SCRUB_BLOCK} rows ({nb * t:,} "
+        f"blocks, a sweep every {-(-nb * t // SCRUB_BUDGET)} flushes) and "
+        f"{SCRUB_BUDGET} of {scache.hot_ids.numel():,} cache slots a flush; "
+        f"flips {[(tb, row) for tb, row, _, _ in SCRUB_FLIPS]} and the "
+        f"cached copy of (0, {c_row}) at flush 0: detected on flushes "
+        f"{[detected[g] for g in want_lag]} (predicted lags "
+        f"{list(want_lag.values())}), detection_lag_flushes "
+        f"{st.detection_lag_flushes}; repaired {st.repaired_rows} from the "
+        f"mirror through xrep, cache_invalidations "
+        f"{sc.cache_invalidations} (slots of {inval}), quarantined_served "
+        f"{st.quarantined_served} (host recount {recount['host']}), "
+        f"wire_rejects {st.wire_rejects} (segment flipped at flush "
+        f"{SCRUB_WIRE_FLUSH}, one a microbatch), blocks_scrubbed "
+        f"{st.blocks_scrubbed}; flushes {settled}..{SCRUB_FLUSHES - 1} "
+        f"bit-identical to a clean engine; the repaired rows equal the "
+        f"mirror byte for byte; a full sweep equals the boot ledger; "
+        f"collective calls a flush with scrub {calls['scrub']}, without "
+        f"{calls['clean']}")
+    log(f"[scrub] boot: ledger on the card {boot['ledger_ms']} ms "
+        f"(CUDA events; host clock {boot['ledger_s'] * 1e3:.3f} ms, the "
+        f"shadow and the block words to the host included), mirror copy "
+        f"{boot['mirror_s']:.3f} s ({stack_gb:.2f} GB to host memory); "
+        f"full sweep's device time {sweep_ms:.3f} ms (trace) against a "
+        f"byte bound of "
+        f"{sweep_bound:.2f} ms; device time in the profiled flush (from "
+        f"the trace): " + ", ".join(
+            f"{k} {us:.1f} us ({n} ops)" for k, (us, n) in traced.items())
+        + f"; the audit's byte bound {audit_bound:.3f} ms a flush")
+    log(f"[scrub] flush p50 {ms(scrub_lat, 0.5):.3f} ms p99 "
+        f"{ms(scrub_lat, 0.99):.3f} ms with scrub armed, the same requests "
+        f"without p50 {ms(clean_lat, 0.5):.3f} ms p99 "
+        f"{ms(clean_lat, 0.99):.3f} ms (flush {SCRUB_PROFILED} left out "
+        f"on both sides); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB card={card!r}")
+    # host time by call: every scrub flush but the profiled one (the
+    # profiler slows the host), the engine's own calls on both engines
+    keep = [i for i in range(SCRUB_FLUSHES) if i != SCRUB_PROFILED]
+
+    def per_flush(name, calls_a_flush=1):
+        v = host_ms.get(name, [])
+        if len(v) != SCRUB_FLUSHES * calls_a_flush:
+            return v
+        return [x for i, x in enumerate(v)
+                if i // calls_a_flush in keep]
+
+    log("[scrub] host ms a flush by call, p50 / max over "
+        f"{len(keep)} flushes: " + ", ".join(
+            f"{k} {statistics.median(v):.3f} / {max(v):.3f}"
+            for k, v in ((k, per_flush(k)) for k in sorted(host_ms)
+                         if not k.startswith("scrub.wire_")) if v)
+        + f" card={card!r}")
+    log("[scrub] host ms of the wire checksum calls, summed a flush "
+        "(mono: one stamp and one verify a microbatch): " + ", ".join(
+            f"{k} {sum(host_ms.get(k, [])) / SCRUB_FLUSHES:.3f}"
+            for k in ("scrub.wire_stamp", "scrub.wire_verify")))
+    log_serve("scrub", "scrub bound=2", seng, card)
+    del seng, clean, sc, scache
+    torch.cuda.empty_cache()
+    return launches
 
 
 def flash_phase(dev):
@@ -2282,29 +2763,33 @@ def main() -> int:
         del l2
         dlrm_edge_phase(dev)
         with model_group("nccl"):
-            dlrm_by_key = serve_phase(params, CONFIG, dev, card)
+            dlrm_by_key, ctr5 = serve_phase(params, CONFIG, dev, card)
             ragged_row, cache = ragged_phase(params, CONFIG, dev, card)
             plans_chaos_phase(params, CONFIG, dev, card)
             frontend_fresh_phase(params, CONFIG, dev, card, cache)
+            by_key_5e = reshard_scrub_phase(params, CONFIG, dev, card,
+                                            cache, ctr5)
             del cache
         # each DLRM row takes the served launches of its own shape: the
         # served path pools and interacts 128 samples a launch, once per
-        # microbatch, so the two served rows must read N_BATCHES x 4 and
-        # the 512-sample rows, the rows form and the single table read 0
+        # microbatch, so the two served rows must read N_BATCHES x 4 on
+        # phase 5's run and the 512-sample rows, the rows form and the
+        # single table read 0; phase 5e's launches (placement, reshard and
+        # scrub engines) are added to each row of their shape
         rows = []
         for row, key in dlrm_rows:
-            row["launches"] = dlrm_by_key[row["name"].split("/")[0]].get(
-                key, 0)
+            kern = row["name"].split("/")[0]
+            row["launches"] = dlrm_by_key[kern].get(key, 0)
+            if row["name"] in SERVED_ROWS and row["launches"] != \
+                    N_BATCHES * BATCH // SERVED_MB:
+                raise AssertionError(
+                    f"{row['name']} read {row['launches']} launches on the "
+                    f"served run, not {N_BATCHES} batches x "
+                    f"{BATCH // SERVED_MB} microbatches")
+            row["launches"] += by_key_5e.get(kern, {}).get(key, 0)
             rows.append(row)
         rows.append(ragged_row)
-        served = {row["name"]: row["launches"] for row, _ in dlrm_rows
-                  if row["name"] in SERVED_ROWS}
-        if served != dict.fromkeys(SERVED_ROWS, N_BATCHES * BATCH
-                                   // SERVED_MB):
-            raise AssertionError(f"served-shape rows read {served} launches "
-                                 f"on the served run, not {N_BATCHES} "
-                                 f"batches x {BATCH // SERVED_MB} "
-                                 f"microbatches each")
+        log(f"[reshard] phase 5e launches by shape {by_key_5e}")
         # the LM phases need the card's memory: drop the 7.33 GB stack
         del params
         torch.cuda.empty_cache()

@@ -283,8 +283,8 @@ def exchange_wire_layout(*, ragged: bool, n_dest: int, cap: int, bs: int,
     float32 codec ships verbatim; ``n_slots`` (default bs·t_loc) picks the
     id width.  ``delta_bytes``, ``mig_bytes`` and ``rep_bytes`` add the
     opaque rider fields ``xdelta``, ``xmig`` and ``xrep``; ``wire_check``
-    adds the uint32 segment checksum ``wcs``.  The riders that fill them
-    are not ported (ROADMAP A8-A12); their layouts are."""
+    adds the uint32 segment checksum ``wcs`` (``models/dlrm.py`` fills
+    them)."""
     wire = canon_wire(wire_dtype)
     qdt = {"float32": emb_dtype, "bfloat16": torch.bfloat16,
            "int8": torch.int8}[wire]

@@ -3,7 +3,9 @@
 forward with the hot-row cache, the dense and ragged exchanges, the mono
 and ring pipelines, the float32, bf16 and int8 wire codecs, precomputed
 stream plans (:func:`build_forward_plans`), degraded serving around
-slow members and versioned embedding-row deltas riding the exchange.
+slow members, and the riders of the exchange: versioned embedding-row
+deltas, migrating rows and integrity repairs, with a non-identity table
+placement, a row quarantine and a checksum on every wire segment.
 
 Architecture: dense features -> bottom MLP; categorical features ->
 embedding bags over (T_pad, R_max, s) stacked tables; pairwise dot
@@ -33,6 +35,7 @@ import torch.distributed as dist
 from repro_torch.configs.base import DLRMConfig
 from repro_torch.core import alltoallv as a2a_mod
 from repro_torch.core import bls as bls_mod
+from repro_torch.core import integrity as integ
 from repro_torch.device import resolve_device
 from repro_torch.kernels import embedding_bag as eb
 from repro_torch.kernels import ops
@@ -145,6 +148,10 @@ class ExchangeDiag:
     cap: int = 0
     dense_rows: int = 0     # what the dense butterfly moves per destination
     staged: object = None   # the harvested delta rows (forward's deltas=)
+    staged_mig: object = None  # the harvested migration rows (migration=)
+    staged_rep: object = None  # the harvested repair rows (repair=)
+    wbad: object = None     # (P_dst, mb, P_src) int32 corrupt-segment flags
+    audit: object = None    # (P, n) int32 gathered audit words (audit_words=)
 
 
 def apply_emb_rows(tables, tid, idx, mask, backend: str = "ref",
@@ -274,10 +281,6 @@ def forward_local(params, cfg: DLRMConfig, dense, idx, mask):
 # ---------------------------------------------------------------------------
 
 
-def _unported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 def resolve_slice(cfg: DLRMConfig, *, wire_dtype: Optional[str] = None,
                   exchange: Optional[str] = None,
                   exchange_pipeline: Optional[str] = None) -> str:
@@ -307,7 +310,9 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
                         pool_mode: Optional[str] = None,
                         plan=None, deltas=None, migration=None, repair=None,
                         quarantine=None, wire_check: bool = False,
-                        table_inv=None, degraded_members: tuple = (),
+                        wire_flip=None, table_inv=None,
+                        audit_words=None,
+                        degraded_members: tuple = (),
                         degraded_fallback: str = "zero",
                         return_diag: bool = False, group=None):
     """dense:(B, n_dense) idx/mask:(B, T_pad, hot), the same full batch on
@@ -363,31 +368,68 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
     logits, as the diagnostics' counters do, so neither adds a collective.
     The forward never writes a table; the manager's apply window does.
 
-    ``group`` defaults to the model group of ``launch/mesh.py``; with none
-    the forward falls back to :func:`forward_local`, as the reference does
-    without a model mesh (``deltas`` then raise ``ValueError``).  The other
-    riders, wire checks and table placement raise
-    ``NotImplementedError``."""
+    ``migration`` threads live-resharding rows through the same exchange
+    as the ``"xmig"`` field: ``(P, microbatches, ...)`` leaves built by
+    ``runtime.reshard.ReshardExecutor.next_wire`` (``mgid`` flat ORIGINAL
+    gids of rows the member owns now, ``mdst`` each row's future owner,
+    ``mcnt``/``mepoch`` each slice's count and the reshard's epoch).
+    Member m gathers each row from its own shard, stamps it with
+    ``row_checksum_device`` (the epoch as the version) over the bytes that
+    ship and routes it to its future owner.  ``repair`` threads the
+    scrubber's mirror rows as the ``"xrep"`` field (``rvec``, ``rgid``
+    ORIGINAL gids, ``rcs`` stamped by the mirror, ``rcnt``; built by
+    ``runtime.scrub.Scrubber.next_wire``), each routed to the owner of the
+    quarantined row.  Their harvests come back as the diagnostics'
+    ``staged_mig`` and ``staged_rep``, leaves ``(P_dst, microbatches,
+    P_src, ...)``, like ``staged``.
+
+    ``quarantine`` is a ``(Q,)`` int32 vector of PHYSICAL flat gids (slot ·
+    R + row, −1 padding) masked out of every bag before the cache/residual
+    split, so neither the cached copy nor the resident row of a corrupt
+    gid is served while its repair is in flight; membership is a binary
+    search in the sorted vector.  ``wire_check=True`` adds the ``"wcs"``
+    segment checksum: stage_a stamps every destination slot after fusing,
+    then XORs the first payload byte of its slot to dst with
+    ``wire_flip[m, dst]`` (a (P, P) uint8 fault hook, zeros by default:
+    XOR 0 is the identity); stage_b verifies each received segment (mono:
+    per source row; ring: per chunk), zeroes a corrupt source's embedding
+    contribution (``torch.where``: corrupt bytes may decode to NaN) and,
+    ragged, its counts, so no garbage slot id scatters.  The per-(dst,
+    microbatch, src) corrupt flags come back as the diagnostics' ``wbad``.
+    ``audit_words`` (n,) int32, the same length on every member (the
+    scrubber's compacted audit mismatches, ``Scrubber.audit_words``), ride
+    the all-gather of the logits and come back as the diagnostics'
+    ``audit``, (P, n): every member sees every member's words.
+
+    ``table_inv`` (T_pad,) maps original table -> physical slot under a
+    non-identity placement: the caller permutes idx/mask/tables/cache into
+    physical order; the forward routes delta and repair rows to ``inv[gid
+    // R] // t_loc`` and gathers the exchanged columns back to original
+    order before the interaction.
+
+    Every rider comes back in the diagnostics, so each needs
+    ``return_diag``.  ``group`` defaults to the model group of
+    ``launch/mesh.py``; with none the forward falls back to
+    :func:`forward_local`, as the reference does without a model mesh
+    (``deltas``, ``migration``, ``repair``, ``wire_check`` and
+    ``audit_words`` then raise ``ValueError``)."""
     wire = resolve_slice(cfg, wire_dtype=wire_dtype, exchange=exchange,
                          exchange_pipeline=exchange_pipeline)
-    riders = {"migration": migration, "repair": repair,
-              "quarantine": quarantine, "table_inv": table_inv}
-    items = {"migration": "A11", "table_inv": "A11", "repair": "A12",
-             "quarantine": "A12"}
-    for name, val in riders.items():
-        if val is not None:
-            raise _unported(f"{name}=", items[name])
-    if wire_check:
-        raise _unported("wire_check", "A12")
     group = group if group is not None else mesh_mod.current_group()
-    if deltas is not None and group is None:
+    rides = {"deltas": deltas is not None,
+             "migration rows": migration is not None,
+             "repair rows / wire verification / audit words":
+             repair is not None or wire_check or audit_words is not None}
+    for name, on in rides.items():
+        if on and group is None:
+            raise ValueError(
+                f"forward_distributed: {name} ride the model-group "
+                f"exchange — set up a model group with launch/mesh.py")
+    if any(rides.values()) and not return_diag:
         raise ValueError(
-            "forward_distributed: deltas ride the model-group exchange — "
-            "set up a model group with launch/mesh.py")
-    if deltas is not None and not return_diag:
-        raise ValueError(
-            "forward_distributed: the delta harvest is returned as the "
-            "diagnostics' staged field — pass return_diag=True")
+            "forward_distributed: the rider harvests and the wire flags "
+            "are returned in the diagnostics (staged, staged_mig, "
+            "staged_rep, wbad, audit) — pass return_diag=True")
     if group is None:
         if cache is not None or (wire_dtype or cfg.wire_dtype) != "float32":
             warnings.warn(
@@ -430,8 +472,9 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
     rblk = row_block if row_block is not None else cfg.row_block
     pool = pool_mode if pool_mode is not None else cfg.pool_mode
     emb_dtype = tables.dtype
-    s = tables.shape[2]
+    r_rows, s = tables.shape[1], tables.shape[2]
     t = cfg.n_tables
+    dev = idx.device
     dense_rows = bs * t_loc
     use_ragged, cap = resolve_exchange(
         exchange if exchange is not None else cfg.exchange,
@@ -441,18 +484,36 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
     pipe = resolve_pipeline(
         exchange_pipeline if exchange_pipeline is not None
         else cfg.exchange_pipeline, n_shards)
-    has_delta = deltas is not None
-    dlayout, dbytes = None, 0
-    if has_delta:
-        dcap = int(deltas["dgid"].shape[-1])
-        dlayout = a2a_mod.delta_wire_layout(n_shards, dcap, s, emb_dtype)
-        dbytes = dlayout.slot_bytes
+    # the riders, each an opaque sub-blob of the fused slot: (wire field,
+    # its leaves' prefix, sub-layout, the member's (mb, ...) slices, their
+    # bucket cap)
+    riders = []
+    for field, p, leaves, make in (
+            ("xdelta", "d", deltas, a2a_mod.delta_wire_layout),
+            ("xmig", "m", migration, a2a_mod.mig_wire_layout),
+            ("xrep", "r", repair, a2a_mod.rep_wire_layout)):
+        if leaves is not None:
+            rcap = int(leaves[p + "gid"].shape[-1])
+            riders.append((field, p, make(n_shards, rcap, s, emb_dtype),
+                           {k: torch.as_tensor(v)[m].to(dev)
+                            for k, v in leaves.items()}, rcap))
+    sub = {f: lay for f, _, lay, _, _ in riders}
     # the ONE layout both exchange halves (and the BLS ring slot) agree on,
-    # the delta rows included as the opaque "xdelta" bytes
+    # the riders included as opaque bytes
     layout = a2a_mod.exchange_wire_layout(
         ragged=use_ragged, n_dest=n_shards, cap=cap, bs=bs, t_loc=t_loc,
         embed_dim=s, wire_dtype=wire, emb_dtype=emb_dtype,
-        delta_bytes=dbytes)
+        delta_bytes=sub["xdelta"].slot_bytes if "xdelta" in sub else 0,
+        mig_bytes=sub["xmig"].slot_bytes if "xmig" in sub else 0,
+        rep_bytes=sub["xrep"].slot_bytes if "xrep" in sub else 0,
+        wire_check=wire_check)
+    # each source's harvest bytes: the rider sub-blobs, then its int32
+    # corrupt flag
+    h_off, hbytes = {}, 0
+    for f, _, lay, _, _ in riders:
+        h_off[f] = hbytes
+        hbytes += lay.slot_bytes
+    hbytes += 4 * int(wire_check)
     if plan is not None:
         if use_ragged:
             raise ValueError(
@@ -487,10 +548,35 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
             fb_rows = table_means(params["tables"], t_pad, group)
     deg_mask = [1 if i in deg else 0 for i in range(n_shards)]
     # 1 on every table column a degraded member owns
-    deg_cols = torch.tensor(deg_mask, device=idx.device) \
+    deg_cols = torch.tensor(deg_mask, device=dev) \
         .repeat_interleave(t_loc) if deg else None
     cols = slice(m * t_loc, (m + 1) * t_loc)
     hit_impl = resolve_sparse_backend(backend, tables.device)
+    inv_t = None
+    if table_inv is not None:
+        inv_t = torch.as_tensor(np.asarray(table_inv) if not isinstance(
+            table_inv, torch.Tensor) else table_inv).to(dev, torch.int64)
+    if wire_check:
+        flip = torch.zeros((n_shards, n_shards), dtype=torch.uint8,
+                           device=dev) if wire_flip is None else \
+            torch.as_tensor(wire_flip).to(dev, torch.uint8)
+
+    if quarantine is not None:
+        # row-level zero fallback: every id naming a quarantined PHYSICAL
+        # row leaves its bag, before the cache/residual split; membership
+        # by binary search in the sorted vector (padding -1 included, as
+        # the reference compares against every entry)
+        q = torch.as_tensor(quarantine).to(dev, torch.int64).sort().values
+        if q.numel():
+            colt = torch.arange(t_pad, dtype=torch.int64, device=dev)
+            gid_b = colt[None, :, None] * r_rows + idx.long()
+            pos = torch.searchsorted(q, gid_b).clamp_(max=q.numel() - 1)
+            mask = mask * (q[pos] != gid_b).to(mask.dtype)
+
+    def slot_of(gid):
+        """The PHYSICAL slot of each flat ORIGINAL gid's table now."""
+        tab = gid.long() // r_rows
+        return tab if inv_t is None else inv_t[tab.clamp(0, t_pad - 1)]
 
     def local_miss(ix, mk):
         """This member's local-table (idx, residual mask) slice."""
@@ -500,37 +586,53 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
         return ix_loc, hc_mod.miss_mask_of(cache.slot_of[cols], ix_loc,
                                            mk_loc)
 
-    def pack_deltas():
-        """This member's delta slices -> every microbatch's "xdelta"
-        sub-blobs, (mb, P, sub-slot bytes): each valid row routed to the
-        member owning its table and repacked into dcap-row buckets (a
-        slice holds <= dcap rows, so nothing drops), one pack for all the
-        microbatches (bucket j·P + owner).  The checksums ride verbatim:
-        stamped at the source, verified by the receiving host."""
-        dl = {k: v[m] for k, v in deltas.items()}     # leaves (mb, ...)
-        gid = dl["dgid"].to(torch.int32)
-        dev = gid.device
-        valid = torch.arange(dcap, device=dev)[None] < dl["dcnt"]
-        owner = gid // tables.shape[1] // t_loc
+    def pack_rider(field, p, lay, dl, rcap):
+        """This member's rider slices -> every microbatch's sub-blobs,
+        (mb, P, sub-slot bytes): each valid row routed to its destination
+        and repacked into rcap-row buckets (a slice holds <= rcap rows, so
+        nothing drops), one pack for all the microbatches (bucket j·P +
+        destination).  Delta and repair rows go to the member owning
+        their table and carry the checksums stamped at their source;
+        migration rows are gathered here from this member's shard, stamped
+        on the device over the bytes that ship, and go to their future
+        owner.  Checksums travel as int32 bits (the pack gathers rows;
+        uint32 is a reinterpretation of the same bytes)."""
+        gid = dl[p + "gid"].to(torch.int32)
+        valid = torch.arange(rcap, device=dev)[None] < dl[p + "cnt"]
+        if field == "xmig":
+            # the executor fills only rows this member owns; anything
+            # else clamps into its shard, as the reference's gather does
+            g = gid.long()
+            local = (slot_of(g) - m * t_loc).clamp(0, t_loc - 1)
+            vec = tables[local, g % r_rows]               # (mb, mcap, s)
+            epoch = dl["mepoch"].to(torch.int64).expand(mb, rcap)
+            cs = integ.row_checksum_device(
+                vec.reshape(mb * rcap, s), g.reshape(-1),
+                epoch.reshape(-1)).view(torch.int32)
+            dest = dl["mdst"].long()
+        else:
+            vec = dl[p + "vec"].to(emb_dtype)
+            cs = dl[p + "cs"].view(torch.int32).reshape(-1)
+            dest = slot_of(gid) // t_loc
         j = torch.arange(mb, device=dev)[:, None]
-        dest = torch.where(valid, j * n_shards + owner, -1).reshape(-1)
-        # the checksums travel as int32 bits: the pack gathers rows, and
-        # uint32 is a reinterpretation of the same bytes
+        dest = torch.where(valid, j * n_shards + dest, -1).reshape(-1)
         bk, cnts, _ = a2a_mod.pack_ragged_tree(
-            {"dvec": dl["dvec"].to(emb_dtype).reshape(mb * dcap, s),
-             "dgid": gid.reshape(-1),
-             "dcs": dl["dcs"].view(torch.int32).reshape(-1)},
-            dest, mb * n_shards, dcap)
-        ver = dl["dver"].to(torch.int32).reshape(mb, 1, 1) \
-            .expand(mb, n_shards, 1).reshape(mb * n_shards, 1)
-        return a2a_mod.fuse_wire(
-            {"dvec": bk["dvec"], "dgid": bk["dgid"],
-             "dcs": bk["dcs"].view(torch.uint32),
-             "dcnt": cnts.reshape(-1, 1), "dver": ver},
-            a2a_mod.delta_wire_layout(mb * n_shards, dcap, s, emb_dtype)
-        ).reshape(mb, n_shards, -1)
+            {"vec": vec.reshape(mb * rcap, s), "gid": gid.reshape(-1),
+             "cs": cs}, dest, mb * n_shards, rcap)
+        fields = {p + "vec": bk["vec"], p + "gid": bk["gid"],
+                  p + "cs": bk["cs"].view(torch.uint32),
+                  p + "cnt": cnts.reshape(-1, 1)}
+        tag = {"xdelta": "dver", "xmig": "mepoch"}.get(field)
+        if tag is not None:
+            fields[tag] = dl[tag].to(torch.int32).reshape(mb, 1, 1) \
+                .expand(mb, n_shards, 1).reshape(mb * n_shards, 1)
+        big = dataclasses.replace(lay, n_dest=mb * n_shards)
+        return a2a_mod.fuse_wire(fields, big).reshape(mb, n_shards, -1)
 
-    xdelta = pack_deltas() if has_delta else None
+    packed = {r[0]: pack_rider(*r) for r in riders}
+    if wire_check:
+        # the first payload byte of the slot: what the fault hook flips
+        first = next(f.offset for f in layout.fields if f.name != "wcs")
 
     def stage_a(j):
         rows = slice(j * b_mb, (j + 1) * b_mb)
@@ -566,9 +668,17 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
             # bs-row blocks, a free reshape
             payload = {k: v.reshape(n_shards, bs, *v.shape[1:])
                        for k, v in a2a_mod.encode_wire(pooled, wire).items()}
-        if has_delta:
-            payload["xdelta"] = xdelta[j]
+        for f, blob in packed.items():
+            payload[f] = blob[j]
+        if wire_check:
+            payload["wcs"] = torch.zeros((n_shards, 1), dtype=torch.uint32,
+                                         device=dev)
         buf = a2a_mod.fuse_wire(payload, layout)
+        if wire_check:
+            # stamp each destination's segment, THEN the injected
+            # corruption: the receiver's verify must catch it
+            integ.wire_stamp(buf, layout)
+            buf[:, first] ^= flip[m]
         # member m's dense rows of microbatch j (matches a2a delivery)
         dm = dense[j * b_mb + m * bs:j * b_mb + (m + 1) * bs]
         return buf, (apply_mlp(params["bot"], dm), hits)      # z0 (bs, s)
@@ -580,13 +690,16 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
             return bls_mod.Issued(buf)
         return a2a_mod.alltoallv_fused(buf, group)
 
-    def chunk_slice(chunk, hits, src):
-        """One source's contribution as its dense (bs, t_loc, s) table
-        slice: defuse, decode (and scatter if ragged), add that source's
-        pooled hits.  Sources own disjoint table ranges, so per-peer
-        consumption gives the monolithic defuse's bits."""
-        f = a2a_mod.defuse_wire(chunk, layout)
+    def chunk_slice(f, hits, src, wok=None):
+        """One source's defused chunk as its dense (bs, t_loc, s) table
+        slice: decode (and scatter if ragged), add that source's pooled
+        hits.  Sources own disjoint table ranges, so per-peer consumption
+        gives the monolithic defuse's bits.  ``wok`` (wire_check) is the
+        chunk's verify flag: a corrupt chunk's counts and contribution are
+        zeroed; its hits, which never rode the wire, still land."""
         if use_ragged:
+            if wok is not None:
+                f = dict(f, counts=f["counts"] * wok.to(f["counts"].dtype))
             # a one-source exchange: the flat slot is the shipped id
             sl = ragged_exchange_unpack({k: v[None] for k, v in f.items()},
                                         t_loc=t_loc, bs=bs,
@@ -595,23 +708,31 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
             sl = a2a_mod.decode_wire(f, emb_dtype)             # (bs, t_loc, s)
         if deg_mask[src]:
             sl = torch.zeros_like(sl)
+        if wok is not None:
+            sl = torch.where(wok, sl, torch.zeros_like(sl))
         if use_cache:
             sl = sl + hits[:, src * t_loc:(src + 1) * t_loc]
         return sl
 
     def stage_b(recv, side):
         z0, hits = side
-        # the delta harvest stays bytes, (P_src, sub-slot bytes; 0 without
-        # deltas), until every member's is gathered
-        harvest = torch.empty((n_shards, dbytes), dtype=torch.uint8,
+        # the harvest stays bytes, (P_src, rider bytes + flag; 0 without
+        # riders), until every member's is gathered
+        harvest = torch.zeros((n_shards, hbytes), dtype=torch.uint8,
                               device=recv.device)
         if pipe == "ring":
             def consume(carry, src, chunk):
                 emb, got = carry
+                f = a2a_mod.defuse_wire(chunk, layout)
+                wok = integ.wire_verify(chunk, layout) if wire_check \
+                    else None
                 emb[:, src * t_loc:(src + 1) * t_loc] = chunk_slice(
-                    chunk, hits, src)
-                if has_delta:
-                    got[src] = a2a_mod.defuse_wire(chunk, layout)["xdelta"]
+                    f, hits, src, wok)
+                for name, o in h_off.items():
+                    got[src, o:o + sub[name].slot_bytes] = f[name]
+                if wire_check:
+                    got[src, -4:] = (~wok).to(torch.int32).reshape(1) \
+                        .view(torch.uint8)
                 return emb, got
 
             emb_all, harvest = a2a_mod.ring_exchange(
@@ -620,8 +741,17 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
                              device=recv.device), harvest))
         else:
             f = a2a_mod.defuse_wire(recv, layout)
-            if has_delta:
-                harvest = f["xdelta"]
+            for name, o in h_off.items():
+                harvest[:, o:o + sub[name].slot_bytes] = f[name]
+            if wire_check:
+                wok = integ.wire_verify(recv, layout)           # (P,)
+                harvest[:, -4:] = (~wok).to(torch.int32)[:, None] \
+                    .view(torch.uint8)
+                if use_ragged:
+                    # corrupt sources' slot ids are garbage and the mono
+                    # scatter spans every source's slots: zero their counts
+                    f = dict(f, counts=f["counts"]
+                             * wok.to(f["counts"].dtype)[:, None])
             if use_ragged:
                 emb_all = ragged_exchange_unpack(f, t_loc=t_loc, bs=bs,
                                                  out_dtype=emb_dtype)
@@ -634,9 +764,17 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
                 # bit-exact for the survivors)
                 emb_all = emb_all * (1 - deg_cols.to(emb_all.dtype))[
                     None, :, None]
+            if wire_check:
+                keep = wok.repeat_interleave(t_loc)[None, :, None]
+                emb_all = torch.where(keep, emb_all,
+                                      torch.zeros_like(emb_all))
             if use_cache:
                 emb_all = emb_all + hits              # pooled-hit correction
-        z = torch.cat([z0[:, None, :], emb_all[:, :t]], dim=1)
+        # placement: the exchanged columns are PHYSICAL slots; gather the
+        # real tables back into original order for the interaction
+        emb_t = emb_all[:, inv_t[:t]] if inv_t is not None \
+            else emb_all[:, :t]
+        z = torch.cat([z0[:, None, :], emb_t], dim=1)
         inter = dot_interaction(z, backend)
         top_in = torch.cat([z0, inter.to(z0.dtype)], dim=-1)
         logit = apply_mlp(params["top"], top_in)[..., 0]
@@ -659,13 +797,18 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
             else cnt.new_zeros(())
         words = torch.stack([w.to(torch.int32) for w in (
             cnt.max(), over, cnt.sum() * deg_mask[m])])
-    # ONE all-gather carries every member's logits, diagnostic words and
-    # delta harvest as bytes, so neither adds a collective
+    # ONE all-gather carries every member's logits, diagnostic words,
+    # audit words, rider harvests and wire flags as bytes, so none adds a
+    # collective
+    aw = torch.empty(0, dtype=torch.int32, device=out.device) \
+        if audit_words is None else \
+        torch.as_tensor(audit_words).to(out.device, torch.int32).reshape(-1)
     n_out = out.numel() * out.element_size()
     n_w = words.numel() * 4
+    n_a = aw.numel() * 4
     flat = torch.cat([out.view(torch.uint8).reshape(-1),
-                      words.view(torch.uint8), torch.stack(harvest)
-                      .reshape(-1)])
+                      words.view(torch.uint8), aw.view(torch.uint8),
+                      torch.stack(harvest).reshape(-1)])
     got = [torch.empty_like(flat) for _ in range(n_shards)]
     dist.all_gather(got, flat, group=group)
     got = torch.stack(got)
@@ -676,16 +819,26 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
     if not return_diag:
         return logits
     ctr = got[:, n_out:n_out + n_w].contiguous().view(torch.int32)
-    staged = None
-    if has_delta:
-        # every member's harvest, (P_dst, mb, P_src, ...) a leaf
-        rows = got[:, n_out + n_w:].reshape(-1, dbytes)
-        staged = {k: v.reshape((n_shards, mb, n_shards) + v.shape[1:])
-                  for k, v in a2a_mod.defuse_wire(rows, dlayout).items()}
+    audit = got[:, n_out + n_w:n_out + n_w + n_a].contiguous() \
+        .view(torch.int32) if audit_words is not None else None
+    # every member's harvest: (P_dst, mb, P_src, ...) a leaf
+    rows = got[:, n_out + n_w + n_a:].reshape(-1, hbytes) if hbytes \
+        else None
+    lead = (n_shards, mb, n_shards)
+    staged = {}
+    for name, o in h_off.items():
+        lay = sub[name]
+        part = rows[:, o:o + lay.slot_bytes].contiguous()
+        staged[name] = {k: v.reshape(lead + v.shape[1:]) for k, v in
+                        a2a_mod.defuse_wire(part, lay).items()}
+    wbad = rows[:, -4:].contiguous().view(torch.int32).reshape(lead) \
+        if wire_check else None
     return logits, ExchangeDiag(
         ctr[:, 0].max(), ctr[:, 1].sum(dtype=torch.int32),
         ctr[:, 2].sum(dtype=torch.int32),
-        "ragged" if use_ragged else "dense", cap, dense_rows, staged)
+        "ragged" if use_ragged else "dense", cap, dense_rows,
+        staged.get("xdelta"), staged.get("xmig"), staged.get("xrep"), wbad,
+        audit)
 
 
 def table_means(tables, t_pad: int, group):

@@ -42,8 +42,8 @@ import numpy as np
 from repro_torch.core import schedule_sim as sim
 from repro_torch.runtime.elastic import NodeFailure, group_ranks
 
-# the named steps of an online reshard (ROADMAP A11), which a migration
-# crash is scheduled at
+# the named steps of an online reshard (``runtime/reshard.py``), which a
+# migration crash is scheduled at
 MIG_STAGES = ("ship", "bank", "verify", "install", "commit")
 
 

@@ -31,6 +31,11 @@ updater blocks when a member falls ``k_fresh`` versions behind.
   * Each member process runs the same manager on the same harvest (the
     forward hands every member the whole group's), so every decision and
     counter is the same on all of them and equal to the reference's.
+  * Under a table placement (``runtime/reshard.py``) rows route to their
+    table's CURRENT owner and are written to its physical slot; every
+    committed row is reported to a live reshard (``note_applied``: a
+    banked copy is patched, an in-flight one re-ships) and to the
+    scrubber, whose mirror and ledger follow every authorized write.
 
 Degraded members and updater stragglers keep serving their last-good
 version: their rows stay buffered and their lag holds the gate.
@@ -47,6 +52,27 @@ import torch
 from repro_torch.core.integrity import row_checksum
 from repro_torch.runtime.elastic import NodeFailure
 from repro_torch.serving import hot_cache as hc_mod
+
+def to_host_async(staged: dict, pinned: dict):
+    """(host tensors, event or None): a copy of a harvest's leaves that
+    does not block.  On the card the leaves go into pinned host buffers
+    kept in ``pinned`` (reused while their shape holds) behind an event
+    the reader synchronizes on; on the CPU they are copied as they are.
+    The delta, migration and repair harvests all bank this way."""
+    if next(iter(staged.values())).device.type != "cuda":
+        return {k: v.cpu() for k, v in staged.items()}, None
+    host = {}
+    for k, v in staged.items():
+        buf = pinned.get(k)
+        if buf is None or buf.shape != v.shape or buf.dtype != v.dtype:
+            buf = pinned[k] = torch.empty(v.shape, dtype=v.dtype,
+                                          pin_memory=True)
+        buf.copy_(v, non_blocking=True)
+        host[k] = buf
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
 
 @dataclasses.dataclass
 class VersionLedger:
@@ -131,16 +157,29 @@ class FreshnessManager:
         return p, t_pad // p, r
 
     @staticmethod
-    def _owner(gid: int, t_loc: int, r: int) -> int:
-        return (gid // r) // t_loc
+    def _inv_of(engine):
+        """The engine's placement inverse (original table -> physical
+        slot), or None under the identity boot layout: ownership follows
+        the CURRENT placement, so rows route to their owner across a
+        cutover."""
+        pm = getattr(engine, "pmap", None)
+        if pm is None or pm.is_identity:
+            return None
+        return pm.inv_array()
+
+    @staticmethod
+    def _owner(gid: int, t_loc: int, r: int, inv=None) -> int:
+        tab = gid // r
+        return (int(inv[tab]) if inv is not None else tab) // t_loc
 
     def _refresh_ledger(self, engine):
         p, t_loc, r = self._geometry(engine)
+        inv = self._inv_of(engine)
         applied = np.full(p, self.latest_pulled, np.int64)
         for v, gids in self._remaining.items():
             if not gids:
                 continue
-            for m in {self._owner(g, t_loc, r) for g in gids}:
+            for m in {self._owner(g, t_loc, r, inv) for g in gids}:
                 applied[m] = min(applied[m], v - 1)
         self.ledger = VersionLedger(self.k_fresh, applied,
                                     self.ledger.shipped_max)
@@ -250,25 +289,9 @@ class FreshnessManager:
         pinned host buffers behind an event, and the PREVIOUS flush's
         harvest, long since arrived, is verified now."""
         self._process_held(engine)
-        self._held = self._to_host(staged)
+        self._held = to_host_async(staged, self._pinned)
         self._banked = self._inflight
         self._inflight = []
-
-    def _to_host(self, staged):
-        """(host tensors, event or None): a copy that does not block."""
-        if next(iter(staged.values())).device.type != "cuda":
-            return {k: v.cpu() for k, v in staged.items()}, None
-        host = {}
-        for k, v in staged.items():
-            buf = self._pinned.get(k)
-            if buf is None or buf.shape != v.shape or buf.dtype != v.dtype:
-                buf = self._pinned[k] = torch.empty(
-                    v.shape, dtype=v.dtype, pin_memory=True)
-            buf.copy_(v, non_blocking=True)
-            host[k] = buf
-        done = torch.cuda.Event()
-        done.record()
-        return host, done
 
     def _process_held(self, engine) -> None:
         """Verify the banked harvest.  Leaves are ``(P_dst, mb, P_src,
@@ -330,12 +353,13 @@ class FreshnessManager:
             return
         t_host = time.perf_counter()
         _, t_loc, r = self._geometry(engine)
+        inv = self._inv_of(engine)
         skip = {int(d) for d in engine.degraded_members}
         if engine.faults is not None:
             skip |= engine.faults.stalled_positions(step)
         ready, hold = [], []
         for v, g in self._apply_buf:
-            (hold if self._owner(g, t_loc, r) in skip
+            (hold if self._owner(g, t_loc, r, inv) in skip
              else ready).append((v, g))
         if not ready:
             self._apply_buf = hold
@@ -350,6 +374,9 @@ class FreshnessManager:
             self._batches[best[g]][0].vec[self._batches[best[g]][1][g]]
             for g in gids])
         tab, row = gids // r, gids % r
+        if inv is not None:
+            # the stack holds physical slots under a placement
+            tab = inv[tab].astype(np.int64)
         tables, cache = engine.params["tables"], engine.cache
         dev = tables.device
         events = None
@@ -386,6 +413,24 @@ class FreshnessManager:
         if events is not None:
             events[1].record()
         engine._staged_plan = None       # staged plans predate the write
+        if cache is not None and cache.cache_rows > 0:
+            # a refreshed cache is a new object, as the reference's
+            # refresh builds one: a scrubber's slot audit dispatched
+            # before it is stale
+            engine.cache = hc_mod.HotCache(hot_ids=cache.hot_ids,
+                                           hot_rows=cache.hot_rows,
+                                           slot_of=cache.slot_of)
+        # a live migration's banked or in-flight copies of these rows are
+        # stale now, and the scrubber's mirror and ledger must follow
+        # every authorized write
+        resh = getattr(engine, "reshard", None)
+        scrub = getattr(engine, "scrub", None)
+        dt = np.dtype(np.float32)        # deltas serve f32 stacks only
+        for k, g in enumerate(gids):
+            if resh is not None and resh.active:
+                resh.note_applied(int(g), vecs[k], dt)
+            if scrub is not None:
+                scrub.note_applied(int(g), vecs[k], dt)
         self._apply_buf = hold
         for v, g in ready:
             rem = self._remaining.get(v)
@@ -434,8 +479,14 @@ class FreshnessManager:
         if not pend:
             return 0
         _, _, r = self._geometry(engine)
-        t = torch.arange(idx.shape[1], device=idx.device)[None, :, None]
-        gids_b = t * r + idx.long()
+        # idx columns are PHYSICAL slots under a placement: map each back
+        # to its original table before forming gids
+        inv = self._inv_of(engine)
+        t = torch.arange(idx.shape[1], device=idx.device)
+        if inv is not None:
+            t = torch.from_numpy(engine.pmap.perm_array().astype(np.int64)
+                                 ).to(idx.device)
+        gids_b = t[None, :, None] * r + idx.long()
         # membership by binary search in the sorted pending gids: exact,
         # and it never forms the (ids x pending) comparison
         want = torch.tensor(sorted(pend), dtype=torch.int64,

@@ -10,7 +10,9 @@ engine with a hot-row cache onto the ragged exchange.  ``plan_pipeline``
 builds each batch's stream plans off the critical path and returns results
 one flush late; the chaos options (``faults``, ``deadline_s``,
 ``on_deadline``) serve around stragglers and evict crashed members;
-``freshness`` applies versioned embedding-row updates between flushes.
+``freshness`` applies versioned embedding-row updates between flushes;
+``rebalance`` moves tables between members while serving continues, and
+``scrub_budget`` audits, quarantines and repairs corrupted rows.
 """
 from __future__ import annotations
 
@@ -33,7 +35,9 @@ from repro_torch.models import dlrm as dlrm_mod
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.runtime import elastic
+from repro_torch.runtime import placement as plc_mod
 from repro_torch.runtime.elastic import Evicted, NodeFailure
+from repro_torch.runtime.reshard import MIG_KEYS, ReshardExecutor
 from repro_torch.runtime.straggler import (CapAutotuner, StragglerMonitor,
                                            detect_stragglers)
 from repro_torch.serving import hot_cache as hc_mod
@@ -41,6 +45,9 @@ from repro_torch.train import steps as steps_mod
 
 # the delta wire leaves, in the order FreshnessManager.next_wire emits them
 DELTA_KEYS = ("dcnt", "dcs", "dgid", "dvec", "dver")
+
+# the integrity-repair wire leaves, in the order Scrubber.next_wire emits
+REP_KEYS = ("rcnt", "rcs", "rgid", "rvec")
 
 
 @dataclasses.dataclass
@@ -62,6 +69,23 @@ class ServeStats:
     versions_behind: int = 0    # ledger spread after the last flush
     delta_rejects: int = 0      # checksum-rejected (re-shipped) delta rows
     apply_rollbacks: int = 0    # applies abandoned by a mid-apply crash
+    # -- placement ledger (skew-aware resharding) --------------------------
+    reshards: int = 0           # committed placement cutovers
+    reshard_aborts: int = 0     # in-flight reshards torn down by evict()
+    migrated_rows: int = 0      # embedding rows moved by committed cutovers
+    imbalance_ratio: float = 1.0   # max/mean per-member pooled-row load
+    flush_time_ratio: float = 1.0  # max/mean per-member flush-time estimate
+    # -- scrub ledger (silent-corruption self-healing) ---------------------
+    blocks_scrubbed: int = 0    # table blocks audited on the device
+    detections: int = 0         # rows (or cache slots) caught corrupt
+    repaired_rows: int = 0      # quarantined rows restored from the mirror
+    quarantined_served: int = 0  # bags that touched a quarantined row
+    wire_rejects: int = 0       # (dst, microbatch, src) segments rejected
+    detection_lag_flushes: int = 0  # worst inject -> detect lag observed
+    # per-member exchange telemetry (EWMA pooled rows / exchanged bytes),
+    # lists so the JSON view keeps the member axis
+    member_rows: list = dataclasses.field(default_factory=list)
+    member_bytes: list = dataclasses.field(default_factory=list)
 
     @property
     def throughput_rps(self) -> float:
@@ -147,15 +171,40 @@ class DLRMEngine:
     counters of :class:`ServeStats` mirror the manager's.  The rows are
     written into ``params["tables"]`` (and the cache) in place: pass a
     copy of the stack to keep the original.
-    ``layout_version`` counts the layout changes (evictions), on which a
-    frontend resets its flush-time estimate.
+    ``layout_version`` counts the layout changes (evictions and
+    cutovers), on which a frontend resets its flush-time estimate.
+
+    Skew-aware placement: ``rebalance=True`` feeds every flush's live-bag
+    counts to a per-table ``runtime.placement.TableLoadModel``; per-member
+    imbalance over ``rebalance_threshold`` for ``rebalance_patience``
+    flushes (paused while a frontend's ladder is off FULL) plans a minimal
+    LPT migration and runs it online (:meth:`start_reshard`,
+    ``runtime.reshard``): the moved rows ride the exchange as the
+    ``"xmig"`` field in ``mig_slice_cap``-row installments while serving
+    continues bit-exact on the old layout, then the cutover swaps the
+    stack.  An eviction aborts a reshard in flight and makes a rebalance
+    on the shrunken group mandatory.  At P = 1 no plan is ever made; a
+    plan handed to :meth:`start_reshard` still runs.
+
+    Integrity: ``scrub_budget`` > 0 arms a ``runtime.scrub.Scrubber``
+    (``scrub_block_rows``, ``rep_slice_cap``, ``quarantine_cap``,
+    ``scrub_mirror``): each flush audits that many row blocks and cache
+    slots, quarantined rows are masked out of every bag, repairs from the
+    host mirror ride the ``"xrep"`` field, and every wire slot carries a
+    segment checksum (``"wcs"``) whose rejects escalate a persistently
+    corrupt source through the confirm -> degrade -> evict ladder.  Each
+    member audits its own copy and the mismatch words ride the logits'
+    all-gather, so every member quarantines and repairs alike.  The bit
+    flips of a fault plan (``with_bitflip``) land IN PLACE in the named
+    member's copy only, and repairs are written in place: pass a copy of
+    the stack to keep the original.  Rebalancing and scrubbing need the whole (T_pad,
+    R, s) stack, as freshness does.
 
     ``unroll`` is the reference's BLS scan unroll (None or >= 1).  The
     reference compiles microbatches in an unrolled scan differently unless
     ``unroll=1``, so a request's CTR there depends on its position in the
     batch; here every microbatch runs the same code at the same shape, so
-    it never does, and the value changes nothing.  ``rebalance`` and
-    ``scrub_budget`` raise ``NotImplementedError``."""
+    it never does, and the value changes nothing."""
 
     def __init__(self, params, cfg: DLRMConfig, *, batch_size: int = 512,
                  bound: int = 0, microbatches: int = 1,
@@ -173,7 +222,15 @@ class DLRMEngine:
                  on_deadline: str = "block", faults=None, freshness=None,
                  degraded_fallback: str = "zero", confirm_after: int = 2,
                  max_retries: int = 2, retry_backoff_s: float = 0.0,
-                 rebalance: bool = False, scrub_budget: int = 0):
+                 rebalance: bool = False,
+                 rebalance_threshold: float = 1.25,
+                 rebalance_patience: int = 8,
+                 mig_slice_cap: int = 8,
+                 scrub_budget: int = 0,
+                 scrub_block_rows: int = 32,
+                 rep_slice_cap: int = 8,
+                 quarantine_cap: int = 64,
+                 scrub_mirror: bool = True):
         self.device = resolve_device(device)
         if unroll is not None and (isinstance(unroll, bool) or
                                    not isinstance(unroll, int) or unroll < 1):
@@ -197,12 +254,6 @@ class DLRMEngine:
                 raise ValueError(
                     f"{name} {path}; plan_pipeline's deferred harvest would "
                     f"tear that boundary — run {name} without plan_pipeline")
-        for name, val, item in (("rebalance", rebalance, "A11"),
-                                ("scrub_budget", scrub_budget, "A12")):
-            if val:
-                raise NotImplementedError(
-                    f"DLRMEngine({name}=...) is not ported yet (ROADMAP "
-                    f"{item})")
         self.params, self.cfg = params, cfg
         if params["tables"].device != self.device:
             raise ValueError(f"parameters are on {params['tables'].device}, "
@@ -248,14 +299,41 @@ class DLRMEngine:
         # (fitted idx, plan) staged by stage_plan() for the next flush
         self._staged_plan = None
         self.plan_stage_hits = 0       # flushes served a staged plan
-        # bumped on every layout change (eviction): the frontend's flush
-        # estimate keys off it to recalibrate
+        # bumped on every layout change (cutover, eviction): the
+        # frontend's flush estimate keys off it to recalibrate
         self.layout_version = 0
-        if freshness is not None and \
-                params["tables"].shape[0] != self._exchange_geometry()[1]:
-            raise ValueError(
-                "freshness writes its rows into the whole (T_pad, R, s) "
-                "stack; the engine holds one member's shard")
+        for name, val in (("freshness", freshness is not None),
+                          ("rebalance", rebalance),
+                          ("scrub_budget", bool(scrub_budget))):
+            if val and params["tables"].shape[0] != \
+                    self._exchange_geometry()[1]:
+                raise ValueError(
+                    f"{name} writes rows into the whole (T_pad, R, s) "
+                    f"stack; the engine holds one member's shard")
+        # -- skew-aware placement + online resharding ----------------------
+        self.rebalance = bool(rebalance)
+        self.rebalance_threshold = float(rebalance_threshold)
+        self.rebalance_patience = max(1, int(rebalance_patience))
+        self.mig_slice_cap = max(1, int(mig_slice_cap))
+        self._pmap = None              # None == identity boot placement
+        self.reshard = None            # the ReshardExecutor in flight
+        self._reshard_epoch = 0        # fences dead reshards' wire slices
+        self.load_model = None         # TableLoadModel, sized per geometry
+        self._member_ewma = None       # EWMA per-member pooled live rows
+        self._imb_streak = 0           # consecutive over-threshold flushes
+        self._rebalance_pending = False  # mandatory rebalance after evict()
+        # -- integrity scrubbing -------------------------------------------
+        self.scrub = None
+        self._held_wbad = None         # the previous flush's wire flags
+        self._wire_streak: dict = {}   # per-src consecutive-corrupt flushes
+        self._flip_log: dict = {}      # injected-flip gid -> flush, for lag
+        if scrub_budget:
+            from repro_torch.runtime.scrub import Scrubber
+            self.scrub = Scrubber(self, budget=int(scrub_budget),
+                                  block_rows=int(scrub_block_rows),
+                                  slice_cap=int(rep_slice_cap),
+                                  quarantine_cap=int(quarantine_cap),
+                                  mirror=bool(scrub_mirror))
 
     def calibrate_cache(self, idx: np.ndarray, mask: np.ndarray,
                         cache_rows: Optional[int] = None):
@@ -275,6 +353,24 @@ class DLRMEngine:
     def _group(self):
         return self.group if self.group is not None \
             else mesh_mod.current_group()
+
+    @property
+    def pmap(self) -> "plc_mod.PartitionMap":
+        """The live table placement; None inside means the identity boot
+        layout (t_pad depends on the group, so it is made on demand)."""
+        if self._pmap is None:
+            _, t_pad, _, _ = self._exchange_geometry()
+            return plc_mod.PartitionMap.identity(t_pad)
+        return self._pmap
+
+    def _table_inv(self):
+        """The placement inverse the forward gathers through, or None: it
+        rides whenever a migration is live or the map is not the
+        identity."""
+        live = self.reshard is not None and self.reshard.active
+        if live or (self._pmap is not None and not self._pmap.is_identity):
+            return self.pmap.inv_array()
+        return None
 
     # -- stream plans off the critical path --------------------------------
 
@@ -341,17 +437,19 @@ class DLRMEngine:
             out.append(t.to(self.device, non_blocking=quiet))
         return tuple(out)
 
-    def _dispatch(self, dense, idx, mask, plan=None, deltas=None):
+    def _dispatch(self, dense, idx, mask, plan=None, **riders):
         """One forward on the model group: (CTRs, diagnostics or None,
-        the harvested delta rows or None), left where they were computed.
-        The diagnostics cost a re-probe of the misses: only when something
-        reads them (drop monitoring under 'ragged', the autotuner under
-        'auto' with a cache, the degraded ledger) or when deltas, which
-        come back in them, ride the exchange."""
+        the whole diagnostics with the riders' harvests or None), left
+        where they were computed.  ``riders``: the forward's ``deltas``,
+        ``migration``, ``repair``, ``quarantine``, ``wire_flip``,
+        ``wire_check`` and ``audit_words``.  The diagnostics cost a re-probe of the misses:
+        only when something reads them (drop monitoring under 'ragged',
+        the autotuner under 'auto' with a cache, the degraded ledger) or
+        when riders, which come back in them, ride the exchange."""
         diag_on = self.exchange == "ragged" or (
             self.exchange == "auto" and self.cache is not None) or \
             bool(self.degraded_members)
-        want = diag_on or deltas is not None
+        want = diag_on or bool(riders)
         with torch.no_grad():
             res = dlrm_mod.forward_distributed(
                 self.params, self.cfg, dense, idx, mask,
@@ -360,13 +458,13 @@ class DLRMEngine:
                 exchange=self.exchange, ragged_cap=self.ragged_cap,
                 exchange_pipeline=self.exchange_pipeline,
                 row_block=self.row_block, pool_mode=self.pool_mode,
-                plan=plan, deltas=deltas,
+                plan=plan, table_inv=self._table_inv(), **riders,
                 degraded_members=self.degraded_members,
                 degraded_fallback=self.degraded_fallback,
                 return_diag=want, group=self._group())
         logits, diag = res if want else (res, None)
         return (torch.sigmoid(logits), diag if diag_on else None,
-                diag.staged if want else None)
+                diag if want else None)
 
     def _agreed(self, seconds: float) -> float:
         """A lockstep flush takes its slowest member's time: with a
@@ -403,6 +501,7 @@ class DLRMEngine:
             self.retune_cap()
         if step_no is not None:
             self._after_flush(step_no, elapsed)
+            self.maybe_rebalance()
         return out[:n]
 
     def _harvest(self):
@@ -505,32 +604,88 @@ class DLRMEngine:
     def _run_batch(self, d, i, m, step_no):
         """Dispatch one batch under fault injection with bounded-retry
         eviction: a ``NodeFailure`` evicts the crashed member and the same
-        batch is dispatched again on the survivors."""
+        batch is dispatched again on the survivors.  Between flushes, in
+        order: the freshness apply, the scrubber's repair apply, the
+        injected bit flips and the audit, then the reshard's cutover once
+        every moved row is banked."""
         for attempt in range(self.max_retries + 1):
             try:
-                fr = self.freshness
+                fr, sc = self.freshness, self.scrub
                 if fr is not None:
                     # the apply window sits BETWEEN flushes: rows harvested
                     # earlier commit (or roll back) before this batch goes
                     fr.apply(self, step_no)
+                if sc is not None:
+                    # repairs share the window, after the deltas (a delta
+                    # that already overwrote a corruption wins); injected
+                    # flips land before the audit, which must find them
+                    sc.apply(self, step_no)
+                    if self.faults is not None:
+                        for (pos, t, r, b, tgt) in \
+                                self.faults.bitflips(step_no):
+                            self._inject_bitflip(pos, t, r, b, tgt, step_no)
+                    for g in sc.audit(self, step_no):
+                        fs = self._flip_log.pop(g, None)
+                        if fs is not None:
+                            self.stats.detection_lag_flushes = max(
+                                self.stats.detection_lag_flushes,
+                                step_no - fs)
+                # the cutover sits between flushes too
+                resh = self.reshard
+                if resh is not None and resh.try_commit(self, step_no):
+                    self._finish_cutover(resh)
                 if self.faults is not None:
                     self.faults.on_flush(step_no, self._group(),
                                          exclude=self.degraded_members)
-                dense, idx, mask = self._upload(*self._fit_batch(d, i, m))
-                if fr is None:
-                    return self._dispatch(dense, idx, mask)[:2]
-                dw = fr.next_wire(self, step_no)
-                deltas = dict(zip(DELTA_KEYS, self._upload(
-                    *(dw[k] for k in DELTA_KEYS))))
-                out, diag, staged = self._dispatch(dense, idx, mask,
-                                                   deltas=deltas)
-                fr.ingest(staged, self, step_no)
-                self.stats.rows_stale_served += \
-                    fr.count_stale_served(self, idx, mask)
-                self.stats.rows_applied = fr.rows_applied
-                self.stats.delta_rejects = fr.delta_rejects
-                self.stats.apply_rollbacks = fr.rollbacks
-                self.stats.versions_behind = fr.ledger.versions_behind
+                fd, fi, fm = self._fit_batch(d, i, m)
+                dense, idx, mask = self._upload(fd, fi, fm)
+                riders = {}
+                if fr is not None:
+                    dw = fr.next_wire(self, step_no)
+                    riders["deltas"] = dict(zip(DELTA_KEYS, self._upload(
+                        *(dw[k] for k in DELTA_KEYS))))
+                mig_live = self.reshard is not None and self.reshard.active
+                if mig_live:
+                    mw = self.reshard.next_wire(self, step_no)
+                    riders["migration"] = dict(zip(MIG_KEYS, self._upload(
+                        *(mw[k] for k in MIG_KEYS))))
+                if sc is not None:
+                    rw = sc.next_wire(self, step_no)
+                    riders["repair"] = dict(zip(REP_KEYS, self._upload(
+                        *(rw[k] for k in REP_KEYS))))
+                    riders["quarantine"], riders["wire_flip"] = \
+                        self._upload(sc.quarantine_phys(self),
+                                     self._wire_flip_arg(step_no))
+                    riders["wire_check"] = True
+                    riders["audit_words"] = sc.audit_words
+                out, diag, full = self._dispatch(dense, idx, mask, **riders)
+                held_wbad = None
+                if sc is not None:
+                    # the wire flags bank one flush unread and are read at
+                    # the END of the next flush (_note_wire may evict, and
+                    # the accounting below must see this batch's geometry)
+                    held_wbad, self._held_wbad = self._held_wbad, full.wbad
+                    sc.bank_audit(full.audit)
+                    sc.ingest(full.staged_rep, self, step_no)
+                if mig_live:
+                    self.reshard.ingest(full.staged_mig, self, step_no)
+                if fr is not None:
+                    fr.ingest(full.staged, self, step_no)
+                    self.stats.rows_stale_served += \
+                        fr.count_stale_served(self, idx, mask)
+                    self.stats.rows_applied = fr.rows_applied
+                    self.stats.delta_rejects = fr.delta_rejects
+                    self.stats.apply_rollbacks = fr.rollbacks
+                    self.stats.versions_behind = fr.ledger.versions_behind
+                if sc is not None:
+                    self.stats.blocks_scrubbed = sc.blocks_scrubbed
+                    self.stats.detections = sc.detections
+                    self.stats.repaired_rows = sc.repaired_rows
+                    self.stats.quarantined_served += \
+                        sc.count_quarantined_served(self, idx, mask)
+                self._observe_load(fm, step_no)
+                if held_wbad is not None:
+                    self._note_wire(held_wbad, step_no)
                 return out, diag
             except NodeFailure as e:
                 if attempt >= self.max_retries:
@@ -545,7 +700,9 @@ class DLRMEngine:
         """Re-fit the sparse tensors to the group's table padding:
         t_pad = padded_tables(cfg, P), which changes with an eviction.
         Padding tables carry mask 0 and are never indexed, so cropping or
-        zero-padding them is exact."""
+        zero-padding them is exact.  A non-identity placement then
+        PERMUTES the table axis: physical column p serves original table
+        perm[p]."""
         _, t_pad, _, _ = self._exchange_geometry()
         have = i.shape[1]
         if have > t_pad:
@@ -555,7 +712,220 @@ class DLRMEngine:
             mz = np.zeros((m.shape[0], t_pad - have, m.shape[2]), m.dtype)
             i = np.concatenate([i, iz], axis=1)
             m = np.concatenate([m, mz], axis=1)
+        pm = self._pmap
+        if pm is not None and not pm.is_identity:
+            perm = pm.perm_array()
+            i = np.take(i, perm, axis=1)
+            m = np.take(m, perm, axis=1)
         return d, i, m
+
+    # -- silent-corruption self-healing ------------------------------------
+
+    def _wire_flip_arg(self, step_no):
+        """The (P_src, P_dst) uint8 XOR hook the forward applies to the
+        first payload byte of each fused slot: zeros (the identity) on a
+        healthy group; the fault plan's wire corruptions set one byte,
+        which the segment checksum catches (every byte weighs)."""
+        p, _, _, _ = self._exchange_geometry()
+        flip = np.zeros((p, p), np.uint8)
+        if self.faults is not None:
+            for (src, dst) in self.faults.wire_corruptions(step_no):
+                if src < p and dst < p:
+                    flip[src, dst] = 1
+        return flip
+
+    def _note_wire(self, wb, step_no):
+        """Process one BANKED flush's wire flags ((P_dst, mb, P_src)):
+        ledger the rejects and walk persistently corrupt SOURCES up the
+        straggler ladder (a streak >= confirm_after degrades the member,
+        >= 2x evicts it).  A rejected segment was zeroed at consume and
+        the riders re-ship, so no request is lost to it.  Every member
+        reads the same gathered flags and takes the same steps."""
+        p, _, _, _ = self._exchange_geometry()
+        arr = wb.cpu().numpy().reshape(-1)
+        if arr.size % p:
+            return                       # geometry changed under the bank
+        per_src = arr.reshape(-1, p).sum(axis=0)
+        self.stats.wire_rejects += int(per_src.sum())
+        for q in range(p):
+            if per_src[q]:
+                streak = self._wire_streak.get(q, 0) + 1
+                self._wire_streak[q] = streak
+                if streak >= 2 * self.confirm_after:
+                    self._wire_streak.pop(q, None)
+                    self.evict_member(q)
+                    return               # ranks renumbered: stop here
+                if streak >= self.confirm_after and \
+                        q not in self.degraded_members:
+                    self.degrade(tuple(set(self.degraded_members) | {q}))
+            else:
+                self._wire_streak.pop(q, None)
+
+    def _inject_bitflip(self, member, table, row, bit, target, step_no):
+        """Flip ONE bit of a resident table row (``target='table'``) or of
+        its hot-cache copy (``'cache'``) in the memory of the member at
+        group position ``member``, IN PLACE: the fault plan's hook the
+        scrubber must catch.  ``table``/``row`` are ORIGINAL-space; the
+        live placement gives the physical slot.  Silent corruption hits
+        one process, so only that member's copy changes; every member logs
+        the flip (the detection lag is agreed, as the detection is) and,
+        for a cache flip, swaps in a new cache object, as the reference's
+        functional update does, so all drop the same stale slot audit."""
+        pm = self._pmap
+        phys_t = int(pm.inv_array()[table]) if pm is not None \
+            and not pm.is_identity else int(table)
+        group = self._group()
+        mine = int(member) == (dist.get_rank(group) if group is not None
+                               else 0)
+        byte, bi = divmod(int(bit), 8)
+        b = None
+        if target == "cache":
+            c = self.cache
+            if c is None:
+                return
+            slot = int(c.slot_of[phys_t, row])
+            if slot < 0:
+                return                   # row not cached: nothing to flip
+            if mine:
+                b = c.hot_rows[phys_t, slot].view(torch.uint8)
+            self.cache = hc_mod.HotCache(hot_ids=c.hot_ids,
+                                         hot_rows=c.hot_rows,
+                                         slot_of=c.slot_of)
+        elif mine:
+            b = self.params["tables"][phys_t, row].view(torch.uint8)
+        if b is not None:
+            k = byte % b.numel()
+            b[k] = b[k] ^ (1 << bi)
+        r_all = int(self.params["tables"].shape[1])
+        self._flip_log[int(table) * r_all + int(row)] = step_no
+
+    # -- skew-aware placement: telemetry, policy, online resharding --------
+
+    def _observe_load(self, fm, step_no):
+        """Per-table and per-member load telemetry from the flushed
+        batch's live bags: the placement cost model's input and the
+        ``ServeStats`` imbalance mirror.  ``fm`` is the FITTED (permuted)
+        host mask, so physical-column counts map back to ORIGINAL table
+        space before they feed the EWMA: observations survive cutovers."""
+        p, t_pad, _, _ = self._exchange_geometry()
+        live = (fm > 0).sum(axis=(0, 2)).astype(np.float64)
+        pm = self._pmap
+        if pm is not None and not pm.is_identity:
+            orig = np.empty_like(live)
+            orig[pm.perm_array()] = live
+        else:
+            orig = live
+        if self.load_model is None or self.load_model.n_tables != t_pad:
+            self.load_model = plc_mod.TableLoadModel(t_pad)
+        wire = a2a_mod.canon_wire(self.wire_dtype)
+        row_b = self.cfg.embed_dim * a2a_mod.WIRE_ITEMSIZE[wire] \
+            + a2a_mod.WIRE_SCALE_BYTES[wire]
+        self.load_model.observe(orig, row_bytes=row_b)
+        # per-member pooled rows (physical slot ranges ARE the members)
+        mrows = live.reshape(p, -1).sum(axis=1)
+        if self._member_ewma is None or len(self._member_ewma) != p:
+            self._member_ewma = mrows.copy()
+        else:
+            self._member_ewma = 0.75 * self._member_ewma + 0.25 * mrows
+        st = self.stats
+        st.member_rows = [float(x) for x in self._member_ewma]
+        st.member_bytes = [
+            float(a2a_mod.dispatch_stats(
+                np.asarray([c]), int(np.ceil(max(float(c), 1.0))),
+                row_b).useful_bytes)
+            for c in self._member_ewma]
+        st.imbalance_ratio = plc_mod.imbalance(self._member_ewma)
+        if self.faults is not None:
+            base = self.monitor.percentile(0.5) or 1e-3
+            lats = np.asarray(sorted(
+                self.faults.latencies(step_no, base).values()), np.float64)
+            st.flush_time_ratio = float(lats.max() / lats.mean()) \
+                if lats.size and lats.mean() > 0 else 1.0
+        else:
+            # lockstep members give no per-member clock: the exchange
+            # load ratio is the best flush-time estimate available
+            st.flush_time_ratio = st.imbalance_ratio
+
+    def _table_rows(self, t_pad):
+        """Real (unpadded) per-original-table row counts over the padded
+        stack: what a migration of each table ships."""
+        rows = np.zeros(t_pad, np.int64)
+        sizes = np.asarray(self.cfg.table_sizes, np.int64)[:t_pad]
+        rows[:sizes.shape[0]] = sizes
+        return rows
+
+    def maybe_rebalance(self, *, force=False):
+        """The background rebalance policy, once per harvested batch:
+        start an online reshard when per-member imbalance stayed over
+        ``rebalance_threshold`` for ``rebalance_patience`` flushes, or at
+        once after an eviction re-leveled the geometry.  Pauses while a
+        frontend's ladder is off FULL.  Returns the started
+        :class:`ReshardExecutor`, or None (always at P < 2)."""
+        if self.plan_pipeline or (not self.rebalance and not force):
+            return None
+        if self.reshard is not None:
+            return None
+        lm = self.load_model
+        if lm is None or not lm.ready:
+            return None
+        if getattr(self.stats, "level", 0) > 0:   # LEVEL_FULL only
+            return None
+        p, t_pad, _, _ = self._exchange_geometry()
+        if p < 2:
+            return None
+        ml = plc_mod.member_loads(lm.loads, self.pmap, p)
+        imb = plc_mod.imbalance(ml)
+        if not (force or self._rebalance_pending):
+            if imb < self.rebalance_threshold:
+                self._imb_streak = 0
+                return None
+            self._imb_streak += 1
+            if self._imb_streak < self.rebalance_patience:
+                return None
+        plan = plc_mod.plan_migration(
+            self.pmap, lm.loads, p, table_rows=self._table_rows(t_pad))
+        self._imb_streak = 0
+        self._rebalance_pending = False
+        if plan.is_noop:
+            return None
+        return self.start_reshard(plan)
+
+    def start_reshard(self, plan, *, slice_cap=None):
+        """Begin a crash-safe online reshard onto ``plan``: the moved rows
+        ride the exchange in ``slice_cap``-row installments while serving
+        continues bit-exact on the old layout; a later flush cuts over
+        once every row is banked and verified, and any crash before rolls
+        back through :meth:`evict`."""
+        if self.plan_pipeline:
+            raise ValueError(
+                "online resharding migrates rows through the synchronous "
+                "flush path; plan_pipeline's deferred harvest would tear "
+                "the cutover boundary — rebalance without plan_pipeline")
+        if self.reshard is not None:
+            raise ValueError("a reshard is already in flight")
+        if self.params["tables"].shape[0] != self._exchange_geometry()[1]:
+            raise ValueError("a reshard rebuilds the whole (T_pad, R, s) "
+                             "stack; the engine holds one member's shard")
+        self._reshard_epoch += 1
+        ex = ReshardExecutor(plan, epoch=self._reshard_epoch,
+                             slice_cap=slice_cap or self.mig_slice_cap)
+        ex.start(self)
+        self.reshard = ex
+        return ex
+
+    def _finish_cutover(self, resh):
+        """After the commit the layout changed: every layout-conditioned
+        estimator restarts (the autotuner's live-count window and the
+        monitor's latency window describe skew that no longer exists; a
+        frontend's flush estimate resets on ``layout_version``)."""
+        self.stats.reshards += 1
+        self.stats.migrated_rows += resh.plan.moved_rows
+        self.reshard = None
+        self.layout_version += 1
+        self.cap_tuner.reset()
+        self.monitor.reset()
+        self._staged_plan = None
+        self._imb_streak = 0
 
     # -- chaos: deadline policy, degraded serving, eviction ----------------
 
@@ -637,10 +1007,21 @@ class DLRMEngine:
         is collective); one outside ``survivors`` raises ``Evicted`` and
         serves no more.  The wall time goes to ``ServeStats.recovery_s``.
         The engine must hold the whole (T_pad, R, s) stack: from its own
-        shard it could not rebuild the lost member's tables."""
+        shard it could not rebuild the lost member's tables.
+
+        A reshard in flight is aborted (rollback is the absence of its
+        commit), recovery CANONICALIZES the placement to the identity
+        layout, the cache is cold-invalidated if a reshard was in flight
+        (a crash between the commit's two swaps leaves tables and cache in
+        different orders), and a rebalance on the shrunken group becomes
+        mandatory."""
         if not survivors:
             raise ValueError("evict: no surviving members")
         t_rec = time.perf_counter()
+        resh, self.reshard = self.reshard, None
+        if resh is not None:
+            resh.abort()
+            self.stats.reshard_aborts += 1
         survivors = sorted(int(r) for r in survivors)
         p_new = len(survivors)
         if self.batch_size % (self.microbatches * p_new):
@@ -662,12 +1043,32 @@ class DLRMEngine:
             raise Evicted(f"rank {dist.get_rank()} was evicted from the "
                           f"model group")
         t_pad = dlrm_mod.padded_tables(self.cfg, p_new)
-        self.params = dict(self.params, tables=_fit_tables(tables, t_pad))
+        # undo the live permutation FIRST: the crop assumes original
+        # order, and under a placement a real table can sit in a high slot
+        pm = self._pmap
+        inv = None if pm is None or pm.is_identity else \
+            torch.from_numpy(pm.inv_array().astype(np.int64)).to(
+                tables.device)
+
+        def canon(a):
+            return a[inv] if inv is not None else a
+
+        self.params = dict(self.params,
+                           tables=_fit_tables(canon(tables), t_pad))
         c = self.cache
         if c is not None:
+            if resh is not None:
+                # mid-cutover the cache's order is untrustworthy: cold
+                # start it, every slot a miss, warmed back by serving
+                c = hc_mod.cold(c)
+            else:
+                c = hc_mod.HotCache(
+                    hot_ids=None if c.hot_ids is None else canon(c.hot_ids),
+                    hot_rows=canon(c.hot_rows), slot_of=canon(c.slot_of))
             self.cache = hc_mod.HotCache(
                 hot_ids=None if c.hot_ids is None
-                else _fit_tables(c.hot_ids, t_pad),
+                else _fit_tables(c.hot_ids, t_pad,
+                                 fill=-1 if resh is not None else 0),
                 hot_rows=_fit_tables(c.hot_rows, t_pad),
                 # -1 = miss: resurrected padding tables stay cold
                 slot_of=_fit_tables(c.slot_of, t_pad, fill=-1))
@@ -675,13 +1076,26 @@ class DLRMEngine:
         self.degraded_members = ()     # ranks renumbered: start clean
         self._streak.clear()
         self._staged_plan = None
+        # the identity boot layout; every layout-conditioned estimator
+        # recalibrates and a rebalance on the new geometry is mandatory
+        self._pmap = None
         self.layout_version += 1
+        self.load_model = None
+        self._member_ewma = None
+        self._imb_streak = 0
+        self._rebalance_pending = True
         self.cap_tuner.reset()
         self.monitor.reset()
         if self.freshness is not None:
             # uncommitted delta rows queue again; their owners follow the
             # new geometry at the next ship
             self.freshness.on_evict(self)
+        if self.scrub is not None:
+            # in-flight repairs queue again against the refit mirror; the
+            # banked wire flags describe the old geometry
+            self.scrub.on_evict(self)
+            self._held_wbad = None
+            self._wire_streak.clear()
         self.stats.evictions += 1
         self.stats.recovery_s += time.perf_counter() - t_rec
 
@@ -726,7 +1140,8 @@ class DLRMEngine:
         buffer of the exchange the engine resolves to (dense or ragged, at
         its codec, with the ``xdelta`` rows under ``freshness``), the
         buffered bottom-MLP activations and, with a cache, the (bs, t_pad,
-        s) pooled hits."""
+        s) pooled hits.  The ``xmig`` rows count while a reshard ships,
+        the ``xrep`` rows and the ``wcs`` word with a scrubber."""
         p, t_pad, bs, dense_rows = self._exchange_geometry()
         s = self.cfg.embed_dim
         emb_dtype = self.params["tables"].dtype
@@ -734,14 +1149,21 @@ class DLRMEngine:
         use_ragged, cap = dlrm_mod.resolve_exchange(
             self.exchange, use_cache=use_cache, cap=self.ragged_cap,
             dense_rows=dense_rows)
-        delta_bytes = 0
+        delta_bytes = mig_bytes = rep_bytes = 0
         if self.freshness is not None:
             delta_bytes = a2a_mod.delta_wire_layout(
                 p, self.freshness.slice_cap, s, emb_dtype).slot_bytes
+        if self.reshard is not None and self.reshard.active:
+            mig_bytes = a2a_mod.mig_wire_layout(
+                p, self.reshard.slice_cap, s, emb_dtype).slot_bytes
+        if self.scrub is not None:
+            rep_bytes = a2a_mod.rep_wire_layout(
+                p, self.scrub.slice_cap, s, emb_dtype).slot_bytes
         layout = a2a_mod.exchange_wire_layout(
             ragged=use_ragged, n_dest=p, cap=cap, bs=bs, t_loc=t_pad // p,
             embed_dim=s, wire_dtype=self.wire_dtype, emb_dtype=emb_dtype,
-            delta_bytes=delta_bytes)
+            delta_bytes=delta_bytes, mig_bytes=mig_bytes,
+            rep_bytes=rep_bytes, wire_check=self.scrub is not None)
         recv = torch.empty((p, layout.slot_bytes), dtype=torch.uint8,
                            device="meta")
         side = [torch.empty((bs, s), dtype=L.dtype_of(self.cfg.dtype),

@@ -163,22 +163,27 @@ def test_no_group_falls_back_to_forward_local():
 
 @pytest.mark.parametrize("kw", [
     {"deltas": {}}, {"migration": {}}, {"repair": {}},
-    {"quarantine": [1]}, {"table_inv": [0]}, {"wire_check": True}])
+    {"quarantine": [1]}, {"table_inv": [0]}, {"wire_check": True},
+    {"audit_words": [0]}])
 def test_forward_distributed_refuses_unported_options(kw):
+    """Every rider is ported (ROADMAP A10-A12).  Without a model group the
+    ones that ride the exchange (deltas, migration and repair rows, the
+    wire check, the audit words) raise as the reference's do without a
+    mesh; quarantine
+    and table_inv fall back to forward_local, as the reference's do.  The
+    name, from when the riders were refused, is kept so the test count
+    holds."""
     jcfg, tcfg = _cfgs("smoke")
     _, tp = _params(jcfg)
     b = tsyn.make_batch(tcfg, 8, seed=0)
     args = _t(b.dense, b.idx, b.mask)
-    if "deltas" in kw:
-        # ported (ROADMAP A10): the rider needs a model group, as the
-        # reference's needs a mesh, and still refuses the unported riders
+    if set(kw) & {"deltas", "migration", "repair", "wire_check",
+                  "audit_words"}:
         with pytest.raises(ValueError, match="model group"):
             tdlrm.forward_distributed(tp, tcfg, *args, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            tdlrm.forward_distributed(tp, tcfg, *args, migration={}, **kw)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdlrm.forward_distributed(tp, tcfg, *args, **kw)
+    assert torch.equal(tdlrm.forward_distributed(tp, tcfg, *args, **kw),
+                       tdlrm.forward_local(tp, tcfg, *args))
 
 
 @pytest.mark.parametrize("kw", [
@@ -209,20 +214,26 @@ def test_forward_distributed_serves_the_exchange_options(kw):
 @pytest.mark.parametrize("kw", [
     {"freshness": "manager"}, {"rebalance": True}, {"scrub_budget": 4}])
 def test_engine_refuses_unported_options(kw):
+    """Freshness, rebalancing and scrubbing are ported (ROADMAP A10-A12):
+    each is accepted and armed, beside the others, and one that writes the
+    whole stack is refused on a member's shard.  The name, from when the
+    options were refused, is kept so the test count holds."""
     jcfg, tcfg = _cfgs("smoke")
     _, tp = _params(jcfg)
     if "freshness" in kw:
-        # ported (ROADMAP A10): a manager is accepted, and the unported
-        # options beside it are still refused
-        fm = FreshnessManager(iter(()))
-        eng = DLRMEngine(tp, tcfg, batch_size=8, device="cpu", freshness=fm)
-        assert eng.freshness is fm
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            DLRMEngine(tp, tcfg, batch_size=8, device="cpu", freshness=fm,
-                       rebalance=True)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DLRMEngine(tp, tcfg, batch_size=8, device="cpu", **kw)
+        kw = {"freshness": FreshnessManager(iter(()))}
+    eng = DLRMEngine(tp, tcfg, batch_size=8, device="cpu", **kw)
+    assert eng.freshness is kw.get("freshness")
+    assert eng.rebalance == bool(kw.get("rebalance"))
+    assert (eng.scrub is not None) == ("scrub_budget" in kw)
+    if eng.scrub is not None:
+        assert eng.scrub.budget == 4 and eng.scrub.mirror is not None
+    both = DLRMEngine(tp, tcfg, batch_size=8, device="cpu",
+                      **{"rebalance": True, "scrub_budget": 2, **kw})
+    assert both.rebalance and both.scrub is not None
+    shard = dict(tp, tables=tp["tables"][:3])
+    with pytest.raises(ValueError, match="whole"):
+        DLRMEngine(shard, tcfg, batch_size=8, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("kw", [

@@ -386,6 +386,10 @@ def _port_params():
 
 
 def test_deltas_need_a_group_and_later_riders_are_refused():
+    """Deltas need a model group; the later riders (ROADMAP A11, A12) are
+    ported and raise without one as the reference's do without a mesh.
+    The name, from when they were refused, is kept so the test count
+    holds."""
     cfg = DLRMConfig("t", **SMALL, sparse_backend="ref")
     params = _port_params()
     b = tsyn.make_batch(cfg, 8, mode="hetero", seed=1)
@@ -393,11 +397,15 @@ def test_deltas_need_a_group_and_later_riders_are_refused():
     wire = {k: torch.zeros((1, 1, 2)) for k in ("dgid", "dcs", "dvec")}
     with pytest.raises(ValueError, match="model group"):
         tdlrm.forward_distributed(params, cfg, *x, deltas=wire)
-    for kw, item in (({"migration": {}}, "A11"), ({"table_inv": 0}, "A11"),
-                     ({"repair": {}}, "A12"), ({"quarantine": 0}, "A12"),
-                     ({"wire_check": True}, "A12")):
-        with pytest.raises(NotImplementedError, match=item):
+    # the later riders are ported (ROADMAP A11, A12): without a group the
+    # ones that ride the exchange raise as deltas do, and quarantine and
+    # table_inv fall back to forward_local, as the reference's do
+    for kw in ({"migration": {}}, {"repair": {}}, {"wire_check": True}):
+        with pytest.raises(ValueError, match="model group"):
             tdlrm.forward_distributed(params, cfg, *x, **kw)
+    for kw in ({"table_inv": [0]}, {"quarantine": [1]}):
+        assert torch.equal(tdlrm.forward_distributed(params, cfg, *x, **kw),
+                           tdlrm.forward_local(params, cfg, *x))
     fm = tfresh.FreshnessManager(iter(()))
     with pytest.raises(ValueError, match="plan_pipeline"):
         DLRMEngine(params, cfg, batch_size=8, freshness=fm,

@@ -810,17 +810,15 @@ def _parity_run(fmod, stats_cls, plan, layout_bump=None):
 
 # ServeStats keys of the reference that wait for ROADMAP A11 (placement)
 # and A12 (scrub)
-LATER_KEYS = {"reshards", "reshard_aborts", "migrated_rows",
-              "imbalance_ratio", "flush_time_ratio", "member_rows",
-              "member_bytes", "blocks_scrubbed", "detections",
-              "repaired_rows", "quarantined_served", "wire_rejects",
-              "detection_lag_flushes"}
+# the reference's keys the port lacks: none since the placement and
+# scrub counters were ported (ROADMAP A11, A12)
+LATER_KEYS = set()
 
 
 def test_frontend_parity_scenario_matches_reference():
     """The same scripted run through both frontends: identical verdicts
     (retry hints included), the same served sequence and equal ledgers on
-    the shared keys; the keys the port lacks are exactly A11's and A12's."""
+    the shared keys; the port lacks none of the reference's keys."""
     tplan = FaultPlan.none(1, 64).with_queue_delay(3, 4, 0.006) \
         .with_arrival_burst(10, 6, 4.0)
     jplan = jfaults.FaultPlan.none(1, 64).with_queue_delay(3, 4, 0.006) \
@@ -923,14 +921,43 @@ class TestEngineRepairs:
 
     @pytest.mark.parametrize("opt,item", [("rebalance", "A11"),
                                           ("scrub_budget", "A12")])
-    def test_later_options_still_refused(self, opt, item):
-        with pytest.raises(NotImplementedError, match=item):
-            _real_engine(**{opt: 1})
+    def test_later_options_still_refused(self, opt, item, tmp_path):
+        """Both are ported (ROADMAP A11, A12) and accepted: a frontend over
+        the armed engine, on a one-rank gloo group (the scrubber's riders
+        ride the group's exchange), serves every request, and its ledger
+        carries the placement and scrub counters.  The name, from when
+        both were refused, is kept so the test count holds."""
+        from repro_torch.launch import mesh
+        mesh.init_model_group("gloo", 1, 0, f"file://{tmp_path / 'store'}")
+        try:
+            eng, cfg, _ = _real_engine(**{opt: 1})
+            assert eng.rebalance if opt == "rebalance" else \
+                eng.scrub.budget == 1
+            fe = ServingFrontend(eng, slo_s=10.0, admission="none",
+                                 shed=False, lookahead=False)
+            reqs = S.request_stream(cfg, 32, rate_rps=1e6, seed=21)
+            for r in reqs:
+                fe.try_submit(r.dense, r.idx, r.mask)
+                fe.pump()
+            fe.drain()
+        finally:
+            mesh.destroy_model_group()
+        d = fe.stats.to_dict()
+        assert fe.stats.completed == 32 and fe.stats.accounted
+        assert d["reshards"] == 0 and len(d["member_rows"]) == 1
+        if opt == "scrub_budget":
+            assert d["blocks_scrubbed"] > 0 and d["detections"] == 0
 
-    def test_example_rebalance_refused(self):
+    def test_example_rebalance_refused(self, capsys):
+        """``--rebalance`` is ported (ROADMAP A11): the example serves and
+        prints its placement ledger.  The name, from when the option was
+        refused, is kept so the test count holds."""
         from repro_torch.examples import serve_dlrm_bls
-        with pytest.raises(NotImplementedError, match="A11"):
-            serve_dlrm_bls.main(["--rebalance", "--device", "cpu"])
+        serve_dlrm_bls.main(["--rebalance", "--batches", "2",
+                             "--batch-size", "32", "--bound", "1",
+                             "--microbatches", "2", "--device", "cpu"])
+        out = capsys.readouterr().out
+        assert "placement: reshards=0" in out and "bit-exact" in out
 
 
 class TestDataCopies:

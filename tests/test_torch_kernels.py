@@ -652,6 +652,10 @@ def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
+    port = ROOT / "src" / "repro_torch"
+    for new in ("runtime/placement.py", "runtime/reshard.py",
+                "runtime/scrub.py", "core/integrity.py"):
+        assert port / new in files, new
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
