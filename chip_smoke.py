@@ -117,10 +117,11 @@ Phases, each on lines of its own:
   6. the flash-attention kernel held against its plain version in bf16
      (rtol 1e-2, atol 5e-3, and the relative Frobenius error under 5e-3:
      the plain version computes in f32 on the same bf16 inputs) at the
-     served gemma2-9b local and global layers and at qwen3-14b's heads
-     (B 2, S 4608, q drawn at 4x unit scale so each softmax is peaked and
+     served gemma2-9b local and global layers, at qwen3-14b's heads and at
+     qwen2-moe-a2.7b's (H = Kh = 16, hd 128) (B 2, S 4608, q drawn at 4x unit scale so each softmax is peaked and
      the softcap bends the largest scores), two runs bit-identical, timed
-     as in 3, the qwen3 row beside scaled_dot_product_attention; the plain
+     as in 3, the qwen3 and qwen2-moe rows beside
+     scaled_dot_product_attention; the plain
      version without the softcap, and without the window, must fail the
      same check;
   7. gemma2-9b at full width in f32, depth cut to 4 layers: prefill of
@@ -155,7 +156,28 @@ Phases, each on lines of its own:
      prompt (finite logits, the WKV kernel launched 24 times), a profile of
      one prefill, and ``LMEngine`` on 2 prompts of 64 tokens, 16 greedy
      tokens, twice, identical;
- 12. one JSON line of kernel numbers, the card's name and power limit, and
+ 12. after freeing rwkv6-1.6b, full-width qwen2-moe-a2.7b in f32 at 2 of
+     its 24 layers: prefill of 2 x 4608 tokens through the flash kernel
+     against the plain attention and one decode step from each cache
+     (rtol = atol = 1e-4); layer 0's MoE FFN on the prompts' hidden states
+     through the local ``moe_gather`` at capacity factor 8 (no slot
+     dropped) against ``moe_ref_dense`` (1e-4); the slots the config's
+     capacity factor 1.25 drops, layer by layer (counted here from
+     ``route`` and ``dispatch_indices``);
+ 13. full qwen2-moe-a2.7b (24 layers, bf16, 64 padded routed experts,
+     ~30.3 GB) served by ``LMEngine``: the flash kernel held against its
+     plain version on the served layer-0 q, k and v (as in 8); then on a
+     one-rank NCCL group the served layer-0 FFN input (9,216 tokens)
+     through ``moe_gather(group)`` and ``moe_a2a(group)`` against the
+     local gather (rtol = atol = 1e-2), the collective calls of each
+     forward counted (1 all_reduce; 3 all_to_all_single), and the a2a
+     stages over 4 microbatches under ``bls_pipeline`` at bounds 0, 1, 2
+     bit-identical to ``reference_loop``; 3 prefills of 2 x 4608 tokens,
+     24 flash launches each; one prefill and one decode step profiled
+     (``[moe-profile]``: flash, expert GEMMs, dispatch, the rest, the
+     card's active share); 2 prompts, 16 greedy tokens, twice, identical;
+     prefill and decode times beside their bounds;
+ 14. one JSON line of kernel numbers, the card's name and power limit, and
      last ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or with any phase failing, it exits non-zero and
 prints no result.
@@ -164,6 +186,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import json
 import re
 import socket
@@ -241,6 +264,17 @@ RWKV_DEPTH_REL = 1e-3
 RWKV_DEPTH_SHARE = 0.25
 RWKV_PROMPT = 32_768
 RWKV_GEN_BATCH, RWKV_GEN_PROMPT, RWKV_NEW = 2, 64, 16
+# the qwen2-moe phases: f32 parity at 2 of 24 layers on the LM prompts
+# (layer 0's FFN at capacity factor 8, where nothing drops, against the
+# dense oracle); the expert-parallel forms on the served model's layer-0
+# FFN input in bf16, the BLS stages over 4 microbatches at bounds 0-2; the
+# group forms compute the same slots' products in other buffers, held at
+# a few bf16 steps (2^-8 relative); bf16 serving as the gemma2 phase
+MOE_PARITY_LAYERS = 2
+MOE_DENSE_CF = 8.0
+MOE_EP_TOL = {"rtol": 1e-2, "atol": 1e-2}
+MOE_MICROBATCHES = 4
+MOE_BOUNDS = (0, 1, 2)
 
 
 def log(*parts) -> None:
@@ -2151,6 +2185,7 @@ def flash_phase(dev):
     layer shapes, in bf16, timed warm (q, k, v are written just before it
     on the prefill path).  Returns (row, launch key) pairs."""
     from repro_torch.configs.gemma2_9b import CONFIG as GEMMA
+    from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as QWEN2MOE
     from repro_torch.configs.qwen3_14b import CONFIG as QWEN
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -2163,7 +2198,8 @@ def flash_phase(dev):
             ("gemma2_local", GEMMA, GEMMA.sliding_window,
              GEMMA.attn_logit_softcap),
             ("gemma2_global", GEMMA, 0, GEMMA.attn_logit_softcap),
-            ("qwen3_heads", QWEN, 0, QWEN.attn_logit_softcap)):
+            ("qwen3_heads", QWEN, 0, QWEN.attn_logit_softcap),
+            ("qwen2moe_heads", QWEN2MOE, 0, QWEN2MOE.attn_logit_softcap)):
         h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         q, k, v = ((torch.randn((b, s, n, hd), generator=gen, device=dev)
                     * scale).to(torch.bfloat16)
@@ -2286,8 +2322,8 @@ def profile_device(label, fn, top: int = 8, tag: str = "lm-profile"):
 
 def served_layers_check(params, cfg, toks):
     """The kernel against its plain version on the q, k and v the served
-    model computes for the prompts at its first local and first global
-    layer (group 0 of each sublayer), at the tolerance of phase 6."""
+    model computes for the prompts at the first layer of each kind in its
+    pattern (group 0 of each sublayer), at the tolerance of phase 6."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.models import attention as A
@@ -2306,7 +2342,7 @@ def served_layers_check(params, cfg, toks):
         plain = ref.flash_attention_ref(q, k, v, **kw)
         err, fro, need = hold(f"served layer {i} ({kind})", out, plain,
                               FLASH_TOL, FLASH_REL)
-        log(f"[lm-layer] gemma2-9b layer {i} ({kind}, {cfg.dtype}, the "
+        log(f"[lm-layer] {cfg.name} layer {i} ({kind}, {cfg.dtype}, the "
             f"served prompts): kernel vs plain max_abs_err {err:.3e}, relative "
             f"Frobenius error {fro:.3e}, least atol passing at rtol "
             f"{FLASH_TOL['rtol']}: {need:.3e}, median |plain| "
@@ -2717,6 +2753,358 @@ def rwkv_serve_phase(dev, card):
     return by_key
 
 
+def moe_ffn_inputs(params, cfg, toks):
+    """Each layer's parameters and the input its MoE FFN takes for
+    ``toks``, layer by layer, as ``transformer.block_full`` computes them
+    (qwen2-moe: one global sublayer a group, no post norms)."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    x = T.embed_inputs(params, cfg, toks)
+    for gi in range(T.n_groups(cfg)):
+        sub = T._map(lambda a: a[gi], params["layers"]["sub0"])
+        h = L.rmsnorm(sub["ln1"], x, cfg.norm_eps)
+        x = x + A.attend_full(sub["attn"], cfg, h)[0]
+        h = L.rmsnorm(sub["ln2"], x, cfg.norm_eps)
+        yield sub, h
+        x = x + T._ffn(sub["ffn"], cfg, h)[0]
+
+
+def moe_drops(ffn, cfg, h, factor: float) -> int:
+    """(token, expert) slots the local dispatch drops at capacity factor
+    ``factor``, counted from ``route`` and ``dispatch_indices``."""
+    from repro_torch.models import moe as M
+
+    e_pad = ffn["gate"].shape[0]
+    xl = h.reshape(-1, cfg.d_model)
+    cap = M.capacity(xl.shape[0], cfg.moe.experts_per_token, e_pad, factor)
+    _, idx, _ = M.route(ffn["router"], xl, cfg.moe, e_pad)
+    return int((~M.dispatch_indices(idx, e_pad, cap)[3]).sum())
+
+
+def moe_parity_phase(dev):
+    """Phase 12: full-width qwen2-moe-a2.7b in f32, depth cut to
+    MOE_PARITY_LAYERS: prefill of the LM prompts through the flash kernel
+    against the plain attention and one decode step from each cache
+    (rtol = atol = 1e-4); layer 0's MoE FFN through the local gather mode
+    at capacity factor MOE_DENSE_CF (nothing dropped) against
+    ``moe_ref_dense``; the slots the config's capacity factor drops, layer
+    by layer."""
+    from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as QWEN2MOE
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+
+    cfg = QWEN2MOE.replace(n_layers=MOE_PARITY_LAYERS, dtype="float32")
+    params = T.init_lm(SEED, cfg, dev)
+    toks = torch.from_numpy(lm_prompts(cfg.vocab_size)).to(dev)
+    out = {}
+    for impl in ("auto", "ref"):
+        logits, cache = T.prefill(params, cfg, toks, pad_to=LM_PROMPT + 1,
+                                  attn_impl=impl)
+        step, _ = T.decode_step(params, cfg, toks[:, -1:], cache)
+        out[impl] = (logits, cache, step)
+    (la, ca, da), (lr, cr, dr) = out["auto"], out["ref"]
+    pairs = ((la, lr), (ca["k"], cr["k"]), (ca["v"], cr["v"]), (da, dr))
+    for a, r in pairs:
+        torch.testing.assert_close(a, r, **LM_TOL)
+    errs = [(a - r).abs().max().item() for a, r in pairs]
+    del out, la, ca, da, lr, cr, dr, pairs
+    torch.cuda.empty_cache()
+    log(f"[moe-parity] qwen2-moe-a2.7b full width, f32, depth cut "
+        f"{QWEN2MOE.n_layers} -> {MOE_PARITY_LAYERS} layers, B {LM_BATCH} x "
+        f"{LM_PROMPT} tokens: kernel vs plain attention max_abs_err prefill "
+        f"logits {errs[0]:.3e}, cache k {errs[1]:.3e} v {errs[2]:.3e}, "
+        f"decode logits {errs[3]:.3e} (rtol = atol = 1e-4)")
+    big = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                              capacity_factor=MOE_DENSE_CF))
+    t = LM_BATCH * LM_PROMPT
+    e_pad = params["layers"]["sub0"]["ffn"]["gate"].shape[1]
+    drops = []
+    for i, (sub, h) in enumerate(moe_ffn_inputs(params, cfg, toks)):
+        drops.append(moe_drops(sub["ffn"], cfg, h, cfg.moe.capacity_factor))
+        if i:
+            continue
+        if moe_drops(sub["ffn"], big, h, MOE_DENSE_CF):
+            raise AssertionError(f"capacity factor {MOE_DENSE_CF} drops "
+                                 "slots")
+        got, aux = M.moe_gather(sub["ffn"], big, h)
+        want, aux_d = M.moe_ref_dense(sub["ffn"], cfg, h)
+        torch.testing.assert_close(got, want, **LM_TOL)
+        torch.testing.assert_close(aux, aux_d, **LM_TOL)
+        log(f"[moe-parity] layer 0 MoE FFN on the prompts' hidden states "
+            f"({t} tokens): moe_gather (local) at capacity factor "
+            f"{MOE_DENSE_CF} (0 slots dropped) vs moe_ref_dense max_abs_err "
+            f"{(got - want).abs().max().item():.3e}, aux loss "
+            f"{aux.item():.6f} (rtol = atol = 1e-4)")
+        del got, want
+    log(f"[moe-parity] slots dropped at the config's capacity factor "
+        f"{cfg.moe.capacity_factor} (capacity "
+        f"{M.capacity(t, cfg.moe.experts_per_token, e_pad, cfg.moe.capacity_factor)} "
+        f"a routed expert, {t * cfg.moe.experts_per_token} slots a layer), "
+        f"by layer: {drops}")
+    del params, sub, h
+    torch.cuda.empty_cache()
+
+
+def moe_ep_phase(ffn, cfg, h, card):
+    """Phase 13b, on a one-rank NCCL group: the served model's layer-0 MoE
+    FFN at the served prefill tokens in bf16 through ``moe_gather(group)``
+    and ``moe_a2a(group)`` against the local ``moe_gather`` (MOE_EP_TOL),
+    the collective calls of each forward, and the a2a stages over
+    MOE_MICROBATCHES microbatches under ``bls_pipeline`` at bounds 0, 1, 2,
+    each bit-identical to ``reference_loop``."""
+    import torch.distributed as dist
+
+    from repro_torch.core import bls
+    from repro_torch.models import moe as M
+
+    group = dist.group.WORLD
+    local, _ = M.moe_gather(ffn, cfg, h)
+    with count_collectives() as c_gather:
+        g, _ = M.moe_gather(ffn, cfg, h, group)
+    with count_collectives() as c_a2a:
+        a, _ = M.moe_a2a(ffn, cfg, h, group)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got in (("gather", g), ("a2a", a)):
+        torch.testing.assert_close(got, local, **MOE_EP_TOL)
+        errs[name] = ((got.float() - local.float()).abs().max().item(),
+                      torch.equal(got, local))
+    log(f"[moe-ep] qwen2-moe-a2.7b layer 0 FFN, {h.shape[0] * h.shape[1]} "
+        f"tokens, bf16, one-rank NCCL group: moe_gather(group) vs local "
+        f"max_abs_err {errs['gather'][0]:.3e} (bit-identical "
+        f"{errs['gather'][1]}), moe_a2a(group) {errs['a2a'][0]:.3e} "
+        f"(bit-identical {errs['a2a'][1]}) (rtol = atol = "
+        f"{MOE_EP_TOL['atol']}); collective calls a forward: gather "
+        f"{c_gather}, a2a {c_a2a}")
+    if c_gather["all_reduce"] != 1 or c_a2a["all_to_all_single"] != 3:
+        raise AssertionError(f"collective calls: gather {c_gather}, a2a "
+                             f"{c_a2a}")
+    del g, a, local
+    moe, d = cfg.moe, cfg.d_model
+    e_pad = ffn["gate"].shape[0]
+    mbs = list(h.reshape(-1, d).chunk(MOE_MICROBATCHES))
+    c_send, c_exp = M.a2a_capacities(mbs[0].shape[0], moe, 1, e_pad)
+    experts = M._local_experts(ffn, 0, e_pad)
+
+    def stage_a(xl):
+        return M.a2a_stage_a(ffn["router"], xl, moe, e_pad, 1, c_send)
+
+    def collective(payload):
+        return M.a2a_dispatch(payload, group)
+
+    def stage_b(recv, side):
+        return M.a2a_stage_b(experts, cfg.act, recv, side, group, c_exp)
+
+    with count_collectives() as c_loop:
+        ref = bls.reference_loop(stage_a, collective, stage_b, mbs)
+    for k in MOE_BOUNDS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, stats = bls.bls_pipeline(stage_a, collective, stage_b, mbs, k)
+        torch.cuda.synchronize()
+        ms_k = (time.perf_counter() - t0) * 1e3
+        if not all(torch.equal(x, y) for x, y in zip(got, ref)):
+            raise AssertionError(f"the a2a stages under bound {k} differ from "
+                                 "reference_loop")
+        log(f"[moe-ep] bls_pipeline bound {k} over {len(mbs)} microbatches "
+            f"of {mbs[0].shape[0]} tokens (c_send {c_send}, c_exp {c_exp}): "
+            f"bit-identical to reference_loop; ring bytes "
+            f"{stats.ring_bytes}, wall {ms_k:.3f} ms")
+    log(f"[moe-ep] reference_loop collective calls {c_loop}; card {card!r}")
+    del ref, got
+
+
+RANGES = ("moe.dispatch", "moe.experts")
+
+
+def moe_profile(label, fn):
+    """One call of ``fn`` under the profiler, with ``_moe_local`` and
+    ``_expert_mlp`` inside ranges: device time split into the flash
+    kernel, the expert GEMMs, the MoE dispatch (route, sort, scatter,
+    gather, combine) and the rest, and the card's active share."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                record_function)
+
+    from repro_torch.models import moe as M
+
+    local, experts = M._moe_local, M._expert_mlp
+
+    def ranged(name, fn_):
+        def call(*a, **kw):
+            with record_function(name):
+                return fn_(*a, **kw)
+        return call
+
+    M._moe_local = ranged(RANGES[0], local)
+    M._expert_mlp = ranged(RANGES[1], experts)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        M._moe_local, M._expert_mlp = local, experts
+    by_name: dict = {}
+    for e in prof.events():
+        # the ranges' own spans on the device are annotations, not work
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                e.name not in RANGES:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us()
+    if not by_name:
+        log(f"[moe-profile] {label}: the profiler saw no device activity: "
+            "device time not measured")
+        return
+    busy = sum(by_name.values())
+    flash = sum(us for n, us in by_name.items() if "flash_" in n)
+    moe_us, moe_n = range_device_us(prof, RANGES[0])
+    exp_us, exp_n = range_device_us(prof, RANGES[1])
+    log(f"[moe-profile] {label}: wall {wall_us:.0f} us, device activity "
+        f"{busy:.0f} us ({100 * busy / wall_us:.1f}% of wall); flash "
+        f"{flash:.1f} us, expert GEMMs {exp_us:.1f} us ({exp_n} ops), "
+        f"dispatch (route, sort, scatter, gather, combine) "
+        f"{moe_us - exp_us:.1f} us ({moe_n - exp_n} ops), the rest "
+        f"{busy - flash - moe_us:.1f} us")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[moe-profile]   {us:10.1f} us  {name[:90]}")
+
+
+def prefill_flops(cfg, b: int, s: int, e_pad: int) -> int:
+    """Multiply-add flops (x2) of one served prefill as the path computes
+    it: q/k/v/o projections, causal attention (4 hd a pair), router,
+    capacity-padded routed experts (every one of e_pad x capacity slots),
+    shared experts and gate, the LM head on the last positions."""
+    from repro_torch.models import moe as M
+
+    d, hd, h = cfg.d_model, cfg.head_dim, cfg.n_heads
+    t = b * s
+    cap = M.capacity(t, cfg.moe.experts_per_token, e_pad,
+                     cfg.moe.capacity_factor)
+    fs = cfg.moe.n_shared_experts * cfg.moe.d_shared_expert
+    per_layer = (2 * t * d * (2 * h * hd + 2 * cfg.n_kv_heads * hd)
+                 + 4 * hd * admitted_pairs(s, 0) * b * h
+                 + 2 * t * d * e_pad
+                 + 6 * e_pad * cap * d * cfg.moe.d_expert
+                 + 6 * t * d * fs + 2 * t * d)
+    return cfg.n_layers * per_layer + 2 * b * d * cfg.vocab_size
+
+
+def moe_serve_phase(dev, card):
+    """Phase 13: full qwen2-moe-a2.7b (24 layers, bf16) served by LMEngine;
+    returns the flash kernel's launches by key on one generate run."""
+    from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as QWEN2MOE
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import LMEngine
+    from repro_torch.train import steps as steps_mod
+
+    cfg = QWEN2MOE
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_lm(SEED, cfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_bytes = sum(a.numel() * a.element_size() for a in _leaves(params))
+    ffn = params["layers"]["sub0"]["ffn"]
+    expert_bytes = sum(ffn[k].numel() * ffn[k].element_size()   # all layers
+                       for k in ("gate", "up", "down"))
+    e_pad = ffn["gate"].shape[1]
+    log(f"[moe-init] qwen2-moe-a2.7b {cfg.n_layers} layers, {cfg.dtype}, "
+        f"{e_pad} routed experts ({cfg.moe.n_experts} + "
+        f"{e_pad - cfg.moe.n_experts} phantoms), {n_bytes / 1e9:.3f} GB of "
+        f"weights ({expert_bytes / 1e9:.3f} GB routed experts) in "
+        f"{init_s:.2f} s")
+    prompts = lm_prompts(cfg.vocab_size)
+    toks = torch.from_numpy(prompts).to(dev)
+    served_layers_check(params, cfg, toks)
+    sub, h = next(moe_ffn_inputs(params, cfg, toks))
+    with model_group("nccl"):
+        moe_ep_phase(sub["ffn"], cfg, h, card)
+    del sub, h
+    torch.cuda.empty_cache()
+
+    prefill_ms = []
+    for _ in range(3):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        logits, cache = T.prefill(params, cfg, toks, pad_to=LM_MAX_LEN)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        if ops.kernels()["flash_attention"].launches != cfg.n_layers:
+            raise AssertionError(
+                f"prefill launched the flash kernel "
+                f"{ops.kernels()['flash_attention'].launches} times, not "
+                f"{cfg.n_layers}")
+        if not torch.isfinite(logits).all():
+            raise AssertionError("prefill logits not finite")
+        del logits, cache
+    prefill_peak = torch.cuda.max_memory_allocated()
+    moe_profile("one prefill",
+                lambda: T.prefill(params, cfg, toks, pad_to=LM_MAX_LEN))
+
+    eng = LMEngine(params, cfg, max_len=LM_MAX_LEN, device=dev)
+    ops.reset_launches()
+    first = eng.generate(prompts, LM_NEW)
+    launches = {k: v.launches for k, v in ops.kernels().items()}
+    by_key = dict(fa.FLASH.by_key)
+    eng.monitor.reset()
+    t0 = time.perf_counter()
+    second = eng.generate(prompts, LM_NEW)
+    gen_s = time.perf_counter() - t0
+    if first.shape != (LM_BATCH, LM_NEW):
+        raise AssertionError(f"generated shape {first.shape}")
+    if not ((first >= 0) & (first < cfg.vocab_size)).all():
+        raise AssertionError("generated tokens out of range")
+    if not np.array_equal(first, second):
+        raise AssertionError("two generate runs differ")
+    want = {fa.launch_key(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 0):
+            cfg.n_layers}
+    if launches["flash_attention"] != cfg.n_layers or by_key != want:
+        raise AssertionError(f"generate launched {launches}, flash by key "
+                             f"{by_key}, not {want}")
+    step = steps_mod.make_serve_step(cfg)
+    _, cache = T.prefill(params, cfg, toks, pad_to=LM_MAX_LEN)
+    last = toks[:, -1:]
+    moe_profile("one decode step",
+                lambda: step(params, last, cache)[0].cpu())
+    del cache
+    steps = sorted(eng.monitor.lat)
+    warm = statistics.median(prefill_ms[1:])
+    flops = prefill_flops(cfg, LM_BATCH, LM_PROMPT, e_pad)
+    head = params["head"]["kernel"]
+    read = n_bytes - params["embed"]["table"].numel() * \
+        params["embed"]["table"].element_size()
+    log(f"[moe-serve] qwen2-moe-a2.7b B {LM_BATCH} x prompt {LM_PROMPT}, "
+        f"{LM_NEW} greedy tokens, cache {LM_MAX_LEN}: prefill ms "
+        f"{prefill_ms[0]:.1f} first, {warm:.1f} warm "
+        f"({LM_BATCH * LM_PROMPT / warm * 1e3:.0f} prefill tokens/s), "
+        f"max_memory_allocated {prefill_peak / 1e9:.3f} GB; decode ms/token "
+        f"p50 {eng.monitor.percentile(0.5) * 1e3:.3f} p99 "
+        f"{eng.monitor.percentile(0.99) * 1e3:.3f} min {steps[0] * 1e3:.3f}; "
+        f"generated tokens/s {LM_BATCH * LM_NEW / sum(steps):.1f} (decode "
+        f"steps only), generate wall {gen_s * 1e3:.1f} ms; card {card!r}")
+    log(f"[moe-serve] tokens identical across two runs; first row "
+        f"{first[0].tolist()}; launches per generate {launches}; flash "
+        f"launches by (H, Kh, hd, window) {by_key}")
+    log(f"[moe-serve] prefill bound {flops / BF16_FLOPS * 1e3:.3f} ms "
+        f"({flops / 1e12:.3f} TFLOP at 989 TFLOP/s; weights "
+        f"{read / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s); decode "
+        f"weight-read bound {read / HBM_BYTES_PER_S * 1e3:.3f} ms/token "
+        f"({read / 1e9:.3f} GB read a step: every padded expert's "
+        f"{expert_bytes / 1e9:.3f} GB, "
+        f"{expert_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms, the "
+        f"head's {head.numel() * head.element_size() / 1e9:.3f} GB, "
+        f"attention and shared experts)")
+    del params
+    torch.cuda.empty_cache()
+    return by_key
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2802,11 +3190,16 @@ def main() -> int:
         wkv_rows = wkv_phase(dev)
         rwkv_parity_phase(dev)
         wkv_by_key = rwkv_serve_phase(dev, card)
+        # the qwen2-moe phases need the card's memory: rwkv6-1.6b went with
+        # rwkv_serve_phase's frame
+        torch.cuda.empty_cache()
+        moe_parity_phase(dev)
+        moe_by_key = moe_serve_phase(dev, card)
     # each flash or WKV row takes the served launches of its own shape:
     # qwen3's heads and the B 8 WKV shape are timed but not served, so
     # their rows read 0
     for row, key in flash_rows:
-        row["launches"] = by_key.get(key, 0)
+        row["launches"] = by_key.get(key, 0) + moe_by_key.get(key, 0)
         rows.append(row)
     for row, key in wkv_rows:
         row["launches"] = wkv_by_key.get(key, 0)

@@ -6,7 +6,8 @@ built here describes the same model as its reference twin.  Options the
 port does not implement yet are still carried (the port's entry points
 raise ``NotImplementedError`` when one is set, naming the ROADMAP item).
 The registry holds the archs the port has configs for: the DLRM ones, the
-dense LMs ``gemma2-9b`` and ``qwen3-14b``, and ``rwkv6-1.6b``.
+dense LMs ``gemma2-9b`` and ``qwen3-14b``, the MoE LMs ``qwen2-moe-a2.7b``
+and ``granite-moe-3b-a800m``, and ``rwkv6-1.6b``.
 """
 from __future__ import annotations
 
@@ -171,6 +172,8 @@ def _ensure_loaded() -> None:
     from repro_torch.configs import (  # noqa: F401
         dlrm_kaggle,
         gemma2_9b,
+        granite_moe_3b_a800m,
+        qwen2_moe_a2_7b,
         qwen3_14b,
         rwkv6_1_6b,
     )

@@ -1,11 +1,12 @@
 """Serving CLI (the port of ``repro/launch/serve.py``): DLRM CTR serving
-with the BLS pipeline, or batched greedy LM decoding (dense or rwkv6), on
-one device.
+with the BLS pipeline, or batched greedy LM decoding (dense, MoE or
+rwkv6), on one device.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dlrm-kaggle \
       --smoke --batches 10 --bound 4 --microbatches 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --smoke
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --smoke
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b --smoke
 
 ``--device`` defaults to the card; ``--device cpu`` runs the plain PyTorch

@@ -1,7 +1,8 @@
 """Uniform model facade (the port of ``repro/models/api.py``): one entry
 point per family for init / forward / cache / decode.  The port runs the
-dense family and the ``ssm`` one (rwkv6); the others raise
-``NotImplementedError`` naming their ROADMAP item.
+dense and ``moe`` families (through the transformer) and the ``ssm`` one
+(rwkv6); the others raise ``NotImplementedError`` naming their ROADMAP
+item.
 
 Batch dict convention: ``tokens`` (B, S) int, always present.
 """
@@ -23,18 +24,20 @@ def check_ported(cfg: ModelConfig) -> None:
         transformer.check_ported(cfg)
 
 
-def init(seed: int, cfg: ModelConfig, device="cuda"):
+def init(seed: int, cfg: ModelConfig, device="cuda", n_shards: int = 16):
+    """``n_shards`` pads the MoE family's routed experts, as the
+    reference's ``init`` does."""
     check_ported(cfg)
     if cfg.family == "ssm":
         return rwkv6.init_rwkv6(seed, cfg, device)
-    return transformer.init_lm(seed, cfg, device)
+    return transformer.init_lm(seed, cfg, device, n_shards)
 
 
 def forward(params, cfg: ModelConfig, batch: dict, *,
             last_only: bool = False, attn_impl: str = "auto",
             wkv_impl: str = "auto"):
-    """-> (logits, aux).  ``attn_impl`` reaches the dense family's
-    attention, ``wkv_impl`` rwkv6's WKV."""
+    """-> (logits, aux).  ``attn_impl`` reaches the dense and MoE
+    families' attention, ``wkv_impl`` rwkv6's WKV."""
     check_ported(cfg)
     if cfg.family == "ssm":
         return rwkv6.forward(params, cfg, batch["tokens"],

@@ -1,5 +1,5 @@
 """Decoder-only LM backbone (the port of ``repro/models/transformer.py``,
-dense family).
+dense and MoE families).
 
 Layers are stacked into *groups* matching the config's ``layer_pattern``
 (gemma2 alternates local/global, so its group is 2 layers; uniform archs use
@@ -26,6 +26,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 # ---------------------------------------------------------------------------
 # layer pattern / grouping
@@ -50,10 +51,6 @@ def n_groups(cfg: ModelConfig) -> int:
 def check_ported(cfg: ModelConfig) -> None:
     """Raise for the options of the reference's transformer the port does
     not run yet."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE FFNs are not ported yet (ROADMAP A14, "
-            "models/moe.py)")
     if cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend!r} frontend is not ported yet "
@@ -77,13 +74,16 @@ def _map_with_path(fn, tree, path=()):
     return fn(path, tree)
 
 
-def _init_sublayer(gen, cfg: ModelConfig, dev):
+def _init_sublayer(gen, cfg: ModelConfig, dev, n_shards: int):
     p = {
         "ln1": L.init_rmsnorm(cfg.d_model, cfg.dtype, dev, cfg.norm_plus_one),
         "ln2": L.init_rmsnorm(cfg.d_model, cfg.dtype, dev, cfg.norm_plus_one),
         "attn": A.init_attention(gen, cfg, dev),
-        "ffn": L.init_glu_mlp(gen, cfg.d_model, cfg.d_ff, cfg.dtype, dev),
     }
+    if cfg.moe is not None:
+        p["ffn"] = M.init_moe(gen, cfg, dev, n_shards)
+    else:
+        p["ffn"] = L.init_glu_mlp(gen, cfg.d_model, cfg.d_ff, cfg.dtype, dev)
     if cfg.post_norms:
         p["ln1_post"] = L.init_rmsnorm(cfg.d_model, cfg.dtype, dev,
                                        cfg.norm_plus_one)
@@ -100,23 +100,24 @@ def _fill(dst, src, i: int) -> None:
             dst[k][i].copy_(v)
 
 
-def _init_stacked(gen, cfg: ModelConfig, dev, g: int):
+def _init_stacked(gen, cfg: ModelConfig, dev, g: int, n_shards: int):
     """``g`` sublayers drawn one after another, stacked along a leading
     group axis as the reference's ``vmap`` over group keys lays them out."""
     out = None
     for i in range(g):
-        sub = _init_sublayer(gen, cfg, dev)
+        sub = _init_sublayer(gen, cfg, dev, n_shards)
         if out is None:
             out = _map(lambda a: a.new_empty((g,) + tuple(a.shape)), sub)
         _fill(out, sub, i)
     return out
 
 
-def init_lm(seed: int, cfg: ModelConfig, device="cuda"):
+def init_lm(seed: int, cfg: ModelConfig, device="cuda", n_shards: int = 16):
     """Random parameters in ``cfg.dtype`` from a ``torch.Generator`` seeded
     with ``seed``, on ``device``, with the reference's distributions and
     layout (``truncated_normal`` scales; norms at 0 with ``norm_plus_one``,
-    at 1 without)."""
+    at 1 without; MoE routers in f32, routed experts padded to a multiple
+    of ``n_shards``)."""
     check_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
@@ -125,7 +126,7 @@ def init_lm(seed: int, cfg: ModelConfig, device="cuda"):
     p = {
         "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model,
                                   cfg.dtype, dev),
-        "layers": {f"sub{i}": _init_stacked(gen, cfg, dev, g)
+        "layers": {f"sub{i}": _init_stacked(gen, cfg, dev, g, n_shards)
                    for i in range(len(pat))},
         "final_norm": L.init_rmsnorm(cfg.d_model, cfg.dtype, dev,
                                      cfg.norm_plus_one),
@@ -139,18 +140,14 @@ def init_lm(seed: int, cfg: ModelConfig, device="cuda"):
 def params_from_jax(np_params, device="cuda", dtype: Optional[str] = None):
     """The reference's ``api.init`` pytree, its leaves as numpy arrays, ->
     the port's parameters on ``device``: the same nested dictionaries, so
-    a plain copy.  ``dtype`` casts the f32 leaves (the reference casts its
-    f32 masters to ``cfg.dtype`` at apply time)."""
+    a plain copy.  ``dtype`` casts the f32 leaves except MoE routers, as
+    the reference's apply-time ``cast_params`` of its f32 masters does."""
     dev = resolve_device(device)
-    dt = L.dtype_of(dtype) if dtype is not None else None
-
-    def conv(a):
-        t = torch.from_numpy(np.array(a, copy=True))
-        if dt is not None and t.dtype == torch.float32:
-            t = t.to(dt)
-        return t.to(dev)
-
-    return _map(conv, np_params)
+    tree = _map(lambda a: torch.from_numpy(np.array(a, copy=True)),
+                np_params)
+    if dtype is not None:
+        tree = cast_params(tree, L.dtype_of(dtype))
+    return _map(lambda t: t.to(dev), tree)
 
 
 def cast_params(tree, dtype: torch.dtype):
@@ -169,6 +166,14 @@ def cast_params(tree, dtype: torch.dtype):
 # ---------------------------------------------------------------------------
 
 
+def _ffn(params, cfg: ModelConfig, h):
+    """-> (out, aux): the GLU MLP, or the MoE FFN and its balance loss.
+    The LM runs on one device: no process group reaches the MoE FFN."""
+    if cfg.moe is not None:
+        return M.moe_ffn(params, cfg, h)
+    return L.glu_mlp(params, h, cfg.act), h.new_zeros((), dtype=torch.float32)
+
+
 def block_full(params, cfg: ModelConfig, x, kind: str, *,
                attn_impl: str = "auto"):
     """One sublayer over a full sequence (prefill).  Returns (x, aux_loss,
@@ -182,11 +187,11 @@ def block_full(params, cfg: ModelConfig, x, kind: str, *,
                          cfg.norm_plus_one)
     x = x + attn
     h = L.rmsnorm(params["ln2"], x, cfg.norm_eps, cfg.norm_plus_one)
-    ffn = L.glu_mlp(params["ffn"], h, cfg.act)
+    ffn, aux = _ffn(params["ffn"], cfg, h)
     if cfg.post_norms:
         ffn = L.rmsnorm(params["ln2_post"], ffn, cfg.norm_eps,
                         cfg.norm_plus_one)
-    return x + ffn, x.new_zeros((), dtype=torch.float32), kv
+    return x + ffn, aux, kv
 
 
 def block_decode(params, cfg: ModelConfig, x, kind: str, cache_k, cache_v,
@@ -200,11 +205,11 @@ def block_decode(params, cfg: ModelConfig, x, kind: str, cache_k, cache_v,
                          cfg.norm_plus_one)
     x = x + attn
     h = L.rmsnorm(params["ln2"], x, cfg.norm_eps, cfg.norm_plus_one)
-    ffn = L.glu_mlp(params["ffn"], h, cfg.act)
+    ffn, aux = _ffn(params["ffn"], cfg, h)
     if cfg.post_norms:
         ffn = L.rmsnorm(params["ln2_post"], ffn, cfg.norm_eps,
                         cfg.norm_plus_one)
-    return x + ffn, x.new_zeros((), dtype=torch.float32), (ck, cv)
+    return x + ffn, aux, (ck, cv)
 
 
 # ---------------------------------------------------------------------------

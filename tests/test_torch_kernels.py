@@ -654,7 +654,7 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert len(files) > 15
     port = ROOT / "src" / "repro_torch"
     for new in ("runtime/placement.py", "runtime/reshard.py",
-                "runtime/scrub.py", "core/integrity.py"):
+                "runtime/scrub.py", "core/integrity.py", "models/moe.py"):
         assert port / new in files, new
     for path in files:
         for mod in _imports(path):

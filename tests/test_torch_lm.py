@@ -254,14 +254,9 @@ def test_params_from_jax_casts_f32_leaves():
     ({"frontend": "audio_frames"}, "frontend"),
     ({"family": "hybrid"}, "zamba2"),
     ({"family": "audio"}, "whisper"),
-    ({"family": "moe", "moe": "set"}, "moe"),
     ({"frontend": "vision_patches"}, "frontend"),
 ])
 def test_unported_options_raise(change, match):
-    from repro_torch.configs.base import MoEConfig
-    if change.get("moe") == "set":
-        change = dict(change, moe=MoEConfig(n_experts=4,
-                                            experts_per_token=2))
     cfg = tqwen.smoke().replace(**change)
     with pytest.raises(NotImplementedError, match=match):
         tapi.init(0, cfg, device="cpu")
@@ -272,6 +267,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
     cfg = tgemma.smoke()
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         tT.init_lm(0, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        tT.init_lm(0, tbase.get_arch("qwen2-moe-a2.7b").smoke())
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         tT.params_from_jax({"a": np.zeros(2, np.float32)})
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
@@ -294,7 +291,8 @@ def test_unknown_attn_impl_raises():
                        attn_impl="triton")
 
 
-@pytest.mark.parametrize("arch", ["qwen3-14b", "gemma2-9b"])
+@pytest.mark.parametrize("arch", ["qwen3-14b", "gemma2-9b", "qwen2-moe-a2.7b",
+                                  "granite-moe-3b-a800m"])
 def test_serve_cli_lm_branch_on_cpu(arch, capsys):
     tserve.main(["--arch", arch, "--smoke", "--tokens", "3",
                  "--device", "cpu"])
