@@ -177,7 +177,40 @@ Phases, each on lines of its own:
      (``[moe-profile]``: flash, expert GEMMs, dispatch, the rest, the
      card's active share); 2 prompts, 16 greedy tokens, twice, identical;
      prefill and decode times beside their bounds;
- 14. one JSON line of kernel numbers, the card's name and power limit, and
+ 14. after freeing qwen2-moe-a2.7b, the flash kernel held against its plain
+     version (bf16, as in 6, two runs bit-identical) at the new served
+     shapes: chatglm3-6b's heads (H 32 over Kh 2, 16 query heads a KV
+     head), llava-next-mistral-7b's (32 over 8) and qwen2-72b's (64 over
+     8), hd 128, causal, B 2 x S 4608; whisper-tiny's encoder (H = Kh = 6,
+     hd 64, S 1536, not causal: the plain version with the causal mask must
+     fail the check) and decoder (S 64, causal), each beside
+     scaled_dot_product_attention; and whisper's heads at S 1500 (a ragged
+     last query tile), causal and not;
+ 15. chatglm3-6b (28 layers, bf16, ~12.5 GB) at full width and depth: f32
+     parity at 4 layers (the kernel against the plain attention on the
+     prefill's logits and caches and one decode step, rtol = atol = 1e-4);
+     the kernel on the served layer-0 q, k, v; 3 prefills of 2 x 4608
+     tokens with 28 flash launches each; one prefill and one decode step
+     profiled (``[lm-profile]``); ``LMEngine`` 16 greedy tokens twice,
+     identical; ``[glm-*]`` lines;
+ 16. llava-next-mistral-7b (32 layers, bf16) at full width and depth: f32
+     parity at 4 layers with the patch prefix; each request 2880 random
+     patch embeddings (1024 wide) and 1728 text tokens:
+     ``transformer.prefill(frontend_embeds=...)`` into 4864 positions (32
+     flash launches) and 16 greedy steps through ``steps.make_serve_step``,
+     twice, identical; one ``LMEngine.generate`` on the text prompts alone,
+     as the reference's engine serves the vlm family; ``[llava-*]`` lines;
+ 17. qwen2-72b at full width, depth cut to 32 of its 80 layers (61.2 GB of
+     bf16 weights; 80 layers are 145 GB): f32 parity at 2 layers, then as
+     15 (32 flash launches a prefill); ``[qwen72-*]`` lines;
+ 18. whisper-tiny (4 encoder + 4 decoder layers) at full width and depth:
+     ``api.forward`` on random (2, 1536, 80) frames and 64-token prompts,
+     f32 through the kernel against the plain attention (1e-4), bf16 with
+     4 non-causal and 4 causal flash launches; ``LMEngine`` 2 x 64-token
+     prompts and 16 tokens, twice, identical, as the reference serves the
+     audio family (zero cross K/V, prompt fed token by token);
+     ``[whisper-*]`` lines;
+ 19. one JSON line of kernel numbers, the card's name and power limit, and
      last ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or with any phase failing, it exits non-zero and
 prints no result.
@@ -1724,8 +1757,13 @@ def range_device_us(prof, name: str):
     return us, n
 
 
-def admitted_pairs(s: int, window: int) -> int:
-    """(query, key) pairs a causal layer of length s admits."""
+def admitted_pairs(s: int, window: int, causal: bool = True) -> int:
+    """(query, key) pairs a layer of length s admits: causal (and within
+    the window), or every pair without the causal mask (and no window)."""
+    if not causal:
+        if window:
+            raise ValueError("no window without the causal mask")
+        return s * s
     live = np.arange(1, s + 1)
     return int((np.minimum(live, window) if window else live).sum())
 
@@ -2180,6 +2218,66 @@ def reshard_scrub_phase(params, cfg, dev, card, cache, ctr5):
     return launches
 
 
+def flash_row(name, gen, dev, b, s, h, kh, hd, *, window=0, cap=0.0,
+              causal=True):
+    """One flash-kernel row: bf16 q (at FLASH_Q_SCALE), k, v of shape (b, s,
+    heads, hd) from ``gen``, the kernel held against its plain version and
+    timed (check_kernel), beside scaled_dot_product_attention where one
+    PyTorch call computes the function (no softcap, no window); the plain
+    version without the softcap, without the window and, for a non-causal
+    row, with the causal mask must fail the check.  Returns (row, launch
+    key)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    q, k, v = ((torch.randn((b, s, n, hd), generator=gen, device=dev)
+                * scale).to(torch.bfloat16)
+               for n, scale in ((h, FLASH_Q_SCALE), (kh, 1.0), (kh, 1.0)))
+    kw = {"causal": causal, "window": window, "softcap": cap}
+    library = None
+    if not cap and not window:
+        # one PyTorch call computes this layer's function (no softcap):
+        # the yardstick, used nowhere in the port
+        def library(q=q, k=k, v=v):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=causal, enable_gqa=True).transpose(1, 2)
+    row = check_kernel(
+        name, "src/repro/kernels/flash_attention.py:97",
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        lambda: fa.flash_attention(q, k, v, **kw),
+        lambda: ref.flash_attention_ref(q, k, v, **kw),
+        library, n_bytes=2 * (2 * q.numel() + 2 * k.numel()),
+        flops=4 * hd * admitted_pairs(s, window, causal) * b * h, flush=None,
+        tol=FLASH_TOL, rel=FLASH_REL, peak_flops=BF16_FLOPS)
+    if row["library_ms"] is not None:
+        log(f"[kernel] {name}: kernel {row['ms']:.4f} ms beside "
+            f"scaled_dot_product_attention {row['library_ms']:.4f} ms in "
+            f"this run ({row['ms'] / row['library_ms']:.2f}x)")
+    # the check sees each branch: a kernel that dropped the softcap or the
+    # window, or masked a non-causal layer, would fail it
+    plain = ref.flash_attention_ref(q, k, v, **kw)
+    branches = []
+    if cap:
+        branches.append(("without the softcap", dict(kw, softcap=0.0)))
+    if window:
+        branches.append(("without the window", dict(kw, window=0)))
+    if not causal:
+        branches.append(("with the causal mask", dict(kw, causal=True)))
+    for branch, bkw in branches:
+        wrong = ref.flash_attention_ref(q, k, v, **bkw)
+        if torch.allclose(wrong, plain, **FLASH_TOL):
+            raise AssertionError(f"{name}: the plain version {branch} "
+                                 f"passes the check")
+        err, fro, _ = errors(wrong, plain, FLASH_TOL["rtol"])
+        log(f"[kernel] {name}: the plain version {branch} fails the check "
+            f"(max_abs_err {err:.3e}, relative Frobenius error {fro:.3e})")
+        del wrong
+    del q, k, v, library, plain
+    torch.cuda.empty_cache()
+    return row, fa.launch_key(h, kh, hd, window, causal)
+
+
 def flash_phase(dev):
     """Phase 6: the flash kernel against its plain version at the served
     layer shapes, in bf16, timed warm (q, k, v are written just before it
@@ -2187,67 +2285,19 @@ def flash_phase(dev):
     from repro_torch.configs.gemma2_9b import CONFIG as GEMMA
     from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as QWEN2MOE
     from repro_torch.configs.qwen3_14b import CONFIG as QWEN
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    b, s = LM_BATCH, LM_PROMPT
     rows = []
-    for label, cfg, window, cap in (
-            ("gemma2_local", GEMMA, GEMMA.sliding_window,
-             GEMMA.attn_logit_softcap),
-            ("gemma2_global", GEMMA, 0, GEMMA.attn_logit_softcap),
-            ("qwen3_heads", QWEN, 0, QWEN.attn_logit_softcap),
-            ("qwen2moe_heads", QWEN2MOE, 0, QWEN2MOE.attn_logit_softcap)):
-        h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        q, k, v = ((torch.randn((b, s, n, hd), generator=gen, device=dev)
-                    * scale).to(torch.bfloat16)
-                   for n, scale in ((h, FLASH_Q_SCALE), (kh, 1.0), (kh, 1.0)))
-        library = None
-        if not cap and not window:
-            # one PyTorch call computes this layer's function (no softcap):
-            # the yardstick, used nowhere in the port
-            def library(q=q, k=k, v=v):
-                return F.scaled_dot_product_attention(
-                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    is_causal=True, enable_gqa=True).transpose(1, 2)
-        name = f"flash_attention/{label}"
-        rows.append((check_kernel(
-            name, "src/repro/kernels/flash_attention.py:97",
-            "src/repro_torch/kernels/csrc/flash_attention.cu",
-            lambda: fa.flash_attention(q, k, v, window=window, softcap=cap),
-            lambda: ref.flash_attention_ref(q, k, v, window=window,
-                                            softcap=cap),
-            library, n_bytes=2 * (2 * q.numel() + 2 * k.numel()),
-            flops=4 * hd * admitted_pairs(s, window) * b * h, flush=None,
-            tol=FLASH_TOL, rel=FLASH_REL, peak_flops=BF16_FLOPS),
-            fa.launch_key(h, kh, hd, window)))
-        row = rows[-1][0]
-        if row["library_ms"] is not None:
-            log(f"[kernel] {name}: kernel {row['ms']:.4f} ms beside "
-                f"scaled_dot_product_attention {row['library_ms']:.4f} ms in "
-                f"this run ({row['ms'] / row['library_ms']:.2f}x)")
-        # the check sees each branch: a kernel that dropped the softcap or
-        # the window would fail it
-        plain = ref.flash_attention_ref(q, k, v, window=window, softcap=cap)
-        branches = []
-        if cap:
-            branches.append(("softcap", {"window": window, "softcap": 0.0}))
-        if window:
-            branches.append(("window", {"window": 0, "softcap": cap}))
-        for branch, kw in branches:
-            wrong = ref.flash_attention_ref(q, k, v, **kw)
-            if torch.allclose(wrong, plain, **FLASH_TOL):
-                raise AssertionError(f"{name}: the plain version without the "
-                                     f"{branch} passes the check")
-            err, fro, _ = errors(wrong, plain, FLASH_TOL["rtol"])
-            log(f"[kernel] {name}: the plain version without the {branch} "
-                f"fails the check (max_abs_err {err:.3e}, relative "
-                f"Frobenius error {fro:.3e})")
-            del wrong
-        del q, k, v, library, plain
-        torch.cuda.empty_cache()
+    for label, cfg, window in (
+            ("gemma2_local", GEMMA, GEMMA.sliding_window),
+            ("gemma2_global", GEMMA, 0),
+            ("qwen3_heads", QWEN, 0),
+            ("qwen2moe_heads", QWEN2MOE, 0)):
+        rows.append(flash_row(
+            f"flash_attention/{label}", gen, dev, LM_BATCH, LM_PROMPT,
+            cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, window=window,
+            cap=cfg.attn_logit_softcap))
     return rows
 
 
@@ -2261,31 +2311,11 @@ def lm_parity_phase(dev):
     local and one global group): prefill through the kernel against the
     plain attention, and one (plain) decode step from each one's cache."""
     from repro_torch.configs.gemma2_9b import CONFIG as GEMMA
-    from repro_torch.models import transformer as T
 
     cfg = GEMMA.replace(n_layers=PARITY_LAYERS, dtype="float32")
-    params = T.init_lm(SEED, cfg, dev)
     toks = torch.from_numpy(lm_prompts(cfg.vocab_size)).to(dev)
-    out = {}
-    for impl in ("auto", "ref"):
-        logits, cache = T.prefill(params, cfg, toks, pad_to=LM_PROMPT + 1,
-                                  attn_impl=impl)
-        nxt = toks[:, -1:]
-        step, _ = T.decode_step(params, cfg, nxt, cache)
-        out[impl] = (logits, cache, step)
-    (la, ca, da), (lr, cr, dr) = out["auto"], out["ref"]
-    torch.testing.assert_close(la, lr, **LM_TOL)
-    torch.testing.assert_close(ca["k"], cr["k"], **LM_TOL)
-    torch.testing.assert_close(ca["v"], cr["v"], **LM_TOL)
-    torch.testing.assert_close(da, dr, **LM_TOL)
-    errs = [(a - r).abs().max().item() for a, r in
-            ((la, lr), (ca["k"], cr["k"]), (ca["v"], cr["v"]), (da, dr))]
-    log(f"[lm-parity] gemma2-9b full width, f32, depth cut 42 -> "
-        f"{PARITY_LAYERS} layers, B {LM_BATCH} x {LM_PROMPT} tokens: kernel "
-        f"vs plain attention max_abs_err prefill logits {errs[0]:.3e}, cache "
-        f"k {errs[1]:.3e} v {errs[2]:.3e}, decode logits {errs[3]:.3e} "
-        f"(rtol = atol = 1e-4)")
-    del params, out, la, ca, da, lr, cr, dr
+    family_parity("lm-parity", "gemma2-9b", cfg, toks, dev,
+                  full_depth=GEMMA.n_layers)
     torch.cuda.empty_cache()
 
 
@@ -2320,18 +2350,19 @@ def profile_device(label, fn, top: int = 8, tag: str = "lm-profile"):
     return by_name
 
 
-def served_layers_check(params, cfg, toks):
+def served_layers_check(params, cfg, toks, frontend_embeds=None):
     """The kernel against its plain version on the q, k and v the served
-    model computes for the prompts at the first layer of each kind in its
-    pattern (group 0 of each sublayer), at the tolerance of phase 6."""
+    model computes for the prompts (behind ``frontend_embeds``, for a VLM)
+    at the first layer of each kind in its pattern (group 0 of each
+    sublayer), at the tolerance of phase 6."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.models import attention as A
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
 
-    x = T.embed_inputs(params, cfg, toks)
-    positions = torch.arange(toks.shape[1], device=toks.device)[None, :]
+    x = T.embed_inputs(params, cfg, toks, frontend_embeds)
+    positions = torch.arange(x.shape[1], device=toks.device)[None, :]
     for i, kind in enumerate(T.layer_pattern(cfg)):
         sub = T._map(lambda a: a[0], params["layers"][f"sub{i}"])
         window = cfg.sliding_window if kind == "local" else 0
@@ -2368,30 +2399,14 @@ def lm_serve_phase(dev, card):
     t0 = time.perf_counter()
     params = T.init_lm(SEED, cfg, dev)
     torch.cuda.synchronize()
-    n_bytes = sum(a.numel() * a.element_size()
-                  for a in _leaves(params))
+    n_bytes = weight_bytes(params)
     log(f"[lm-init] gemma2-9b {cfg.n_layers} layers, {cfg.dtype}, "
         f"{n_bytes / 1e9:.3f} GB of weights in "
         f"{time.perf_counter() - t0:.2f} s")
     prompts = lm_prompts(cfg.vocab_size)
     toks = torch.from_numpy(prompts).to(dev)
     served_layers_check(params, cfg, toks)
-
-    prefill_ms = []
-    for _ in range(3):
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        logits, cache = T.prefill(params, cfg, toks, pad_to=LM_MAX_LEN)
-        torch.cuda.synchronize()
-        prefill_ms.append((time.perf_counter() - t0) * 1e3)
-        if ops.kernels()["flash_attention"].launches != cfg.n_layers:
-            raise AssertionError(
-                f"prefill launched the flash kernel "
-                f"{ops.kernels()['flash_attention'].launches} times, not "
-                f"{cfg.n_layers}")
-        if not torch.isfinite(logits).all():
-            raise AssertionError("prefill logits not finite")
-        del logits, cache
+    prefill_ms = prefill_runs(params, cfg, toks)
     profile_device("one prefill",
                    lambda: T.prefill(params, cfg, toks, pad_to=LM_MAX_LEN))
 
@@ -2404,12 +2419,7 @@ def lm_serve_phase(dev, card):
     t0 = time.perf_counter()
     second = eng.generate(prompts, LM_NEW)
     gen_s = time.perf_counter() - t0
-    if first.shape != (LM_BATCH, LM_NEW):
-        raise AssertionError(f"generated shape {first.shape}")
-    if not ((first >= 0) & (first < cfg.vocab_size)).all():
-        raise AssertionError("generated tokens out of range")
-    if not np.array_equal(first, second):
-        raise AssertionError("two generate runs differ")
+    check_generated(first, second, cfg.vocab_size)
     heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
     want = {fa.launch_key(*heads, cfg.sliding_window): cfg.n_layers // 2,
             fa.launch_key(*heads, 0): cfg.n_layers // 2}
@@ -2437,7 +2447,7 @@ def lm_serve_phase(dev, card):
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; card {card!r}")
     log(f"[lm-serve] tokens identical across two runs; first row "
         f"{first[0].tolist()}; launches per generate {launches}; flash "
-        f"launches by (H, Kh, hd, window) {by_key}")
+        f"launches by (H, Kh, hd, window, causal) {by_key}")
     log(f"[lm-serve] decode weight-read bound {n_bytes / HBM_BYTES_PER_S * 1e3:.3f} "
         f"ms/token ({n_bytes / 1e9:.3f} GB at 3.35 TB/s)")
     return launches, by_key
@@ -2593,7 +2603,7 @@ def rwkv_parity_phase(dev):
         p = dict(params, layers=T._map(lambda a: a[:n], params["layers"]))
         la, _, sa = R.forward(p, cfg, toks, collect_cache=True)
         lr, _, sr = R.forward(p, cfg, toks, collect_cache=True,
-                              wkv_impl="ref")
+                              wkv_impl="interpret")
         st = R.make_state(cfg, 1, device=dev)
         outs = []
         for t in range(RWKV_DECODE_CHECK):
@@ -2793,29 +2803,11 @@ def moe_parity_phase(dev):
     by layer."""
     from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as QWEN2MOE
     from repro_torch.models import moe as M
-    from repro_torch.models import transformer as T
 
     cfg = QWEN2MOE.replace(n_layers=MOE_PARITY_LAYERS, dtype="float32")
-    params = T.init_lm(SEED, cfg, dev)
     toks = torch.from_numpy(lm_prompts(cfg.vocab_size)).to(dev)
-    out = {}
-    for impl in ("auto", "ref"):
-        logits, cache = T.prefill(params, cfg, toks, pad_to=LM_PROMPT + 1,
-                                  attn_impl=impl)
-        step, _ = T.decode_step(params, cfg, toks[:, -1:], cache)
-        out[impl] = (logits, cache, step)
-    (la, ca, da), (lr, cr, dr) = out["auto"], out["ref"]
-    pairs = ((la, lr), (ca["k"], cr["k"]), (ca["v"], cr["v"]), (da, dr))
-    for a, r in pairs:
-        torch.testing.assert_close(a, r, **LM_TOL)
-    errs = [(a - r).abs().max().item() for a, r in pairs]
-    del out, la, ca, da, lr, cr, dr, pairs
-    torch.cuda.empty_cache()
-    log(f"[moe-parity] qwen2-moe-a2.7b full width, f32, depth cut "
-        f"{QWEN2MOE.n_layers} -> {MOE_PARITY_LAYERS} layers, B {LM_BATCH} x "
-        f"{LM_PROMPT} tokens: kernel vs plain attention max_abs_err prefill "
-        f"logits {errs[0]:.3e}, cache k {errs[1]:.3e} v {errs[2]:.3e}, "
-        f"decode logits {errs[3]:.3e} (rtol = atol = 1e-4)")
+    params = family_parity("moe-parity", "qwen2-moe-a2.7b", cfg, toks, dev,
+                           full_depth=QWEN2MOE.n_layers)
     big = cfg.replace(moe=dataclasses.replace(cfg.moe,
                                               capacity_factor=MOE_DENSE_CF))
     t = LM_BATCH * LM_PROMPT
@@ -3009,7 +3001,7 @@ def moe_serve_phase(dev, card):
     params = T.init_lm(SEED, cfg, dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_bytes = sum(a.numel() * a.element_size() for a in _leaves(params))
+    n_bytes = weight_bytes(params)
     ffn = params["layers"]["sub0"]["ffn"]
     expert_bytes = sum(ffn[k].numel() * ffn[k].element_size()   # all layers
                        for k in ("gate", "up", "down"))
@@ -3027,22 +3019,7 @@ def moe_serve_phase(dev, card):
         moe_ep_phase(sub["ffn"], cfg, h, card)
     del sub, h
     torch.cuda.empty_cache()
-
-    prefill_ms = []
-    for _ in range(3):
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        logits, cache = T.prefill(params, cfg, toks, pad_to=LM_MAX_LEN)
-        torch.cuda.synchronize()
-        prefill_ms.append((time.perf_counter() - t0) * 1e3)
-        if ops.kernels()["flash_attention"].launches != cfg.n_layers:
-            raise AssertionError(
-                f"prefill launched the flash kernel "
-                f"{ops.kernels()['flash_attention'].launches} times, not "
-                f"{cfg.n_layers}")
-        if not torch.isfinite(logits).all():
-            raise AssertionError("prefill logits not finite")
-        del logits, cache
+    prefill_ms = prefill_runs(params, cfg, toks)
     prefill_peak = torch.cuda.max_memory_allocated()
     moe_profile("one prefill",
                 lambda: T.prefill(params, cfg, toks, pad_to=LM_MAX_LEN))
@@ -3056,12 +3033,7 @@ def moe_serve_phase(dev, card):
     t0 = time.perf_counter()
     second = eng.generate(prompts, LM_NEW)
     gen_s = time.perf_counter() - t0
-    if first.shape != (LM_BATCH, LM_NEW):
-        raise AssertionError(f"generated shape {first.shape}")
-    if not ((first >= 0) & (first < cfg.vocab_size)).all():
-        raise AssertionError("generated tokens out of range")
-    if not np.array_equal(first, second):
-        raise AssertionError("two generate runs differ")
+    check_generated(first, second, cfg.vocab_size)
     want = {fa.launch_key(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 0):
             cfg.n_layers}
     if launches["flash_attention"] != cfg.n_layers or by_key != want:
@@ -3090,7 +3062,7 @@ def moe_serve_phase(dev, card):
         f"steps only), generate wall {gen_s * 1e3:.1f} ms; card {card!r}")
     log(f"[moe-serve] tokens identical across two runs; first row "
         f"{first[0].tolist()}; launches per generate {launches}; flash "
-        f"launches by (H, Kh, hd, window) {by_key}")
+        f"launches by (H, Kh, hd, window, causal) {by_key}")
     log(f"[moe-serve] prefill bound {flops / BF16_FLOPS * 1e3:.3f} ms "
         f"({flops / 1e12:.3f} TFLOP at 989 TFLOP/s; weights "
         f"{read / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s); decode "
@@ -3101,6 +3073,446 @@ def moe_serve_phase(dev, card):
         f"head's {head.numel() * head.element_size() / 1e9:.3f} GB, "
         f"attention and shared experts)")
     del params
+    torch.cuda.empty_cache()
+    return by_key
+
+
+# the phases of the rest of the attention families, after the MoE ones:
+# chatglm3-6b and llava-next-mistral-7b at full width and depth, qwen2-72b
+# at full width and QWEN72_LAYERS of its 80 layers (80 layers of bf16
+# weights are 145 GB, more than the card holds; 32 are 61.2 GB), whisper-
+# tiny at full width and depth.  Traffic is the gemma2 phase's; a llava
+# request carries LLAVA_PATCHES patch embeddings and LLAVA_TEXT text
+# tokens, so its attention spans LM_PROMPT positions as the others'.  The
+# f32 parity runs at FAMILY_PARITY_LAYERS layers on the full prompts, and
+# qwen2-72b's at QWEN72_PARITY_LAYERS (~17 GB of f32 weights; the plain
+# attention's (B, H, S, S) f32 scores take 10.9 GB at H 64).  whisper: 2
+# requests of WHISPER_FRAMES frames and WHISPER_PROMPT decoder tokens, the
+# encoder's kernel also held at WHISPER_ODD_FRAMES (1500 = 23 x 64 + 28,
+# not a whole number of the hd-64 body's 64-query tiles)
+FAMILY_PARITY_LAYERS = 4
+QWEN72_LAYERS, QWEN72_PARITY_LAYERS = 32, 2
+LLAVA_PATCHES = 2880
+LLAVA_TEXT = LM_PROMPT - LLAVA_PATCHES
+WHISPER_FRAMES, WHISPER_ODD_FRAMES, WHISPER_PROMPT = 1536, 1500, 64
+WHISPER_MAX_LEN = WHISPER_PROMPT + LM_NEW
+
+
+def families_flash_phase(dev):
+    """Phase 14: the flash kernel against its plain version (bf16, as phase
+    6) at the new served shapes: chatglm3-6b's heads (H 32 over Kh 2: 16
+    query heads a KV head), llava's (32 over 8) and qwen2-72b's (64 over
+    8), hd 128, causal, S LM_PROMPT; whisper-tiny's encoder (H = Kh = 6,
+    hd 64, S WHISPER_FRAMES, not causal) and decoder (S WHISPER_PROMPT,
+    causal); and the encoder's shape at WHISPER_ODD_FRAMES.  Returns (row,
+    launch key) pairs."""
+    from repro_torch.configs.chatglm3_6b import CONFIG as GLM
+    from repro_torch.configs.llava_next_mistral_7b import CONFIG as LLAVA
+    from repro_torch.configs.qwen2_72b import CONFIG as QWEN72
+    from repro_torch.configs.whisper_tiny import CONFIG as WHISPER
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    rows = [flash_row(f"flash_attention/{label}", gen, dev, LM_BATCH,
+                      LM_PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+            for label, cfg in (("chatglm3_heads", GLM),
+                               ("llava_heads", LLAVA),
+                               ("qwen2_72b_heads", QWEN72))]
+    w = WHISPER
+    for label, s, causal in (("whisper_encoder", WHISPER_FRAMES, False),
+                             ("whisper_decoder", WHISPER_PROMPT, True)):
+        rows.append(flash_row(f"flash_attention/{label}", gen, dev, LM_BATCH,
+                              s, w.n_heads, w.n_kv_heads, w.head_dim,
+                              causal=causal))
+    q, k, v = (torch.randn((LM_BATCH, WHISPER_ODD_FRAMES, w.n_heads,
+                            w.head_dim), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    for causal in (False, True):
+        out = fa.flash_attention(q, k, v, causal=causal)
+        again = fa.flash_attention(q, k, v, causal=causal)
+        if not torch.equal(out, again):
+            raise AssertionError("two kernel runs differ at S "
+                                 f"{WHISPER_ODD_FRAMES}")
+        err, fro, _ = hold(f"S {WHISPER_ODD_FRAMES}", out,
+                           ref.flash_attention_ref(q, k, v, causal=causal),
+                           FLASH_TOL, FLASH_REL)
+        log(f"[kernel] flash_attention whisper heads at S "
+            f"{WHISPER_ODD_FRAMES} (a ragged last query tile), causal "
+            f"{causal}: max_abs_err {err:.3e}, relative Frobenius error "
+            f"{fro:.3e}; two runs bit-identical")
+    del q, k, v, out, again
+    torch.cuda.empty_cache()
+    return rows
+
+
+def dense_prefill_flops(cfg, b: int, s: int, n_front: int = 0) -> int:
+    """Multiply-add flops (x2) of one prefill of ``b`` sequences of ``s``
+    positions as the dense path computes it: q/k/v/o projections, causal
+    attention (4 hd a pair), the GLU MLP, the frontend projection of
+    ``n_front`` positions, the LM head on the last positions."""
+    d, hd, h, kh = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    t = b * s
+    per_layer = (2 * t * d * (2 * h * hd + 2 * kh * hd)
+                 + 4 * hd * admitted_pairs(s, 0) * b * h
+                 + 6 * t * d * cfg.d_ff)
+    return (cfg.n_layers * per_layer + 2 * b * n_front * cfg.d_frontend * d
+            + 2 * b * d * cfg.vocab_size)
+
+
+def weight_bytes(params) -> int:
+    return sum(a.numel() * a.element_size() for a in _leaves(params))
+
+
+def patches_for(cfg, dev, dtype):
+    """(LM_BATCH, n_frontend_tokens, d_frontend) random patch embeddings
+    from the seed, as a vision tower's output would arrive."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    return torch.randn((LM_BATCH, cfg.n_frontend_tokens, cfg.d_frontend),
+                       generator=gen, device=dev).to(dtype)
+
+
+def family_parity(tag, name, cfg, toks, dev, patches=None, *,
+                  full_depth=None):
+    """``cfg`` (f32, cut from ``full_depth`` layers) prefilled through the
+    kernel and through the plain attention, and one decode step from each
+    cache: logits, caches and the decode logits within LM_TOL.  Returns
+    the parameters."""
+    from repro_torch.models import transformer as T
+
+    params = T.init_lm(SEED, cfg, dev)
+    fe = None if patches is None else patches.float()
+    n = cache_positions(toks, fe)
+    out = {}
+    for impl in ("auto", "ref"):
+        logits, cache = T.prefill(params, cfg, toks, fe, pad_to=n + 1,
+                                  attn_impl=impl)
+        step, _ = T.decode_step(params, cfg, toks[:, -1:], cache)
+        out[impl] = (logits, cache, step)
+    (la, ca, da), (lr, cr, dr) = out["auto"], out["ref"]
+    pairs = ((la, lr), (ca["k"], cr["k"]), (ca["v"], cr["v"]), (da, dr))
+    for a, r in pairs:
+        torch.testing.assert_close(a, r, **LM_TOL)
+    errs = [(a - r).abs().max().item() for a, r in pairs]
+    depth = f"{cfg.n_layers} layers" if full_depth is None else \
+        f"depth cut {full_depth} -> {cfg.n_layers} layers"
+    seq = f"{n} positions" if fe is None else \
+        f"{n} positions ({fe.shape[1]} patches + {toks.shape[1]} tokens)"
+    log(f"[{tag}] {name} full width, f32, {depth}, B {toks.shape[0]} x "
+        f"{seq}: kernel vs plain attention max_abs_err prefill logits "
+        f"{errs[0]:.3e}, cache k {errs[1]:.3e} v {errs[2]:.3e}, decode "
+        f"logits {errs[3]:.3e} (rtol = atol = 1e-4)")
+    del out, la, ca, da, lr, cr, dr, pairs
+    torch.cuda.empty_cache()
+    return params
+
+
+def cache_positions(toks, frontend_embeds=None) -> int:
+    return toks.shape[1] + (0 if frontend_embeds is None
+                            else frontend_embeds.shape[1])
+
+
+def prefill_runs(params, cfg, toks, patches=None, n=3):
+    """``n`` prefills into a cache of LM_MAX_LEN positions, each launching
+    the flash kernel once per layer; -> their wall times in ms."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    times = []
+    for _ in range(n):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        logits, cache = T.prefill(params, cfg, toks, patches,
+                                  pad_to=LM_MAX_LEN)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if ops.kernels()["flash_attention"].launches != cfg.n_layers:
+            raise AssertionError(
+                f"prefill launched the flash kernel "
+                f"{ops.kernels()['flash_attention'].launches} times, not "
+                f"{cfg.n_layers}")
+        if not torch.isfinite(logits).all():
+            raise AssertionError("prefill logits not finite")
+        del logits, cache
+    return times
+
+
+def check_generated(first, second, vocab):
+    if first.shape != (LM_BATCH, LM_NEW):
+        raise AssertionError(f"generated shape {first.shape}")
+    if not ((first >= 0) & (first < vocab)).all():
+        raise AssertionError("generated tokens out of range")
+    if not np.array_equal(first, second):
+        raise AssertionError("two generate runs differ")
+
+
+def log_family_serve(tag, name, cfg, n_bytes, prefill_ms, monitor, gen_s,
+                     read, flops, card, extra=""):
+    """One line of a served family: weights, prefill ms and tokens/s
+    against the prefill's flop bound, decode ms/token p50/p99 (the
+    monitor's) against the weight-read bound, peak memory."""
+    steps = sorted(monitor.lat)
+    warm = statistics.median(prefill_ms[1:])
+    pct = lambda q: monitor.percentile(q) * 1e3
+    log(f"[{tag}] {name} ({cfg.n_layers} layers, {n_bytes / 1e9:.3f} GB of "
+        f"bf16 weights) B {LM_BATCH} x {LM_PROMPT} positions{extra}, "
+        f"{LM_NEW} greedy tokens, cache {LM_MAX_LEN}: prefill ms "
+        f"{prefill_ms[0]:.1f} first, {warm:.1f} warm "
+        f"({LM_BATCH * LM_PROMPT / warm * 1e3:.0f} prefill tokens/s) against "
+        f"a {flops / BF16_FLOPS * 1e3:.3f} ms bound ({flops / 1e12:.3f} "
+        f"TFLOP at 989 TFLOP/s); decode ms/token p50 {pct(0.5):.3f} p99 "
+        f"{pct(0.99):.3f} min {steps[0] * 1e3:.3f} against a "
+        f"{read / HBM_BYTES_PER_S * 1e3:.3f} ms weight-read bound "
+        f"({read / 1e9:.3f} GB a step at 3.35 TB/s); generated tokens/s "
+        f"{LM_BATCH * LM_NEW / sum(steps):.1f} (decode steps only), "
+        f"generate wall {gen_s * 1e3:.1f} ms; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; card {card!r}")
+
+
+def dense_family_phase(tag, full, dev, card, *, n_layers=None,
+                       parity_layers=FAMILY_PARITY_LAYERS):
+    """Phase 15 (chatglm3-6b) and 17 (qwen2-72b): the config ``full``, its
+    depth cut to ``n_layers`` if given; f32 parity at ``parity_layers``,
+    then the config in bf16 served by LMEngine: the kernel held on the
+    served layer-0 q, k, v, 3 prefills with one flash launch a layer, one
+    prefill and one decode step profiled, 2 generate runs identical.
+    Returns the flash launches of one generate run by launch key."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import LMEngine
+    from repro_torch.train import steps as steps_mod
+
+    name = full.name
+    cfg = full if n_layers is None else full.replace(n_layers=n_layers)
+    cut = "" if n_layers is None else \
+        f" (depth cut from {full.n_layers}: {full.n_layers} layers of " \
+        f"{cfg.dtype} weights exceed the card's memory)"
+    prompts = lm_prompts(cfg.vocab_size)
+    toks = torch.from_numpy(prompts).to(dev)
+    family_parity(f"{tag}-parity", name,
+                  full.replace(n_layers=parity_layers, dtype="float32"),
+                  toks, dev, full_depth=full.n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_lm(SEED, cfg, dev)
+    torch.cuda.synchronize()
+    n_bytes = weight_bytes(params)
+    log(f"[{tag}-init] {name} {cfg.n_layers} layers{cut}, {cfg.dtype}, "
+        f"{n_bytes / 1e9:.3f} GB of weights in "
+        f"{time.perf_counter() - t0:.2f} s")
+    served_layers_check(params, cfg, toks)
+    prefill_ms = prefill_runs(params, cfg, toks)
+    profile_device(f"{name} one prefill",
+                   lambda: T.prefill(params, cfg, toks, pad_to=LM_MAX_LEN))
+    eng = LMEngine(params, cfg, max_len=LM_MAX_LEN, device=dev)
+    ops.reset_launches()
+    first = eng.generate(prompts, LM_NEW)
+    by_key = dict(fa.FLASH.by_key)
+    eng.monitor.reset()
+    t0 = time.perf_counter()
+    second = eng.generate(prompts, LM_NEW)
+    gen_s = time.perf_counter() - t0
+    check_generated(first, second, cfg.vocab_size)
+    want = {fa.launch_key(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 0):
+            cfg.n_layers}
+    if by_key != want:
+        raise AssertionError(f"generate launched flash {by_key}, not {want}")
+    step = steps_mod.make_serve_step(cfg)
+    _, cache = T.prefill(params, cfg, toks, pad_to=LM_MAX_LEN)
+    profile_device(f"{name} one decode step",
+                   lambda: step(params, toks[:, -1:], cache)[0].cpu())
+    del cache
+    emb = params["embed"]["table"]
+    log_family_serve(f"{tag}-serve", name, cfg, n_bytes, prefill_ms,
+                     eng.monitor, gen_s,
+                     n_bytes - emb.numel() * emb.element_size(),
+                     dense_prefill_flops(cfg, LM_BATCH, LM_PROMPT), card)
+    log(f"[{tag}-serve] tokens identical across two runs; first row "
+        f"{first[0].tolist()}; flash launches by (H, Kh, hd, window, "
+        f"causal) {by_key}")
+    del params, eng
+    torch.cuda.empty_cache()
+    return by_key
+
+
+def llava_phase(dev, card):
+    """Phase 16: llava-next-mistral-7b (32 layers, bf16).  f32 parity at
+    FAMILY_PARITY_LAYERS with the patch prefix; then each request carries
+    LLAVA_PATCHES random patch embeddings and LLAVA_TEXT text tokens:
+    ``transformer.prefill(frontend_embeds=...)`` into LM_MAX_LEN positions
+    and LM_NEW greedy steps through ``steps.make_serve_step`` (the loop
+    LMEngine runs), twice, identical; one ``LMEngine.generate`` on the
+    text prompts alone, as the reference's engine serves the vlm family.
+    Returns the flash launches of one patch-prefixed prefill by key."""
+    from repro_torch.configs.llava_next_mistral_7b import CONFIG as LLAVA
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.straggler import StragglerMonitor
+    from repro_torch.serving.engine import LMEngine
+    from repro_torch.train import steps as steps_mod
+
+    cfg, name = LLAVA, "llava-next-mistral-7b"
+    if cfg.n_frontend_tokens != LLAVA_PATCHES:
+        raise AssertionError(f"llava has {cfg.n_frontend_tokens} patches")
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (LM_BATCH, LLAVA_TEXT)).astype(np.int32)
+    toks = torch.from_numpy(prompts).to(dev)
+    patches = patches_for(cfg, dev, torch.float32)
+    family_parity("llava-parity", name,
+                  cfg.replace(n_layers=FAMILY_PARITY_LAYERS,
+                              dtype="float32"), toks, dev, patches,
+                  full_depth=cfg.n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_lm(SEED, cfg, dev)
+    torch.cuda.synchronize()
+    n_bytes = weight_bytes(params)
+    log(f"[llava-init] {name} {cfg.n_layers} layers, {cfg.dtype}, "
+        f"{n_bytes / 1e9:.3f} GB of weights in "
+        f"{time.perf_counter() - t0:.2f} s")
+    patches = patches.to(torch.bfloat16)
+    served_layers_check(params, cfg, toks, patches)
+    prefill_ms = prefill_runs(params, cfg, toks, patches)
+    profile_device(f"{name} one prefill with patches",
+                   lambda: T.prefill(params, cfg, toks, patches,
+                                     pad_to=LM_MAX_LEN))
+    step = steps_mod.make_serve_step(cfg)
+    monitor = StragglerMonitor()
+    runs, by_key = [], None
+    for run in range(2):
+        ops.reset_launches()
+        t_run = time.perf_counter()
+        _, cache = T.prefill(params, cfg, toks, patches, pad_to=LM_MAX_LEN)
+        if run == 0:
+            by_key = dict(fa.FLASH.by_key)
+        if cache["pos"] != LM_PROMPT:
+            raise AssertionError(f"cache pos {cache['pos']}")
+        tok, outs = toks[:, -1:], []
+        for _ in range(LM_NEW):
+            t0 = time.perf_counter()
+            tok, cache = step(params, tok, cache)
+            outs.append(tok.cpu().numpy())
+            if run:
+                monitor.observe(time.perf_counter() - t0)
+        runs.append(np.concatenate(outs, axis=1))
+        gen_s = time.perf_counter() - t_run
+        del cache
+    check_generated(runs[0], runs[1], cfg.vocab_size)
+    want = {fa.launch_key(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 0):
+            cfg.n_layers}
+    if by_key != want:
+        raise AssertionError(f"the patch prefill launched flash {by_key}, "
+                             f"not {want}")
+    _, cache = T.prefill(params, cfg, toks, patches, pad_to=LM_MAX_LEN)
+    profile_device(f"{name} one decode step",
+                   lambda: step(params, toks[:, -1:], cache)[0].cpu())
+    del cache
+    emb = params["embed"]["table"]
+    log_family_serve("llava-serve", name, cfg, n_bytes, prefill_ms, monitor,
+                     gen_s, n_bytes - emb.numel() * emb.element_size(),
+                     dense_prefill_flops(cfg, LM_BATCH, LM_PROMPT,
+                                         LLAVA_PATCHES), card,
+                     extra=f" ({LLAVA_PATCHES} patches + {LLAVA_TEXT} text "
+                           "tokens)")
+    log(f"[llava-serve] prefill + make_serve_step loop: tokens identical "
+        f"across two runs; first row {runs[0][0].tolist()}; flash launches "
+        f"of one prefill by (H, Kh, hd, window, causal) {by_key}")
+    eng = LMEngine(params, cfg, max_len=LM_MAX_LEN, device=dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    text = eng.generate(prompts, LM_NEW)
+    text_s = time.perf_counter() - t0
+    if text.shape != (LM_BATCH, LM_NEW) or \
+            fa.FLASH.launches != cfg.n_layers:
+        raise AssertionError(f"text-only generate: shape {text.shape}, "
+                             f"{fa.FLASH.launches} flash launches")
+    log(f"[llava-serve] LMEngine.generate on the {LLAVA_TEXT}-token text "
+        f"prompts alone (the reference's engine passes no patches): "
+        f"{text_s * 1e3:.1f} ms, decode ms/token p50 "
+        f"{eng.monitor.percentile(0.5) * 1e3:.3f}; first row "
+        f"{text[0].tolist()}; the patches change the continuation: "
+        f"{not np.array_equal(text, runs[0])}")
+    del params, eng, patches
+    torch.cuda.empty_cache()
+    return by_key
+
+
+def whisper_phase(dev, card):
+    """Phase 18: whisper-tiny (4 encoder + 4 decoder layers).  In f32,
+    ``api.forward`` on random (LM_BATCH, WHISPER_FRAMES, 80) frames and
+    WHISPER_PROMPT-token prompts through the kernel against the plain
+    attention (LM_TOL); in bf16, the same forward (finite logits; 4
+    non-causal and 4 causal flash launches), then ``LMEngine.generate`` of
+    the prompts and LM_NEW tokens, twice, identical (zero cross K/V, the
+    prompt fed token by token, as the reference serves the audio family).
+    Returns the flash launches of one bf16 forward by key."""
+    from repro_torch.configs.whisper_tiny import CONFIG as WHISPER
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.serving.engine import LMEngine
+
+    cfg = WHISPER
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    frames = torch.randn((LM_BATCH, WHISPER_FRAMES, cfg.d_frontend),
+                         generator=gen, device=dev)
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (LM_BATCH, WHISPER_PROMPT)).astype(np.int32)
+    toks = torch.from_numpy(prompts).to(dev)
+    f32 = cfg.replace(dtype="float32")
+    params = api.init(SEED, f32, dev)
+    batch = {"tokens": toks, "frames": frames}
+    la, _ = api.forward(params, f32, batch)
+    lr, _ = api.forward(params, f32, batch, attn_impl="ref")
+    torch.testing.assert_close(la, lr, **LM_TOL)
+    log(f"[whisper-parity] whisper-tiny full width and depth, f32, B "
+        f"{LM_BATCH} x {WHISPER_FRAMES} frames, {WHISPER_PROMPT} decoder "
+        f"tokens: kernel vs plain attention max_abs_err logits "
+        f"{(la - lr).abs().max().item():.3e} (rtol = atol = 1e-4)")
+    del params, la, lr
+    params = api.init(SEED, cfg, dev)
+    n_bytes = weight_bytes(params)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits, _ = api.forward(params, cfg, batch)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    by_key = dict(fa.FLASH.by_key)
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 0)
+    want = {fa.launch_key(*heads, False): cfg.n_encoder_layers,
+            fa.launch_key(*heads, True): cfg.n_layers}
+    if by_key != want:
+        raise AssertionError(f"api.forward launched flash {by_key}, not "
+                             f"{want}")
+    if logits.shape != (LM_BATCH, WHISPER_PROMPT, cfg.vocab_size) or \
+            not torch.isfinite(logits).all():
+        raise AssertionError(f"forward logits {tuple(logits.shape)}, not "
+                             "finite or misshapen")
+    del logits
+    eng = LMEngine(params, cfg, max_len=WHISPER_MAX_LEN, device=dev)
+    first = eng.generate(prompts, LM_NEW)
+    eng.monitor.reset()
+    t0 = time.perf_counter()
+    second = eng.generate(prompts, LM_NEW)
+    gen_s = time.perf_counter() - t0
+    check_generated(first, second, cfg.vocab_size)
+    cache = api.make_cache(cfg, LM_BATCH, WHISPER_MAX_LEN, device=dev)
+    log(f"[whisper-serve] whisper-tiny ({n_bytes / 1e6:.1f} MB of bf16 "
+        f"weights): api.forward of B {LM_BATCH} x {WHISPER_FRAMES} frames "
+        f"and {WHISPER_PROMPT} tokens {fwd_ms:.1f} ms (first call), flash "
+        f"launches by (H, Kh, hd, window, causal) {by_key}; LMEngine "
+        f"{WHISPER_PROMPT}-token prompts fed token by token + {LM_NEW} "
+        f"greedy tokens (cross K/V over {cache['cross_k'].shape[2]} zero "
+        f"frames): generate wall {gen_s * 1e3:.1f} ms, decode ms/token p50 "
+        f"{eng.monitor.percentile(0.5) * 1e3:.3f} p99 "
+        f"{eng.monitor.percentile(0.99) * 1e3:.3f}; tokens identical across "
+        f"two runs; first row {first[0].tolist()}; card {card!r}")
+    del params, eng, cache, frames
     torch.cuda.empty_cache()
     return by_key
 
@@ -3118,7 +3530,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.chatglm3_6b import CONFIG as GLM
     from repro_torch.configs.dlrm_kaggle import CONFIG
+    from repro_torch.configs.qwen2_72b import CONFIG as QWEN72
     from repro_torch.kernels import _build
     from repro_torch.models.dlrm import init_dlrm
 
@@ -3195,11 +3609,25 @@ def main() -> int:
         torch.cuda.empty_cache()
         moe_parity_phase(dev)
         moe_by_key = moe_serve_phase(dev, card)
+        # the rest of the attention families, one model on the card at a
+        # time: qwen2-moe-a2.7b went with moe_serve_phase's frame
+        torch.cuda.empty_cache()
+        family_rows = families_flash_phase(dev)
+        glm_by_key = dense_family_phase("glm", GLM, dev, card)
+        llava_by_key = llava_phase(dev, card)
+        q72_by_key = dense_family_phase(
+            "qwen72", QWEN72, dev, card, n_layers=QWEN72_LAYERS,
+            parity_layers=QWEN72_PARITY_LAYERS)
+        whisper_by_key = whisper_phase(dev, card)
     # each flash or WKV row takes the served launches of its own shape:
     # qwen3's heads and the B 8 WKV shape are timed but not served, so
-    # their rows read 0
-    for row, key in flash_rows:
-        row["launches"] = by_key.get(key, 0) + moe_by_key.get(key, 0)
+    # their rows read 0; each new family's row its phase's run (one
+    # generate for chatglm3 and qwen2-72b, one patch-prefixed prefill for
+    # llava, one api.forward for whisper's encoder and decoder)
+    served = (by_key, moe_by_key, glm_by_key, llava_by_key, q72_by_key,
+              whisper_by_key)
+    for row, key in flash_rows + family_rows:
+        row["launches"] = sum(k.get(key, 0) for k in served)
         rows.append(row)
     for row, key in wkv_rows:
         row["launches"] = wkv_by_key.get(key, 0)

@@ -6,8 +6,11 @@ built here describes the same model as its reference twin.  Options the
 port does not implement yet are still carried (the port's entry points
 raise ``NotImplementedError`` when one is set, naming the ROADMAP item).
 The registry holds the archs the port has configs for: the DLRM ones, the
-dense LMs ``gemma2-9b`` and ``qwen3-14b``, the MoE LMs ``qwen2-moe-a2.7b``
-and ``granite-moe-3b-a800m``, and ``rwkv6-1.6b``.
+dense LMs ``gemma2-9b``, ``qwen3-14b``, ``chatglm3-6b`` and ``qwen2-72b``,
+the MoE LMs ``qwen2-moe-a2.7b`` and ``granite-moe-3b-a800m``, the VLM
+``llava-next-mistral-7b``, the encoder-decoder ``whisper-tiny`` and
+``rwkv6-1.6b``: every arch of the reference but the hybrid ``zamba2-2.7b``
+(ROADMAP A14b).
 """
 from __future__ import annotations
 
@@ -82,6 +85,14 @@ class ModelConfig:
     @property
     def head_dim(self) -> int:
         return self.d_head or self.d_model // self.n_heads
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.n_encoder_layers > 0
+
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -167,13 +178,22 @@ def get_arch(name: str) -> ArchSpec:
     return _REGISTRY[name]
 
 
+def list_archs() -> list[str]:
+    _ensure_loaded()
+    return sorted(_REGISTRY)
+
+
 def _ensure_loaded() -> None:
     # importing the config modules populates the registry
     from repro_torch.configs import (  # noqa: F401
+        chatglm3_6b,
         dlrm_kaggle,
         gemma2_9b,
         granite_moe_3b_a800m,
+        llava_next_mistral_7b,
+        qwen2_72b,
         qwen2_moe_a2_7b,
         qwen3_14b,
         rwkv6_1_6b,
+        whisper_tiny,
     )

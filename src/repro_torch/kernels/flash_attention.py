@@ -22,10 +22,12 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def launch_key(h: int, kh: int, hd: int, window: int) -> tuple:
-    """What ``FLASH.by_key`` counts a launch under: the head shape and the
-    window (0 for a global layer)."""
-    return (h, kh, hd, window)
+def launch_key(h: int, kh: int, hd: int, window: int,
+               causal: bool = True) -> tuple:
+    """What ``FLASH.by_key`` counts a launch under: the head shape, the
+    window (0 for a global layer) and whether the mask is causal (whisper's
+    encoder is not)."""
+    return (h, kh, hd, window, bool(causal))
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -52,7 +54,8 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"q, k, v types differ: {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
     if hd not in HEAD_DIMS:
-        raise NotImplementedError(f"head dim {hd} not in {HEAD_DIMS}")
+        raise NotImplementedError(f"head dim {hd} not in {HEAD_DIMS} "
+                                  "(ROADMAP B item 3)")
     if kh < 1 or h % kh:
         raise ValueError(f"{h} query heads do not group over {kh} kv heads")
     if window < 0 or softcap < 0:
@@ -71,7 +74,7 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               DTYPES[q.dtype], b, s, t, h, kh, hd, int(causal), int(window),
               hd ** -0.5, float(softcap),
               torch.cuda.current_stream(q.device).cuda_stream,
-              key=launch_key(h, kh, hd, int(window)))
+              key=launch_key(h, kh, hd, int(window), causal))
     return out
 
 

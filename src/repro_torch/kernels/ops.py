@@ -7,6 +7,10 @@ RWKV-6 WKV:
 - ``pallas``: the CUDA kernel; raises for a tensor that is not on the card;
 - ``interpret``: the plain version (there is no GPU interpreter);
 - ``auto``: the kernel for a CUDA tensor, the plain version for a CPU one.
+
+Every op takes the reference's full keyword set with its defaults.  The
+TPU tiling and planning knobs (``cq``/``ck``, ``chunk``, ``plan_method``)
+are validated and change no value: see each op.
 """
 from __future__ import annotations
 
@@ -57,6 +61,26 @@ def _no_ref_plan(impl: str) -> None:
                          "kernel backends, not 'ref'")
 
 
+PLAN_METHODS = ("sort", "count", "auto")
+
+
+def _check_plan_method(plan_method: str) -> None:
+    """The reference's stream-plan methods.  None of the ops builds a plan
+    (the CUDA bag kernel reads none, and a ``plan=`` is built by the
+    caller through ``build_stream_plan`` / ``stacked_stream_plan``, which
+    take the same knob), and 'sort' and 'count' give the same plan bit for
+    bit, so the method changes no value."""
+    if plan_method not in PLAN_METHODS:
+        raise ValueError(f"plan_method must be one of {PLAN_METHODS}, got "
+                         f"{plan_method!r}")
+
+
+def _check_positive(**kw) -> None:
+    for name, val in kw.items():
+        if isinstance(val, bool) or not isinstance(val, int) or val < 1:
+            raise ValueError(f"{name} must be a positive int, got {val!r}")
+
+
 def dot_interaction_op(z, *, impl: str = "auto", batch_tile: int = 128):
     if not use_kernel(impl, z):
         return ref.dot_interaction_ref(z)
@@ -65,7 +89,11 @@ def dot_interaction_op(z, *, impl: str = "auto", batch_tile: int = 128):
 
 def embedding_bag_op(table, idx, mask, *, impl: str = "auto",
                      batch_tile: int = 64, row_block: int = 0,
-                     pool_mode: str = "auto", plan=None):
+                     pool_mode: str = "auto", plan=None,
+                     plan_method: str = "auto"):
+    """``plan_method`` ('sort', 'count' or 'auto') is validated: both
+    methods give the same plan bit for bit, and no plan is built here."""
+    _check_plan_method(plan_method)
     if not use_kernel(impl, table):
         if plan is not None:
             _no_ref_plan(impl)
@@ -81,8 +109,11 @@ def embedding_bag_op(table, idx, mask, *, impl: str = "auto",
 
 def embedding_bag_stacked_op(tables, idx, mask, *, impl: str = "auto",
                              batch_tile: int = 64, row_block: int = 0,
-                             pool_mode: str = "auto", plan=None):
-    """(T,R,s) stacked embedding bags -> (B,T,s); the model hot path."""
+                             pool_mode: str = "auto", plan=None,
+                             plan_method: str = "auto"):
+    """(T,R,s) stacked embedding bags -> (B,T,s); the model hot path.
+    ``plan_method`` as in :func:`embedding_bag_op`."""
+    _check_plan_method(plan_method)
     if not use_kernel(impl, tables):
         if plan is not None:
             _no_ref_plan(impl)
@@ -96,8 +127,11 @@ def embedding_bag_stacked_op(tables, idx, mask, *, impl: str = "auto",
 
 def embedding_bag_rows_op(tables, tid, idx, mask, *, impl: str = "auto",
                           row_tile: int = 64, row_block: int = 0,
-                          pool_mode: str = "auto"):
-    """(N, hot) packed rows pooled against their own tables -> (N, s)."""
+                          pool_mode: str = "auto",
+                          plan_method: str = "auto"):
+    """(N, hot) packed rows pooled against their own tables -> (N, s).
+    ``plan_method`` as in :func:`embedding_bag_op`."""
+    _check_plan_method(plan_method)
     if not use_kernel(impl, tables):
         return ref.embedding_bag_rows_ref(tables, tid, idx, mask)
     return embedding_bag_rows(tables, tid, idx, mask, row_tile=row_tile,
@@ -105,9 +139,15 @@ def embedding_bag_rows_op(tables, tid, idx, mask, *, impl: str = "auto",
 
 
 def flash_attention_op(q, k, v, *, causal: bool = True, window: int = 0,
-                       softcap: float = 0.0, impl: str = "auto"):
+                       softcap: float = 0.0, cq: int = 256, ck: int = 256,
+                       impl: str = "auto"):
     """q (B,S,H,hd), k/v (B,T,Kh,hd) GQA -> (B,S,H,hd); every prefill
-    layer's attention."""
+    layer's attention, and whisper's encoder with ``causal=False``.
+    ``cq``/``ck`` are the reference's TPU query and key tiles: validated as
+    positive, they change no value, since the CUDA kernel tiles by its own
+    128 queries (64 below hd 128) and 64 or 128 keys, and the plain version
+    takes every key at once."""
+    _check_positive(cq=cq, ck=ck)
     if not use_kernel(impl, q):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap)
@@ -115,10 +155,20 @@ def flash_attention_op(q, k, v, *, causal: bool = True, window: int = 0,
                            softcap=softcap)
 
 
-def rwkv6_wkv_op(r, k, v, logw, u, state0, *, impl: str = "auto"):
+def rwkv6_wkv_op(r, k, v, logw, u, state0, *, impl: str = "auto",
+                 chunk: int = 64):
     """r, k, logw (B,S,H,K), v (B,S,H,V), u (H,K), state0 (B,H,K,V) ->
     (out (B,S,H,V), final state (B,H,K,V)); every rwkv6 prefill layer's
-    WKV.  The plain version is the chunked form (chunk 32)."""
+    WKV.  ``impl='ref'`` is the exact recurrence
+    (``ref.rwkv6_wkv_ref``), as the reference's 'ref' forces its oracle;
+    'interpret', and 'auto' on a CPU tensor, the chunked form at ``chunk``
+    tokens a chunk.  The CUDA kernel's chunk is fixed by its design
+    (``rwkv6_wkv.CHUNK``): there ``chunk`` is validated and changes no
+    value."""
+    _check_positive(chunk=chunk)
+    if impl == "ref":
+        return ref.rwkv6_wkv_ref(r, k, v, logw, u, state0)
     if not use_kernel(impl, r):
-        return ref.rwkv6_wkv_chunked_ref(r, k, v, logw, u, state0)
+        return ref.rwkv6_wkv_chunked_ref(r, k, v, logw, u, state0,
+                                         chunk=chunk)
     return rwkv6_wkv(r, k, v, logw, u, state0)

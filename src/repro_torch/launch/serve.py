@@ -1,6 +1,6 @@
 """Serving CLI (the port of ``repro/launch/serve.py``): DLRM CTR serving
-with the BLS pipeline, or batched greedy LM decoding (dense, MoE or
-rwkv6), on one device.
+with the BLS pipeline, or batched greedy LM decoding (dense, MoE, VLM,
+whisper or rwkv6), on one device.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dlrm-kaggle \
@@ -8,6 +8,7 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --smoke
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --smoke
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b --smoke
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny --smoke
 
 ``--device`` defaults to the card; ``--device cpu`` runs the plain PyTorch
 versions of the kernels.

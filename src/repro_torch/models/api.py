@@ -1,18 +1,23 @@
 """Uniform model facade (the port of ``repro/models/api.py``): one entry
 point per family for init / forward / cache / decode.  The port runs the
-dense and ``moe`` families (through the transformer) and the ``ssm`` one
-(rwkv6); the others raise ``NotImplementedError`` naming their ROADMAP
-item.
+dense, ``moe`` and ``vlm`` families (through the transformer), the
+``audio`` one (whisper, encoder-decoder) and the ``ssm`` one (rwkv6); the
+``hybrid`` one raises ``NotImplementedError`` naming its ROADMAP item.
 
-Batch dict convention: ``tokens`` (B, S) int, always present.
+Batch dict convention:
+  tokens  (B, S) int            — always present
+  frames  (B, S, d_frontend)    — audio stub (whisper)
+  patches (B, n_front, d_front) — vision stub (llava), optional
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import rwkv6, transformer
+from repro_torch.models import rwkv6, transformer, whisper
 
-UNPORTED = {"hybrid": "ROADMAP A14, models/zamba2.py",
-            "audio": "ROADMAP A14, models/whisper.py"}
+UNPORTED = {"hybrid": "ROADMAP A14b, models/zamba2.py"}
+# the encoder length of an audio decode cache: a small fixed acoustic
+# context, as in the reference (whisper caps sources at ~1500 frames)
+AUDIO_ENC_LEN = 1536
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -20,8 +25,6 @@ def check_ported(cfg: ModelConfig) -> None:
     if cfg.family in UNPORTED:
         raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} family is "
                                   f"not ported yet ({UNPORTED[cfg.family]})")
-    if cfg.family != "ssm":
-        transformer.check_ported(cfg)
 
 
 def init(seed: int, cfg: ModelConfig, device="cuda", n_shards: int = 16):
@@ -30,29 +33,39 @@ def init(seed: int, cfg: ModelConfig, device="cuda", n_shards: int = 16):
     check_ported(cfg)
     if cfg.family == "ssm":
         return rwkv6.init_rwkv6(seed, cfg, device)
+    if cfg.family == "audio":
+        return whisper.init_whisper(seed, cfg, device)
     return transformer.init_lm(seed, cfg, device, n_shards)
 
 
 def forward(params, cfg: ModelConfig, batch: dict, *,
             last_only: bool = False, attn_impl: str = "auto",
             wkv_impl: str = "auto"):
-    """-> (logits, aux).  ``attn_impl`` reaches the dense and MoE
-    families' attention, ``wkv_impl`` rwkv6's WKV."""
+    """-> (logits, aux).  ``attn_impl`` reaches the attention of every
+    family but rwkv6, ``wkv_impl`` rwkv6's WKV."""
     check_ported(cfg)
+    if cfg.family == "audio":
+        return whisper.forward(params, cfg, batch["tokens"], batch["frames"],
+                               last_only=last_only, attn_impl=attn_impl)
     if cfg.family == "ssm":
         return rwkv6.forward(params, cfg, batch["tokens"],
                              last_only=last_only, wkv_impl=wkv_impl)
     return transformer.forward(params, cfg, batch["tokens"],
-                               last_only=last_only, attn_impl=attn_impl)
+                               batch.get("patches"), last_only=last_only,
+                               attn_impl=attn_impl)
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device="cuda"):
-    """The dense family's KV cache, or rwkv6's recurrent state (constant in
-    ``max_len``)."""
+    """The transformer's KV cache, whisper's self- and cross-attention
+    caches (zero cross K/V over ``AUDIO_ENC_LEN`` frames), or rwkv6's
+    recurrent state (constant in ``max_len``)."""
     check_ported(cfg)
     if cfg.family == "ssm":
         return rwkv6.make_state(cfg, batch, dtype, device)
+    if cfg.family == "audio":
+        return whisper.make_cache(cfg, batch, max_len, AUDIO_ENC_LEN, dtype,
+                                  device)
     return transformer.make_cache(cfg, batch, max_len, dtype, device)
 
 
@@ -64,5 +77,7 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, *,
     check_ported(cfg)
     if cfg.family == "ssm":
         return rwkv6.decode_step(params, cfg, tokens, cache)
+    if cfg.family == "audio":
+        return whisper.decode_step(params, cfg, tokens, cache)
     return transformer.decode_step(params, cfg, tokens, cache,
                                    attn_impl=attn_impl)

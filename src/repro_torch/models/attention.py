@@ -1,15 +1,18 @@
-"""Grouped-query self-attention (the port of ``repro/models/attention.py``
-without the encoder-decoder cross attention).
+"""Grouped-query attention (the port of ``repro/models/attention.py``
+without the flash custom VJP, which serves training).
 
 Supports GQA/MQA, RoPE (neox and the chatglm "2d" interleaved partial
-form), qk-norm (qwen3), QKV bias, the attention-logit softcap (gemma2) and
-sliding-window masking (gemma2 local layers).  Prefill runs
-:func:`attend_full` through ``kernels/ops.flash_attention_op``: the CUDA
-kernel for tensors on the card at every sequence length, its plain version
-on the CPU (the reference computes the same function with ``_sdpa`` up to
+form), qk-norm (qwen3), QKV bias, the attention-logit softcap (gemma2),
+sliding-window masking (gemma2 local layers), non-causal self-attention
+(whisper's encoder) and encoder-decoder cross attention (whisper's
+decoder).  Prefill runs :func:`attend_full` through
+``kernels/ops.flash_attention_op``, causal or not: the CUDA kernel for
+tensors on the card at every sequence length, its plain version on the CPU
+(the reference computes the same function with ``_sdpa`` up to
 ``FLASH_THRESHOLD`` and with its scan flash above).  One-token decode
-(:func:`decode_step`) stays plain PyTorch, as the reference computes it
-outside any kernel.
+(:func:`decode_step`) and the cross attention (:func:`attend_cross`) stay
+plain PyTorch, as the reference computes both with ``_sdpa`` outside any
+kernel.
 """
 from __future__ import annotations
 
@@ -73,20 +76,45 @@ def _sdpa(cfg: ModelConfig, q, k, v, mask):
     return out.reshape(b, s, h * hd)
 
 
+def causal_mask(s: int, t: int, window: int = 0, offset: int = 0,
+                device=None):
+    """(1,1,1,s,t) boolean mask; query i attends key j iff j <= i + offset
+    and, with ``window`` > 0, i + offset - j < window."""
+    qi = torch.arange(s, device=device)[:, None] + offset
+    kj = torch.arange(t, device=device)[None, :]
+    m = kj <= qi
+    if window:
+        m &= (qi - kj) < window
+    return m[None, None, None]
+
+
 def attend_full(params, cfg: ModelConfig, x, *, window: int = 0,
+                positions=None, causal: bool = True,
                 attn_impl: str = "auto"):
-    """Causal prefill self-attention over the whole sequence -> (out
-    (B,S,D), (k, v)).  The reference's ``positions`` and ``causal``
-    arguments serve its VLM and encoder paths, which the port does not
-    run."""
+    """Self-attention over the whole sequence (prefill, and whisper's
+    encoder with ``causal=False``) -> (out (B,S,D), (k, v)).
+    ``positions`` (broadcastable to (B, S)) default to 0..S-1: a VLM's
+    patch prefix takes the first positions of the joint sequence."""
     b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device)[None, :]
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project_qkv(params, cfg, x, positions)
-    out = ops.flash_attention_op(q, k, v, window=window,
+    out = ops.flash_attention_op(q, k, v, causal=causal, window=window,
                                  softcap=cfg.attn_logit_softcap,
                                  impl=attn_impl)
     out = L.dense(params["wo"], out.reshape(b, s, -1))
     return out, (k, v)
+
+
+def attend_cross(params, cfg: ModelConfig, x, enc_k, enc_v):
+    """Encoder-decoder cross attention (whisper): queries from ``x``
+    (B,S,D), keys and values the encoder's (B,T,Kh,hd), no mask -> (B,S,D).
+    Plain ``_sdpa``, as in the reference."""
+    b, s, _ = x.shape
+    q = L.dense(params["wq"], x).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    mask = torch.ones((1, 1, 1, s, enc_k.shape[1]), dtype=torch.bool,
+                      device=x.device)
+    return L.dense(params["wo"], _sdpa(cfg, q, enc_k, enc_v, mask))
 
 
 def decode_step(params, cfg: ModelConfig, x, cache_k, cache_v, pos: int, *,
@@ -104,9 +132,6 @@ def decode_step(params, cfg: ModelConfig, x, cache_k, cache_v, pos: int, *,
     slot = min(pos, cache_k.shape[1] - 1)
     cache_k[:, slot] = k[:, 0]
     cache_v[:, slot] = v[:, 0]
-    kj = torch.arange(cache_k.shape[1], device=x.device)
-    m = kj <= pos
-    if window:
-        m &= (pos - kj) < window
+    m = causal_mask(1, cache_k.shape[1], window, offset=pos, device=x.device)
     out = _sdpa(cfg, q, cache_k, cache_v, m)
     return L.dense(params["wo"], out), (cache_k, cache_v)

@@ -53,6 +53,19 @@ def padded_tables(cfg: DLRMConfig, n_shards: int) -> int:
     return ((t + n_shards - 1) // n_shards) * n_shards
 
 
+def table_stats(cfg: DLRMConfig, n_shards: int = 16) -> dict:
+    """The padded (T_pad, R_max, s) stack's geometry: tables after padding
+    to ``n_shards``, the rows of the largest table, the share of the stack
+    that padding takes and its bytes in ``cfg.dtype``."""
+    t_pad = padded_tables(cfg, n_shards)
+    r_max = max(cfg.table_sizes)
+    real = sum(cfg.table_sizes) * cfg.embed_dim
+    padded = t_pad * r_max * cfg.embed_dim
+    return {"t_pad": t_pad, "r_max": r_max,
+            "padding_fraction": 1.0 - real / padded,
+            "bytes": padded * L.dtype_of(cfg.dtype).itemsize}
+
+
 def init_dlrm(seed: int, cfg: DLRMConfig, *, n_shards: int,
               device="cuda"):
     """Random parameters from a ``torch.Generator`` seeded with ``seed``,

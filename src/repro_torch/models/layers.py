@@ -1,7 +1,7 @@
-"""Shared layers of the port (the port of ``repro/models/layers.py``
-without the plain ``mlp``): dense projections, RMSNorm, LayerNorm,
-activations and softcap, the GLU MLP, rotary embeddings, the vocab
-embedding and the LM heads.
+"""Shared layers of the port (the port of ``repro/models/layers.py``):
+dense projections, RMSNorm, LayerNorm, activations and softcap, the GLU
+MLP, the plain two-layer MLP with bias (whisper), rotary embeddings, the
+vocab embedding and the LM heads.
 
 Parameters keep the reference's layouts (``{"kernel": (d_in, d_out),
 "bias": (d_out,)}``, ``{"scale": (d,)}``, ``{"table": (vocab, d)}``, ...),
@@ -127,6 +127,19 @@ def init_glu_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype: str,
 def glu_mlp(params, x, act: str = "silu"):
     h = activation(act)(x @ params["gate"]) * (x @ params["up"])
     return h @ params["down"]
+
+
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype: str,
+             device, bias: bool = True):
+    """The plain MLP: ``fc1`` (d_model, d_ff) then ``fc2`` (d_ff, d_model),
+    each drawn as :func:`init_dense` (``fc2`` at scale d_ff ** -0.5)."""
+    return {"fc1": init_dense(gen, d_model, d_ff, dtype, device, bias=bias),
+            "fc2": init_dense(gen, d_ff, d_model, dtype, device, bias=bias,
+                              scale=d_ff ** -0.5)}
+
+
+def mlp(params, x, act: str = "gelu"):
+    return dense(params["fc2"], activation(act)(dense(params["fc1"], x)))
 
 
 # ---------------------------------------------------------------------------

@@ -156,7 +156,8 @@ def time_mix(p, cfg: ModelConfig, x, *, shift_prev=None, wkv_state=None,
     args = (r.float(), k.float(), v.float(), logw, p["time_faaaa"],
             wkv_state)
     if chunked and s % CHUNK == 0 and s > 1:
-        out, wkv_state = ops.rwkv6_wkv_op(*args, impl=wkv_impl)
+        out, wkv_state = ops.rwkv6_wkv_op(*args, impl=wkv_impl,
+                                          chunk=CHUNK)
     else:
         out, wkv_state = wkv_recurrent(*args)
     # per-head group norm (population variance, as jnp.var) + gate
@@ -214,8 +215,8 @@ def forward(params, cfg: ModelConfig, tokens, *, collect_cache: bool = False,
     """Returns (logits, aux_loss), and with ``collect_cache`` the layers'
     final states stacked on a leading layer axis.  ``last_only`` slices the
     stream before the LM head.  ``wkv_impl`` picks the WKV of
-    ``kernels/ops.py`` ("auto": the CUDA kernel on the card; "ref": the
-    plain chunked version)."""
+    ``kernels/ops.py`` ("auto": the CUDA kernel on the card; "interpret":
+    the plain chunked version; "ref": the exact recurrence)."""
     if wkv_impl not in ops.IMPLS:
         raise ValueError(f"unknown wkv_impl {wkv_impl!r}; have {ops.IMPLS}")
     pc, layers = _cast(params, cfg)

@@ -1,5 +1,11 @@
 """Decoder-only LM backbone (the port of ``repro/models/transformer.py``,
-dense and MoE families).
+dense, MoE and VLM families).
+
+A config with a ``frontend`` (llava's ``vision_patches``) gets a
+``frontend_proj`` that projects precomputed frontend embeddings (B, N,
+d_frontend) to the model width; they are put ahead of the token
+embeddings, so the patches take positions 0..N-1 of the joint sequence,
+for the rope and the causal mask alike.
 
 Layers are stacked into *groups* matching the config's ``layer_pattern``
 (gemma2 alternates local/global, so its group is 2 layers; uniform archs use
@@ -48,15 +54,6 @@ def n_groups(cfg: ModelConfig) -> int:
     return cfg.n_layers // len(pat)
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise for the options of the reference's transformer the port does
-    not run yet."""
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend!r} frontend is not ported yet "
-            "(ROADMAP A14)")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -100,16 +97,22 @@ def _fill(dst, src, i: int) -> None:
             dst[k][i].copy_(v)
 
 
-def _init_stacked(gen, cfg: ModelConfig, dev, g: int, n_shards: int):
-    """``g`` sublayers drawn one after another, stacked along a leading
-    group axis as the reference's ``vmap`` over group keys lays them out."""
+def stack_draws(draw, n: int):
+    """``n`` parameter trees from ``draw()``, drawn one after another and
+    stacked along a leading axis, as the reference's ``vmap`` over per-layer
+    keys lays them out; one tree is held beside the stack at a time."""
     out = None
-    for i in range(g):
-        sub = _init_sublayer(gen, cfg, dev, n_shards)
+    for i in range(n):
+        sub = draw()
         if out is None:
-            out = _map(lambda a: a.new_empty((g,) + tuple(a.shape)), sub)
+            out = _map(lambda a: a.new_empty((n,) + tuple(a.shape)), sub)
         _fill(out, sub, i)
     return out
+
+
+def _init_stacked(gen, cfg: ModelConfig, dev, g: int, n_shards: int):
+    """``g`` sublayers stacked along a leading group axis."""
+    return stack_draws(lambda: _init_sublayer(gen, cfg, dev, n_shards), g)
 
 
 def init_lm(seed: int, cfg: ModelConfig, device="cuda", n_shards: int = 16):
@@ -117,8 +120,7 @@ def init_lm(seed: int, cfg: ModelConfig, device="cuda", n_shards: int = 16):
     with ``seed``, on ``device``, with the reference's distributions and
     layout (``truncated_normal`` scales; norms at 0 with ``norm_plus_one``,
     at 1 without; MoE routers in f32, routed experts padded to a multiple
-    of ``n_shards``)."""
-    check_ported(cfg)
+    of ``n_shards``; a ``frontend_proj`` with a frontend)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -134,6 +136,9 @@ def init_lm(seed: int, cfg: ModelConfig, device="cuda", n_shards: int = 16):
     if not cfg.tie_embeddings:
         p["head"] = L.init_lm_head(gen, cfg.d_model, cfg.vocab_size,
                                    cfg.dtype, dev)
+    if cfg.frontend != "none":
+        p["frontend_proj"] = L.init_dense(gen, cfg.d_frontend, cfg.d_model,
+                                          cfg.dtype, dev)
     return p
 
 
@@ -217,9 +222,16 @@ def block_decode(params, cfg: ModelConfig, x, kind: str, cache_k, cache_v,
 # ---------------------------------------------------------------------------
 
 
-def embed_inputs(params, cfg: ModelConfig, tokens):
+def embed_inputs(params, cfg: ModelConfig, tokens, frontend_embeds=None):
+    """Token embeddings (B, S, D); with ``frontend_embeds`` (B, N,
+    d_frontend), their projection (in the compute type) ahead of them ->
+    (B, N + S, D)."""
     scale = cfg.d_model ** 0.5 if cfg.scale_embeds else None
-    return L.embed_tokens(params["embed"], tokens, scale)
+    x = L.embed_tokens(params["embed"], tokens, scale)
+    if frontend_embeds is not None:
+        fe = L.dense(params["frontend_proj"], frontend_embeds.to(x.dtype))
+        x = torch.cat([fe, x], dim=1)
+    return x
 
 
 def logits_out(params, cfg: ModelConfig, x):
@@ -234,20 +246,19 @@ def logits_out(params, cfg: ModelConfig, x):
 # ---------------------------------------------------------------------------
 
 
-def _forward(params, cfg: ModelConfig, tokens, *, cache_len, last_only,
-             attn_impl):
-    """The layers over the whole sequence; with ``cache_len`` the k, v of
-    every layer land in a (groups, group, B, cache_len, Kh, hd) cache,
-    zero past the sequence."""
-    check_ported(cfg)
+def _forward(params, cfg: ModelConfig, tokens, frontend_embeds, *,
+             collect_cache, pad_to, last_only, attn_impl):
+    """The layers over the whole (joint) sequence of S positions; with
+    ``collect_cache`` the k, v of every layer land in a (groups, group, B,
+    max(pad_to or S, S), Kh, hd) cache, zero past the sequence."""
     pat = layer_pattern(cfg)
     cdt = L.dtype_of(cfg.dtype)
     pc = cast_params({k: v for k, v in params.items() if k != "layers"}, cdt)
     layers = cast_params(params["layers"], cdt)
-    x = embed_inputs(pc, cfg, tokens)
-    b, s = tokens.shape
-    cache = None if cache_len is None else \
-        make_cache(cfg, b, cache_len, device=x.device)
+    x = embed_inputs(pc, cfg, tokens, frontend_embeds)
+    b, s, _ = x.shape
+    cache = make_cache(cfg, b, max(pad_to or s, s), device=x.device) \
+        if collect_cache else None
     aux = x.new_zeros((), dtype=torch.float32)
     for gi in range(n_groups(cfg)):
         for i, kind in enumerate(pat):
@@ -261,29 +272,32 @@ def _forward(params, cfg: ModelConfig, tokens, *, cache_len, last_only,
     return logits, aux, cache
 
 
-def forward(params, cfg: ModelConfig, tokens, *, last_only: bool = False,
-            attn_impl: str = "auto"):
-    """Returns (logits, aux_loss) over the full sequence.  ``last_only``
-    slices the stream before the LM head.  ``attn_impl`` picks the attention
-    of ``kernels/ops.py`` ("auto": the CUDA kernel on the card; "ref": the
-    plain version).  The reference's ``remat``, frontend and
-    ``collect_cache`` arguments serve training, frontends and its own
-    prefill; the port's :func:`prefill` builds the cache."""
-    logits, aux, _ = _forward(params, cfg, tokens, cache_len=None,
+def forward(params, cfg: ModelConfig, tokens, frontend_embeds=None, *,
+            last_only: bool = False, attn_impl: str = "auto"):
+    """Returns (logits, aux_loss) over the full sequence: N + S positions
+    with ``frontend_embeds`` (B, N, d_frontend).  ``last_only`` slices the
+    stream before the LM head.  ``attn_impl`` picks the attention of
+    ``kernels/ops.py`` ("auto": the CUDA kernel on the card; "ref": the
+    plain version).  The reference's ``remat`` and ``collect_cache``
+    arguments serve training and its own prefill; the port's
+    :func:`prefill` builds the cache."""
+    logits, aux, _ = _forward(params, cfg, tokens, frontend_embeds,
+                              collect_cache=False, pad_to=None,
                               last_only=last_only, attn_impl=attn_impl)
     return logits, aux
 
 
-def prefill(params, cfg: ModelConfig, tokens, pad_to: Optional[int] = None,
-            *, attn_impl: str = "auto"):
+def prefill(params, cfg: ModelConfig, tokens, frontend_embeds=None,
+            pad_to: Optional[int] = None, *, attn_impl: str = "auto"):
     """Full-sequence forward that also returns a KV cache sized ``pad_to``
-    (defaults to the prompt length) -> (last position's logits (B,1,V),
-    cache)."""
-    s = tokens.shape[1]
-    logits, _, cache = _forward(params, cfg, tokens,
-                                cache_len=max(pad_to or s, s),
+    (defaults to the sequence length: N + S positions with
+    ``frontend_embeds``) -> (last position's logits (B,1,V), cache whose
+    ``pos`` is N + S)."""
+    logits, _, cache = _forward(params, cfg, tokens, frontend_embeds,
+                                collect_cache=True, pad_to=pad_to,
                                 last_only=True, attn_impl=attn_impl)
-    cache["pos"] = s
+    cache["pos"] = (0 if frontend_embeds is None
+                    else frontend_embeds.shape[1]) + tokens.shape[1]
     return logits, cache
 
 
@@ -314,7 +328,6 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, *,
     takes the same keywords as :func:`prefill`."""
     if attn_impl not in ops.IMPLS:
         raise ValueError(f"unknown attn_impl {attn_impl!r}; have {ops.IMPLS}")
-    check_ported(cfg)
     pat = layer_pattern(cfg)
     cdt = L.dtype_of(cfg.dtype)
     pc = cast_params({k: v for k, v in params.items() if k != "layers"}, cdt)

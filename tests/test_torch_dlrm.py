@@ -62,6 +62,16 @@ def test_config_copies_match_the_reference(name):
     assert dataclasses.asdict(j) == dataclasses.asdict(t)
 
 
+@pytest.mark.parametrize("name", CFGS + ("CONFIG",))
+@pytest.mark.parametrize("n_shards", [1, 4, 16])
+def test_table_stats_match_the_reference(name, n_shards):
+    j = getattr(jkaggle, name)
+    t = getattr(tkaggle, name)
+    j, t = (j() if callable(j) else j), (t() if callable(t) else t)
+    assert tdlrm.table_stats(t, n_shards) == jdlrm.table_stats(j, n_shards)
+    assert tdlrm.table_stats(t) == jdlrm.table_stats(j)
+
+
 def test_registry():
     assert tbase.get_arch("dlrm-kaggle").config == tkaggle.CONFIG
     assert tbase.get_arch("dlrm-alicpp").smoke() == tkaggle.smoke_alicpp()

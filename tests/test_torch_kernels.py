@@ -13,6 +13,7 @@ themselves are checked on the card by chip_smoke.py.
 """
 import ast
 import ctypes
+import inspect
 from fractions import Fraction
 from pathlib import Path
 
@@ -404,7 +405,7 @@ class TestRwkv6Wkv:
     @pytest.mark.parametrize("b,s,h,chunk", WKV_SHAPES)
     def test_op_matches_jax_kernel_interpret(self, b, s, h, chunk):
         x = _wkv_inputs(b * s + h + 1, b, s, h)
-        port = ops.rwkv6_wkv_op(*map(torch.from_numpy, x))
+        port = ops.rwkv6_wkv_op(*map(torch.from_numpy, x), chunk=chunk)
         want = jops.rwkv6_wkv_op(*map(jnp.asarray, x), chunk=chunk)
         _close_pair(port, want)
 
@@ -561,9 +562,93 @@ class TestDispatch:
         assert torch.equal(ops.flash_attention_op(*qkv, window=4, impl=impl),
                            tref.flash_attention_ref(*qkv, window=4))
         wkv_args = tuple(map(torch.from_numpy, _wkv_inputs(1, 1, 32, 2)))
-        for got, want in zip(ops.rwkv6_wkv_op(*wkv_args, impl=impl),
-                             tref.rwkv6_wkv_chunked_ref(*wkv_args)):
+        # 'ref' is the exact recurrence, as the reference's 'ref' forces its
+        # oracle; the others the chunked form at the reference's chunk 64
+        want = tref.rwkv6_wkv_ref(*wkv_args) if impl == "ref" else \
+            tref.rwkv6_wkv_chunked_ref(*wkv_args, chunk=64)
+        for got, w in zip(ops.rwkv6_wkv_op(*wkv_args, impl=impl), want):
+            assert torch.equal(got, w)
+
+    def test_rwkv6_ref_impl_is_the_recurrence(self):
+        x = tuple(map(torch.from_numpy, _wkv_inputs(5, 2, 48, 2)))
+        for got, want in zip(ops.rwkv6_wkv_op(*x, impl="ref"),
+                             tref.rwkv6_wkv_ref(*x)):
             assert torch.equal(got, want)
+        # and the reference's oracle, at the recurrence's tolerance
+        _close_pair(ops.rwkv6_wkv_op(*x, impl="ref"),
+                    jops.rwkv6_wkv_op(*map(jnp.asarray, x), impl="ref"),
+                    WKV_REC_TOL)
+
+    @pytest.mark.parametrize("impl", ["interpret", "auto"])
+    @pytest.mark.parametrize("chunk", [16, 32, 64])
+    def test_rwkv6_plain_path_honours_chunk(self, impl, chunk):
+        x = tuple(map(torch.from_numpy, _wkv_inputs(6, 1, 80, 2)))
+        for got, want in zip(ops.rwkv6_wkv_op(*x, impl=impl, chunk=chunk),
+                             tref.rwkv6_wkv_chunked_ref(*x, chunk=chunk)):
+            assert torch.equal(got, want)
+
+    def test_ops_take_the_reference_keyword_set(self):
+        """Every op takes the reference's keyword-only arguments with the
+        reference's own defaults (read from ``repro.kernels.ops``), and
+        gives the values it gives without them."""
+        tables, idx, mask = _stack(13)
+        targs = tuple(map(torch.from_numpy, (tables, idx, mask)))
+        tid = torch.from_numpy(np.arange(6, dtype=np.int32) % 3)
+        rows = (targs[0], tid, targs[1][:2].reshape(6, -1),
+                targs[2][:2].reshape(6, -1))
+        z = torch.from_numpy(np.random.default_rng(3).standard_normal(
+            (4, 5, 8), dtype=np.float32))
+        qkv = tuple(map(torch.from_numpy, _qkv(2, 1, 24, 4, 2, 16)))
+        wkv = tuple(map(torch.from_numpy, _wkv_inputs(2, 1, 64, 2)))
+        calls = {
+            "dot_interaction_op": ((z,), tref.dot_interaction_ref(z)),
+            "embedding_bag_op": ((targs[0][0], targs[1][:, 0],
+                                  targs[2][:, 0]),
+                                 tref.embedding_bag_ref(
+                                     targs[0][0], targs[1][:, 0],
+                                     targs[2][:, 0])),
+            "embedding_bag_stacked_op": (
+                targs, tref.embedding_bag_stacked_ref(*targs)),
+            "embedding_bag_rows_op": (rows,
+                                      tref.embedding_bag_rows_ref(*rows)),
+            "flash_attention_op": (qkv, tref.flash_attention_ref(*qkv)),
+            "rwkv6_wkv_op": (wkv, tref.rwkv6_wkv_chunked_ref(*wkv,
+                                                             chunk=64)),
+        }
+        for name, (args, want) in calls.items():
+            sig = inspect.signature(getattr(jops, name))
+            kw = {p.name: p.default for p in sig.parameters.values()
+                  if p.kind is inspect.Parameter.KEYWORD_ONLY}
+            assert kw, name
+            got = getattr(ops, name)(*args, **kw)
+            for g, w in zip(*((got, want) if isinstance(got, tuple)
+                              else ((got,), (want,)))):
+                assert torch.equal(g, w), name
+
+    def test_tpu_knobs_change_no_value(self):
+        tables, idx, mask = _stack(14)
+        args = tuple(map(torch.from_numpy, (tables, idx, mask)))
+        base = ops.embedding_bag_stacked_op(*args)
+        for method in ("sort", "count", "auto"):
+            assert torch.equal(ops.embedding_bag_stacked_op(
+                *args, plan_method=method), base)
+            assert torch.equal(ops.embedding_bag_op(
+                args[0][0], args[1][:, 0], args[2][:, 0],
+                plan_method=method), base[:, 0])
+        qkv = tuple(map(torch.from_numpy, _qkv(3, 2, 40, 4, 1, 16)))
+        base = ops.flash_attention_op(*qkv, causal=False)
+        for cq, ck in ((256, 256), (16, 8), (1, 1024)):
+            assert torch.equal(ops.flash_attention_op(
+                *qkv, causal=False, cq=cq, ck=ck), base)
+        with pytest.raises(ValueError, match="plan_method"):
+            ops.embedding_bag_rows_op(args[0], args[1][:, 0, 0],
+                                      args[1][:, 0], args[2][:, 0],
+                                      plan_method="radix")
+        with pytest.raises(ValueError, match="cq"):
+            ops.flash_attention_op(*qkv, cq=0)
+        wkv = tuple(map(torch.from_numpy, _wkv_inputs(3, 1, 32, 1)))
+        with pytest.raises(ValueError, match="chunk"):
+            ops.rwkv6_wkv_op(*wkv, chunk=0)
 
     def test_unknown_impl_raises(self):
         with pytest.raises(ValueError):
@@ -654,7 +739,9 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert len(files) > 15
     port = ROOT / "src" / "repro_torch"
     for new in ("runtime/placement.py", "runtime/reshard.py",
-                "runtime/scrub.py", "core/integrity.py", "models/moe.py"):
+                "runtime/scrub.py", "core/integrity.py", "models/moe.py",
+                "models/whisper.py", "configs/whisper_tiny.py",
+                "examples/quickstart.py", "examples/serve_lm_decode.py"):
         assert port / new in files, new
     for path in files:
         for mod in _imports(path):

@@ -1,6 +1,7 @@
 """The port's dense LM serving path (configs, layers, attention, transformer,
 api, steps, LMEngine, the serve CLI) against the JAX reference on the same
-inputs, on the CPU.
+inputs, on the CPU: gemma2, qwen3, chatglm3, qwen2-72b and llava (on text
+prompts) at their smoke configs.
 
 Parameters come from the reference's ``api.init`` and cross over as numpy
 (``params_from_jax``), so no RNG has to match.  Layers are held at f32
@@ -17,25 +18,38 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import chatglm3_6b as jglm
 from repro.configs import gemma2_9b as jgemma
+from repro.configs import llava_next_mistral_7b as jllava
+from repro.configs import qwen2_72b as jqwen2
 from repro.configs import qwen3_14b as jqwen
 from repro.models import api as japi
 from repro.models import layers as jL
 from repro.models import transformer as jT
 from repro.serving import engine as jengine
 from repro_torch.configs import base as tbase
+from repro_torch.configs import chatglm3_6b as tglm
 from repro_torch.configs import gemma2_9b as tgemma
+from repro_torch.configs import llava_next_mistral_7b as tllava
+from repro_torch.configs import qwen2_72b as tqwen2
 from repro_torch.configs import qwen3_14b as tqwen
+from repro_torch.configs import whisper_tiny as twhisper
 from repro_torch.launch import serve as tserve
 from repro_torch.models import api as tapi
 from repro_torch.models import layers as tL
 from repro_torch.models import transformer as tT
+from repro_torch.models import whisper as tW
 from repro_torch.serving.engine import LMEngine
 from repro_torch.train import steps as tsteps
 
 LAYER_TOL = {"rtol": 1e-6, "atol": 1e-6}
 MODEL_TOL = {"rtol": 1e-4, "atol": 1e-4}
-ARCHS = {"gemma2": (jgemma, tgemma), "qwen3": (jqwen, tqwen)}
+# chatglm3 (glm2d rope on half the head, 16 query heads a KV head at full
+# width), qwen2-72b (QKV bias) and llava (text prompts: the reference's
+# engine passes no patches; tests/test_torch_families.py runs its patches)
+ARCHS = {"gemma2": (jgemma, tgemma), "qwen3": (jqwen, tqwen),
+         "chatglm3": (jglm, tglm), "qwen2_72b": (jqwen2, tqwen2),
+         "llava": (jllava, tllava)}
 
 
 def _close(port, ref, tol):
@@ -251,15 +265,46 @@ def test_params_from_jax_casts_f32_leaves():
 
 
 @pytest.mark.parametrize("change,match", [
-    ({"frontend": "audio_frames"}, "frontend"),
     ({"family": "hybrid"}, "zamba2"),
-    ({"family": "audio"}, "whisper"),
-    ({"frontend": "vision_patches"}, "frontend"),
 ])
 def test_unported_options_raise(change, match):
     cfg = tqwen.smoke().replace(**change)
     with pytest.raises(NotImplementedError, match=match):
         tapi.init(0, cfg, device="cpu")
+
+
+FRONT = {"d_frontend": 16, "n_frontend_tokens": 4}
+
+
+@pytest.mark.parametrize("change", [
+    dict(FRONT, frontend="audio_frames"),
+    dict(FRONT, family="audio", frontend="audio_frames", n_encoder_layers=2),
+    dict(FRONT, frontend="vision_patches"),
+], ids=["audio_frames", "audio", "vision_patches"])
+def test_frontend_options_now_run(change):
+    """The options that raised before the frontends and whisper were
+    ported: each inits from the reference's parameters and runs its
+    forward on the CPU, against the reference's (the frontend's
+    embeddings ride ``patches`` for the transformer families, ``frames``
+    for whisper)."""
+    jcfg, tcfg = jqwen.smoke().replace(**change), tqwen.smoke().replace(
+        **change)
+    jp = japi.init(jax.random.PRNGKey(0), jcfg, 1)
+    tp = tT.params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    init = tapi.init(0, tcfg, device="cpu")
+    assert {k for k, _ in _leaves(init)} == {k for k, _ in _leaves(tp)}
+    rng = np.random.default_rng(15)
+    toks = rng.integers(0, jcfg.vocab_size, (2, 6)).astype(np.int32)
+    emb = rng.standard_normal((2, 4 if jcfg.family != "audio" else 10, 16),
+                              dtype=np.float32)
+    key = "frames" if jcfg.family == "audio" else "patches"
+    jl, _ = japi.forward(jp, jcfg, {"tokens": jnp.asarray(toks),
+                                    key: jnp.asarray(emb)})
+    with torch.no_grad():
+        tl, _ = tapi.forward(tp, tcfg, {"tokens": torch.from_numpy(toks),
+                                        key: torch.from_numpy(emb)})
+    assert tl.shape == jl.shape
+    _close(tl, jl, MODEL_TOL)
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
@@ -278,6 +323,19 @@ def test_entry_points_default_to_the_card(monkeypatch):
         LMEngine(tp, cfg)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         tserve.main(["--arch", "qwen3-14b", "--smoke"])
+    wcfg = twhisper.smoke()
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        tW.init_whisper(0, wcfg)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        tapi.init(0, wcfg)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        tW.make_cache(wcfg, 1, 4, 8)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        tapi.make_cache(wcfg, 1, 4)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        LMEngine(tW.init_whisper(0, wcfg, device="cpu"), wcfg)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        tserve.main(["--arch", "whisper-tiny", "--smoke"])
 
 
 def test_unknown_attn_impl_raises():
@@ -292,7 +350,9 @@ def test_unknown_attn_impl_raises():
 
 
 @pytest.mark.parametrize("arch", ["qwen3-14b", "gemma2-9b", "qwen2-moe-a2.7b",
-                                  "granite-moe-3b-a800m"])
+                                  "granite-moe-3b-a800m", "chatglm3-6b",
+                                  "qwen2-72b", "llava-next-mistral-7b",
+                                  "whisper-tiny"])
 def test_serve_cli_lm_branch_on_cpu(arch, capsys):
     tserve.main(["--arch", arch, "--smoke", "--tokens", "3",
                  "--device", "cpu"])

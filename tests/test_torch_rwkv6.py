@@ -242,7 +242,7 @@ def test_api_forward_and_prefill_step(model):
     batch = {"tokens": torch.from_numpy(toks)}
     with torch.no_grad():
         tl, _ = tapi.forward(tp, tcfg, batch)
-        ref_impl, _ = tapi.forward(tp, tcfg, batch, wkv_impl="ref")
+        ref_impl, _ = tapi.forward(tp, tcfg, batch, wkv_impl="interpret")
     last = tsteps.make_prefill_step(tcfg)(tp, batch)
     _close(tl, jl, MODEL_TOL)
     assert torch.equal(ref_impl, tl)      # on the CPU "auto" is the plain path
