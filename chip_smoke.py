@@ -210,7 +210,25 @@ Phases, each on lines of its own:
      prompts and 16 tokens, twice, identical, as the reference serves the
      audio family (zero cross K/V, prompt fed token by token);
      ``[whisper-*]`` lines;
- 19. one JSON line of kernel numbers, the card's name and power limit, and
+ 19. after freeing whisper-tiny, the hybrid family: (a) the flash kernel
+     held against its plain version at zamba2-2.7b's served shape (B 2,
+     S 4608, H = Kh = 32, hd 80 on the ``mma.sync`` body, causal) in bf16
+     as in 6, beside scaled_dot_product_attention, and in f32 at S 1024
+     (rtol = atol = 1e-5), and at the smoke configs' hd 8 (zero-padded to
+     16) in f32 and bf16 at the serve CLI's shape (4 x 8 tokens, H 8 over
+     Kh 2); (b) ``launch/serve.py --smoke`` on the card for chatglm3-6b,
+     qwen2-72b, llava-next-mistral-7b and granite-moe-3b-a800m (hd 8: one
+     flash launch a layer each); (c) zamba2-2.7b at full width in f32,
+     depth cut to 12 layers (2 shared invocations): the forward on 2 x
+     4608 tokens through the kernel against the plain attention (logits,
+     K/V, SSD states; 1e-4), and 128 tokens a row decoded one at a time
+     against the forward (atol 2e-3, the reference's); (d) the full
+     54-layer model in bf16 (4.84 GB): 3 prefills of 2 x 4608 tokens
+     through ``make_prefill_step`` (9 flash launches each), one profiled
+     (GEMMs, the SSD chunk loop, flash, the rest), ``LMEngine`` on 2 x
+     64-token prompts fed token by token and 16 greedy tokens, twice,
+     identical, one decode step profiled; ``[zamba2-*]`` lines;
+ 20. one JSON line of kernel numbers, the card's name and power limit, and
      last ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or with any phase failing, it exits non-zero and
 prints no result.
@@ -1739,22 +1757,27 @@ def host_stale_count(fm, r: int, idx, mask) -> int:
     return int(hit.any(axis=-1).sum())
 
 
-def range_device_us(prof, name: str):
-    """(device us, device operations) of the kernels and copies launched
-    inside the profiler range ``name``, the range's own span on the
-    device left out; (nan, 0) without a trace."""
-    if prof is None:
-        return float("nan"), 0
-    us, n = 0.0, 0
+def range_kernels(prof, name: str) -> list:
+    """(kernel name, device us) of each kernel and copy launched inside the
+    profiler range ``name``, the range's own span on the device left
+    out."""
+    out = []
     stack = [e for e in prof.events() if e.name == name
              and e.device_type != torch.autograd.DeviceType.CUDA]
     while stack:
         e = stack.pop()
-        work = [k for k in e.kernels if k.name != name]
-        us += sum(k.duration for k in work)
-        n += len(work)
+        out += [(k.name, k.duration) for k in e.kernels if k.name != name]
         stack.extend(e.cpu_children)
-    return us, n
+    return out
+
+
+def range_device_us(prof, name: str):
+    """(device us, device operations) of :func:`range_kernels`; (nan, 0)
+    without a trace."""
+    if prof is None:
+        return float("nan"), 0
+    work = range_kernels(prof, name)
+    return sum(us for _, us in work), len(work)
 
 
 def admitted_pairs(s: int, window: int, causal: bool = True) -> int:
@@ -2219,20 +2242,22 @@ def reshard_scrub_phase(params, cfg, dev, card, cache, ctr5):
 
 
 def flash_row(name, gen, dev, b, s, h, kh, hd, *, window=0, cap=0.0,
-              causal=True):
-    """One flash-kernel row: bf16 q (at FLASH_Q_SCALE), k, v of shape (b, s,
-    heads, hd) from ``gen``, the kernel held against its plain version and
-    timed (check_kernel), beside scaled_dot_product_attention where one
-    PyTorch call computes the function (no softcap, no window); the plain
-    version without the softcap, without the window and, for a non-causal
-    row, with the causal mask must fail the check.  Returns (row, launch
-    key)."""
+              causal=True, dtype=torch.bfloat16):
+    """One flash-kernel row: q (at FLASH_Q_SCALE), k, v of shape (b, s,
+    heads, hd) in ``dtype`` from ``gen``, the kernel held against its plain
+    version and timed (check_kernel; bf16 at FLASH_TOL and FLASH_REL on the
+    tensor cores' peak, f32 at TOL on the CUDA cores'), beside
+    scaled_dot_product_attention where one PyTorch call computes the
+    function (no softcap, no window); the plain version without the
+    softcap, without the window and, for a non-causal row, with the causal
+    mask must fail the check.  Returns (row, launch key)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
     q, k, v = ((torch.randn((b, s, n, hd), generator=gen, device=dev)
-                * scale).to(torch.bfloat16)
+                * scale).to(dtype)
                for n, scale in ((h, FLASH_Q_SCALE), (kh, 1.0), (kh, 1.0)))
+    f32 = dtype == torch.float32
     kw = {"causal": causal, "window": window, "softcap": cap}
     library = None
     if not cap and not window:
@@ -2247,9 +2272,10 @@ def flash_row(name, gen, dev, b, s, h, kh, hd, *, window=0, cap=0.0,
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         lambda: fa.flash_attention(q, k, v, **kw),
         lambda: ref.flash_attention_ref(q, k, v, **kw),
-        library, n_bytes=2 * (2 * q.numel() + 2 * k.numel()),
+        library, n_bytes=q.element_size() * (2 * q.numel() + 2 * k.numel()),
         flops=4 * hd * admitted_pairs(s, window, causal) * b * h, flush=None,
-        tol=FLASH_TOL, rel=FLASH_REL, peak_flops=BF16_FLOPS)
+        tol=TOL if f32 else FLASH_TOL, rel=None if f32 else FLASH_REL,
+        peak_flops=F32_FLOPS if f32 else BF16_FLOPS)
     if row["library_ms"] is not None:
         log(f"[kernel] {name}: kernel {row['ms']:.4f} ms beside "
             f"scaled_dot_product_attention {row['library_ms']:.4f} ms in "
@@ -3517,6 +3543,346 @@ def whisper_phase(dev, card):
     return by_key
 
 
+# phase 19: the hybrid family, after whisper-tiny.  The flash kernel at
+# zamba2-2.7b's served shape (hd 80) in bf16 and, at ZAMBA_F32_S, in f32;
+# the smoke configs' hd 8 at the serve CLI's shape (SMOKE_B prompts of
+# SMOKE_S tokens) and ``launch/serve.py --smoke`` on the card for the four
+# archs whose smoke configs have it.  zamba2-2.7b at full width: f32
+# parity at ZAMBA_PARITY_LAYERS (2 groups of 6 mamba layers) on the LM
+# prompts (the plain attention's (B, H, S, S) f32 scores take 5.4 GB), and
+# ZAMBA_DECODE_PROMPT tokens a row decoded one at a time against the same
+# model's forward at the reference's 2e-3; bf16 at full depth: prefills of
+# the LM prompts, then LMEngine on ZAMBA_GEN_PROMPT-token prompts fed token
+# by token, as the reference's engine serves the hybrid family
+ZAMBA_F32_S = 1024
+ZAMBA_PARITY_LAYERS = 12
+ZAMBA_DECODE_PROMPT = 128
+ZAMBA_DECODE_TOL = {"rtol": 0.0, "atol": 2e-3}
+ZAMBA_GEN_PROMPT = 64
+SMOKE_ARCHS = ("chatglm3-6b", "qwen2-72b", "llava-next-mistral-7b",
+               "granite-moe-3b-a800m")
+SMOKE_B, SMOKE_S, SMOKE_HEADS = 4, 8, (8, 2, 8)
+SSD_RANGE = "ssd.chunked"
+
+
+def hybrid_flash_phase(dev):
+    """Phase 19a: the flash kernel against its plain version at zamba2-2.7b's
+    served shape (H = Kh = 32, hd 80, causal, B 2 x S LM_PROMPT) in bf16
+    beside scaled_dot_product_attention, and in f32 at S ZAMBA_F32_S; at the
+    smoke configs' hd 8 (zero-padded to 16 for the kernel) in f32 (the
+    smoke configs' type: a row) and in bf16 (held, logged).  Returns the
+    rows: (bf16 at hd 80, f32 at hd 80, f32 at hd 8), each with its launch
+    key."""
+    from repro_torch.configs.zamba2_2_7b import CONFIG as ZAMBA
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 4)
+    heads = (ZAMBA.n_heads, ZAMBA.n_kv_heads, ZAMBA.head_dim)
+    log(f"[zamba2-flash] device memory allocated at the phase's start "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    rows = [flash_row("flash_attention/zamba2_heads", gen, dev, LM_BATCH,
+                      LM_PROMPT, *heads),
+            flash_row("flash_attention/zamba2_heads_f32", gen, dev, LM_BATCH,
+                      ZAMBA_F32_S, *heads, dtype=torch.float32),
+            flash_row("flash_attention/smoke_hd8_f32", gen, dev, SMOKE_B,
+                      SMOKE_S, *SMOKE_HEADS, dtype=torch.float32)]
+    h, kh, hd = SMOKE_HEADS
+    q, k, v = (torch.randn((SMOKE_B, SMOKE_S, n, hd), generator=gen,
+                           device=dev).to(torch.bfloat16)
+               for n in (h, kh, kh))
+    out, again = fa.flash_attention(q, k, v), fa.flash_attention(q, k, v)
+    if not torch.equal(out, again):
+        raise AssertionError("two bf16 hd-8 kernel runs differ")
+    err, fro, _ = hold("bf16 hd 8", out, ref.flash_attention_ref(q, k, v),
+                       FLASH_TOL, FLASH_REL)
+    log(f"[kernel] flash_attention bf16 at hd 8 (padded to 16), B {SMOKE_B} "
+        f"x S {SMOKE_S}, H {h} over Kh {kh}: max_abs_err {err:.3e}, relative "
+        f"Frobenius error {fro:.3e}; two runs bit-identical")
+    del q, k, v, out, again
+    torch.cuda.empty_cache()
+    return rows
+
+
+def smoke_serve_phase():
+    """Phase 19b: ``launch/serve.py --arch <arch> --smoke`` on the card (f32
+    smoke configs, hd 8: each prefill launches the kernel once a layer)
+    for SMOKE_ARCHS; returns the flash launches of the four runs by key."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    by_key: dict = {}
+    for arch in SMOKE_ARCHS:
+        cfg = get_arch(arch).smoke()
+        if cfg.head_dim != 8:
+            raise AssertionError(f"{arch}'s smoke config has hd "
+                                 f"{cfg.head_dim}, not 8")
+        ops.reset_launches()
+        serve.main(["--arch", arch, "--smoke", "--tokens", "4"])
+        want = {fa.launch_key(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 0):
+                cfg.n_layers}
+        if dict(fa.FLASH.by_key) != want:
+            raise AssertionError(f"{arch} --smoke launched flash "
+                                 f"{dict(fa.FLASH.by_key)}, not {want}")
+        for key, n in fa.FLASH.by_key.items():
+            by_key[key] = by_key.get(key, 0) + n
+    log(f"[zamba2-smoke] serve --smoke on the card ({', '.join(SMOKE_ARCHS)}"
+        f"): hd 8, flash launches by (H, Kh, hd, window, causal) {by_key}")
+    return by_key
+
+
+def zamba2_parity_phase(dev):
+    """Phase 19c: zamba2-2.7b at full width in f32, depth cut to
+    ZAMBA_PARITY_LAYERS: the forward on the LM prompts through the kernel
+    against the plain attention (logits, each shared invocation's K/V and
+    each mamba layer's SSD state at LM_TOL); then ZAMBA_DECODE_PROMPT tokens
+    a row decoded one at a time (``conv_step``/``ssd_recurrent``) against
+    the same model's forward (``conv_full``/``ssd_chunked``) at the
+    reference's 2e-3."""
+    from repro_torch.configs.zamba2_2_7b import CONFIG as ZAMBA
+    from repro_torch.models import api
+    from repro_torch.models import zamba2 as Z
+
+    cfg = ZAMBA.replace(n_layers=ZAMBA_PARITY_LAYERS, dtype="float32")
+    params = api.init(SEED, cfg, dev)
+    toks = torch.from_numpy(lm_prompts(cfg.vocab_size)).to(dev)
+    out = {}
+    for impl in ("auto", "ref"):
+        logits, _, ((k, v), st) = Z.forward(params, cfg, toks,
+                                            collect_cache=True,
+                                            attn_impl=impl)
+        out[impl] = (logits, k, v, st["ssd"])
+        del logits, k, v, st
+        torch.cuda.empty_cache()
+    errs = []
+    for a, r in zip(out["auto"], out["ref"]):
+        torch.testing.assert_close(a, r, **LM_TOL)
+        errs.append((a - r).abs().max().item())
+    log(f"[zamba2-parity] zamba2-2.7b full width, f32, depth cut "
+        f"{ZAMBA.n_layers} -> {cfg.n_layers} layers ({Z.n_groups(cfg)} "
+        f"shared invocations), B {LM_BATCH} x {LM_PROMPT} tokens: kernel vs "
+        f"plain attention max_abs_err logits {errs[0]:.3e}, K {errs[1]:.3e}, "
+        f"V {errs[2]:.3e}, SSD states {errs[3]:.3e} (rtol = atol = 1e-4)")
+    del out
+    torch.cuda.empty_cache()
+    short = toks[:, :ZAMBA_DECODE_PROMPT]
+    full, _ = api.forward(params, cfg, {"tokens": short})
+    cache = api.make_cache(cfg, LM_BATCH, ZAMBA_DECODE_PROMPT, device=dev)
+    outs = []
+    for t in range(ZAMBA_DECODE_PROMPT):
+        lg, cache = api.decode_step(params, cfg, short[:, t:t + 1], cache)
+        outs.append(lg)
+    dec = torch.cat(outs, 1)
+    torch.testing.assert_close(dec, full, **ZAMBA_DECODE_TOL)
+    log(f"[zamba2-parity] {ZAMBA_DECODE_PROMPT} tokens a row decoded one at "
+        f"a time vs the forward (chunked SSD, {ZAMBA_DECODE_PROMPT // cfg.ssm.chunk}"
+        f" chunk a row): max_abs_err {(dec - full).abs().max().item():.3e} "
+        f"(atol 2e-3, the reference's), max |logit| "
+        f"{full.abs().max().item():.3e}")
+    del params, full, dec, outs, cache
+    torch.cuda.empty_cache()
+
+
+def hybrid_prefill_flops(cfg, b: int, s: int) -> dict:
+    """Multiply-add flops (x2) of one prefill of ``b`` sequences of ``s``
+    tokens as the hybrid path computes it, by kind: the bf16 GEMMs (each
+    mamba layer's in/out projections, the shared block's q/k/v/o and GLU
+    MLP at each of its invocations, the LM head on the last positions),
+    the f32 SSD einsums of the chunk loop, and flash (4 hd a causal
+    pair)."""
+    from repro_torch.models import mamba2 as M2
+    from repro_torch.models import zamba2 as Z
+
+    d, hd, h = cfg.d_model, cfg.head_dim, cfg.n_heads
+    d_inner, nh, _ = M2.dims(cfg)
+    n, p, c = cfg.ssm.d_state, cfg.ssm.head_dim, cfg.ssm.chunk
+    t, g = b * s, Z.n_groups(cfg)
+    d_in_proj = 2 * d_inner + 2 * n + nh
+    mamba = 2 * t * d * d_in_proj + 2 * t * d_inner * d
+    shared = 2 * t * d * (2 * h * hd + 2 * cfg.n_kv_heads * hd) + \
+        6 * t * d * cfg.d_ff
+    chunk = 2 * b * c * c * n + 2 * b * c * c * nh * p + \
+        4 * b * c * n * nh * p
+    return {"gemm": cfg.n_layers * mamba + g * shared
+            + 2 * b * d * cfg.vocab_size,
+            "ssd": cfg.n_layers * (s // c) * chunk,
+            "flash": g * 4 * hd * admitted_pairs(s, 0) * b * h}
+
+
+def zamba2_profile(label, fn):
+    """One call of ``fn`` under the profiler, with the SSD chunk loop
+    (``mamba2.ssd_chunked``) inside a range: device time split into the
+    GEMMs outside the loop, the loop, flash and the rest, and the card's
+    active share."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import mamba2 as M2
+
+    chunked = M2.ssd_chunked
+
+    def ranged(*a, **kw):
+        with record_function(SSD_RANGE):
+            return chunked(*a, **kw)
+
+    M2.ssd_chunked = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        M2.ssd_chunked = chunked
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                e.name != SSD_RANGE:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us()
+    if not by_name:
+        log(f"[zamba2-profile] {label}: the profiler saw no device activity:"
+            " device time not measured")
+        return
+    busy = sum(by_name.values())
+    in_ssd: dict = {}
+    for name, us in range_kernels(prof, SSD_RANGE):
+        in_ssd[name] = in_ssd.get(name, 0.0) + us
+    ssd_us = sum(in_ssd.values())
+    split = device_split({n: us - in_ssd.get(n, 0.0)
+                          for n, us in by_name.items()})
+    flash = sum(us for n, us in by_name.items() if "flash_" in n)
+    log(f"[zamba2-profile] {label}: wall {wall_us:.0f} us, device activity "
+        f"{busy:.0f} us ({100 * busy / wall_us:.1f}% of wall); GEMMs outside "
+        f"the SSD loop {split['gemm']:.1f} us, SSD chunk loop {ssd_us:.1f} us "
+        f"({len(in_ssd)} kernel names), flash {flash:.1f} us, the "
+        f"rest {split['other'] - flash:.1f} us")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[zamba2-profile]   {us:10.1f} us  {name[:90]}")
+
+
+def zamba2_serve_phase(dev, card):
+    """Phase 19d: zamba2-2.7b (54 layers, bf16) at full width and depth:
+    ``steps.make_prefill_step`` (``api.forward``) on the LM prompts, 3
+    runs, each launching the flash kernel once per shared invocation (9);
+    one prefill profiled; then ``LMEngine.generate`` of ZAMBA_GEN_PROMPT-
+    token prompts (fed token by token) and LM_NEW tokens, twice,
+    identical; one decode step profiled.  Returns the flash launches of
+    one prefill by key."""
+    from repro_torch.configs.zamba2_2_7b import CONFIG as ZAMBA
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.models import zamba2 as Z
+    from repro_torch.serving.engine import LMEngine
+    from repro_torch.train import steps as steps_mod
+
+    cfg = ZAMBA
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(SEED, cfg, dev)
+    torch.cuda.synchronize()
+    n_bytes = weight_bytes(params)
+    log(f"[zamba2-init] zamba2-2.7b {cfg.n_layers} mamba layers + 1 shared "
+        f"block x {Z.n_groups(cfg)} invocations, {cfg.dtype}, "
+        f"{n_bytes / 1e9:.3f} GB of weights "
+        f"({sum(a.numel() for a in _leaves(params)) / 1e9:.3f} B parameters)"
+        f" in {time.perf_counter() - t0:.2f} s")
+    batch = {"tokens": torch.from_numpy(lm_prompts(cfg.vocab_size)).to(dev)}
+    step = steps_mod.make_prefill_step(cfg)
+    want = {fa.launch_key(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 0):
+            Z.n_groups(cfg)}
+    prefill_ms, by_key = [], None
+    for _ in range(3):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        logits = step(params, batch)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        by_key = dict(fa.FLASH.by_key)
+        if fa.FLASH.launches != Z.n_groups(cfg) or by_key != want:
+            raise AssertionError(f"prefill launched flash {by_key}, not "
+                                 f"{want}")
+        if logits.shape != (LM_BATCH, 1, cfg.vocab_size) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError(f"prefill logits {tuple(logits.shape)} not "
+                                 "finite or of the wrong shape")
+        del logits
+    prefill_peak = torch.cuda.max_memory_allocated()
+    zamba2_profile("one prefill", lambda: step(params, batch))
+
+    prompts = np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, (LM_BATCH, ZAMBA_GEN_PROMPT)).astype(np.int32)
+    eng = LMEngine(params, cfg, max_len=LM_MAX_LEN, device=dev)
+    ops.reset_launches()
+    first = eng.generate(prompts, LM_NEW)
+    gen_launches = {k: v.launches for k, v in ops.kernels().items()}
+    eng.monitor.reset()
+    t0 = time.perf_counter()
+    second = eng.generate(prompts, LM_NEW)
+    gen_s = time.perf_counter() - t0
+    check_generated(first, second, cfg.vocab_size)
+    if any(gen_launches.values()):
+        raise AssertionError(f"token-by-token decode launched {gen_launches}"
+                             ": decode attention and the SSD recurrence are "
+                             "plain, as in the reference")
+    serve = steps_mod.make_serve_step(cfg)
+    cache = api.make_cache(cfg, LM_BATCH, LM_MAX_LEN, device=dev)
+    state_bytes = sum(cache[k].numel() * cache[k].element_size()
+                      for k in ("conv", "ssd"))
+    kv_bytes = sum(cache[k].numel() * cache[k].element_size()
+                   for k in ("attn_k", "attn_v"))
+    last = torch.from_numpy(prompts[:, -1:]).to(dev)
+    profile_device("one zamba2-2.7b decode step",
+                   lambda: serve(params, last, cache)[0].cpu(),
+                   tag="zamba2-profile")
+    del cache
+    steps = sorted(eng.monitor.lat)
+    warm = statistics.median(prefill_ms[1:])
+    fl = hybrid_prefill_flops(cfg, LM_BATCH, LM_PROMPT)
+    bound_ms = {"gemm": fl["gemm"] / BF16_FLOPS * 1e3,
+                "ssd": fl["ssd"] / F32_FLOPS * 1e3,
+                "flash": fl["flash"] / BF16_FLOPS * 1e3}
+    emb = params["embed"]["table"]
+    read = n_bytes - emb.numel() * emb.element_size()
+    pct = lambda q: eng.monitor.percentile(q) * 1e3
+    log(f"[zamba2-serve] zamba2-2.7b B {LM_BATCH} x {LM_PROMPT} tokens "
+        f"(make_prefill_step): prefill ms {prefill_ms[0]:.1f} first, "
+        f"{warm:.1f} warm ({LM_BATCH * LM_PROMPT / warm * 1e3:.0f} prefill "
+        f"tokens/s) against a {sum(bound_ms.values()):.3f} ms bound (bf16 "
+        f"GEMMs {bound_ms['gemm']:.3f} ms, {fl['gemm'] / 1e12:.3f} TFLOP at "
+        f"989 TFLOP/s; f32 SSD einsums {bound_ms['ssd']:.3f} ms, "
+        f"{fl['ssd'] / 1e12:.3f} TFLOP at 67 TFLOP/s; flash "
+        f"{bound_ms['flash']:.3f} ms), {Z.n_groups(cfg)} flash launches "
+        f"each, max_memory_allocated {prefill_peak / 1e9:.3f} GB; card "
+        f"{card!r}")
+    log(f"[zamba2-serve] LMEngine B {LM_BATCH} x prompt {ZAMBA_GEN_PROMPT} "
+        f"(fed token by token), {LM_NEW} greedy tokens, cache {LM_MAX_LEN}: "
+        f"decode ms/token p50 {pct(0.5):.3f} p99 {pct(0.99):.3f} min "
+        f"{steps[0] * 1e3:.3f}; generated tokens/s "
+        f"{LM_BATCH * LM_NEW / sum(steps):.1f} (decode steps only), generate "
+        f"wall {gen_s * 1e3:.1f} ms (prompt {(gen_s - sum(steps)) * 1e3:.1f} "
+        f"ms); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    log(f"[zamba2-serve] tokens identical across two runs; first row "
+        f"{first[0].tolist()}; kernel launches per generate {gen_launches}; "
+        f"flash launches of one prefill by (H, Kh, hd, window, causal) "
+        f"{by_key}")
+    log(f"[zamba2-serve] decode weight-read bound "
+        f"{read / HBM_BYTES_PER_S * 1e3:.3f} ms/token ({read / 1e9:.3f} GB "
+        f"of weights a step at 3.35 TB/s; with the conv and SSD states read "
+        f"and written, {2 * state_bytes / 1e9:.3f} GB, "
+        f"{(read + 2 * state_bytes) / HBM_BYTES_PER_S * 1e3:.3f} ms); the "
+        f"cache's K/V {kv_bytes / 1e9:.3f} GB, SSD and conv states "
+        f"{state_bytes / 1e6:.1f} MB")
+    del params, eng
+    torch.cuda.empty_cache()
+    return by_key
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3619,6 +3985,14 @@ def main() -> int:
             "qwen72", QWEN72, dev, card, n_layers=QWEN72_LAYERS,
             parity_layers=QWEN72_PARITY_LAYERS)
         whisper_by_key = whisper_phase(dev, card)
+        # the hybrid family, one model on the card at a time: whisper-tiny
+        # went with whisper_phase's frame
+        torch.cuda.empty_cache()
+        (zamba_row, zkey), (zamba_f32_row, _), (hd8_row, hd8_key) = \
+            hybrid_flash_phase(dev)
+        smoke_by_key = smoke_serve_phase()
+        zamba2_parity_phase(dev)
+        zamba_by_key = zamba2_serve_phase(dev, card)
     # each flash or WKV row takes the served launches of its own shape:
     # qwen3's heads and the B 8 WKV shape are timed but not served, so
     # their rows read 0; each new family's row its phase's run (one
@@ -3629,6 +4003,12 @@ def main() -> int:
     for row, key in flash_rows + family_rows:
         row["launches"] = sum(k.get(key, 0) for k in served)
         rows.append(row)
+    # launch keys carry no type: zamba2's bf16 row reads one served
+    # prefill, its f32 row 0 (the served model is bf16), the hd-8 row the
+    # four f32 smoke serves
+    zamba_row["launches"] = zamba_by_key.get(zkey, 0)
+    hd8_row["launches"] = smoke_by_key.get(hd8_key, 0)
+    rows += [zamba_row, zamba_f32_row, hd8_row]
     for row, key in wkv_rows:
         row["launches"] = wkv_by_key.get(key, 0)
         rows.append(row)

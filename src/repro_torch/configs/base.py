@@ -8,9 +8,9 @@ raise ``NotImplementedError`` when one is set, naming the ROADMAP item).
 The registry holds the archs the port has configs for: the DLRM ones, the
 dense LMs ``gemma2-9b``, ``qwen3-14b``, ``chatglm3-6b`` and ``qwen2-72b``,
 the MoE LMs ``qwen2-moe-a2.7b`` and ``granite-moe-3b-a800m``, the VLM
-``llava-next-mistral-7b``, the encoder-decoder ``whisper-tiny`` and
-``rwkv6-1.6b``: every arch of the reference but the hybrid ``zamba2-2.7b``
-(ROADMAP A14b).
+``llava-next-mistral-7b``, the encoder-decoder ``whisper-tiny``,
+``rwkv6-1.6b`` and the hybrid ``zamba2-2.7b``: every arch of the
+reference.
 """
 from __future__ import annotations
 
@@ -196,4 +196,5 @@ def _ensure_loaded() -> None:
         qwen3_14b,
         rwkv6_1_6b,
         whisper_tiny,
+        zamba2_2_7b,
     )

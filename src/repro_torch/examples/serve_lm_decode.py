@@ -1,6 +1,6 @@
 """Batched LM decoding through the serving engine, across model families
-(dense / MoE / RWKV6): prefill + greedy decode with KV caches or recurrent
-state, plus per-token latency stats (the port of
+(dense / MoE / RWKV6 / the zamba2 hybrid): prefill + greedy decode with KV
+caches or recurrent state, plus per-token latency stats (the port of
 ``examples/serve_lm_decode.py``).
 
 Run:  PYTHONPATH=src python -m repro_torch.examples.serve_lm_decode \\
@@ -8,9 +8,8 @@ Run:  PYTHONPATH=src python -m repro_torch.examples.serve_lm_decode \\
       (uses the reduced smoke config of the chosen arch)
 
 The arch choices are the reference's: every registered arch but the DLRM,
-whisper and llava ones (zamba2 is not ported yet, so it is not
-registered).  ``--device`` defaults to the card; ``--device cpu`` runs the
-plain PyTorch versions of the kernels.
+whisper and llava ones.  ``--device`` defaults to the card; ``--device
+cpu`` runs the plain PyTorch versions of the kernels.
 """
 from __future__ import annotations
 

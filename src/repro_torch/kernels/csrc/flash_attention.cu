@@ -26,7 +26,7 @@
 // cost nothing.  Heavy (late) query tiles are scheduled first.  The
 // running max, sum and output accumulator stay in registers in float32.
 // Three bodies:
-//   - bfloat16 at head dims 128 and 256 (every served and timed shape):
+//   - bfloat16 at head dims 128 and 256 (the dense, MoE and VLM shapes):
 //     128 queries a block, two warpgroups of 64 rows.  Q arrives once and
 //     K/V tiles of BK keys (64 at hd 256, 128 at hd 128) stream by TMA
 //     from 4-d tensor maps (hd, heads, S, B) into a ring of as many stages
@@ -49,14 +49,21 @@
 //     time.  A producer warpgroup with setmaxnreg was tried first: ptxas
 //     then held the consumers to 168 registers and serialised every wgmma
 //     (it needs ~235 at hd 256), so the two warpgroups own all 255.
-//   - bfloat16 at head dims 16, 32, 64 (no configuration uses them): four
-//     warps of 16 query rows each over a 64-query tile, mma.sync m16n8k16
-//     fed by ldmatrix, K and V double-buffered by cp.async over 32-key
-//     tiles; wgmma's 64-row tiles do not pay at these widths.
+//   - bfloat16 at head dims 16, 32, 64 and 80 (whisper-tiny's 64,
+//     zamba2-2.7b's shared block at 80): four warps of 16 query rows each
+//     over a 64-query tile, mma.sync m16n8k16 fed by ldmatrix, K and V
+//     double-buffered by cp.async over 32-key tiles; wgmma's 64-row tiles
+//     do not pay at these widths, and the wgmma body's TMA boxes of 64
+//     columns need a multiple of 64.  At 80: 5 k-steps of 16, 10 output
+//     n-tiles of 8, rows padded to 88 elements (176 bytes: every cp.async
+//     and ldmatrix address 16-byte aligned, and the 8 rows of an ldmatrix
+//     start in distinct banks), 33,792 bytes of dynamic shared memory.
 //   - float32: 256 threads on the CUDA cores, each owning 4 query rows x
 //     4 keys of the score tile and 4 rows x hd/16 columns of the output.
 //     K rows are padded to hd + 1 floats so the 16 keys a warp reads at one
-//     depth lie in distinct banks.  This form exists for float32 parity.
+//     depth lie in distinct banks.  This form exists for float32 parity;
+//     above hd 64 its tile passes the 48 KB default of dynamic shared
+//     memory (78,336 bytes at hd 80) and launch() opts in.
 // Masked scores take the finite sentinel -1e30, as the Pallas kernel does,
 // and their probability is 0 by the admitted test, so a row whose first
 // live tile admits none of its keys never forms exp(-inf + inf).  No
@@ -1158,6 +1165,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 16: return launch_hd<16>(dtype, p, b, st);
     case 32: return launch_hd<32>(dtype, p, b, st);
     case 64: return launch_hd<64>(dtype, p, b, st);
+    case 80: return launch_hd<80>(dtype, p, b, st);
     case 128: return launch_hd<128>(dtype, p, b, st);
     case 256: return launch_hd<256>(dtype, p, b, st);
     default: return (int)cudaErrorInvalidValue;

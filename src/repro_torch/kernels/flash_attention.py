@@ -3,13 +3,18 @@
 ``repro/kernels/flash_attention.py``.
 
 :func:`flash_attention` takes the plain version in ``kernels/ref.py`` for a
-CPU tensor and launches the kernel (:func:`attend`) for a CUDA one.
+CPU tensor and launches the kernel (:func:`attend`) for a CUDA one.  The
+kernel is built for the head dims in :data:`HEAD_DIMS`; one in
+:data:`PADDED_HEAD_DIMS` (the smoke configs' 8) is zero-padded to a built
+one by :func:`pad_head_dim`, which changes no score, and the output sliced
+back.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import Kernel
@@ -18,7 +23,9 @@ FLASH = Kernel("flash_attention.cu", "flash_attention_launch",
                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+# head dim -> the built head dim it is zero-padded to
+PADDED_HEAD_DIMS = {8: 16}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -30,13 +37,27 @@ def launch_key(h: int, kh: int, hd: int, window: int,
     return (h, kh, hd, window, bool(causal))
 
 
+def pad_head_dim(q, k, v):
+    """(q, k, v) with a head dim in :data:`PADDED_HEAD_DIMS` zero-padded to
+    the built one, contiguous, and the scale of the true head dim
+    (``hd ** -0.5``); other head dims pass through.  The zero columns add
+    nothing to q . k, and the output's padded columns (the zero columns of
+    v) are to be sliced off."""
+    hd = q.shape[-1]
+    to = PADDED_HEAD_DIMS.get(hd, hd)
+    if to != hd:
+        q, k, v = (F.pad(x, (0, to - hd)).contiguous() for x in (q, k, v))
+    return q, k, v, hd ** -0.5
+
+
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            causal: bool = True, window: int = 0,
            softcap: float = 0.0) -> torch.Tensor:
     """The CUDA kernel: q (B, S, H, hd), k and v (B, T, Kh, hd), contiguous,
-    on one card, all float32 or all bfloat16, hd in :data:`HEAD_DIMS` and H
-    a multiple of Kh -> (B, S, H, hd) in q's type.  Each launch is counted
-    on ``FLASH`` under :func:`launch_key`."""
+    on one card, all float32 or all bfloat16, hd in :data:`HEAD_DIMS` or
+    :data:`PADDED_HEAD_DIMS` and H a multiple of Kh -> (B, S, H, hd) in q's
+    type.  Each launch is counted on ``FLASH`` under :func:`launch_key`
+    with the true head dim."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.dtype not in DTYPES:
             raise NotImplementedError(
@@ -53,9 +74,9 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v types differ: {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
-    if hd not in HEAD_DIMS:
-        raise NotImplementedError(f"head dim {hd} not in {HEAD_DIMS} "
-                                  "(ROADMAP B item 3)")
+    if hd not in HEAD_DIMS and hd not in PADDED_HEAD_DIMS:
+        raise NotImplementedError(f"head dim {hd} not in {HEAD_DIMS} or "
+                                  f"{tuple(PADDED_HEAD_DIMS)}")
     if kh < 1 or h % kh:
         raise ValueError(f"{h} query heads do not group over {kh} kv heads")
     if window < 0 or softcap < 0:
@@ -66,16 +87,17 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                f"{name} is on {x.device}")
         if x.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
-    out = torch.empty_like(q)
-    if out.numel() == 0 or t == 0:
-        return out.zero_()
+    if q.numel() == 0 or t == 0:
+        return torch.zeros_like(q)
+    qp, kp, vp, scale = pad_head_dim(q, k, v)
+    out = torch.empty_like(qp)
     with torch.cuda.device(q.device):
-        FLASH(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-              DTYPES[q.dtype], b, s, t, h, kh, hd, int(causal), int(window),
-              hd ** -0.5, float(softcap),
+        FLASH(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
+              DTYPES[q.dtype], b, s, t, h, kh, qp.shape[-1], int(causal),
+              int(window), scale, float(softcap),
               torch.cuda.current_stream(q.device).cuda_stream,
               key=launch_key(h, kh, hd, int(window), causal))
-    return out
+    return out if qp is q else out[..., :hd].contiguous()
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -83,7 +105,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q (B, S, H, hd), k and v (B, T, Kh, hd) -> (B, S, H, hd).  The
     reference's ``cq``/``ck`` TPU tiles have no counterpart: the kernel
     tiles by 128 queries at head dims 128 and 256 (64 below) and takes any
-    S and T."""
+    S and T; head dim 8 runs padded to 16."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap)

@@ -130,16 +130,18 @@ NEG_INF = -1e30
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                        softcap: float = 0.0):
+                        softcap: float = 0.0, scale=None):
     """q:(B,S,H,hd) k,v:(B,T,Kh,hd) -> (B,S,H,hd) in q's type: the function
-    of the Pallas flash kernel.  Scores in f32 times hd**-0.5, then the tanh
+    of the Pallas flash kernel.  Scores in f32 times ``scale`` (hd**-0.5
+    unless given: a head dim padded with zeros keeps its own), then the tanh
     softcap, then the causal/window mask; p = exp(s - max) on admitted keys,
     0 elsewhere; out = (p @ v) / max(sum p, 1e-30) in f32.  Query head h
     reads kv head h // (H / Kh).  Materializes the (B, H, S, T) scores."""
     b, s, h, hd = q.shape
     t, kh = k.shape[1], k.shape[2]
     qf = q.float().reshape(b, s, kh, h // kh, hd)
-    sc = torch.einsum("bskgd,btkd->bkgst", qf, k.float()).mul_(hd ** -0.5)
+    sc = torch.einsum("bskgd,btkd->bkgst", qf, k.float()).mul_(
+        hd ** -0.5 if scale is None else scale)
     if softcap:
         sc.div_(softcap).tanh_().mul_(softcap)
     qi = torch.arange(s, device=q.device)[:, None]

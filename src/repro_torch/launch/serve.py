@@ -1,6 +1,6 @@
 """Serving CLI (the port of ``repro/launch/serve.py``): DLRM CTR serving
 with the BLS pipeline, or batched greedy LM decoding (dense, MoE, VLM,
-whisper or rwkv6), on one device.
+whisper, rwkv6 or the zamba2 hybrid), on one device.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dlrm-kaggle \
@@ -9,6 +9,7 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --smoke
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b --smoke
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny --smoke
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --smoke
 
 ``--device`` defaults to the card; ``--device cpu`` runs the plain PyTorch
 versions of the kernels.

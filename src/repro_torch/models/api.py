@@ -1,8 +1,9 @@
 """Uniform model facade (the port of ``repro/models/api.py``): one entry
-point per family for init / forward / cache / decode.  The port runs the
-dense, ``moe`` and ``vlm`` families (through the transformer), the
-``audio`` one (whisper, encoder-decoder) and the ``ssm`` one (rwkv6); the
-``hybrid`` one raises ``NotImplementedError`` naming its ROADMAP item.
+point per family for init / forward / cache / decode.  The port runs every
+family of the reference: the dense, ``moe`` and ``vlm`` ones (through the
+transformer), the ``audio`` one (whisper, encoder-decoder), the ``ssm`` one
+(rwkv6) and the ``hybrid`` one (zamba2: Mamba-2 layers and a shared
+attention block).
 
 Batch dict convention:
   tokens  (B, S) int            — always present
@@ -12,9 +13,10 @@ Batch dict convention:
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import rwkv6, transformer, whisper
+from repro_torch.models import rwkv6, transformer, whisper, zamba2
 
-UNPORTED = {"hybrid": "ROADMAP A14b, models/zamba2.py"}
+# families the port does not run yet, each with its ROADMAP item: none
+UNPORTED: dict[str, str] = {}
 # the encoder length of an audio decode cache: a small fixed acoustic
 # context, as in the reference (whisper caps sources at ~1500 frames)
 AUDIO_ENC_LEN = 1536
@@ -33,6 +35,8 @@ def init(seed: int, cfg: ModelConfig, device="cuda", n_shards: int = 16):
     check_ported(cfg)
     if cfg.family == "ssm":
         return rwkv6.init_rwkv6(seed, cfg, device)
+    if cfg.family == "hybrid":
+        return zamba2.init_zamba2(seed, cfg, device)
     if cfg.family == "audio":
         return whisper.init_whisper(seed, cfg, device)
     return transformer.init_lm(seed, cfg, device, n_shards)
@@ -50,6 +54,9 @@ def forward(params, cfg: ModelConfig, batch: dict, *,
     if cfg.family == "ssm":
         return rwkv6.forward(params, cfg, batch["tokens"],
                              last_only=last_only, wkv_impl=wkv_impl)
+    if cfg.family == "hybrid":
+        return zamba2.forward(params, cfg, batch["tokens"],
+                              last_only=last_only, attn_impl=attn_impl)
     return transformer.forward(params, cfg, batch["tokens"],
                                batch.get("patches"), last_only=last_only,
                                attn_impl=attn_impl)
@@ -58,11 +65,14 @@ def forward(params, cfg: ModelConfig, batch: dict, *,
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device="cuda"):
     """The transformer's KV cache, whisper's self- and cross-attention
-    caches (zero cross K/V over ``AUDIO_ENC_LEN`` frames), or rwkv6's
-    recurrent state (constant in ``max_len``)."""
+    caches (zero cross K/V over ``AUDIO_ENC_LEN`` frames), rwkv6's
+    recurrent state (constant in ``max_len``), or zamba2's shared-block K/V
+    beside its mamba layers' conv and SSD states."""
     check_ported(cfg)
     if cfg.family == "ssm":
         return rwkv6.make_state(cfg, batch, dtype, device)
+    if cfg.family == "hybrid":
+        return zamba2.make_cache(cfg, batch, max_len, dtype, device)
     if cfg.family == "audio":
         return whisper.make_cache(cfg, batch, max_len, AUDIO_ENC_LEN, dtype,
                                   device)
@@ -73,10 +83,12 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, *,
                 attn_impl: str = "auto"):
     """-> (logits, cache).  ``attn_impl`` changes nothing: decode attention
     is plain for every value (see ``transformer.decode_step``), and rwkv6
-    decodes with the plain recurrence."""
+    and zamba2's mamba layers decode with their plain recurrences."""
     check_ported(cfg)
     if cfg.family == "ssm":
         return rwkv6.decode_step(params, cfg, tokens, cache)
+    if cfg.family == "hybrid":
+        return zamba2.decode_step(params, cfg, tokens, cache)
     if cfg.family == "audio":
         return whisper.decode_step(params, cfg, tokens, cache)
     return transformer.decode_step(params, cfg, tokens, cache,

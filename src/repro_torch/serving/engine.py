@@ -1184,11 +1184,11 @@ class LMEngine:
     """Batched greedy decoding for the LM families the port runs: the dense,
     MoE and VLM families prefill the prompts into a cache of ``max_len``
     positions (a VLM its text prompts only: the reference's engine passes
-    no patches), the recurrent one (rwkv6) and the encoder-decoder one
-    (whisper, with zero cross K/V, as the reference's engine runs it)
-    consume them token by token through ``decode_step``, as the reference
-    does; then one serve step per token, each step's latency observed by
-    the straggler monitor."""
+    no patches), the recurrent one (rwkv6), the hybrid one (zamba2) and the
+    encoder-decoder one (whisper, with zero cross K/V, as the reference's
+    engine runs it) consume them token by token through ``decode_step``,
+    as the reference does; then one serve step per token, each step's
+    latency observed by the straggler monitor."""
 
     def __init__(self, params, cfg: ModelConfig, *, max_len: int = 256,
                  device="cuda"):

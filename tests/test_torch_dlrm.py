@@ -76,7 +76,7 @@ def test_registry():
     assert tbase.get_arch("dlrm-kaggle").config == tkaggle.CONFIG
     assert tbase.get_arch("dlrm-alicpp").smoke() == tkaggle.smoke_alicpp()
     with pytest.raises(KeyError):
-        tbase.get_arch("zamba2-2.7b")     # no config copy in the port yet
+        tbase.get_arch("mamba2-130m")     # an arch of neither package
 
 
 @pytest.mark.parametrize("mode", ["uniform", "hetero", "powerlaw",

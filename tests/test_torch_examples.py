@@ -51,12 +51,11 @@ def test_quickstart_prints_the_references_values(capsys):
 def test_serve_lm_decode_offers_the_references_archs():
     want = [a for a in jbase.list_archs()
             if not a.startswith(("dlrm", "whisper", "llava"))]
-    # zamba2 (the hybrid family) is not ported yet
-    assert serve_lm_decode.arch_choices() == \
-        [a for a in want if a != "zamba2-2.7b"]
+    assert serve_lm_decode.arch_choices() == want
+    assert "zamba2-2.7b" in want
 
 
-@pytest.mark.parametrize("arch", ["qwen3-14b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["qwen3-14b", "rwkv6-1.6b", "zamba2-2.7b"])
 def test_serve_lm_decode_serves_the_references_tokens(arch, capsys):
     jcfg = jbase.get_arch(arch).smoke()
     jp = japi.init(jax.random.PRNGKey(0), jcfg, n_shards=1)

@@ -317,6 +317,43 @@ class TestFlashAttention:
             window=window, softcap=softcap, cq=32, ck=32, interpret=True)
         np.testing.assert_allclose(port.numpy(), np.asarray(out), atol=1e-5)
 
+    @pytest.mark.parametrize("h,kh,causal", [(4, 4, True), (4, 2, False)])
+    def test_hd80_matches_jax_kernel_interpret(self, h, kh, causal):
+        # zamba2-2.7b's shared block attends at head dim 80
+        q, k, v = _qkv(80 + h + kh, 2, 64, h, kh, 80)
+        port = tfa.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                                   causal=causal)
+        out = jfa.flash_attention_pallas(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+            cq=32, ck=32, interpret=True)
+        np.testing.assert_allclose(port.numpy(), np.asarray(out), atol=1e-5)
+
+    @pytest.mark.parametrize("window,softcap", [(0, 0.0), (8, 50.0)])
+    def test_padded_head_dim_matches_plain(self, window, softcap):
+        """hd 8 (the smoke configs') reaches the kernel zero-padded to 16
+        with the scale of hd 8: the plain version on the padded inputs
+        holds the plain version at hd 8 and the interpret-mode Pallas
+        kernel, and its padded output columns are zero."""
+        q, k, v = map(torch.from_numpy, _qkv(8, 2, 32, 8, 2, 8))
+        qp, kp, vp, scale = tfa.pad_head_dim(q, k, v)
+        assert qp.shape[-1] == kp.shape[-1] == vp.shape[-1] == 16
+        assert scale == 8 ** -0.5 and qp.is_contiguous()
+        assert torch.equal(qp[..., :8], q) and not qp[..., 8:].any()
+        kw = {"window": window, "softcap": softcap}
+        padded = tref.flash_attention_ref(qp, kp, vp, scale=scale, **kw)
+        assert not padded[..., 8:].any()
+        plain = tref.flash_attention_ref(q, k, v, **kw)
+        torch.testing.assert_close(padded[..., :8], plain, rtol=0,
+                                   atol=1e-6)
+        want = jfa.flash_attention_pallas(
+            *(jnp.asarray(x.numpy()) for x in (q, k, v)), window=window,
+            softcap=softcap, cq=16, ck=16, interpret=True)
+        np.testing.assert_allclose(padded[..., :8].numpy(), np.asarray(want),
+                                   atol=1e-5)
+        # other head dims pass through untouched
+        q16, k16, v16 = map(torch.from_numpy, _qkv(9, 1, 8, 2, 2, 16))
+        assert tfa.pad_head_dim(q16, k16, v16)[0] is q16
+
     @pytest.mark.parametrize("s,window", [(45, 0), (77, 16)])
     def test_ragged_length_matches_jax_sdpa(self, s, window):
         # S not a multiple of the Pallas tile: the reference's kernel asserts

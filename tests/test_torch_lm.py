@@ -268,9 +268,14 @@ def test_params_from_jax_casts_f32_leaves():
     ({"family": "hybrid"}, "zamba2"),
 ])
 def test_unported_options_raise(change, match):
-    cfg = tqwen.smoke().replace(**change)
-    with pytest.raises(NotImplementedError, match=match):
-        tapi.init(0, cfg, device="cpu")
+    """The port refuses no family through ``api`` any more: ``UNPORTED`` is
+    empty, and the change that raised here (the hybrid family, ROADMAP
+    A14b) passes ``check_ported`` and inits zamba2's parameters."""
+    assert tapi.UNPORTED == {}
+    tapi.check_ported(tqwen.smoke().replace(**change))
+    hybrid = tbase.get_arch(f"{match}-2.7b").smoke()
+    assert hybrid.family == change["family"]
+    assert "mamba" in tapi.init(0, hybrid, device="cpu")
 
 
 FRONT = {"d_frontend": 16, "n_frontend_tokens": 4}
