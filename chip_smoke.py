@@ -228,7 +228,30 @@ Phases, each on lines of its own:
      (GEMMs, the SSD chunk loop, flash, the rest), ``LMEngine`` on 2 x
      64-token prompts fed token by token and 16 greedy tokens, twice,
      identical, one decode step profiled; ``[zamba2-*]`` lines;
- 20. one JSON line of kernel numbers, the card's name and power limit, and
+ 20. training, after zamba2-2.7b and outside ``torch.no_grad()``: (a) each
+     body of the flash kernel asked for each row's log-sum-exp (hd 64 and
+     80 on mma.sync, 128 and 256 on wgmma in bf16, 64, 80 and the padded
+     8 in f32): lse against the plain version's, the output bit-identical
+     to a serving call's; (b) ``ops.FlashAttentionFn``'s gradients at
+     granite-moe-3b-a800m's train shape (B 1, S 4096, H 24 over Kh 8, hd
+     64, bf16; relative Frobenius 2e-2) and in f32 at S 1024 (1e-4)
+     against autograd through the plain attention, and the row
+     ``flash_attention/granite_train_lse`` (the kernel with lse beside
+     its plain version and SDPA, the plain backward beside SDPA's forward
+     and backward); (c) granite-moe at full width and 2 layers: a train
+     step through the kernel against one through the plain attention
+     (loss 1e-3, grad_norm 1e-2), and ``launch/train.py``'s loop saving
+     after step 2, that checkpoint restored bit for bit, a resumed run's
+     step 3 within 1e-6 of the uninterrupted state's; (d) one train step
+     of every LM family's smoke config (B6 for rwkv6, the padded hd 8);
+     (e) the full 32-layer granite-moe-3b-a800m (3.3 B parameters, f32
+     masters and AdamW state on the card) through ``launch/train.py``'s
+     loop: 4 steps of 2 x 4096 tokens in 2 microbatches, remat "full"
+     (128 flash launches a step), step p50 after the first, tokens/s,
+     peak memory, the flop bound, one more step profiled (GEMMs, flash
+     forward, the plain flash backward, the MoE dispatch forward and
+     backward, the optimizer, the rest); ``[train*]`` lines;
+ 21. one JSON line of kernel numbers, the card's name and power limit, and
      last ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or with any phase failing, it exits non-zero and
 prints no result.
@@ -3883,6 +3906,544 @@ def zamba2_serve_phase(dev, card):
     return by_key
 
 
+# phase 20: training, after zamba2-2.7b, outside torch.no_grad().  The
+# train_4k cell's sequence; its global batch of 256 cut to 2 (granite's
+# train_accum of 2: two microbatches of 1); one warm-up step and three
+# timed ones
+TRAIN_ARCH = "granite-moe-3b-a800m"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 2, 4
+# the flash kernel's launches a full-depth step: 32 layers x 2 microbatches
+# x (the forward and its remat recompute in the backward)
+TRAIN_FLASH_PER_STEP = 128
+# full width, depth cut: the kernel-vs-plain step and the checkpoint gate
+# (2 layers: 3.3 GB of f32 state; the full 39.6 GB of params, m and v
+# would take ~75 s a write at the 0.55 GB/s np.savez measured beside an
+# H100 80GB HBM3)
+TRAIN_CUT_LAYERS = 2
+TRAIN_LOSS_REL, TRAIN_GNORM_REL = 1e-3, 1e-2
+# the MoE backward scatters with accumulation, which may be atomic on the
+# card: two runs of one step need not agree bit for bit
+TRAIN_RESUME_REL = 1e-6
+# the Function's gradients against autograd through the plain attention:
+# bf16 operands and the bf16 rounding of p and ds (2^-8 relative each)
+TRAIN_GRAD_REL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# lse against the plain version: f32 at 1e-5; bf16 (operands rounded
+# alike, the kernel's ex2/tanh approximations) at 1e-3
+LSE_TOL = {torch.bfloat16: {"rtol": 0.0, "atol": 1e-3},
+           torch.float32: {"rtol": 0.0, "atol": 1e-5}}
+# each body of B5: (label, B, S, H, Kh, hd, type, window, softcap, causal)
+LSE_CASES = (
+    ("mma.sync hd 64", 1, TRAIN_SEQ, 24, 8, 64, torch.bfloat16, 0, 0.0, True),
+    ("mma.sync hd 80", 2, 1000, 8, 8, 80, torch.bfloat16, 0, 0.0, True),
+    ("wgmma hd 128", 1, 1100, 16, 8, 128, torch.bfloat16, 0, 0.0, True),
+    ("wgmma hd 256, window, softcap", 1, 1100, 16, 8, 256, torch.bfloat16,
+     300, 50.0, True),
+    ("f32 hd 64", 1, 1024, 24, 8, 64, torch.float32, 0, 0.0, True),
+    ("f32 hd 80, window, softcap", 2, 500, 4, 2, 80, torch.float32, 64,
+     30.0, True),
+    ("f32 hd 8 padded", 4, 8, 8, 2, 8, torch.float32, 0, 0.0, True))
+TRAIN_PROFILE = ("train.flash_bwd", "train.optimizer", "moe.experts",
+                 "moe.dispatch")
+TRAIN_CKPT_DIR = ROOT / "build" / "train_ckpt"
+
+
+def plain_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """Attention in f32 out of place (autograd through it is the yardstick
+    of the Function's gradients): the function of ``ref.flash_attention_
+    ref`` without its in-place steps."""
+    b, s, h, hd = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, s, kh, h // kh, hd)
+    sc = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * hd ** -0.5
+    if softcap:
+        sc = softcap * torch.tanh(sc / softcap)
+    qi = torch.arange(s, device=q.device)[:, None]
+    kj = torch.arange(t, device=q.device)[None, :]
+    ok = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kj <= qi
+    if window:
+        ok &= (qi - kj) < window
+    p = torch.softmax(sc.masked_fill(~ok, float("-inf")), dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
+    return out.reshape(b, s, h, hd)
+
+
+def lse_phase(dev):
+    """Phase 20a: each body of B5 asked for lse: lse against the plain
+    version's, and the output bit-identical to a serving call's (null lse)
+    on the same inputs."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    for label, b, s, h, kh, hd, dt, window, cap, causal in LSE_CASES:
+        q, k, v = ((torch.randn((b, s, n, hd), generator=gen, device=dev)
+                    * sc).to(dt)
+                   for n, sc in ((h, FLASH_Q_SCALE), (kh, 1.0), (kh, 1.0)))
+        kw = {"causal": causal, "window": window, "softcap": cap}
+        served = fa.attend(q, k, v, **kw)
+        out, lse = fa.attend(q, k, v, return_lse=True, **kw)
+        plain, plain_lse = ref.flash_attention_ref(q, k, v, return_lse=True,
+                                                   **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(out, served):
+            raise AssertionError(f"lse {label}: the output with lse differs "
+                                 f"from the serving call's")
+        err, _, _ = hold(f"lse {label}", lse, plain_lse, LSE_TOL[dt])
+        out_err = (out.float() - plain.float()).abs().max().item()
+        log(f"[train-lse] {label}: B {b} S {s} H {h} over Kh {kh}, {dt}, "
+            f"window {window}, softcap {cap}: lse max_abs_err {err:.3e} "
+            f"(atol {LSE_TOL[dt]['atol']}), output bit-identical to the "
+            f"null-lse call, output vs plain {out_err:.3e}")
+        del q, k, v, served, out, lse, plain, plain_lse
+    torch.cuda.empty_cache()
+
+
+def flash_grads(q, k, v, dout):
+    """(the Function's dq, dk, dv; autograd through the plain attention's),
+    both from one cotangent."""
+    from repro_torch.kernels import ops
+
+    qs = [x.detach().requires_grad_() for x in (q, k, v)]
+    got = torch.autograd.grad(ops.flash_attention_op(*qs), qs, dout)
+    ps = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(plain_attention(*ps), ps, dout.float())
+    return got, want
+
+
+def train_flash_phase(dev):
+    """Phase 20b: FlashAttentionFn's gradients at granite's train shape (B
+    1, S 4096, H 24 over Kh 8, hd 64, bf16) and in f32 at S 1024 against
+    autograd through the plain attention; the kernel with lse timed at the
+    train shape beside its plain version and SDPA, the plain backward
+    beside SDPA's forward and backward.  Returns the row."""
+    from repro_torch.configs.granite_moe_3b_a800m import CONFIG as GRANITE
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 6)
+    h, kh, hd = GRANITE.n_heads, GRANITE.n_kv_heads, GRANITE.head_dim
+    for s, dt in ((TRAIN_SEQ, torch.bfloat16), (1024, torch.float32)):
+        q, k, v = ((torch.randn((1, s, n, hd), generator=gen, device=dev)
+                    * sc).to(dt)
+                   for n, sc in ((h, FLASH_Q_SCALE), (kh, 1.0), (kh, 1.0)))
+        dout = torch.randn((1, s, h, hd), generator=gen, device=dev).to(dt)
+        got, want = flash_grads(q, k, v, dout)
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            if a.dtype != dt or a.shape != w.shape:
+                raise AssertionError(f"{name}: {a.dtype} {tuple(a.shape)}")
+            fro = ((a.float() - w).norm() / w.norm()).item()
+            if not fro <= TRAIN_GRAD_REL[dt]:
+                raise AssertionError(f"FlashAttentionFn {name} at S {s} "
+                                     f"{dt}: relative Frobenius error "
+                                     f"{fro:.3e} > {TRAIN_GRAD_REL[dt]}")
+            log(f"[train-flash] FlashAttentionFn {name} at B 1 S {s} H {h} "
+                f"over Kh {kh} hd {hd} {dt}: relative Frobenius error "
+                f"{fro:.3e} (gate {TRAIN_GRAD_REL[dt]}) against autograd "
+                f"through the plain attention")
+        del q, k, v, dout, got, want
+        torch.cuda.empty_cache()
+
+    # the train row: the kernel asked for lse, at the train shape
+    q, k, v = ((torch.randn((1, TRAIN_SEQ, n, hd), generator=gen,
+                            device=dev) * sc).to(torch.bfloat16)
+               for n, sc in ((h, FLASH_Q_SCALE), (kh, 1.0), (kh, 1.0)))
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+
+    def sdpa(q=q, k=k, v=v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)
+
+    row = check_kernel(
+        "flash_attention/granite_train_lse",
+        "src/repro/kernels/flash_attention.py:97",
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        lambda: fa.attend(q, k, v, return_lse=True)[0],
+        lambda: ref.flash_attention_ref(q, k, v), sdpa,
+        n_bytes=q.element_size() * (2 * q.numel() + 2 * k.numel())
+        + 4 * q.shape[0] * h * TRAIN_SEQ,
+        flops=4 * hd * admitted_pairs(TRAIN_SEQ, 0) * h, flush=None,
+        tol=FLASH_TOL, rel=FLASH_REL, peak_flops=BF16_FLOPS)
+    row["serving_ms"] = time_ms(lambda: fa.attend(q, k, v))
+    out, lse = fa.attend(q, k, v, return_lse=True)
+    row["plain_bwd_ms"] = time_ms(
+        lambda: flash_attention_bwd(q, k, v, out, lse, dout), reps=5,
+        warmup=1)
+    qs = [x.detach().requires_grad_() for x in (q, k, v)]
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(
+            qs[0].transpose(1, 2), qs[1].transpose(1, 2),
+            qs[2].transpose(1, 2), is_causal=True,
+            enable_gqa=True).transpose(1, 2)
+        torch.autograd.grad(o, qs, dout)
+
+    row["library_fwd_bwd_ms"] = time_ms(sdpa_fwd_bwd)
+    row["shape"] = (f"B 1, S {TRAIN_SEQ}, H {h} over Kh {kh}, hd {hd}, "
+                    f"causal, bf16, with lse")
+    log(f"[train-flash] {row['name']}: kernel with lse {row['ms']:.4f} ms "
+        f"(null lse {row['serving_ms']:.4f} ms), "
+        f"SDPA forward {row['library_ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms; plain backward (chunks of 1024, f32 "
+        f"sums) {row['plain_bwd_ms']:.4f} ms beside SDPA forward + backward "
+        f"{row['library_fwd_bwd_ms']:.4f} ms")
+    del q, k, v, dout, out, lse, qs
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_batch(cfg, dev, index=0, batch=None, seq=None):
+    """Batch ``index`` of ``launch/train.py``'s seeded stream, on ``dev``
+    (TRAIN_BATCH x TRAIN_SEQ unless given)."""
+    from repro_torch.launch import train as train_mod
+
+    data = train_mod.synthetic_batches(cfg, batch or TRAIN_BATCH,
+                                       seq or TRAIN_SEQ, index + 1, SEED)
+    return {k: v.to(dev) for k, v in list(data)[index].items()}
+
+
+def train_cut_phase(dev):
+    """Phase 20c: granite-moe-3b-a800m at full width, depth cut to
+    TRAIN_CUT_LAYERS: one train step with the kernel against one with the
+    plain attention from the same parameters (loss 1e-3, grad_norm 1e-2
+    relative); then ``launch/train.py``'s loop for 3 steps saving its
+    checkpoint after step 2, that checkpoint restored bit for bit, and a
+    run resumed from it whose step 3 matches step 3 of the uninterrupted
+    state (1e-6 relative)."""
+    import shutil
+
+    from repro_torch.configs.granite_moe_3b_a800m import CONFIG as GRANITE
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import api
+    from repro_torch.runtime import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import steps as steps_mod
+
+    cfg = GRANITE.replace(n_layers=TRAIN_CUT_LAYERS)
+    batch = train_batch(cfg, dev)
+    metrics = {}
+    for impl in ("auto", "ref"):
+        params = api.init(SEED, cfg, dev, n_shards=1, dtype="float32")
+        step = steps_mod.make_train_step(cfg, accum_steps=cfg.train_accum,
+                                         attn_impl=impl)
+        _, state, m = step(params, opt.adamw_init(params), batch)
+        metrics[impl] = {k: float(v) for k, v in m.items()}
+        del params, state
+        torch.cuda.empty_cache()
+    for key, rel in (("loss", TRAIN_LOSS_REL), ("grad_norm",
+                                               TRAIN_GNORM_REL)):
+        a, b = metrics["auto"][key], metrics["ref"][key]
+        if not (np.isfinite(a) and abs(a - b) <= rel * abs(b)):
+            raise AssertionError(f"cut-depth step {key}: kernel {a} vs plain "
+                                 f"{b} (relative gate {rel})")
+    log(f"[train-cut] {TRAIN_ARCH} at {TRAIN_CUT_LAYERS} layers, full width, "
+        f"B {TRAIN_BATCH} x S {TRAIN_SEQ} in {cfg.train_accum} microbatches: "
+        f"kernel step {metrics['auto']} vs plain attention {metrics['ref']}")
+
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    quiet = lambda *a: None  # noqa: E731
+    t0 = time.perf_counter()
+    first = train_mod.train(cfg, steps=3, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                            ckpt_dir=str(TRAIN_CKPT_DIR), device=dev,
+                            log=quiet)
+    save_s = time.perf_counter() - t0
+    state = (first.params, first.opt_state)
+    n_bytes = sum(x.numel() * x.element_size() for x in opt.leaves(state))
+    if ckpt.latest_step(str(TRAIN_CKPT_DIR)) != 2 or \
+            int(first.opt_state["count"]) != 3:
+        raise AssertionError("the 3-step run did not leave step 2's "
+                             "checkpoint")
+    t0 = time.perf_counter()
+    resumed = train_mod.train(cfg, steps=4, batch=TRAIN_BATCH,
+                              seq=TRAIN_SEQ, ckpt_dir=str(TRAIN_CKPT_DIR),
+                              device=dev, log=log)
+    resume_s = time.perf_counter() - t0
+    if resumed.start != 3 or [h[0] for h in resumed.history] != [3]:
+        raise AssertionError(f"resumed at {resumed.start}: "
+                             f"{resumed.history}")
+    resumed.params = resumed.opt_state = None
+    restored, step_no = ckpt.restore(str(TRAIN_CKPT_DIR), state, step=2)
+    for a, b in zip(opt.leaves(restored), opt.leaves(state)):
+        if not torch.equal(a, b):
+            raise AssertionError("step 2's checkpoint does not restore bit "
+                                 "for bit")
+    del restored
+    step = steps_mod.make_train_step(cfg, accum_steps=cfg.train_accum)
+    _, _, m = step(first.params, first.opt_state, train_batch(cfg, dev, 3))
+    want, got = float(m["loss"]), resumed.history[0][1]
+    if not abs(got - want) <= TRAIN_RESUME_REL * abs(want):
+        raise AssertionError(f"resumed step 3 loss {got!r} vs uninterrupted "
+                             f"{want!r}")
+    log(f"[train-ckpt] {TRAIN_ARCH} at {TRAIN_CUT_LAYERS} layers: "
+        f"{n_bytes / 1e9:.3f} GB of f32 state; 3 steps with the save after "
+        f"step 2 {save_s:.1f} s, the resumed run (restore, step 3, save) "
+        f"{resume_s:.1f} s; step 2 restored bit for bit; step 3 loss resumed "
+        f"{got!r} vs uninterrupted {want!r} "
+        f"(relative {abs(got - want) / abs(want):.2e}, gate "
+        f"{TRAIN_RESUME_REL})")
+    del first, state
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def train_smoke_phase(dev):
+    """Phase 20d: one train step of every LM family's smoke config on the
+    card (f32): B5 (hd 8 padded for most) and, for rwkv6, B6 under
+    autograd; loss and grad_norm finite, the kernels launched."""
+    from repro_torch.configs.base import get_arch, list_archs
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import steps as steps_mod
+
+    lines = []
+    for arch in [a for a in list_archs() if not a.startswith("dlrm")]:
+        cfg = get_arch(arch).smoke()
+        params = api.init(SEED, cfg, dev, n_shards=1, dtype="float32")
+        batch = train_batch(cfg, dev, batch=2, seq=32)
+        ops.reset_launches()
+        _, state, m = steps_mod.make_train_step(cfg)(
+            params, opt.adamw_init(params), batch)
+        launches = {k: v.launches for k, v in ops.kernels().items()
+                    if v.launches}
+        want = "rwkv6_wkv" if cfg.family == "ssm" else "flash_attention"
+        if not (np.isfinite(float(m["loss"])) and
+                np.isfinite(float(m["grad_norm"])) and launches.get(want)):
+            raise AssertionError(f"{arch} smoke step: {m}, launches "
+                                 f"{launches}")
+        lines.append(f"{arch} (hd {cfg.head_dim}) loss "
+                     f"{float(m['loss']):.4f} launches {launches}")
+        del params, state
+    log("[train-smoke] one step each on the card: " + "; ".join(lines))
+    torch.cuda.empty_cache()
+
+
+def train_profile(label, fn):
+    """One call of ``fn`` under the profiler with ranges around the plain
+    flash backward, the optimizer (clip and AdamW), the MoE dispatch and
+    the expert GEMMs; the MoE ops' backward kernels are found through the
+    autograd nodes' sequence numbers.  Returns device us by class and the
+    wall us."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as M
+    from repro_torch.train import optimizer as opt
+
+    saved = {(ops, "flash_attention_bwd"): TRAIN_PROFILE[0],
+             (opt, "clip_by_global_norm"): TRAIN_PROFILE[1],
+             (opt, "adamw_update"): TRAIN_PROFILE[1],
+             (M, "_expert_mlp"): TRAIN_PROFILE[2],
+             (M, "_moe_local"): TRAIN_PROFILE[3]}
+    real = {key: getattr(*key) for key in saved}
+
+    def ranged(name, fn_):
+        def call(*a, **kw):
+            with record_function(name):
+                return fn_(*a, **kw)
+        return call
+
+    for (mod, attr), name in saved.items():
+        setattr(mod, attr, ranged(name, real[(mod, attr)]))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        for (mod, attr), f in real.items():
+            setattr(mod, attr, f)
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.events() if e.device_type != cuda]
+
+    def walk(e):
+        stack = [e]
+        while stack:
+            x = stack.pop()
+            yield x
+            stack.extend(x.cpu_children)
+
+    def is_gemm(name):
+        low = name.lower()
+        return any(t in low for t in ("gemm", "nvjet", "cutlass", "xmma",
+                                      "sm90_"))
+
+    # each range's kernels (the profiler's per-op kernel records), once:
+    # the first range that claims an op keeps it (experts inside dispatch)
+    claimed, fwd = set(), {TRAIN_PROFILE[2]: set(), TRAIN_PROFILE[3]: set()}
+    work = {name: [] for name in TRAIN_PROFILE}
+    for name in TRAIN_PROFILE:
+        for r in (e for e in events if e.name == name):
+            for x in walk(r):
+                if id(x) in claimed:
+                    continue
+                claimed.add(id(x))
+                work[name] += [(k.name, k.duration) for k in x.kernels
+                               if k.name not in TRAIN_PROFILE]
+                if name in fwd and x.sequence_nr >= 0:
+                    fwd[name].add((x.thread, x.sequence_nr))
+    # the backward of the MoE ops: autograd nodes whose sequence numbers
+    # are those of the forward ops inside the ranges
+    for e in events:
+        if not e.name.startswith("autograd::engine::evaluate_function"):
+            continue
+        name = next((n for n in fwd
+                     if (e.fwd_thread, e.sequence_nr) in fwd[n]), None)
+        if name is None:
+            continue
+        for x in walk(e):
+            if id(x) not in claimed:
+                claimed.add(id(x))
+                work[name] += [(k.name, k.duration) for k in x.kernels]
+    split = {"gemm": 0.0, "flash_fwd": 0.0,
+             "flash_bwd": sum(us for _, us in work[TRAIN_PROFILE[0]]),
+             "moe_dispatch": sum(us for _, us in work[TRAIN_PROFILE[3]]),
+             "expert_gemm": sum(us for _, us in work[TRAIN_PROFILE[2]]),
+             "optimizer": sum(us for _, us in work[TRAIN_PROFILE[1]]),
+             "other": 0.0}
+    ranged_gemm = sum(us for name in TRAIN_PROFILE for k, us in work[name]
+                      if is_gemm(k))
+    busy, n_kernels = 0.0, 0
+    for e in prof.events():
+        if e.device_type != cuda or e.name in TRAIN_PROFILE:
+            continue
+        us = e.time_range.elapsed_us()
+        busy += us
+        n_kernels += 1
+        if "flash_" in e.name:
+            split["flash_fwd"] += us
+        elif is_gemm(e.name):
+            split["gemm"] += us
+    split["gemm"] -= ranged_gemm
+    split["other"] = busy - sum(split.values())
+    if not busy:
+        log(f"[train-profile] {label}: the profiler saw no device activity: "
+            "device time not measured")
+        return None, wall_us
+    log(f"[train-profile] {label}: wall {wall_us:.0f} us under the "
+        f"profiler, device activity {busy:.0f} us ({100 * busy / wall_us:.1f}"
+        f"% of that wall), {n_kernels} device operations; by class (us): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+        + "; gemm is outside the ranges (expert_gemm: the experts' batched "
+        "products forward, recompute and backward)")
+    return split, busy
+
+
+def train_flops(cfg, tokens: int, b: int, s: int) -> dict:
+    """The step's flop bound's terms: 8 flops a matmul parameter a token
+    (forward, remat recompute, backward) over the active parameters (the
+    attention projections, the router and experts_per_token experts a
+    layer, the tied LM head), and 4 hd flops an admitted pair x (1 + 1 +
+    2.5) for attention."""
+    moe = cfg.moe
+    d, hd = cfg.d_model, cfg.head_dim
+    attn = d * (2 * cfg.n_heads * hd + 2 * cfg.n_kv_heads * hd)
+    experts = moe.experts_per_token * 3 * d * moe.d_expert
+    active = cfg.n_layers * (attn + d * moe.n_experts + experts) \
+        + cfg.vocab_size * d
+    pairs = admitted_pairs(s, 0) * b * cfg.n_heads * cfg.n_layers
+    return {"active_params": active,
+            "matmul": 8 * active * tokens,
+            "attention": 4 * hd * pairs * (1 + 1 + 2.5)}
+
+
+def train_full_phase(dev, card):
+    """Phase 20e: full-width, full-depth granite-moe-3b-a800m through
+    ``launch/train.py``'s loop: TRAIN_STEPS steps of B TRAIN_BATCH x S
+    TRAIN_SEQ in 2 microbatches, f32 masters and AdamW on the card.  Loss
+    and grad_norm finite, count equal to the steps, parameters moved, the
+    flash kernel launched TRAIN_FLASH_PER_STEP times a step; step p50 over
+    the steps after the first, tokens/s, peak memory, one more step
+    profiled.  Returns the flash launches a step."""
+    from repro_torch.configs.granite_moe_3b_a800m import CONFIG as GRANITE
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import api
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import steps as steps_mod
+
+    cfg = GRANITE
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(SEED, cfg, dev, n_shards=1, dtype="float32")
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in opt.leaves(params))
+    init_s = time.perf_counter() - t0
+    probe = {"embed": params["embed"]["table"][:4].clone(),
+             "gate": params["layers"]["sub0"]["ffn"]["gate"][0, 0, :4]
+             .clone()}
+    key = fa.launch_key(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 0, True)
+    ops.reset_launches()
+    run = train_mod.train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                          seq=TRAIN_SEQ, device=dev, params=params, log=log)
+    launches = {k: v.launches for k, v in ops.kernels().items()}
+    by_key = dict(fa.FLASH.by_key)
+    peak = torch.cuda.max_memory_allocated()
+    if by_key != {key: TRAIN_FLASH_PER_STEP * TRAIN_STEPS} or \
+            launches["flash_attention"] != TRAIN_FLASH_PER_STEP * TRAIN_STEPS:
+        raise AssertionError(f"{TRAIN_STEPS} steps launched {launches}, "
+                             f"flash by key {by_key}: not "
+                             f"{TRAIN_FLASH_PER_STEP} a step")
+    losses = [h[1] for h in run.history]
+    norms = [h[2] for h in run.history]
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+        raise AssertionError(f"losses {losses}, grad norms {norms}")
+    if int(run.opt_state["count"]) != TRAIN_STEPS:
+        raise AssertionError(f"count {int(run.opt_state['count'])}")
+    if torch.equal(run.params["embed"]["table"][:4], probe["embed"]) or \
+            torch.equal(run.params["layers"]["sub0"]["ffn"]["gate"][0, 0, :4],
+                        probe["gate"]):
+        raise AssertionError("the parameters did not move")
+    times = [h[4] for h in run.history]
+    p50 = statistics.median(times[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    fl = train_flops(cfg, tokens, TRAIN_BATCH, TRAIN_SEQ)
+    bound_ms = (fl["matmul"] + fl["attention"]) / BF16_FLOPS * 1e3
+    log(f"[train] {TRAIN_ARCH} full width and depth ({cfg.n_layers} layers, "
+        f"{n_params:,} parameters in f32, init {init_s:.1f} s), B "
+        f"{TRAIN_BATCH} x S {TRAIN_SEQ} in {cfg.train_accum} microbatches, "
+        f"remat {cfg.remat}, {TRAIN_STEPS} steps: losses {losses}, grad norms "
+        f"{norms}, lr {[h[3] for h in run.history]}; step s "
+        f"{[round(t, 4) for t in times]}; p50 of steps 1-{TRAIN_STEPS - 1} "
+        f"{p50 * 1e3:.1f} ms, {tokens / p50:.0f} tokens/s; "
+        f"max_memory_allocated {peak / 1e9:.3f} GB; card {card!r}")
+    log(f"[train] flash launches by (H, Kh, hd, window, causal) {by_key} = "
+        f"{TRAIN_FLASH_PER_STEP} a step; launches {launches}")
+    log(f"[train] flop bound: {fl['active_params']:,} active matmul "
+        f"parameters ({cfg.moe.experts_per_token} of {cfg.moe.n_experts} "
+        f"experts of d_expert "
+        f"{cfg.moe.d_expert}, the tied head), 8 x that x {tokens} tokens = "
+        f"{fl['matmul'] / 1e12:.2f} TFLOP, attention {fl['attention'] / 1e12:.3f}"
+        f" TFLOP: {bound_ms:.2f} ms at 989 TFLOP/s; the p50 step is "
+        f"{p50 * 1e3 / bound_ms:.1f}x it")
+    step = steps_mod.make_train_step(cfg, accum_steps=cfg.train_accum)
+    batch = train_batch(cfg, dev, TRAIN_STEPS)
+    state = [run.params, run.opt_state]
+
+    def one_step():
+        state[0], state[1], m = step(state[0], state[1], batch)
+        float(m["loss"])
+
+    split, busy = train_profile("one step", one_step)
+    if split is not None:
+        log("[train-profile] shares of the device time: " + ", ".join(
+            f"{k} {100 * v / busy:.1f}%" for k, v in split.items())
+            + f"; device activity {busy / 1e3:.1f} ms against the "
+            f"unprofiled step p50 {p50 * 1e3:.1f} ms "
+            f"({100 * busy / 1e3 / (p50 * 1e3):.1f}%)")
+    del run, state, params
+    torch.cuda.empty_cache()
+    return TRAIN_FLASH_PER_STEP
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3993,6 +4554,15 @@ def main() -> int:
         smoke_by_key = smoke_serve_phase()
         zamba2_parity_phase(dev)
         zamba_by_key = zamba2_serve_phase(dev, card)
+        # the training phases need the card's memory: zamba2-2.7b went
+        # with zamba2_serve_phase's frame
+        torch.cuda.empty_cache()
+        lse_phase(dev)
+    # training runs with grad enabled
+    train_row = train_flash_phase(dev)
+    train_cut_phase(dev)
+    train_smoke_phase(dev)
+    train_row["launches"] = train_full_phase(dev, card)
     # each flash or WKV row takes the served launches of its own shape:
     # qwen3's heads and the B 8 WKV shape are timed but not served, so
     # their rows read 0; each new family's row its phase's run (one
@@ -4008,7 +4578,7 @@ def main() -> int:
     # four f32 smoke serves
     zamba_row["launches"] = zamba_by_key.get(zkey, 0)
     hd8_row["launches"] = smoke_by_key.get(hd8_key, 0)
-    rows += [zamba_row, zamba_f32_row, hd8_row]
+    rows += [zamba_row, zamba_f32_row, hd8_row, train_row]
     for row, key in wkv_rows:
         row["launches"] = wkv_by_key.get(key, 0)
         rows.append(row)

@@ -11,7 +11,12 @@
 //   i - j < window when window > 0;
 //   out = sum_j p_j v_j / max(sum_j p_j, 1e-30),  p_j = admitted ?
 //   exp(s_j - max_j s_j) : 0,
-// in float32 inside, cast back to the input type.
+// in float32 inside, cast back to the input type.  Given an lse pointer
+// (training: the residual of the reference's _flash_vjp_fwd,
+// src/repro/models/attention.py:182-185), each body also writes
+//   lse = m + log(max(sum_j p_j, 1e-30)),  m = max_j s_j over admitted keys
+// (0 for a row that admits none), float32, laid out (B, H, S) = the
+// reference's (B, Kh, G, S); a null pointer (serving) writes nothing else.
 //
 // What bounds it on the H100: operations.  At the served gemma2-9b shape
 // (B 2, S 4608, H 16, Kh 8, hd 256) one layer needs 4 * hd flops per
@@ -87,9 +92,19 @@ struct Params {
   const void* k;
   const void* v;
   void* out;
+  float* lse;  // (B, H, S) or null
   int s, t, h, kh, causal, window;
   float scale, softcap;
 };
+
+// One query row's log-sum-exp from its running max m (in score units) and
+// its sum l >= 1e-30; a row that admitted no key kept the sentinel max.
+__device__ __forceinline__ void store_lse(const Params& p, int batch,
+                                          int head, int qi, float m,
+                                          float l) {
+  p.lse[((int64_t)batch * p.h + head) * p.s + qi] =
+      (m == kMasked ? 0.f : m) + logf(l);
+}
 
 __device__ __forceinline__ bool admitted(const Params& p, int qi, int kj) {
   return kj < p.t && (!p.causal || kj <= qi) &&
@@ -351,6 +366,8 @@ __global__ void __launch_bounds__(128) flash_bf16(Params p) {
   for (int i = 0; i < 2; ++i) {
     const int qi = row0 + i * 8;
     if (qi >= p.s) continue;
+    if (p.lse != nullptr && (lane & 3) == 0)
+      store_lse(p, batch, head, qi, m[i], l[i]);
     __nv_bfloat16* orow = og + qi * q_step + (lane & 3) * 2;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
@@ -876,7 +893,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    l[r] = 1.f / fmaxf(l[r], 1e-30f);
+    l[r] = fmaxf(l[r], 1e-30f);
+    // uncapped, m is in raw score units (the scale went into the exponent)
+    const int qi = row0 + 8 * r;
+    if (p.lse != nullptr && (lane & 3) == 0 && qi < p.s)
+      store_lse(p, batch, head, qi,
+                m[r] == kMasked || p.softcap > 0.f ? m[r] : m[r] * p.scale,
+                l[r]);
+    l[r] = 1.f / l[r];
   }
   // out into this warpgroup's own Q rows (read by no wgmma any more), in
   // the tensor map's swizzled layout, then one TMA store of the block;
@@ -1049,6 +1073,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_f32(Params p) {
     const float li = fmaxf(sum16(l[i]), 1e-30f);
     const int qi = q0 + ty + 16 * i;
     if (qi >= p.s) continue;
+    if (p.lse != nullptr && tx == 0) store_lse(p, batch, head, qi, m[i], li);
 #pragma unroll
     for (int c = 0; c < NC; ++c) og[qi * q_step + tx + 16 * c] = acc[i][c] / li;
   }
@@ -1148,10 +1173,12 @@ int launch_hd(int dtype, const Params& p, int b, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16.  q, out (B, S, H, hd) and k, v (B, T, Kh,
-// hd), contiguous, 16-byte aligned.  Returns a cudaError_t; an unsupported
-// head dim or type is cudaErrorInvalidValue and launches nothing.
+// hd), contiguous, 16-byte aligned; lse null, or (B, H, S) float32.
+// Returns a cudaError_t; an unsupported head dim or type is
+// cudaErrorInvalidValue and launches nothing.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int dtype,
+                                      const void* v, void* out, void* lse,
+                                      int dtype,
                                       int b, int s, int t, int h, int kh,
                                       int hd, int causal, int window,
                                       float scale, float softcap,
@@ -1159,7 +1186,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if ((dtype != 0 && dtype != 1) || b < 1 || s < 1 || t < 1 || kh < 1 ||
       h % kh != 0)
     return (int)cudaErrorInvalidValue;
-  const Params p{q, k, v, out, s, t, h, kh, causal, window, scale, softcap};
+  const Params p{q, k, v, out, static_cast<float*>(lse), s, t, h, kh,
+                 causal, window, scale, softcap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 16: return launch_hd<16>(dtype, p, b, st);

@@ -8,10 +8,16 @@ kernel is built for the head dims in :data:`HEAD_DIMS`; one in
 :data:`PADDED_HEAD_DIMS` (the smoke configs' 8) is zero-padded to a built
 one by :func:`pad_head_dim`, which changes no score, and the output sliced
 back.
+
+The kernel is forward-only and takes no part in autograd: on the card a
+call with grad enabled and an input that requires grad raises (training
+goes through ``ops.FlashAttentionFn``, whose forward asks the kernel for
+the rows' log-sum-exp with ``return_lse=True``).
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
@@ -20,7 +26,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels._build import Kernel
 
 FLASH = Kernel("flash_attention.cu", "flash_attention_launch",
-               [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
@@ -51,13 +57,15 @@ def pad_head_dim(q, k, v):
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-           causal: bool = True, window: int = 0,
-           softcap: float = 0.0) -> torch.Tensor:
+           causal: bool = True, window: int = 0, softcap: float = 0.0,
+           return_lse: bool = False):
     """The CUDA kernel: q (B, S, H, hd), k and v (B, T, Kh, hd), contiguous,
     on one card, all float32 or all bfloat16, hd in :data:`HEAD_DIMS` or
     :data:`PADDED_HEAD_DIMS` and H a multiple of Kh -> (B, S, H, hd) in q's
-    type.  Each launch is counted on ``FLASH`` under :func:`launch_key`
-    with the true head dim."""
+    type; with ``return_lse`` also each query row's log-sum-exp, (B, Kh,
+    H / Kh, S) float32 (the reference's ``_flash_fwd_impl`` layout, the
+    scale of the true head dim).  Each launch is counted on ``FLASH`` under
+    :func:`launch_key` with the true head dim."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.dtype not in DTYPES:
             raise NotImplementedError(
@@ -81,6 +89,10 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"{h} query heads do not group over {kh} kv heads")
     if window < 0 or softcap < 0:
         raise ValueError(f"window {window} and softcap {softcap} must be >= 0")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError("the flash kernel has no backward: a tensor that "
+                           "requires grad goes through "
+                           "ops.FlashAttentionFn")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device.type != "cuda" or x.device != q.device:
             raise RuntimeError(f"attend launches a CUDA kernel on one card; "
@@ -88,25 +100,36 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if x.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
     if q.numel() == 0 or t == 0:
-        return torch.zeros_like(q)
+        out = torch.zeros_like(q)
+        if not return_lse:
+            return out
+        # no key: m is taken as 0 and the sum clamps to 1e-30
+        return out, torch.full((b, kh, h // kh, s), math.log(1e-30),
+                               dtype=torch.float32, device=q.device)
     qp, kp, vp, scale = pad_head_dim(q, k, v)
     out = torch.empty_like(qp)
+    lse = torch.empty((b, kh, h // kh, s), dtype=torch.float32,
+                      device=q.device) if return_lse else None
     with torch.cuda.device(q.device):
         FLASH(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
-              DTYPES[q.dtype], b, s, t, h, kh, qp.shape[-1], int(causal),
-              int(window), scale, float(softcap),
+              None if lse is None else lse.data_ptr(), DTYPES[q.dtype], b,
+              s, t, h, kh, qp.shape[-1], int(causal), int(window), scale,
+              float(softcap),
               torch.cuda.current_stream(q.device).cuda_stream,
               key=launch_key(h, kh, hd, int(window), causal))
-    return out if qp is q else out[..., :hd].contiguous()
+    out = out if qp is q else out[..., :hd].contiguous()
+    return (out, lse) if return_lse else out
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    softcap: float = 0.0) -> torch.Tensor:
-    """q (B, S, H, hd), k and v (B, T, Kh, hd) -> (B, S, H, hd).  The
+                    softcap: float = 0.0, return_lse: bool = False):
+    """q (B, S, H, hd), k and v (B, T, Kh, hd) -> (B, S, H, hd), and with
+    ``return_lse`` the rows' log-sum-exp (B, Kh, H / Kh, S).  The
     reference's ``cq``/``ck`` TPU tiles have no counterpart: the kernel
     tiles by 128 queries at head dims 128 and 256 (64 below) and takes any
     S and T; head dim 8 runs padded to 16."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       softcap=softcap)
-    return attend(q, k, v, causal=causal, window=window, softcap=softcap)
+                                       softcap=softcap, return_lse=return_lse)
+    return attend(q, k, v, causal=causal, window=window, softcap=softcap,
+                  return_lse=return_lse)

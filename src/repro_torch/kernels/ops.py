@@ -11,8 +11,18 @@ RWKV-6 WKV:
 Every op takes the reference's full keyword set with its defaults.  The
 TPU tiling and planning knobs (``cq``/``ck``, ``chunk``, ``plan_method``)
 are validated and change no value: see each op.
+
+Autograd.  The kernels compute forwards only.  With grad enabled and an
+input that requires grad, attention goes through :class:`FlashAttentionFn`
+and the WKV through :class:`Rwkv6WkvFn`, whose forwards are the kernels
+on the card (or the plain versions on the CPU) and whose backwards are
+plain PyTorch, as the reference's are jnp.  The bags and the interaction
+have no backward (the reference trains no DLRM): on the card they raise
+for such inputs rather than return a tensor cut from the graph.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.dot_interaction import DOT, dot_interaction
@@ -22,6 +32,7 @@ from repro_torch.kernels.embedding_bag import (POOL, check_plan,
                                                embedding_bag_rows,
                                                embedding_bag_stacked)
 from repro_torch.kernels.flash_attention import FLASH, flash_attention
+from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
 from repro_torch.kernels.rwkv6_wkv import WKV, rwkv6_wkv
 
 IMPLS = ("ref", "pallas", "interpret", "auto")
@@ -51,6 +62,20 @@ def use_kernel(impl: str, t) -> bool:
     if impl == "auto":
         return t.device.type == "cuda"
     raise ValueError(f"unknown impl {impl!r}; have {IMPLS}")
+
+
+def wants_grad(*tensors) -> bool:
+    """Whether autograd records an op on ``tensors``."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _no_grad_kernel(name: str, *tensors) -> None:
+    """A kernel without a backward refuses inputs that autograd tracks."""
+    if wants_grad(*tensors):
+        raise RuntimeError(f"the {name} kernel has no backward; call it "
+                           f"under torch.no_grad() or on tensors that do "
+                           f"not require grad")
 
 
 def _no_ref_plan(impl: str) -> None:
@@ -84,6 +109,7 @@ def _check_positive(**kw) -> None:
 def dot_interaction_op(z, *, impl: str = "auto", batch_tile: int = 128):
     if not use_kernel(impl, z):
         return ref.dot_interaction_ref(z)
+    _no_grad_kernel("interaction", z)
     return dot_interaction(z, batch_tile=batch_tile)
 
 
@@ -103,6 +129,7 @@ def embedding_bag_op(table, idx, mask, *, impl: str = "auto",
                        hot=idx.shape[1], tile=batch_tile,
                        row_block=row_block)
         return ref.embedding_bag_ref(table, idx, mask)
+    _no_grad_kernel("embedding bag", table, mask)
     return embedding_bag(table, idx, mask, batch_tile=batch_tile,
                          row_block=row_block, pool_mode=pool_mode, plan=plan)
 
@@ -120,6 +147,7 @@ def embedding_bag_stacked_op(tables, idx, mask, *, impl: str = "auto",
             check_stacked_plan(plan, tables, idx, batch_tile=batch_tile,
                                row_block=row_block)
         return ref.embedding_bag_stacked_ref(tables, idx, mask)
+    _no_grad_kernel("embedding bag", tables, mask)
     return embedding_bag_stacked(tables, idx, mask, batch_tile=batch_tile,
                                  row_block=row_block, pool_mode=pool_mode,
                                  plan=plan)
@@ -134,6 +162,7 @@ def embedding_bag_rows_op(tables, tid, idx, mask, *, impl: str = "auto",
     _check_plan_method(plan_method)
     if not use_kernel(impl, tables):
         return ref.embedding_bag_rows_ref(tables, tid, idx, mask)
+    _no_grad_kernel("embedding bag", tables, mask)
     return embedding_bag_rows(tables, tid, idx, mask, row_tile=row_tile,
                               row_block=row_block, pool_mode=pool_mode)
 
@@ -148,7 +177,11 @@ def flash_attention_op(q, k, v, *, causal: bool = True, window: int = 0,
     128 queries (64 below hd 128) and 64 or 128 keys, and the plain version
     takes every key at once."""
     _check_positive(cq=cq, ck=ck)
-    if not use_kernel(impl, q):
+    kernel = use_kernel(impl, q)
+    if wants_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, causal, window, softcap,
+                                      kernel)
+    if not kernel:
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap)
     return flash_attention(q, k, v, causal=causal, window=window,
@@ -168,7 +201,66 @@ def rwkv6_wkv_op(r, k, v, logw, u, state0, *, impl: str = "auto",
     _check_positive(chunk=chunk)
     if impl == "ref":
         return ref.rwkv6_wkv_ref(r, k, v, logw, u, state0)
-    if not use_kernel(impl, r):
+    kernel = use_kernel(impl, r)
+    if wants_grad(r, k, v, logw, u, state0):
+        return Rwkv6WkvFn.apply(r, k, v, logw, u, state0, kernel, chunk)
+    if not kernel:
         return ref.rwkv6_wkv_chunked_ref(r, k, v, logw, u, state0,
                                          chunk=chunk)
     return rwkv6_wkv(r, k, v, logw, u, state0)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention under autograd (the reference's ``flash_attention``
+    custom VJP, ``repro/models/attention.py:175-283``).  Forward: the CUDA
+    kernel asked for the rows' log-sum-exp (``kernel`` true: a CUDA
+    tensor), or the plain version on the CPU; it saves q, k, v, out and
+    lse.  Backward: :func:`flash_attention_bwd`, plain PyTorch, as the
+    reference's VJP is jnp.  The head dim's own scale holds for a padded
+    one (hd 8)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, kernel):
+        kw = {"causal": causal, "window": window, "softcap": softcap}
+        if kernel:
+            out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+        else:
+            out, lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+        ctx.kw = kw
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
+class Rwkv6WkvFn(torch.autograd.Function):
+    """The chunked WKV under autograd.  Forward: the CUDA kernel
+    (``kernel`` true) or the plain chunked form at ``chunk`` tokens a
+    chunk.  Backward: the plain chunked form recomputed with grad and its
+    vector-Jacobian product taken, since the reference differentiates its
+    jnp ``wkv_chunked``; the final state's cotangent is honoured."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, state0, kernel, chunk):
+        ctx.chunk = chunk
+        ctx.save_for_backward(r, k, v, logw, u, state0)
+        if kernel:
+            return rwkv6_wkv(r, k, v, logw, u, state0)
+        return ref.rwkv6_wkv_chunked_ref(r, k, v, logw, u, state0,
+                                         chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dout, dstate):
+        inputs = [x.detach().requires_grad_(need) for x, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            out, state = ref.rwkv6_wkv_chunked_ref(*inputs, chunk=ctx.chunk)
+        wrt = [x for x in inputs if x.requires_grad]
+        grads = iter(torch.autograd.grad((out, state), wrt, (dout, dstate),
+                                         allow_unused=True))
+        return (*(next(grads) if x.requires_grad else None
+                  for x in inputs), None, None)

@@ -130,13 +130,17 @@ NEG_INF = -1e30
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                        softcap: float = 0.0, scale=None):
+                        softcap: float = 0.0, scale=None,
+                        return_lse: bool = False):
     """q:(B,S,H,hd) k,v:(B,T,Kh,hd) -> (B,S,H,hd) in q's type: the function
     of the Pallas flash kernel.  Scores in f32 times ``scale`` (hd**-0.5
     unless given: a head dim padded with zeros keeps its own), then the tanh
     softcap, then the causal/window mask; p = exp(s - max) on admitted keys,
     0 elsewhere; out = (p @ v) / max(sum p, 1e-30) in f32.  Query head h
-    reads kv head h // (H / Kh).  Materializes the (B, H, S, T) scores."""
+    reads kv head h // (H / Kh).  Materializes the (B, H, S, T) scores.
+    ``return_lse`` also returns each row's log-sum-exp max + log(max(sum
+    p, 1e-30)), (B, Kh, H / Kh, S) f32, with the max taken as 0 for a row
+    that admits no key (the reference's ``_flash_fwd_impl`` guard)."""
     b, s, h, hd = q.shape
     t, kh = k.shape[1], k.shape[2]
     qf = q.float().reshape(b, s, kh, h // kh, hd)
@@ -152,10 +156,15 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     if window:
         ok &= (qi - kj) < window
     sc.masked_fill_(~ok, NEG_INF)
-    sc.sub_(sc.amax(-1, keepdim=True)).exp_().masked_fill_(~ok, 0.0)
+    m = sc.amax(-1, keepdim=True)
+    sc.sub_(m).exp_().masked_fill_(~ok, 0.0)
     den = sc.sum(-1, keepdim=True).clamp_min_(1e-30)
     out = torch.einsum("bkgst,btkd->bkgsd", sc, v.float()).div_(den)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd).to(q.dtype)
+    if not return_lse:
+        return out
+    live = ok.any(-1)[:, None]
+    return out, (torch.where(live, m, 0.0) + den.log()).squeeze(-1)
 
 
 def rwkv6_wkv_ref(r, k, v, logw, u, state):

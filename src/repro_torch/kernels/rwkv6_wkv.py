@@ -2,7 +2,9 @@
 port of ``repro/kernels/rwkv6_wkv.py``.
 
 :func:`rwkv6_wkv` takes the plain chunked version in ``kernels/ref.py`` for
-a CPU tensor and launches the kernel (:func:`wkv`) for a CUDA one.
+a CPU tensor and launches the kernel (:func:`wkv`) for a CUDA one.  The
+kernel is forward-only: on the card a call with grad enabled and an input
+that requires grad raises (training goes through ``ops.Rwkv6WkvFn``).
 """
 from __future__ import annotations
 
@@ -41,6 +43,10 @@ def wkv(r, k, v, logw, u, state0):
     counted once on ``WKV`` under :func:`launch_key`; the chunk-start
     states go through a scratch of :func:`scratch_shape`, freed on
     return."""
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (r, k, v, logw, u, state0)):
+        raise RuntimeError("the WKV kernel has no backward: a tensor that "
+                           "requires grad goes through ops.Rwkv6WkvFn")
     args = check_args(r, k, v, logw, u, state0)
     if v.numel() == 0:
         return torch.empty_like(v), state0.clone()

@@ -7,6 +7,7 @@ attention block).
 
 Batch dict convention:
   tokens  (B, S) int            — always present
+  labels  (B, S) int            — training (-1 = masked position)
   frames  (B, S, d_frontend)    — audio stub (whisper)
   patches (B, n_front, d_front) — vision stub (llava), optional
 """
@@ -29,10 +30,15 @@ def check_ported(cfg: ModelConfig) -> None:
                                   f"not ported yet ({UNPORTED[cfg.family]})")
 
 
-def init(seed: int, cfg: ModelConfig, device="cuda", n_shards: int = 16):
+def init(seed: int, cfg: ModelConfig, device="cuda", n_shards: int = 16,
+         dtype=None):
     """``n_shards`` pads the MoE family's routed experts, as the
-    reference's ``init`` does."""
+    reference's ``init`` does.  Leaves are drawn in f32 and kept in
+    ``cfg.dtype``, or in ``dtype`` ("float32": the training masters, the
+    reference's ``init`` leaves)."""
     check_ported(cfg)
+    if dtype is not None:
+        cfg = cfg.replace(dtype=dtype)
     if cfg.family == "ssm":
         return rwkv6.init_rwkv6(seed, cfg, device)
     if cfg.family == "hybrid":
@@ -42,24 +48,32 @@ def init(seed: int, cfg: ModelConfig, device="cuda", n_shards: int = 16):
     return transformer.init_lm(seed, cfg, device, n_shards)
 
 
-def forward(params, cfg: ModelConfig, batch: dict, *,
+def forward(params, cfg: ModelConfig, batch: dict, *, remat: bool = True,
             last_only: bool = False, attn_impl: str = "auto",
             wkv_impl: str = "auto"):
-    """-> (logits, aux).  ``attn_impl`` reaches the attention of every
-    family but rwkv6, ``wkv_impl`` rwkv6's WKV."""
+    """-> (logits, aux).  ``remat`` applies ``cfg.remat`` to each layer
+    (group) when grad is enabled, as the reference's default does.
+    ``attn_impl`` reaches the attention of every family but rwkv6,
+    ``wkv_impl`` rwkv6's WKV."""
     check_ported(cfg)
+    kw = {"remat": remat, "last_only": last_only}
     if cfg.family == "audio":
         return whisper.forward(params, cfg, batch["tokens"], batch["frames"],
-                               last_only=last_only, attn_impl=attn_impl)
+                               attn_impl=attn_impl, **kw)
     if cfg.family == "ssm":
-        return rwkv6.forward(params, cfg, batch["tokens"],
-                             last_only=last_only, wkv_impl=wkv_impl)
+        return rwkv6.forward(params, cfg, batch["tokens"], wkv_impl=wkv_impl,
+                             **kw)
     if cfg.family == "hybrid":
         return zamba2.forward(params, cfg, batch["tokens"],
-                              last_only=last_only, attn_impl=attn_impl)
+                              attn_impl=attn_impl, **kw)
     return transformer.forward(params, cfg, batch["tokens"],
-                               batch.get("patches"), last_only=last_only,
-                               attn_impl=attn_impl)
+                               batch.get("patches"), attn_impl=attn_impl,
+                               **kw)
+
+
+def loss(cfg: ModelConfig, logits, labels, aux):
+    """The training loss of every family: ``transformer.lm_loss``."""
+    return transformer.lm_loss(logits, labels, aux)
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,

@@ -1,5 +1,4 @@
-"""Grouped-query attention (the port of ``repro/models/attention.py``
-without the flash custom VJP, which serves training).
+"""Grouped-query attention (the port of ``repro/models/attention.py``).
 
 Supports GQA/MQA, RoPE (neox and the chatglm "2d" interleaved partial
 form), qk-norm (qwen3), QKV bias, the attention-logit softcap (gemma2),
@@ -9,7 +8,11 @@ decoder).  Prefill runs :func:`attend_full` through
 ``kernels/ops.flash_attention_op``, causal or not: the CUDA kernel for
 tensors on the card at every sequence length, its plain version on the CPU
 (the reference computes the same function with ``_sdpa`` up to
-``FLASH_THRESHOLD`` and with its scan flash above).  One-token decode
+``FLASH_THRESHOLD`` and with its scan flash above).  Under autograd the op
+goes through ``ops.FlashAttentionFn``, the port of the reference's flash
+custom VJP: the kernel's forward saves each row's log-sum-exp, and the
+backward (``kernels/flash_attention_bwd.py``) recomputes the
+probabilities chunk by chunk in plain PyTorch.  One-token decode
 (:func:`decode_step`) and the cross attention (:func:`attend_cross`) stay
 plain PyTorch, as the reference computes both with ``_sdpa`` outside any
 kernel.

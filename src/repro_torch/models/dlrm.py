@@ -914,3 +914,17 @@ def build_forward_plans(params, cfg: DLRMConfig, idx, *,
                                   ix.reshape(mb, b // mb, t_loc, hot),
                                   batch_tile=batch_tile, row_block=rblk,
                                   plan_method=plan_method)
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+
+def bce_loss(logits, labels):
+    """Mean binary cross-entropy of CTR logits in the reference's stable
+    form, max(x, 0) - x y + log1p(exp(-|x|)), in f32.  The reference trains
+    no DLRM outside its dry-run cell (ROADMAP A14f)."""
+    lf, yf = logits.float(), labels.float()
+    return torch.mean(torch.clamp(lf, min=0) - lf * yf
+                      + torch.log1p(torch.exp(-lf.abs())))

@@ -63,14 +63,49 @@ def init_rmsnorm(dim: int, dtype: str, device, plus_one: bool = False):
     return {"scale": fill((dim,), dtype=dtype_of(dtype), device=device)}
 
 
-def rmsnorm(params, x, eps: float = 1e-6, plus_one: bool = False):
-    """f32 inside, cast back to x's type."""
+def _rmsnorm(scale, x, eps: float, plus_one: bool):
     xf = x.float()
     xn = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
-    w = params["scale"].float()
+    w = scale.float()
     if plus_one:
         w = 1.0 + w
     return (xn * w).to(x.dtype)
+
+
+class RMSNormFn(torch.autograd.Function):
+    """RMSNorm with the reference's VJP (``_rmsnorm_cvjp``,
+    ``repro/models/layers.py:55-84``): f32 inside, dscale summed over the
+    leading axes in the scale's type, dx in x's type (the cotangent that
+    crosses block boundaries stays in the compute type)."""
+
+    @staticmethod
+    def forward(ctx, scale, x, eps, plus_one):
+        ctx.save_for_backward(scale, x)
+        ctx.eps, ctx.plus_one = eps, plus_one
+        return _rmsnorm(scale, x, eps, plus_one)
+
+    @staticmethod
+    def backward(ctx, g):
+        scale, x = ctx.saved_tensors
+        xf, gf = x.float(), g.float()
+        inv = torch.rsqrt(xf.square().mean(-1, keepdim=True) + ctx.eps)
+        xn = xf * inv
+        w = scale.float()
+        if ctx.plus_one:
+            w = 1.0 + w
+        gw = gf * w
+        dx = inv * (gw - xn * (gw * xn).mean(-1, keepdim=True))
+        dscale = (gf * xn).sum(dim=tuple(range(x.dim() - 1)))
+        return dscale.to(scale.dtype), dx.to(x.dtype), None, None
+
+
+def rmsnorm(params, x, eps: float = 1e-6, plus_one: bool = False):
+    """f32 inside, cast back to x's type; under autograd through
+    :class:`RMSNormFn`."""
+    if torch.is_grad_enabled() and (x.requires_grad or
+                                    params["scale"].requires_grad):
+        return RMSNormFn.apply(params["scale"], x, eps, plus_one)
+    return _rmsnorm(params["scale"], x, eps, plus_one)
 
 
 def init_layernorm(dim: int, dtype: str, device):

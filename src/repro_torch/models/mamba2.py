@@ -114,8 +114,13 @@ def ssd_recurrent(x, dt, A_log, B, C, D, state):
 def ssd_chunked(x, dt, A_log, B, C, D, state, chunk: int = 128):
     """Chunk-parallel SSD; shapes as :func:`ssd_recurrent`, S % chunk ==
     0.  The chunks run one after another in a Python loop (the reference's
-    ``lax.scan``); its ``jax.checkpoint`` of the chunk body serves training
-    and has no counterpart here."""
+    ``lax.scan``); its ``jax.checkpoint`` of the chunk body has no
+    counterpart here (the layer as a whole runs under ``cfg.remat``).  The
+    in-chunk decay's exponent is -inf above the diagonal before the
+    ``exp`` (exp gives the 0 the mask asks for): the difference taken there
+    can overflow, and a dropped inf would make the gradient 0 * inf = NaN
+    (the reference masks only the result and has that fault); below it
+    the values are the same."""
     b, s, h, p = x.shape
     n = B.shape[-1]
     nc = s // chunk
@@ -135,8 +140,9 @@ def ssd_chunked(x, dt, A_log, B, C, D, state, chunk: int = 128):
         ltot = la[:, -1:]                                # (B,1,H)
         # intra: scores[t,s] = (C_t . B_s) * exp(la_t - la_s), s <= t
         cb = torch.einsum("btn,bsn->bts", ck, bk)
-        dec = torch.exp(la[:, :, None] - la[:, None, :, :])  # (B,t,s,H)
-        scores = cb[..., None] * torch.where(mask, dec, 0.0)
+        dec = torch.exp(torch.where(mask, la[:, :, None] - la[:, None],
+                                    float("-inf")))      # (B,t,s,H)
+        scores = cb[..., None] * dec
         intra = torch.einsum("btsh,bshp->bthp", scores, xk)
         cross = torch.einsum("btn,bhpn->bthp", ck, state) * \
             torch.exp(la)[..., None]

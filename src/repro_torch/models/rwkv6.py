@@ -211,20 +211,27 @@ def _stack_states(states):
 
 
 def forward(params, cfg: ModelConfig, tokens, *, collect_cache: bool = False,
-            last_only: bool = False, wkv_impl: str = "auto"):
+            remat: bool = True, last_only: bool = False,
+            wkv_impl: str = "auto"):
     """Returns (logits, aux_loss), and with ``collect_cache`` the layers'
-    final states stacked on a leading layer axis.  ``last_only`` slices the
-    stream before the LM head.  ``wkv_impl`` picks the WKV of
-    ``kernels/ops.py`` ("auto": the CUDA kernel on the card; "interpret":
-    the plain chunked version; "ref": the exact recurrence)."""
+    final states stacked on a leading layer axis.  ``remat`` runs each
+    layer under ``cfg.remat`` when grad is enabled (training).
+    ``last_only`` slices the stream before the LM head.  ``wkv_impl`` picks
+    the WKV of ``kernels/ops.py`` ("auto": the CUDA kernel on the card;
+    "interpret": the plain chunked version; "ref": the exact recurrence);
+    under autograd the chunked op goes through ``ops.Rwkv6WkvFn``."""
     if wkv_impl not in ops.IMPLS:
         raise ValueError(f"unknown wkv_impl {wkv_impl!r}; have {ops.IMPLS}")
     pc, layers = _cast(params, cfg)
     x = L.layernorm(pc["ln0"], L.embed_tokens(pc["embed"], tokens))
+
+    def layer(x, lp):
+        return block(lp, cfg, x, wkv_impl=wkv_impl)
+
+    body = T._remat(layer, cfg) if remat else layer
     states = []
-    for i in range(cfg.n_layers):
-        x, st = block(T._map(lambda a: a[i], layers), cfg, x,
-                      wkv_impl=wkv_impl)
+    for lp in T.unbind_groups(layers, cfg.n_layers):
+        x, st = body(x, lp)
         if collect_cache:
             states.append(st)
     x = L.layernorm(pc["final_norm"], x[:, -1:] if last_only else x)

@@ -14,14 +14,19 @@ the reference's ``layers/sub{i}/...`` pytree.  Where the reference scans
 over the group axis, the port loops over it in Python, taking views of each
 group's leaves.
 
-Parameters live in ``cfg.dtype``: :func:`init_lm` draws each leaf in f32
-and casts it before drawing the next, which gives the bits the reference's
-apply-time ``cast_params`` of its f32 masters gives, without holding the f32
-masters (37 GB at gemma2-9b).  :func:`cast_params` still runs at apply time
-and is a no-op on such parameters.
+Serving parameters live in ``cfg.dtype``: :func:`init_lm` draws each leaf
+in f32 and casts it before drawing the next, which gives the bits the
+reference's apply-time ``cast_params`` of its f32 masters gives, without
+holding the f32 masters (37 GB at gemma2-9b).  Training keeps f32 masters
+(``init_lm(..., dtype="float32")``, the same draws uncast): the forward
+casts the layer stack to ``cfg.dtype`` once a call, so the gradients reach
+the masters through the cast, and each layer group runs under the
+reference's ``_remat`` policy (``cfg.remat``: "full", "dots" or "none").
+:func:`lm_loss` is the reference's token cross-entropy.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -115,12 +120,16 @@ def _init_stacked(gen, cfg: ModelConfig, dev, g: int, n_shards: int):
     return stack_draws(lambda: _init_sublayer(gen, cfg, dev, n_shards), g)
 
 
-def init_lm(seed: int, cfg: ModelConfig, device="cuda", n_shards: int = 16):
-    """Random parameters in ``cfg.dtype`` from a ``torch.Generator`` seeded
-    with ``seed``, on ``device``, with the reference's distributions and
-    layout (``truncated_normal`` scales; norms at 0 with ``norm_plus_one``,
-    at 1 without; MoE routers in f32, routed experts padded to a multiple
-    of ``n_shards``; a ``frontend_proj`` with a frontend)."""
+def init_lm(seed: int, cfg: ModelConfig, device="cuda", n_shards: int = 16,
+            dtype: Optional[str] = None):
+    """Random parameters in ``cfg.dtype`` (or ``dtype``: "float32" gives
+    the f32 training masters) from a ``torch.Generator`` seeded with
+    ``seed``, on ``device``, with the reference's distributions and layout
+    (``truncated_normal`` scales; norms at 0 with ``norm_plus_one``, at 1
+    without; MoE routers in f32, routed experts padded to a multiple of
+    ``n_shards``; a ``frontend_proj`` with a frontend)."""
+    if dtype is not None:
+        cfg = cfg.replace(dtype=dtype)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -146,7 +155,9 @@ def params_from_jax(np_params, device="cuda", dtype: Optional[str] = None):
     """The reference's ``api.init`` pytree, its leaves as numpy arrays, ->
     the port's parameters on ``device``: the same nested dictionaries, so
     a plain copy.  ``dtype`` casts the f32 leaves except MoE routers, as
-    the reference's apply-time ``cast_params`` of its f32 masters does."""
+    the reference's apply-time ``cast_params`` of its f32 masters does;
+    "float32" (or None) keeps the reference's f32 masters, as training
+    takes them."""
     dev = resolve_device(device)
     tree = _map(lambda a: torch.from_numpy(np.array(a, copy=True)),
                 np_params)
@@ -246,44 +257,106 @@ def logits_out(params, cfg: ModelConfig, x):
 # ---------------------------------------------------------------------------
 
 
+REMATS = ("full", "dots", "none")
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of "dots": keep the outputs of
+    products without batch dimensions (``jax.checkpoint_policies.
+    checkpoint_dots_with_no_batch_dims``), recompute the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under the reference's ``_remat`` policy ``cfg.remat``: "full"
+    recomputes the whole call in the backward, "dots" keeps the
+    non-batched products' outputs and recomputes the rest, "none" saves
+    everything.  With grad disabled (serving) it is ``fn`` itself."""
+    if cfg.remat not in REMATS:
+        raise ValueError(f"remat must be one of {REMATS}, got {cfg.remat!r}")
+    if cfg.remat == "none":
+        return fn
+    from torch.utils import checkpoint as ckpt
+    kw = {"use_reentrant": False}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return ckpt.checkpoint(fn, *args, **kw)
+
+    return run
+
+
+def unbind_groups(tree, n: int) -> list:
+    """A stacked tree's ``n`` per-group trees of views.  Each leaf is split
+    once (``unbind``), so its backward stacks the groups' gradients in one
+    pass, where a select per group would add a full-size zero tensor per
+    group."""
+    split = _map(lambda a: a.unbind(0), tree)
+    return [_map(lambda t: t[i], split) for i in range(n)]
+
+
 def _forward(params, cfg: ModelConfig, tokens, frontend_embeds, *,
-             collect_cache, pad_to, last_only, attn_impl):
+             collect_cache, pad_to, last_only, attn_impl, remat=False):
     """The layers over the whole (joint) sequence of S positions; with
     ``collect_cache`` the k, v of every layer land in a (groups, group, B,
-    max(pad_to or S, S), Kh, hd) cache, zero past the sequence."""
+    max(pad_to or S, S), Kh, hd) cache, zero past the sequence.  With
+    ``remat`` each group runs under :func:`_remat`."""
     pat = layer_pattern(cfg)
     cdt = L.dtype_of(cfg.dtype)
     pc = cast_params({k: v for k, v in params.items() if k != "layers"}, cdt)
-    layers = cast_params(params["layers"], cdt)
+    # the stack is cast once a call (the f32 masters' gradients flow back
+    # through the cast), then split into groups of views
+    groups = unbind_groups(cast_params(params["layers"], cdt), n_groups(cfg))
     x = embed_inputs(pc, cfg, tokens, frontend_embeds)
     b, s, _ = x.shape
     cache = make_cache(cfg, b, max(pad_to or s, s), device=x.device) \
         if collect_cache else None
-    aux = x.new_zeros((), dtype=torch.float32)
-    for gi in range(n_groups(cfg)):
+
+    def group_fn(x, gp):
+        aux, kvs = x.new_zeros((), dtype=torch.float32), []
         for i, kind in enumerate(pat):
-            sub = _map(lambda a: a[gi], layers[f"sub{i}"])
-            x, a, (k, v) = block_full(sub, cfg, x, kind, attn_impl=attn_impl)
+            x, a, kv = block_full(gp[f"sub{i}"], cfg, x, kind,
+                                  attn_impl=attn_impl)
             aux = aux + a
-            if cache is not None:
+            kvs.append(kv)
+        return x, aux, kvs
+
+    body = _remat(group_fn, cfg) if remat else group_fn
+    aux = x.new_zeros((), dtype=torch.float32)
+    for gi, gp in enumerate(groups):
+        x, a, kvs = body(x, gp)
+        aux = aux + a
+        if cache is not None:
+            for i, (k, v) in enumerate(kvs):
                 cache["k"][gi, i, :, :s] = k
                 cache["v"][gi, i, :, :s] = v
+        del kvs
     logits = logits_out(pc, cfg, x[:, -1:] if last_only else x)
     return logits, aux, cache
 
 
 def forward(params, cfg: ModelConfig, tokens, frontend_embeds=None, *,
-            last_only: bool = False, attn_impl: str = "auto"):
+            remat: bool = True, last_only: bool = False,
+            attn_impl: str = "auto"):
     """Returns (logits, aux_loss) over the full sequence: N + S positions
-    with ``frontend_embeds`` (B, N, d_frontend).  ``last_only`` slices the
-    stream before the LM head.  ``attn_impl`` picks the attention of
-    ``kernels/ops.py`` ("auto": the CUDA kernel on the card; "ref": the
-    plain version).  The reference's ``remat`` and ``collect_cache``
-    arguments serve training and its own prefill; the port's
-    :func:`prefill` builds the cache."""
+    with ``frontend_embeds`` (B, N, d_frontend).  ``remat`` runs each layer
+    group under ``cfg.remat`` when grad is enabled (training), as the
+    reference's does.  ``last_only`` slices the stream before the LM head.
+    ``attn_impl`` picks the attention of ``kernels/ops.py`` ("auto": the
+    CUDA kernel on the card; "ref": the plain version).  The reference's
+    ``collect_cache`` serves its own prefill; the port's :func:`prefill`
+    builds the cache."""
     logits, aux, _ = _forward(params, cfg, tokens, frontend_embeds,
                               collect_cache=False, pad_to=None,
-                              last_only=last_only, attn_impl=attn_impl)
+                              last_only=last_only, attn_impl=attn_impl,
+                              remat=remat)
     return logits, aux
 
 
@@ -341,3 +414,22 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, *,
                                    cache["v"][gi, i], pos)
     logits = logits_out(pc, cfg, x)
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+
+def lm_loss(logits, labels, aux=None, aux_weight: float = 0.01):
+    """Mean token cross-entropy in f32; labels < 0 are masked.  With
+    ``aux`` (the MoE balance loss) adds ``aux_weight * aux``."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.take_along_dim(lf, labels.clamp_min(0).long()[..., None],
+                              dim=-1)[..., 0]
+    mask = (labels >= 0).float()
+    loss = torch.sum((lse - ll) * mask) / torch.clamp(mask.sum(), min=1.0)
+    if aux is not None:
+        loss = loss + aux_weight * aux
+    return loss

@@ -111,8 +111,7 @@ def encode(params, cfg: ModelConfig, frames, *, attn_impl: str = "auto"):
     x = L.dense(pc["frontend_proj"], frames.to(cdt))
     x = x + sinusoids(x.shape[1], cfg.d_model, x.device).to(cdt)
     layers = T.cast_params(params["enc_layers"], cdt)
-    for i in range(cfg.n_encoder_layers):
-        lp = _layer(layers, i)
+    for lp in T.unbind_groups(layers, cfg.n_encoder_layers):
         out, _ = A.attend_full(lp["attn"], cfg, L.layernorm(lp["ln1"], x),
                                causal=False, attn_impl=attn_impl)
         x = x + out
@@ -128,8 +127,7 @@ def _cross_kv(params, cfg: ModelConfig, enc_out):
     cross = T.cast_params(params["dec_layers"]["cross"],
                           L.dtype_of(cfg.dtype))
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        c = _layer(cross, i)
+    for c in T.unbind_groups(cross, cfg.n_layers):
         ks.append(L.dense(c["wk"], enc_out).reshape(b, s, h, hd))
         vs.append(L.dense(c["wv"], enc_out).reshape(b, s, h, hd))
     return torch.stack(ks), torch.stack(vs)
@@ -152,11 +150,13 @@ def _dec_layer_full(lp, cfg: ModelConfig, x, ck, cv, *,
 
 
 def forward(params, cfg: ModelConfig, tokens, frames, *,
-            collect_cache: bool = False, last_only: bool = False,
-            attn_impl: str = "auto"):
-    """Teacher-forced forward: (logits, aux), and with ``collect_cache``
-    also ((self k, self v), (cross k, cross v)), each (L, B, S, Kh, hd).
-    The reference's ``remat`` serves training."""
+            collect_cache: bool = False, remat: bool = True,
+            last_only: bool = False, attn_impl: str = "auto"):
+    """Teacher-forced forward (training and prefill): (logits, aux), and
+    with ``collect_cache`` also ((self k, self v), (cross k, cross v)),
+    each (L, B, S, Kh, hd).  ``remat`` runs each decoder layer under
+    ``cfg.remat`` when grad is enabled, as the reference's does (its
+    encoder layers run without)."""
     cdt = L.dtype_of(cfg.dtype)
     pc = _top(params, cdt)
     enc_out = encode(params, cfg, frames, attn_impl=attn_impl)
@@ -164,10 +164,14 @@ def forward(params, cfg: ModelConfig, tokens, frames, *,
     x = L.embed_tokens(pc["embed"], tokens)
     x = x + sinusoids(x.shape[1], cfg.d_model, x.device).to(cdt)
     layers = T.cast_params(params["dec_layers"], cdt)
+
+    def layer(x, lp, ck, cv):
+        return _dec_layer_full(lp, cfg, x, ck, cv, attn_impl=attn_impl)
+
+    body = T._remat(layer, cfg) if remat else layer
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        x, (k, v) = _dec_layer_full(_layer(layers, i), cfg, x, cross_k[i],
-                                    cross_v[i], attn_impl=attn_impl)
+    for i, lp in enumerate(T.unbind_groups(layers, cfg.n_layers)):
+        x, (k, v) = body(x, lp, cross_k[i], cross_v[i])
         if collect_cache:
             ks.append(k)
             vs.append(v)

@@ -99,7 +99,8 @@ def _shared_full(p, cfg: ModelConfig, x, attn_impl: str):
 
 
 def forward(params, cfg: ModelConfig, tokens, *, collect_cache: bool = False,
-            last_only: bool = False, attn_impl: str = "auto"):
+            remat: bool = True, last_only: bool = False,
+            attn_impl: str = "auto"):
     """Returns (logits, aux_loss), and with ``collect_cache`` also
     ``((k, v), {"ssd": ...})``: each shared invocation's k and v stacked on
     a leading group axis, (n_groups, B, S, Kh, hd), and every mamba layer's
@@ -107,24 +108,34 @@ def forward(params, cfg: ModelConfig, tokens, *, collect_cache: bool = False,
     reference returns them.  ``last_only`` slices the stream before the LM
     head.  ``attn_impl`` picks the shared block's attention of
     ``kernels/ops.py`` ("auto": the CUDA kernel on the card; "ref": the
-    plain version)."""
+    plain version).  ``remat`` runs each group (the shared block and its
+    mamba layers, each group's leaves cast inside it) under ``cfg.remat``
+    when grad is enabled, as the reference's does."""
     if attn_impl not in ops.IMPLS:
         raise ValueError(f"unknown attn_impl {attn_impl!r}; have {ops.IMPLS}")
     pc = _cast(params, cfg)
     x = L.embed_tokens(pc["embed"], tokens)
     shared = pc["shared"]
+    cdt = L.dtype_of(cfg.dtype)
+
+    def group_fn(x, gp):
+        gp = T.cast_params(gp, cdt)
+        x, kv = _shared_full(shared, cfg, x, attn_impl)
+        sts = []
+        for lp in T.unbind_groups(gp, cfg.shared_attn_every):
+            x, st = M2.block(lp, cfg, x)
+            sts.append(st["ssd"])
+        return x, kv, sts
+
+    body = T._remat(group_fn, cfg) if remat else group_fn
     ks, vs, ssds = [], [], []
-    for g in range(n_groups(cfg)):
-        gp = _group(params, cfg, g)
-        x, (k, v) = _shared_full(shared, cfg, x, attn_impl)
-        for i in range(cfg.shared_attn_every):
-            x, st = M2.block(T._map(lambda a: a[i], gp), cfg, x)
-            if collect_cache:
-                ssds.append(st["ssd"])
+    for gp in T.unbind_groups(params["mamba"], n_groups(cfg)):
+        x, (k, v), sts = body(x, gp)
         if collect_cache:
+            ssds.extend(sts)
             ks.append(k)
             vs.append(v)
-        del k, v
+        del k, v, sts
     x = L.rmsnorm(pc["final_norm"], x[:, -1:] if last_only else x,
                   cfg.norm_eps)
     logits = L.lm_head(pc["head"], x)

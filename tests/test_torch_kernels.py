@@ -715,14 +715,15 @@ class TestDispatch:
     def test_kernel_argtypes_match_the_c_entry_points(self):
         # the C signatures: (table, idx, w, tid, out, n_bags, hot, s, rows,
         # n_tables, stream), (z, out, batch, f, s, stream), (q, k, v, out,
-        # dtype, b, s, t, h, kh, hd, causal, window, scale, softcap, stream)
+        # lse, dtype, b, s, t, h, kh, hd, causal, window, scale, softcap,
+        # stream)
         # and (r, k, v, logw, u, state0, out, state, scratch, b, s, h,
         # passes, stream)
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         f = ctypes.c_float
         assert teb.POOL.argtypes == [p] * 5 + [i64, i, i, i64, i, p]
         assert tdot.DOT.argtypes == [p, p, i, i, i, p]
-        assert tfa.FLASH.argtypes == [p] * 4 + [i] * 9 + [f, f, p]
+        assert tfa.FLASH.argtypes == [p] * 5 + [i] * 9 + [f, f, p]
         assert twkv.WKV.argtypes == [p] * 9 + [i] * 4 + [p]
         for k in ops.kernels().values():
             src = (_build.CSRC / k.source).read_text()
@@ -778,7 +779,10 @@ def test_port_imports_neither_jax_nor_the_reference():
     for new in ("runtime/placement.py", "runtime/reshard.py",
                 "runtime/scrub.py", "core/integrity.py", "models/moe.py",
                 "models/whisper.py", "configs/whisper_tiny.py",
-                "examples/quickstart.py", "examples/serve_lm_decode.py"):
+                "examples/quickstart.py", "examples/serve_lm_decode.py",
+                "kernels/flash_attention_bwd.py", "train/optimizer.py",
+                "train/steps.py", "data/pipeline.py", "runtime/checkpoint.py",
+                "launch/train.py", "examples/train_lm.py"):
         assert port / new in files, new
     for path in files:
         for mod in _imports(path):
