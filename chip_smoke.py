@@ -251,6 +251,34 @@ Phases, each on lines of its own:
      peak memory, the flop bound, one more step profiled (GEMMs, flash
      forward, the plain flash backward, the MoE dispatch forward and
      backward, the optimizer, the rest); ``[train*]`` lines;
+ 13b. ``[members-serve]`` (after qwen2-moe-a2.7b is freed; the one-device
+     f32 logits of phase 12 and bf16 last-position logits and tokens of
+     phase 13 kept on the host): the flash kernel held at a member's head
+     shape (B 2, S 4608, H 8 over Kh 8, hd 128, causal, bf16; row
+     ``flash_attention/qwen2moe_members_heads``), then two processes on
+     this card over gloo with CUDA tensors (``chip_smoke.py --member``;
+     NCCL refuses two ranks on one device), each on a (1, 2) mesh under
+     ``arch_rules`` (heads, MLP, vocab and experts over ``model``): f32
+     parity at 2 layers against one device (1e-4), an a2a-dispatch
+     prefill (S 4608 in 2 slices) against the gather one at capacity
+     factor 8 (1e-4), a2a decode raising; the full 24-layer bf16 model,
+     each member drawing the one-device weights and keeping its blocks
+     (15.15 GB): a prefill with 24 flash launches at the member's shape
+     and its collectives counted, last-position logits within relative
+     Frobenius 5e-2 of one device's, 3 prefills timed, one profiled (the
+     collectives' host time and device work), ``LMEngine`` twice,
+     identical, on both members;
+ 20f. ``[members-train]``: granite-moe-3b-a800m at full width, 8 of 32
+     layers: one step on one device, then on two members a data-parallel
+     step ((2, 1) mesh, a row each) and a tensor-parallel one ((1, 2)
+     mesh) against it (loss 1e-3, grad_norm 1e-2 relative), and
+     ``compressed_psum`` of the largest leaf (the stacked expert gate,
+     1.0 GB f32) bit for bit against an f32 model of its int8 sum;
+ 20g. ``[members-elastic]``: ``ElasticRunner`` on the granite smoke config,
+     data-parallel over two members, a checkpoint every 2 steps; a
+     ``NodeFailure`` at step 3 leaves rank 0, which restores step 2 onto
+     one member and replays; its final state within 1e-6 of an
+     uninterrupted one-device run;
  21. one JSON line of kernel numbers, the card's name and power limit, and
      last ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or with any phase failing, it exits non-zero and
@@ -2884,8 +2912,12 @@ def moe_parity_phase(dev):
         f"{M.capacity(t, cfg.moe.experts_per_token, e_pad, cfg.moe.capacity_factor)} "
         f"a routed expert, {t * cfg.moe.experts_per_token} slots a layer), "
         f"by layer: {drops}")
-    del params, sub, h
+    del sub, h
+    # the one-device values the members' f32 parity is held against
+    p1 = members_parity_logits(params, cfg, toks)
+    del params
     torch.cuda.empty_cache()
+    return p1
 
 
 def moe_ep_phase(ffn, cfg, h, card):
@@ -3070,6 +3102,16 @@ def moe_serve_phase(dev, card):
     torch.cuda.empty_cache()
     prefill_ms = prefill_runs(params, cfg, toks)
     prefill_peak = torch.cuda.max_memory_allocated()
+    # the one-device last-position logits the members are held against,
+    # and how far the plain attention moves them: the full-depth model's
+    # own sensitivity to a rounding-level change in every layer
+    p1_last = T.prefill(params, cfg, toks, pad_to=LM_MAX_LEN)[0].float().cpu()
+    p1_plain = T.prefill(params, cfg, toks, pad_to=LM_MAX_LEN,
+                         attn_impl="ref")[0].float().cpu()
+    plain_rel = rel_fro(p1_plain.numpy(), p1_last.numpy())
+    log(f"[moe-serve] bf16 last-position logits with the plain attention "
+        f"vs the kernel: relative Frobenius {plain_rel:.3e}, argmax equal "
+        f"{bool((p1_plain.argmax(-1) == p1_last.argmax(-1)).all())}")
     moe_profile("one prefill",
                 lambda: T.prefill(params, cfg, toks, pad_to=LM_MAX_LEN))
 
@@ -3123,7 +3165,634 @@ def moe_serve_phase(dev, card):
         f"attention and shared experts)")
     del params
     torch.cuda.empty_cache()
-    return by_key
+    return by_key, {"bf16_last": p1_last.numpy(), "bf16_tokens": first,
+                    "bf16_plain_rel": np.float64(plain_rel)}
+
+
+# ---------------------------------------------------------------------------
+# the LM over members: P = 2 as two processes on this one card, over gloo
+# with CUDA tensors (NCCL refuses two ranks on one device).  Gloo stages
+# every collective through host memory, so these runs check correctness
+# and the layout on the card; their times measure that staging, not
+# scaling.
+# ---------------------------------------------------------------------------
+
+MEMBERS = 2
+MEMBERS_TIMEOUT = 900
+MEMBERS_DIR = ROOT / "build" / "members"
+# how a member process is started, and the device its work runs on
+MEMBER_ARGV = [sys.executable, str(ROOT / "chip_smoke.py")]
+MEMBER_DEVICE = "cuda"
+# bf16, P = 2 against P = 1: each row-parallel product's two halves are
+# rounded to bf16 and summed by the all_reduce where one device keeps the
+# whole sum in the GEMM's f32 accumulator (one more bf16 rounding a
+# product, 2 a layer), and routing near-ties may flip.  At 2 layers the
+# last-position logits are held at MEMBERS_BF16_CUT_REL (relative
+# Frobenius); at full depth such rounding-level changes grow through 24
+# layers, so the gate is MEMBERS_BF16_FACTOR times what swapping the
+# kernel for the plain attention moves one device's logits (phase 13)
+MEMBERS_BF16_CUT_REL = 3e-2
+MEMBERS_BF16_FACTOR = 3.0
+# the a2a prefill against the gather one at f32 and 2 layers, both at a
+# capacity factor where nothing drops (the two modes drop other slots at
+# the config's 1.25: capacity is per member's slice in a2a)
+MEMBERS_A2A_CF = 8.0
+MEMBERS_COLLECTIVES = ("all_reduce", "all_gather", "all_to_all_single")
+COLLECTIVE_RANGE = "members.collective"
+# [members-train]: granite-moe-3b-a800m at full width, depth cut to 8 of
+# its 32 layers (f32 masters, m and v: 10.7 GB at P = 1; a data member
+# holds all of it, a tensor member ~half) on the train phase's batch
+MEMBERS_TRAIN_LAYERS = 8
+# [members-elastic]: the granite smoke config, 2 x 64-token batches, a
+# checkpoint every 2 steps, the failure at step 3 (rank 1 leaves)
+ELASTIC_STEPS, ELASTIC_FAIL_AT, ELASTIC_CKPT_EVERY = 6, 3, 2
+ELASTIC_BATCH, ELASTIC_SEQ, ELASTIC_TOL = 2, 64, 1e-6
+# the last checkpoint before the failure
+ELASTIC_CKPT = (ELASTIC_FAIL_AT - 1) - (ELASTIC_FAIL_AT - 1) % \
+    ELASTIC_CKPT_EVERY
+
+
+def members_parity_logits(params, cfg, toks):
+    """(last-position prefill logits, the first decode step's logits) of
+    ``cfg`` on ``toks`` in f32, and the last-position logits of the same
+    draws in bf16, on the host."""
+    from repro_torch.models import transformer as T
+
+    last, cache = T.prefill(params, cfg, toks, pad_to=toks.shape[1] + 1)
+    step, _ = T.decode_step(params, cfg, toks[:, -1:], cache)
+    out = {"f32_last": last.cpu().numpy(), "f32_decode": step.cpu().numpy()}
+    del last, cache, step
+    b16 = cfg.replace(dtype="bfloat16")
+    pb = T.init_lm(SEED, b16, toks.device, layout=params_layout(b16))
+    out["bf16_cut_last"] = T.prefill(pb, b16, toks, pad_to=toks.shape[1])[
+        0].float().cpu().numpy()
+    return out
+
+
+def params_layout(cfg):
+    """This member's parameter layout under the ambient mesh (None
+    without one)."""
+    from repro_torch.models import api
+    from repro_torch.sharding import partition
+
+    return api.param_layout(cfg) if partition.current_mesh() else None
+
+
+def rel_fro(a, b) -> float:
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_members(task, inputs: dict):
+    """Run MEMBERS processes of ``task`` (``chip_smoke.py --member``) on
+    this card over gloo, ``inputs`` saved beside them; relay member 0's
+    lines; -> each member's result.  A member that fails fails the
+    phase, with both logs."""
+    import shutil
+
+    d = MEMBERS_DIR / task
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    np.savez(d / "inputs.npz", **inputs)
+    port = free_port()
+    logs = [open(d / f"log_{r}.txt", "w") for r in range(MEMBERS)]
+    procs = [subprocess.Popen(
+        MEMBER_ARGV + ["--member", task, str(r), str(MEMBERS), str(port),
+                       str(d)],
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(MEMBERS)]
+    try:
+        rcs = [p.wait(timeout=MEMBERS_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    texts = [(d / f"log_{r}.txt").read_text() for r in range(MEMBERS)]
+    for line in texts[0].splitlines():
+        if line.startswith("[members-"):
+            log(line)
+    if any(rcs):
+        for r, t in enumerate(texts):
+            log(f"[{task}] member {r} exited {rcs[r]}:\n{t}")
+        raise AssertionError(f"members of {task!r} exited {rcs}")
+    return [json.loads((d / f"result_{r}.json").read_text())
+            for r in range(MEMBERS)]
+
+
+def member_main(argv) -> int:
+    """``chip_smoke.py --member <task> <rank> <world> <port> <dir>``: one
+    member process of a members phase."""
+    import torch.distributed as dist
+
+    task, rank, world, port, d = (argv[0], int(argv[1]), int(argv[2]),
+                                  int(argv[3]), Path(argv[4]))
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if MEMBER_DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    try:
+        inputs = dict(np.load(d / "inputs.npz"))
+        result = MEMBER_TASKS[task](rank, world, d, inputs)
+    finally:
+        dist.destroy_process_group()
+    (d / f"result_{rank}.json").write_text(json.dumps(result))
+    return 0
+
+
+def members_profile(fn):
+    """One call of ``fn`` under the profiler with every collective inside a
+    ``COLLECTIVE_RANGE`` range and timed on the host: -> wall ms, device
+    busy ms, device ms inside the collectives (gloo's staging copies),
+    host ms inside the collectives, their calls."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    orig = {k: getattr(dist, k) for k in MEMBERS_COLLECTIVES}
+    host = {"s": 0.0, "n": 0}
+
+    def ranged(f):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            with record_function(COLLECTIVE_RANGE):
+                out = f(*a, **kw)
+            host["s"] += time.perf_counter() - t0
+            host["n"] += 1
+            return out
+        return call
+
+    for k, f in orig.items():
+        setattr(dist, k, ranged(f))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for k, f in orig.items():
+            setattr(dist, k, f)
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name != COLLECTIVE_RANGE)
+    coll_us, coll_ops = range_device_us(prof, COLLECTIVE_RANGE)
+    return {"wall_ms": wall_ms, "busy_ms": busy / 1e3,
+            "collective_device_ms": coll_us / 1e3,
+            "collective_device_ops": coll_ops,
+            "collective_host_ms": host["s"] * 1e3,
+            "collective_calls": host["n"]}
+
+
+def member_serve(rank, world, d, inputs):
+    """[members-serve], one member: qwen2-moe-a2.7b over a (1, world) mesh
+    under ``arch_rules`` (heads, MLP, vocab and experts over ``model``):
+    f32 parity at MOE_PARITY_LAYERS against P = 1, the a2a prefill against
+    the gather one, then the full bf16 model: a prefill with its flash
+    launches and collectives counted and its logits against P = 1,
+    prefills timed, one profiled, LMEngine twice."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.qwen2_moe_a2_7b import CONFIG
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import specs
+    from repro_torch.models import api
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import LMEngine
+    from repro_torch.sharding import partition
+
+    dev = torch.device(MEMBER_DEVICE)
+    cfg = CONFIG
+    mesh = mesh_mod.make_host_mesh(model=world)
+    rules = specs.arch_rules(cfg, mesh, ShapeConfig(
+        "prefill", "prefill", LM_PROMPT, LM_BATCH))
+    prompts = lm_prompts(cfg.vocab_size)
+    toks = torch.from_numpy(prompts).to(dev)
+    res = {}
+    with partition.axis_rules(mesh, rules), torch.no_grad():
+        c2 = cfg.replace(n_layers=MOE_PARITY_LAYERS, dtype="float32")
+        params = T.init_lm(SEED, c2, dev, layout=api.param_layout(c2))
+        got = members_parity_logits(params, c2, toks)
+        for k in ("f32_last", "f32_decode"):
+            torch.testing.assert_close(torch.from_numpy(got[k]),
+                                       torch.from_numpy(inputs[k]), **LM_TOL)
+            res[k] = float(np.abs(got[k] - inputs[k]).max())
+        res["bf16_cut_rel"] = rel_fro(got["bf16_cut_last"],
+                                      inputs["bf16_cut_last"])
+        if res["bf16_cut_rel"] > MEMBERS_BF16_CUT_REL:
+            raise AssertionError(f"bf16 at {MOE_PARITY_LAYERS} layers over "
+                                 f"members: relative Frobenius "
+                                 f"{res['bf16_cut_rel']:.3e} > "
+                                 f"{MEMBERS_BF16_CUT_REL}")
+        by_mode = {}
+        for mode in ("gather", "a2a"):
+            cx = c2.replace(moe=dataclasses.replace(
+                c2.moe, capacity_factor=MEMBERS_A2A_CF, dispatch=mode))
+            by_mode[mode] = T.prefill(params, cx, toks,
+                                      pad_to=LM_PROMPT)[0].float()
+        torch.testing.assert_close(by_mode["a2a"], by_mode["gather"],
+                                   **LM_TOL)
+        res["a2a_vs_gather"] = (by_mode["a2a"] -
+                                by_mode["gather"]).abs().max().item()
+        try:
+            T.decode_step(params, cx, toks[:, -1:],
+                          T.make_cache(cx, LM_BATCH, 8, device=dev))
+            raise AssertionError("a2a decode (S = 1) did not raise")
+        except ValueError as e:
+            res["a2a_decode"] = str(e)
+        del params, by_mode, got
+        torch.cuda.empty_cache()
+        log(f"[members-serve] rank {rank}: qwen2-moe-a2.7b f32 at "
+            f"{MOE_PARITY_LAYERS} layers over {world} members vs one "
+            f"device: prefill logits max_abs_err {res['f32_last']:.3e}, "
+            f"decode {res['f32_decode']:.3e} (rtol = atol = 1e-4); bf16 "
+            f"last-position logits relative Frobenius "
+            f"{res['bf16_cut_rel']:.3e} (gate {MEMBERS_BF16_CUT_REL}); a2a "
+            f"prefill (S {LM_PROMPT} in {world} slices) vs gather at "
+            f"capacity factor {MEMBERS_A2A_CF} max_abs_err "
+            f"{res['a2a_vs_gather']:.3e}; a2a decode raises: "
+            f"{res['a2a_decode']!r}")
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        layout = api.param_layout(cfg)
+        params = T.init_lm(SEED, cfg, dev, layout=layout)
+        torch.cuda.synchronize()
+        res["init_s"] = time.perf_counter() - t0
+        res["weight_gb"] = weight_bytes(params) / 1e9
+        ops.reset_launches()
+        with count_collectives() as calls:
+            last, cache = T.prefill(params, cfg, toks, pad_to=LM_MAX_LEN)
+            torch.cuda.synchronize()
+        launches = {k: v.launches for k, v in ops.kernels().items()}
+        by_key = dict(fa.FLASH.by_key)
+        key = fa.launch_key(cfg.n_heads // world, cfg.n_kv_heads // world,
+                            cfg.head_dim, 0)
+        if launches["flash_attention"] != cfg.n_layers or \
+                by_key != {key: cfg.n_layers}:
+            raise AssertionError(f"member prefill launched {launches}, by "
+                                 f"key {by_key}, not {cfg.n_layers} at {key}")
+        res["launches"] = launches["flash_attention"]
+        res["key"] = list(key)
+        res["calls"] = {k: v for k, v in calls.items() if v}
+        res["cache_gb"] = sum(cache[k].numel() * cache[k].element_size()
+                              for k in ("k", "v")) / 1e9
+        want = inputs["bf16_last"]
+        mine = last.float().cpu().numpy()
+        if not np.isfinite(mine).all():
+            raise AssertionError("bf16 logits over members not finite")
+        res["bf16_rel"] = rel_fro(mine, want)
+        res["bf16_max_abs"] = float(np.abs(mine - want).max())
+        res["argmax_equal"] = bool((mine.argmax(-1) ==
+                                    want.argmax(-1)).all())
+        del last, cache
+        res["prefill_ms"] = prefill_runs(params, cfg, toks)
+        res["profile"] = members_profile(
+            lambda: T.prefill(params, cfg, toks, pad_to=LM_MAX_LEN))
+        eng = LMEngine(params, cfg, max_len=LM_MAX_LEN, device=dev)
+        first = eng.generate(prompts, LM_NEW)
+        eng.monitor.reset()
+        second = eng.generate(prompts, LM_NEW)
+        check_generated(first, second, cfg.vocab_size)
+        res["decode_p50_ms"] = eng.monitor.percentile(0.5) * 1e3
+        res["decode_p99_ms"] = eng.monitor.percentile(0.99) * 1e3
+        res["tokens_row0"] = first[0].tolist()
+        res["tokens_match_p1"] = float((first == inputs["bf16_tokens"])
+                                       .mean())
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return res
+
+
+def member_train(rank, world, d, inputs):
+    """[members-train], one member: granite-moe-3b-a800m at full width and
+    MEMBERS_TRAIN_LAYERS layers, one data-parallel step ((world, 1) mesh,
+    each member one of the batch's rows) and one tensor-parallel step ((1,
+    world) mesh, the whole batch in the config's microbatches) from the
+    same draws; then ``compressed_psum`` on the model's largest leaf
+    against an f32 model of the same int8 sum."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.granite_moe_3b_a800m import CONFIG as GRANITE
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import specs
+    from repro_torch.models import api
+    from repro_torch.sharding import partition
+    from repro_torch.train import grad_compression as GC
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import steps as steps_mod
+
+    dev = torch.device(MEMBER_DEVICE)
+    cfg = GRANITE.replace(n_layers=MEMBERS_TRAIN_LAYERS)
+    batch = train_batch(cfg, dev)
+    res = {}
+    for name, model in (("dp", 1), ("tp", world)):
+        mesh = mesh_mod.make_host_mesh(model=model)
+        rules = specs.arch_rules(cfg, mesh, ShapeConfig(
+            "train", "train", TRAIN_SEQ, TRAIN_BATCH))
+        accum = cfg.train_accum // mesh.shape["data"]
+        torch.cuda.reset_peak_memory_stats()
+        with partition.axis_rules(mesh, rules):
+            params = api.init(SEED, cfg, dev, n_shards=1, dtype="float32",
+                              layout=api.param_layout(cfg))
+            step = steps_mod.make_train_step(cfg, accum_steps=accum)
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, opt.adamw_init(params), batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        r = {k: float(v) for k, v in m.items()}
+        r.update(step_s=dt, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 by_key={str(k): v for k, v in fa.FLASH.by_key.items()},
+                 mesh=[mesh.shape["data"], mesh.shape["model"]],
+                 accum=accum)
+        for key, rel in (("loss", TRAIN_LOSS_REL),
+                         ("grad_norm", TRAIN_GNORM_REL)):
+            want = float(inputs[key])
+            if not (np.isfinite(r[key]) and
+                    abs(r[key] - want) <= rel * abs(want)):
+                raise AssertionError(f"{name} step {key} {r[key]!r} vs one "
+                                     f"device {want!r} (relative {rel})")
+        if not ops.kernels()["flash_attention"].launches:
+            raise AssertionError(f"{name} step launched no flash kernel")
+        res[name] = r
+        log(f"[members-train] rank {rank} {name} step on a "
+            f"{tuple(r['mesh'])} mesh ({accum} microbatches): loss "
+            f"{r['loss']!r} grad_norm {r['grad_norm']!r} vs one device "
+            f"{float(inputs['loss'])!r} / {float(inputs['grad_norm'])!r}; "
+            f"{dt:.2f} s, peak {r['peak_gb']:.2f} GB, flash by key "
+            f"{r['by_key']}")
+        if name == "dp":       # whole leaves: the largest one's name, shape
+            big = max(zip(_paths(params), opt.leaves(params)),
+                      key=lambda kv: kv[1].numel())
+            leaf, full_shape = big[0], tuple(big[1].shape)
+            del big
+        del params, state, step
+        torch.cuda.empty_cache()
+    # compressed_psum on the largest leaf of the cut model, seeded per rank
+    gen = torch.Generator(device=dev).manual_seed(SEED + rank)
+    x = torch.randn(full_shape, generator=gen, device=dev)
+    GC.compressed_psum(x)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = GC.compressed_psum(x)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    parts = [torch.empty_like(x) for _ in range(world)]
+    dist.all_gather(parts, x)
+    scale = torch.clamp(torch.stack([p.abs().max() for p in parts]).max()
+                        / 127.0, min=1e-12)
+    total = sum(torch.clamp(torch.round(p / scale), -127, 127)
+                .to(torch.int32) for p in parts)
+    model = total.float() * scale
+    if not torch.equal(out, model):
+        raise AssertionError("compressed_psum differs from the f32 model of "
+                             "its int8 sum")
+    res["psum"] = {"leaf": leaf, "shape": list(full_shape),
+                   "ms": statistics.median(times),
+                   "max_abs_vs_exact": (out - sum(parts)).abs().max().item()}
+    log(f"[members-train] rank {rank} compressed_psum of {leaf} "
+        f"{full_shape} f32 ({x.numel() * 4 / 1e9:.3f} GB) over {world} "
+        f"members: bit-identical to the f32 model of its int8 sum; "
+        f"{res['psum']['ms']:.1f} ms (median of 3), max |int8 sum - f32 "
+        f"sum| {res['psum']['max_abs_vs_exact']:.3e}")
+    return res
+
+
+def member_elastic(rank, world, d, inputs):
+    """[members-elastic], one member: ``ElasticRunner`` on the granite smoke
+    config, data-parallel over ``world`` members; at ELASTIC_FAIL_AT a
+    ``NodeFailure`` leaves rank 0, which restores the last checkpoint onto
+    a one-member mesh and replays.  Each step accumulates over the batch's
+    rows as the members split them (the same capacity per microbatch)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.granite_moe_3b_a800m import \
+        smoke as granite_smoke
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import specs
+    from repro_torch.models import api
+    from repro_torch.runtime import elastic
+    from repro_torch.sharding import partition
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import steps as steps_mod
+
+    dev = torch.device(MEMBER_DEVICE)
+    cfg = granite_smoke()
+    batches = [train_batch(cfg, dev, i, ELASTIC_BATCH, ELASTIC_SEQ)
+               for i in range(ELASTIC_STEPS)]
+    events = {"failed": False, "steps": []}
+
+    def rules(m):
+        return specs.arch_rules(cfg, m, ShapeConfig(
+            "train", "train", ELASTIC_SEQ, ELASTIC_BATCH))
+
+    def layout_of(m):
+        with partition.axis_rules(m, rules(m)):
+            lay = api.param_layout(cfg)
+        return partition.Layout(m, (lay.specs, opt.adamw_layout(lay).specs))
+
+    def step_fn(state, batch, m):
+        accum = ELASTIC_BATCH // m.shape["data"]
+        with partition.axis_rules(m, rules(m)):
+            p, s, _ = steps_mod.make_train_step(cfg, accum_steps=accum)(
+                *state, batch)
+        events["steps"].append((int(s["count"]) - 1, m.size))
+        return (p, s)
+
+    def fault(i):
+        if i == ELASTIC_FAIL_AT and not events["failed"]:
+            events["failed"] = True
+            events["t_fail"] = time.perf_counter()
+            raise elastic.NodeFailure([0])
+
+    mesh = mesh_mod.make_host_mesh(model=1)
+    params = api.init(SEED, cfg, dev, n_shards=1, dtype="float32")
+    runner = elastic.ElasticRunner(make_shardings=layout_of,
+                                   ckpt_dir=str(d / "ckpt"))
+    try:
+        (params, _), new_mesh, rec = runner.run(
+            (params, opt.adamw_init(params)), lambda s: iter(batches[s:]),
+            step_fn, mesh, fault=fault, ckpt_every=ELASTIC_CKPT_EVERY)
+    except elastic.Evicted:
+        log(f"[members-elastic] rank {rank} evicted at step "
+            f"{ELASTIC_FAIL_AT}")
+        return {"evicted": True}
+    np.savez(d / "final.npz", **{k: v.cpu().numpy() for k, v in zip(
+        _paths(params), opt.leaves(params))})
+    return {"evicted": False, "recoveries": rec, "steps": events["steps"],
+            "mesh": [new_mesh.shape["data"], new_mesh.shape["model"]]}
+
+
+MEMBER_TASKS = {"serve": member_serve, "train": member_train,
+                "elastic": member_elastic}
+
+
+def _paths(tree, prefix=""):
+    """Leaf paths of a tree of dicts in ``optimizer.leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _paths(tree[k],
+                                                         f"{prefix}/{k}")]
+    return [prefix]
+
+
+def members_serve_phase(dev, card, p1):
+    """[members-serve]: full-width, full-depth qwen2-moe-a2.7b at P = 2 as
+    two processes on this card over gloo (``member_serve``), the flash
+    kernel held at the member's head shape first; -> that kernel row,
+    its launches the first member's served prefill's."""
+    from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as cfg
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    row, _ = flash_row("flash_attention/qwen2moe_members_heads", gen, dev,
+                       LM_BATCH, LM_PROMPT, cfg.n_heads // MEMBERS,
+                       cfg.n_kv_heads // MEMBERS, cfg.head_dim)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = run_members("serve", p1)
+    wall_s = time.perf_counter() - t0
+    if res[0]["tokens_row0"] != res[1]["tokens_row0"]:
+        raise AssertionError("the members generated different tokens")
+    row["launches"] = res[0]["launches"]
+    calls = res[0]["calls"]
+    gate = MEMBERS_BF16_FACTOR * float(p1["bf16_plain_rel"])
+    for r, x in enumerate(res):
+        pr, warm = x["profile"], statistics.median(x["prefill_ms"][1:])
+        log(f"[members-serve] member {r} of {MEMBERS} (gloo, CUDA tensors, "
+            f"one card): qwen2-moe-a2.7b {cfg.n_layers} layers bf16, "
+            f"{x['weight_gb']:.3f} GB of weights (init {x['init_s']:.1f} s), "
+            f"cache {x['cache_gb']:.3f} GB; B {LM_BATCH} x prompt "
+            f"{LM_PROMPT}: prefill ms {x['prefill_ms'][0]:.1f} first, "
+            f"{warm:.1f} warm; decode ms/token p50 {x['decode_p50_ms']:.3f} "
+            f"p99 {x['decode_p99_ms']:.3f}; max_memory_allocated "
+            f"{x['peak_gb']:.3f} GB; flash launches a prefill "
+            f"{x['launches']} at (H, Kh, hd, window, causal) {x['key']}")
+        device = (f"device busy {pr['busy_ms']:.1f} ms "
+                  f"({100 * pr['busy_ms'] / pr['wall_ms']:.1f}% of wall), "
+                  f"{pr['collective_device_ms']:.1f} ms of it inside the "
+                  f"collectives ({pr['collective_device_ops']} staging ops, "
+                  f"{100 * pr['collective_device_ms'] / pr['busy_ms']:.1f}%)"
+                  if pr["busy_ms"] else "the profiler saw no device "
+                  "activity: device time not measured")
+        log(f"[members-serve] member {r} profiled prefill: wall "
+            f"{pr['wall_ms']:.1f} ms; {pr['collective_calls']} collectives "
+            f"took {pr['collective_host_ms']:.1f} ms on the host "
+            f"({100 * pr['collective_host_ms'] / pr['wall_ms']:.1f}% of "
+            f"wall); {device}")
+    x = res[0]
+    log(f"[members-serve] bf16 full depth over {MEMBERS} members vs one "
+        f"device: last-position logits relative Frobenius "
+        f"{x['bf16_rel']:.3e} (gate {gate:.3e}: {MEMBERS_BF16_FACTOR} x the "
+        f"plain attention's {float(p1['bf16_plain_rel']):.3e}), max_abs "
+        f"{x['bf16_max_abs']:.3e}, argmax equal {x['argmax_equal']}; "
+        f"generated tokens equal to one device's {100 * x['tokens_match_p1']:.1f}%"
+        f"; collective calls a prefill {calls} ({cfg.n_layers} layers: "
+        f"attention's wo and the MoE FFN (routed and shared experts) one "
+        f"all_reduce each, the embedding one, the head one all_gather); "
+        f"phase wall "
+        f"{wall_s:.1f} s; card {card!r}")
+    if x["bf16_rel"] > gate:
+        raise AssertionError(f"bf16 full depth over members: relative "
+                             f"Frobenius {x['bf16_rel']:.3e} > {gate:.3e}")
+    return row
+
+
+def members_train_phase(dev, card):
+    """[members-train]: the one-device step of granite-moe-3b-a800m at
+    MEMBERS_TRAIN_LAYERS layers, then ``member_train`` on 2 members."""
+    from repro_torch.configs.granite_moe_3b_a800m import CONFIG as GRANITE
+    from repro_torch.models import api
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import steps as steps_mod
+
+    cfg = GRANITE.replace(n_layers=MEMBERS_TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init(SEED, cfg, dev, n_shards=1, dtype="float32")
+    step = steps_mod.make_train_step(cfg, accum_steps=cfg.train_accum)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, state, m = step(params, opt.adamw_init(params), train_batch(cfg, dev))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    p1 = {k: float(v) for k, v in m.items()}
+    log(f"[members-train] one device: {TRAIN_ARCH} full width, depth cut to "
+        f"{MEMBERS_TRAIN_LAYERS} of {GRANITE.n_layers} layers, B "
+        f"{TRAIN_BATCH} x S {TRAIN_SEQ} in {cfg.train_accum} microbatches: "
+        f"loss {p1['loss']!r} grad_norm {p1['grad_norm']!r}, {dt:.2f} s, "
+        f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del params, state, step
+    torch.cuda.empty_cache()
+    res = run_members("train", p1)
+    for name in ("dp", "tp"):
+        a, b = res[0][name], res[1][name]
+        if (a["loss"], a["grad_norm"]) != (b["loss"], b["grad_norm"]):
+            raise AssertionError(f"{name}: the members' metrics differ")
+    log(f"[members-train] dp step {res[0]['dp']['step_s']:.2f} s, tp step "
+        f"{res[0]['tp']['step_s']:.2f} s, one device {dt:.2f} s (gloo "
+        f"stages every all_reduce through host memory); peak per member dp "
+        f"{[x['dp']['peak_gb'] for x in res]} GB, tp "
+        f"{[x['tp']['peak_gb'] for x in res]} GB; compressed_psum "
+        f"{res[0]['psum']['ms']:.1f} ms; card {card!r}")
+
+
+def members_elastic_phase(dev, card):
+    """[members-elastic]: the uninterrupted one-device run, then
+    ``member_elastic`` on 2 members; rank 0's final parameters within
+    ELASTIC_TOL of the uninterrupted run's."""
+    from repro_torch.configs.granite_moe_3b_a800m import \
+        smoke as granite_smoke
+    from repro_torch.models import api
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import steps as steps_mod
+
+    cfg = granite_smoke()
+    params = api.init(SEED, cfg, dev, n_shards=1, dtype="float32")
+    state = opt.adamw_init(params)
+    step = steps_mod.make_train_step(cfg, accum_steps=ELASTIC_BATCH)
+    for i in range(ELASTIC_STEPS):
+        params, state, _ = step(params, state, train_batch(
+            cfg, dev, i, ELASTIC_BATCH, ELASTIC_SEQ))
+    want = dict(zip(_paths(params), (x.cpu().numpy()
+                                     for x in opt.leaves(params))))
+    t0 = time.perf_counter()
+    res = run_members("elastic", {})
+    wall_s = time.perf_counter() - t0
+    r0 = res[0]
+    if r0["evicted"] or not res[1]["evicted"] or r0["recoveries"] != 1 or \
+            r0["mesh"] != [1, 1]:
+        raise AssertionError(f"elastic run: {res}")
+    ran = [tuple(s) for s in r0["steps"]]
+    expect = [(i, MEMBERS) for i in range(ELASTIC_FAIL_AT)] + \
+        [(i, 1) for i in range(ELASTIC_CKPT + 1, ELASTIC_STEPS)]
+    if ran != expect:
+        raise AssertionError(f"steps (count, mesh size) {ran}, not {expect}")
+    final = dict(np.load(MEMBERS_DIR / "elastic" / "final.npz"))
+    err = max(float(np.abs(final[k] - v).max()) for k, v in want.items())
+    if err > ELASTIC_TOL:
+        raise AssertionError(f"elastic final state {err:.3e} from the "
+                             f"uninterrupted run (gate {ELASTIC_TOL})")
+    log(f"[members-elastic] granite smoke, {ELASTIC_STEPS} steps "
+        f"data-parallel over {MEMBERS} members, a checkpoint every "
+        f"{ELASTIC_CKPT_EVERY}: rank 1 leaves at step {ELASTIC_FAIL_AT}, "
+        f"rank 0 restores step {ELASTIC_CKPT} "
+        f"onto one member and replays; steps (step, members) {ran}; final "
+        f"parameters max_abs {err:.3e} from the uninterrupted one-device "
+        f"run (gate {ELASTIC_TOL}); phase wall {wall_s:.1f} s; card {card!r}")
 
 
 # the phases of the rest of the attention families, after the MoE ones:
@@ -4456,6 +5125,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--member"]:
+        return member_main(sys.argv[2:])
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.chatglm3_6b import CONFIG as GLM
     from repro_torch.configs.dlrm_kaggle import CONFIG
@@ -4534,8 +5205,14 @@ def main() -> int:
         # the qwen2-moe phases need the card's memory: rwkv6-1.6b went with
         # rwkv_serve_phase's frame
         torch.cuda.empty_cache()
-        moe_parity_phase(dev)
-        moe_by_key = moe_serve_phase(dev, card)
+        p1 = moe_parity_phase(dev)
+        moe_by_key, p1_serve = moe_serve_phase(dev, card)
+        p1.update(p1_serve)
+        # qwen2-moe-a2.7b over 2 members on this card (two processes over
+        # gloo): the one-device model went with moe_serve_phase's frame
+        torch.cuda.empty_cache()
+        members_row = members_serve_phase(dev, card, p1)
+        del p1, p1_serve
         # the rest of the attention families, one model on the card at a
         # time: qwen2-moe-a2.7b went with moe_serve_phase's frame
         torch.cuda.empty_cache()
@@ -4563,6 +5240,10 @@ def main() -> int:
     train_cut_phase(dev)
     train_smoke_phase(dev)
     train_row["launches"] = train_full_phase(dev, card)
+    # the training phases over members (two processes on this card)
+    torch.cuda.empty_cache()
+    members_train_phase(dev, card)
+    members_elastic_phase(dev, card)
     # each flash or WKV row takes the served launches of its own shape:
     # qwen3's heads and the B 8 WKV shape are timed but not served, so
     # their rows read 0; each new family's row its phase's run (one
@@ -4578,7 +5259,7 @@ def main() -> int:
     # four f32 smoke serves
     zamba_row["launches"] = zamba_by_key.get(zkey, 0)
     hd8_row["launches"] = smoke_by_key.get(hd8_key, 0)
-    rows += [zamba_row, zamba_f32_row, hd8_row, train_row]
+    rows += [zamba_row, zamba_f32_row, hd8_row, train_row, members_row]
     for row, key in wkv_rows:
         row["launches"] = wkv_by_key.get(key, 0)
         rows.append(row)

@@ -5,8 +5,10 @@ prefetched synthetic data, resume.
 Run:  PYTHONPATH=src python -m repro_torch.examples.train_lm --steps 200
       (defaults are sized for a CPU: --d-model 256 --layers 4; pass
        --d-model 768 --layers 12 for the full ~100M config on the card)
-``--device`` defaults to the card.  The reference's int8 error-feedback
-gradient compression needs members (ROADMAP A14d).
+``--device`` defaults to the card.  The reference's example names int8
+error-feedback gradient compression but wires it into no step; the port's
+codecs are ``train/grad_compression.py``, and data-parallel training over
+members runs through ``launch/train.py`` under torchrun.
 """
 import argparse
 import time

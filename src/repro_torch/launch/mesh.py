@@ -1,16 +1,28 @@
-"""Process-group set-up for the model axis.
+"""Process-group set-up: the model axis of the DLRM path, and the (data,
+model) grid of the LM path.
 
-Stands in for the reference's ambient mesh (``sharding/partition.py``):
-every rank of the default process group is one table-parallel member of
-the ``model`` axis.  NCCL on the card, gloo on the CPU.  Nothing tells a
-program of a cluster, so the caller gives the rendezvous address
-(``tcp://localhost:<port>`` or ``file://<path>``), the world size and the
-rank.
+Nothing tells a program of a cluster, so the caller gives the rendezvous
+address (``tcp://localhost:<port>``, ``file://<path>`` or ``env://`` under
+torchrun), the world size and the rank.  NCCL on the card, gloo on the CPU
+(and, for two members on one card, gloo with CUDA tensors).
+
+The DLRM path takes every rank of the default group as one table-parallel
+member of the ``model`` axis (:func:`init_model_group`,
+:func:`current_group`).  The LM path runs over a :class:`Mesh`, the port's
+counterpart of the reference's ``jax.sharding.Mesh``: a (data, model) grid
+of global ranks with one process group per row (the ``model`` axis) and one
+per column (the ``data`` axis).  :func:`make_host_mesh` builds it over the
+default group's world, as the reference's builds it over every device.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional
+
 import torch
 import torch.distributed as dist
+
+AXES = ("data", "model")
 
 
 def init_model_group(backend: str, world_size: int, rank: int,
@@ -33,3 +45,88 @@ def current_group():
 def destroy_model_group() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+@dataclasses.dataclass
+class Mesh:
+    """A (data, model) grid of global ranks, row-major: rank ``ranks[i *
+    model + j]`` sits at data ``i``, model ``j``.
+
+    ``shape`` and ``coords`` are dicts by axis name (``coords`` is None on a
+    process the grid leaves out); ``groups[axis]`` is this process's group
+    along ``axis`` (its row for ``model``, its column for ``data``), and
+    ``groups["all"]`` the whole grid's; each is None where it has one
+    member or the process is no member: a collective over one member is
+    the identity, and the port skips it."""
+    shape: dict
+    ranks: tuple
+    coords: Optional[dict]
+    groups: dict
+    axis_names: tuple = AXES
+
+    @property
+    def size(self) -> int:
+        return self.shape["data"] * self.shape["model"]
+
+    @property
+    def is_member(self) -> bool:
+        return self.coords is not None
+
+    def group(self, axis: str):
+        return self.groups.get(axis)
+
+    def index(self, axis: str) -> int:
+        return self.coords[axis] if self.coords is not None else 0
+
+
+def _grid(ranks, data: int, model: int) -> Mesh:
+    """A mesh over the global ``ranks`` in a (data, model) grid.  Every
+    process of the default group must call this, members or not, in the
+    same order: ``dist.new_group`` is collective over the default group."""
+    ranks = tuple(int(r) for r in ranks)
+    if len(ranks) != data * model:
+        raise ValueError(f"{len(ranks)} ranks do not fill a ({data}, "
+                         f"{model}) grid")
+    shape = {"data": data, "model": model}
+    me = dist.get_rank() if dist.is_initialized() else ranks[0]
+    coords = None
+    if me in ranks:
+        at = ranks.index(me)
+        coords = {"data": at // model, "model": at % model}
+    groups = {"data": None, "model": None, "all": None}
+    if not dist.is_initialized():
+        return Mesh(shape, ranks, coords, groups)
+    if len(ranks) > 1:
+        whole = len(ranks) == dist.get_world_size() and \
+            sorted(ranks) == list(range(len(ranks)))
+        g = dist.group.WORLD if whole else dist.new_group(ranks=list(ranks))
+        if coords is not None:
+            groups["all"] = g
+    rows = [ranks[i * model:(i + 1) * model] for i in range(data)]
+    cols = [ranks[j::model] for j in range(model)]
+    for axis, lines, n in (("model", rows, model), ("data", cols, data)):
+        if n == 1:
+            continue
+        for line in lines:
+            g = dist.new_group(ranks=list(line))
+            if me in line:
+                groups[axis] = g
+    return Mesh(shape, ranks, coords, groups)
+
+
+def make_host_mesh(model: int = 1) -> Mesh:
+    """The (data, model) grid over every rank of the default group (one
+    member without a process group): ``model`` is capped at the world size
+    and the data axis takes the rest, as the reference's ``make_host_mesh``
+    does over its devices."""
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    model = min(model, n)
+    if n % model:
+        raise ValueError(f"a model axis of {model} does not divide {n} ranks")
+    return _grid(range(n), n // model, model)
+
+
+def make_mesh(ranks, data: int, model: int) -> Mesh:
+    """A (data, model) grid over the given global ranks (collective over the
+    default group; see :func:`_grid`)."""
+    return _grid(ranks, data, model)

@@ -1,4 +1,4 @@
-"""Training driver (the port of ``repro/launch/train.py``) on one device.
+"""Training driver (the port of ``repro/launch/train.py``).
 
 Runs the reference's fault-tolerant loop: prefetched synthetic data,
 async checkpointing, straggler monitoring, resume from ``--ckpt-dir``.
@@ -7,8 +7,13 @@ expert shard, and every step accumulates gradients over the config's
 ``train_accum`` microbatches, as the reference's train cell does
 (``launch/specs.py:233``; its driver leaves it at 1, which every smoke
 config has).  ``--device`` defaults to the card; ``--device cpu`` runs the
-plain PyTorch versions of the kernels.  A mesh over several devices waits
-for the launch tooling (ROADMAP A14f).
+plain PyTorch versions of the kernels.  Under torchrun (a process group
+over ``env://``: NCCL on the card, gloo on the CPU) it runs over
+``make_host_mesh(model=1)``, pure data parallelism over every rank as the
+reference's driver runs over every device: each rank takes its slice of
+every batch, gradients are averaged over the data axis, the first rank
+logs and writes checkpoints.  The production mesh (``--production-mesh``)
+waits for the launch tooling (ROADMAP A14f).
 
 Resuming differs from the reference on purpose.  A checkpoint saved after
 step i holds the state after that step's update; the port resumes at step
@@ -19,26 +24,33 @@ stream's first batch.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-14b \\
       --smoke --steps 20 --ckpt-dir build/ckpt --device cpu
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+      --arch qwen3-14b --smoke --steps 4 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch granite-moe-3b-a800m --steps 3 --batch 2 --seq 4096
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
+import os
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.configs import base as cb
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.data.pipeline import Prefetcher
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.launch import specs as specs_mod
 from repro_torch.models import api
 from repro_torch.runtime import checkpoint as C
 from repro_torch.runtime.straggler import StragglerMonitor
+from repro_torch.sharding import partition
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train import steps as steps_mod
 
@@ -84,47 +96,63 @@ class TrainRun:
 
 def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
           ckpt_dir=None, ckpt_every: int = 50, device="cuda", seed: int = 0,
-          params=None, log=print) -> TrainRun:
+          params=None, log=print, mesh=None) -> TrainRun:
     """The reference's training loop for ``steps`` steps (counting the
     ones a checkpoint in ``ckpt_dir`` already holds), ``batch`` sequences
     of ``seq`` tokens a step.  ``params`` (f32 masters) replace
     ``api.init``'s draws, e.g. the reference's parameters converted.
-    Saves every ``ckpt_every`` steps and after the last."""
+    Saves every ``ckpt_every`` steps and after the last.  With ``mesh``
+    (a ``launch/mesh.py::Mesh``) every step runs under its ``arch_rules``
+    and checkpoints hold the state's full leaves."""
     dev = resolve_device(device)
-    if params is None:
-        params = api.init(0, cfg, dev, n_shards=1, dtype="float32")
-    opt_state = opt_mod.adamw_init(params)
-    start = 0
-    if ckpt_dir and C.latest_step(ckpt_dir) is not None:
-        (params, opt_state), last = C.restore(ckpt_dir, (params, opt_state),
-                                              device=dev)
-        start = last + 1
-        log(f"resumed from step {last}")
-    step_fn = steps_mod.make_train_step(cfg, accum_steps=cfg.train_accum)
-    saver = C.AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
-    monitor = StragglerMonitor()
-    stream = synthetic_batches(cfg, batch, seq, steps, seed)
-    data = Prefetcher(itertools.islice(stream, start, None), depth=2)
-    history = []
-    for i, b in enumerate(data, start=start):
-        b = {k: v.to(dev) for k, v in b.items()}
-        t0 = time.perf_counter()
-        params, opt_state, m = step_fn(params, opt_state, b)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        dt = time.perf_counter() - t0
-        monitor.observe(dt)
-        loss, gnorm, lr = (float(m[k]) for k in ("loss", "grad_norm", "lr"))
-        history.append((i, loss, gnorm, lr, dt))
-        if i % 5 == 0 or i == steps - 1:
-            log(f"step {i:4d} loss {loss:.4f} gnorm {gnorm:.3f} "
-                f"p50 {monitor.percentile(0.5)*1e3:.0f} ms")
-        if saver and i and i % ckpt_every == 0:
-            saver.save(i, (params, opt_state))
-    if saver:
-        saver.save(steps - 1, (params, opt_state))
-        saver.wait()
-    return TrainRun(params, opt_state, start, history, monitor)
+    rules = (specs_mod.arch_rules(cfg, mesh, ShapeConfig("train", "train",
+                                                         seq, batch))
+             if mesh is not None else None)
+    with (partition.axis_rules(mesh, rules) if mesh is not None
+          else contextlib.nullcontext()):
+        layout = None
+        if mesh is not None:
+            lay = api.param_layout(cfg)
+            layout = partition.Layout(mesh, (lay.specs,
+                                             opt_mod.adamw_layout(lay).specs))
+        if params is None:
+            params = api.init(0, cfg, dev, n_shards=1, dtype="float32",
+                              layout=None if layout is None else
+                              partition.Layout(layout.mesh, layout.specs[0]))
+        opt_state = opt_mod.adamw_init(params)
+        start = 0
+        if ckpt_dir and C.latest_step(ckpt_dir) is not None:
+            (params, opt_state), last = C.restore(
+                ckpt_dir, (params, opt_state), device=dev, layout=layout)
+            start = last + 1
+            log(f"resumed from step {last}")
+        step_fn = steps_mod.make_train_step(cfg,
+                                            accum_steps=cfg.train_accum)
+        saver = C.AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
+        monitor = StragglerMonitor()
+        stream = synthetic_batches(cfg, batch, seq, steps, seed)
+        data = Prefetcher(itertools.islice(stream, start, None), depth=2)
+        history = []
+        for i, b in enumerate(data, start=start):
+            b = {k: v.to(dev) for k, v in b.items()}
+            t0 = time.perf_counter()
+            params, opt_state, m = step_fn(params, opt_state, b)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            dt = time.perf_counter() - t0
+            monitor.observe(dt)
+            loss, gnorm, lr = (float(m[k])
+                               for k in ("loss", "grad_norm", "lr"))
+            history.append((i, loss, gnorm, lr, dt))
+            if i % 5 == 0 or i == steps - 1:
+                log(f"step {i:4d} loss {loss:.4f} gnorm {gnorm:.3f} "
+                    f"p50 {monitor.percentile(0.5)*1e3:.0f} ms")
+            if saver and i and i % ckpt_every == 0:
+                saver.save(i, (params, opt_state), layout=layout)
+        if saver:
+            saver.save(steps - 1, (params, opt_state), layout=layout)
+            saver.wait()
+        return TrainRun(params, opt_state, start, history, monitor)
 
 
 def main(argv=None, params=None):
@@ -142,15 +170,29 @@ def main(argv=None, params=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.production_mesh:
-        raise NotImplementedError("--production-mesh: a mesh over several "
-                                  "devices waits for the launch tooling "
-                                  "(ROADMAP A14f)")
+        raise NotImplementedError("--production-mesh: the (16, 16) "
+                                  "production mesh waits for the launch "
+                                  "tooling (ROADMAP A14f)")
     spec = cb.get_arch(args.arch)
     cfg = spec.smoke() if args.smoke else spec.config
-    train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
-          ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-          device=args.device, params=params)
-    print("training done")
+    mesh, log = None, print
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:   # under torchrun
+        rank = int(os.environ["RANK"])
+        backend = "nccl" if args.device.startswith("cuda") else "gloo"
+        if backend == "nccl":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank)))
+        torch.distributed.init_process_group(backend, init_method="env://")
+        mesh = mesh_mod.make_host_mesh(model=1)
+        if rank:
+            log = lambda *a, **k: None  # noqa: E731
+    try:
+        train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
+              ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+              device=args.device, params=params, mesh=mesh, log=log)
+    finally:
+        if mesh is not None:
+            mesh_mod.destroy_model_group()
+    log("training done")
 
 
 if __name__ == "__main__":

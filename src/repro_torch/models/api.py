@@ -10,11 +10,23 @@ Batch dict convention:
   labels  (B, S) int            — training (-1 = masked position)
   frames  (B, S, d_frontend)    — audio stub (whisper)
   patches (B, n_front, d_front) — vision stub (llava), optional
+
+Over a mesh (``sharding/partition.py::axis_rules``) the transformer
+families (dense, moe, vlm) run tensor- and expert-parallel with no new
+argument: each member holds the blocks :func:`param_layout` gives it, from
+:func:`init` with a ``layout`` or from :func:`shard_params` of a whole
+tree.  The other families keep every leaf whole on every member and run
+replicated (ROADMAP A14d-2).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import moe as M
 from repro_torch.models import rwkv6, transformer, whisper, zamba2
+from repro_torch.sharding import partition
+from repro_torch.sharding import tp as TP
 
 # families the port does not run yet, each with its ROADMAP item: none
 UNPORTED: dict[str, str] = {}
@@ -30,22 +42,115 @@ def check_ported(cfg: ModelConfig) -> None:
                                   f"not ported yet ({UNPORTED[cfg.family]})")
 
 
+TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
+
+
 def init(seed: int, cfg: ModelConfig, device="cuda", n_shards: int = 16,
-         dtype=None):
+         dtype=None, layout: Optional[partition.Layout] = None):
     """``n_shards`` pads the MoE family's routed experts, as the
-    reference's ``init`` does.  Leaves are drawn in f32 and kept in
-    ``cfg.dtype``, or in ``dtype`` ("float32": the training masters, the
-    reference's ``init`` leaves)."""
+    reference's ``init`` does (over a mesh: the model axis or a multiple
+    of it).  Leaves are drawn in f32 and kept in ``cfg.dtype``, or in
+    ``dtype`` ("float32": the training masters, the reference's ``init``
+    leaves).  With ``layout`` (:func:`param_layout`) each member keeps its
+    block of the same draws."""
     check_ported(cfg)
     if dtype is not None:
         cfg = cfg.replace(dtype=dtype)
+    if layout is not None and cfg.moe is not None:
+        e_pad = M.padded_experts(cfg.moe, n_shards)
+        if e_pad % layout.mesh.shape["model"]:
+            raise ValueError(f"{e_pad} padded experts (n_shards {n_shards}) "
+                             f"do not split over {layout.mesh.shape['model']}"
+                             " members")
     if cfg.family == "ssm":
-        return rwkv6.init_rwkv6(seed, cfg, device)
+        p = rwkv6.init_rwkv6(seed, cfg, device)
+    elif cfg.family == "hybrid":
+        p = zamba2.init_zamba2(seed, cfg, device)
+    elif cfg.family == "audio":
+        p = whisper.init_whisper(seed, cfg, device)
+    else:
+        return transformer.init_lm(seed, cfg, device, n_shards,
+                                   layout=layout)
+    return p if layout is None else partition.shard_tree(p, layout)
+
+
+def specs(cfg: ModelConfig):
+    """The reference's tree of logical axes for :func:`init`'s tree."""
+    if cfg.family == "ssm":
+        return rwkv6.rwkv6_specs(cfg)
     if cfg.family == "hybrid":
-        return zamba2.init_zamba2(seed, cfg, device)
+        return zamba2.zamba2_specs(cfg)
     if cfg.family == "audio":
-        return whisper.init_whisper(seed, cfg, device)
-    return transformer.init_lm(seed, cfg, device, n_shards)
+        return whisper.whisper_specs(cfg)
+    return transformer.lm_specs(cfg)
+
+
+def cache_specs(cfg: ModelConfig):
+    if cfg.family == "ssm":
+        return rwkv6.state_specs(cfg)
+    if cfg.family == "hybrid":
+        return zamba2.cache_specs(cfg)
+    if cfg.family == "audio":
+        return whisper.cache_specs(cfg)
+    return transformer.cache_specs(cfg)
+
+
+def batch_spec_axes(cfg: ModelConfig, kind: str) -> dict:
+    """Logical axes for each batch entry (see sharding/partition.py)."""
+    out = {"tokens": ("batch", "seq")}
+    if kind == "train":
+        out["labels"] = ("batch", "seq")
+    if cfg.family == "audio":
+        out["frames"] = ("batch", "seq", None)
+    if cfg.frontend == "vision_patches" and kind != "decode":
+        out["patches"] = ("batch", None, None)
+    return out
+
+
+def _cut(cfg: ModelConfig, tp, path: tuple) -> bool:
+    """Whether the port cuts the leaf at ``path`` over the model axis (the
+    rules' choice, narrowed by ``tp``: whole heads, even blocks)."""
+    if tp is None or cfg.family not in TRANSFORMER_FAMILIES:
+        return False
+    if "attn" in path:
+        leaf = path[path.index("attn") + 1]
+        return {"wq": tp.heads, "wo": tp.heads,
+                "wk": tp.kv == "cut", "wv": tp.kv == "cut"}.get(leaf, False)
+    if "ffn" in path:
+        if cfg.moe is None:
+            return tp.mlp
+        if "shared" in path:
+            return tp.shared_mlp
+        return path[-1] in ("gate", "up", "down") and tp.experts
+    return {"embed": tp.emb_vocab, "head": tp.vocab}.get(path[0], False)
+
+
+def param_layout(cfg: ModelConfig, mesh=None,
+                 rules: Optional[dict] = None) -> partition.Layout:
+    """Where each parameter lives over ``mesh`` under ``rules`` (default:
+    the ambient ones).  The rules resolve every leaf as the reference's
+    ``tree_shardings`` does (``partition.tree_layout``); the port keeps
+    only the ``model`` axis (parameters are whole on every data member:
+    no FSDP) and cuts a leaf only where :func:`sharding.tp.plan` runs it
+    cut: whole query heads, KV heads whole or replicated, even blocks.
+    The families other than the transformer's keep every leaf whole."""
+    mesh = mesh if mesh is not None else partition.current_mesh()
+    base = partition.tree_layout(specs(cfg), mesh, rules)
+    tp = TP.plan(cfg, mesh, rules)
+
+    def narrow(path, spec):
+        cut = _cut(cfg, tp, path)
+        return tuple("model" if cut and "model" in partition._axes(e)
+                     else None for e in spec)
+
+    return partition.Layout(mesh, partition.map_specs(narrow, base.specs))
+
+
+def shard_params(params, cfg: ModelConfig, mesh=None,
+                 rules: Optional[dict] = None):
+    """This member's blocks of a whole parameter tree (``init``'s, or the
+    reference's through ``params_from_jax``)."""
+    return partition.shard_tree(params, param_layout(cfg, mesh, rules))
 
 
 def forward(params, cfg: ModelConfig, batch: dict, *, remat: bool = True,

@@ -16,6 +16,13 @@ probabilities chunk by chunk in plain PyTorch.  One-token decode
 (:func:`decode_step`) and the cross attention (:func:`attend_cross`) stay
 plain PyTorch, as the reference computes both with ``_sdpa`` outside any
 kernel.
+
+Over a model axis (``tp``, a ``sharding/tp.py::Plan`` with ``heads``) each
+member projects its H / n query heads and their KV heads (Kh / n of them,
+or, where Kh does not divide, the one KV head its query heads share,
+projected from the whole ``wk``/``wv``), attends at those local head counts
+(the flash kernel runs at the member's shapes), keeps a cache of its local
+KV heads, and one ``all_reduce`` sums the row-parallel ``wo`` products.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.sharding import tp as TP
 
 NEG_INF = -2.3819763e38  # most-negative bf16-representable
 
@@ -46,15 +54,53 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, device):
     return p
 
 
-def _project_qkv(params, cfg: ModelConfig, x, positions):
-    b, s, _ = x.shape
-    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = L.dense(params["wq"], x).reshape(b, s, h, hd)
-    k = L.dense(params["wk"], x).reshape(b, s, kh, hd)
-    v = L.dense(params["wv"], x).reshape(b, s, kh, hd)
+def attention_specs(cfg: ModelConfig):
+    p = {
+        "wq": L.dense_specs("embed", "heads", bias=cfg.qkv_bias),
+        "wk": L.dense_specs("embed", "heads", bias=cfg.qkv_bias),
+        "wv": L.dense_specs("embed", "heads", bias=cfg.qkv_bias),
+        "wo": L.dense_specs("heads", "embed"),
+    }
     if cfg.qk_norm:
-        q = L.rmsnorm(params["q_norm"], q, cfg.norm_eps)
-        k = L.rmsnorm(params["k_norm"], k, cfg.norm_eps)
+        p["q_norm"] = {"scale": ("head_dim",)}
+        p["k_norm"] = {"scale": ("head_dim",)}
+    return p
+
+
+def head_group(tp):
+    """The model group when the heads are cut over it, else None."""
+    return tp.group if tp is not None and tp.heads else None
+
+
+def _shared(p: dict, group) -> dict:
+    """A replicated leaf dict used inside the head-parallel region: its
+    gradient is summed over the members."""
+    return {k: TP.copy_to(v, group) for k, v in p.items()}
+
+
+def _kv_heads(p: dict, tp, hd: int, group) -> dict:
+    """The columns of a whole ``wk``/``wv`` that project the KV heads this
+    member's query heads use ("select")."""
+    if tp is None or tp.kv != "select":
+        return p
+    sl = slice(tp.kv_lo * hd, (tp.kv_lo + tp.kv_n) * hd)
+    p = _shared(p, group)
+    return {k: v[..., sl] for k, v in p.items()}
+
+
+def _project_qkv(params, cfg: ModelConfig, x, positions, tp=None):
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    group = head_group(tp)
+    x = TP.copy_to(x, group)
+    q = L.dense(params["wq"], x).reshape(b, s, -1, hd)
+    k = L.dense(_kv_heads(params["wk"], tp, hd, group), x).reshape(b, s, -1,
+                                                                   hd)
+    v = L.dense(_kv_heads(params["wv"], tp, hd, group), x).reshape(b, s, -1,
+                                                                   hd)
+    if cfg.qk_norm:
+        q = L.rmsnorm(_shared(params["q_norm"], group), q, cfg.norm_eps)
+        k = L.rmsnorm(_shared(params["k_norm"], group), k, cfg.norm_eps)
     if cfg.rope_style != "none":
         q = L.apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction,
                          cfg.rope_style)
@@ -93,7 +139,7 @@ def causal_mask(s: int, t: int, window: int = 0, offset: int = 0,
 
 def attend_full(params, cfg: ModelConfig, x, *, window: int = 0,
                 positions=None, causal: bool = True,
-                attn_impl: str = "auto"):
+                attn_impl: str = "auto", tp=None):
     """Self-attention over the whole sequence (prefill, and whisper's
     encoder with ``causal=False``) -> (out (B,S,D), (k, v)).
     ``positions`` (broadcastable to (B, S)) default to 0..S-1: a VLM's
@@ -101,12 +147,12 @@ def attend_full(params, cfg: ModelConfig, x, *, window: int = 0,
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
-    q, k, v = _project_qkv(params, cfg, x, positions)
+    q, k, v = _project_qkv(params, cfg, x, positions, tp)
     out = ops.flash_attention_op(q, k, v, causal=causal, window=window,
                                  softcap=cfg.attn_logit_softcap,
                                  impl=attn_impl)
     out = L.dense(params["wo"], out.reshape(b, s, -1))
-    return out, (k, v)
+    return TP.reduce_from(out, head_group(tp)), (k, v)
 
 
 def attend_cross(params, cfg: ModelConfig, x, enc_k, enc_v):
@@ -121,7 +167,7 @@ def attend_cross(params, cfg: ModelConfig, x, enc_k, enc_v):
 
 
 def decode_step(params, cfg: ModelConfig, x, cache_k, cache_v, pos: int, *,
-                window: int = 0):
+                window: int = 0, tp=None):
     """One-token decode.  x:(B,1,D); cache:(B,Smax,Kh,D); pos: the slot the
     new token occupies (all sequences aligned).  Writes the new k, v into
     the cache in place (the reference returns updated copies; in place
@@ -131,10 +177,11 @@ def decode_step(params, cfg: ModelConfig, x, cache_k, cache_v, pos: int, *,
     rope position and the mask keep the true ``pos``."""
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                            device=x.device)
-    q, k, v = _project_qkv(params, cfg, x, positions)
+    q, k, v = _project_qkv(params, cfg, x, positions, tp)
     slot = min(pos, cache_k.shape[1] - 1)
     cache_k[:, slot] = k[:, 0]
     cache_v[:, slot] = v[:, 0]
     m = causal_mask(1, cache_k.shape[1], window, offset=pos, device=x.device)
     out = _sdpa(cfg, q, cache_k, cache_v, m)
-    return L.dense(params["wo"], out), (cache_k, cache_v)
+    return TP.reduce_from(L.dense(params["wo"], out), head_group(tp)), \
+        (cache_k, cache_v)

@@ -8,13 +8,25 @@ Parameters keep the reference's layouts (``{"kernel": (d_in, d_out),
 so converting a reference parameter is a plain copy.  Each ``init_*``
 draws from a ``torch.Generator``: the reference's distributions, other
 draws.
+Each ``*_specs`` returns the reference's tree of logical axes for the
+matching ``init_*`` (``sharding/partition.py`` resolves them).
+
+Tensor parallelism (``sharding/tp.py``): given a model ``group``, the GLU
+MLP holds this member's columns of ``gate``/``up`` and rows of ``down`` and
+sums the members' outputs; the embedding holds this member's rows of the
+vocab (a token outside them looks up zeros, and the sum over the group
+leaves the one non-zero row); the LM heads hold its vocab columns and
+all-gather the logits.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from repro_torch.sharding import partition, tp
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -44,6 +56,18 @@ def init_dense(gen: torch.Generator, d_in: int, d_out: int, dtype: str,
     return p
 
 
+def dense_specs(in_ax, out_ax, bias: bool = False):
+    p = {"kernel": (in_ax, out_ax)}
+    if bias:
+        p["bias"] = (out_ax,)
+    return p
+
+
+def stack_specs(tree, *axes):
+    """``axes`` prepended to every leaf of a spec tree (stacked layers)."""
+    return partition.map_specs(lambda _, t: tuple(axes) + t, tree)
+
+
 def dense(params, x):
     y = x @ params["kernel"]
     if "bias" in params:
@@ -61,6 +85,10 @@ def init_rmsnorm(dim: int, dtype: str, device, plus_one: bool = False):
     ``plus_one``, ones without."""
     fill = torch.zeros if plus_one else torch.ones
     return {"scale": fill((dim,), dtype=dtype_of(dtype), device=device)}
+
+
+def rmsnorm_specs():
+    return {"scale": ("embed",)}
 
 
 def _rmsnorm(scale, x, eps: float, plus_one: bool):
@@ -113,6 +141,10 @@ def init_layernorm(dim: int, dtype: str, device):
             "bias": torch.zeros((dim,), dtype=dtype_of(dtype), device=device)}
 
 
+def layernorm_specs():
+    return {"scale": ("embed",), "bias": ("embed",)}
+
+
 def layernorm(params, x, eps: float = 1e-5):
     """f32 inside with the population variance (``jnp.var``; torch's
     default would be the sample variance), cast back to x's type."""
@@ -159,9 +191,18 @@ def init_glu_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype: str,
     }
 
 
-def glu_mlp(params, x, act: str = "silu"):
+def glu_mlp_specs():
+    return {"gate": ("embed", "mlp"), "up": ("embed", "mlp"),
+            "down": ("mlp", "embed")}
+
+
+def glu_mlp(params, x, act: str = "silu", group=None):
+    """With ``group`` the parameters are this member's block of the hidden
+    width (column-parallel ``gate``/``up``, row-parallel ``down``) and one
+    ``all_reduce`` sums the members' outputs."""
+    x = tp.copy_to(x, group)
     h = activation(act)(x @ params["gate"]) * (x @ params["up"])
-    return h @ params["down"]
+    return tp.reduce_from(h @ params["down"], group)
 
 
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype: str,
@@ -171,6 +212,11 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype: str,
     return {"fc1": init_dense(gen, d_model, d_ff, dtype, device, bias=bias),
             "fc2": init_dense(gen, d_ff, d_model, dtype, device, bias=bias,
                               scale=d_ff ** -0.5)}
+
+
+def mlp_specs(bias: bool = True):
+    return {"fc1": dense_specs("embed", "mlp", bias=bias),
+            "fc2": dense_specs("mlp", "embed", bias=bias)}
 
 
 def mlp(params, x, act: str = "gelu"):
@@ -224,10 +270,26 @@ def init_embedding(gen: torch.Generator, vocab: int, d_model: int,
                                       dtype_of(dtype), device)}
 
 
-def embed_tokens(params, tokens, scale: Optional[float] = None):
+def embedding_specs():
+    # own logical axes: training of untied archs shards columns (local
+    # gather); serving + tied archs shard rows like the LM head
+    return {"table": ("emb_vocab", "emb_col")}
+
+
+def embed_tokens(params, tokens, scale: Optional[float] = None, group=None):
     """Rows of the table; the ``scale`` multiply is in f32.  An id outside
-    [0, vocab) raises (JAX would clamp it)."""
-    out = params["table"][tokens]
+    [0, vocab) raises (JAX would clamp it).  With ``group`` the table is
+    this member's block of rows: ids outside it look up zeros and one
+    ``all_reduce`` over the group leaves the one non-zero term (exact); an
+    id outside the whole vocab gives zeros there."""
+    if group is not None:
+        rows = params["table"].shape[0]
+        local = tokens - dist.get_rank(group) * rows
+        hit = (local >= 0) & (local < rows)
+        out = params["table"][local.clamp(0, rows - 1)]
+        out = tp.reduce_from(torch.where(hit[..., None], out, 0), group)
+    else:
+        out = params["table"][tokens]
     if scale is not None:
         out = (out.float() * scale).to(out.dtype)
     return out
@@ -240,9 +302,18 @@ def init_lm_head(gen: torch.Generator, d_model: int, vocab: int, dtype: str,
                                        device)}
 
 
-def lm_head(params, x, cap: float = 0.0):
-    return softcap(x @ params["kernel"], cap)
+def lm_head_specs():
+    return {"kernel": ("embed", "vocab")}
 
 
-def tied_lm_head(embed_params, x, cap: float = 0.0):
-    return softcap(x @ embed_params["table"].T, cap)
+def lm_head(params, x, cap: float = 0.0, group=None):
+    """With ``group`` the kernel is this member's vocab columns and the
+    logits are all-gathered along the vocab (the softcap is elementwise)."""
+    x = tp.copy_to(x, group)
+    return tp.gather_from(softcap(x @ params["kernel"], cap), group)
+
+
+def tied_lm_head(embed_params, x, cap: float = 0.0, group=None):
+    """As :func:`lm_head` over the embedding's (block of) rows."""
+    x = tp.copy_to(x, group)
+    return tp.gather_from(softcap(x @ embed_params["table"].T, cap), group)

@@ -39,6 +39,20 @@ def dims(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
+def mamba2_specs(cfg: ModelConfig):
+    return {
+        "norm": L.rmsnorm_specs(),
+        "in_proj": L.dense_specs("embed", "heads"),
+        "conv_w": (None, "heads"),
+        "conv_b": ("heads",),
+        "A_log": ("heads",),
+        "dt_bias": ("heads",),
+        "D": ("heads",),
+        "gate_norm": {"scale": ("heads",)},
+        "out_proj": L.dense_specs("heads", "embed"),
+    }
+
+
 def init_mamba2(gen: torch.Generator, cfg: ModelConfig, device):
     """One layer's leaves in ``cfg.dtype``, with the reference's
     distributions (each drawn in f32 and cast)."""

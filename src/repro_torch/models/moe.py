@@ -31,6 +31,14 @@ card, where ``index_add_`` of floats is not).
 
 Both modes are held against :func:`moe_ref_dense` (every token through its
 experts, no capacity drop).
+
+Inside the model over a mesh (:func:`moe_members`, which the transformer
+calls with a ``sharding/tp.py::Plan``) each member holds only its
+block of the routed experts (and of the shared experts' hidden width), as
+the reference's ``P("model", ...)`` in-specs give each device: ``gather``
+sums its experts' outputs and its part of the shared experts in one
+``all_reduce``; ``a2a`` takes its ``S / n`` slice of the sequence, exchanges
+it, and ``all_gather``s the sequence back.
 """
 from __future__ import annotations
 
@@ -42,6 +50,7 @@ import torch.distributed as dist
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.core.bls import Issued
 from repro_torch.models import layers as L
+from repro_torch.sharding import tp as TP
 
 # ---------------------------------------------------------------------------
 # params
@@ -74,6 +83,19 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, device,
         fs = moe.n_shared_experts * moe.d_shared_expert
         p["shared"] = L.init_glu_mlp(gen, d, fs, cfg.dtype, device)
         p["shared_gate"] = L.init_dense(gen, d, 1, cfg.dtype, device)
+    return p
+
+
+def moe_specs(cfg: ModelConfig):
+    p = {
+        "router": ("embed", None),
+        "gate": ("experts", "embed", "expert_mlp"),
+        "up": ("experts", "embed", "expert_mlp"),
+        "down": ("experts", "expert_mlp", "embed"),
+    }
+    if cfg.moe.n_shared_experts:
+        p["shared"] = L.glu_mlp_specs()
+        p["shared_gate"] = L.dense_specs("embed", None)
     return p
 
 
@@ -160,9 +182,18 @@ def _combine(y, order, t: int, k: int):
 def _moe_local(params, x, moe: MoEConfig, act: str, e_pad: int, cap: int,
                expert_offset: int = 0, n_local: Optional[int] = None):
     """Single-shard MoE over x:(T,D) for experts [offset, offset+n_local)."""
-    n_local = n_local if n_local is not None else e_pad
-    t, k = x.shape[0], moe.experts_per_token
     w, idx, probs = route(params["router"], x, moe, e_pad)
+    return _experts_combine(params, x, w, idx, act, cap, expert_offset,
+                            n_local if n_local is not None else e_pad), \
+        (probs, idx)
+
+
+def _experts_combine(params, x, w, idx, act: str, cap: int,
+                     expert_offset: int, n_local: int):
+    """The routed slots of x:(T,D) (weights w, experts idx (T,k)) that fall
+    on experts [offset, offset+n_local), through those experts and
+    combined per token -> (T,D)."""
+    t, k = idx.shape
     fe, ft, pos, valid, order = dispatch_indices(idx - expert_offset,
                                                  n_local, cap)
     fw = w.reshape(-1)[order]
@@ -170,7 +201,7 @@ def _moe_local(params, x, moe: MoEConfig, act: str, e_pad: int, cap: int,
     out_buf = _expert_mlp(params, buf, act)
     y = out_buf[torch.clamp(fe, 0, n_local - 1), torch.clamp(pos, 0, cap - 1)]
     y = y * (fw * valid)[:, None].to(y.dtype)
-    return _combine(y, order, t, k), (probs, idx)
+    return _combine(y, order, t, k)
 
 
 def _local_experts(params, m: int, e_loc: int):
@@ -214,10 +245,12 @@ def moe_gather(params, cfg: ModelConfig, x, group=None):
     return _add_shared(params, cfg, x, out.reshape(b, s, d)), aux
 
 
-def _add_shared(params, cfg: ModelConfig, x, routed):
+def _add_shared(params, cfg: ModelConfig, x, routed, group=None):
+    """routed + the gated shared experts (with ``group``: this member's
+    part of their hidden width, summed over the group)."""
     if not cfg.moe.n_shared_experts:
         return routed
-    shared = L.glu_mlp(params["shared"], x, cfg.act)
+    shared = L.glu_mlp(params["shared"], x, cfg.act, group)
     g = torch.sigmoid(L.dense(params["shared_gate"], x).float())
     return routed + (shared.float() * g).to(routed.dtype)
 
@@ -338,6 +371,65 @@ def moe_ffn(params, cfg: ModelConfig, x, group=None):
     if cfg.moe.dispatch == "a2a":
         return moe_a2a(params, cfg, x, group)
     return moe_gather(params, cfg, x, group)
+
+
+def moe_members(params, cfg: ModelConfig, x, tp):
+    """x:(B,S,D), the same on every member of the model axis -> (the same
+    out on every member, aux), with this member's block of the routed
+    experts (E_pad / n from ``tp.m`` · E_pad / n) and of the shared
+    experts' hidden width.
+
+    ``gather``: route every token, run the local experts and the local part
+    of the shared experts, one ``all_reduce`` sums the members' parts.
+    ``a2a``: this member's S / n slice of the sequence through the
+    exchange of :func:`moe_a2a`, one ``all_gather`` of the slices; the
+    shared experts as a column/row-parallel MLP.  The a2a exchange is not
+    differentiable: under autograd it raises, as it does where S does not
+    split into n slices (decode: S = 1)."""
+    moe = cfg.moe
+    if not tp.experts:
+        raise ValueError(f"{cfg.name}: the rules leave the routed experts "
+                         "whole on a model axis of "
+                         f"{tp.n} members; the port cuts them")
+    b, s, d = x.shape
+    n, m, group = tp.n, tp.m, tp.group
+    e_loc = params["gate"].shape[0]
+    e_pad = e_loc * n
+    xl = x.reshape(b * s, d)
+    shared_group = group if tp.shared_mlp else None
+    if moe.dispatch == "a2a":
+        if s % n:
+            raise ValueError(f"moe a2a over {n} members needs the sequence "
+                             f"to split into {n} slices: S = {s}, P = {n}")
+        if torch.is_grad_enabled() and (x.requires_grad or
+                                        params["gate"].requires_grad):
+            raise NotImplementedError("moe a2a over members is not "
+                                      "differentiable; train with 'gather'")
+        xs = x[:, m * (s // n):(m + 1) * (s // n)].reshape(-1, d)
+        c_send, c_exp = a2a_capacities(xs.shape[0], moe, n, e_pad)
+        payload, side = a2a_stage_a(params["router"], xs, moe, e_pad, n,
+                                    c_send)
+        recv = a2a_dispatch(payload, group).wait()
+        out = a2a_stage_b({k: params[k] for k in ("gate", "up", "down")},
+                          cfg.act, recv, side, group, c_exp)
+        routed = TP.gather_from(out.view(b, s // n, d), group, dim=1)
+        probs, idx = side[-2:]
+        return _add_shared(params, cfg, x, routed, shared_group), \
+            load_balance_loss(probs, idx, moe.n_experts)
+    cap = capacity(b * s, moe.experts_per_token, e_pad, moe.capacity_factor)
+    w, idx, probs = route(params["router"], xl, moe, e_pad)
+    xe = TP.copy_to(xl, group)
+    out = _experts_combine(params, xe, TP.copy_to(w, group), idx, cfg.act,
+                           cap, m * e_loc, e_loc).view(b, s, d)
+    aux = load_balance_loss(probs, idx, moe.n_experts)
+    if moe.n_shared_experts and shared_group is not None:
+        # the local part of the shared experts joins the routed sum
+        shared = L.glu_mlp(params["shared"], xe.view(b, s, d), cfg.act)
+        g = torch.sigmoid(L.dense(params["shared_gate"], x).float())
+        out = out + (shared.float() * TP.copy_to(g, group)).to(out.dtype)
+        return TP.reduce_from(out, group), aux
+    out = TP.reduce_from(out, group)
+    return _add_shared(params, cfg, x, out), aux
 
 
 # ---------------------------------------------------------------------------

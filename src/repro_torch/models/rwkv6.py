@@ -84,6 +84,41 @@ def _init_layer(gen, cfg: ModelConfig, dev):
     }
 
 
+def _layer_specs(cfg: ModelConfig):
+    dd = L.dense_specs("embed", "heads")
+    return {
+        "ln1": L.layernorm_specs(), "ln2": L.layernorm_specs(),
+        "maa_x": ("embed",), "maa_rkvwg": (None, "embed"),
+        "maa_A": ("embed", None), "maa_B": (None, None, "embed"),
+        "time_decay": ("embed",), "decay_A": ("embed", None),
+        "decay_B": (None, "embed"), "time_faaaa": ("heads", None),
+        "wr": dd, "wk": dd, "wv": dd, "wg": dd,
+        "wo": L.dense_specs("heads", "embed"),
+        "ln_x": L.layernorm_specs(),
+        "cm_maa_k": ("embed",), "cm_maa_r": ("embed",),
+        "cm_k": L.dense_specs("embed", "mlp"),
+        "cm_v": L.dense_specs("mlp", "embed"),
+        "cm_r": L.dense_specs("embed", "heads"),
+    }
+
+
+def rwkv6_specs(cfg: ModelConfig):
+    return {
+        "embed": L.embedding_specs(),
+        "ln0": L.layernorm_specs(),
+        "layers": L.stack_specs(_layer_specs(cfg), "layers"),
+        "final_norm": L.layernorm_specs(),
+        "head": L.lm_head_specs(),
+    }
+
+
+def state_specs(cfg: ModelConfig):
+    return {"tm_shift": (None, "batch", None, "embed"),
+            "cm_shift": (None, "batch", None, "embed"),
+            "wkv": (None, "batch", "heads", None, None),
+            "pos": ()}
+
+
 def init_rwkv6(seed: int, cfg: ModelConfig, device="cuda"):
     """Random parameters in ``cfg.dtype`` from a ``torch.Generator`` seeded
     with ``seed``, on ``device``, with the reference's distributions and

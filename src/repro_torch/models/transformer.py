@@ -23,6 +23,15 @@ casts the layer stack to ``cfg.dtype`` once a call, so the gradients reach
 the masters through the cast, and each layer group runs under the
 reference's ``_remat`` policy (``cfg.remat``: "full", "dots" or "none").
 :func:`lm_loss` is the reference's token cross-entropy.
+
+Over a mesh (``sharding/partition.py::axis_rules``) the model reads the
+ambient mesh and rules where the reference calls ``constrain``: each
+member holds its block of every parameter (``api.param_layout``) and
+:func:`sharding.tp.plan` says which; attention, the MLP or MoE FFN, the
+embedding and the head issue their collectives over the model group, and
+the cache holds the member's KV heads.  No argument of the entry points
+changes.  The batch is the caller's: the forward runs the batch it is
+given, which a data member of a training step has already cut.
 """
 from __future__ import annotations
 
@@ -38,6 +47,8 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.sharding import partition
+from repro_torch.sharding import tp as TP
 
 # ---------------------------------------------------------------------------
 # layer pattern / grouping
@@ -94,6 +105,43 @@ def _init_sublayer(gen, cfg: ModelConfig, dev, n_shards: int):
     return p
 
 
+def _sublayer_specs(cfg: ModelConfig):
+    p = {
+        "ln1": L.rmsnorm_specs(),
+        "ln2": L.rmsnorm_specs(),
+        "attn": A.attention_specs(cfg),
+        "ffn": M.moe_specs(cfg) if cfg.moe is not None else L.glu_mlp_specs(),
+    }
+    if cfg.post_norms:
+        p["ln1_post"] = L.rmsnorm_specs()
+        p["ln2_post"] = L.rmsnorm_specs()
+    return p
+
+
+def lm_specs(cfg: ModelConfig):
+    pat = layer_pattern(cfg)
+    sub = _sublayer_specs(cfg)
+    # prepend the stacked "layers" axis to every per-layer leaf
+    stacked = L.stack_specs({f"sub{i}": sub for i in range(len(pat))},
+                            "layers")
+    p = {
+        "embed": L.embedding_specs(),
+        "layers": stacked,
+        "final_norm": L.rmsnorm_specs(),
+    }
+    if not cfg.tie_embeddings:
+        p["head"] = L.lm_head_specs()
+    if cfg.frontend != "none":
+        p["frontend_proj"] = L.dense_specs(None, "embed")
+    return p
+
+
+def cache_specs(cfg: ModelConfig):
+    return {"k": (None, None, "batch", "kv_seq", "kv_heads", None),
+            "v": (None, None, "batch", "kv_seq", "kv_heads", None),
+            "pos": ()}
+
+
 def _fill(dst, src, i: int) -> None:
     for k, v in src.items():
         if isinstance(v, dict):
@@ -115,13 +163,16 @@ def stack_draws(draw, n: int):
     return out
 
 
-def _init_stacked(gen, cfg: ModelConfig, dev, g: int, n_shards: int):
-    """``g`` sublayers stacked along a leading group axis."""
-    return stack_draws(lambda: _init_sublayer(gen, cfg, dev, n_shards), g)
+def _init_stacked(gen, cfg: ModelConfig, dev, g: int, n_shards: int,
+                  cut=lambda t: t):
+    """``g`` sublayers stacked along a leading group axis, each ``cut``
+    as it is drawn."""
+    return stack_draws(lambda: cut(_init_sublayer(gen, cfg, dev, n_shards)),
+                       g)
 
 
 def init_lm(seed: int, cfg: ModelConfig, device="cuda", n_shards: int = 16,
-            dtype: Optional[str] = None):
+            dtype: Optional[str] = None, layout=None):
     """Random parameters in ``cfg.dtype`` (or ``dtype``: "float32" gives
     the f32 training masters) from a ``torch.Generator`` seeded with
     ``seed``, on ``device``, with the reference's distributions and layout
@@ -134,17 +185,31 @@ def init_lm(seed: int, cfg: ModelConfig, device="cuda", n_shards: int = 16,
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     pat, g = layer_pattern(cfg), n_groups(cfg)
+
+    def cut(path, tree):
+        if layout is None:
+            return tree
+        specs = layout.specs
+        for k in path:
+            specs = specs[k]
+        if path[0] == "layers":   # drawn without the stacked axis
+            specs = partition.map_specs(lambda _, t: t[1:], specs)
+        return partition.shard_tree(tree, partition.Layout(layout.mesh,
+                                                           specs))
+
     p = {
-        "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model,
-                                  cfg.dtype, dev),
-        "layers": {f"sub{i}": _init_stacked(gen, cfg, dev, g, n_shards)
-                   for i in range(len(pat))},
+        "embed": cut(("embed",), L.init_embedding(
+            gen, cfg.vocab_size, cfg.d_model, cfg.dtype, dev)),
+        "layers": {f"sub{i}": _init_stacked(
+            gen, cfg, dev, g, n_shards,
+            functools.partial(cut, ("layers", f"sub{i}")))
+            for i in range(len(pat))},
         "final_norm": L.init_rmsnorm(cfg.d_model, cfg.dtype, dev,
                                      cfg.norm_plus_one),
     }
     if not cfg.tie_embeddings:
-        p["head"] = L.init_lm_head(gen, cfg.d_model, cfg.vocab_size,
-                                   cfg.dtype, dev)
+        p["head"] = cut(("head",), L.init_lm_head(
+            gen, cfg.d_model, cfg.vocab_size, cfg.dtype, dev))
     if cfg.frontend != "none":
         p["frontend_proj"] = L.init_dense(gen, cfg.d_frontend, cfg.d_model,
                                           cfg.dtype, dev)
@@ -182,28 +247,33 @@ def cast_params(tree, dtype: torch.dtype):
 # ---------------------------------------------------------------------------
 
 
-def _ffn(params, cfg: ModelConfig, h):
-    """-> (out, aux): the GLU MLP, or the MoE FFN and its balance loss.
-    The LM runs on one device: no process group reaches the MoE FFN."""
+def _ffn(params, cfg: ModelConfig, h, tp=None):
+    """-> (out, aux): the GLU MLP, or the MoE FFN and its balance loss;
+    over a mesh (``tp``) the MoE FFN runs ``moe.moe_members`` and the MLP
+    is column/row-parallel where its width is cut."""
     if cfg.moe is not None:
-        return M.moe_ffn(params, cfg, h)
-    return L.glu_mlp(params, h, cfg.act), h.new_zeros((), dtype=torch.float32)
+        if tp is None:
+            return M.moe_ffn(params, cfg, h)
+        return M.moe_members(params, cfg, h, tp)
+    group = tp.group if tp is not None and tp.mlp else None
+    return L.glu_mlp(params, h, cfg.act, group), \
+        h.new_zeros((), dtype=torch.float32)
 
 
 def block_full(params, cfg: ModelConfig, x, kind: str, *,
-               attn_impl: str = "auto"):
+               attn_impl: str = "auto", tp=None):
     """One sublayer over a full sequence (prefill).  Returns (x, aux_loss,
     (k, v)); k, v build the cache."""
     window = cfg.sliding_window if kind == "local" else 0
     h = L.rmsnorm(params["ln1"], x, cfg.norm_eps, cfg.norm_plus_one)
     attn, kv = A.attend_full(params["attn"], cfg, h, window=window,
-                             attn_impl=attn_impl)
+                             attn_impl=attn_impl, tp=tp)
     if cfg.post_norms:
         attn = L.rmsnorm(params["ln1_post"], attn, cfg.norm_eps,
                          cfg.norm_plus_one)
     x = x + attn
     h = L.rmsnorm(params["ln2"], x, cfg.norm_eps, cfg.norm_plus_one)
-    ffn, aux = _ffn(params["ffn"], cfg, h)
+    ffn, aux = _ffn(params["ffn"], cfg, h, tp)
     if cfg.post_norms:
         ffn = L.rmsnorm(params["ln2_post"], ffn, cfg.norm_eps,
                         cfg.norm_plus_one)
@@ -211,17 +281,17 @@ def block_full(params, cfg: ModelConfig, x, kind: str, *,
 
 
 def block_decode(params, cfg: ModelConfig, x, kind: str, cache_k, cache_v,
-                 pos: int):
+                 pos: int, tp=None):
     window = cfg.sliding_window if kind == "local" else 0
     h = L.rmsnorm(params["ln1"], x, cfg.norm_eps, cfg.norm_plus_one)
     attn, (ck, cv) = A.decode_step(params["attn"], cfg, h, cache_k, cache_v,
-                                   pos, window=window)
+                                   pos, window=window, tp=tp)
     if cfg.post_norms:
         attn = L.rmsnorm(params["ln1_post"], attn, cfg.norm_eps,
                          cfg.norm_plus_one)
     x = x + attn
     h = L.rmsnorm(params["ln2"], x, cfg.norm_eps, cfg.norm_plus_one)
-    ffn, aux = _ffn(params["ffn"], cfg, h)
+    ffn, aux = _ffn(params["ffn"], cfg, h, tp)
     if cfg.post_norms:
         ffn = L.rmsnorm(params["ln2_post"], ffn, cfg.norm_eps,
                         cfg.norm_plus_one)
@@ -233,23 +303,28 @@ def block_decode(params, cfg: ModelConfig, x, kind: str, cache_k, cache_v,
 # ---------------------------------------------------------------------------
 
 
-def embed_inputs(params, cfg: ModelConfig, tokens, frontend_embeds=None):
+def embed_inputs(params, cfg: ModelConfig, tokens, frontend_embeds=None,
+                 tp=None):
     """Token embeddings (B, S, D); with ``frontend_embeds`` (B, N,
     d_frontend), their projection (in the compute type) ahead of them ->
     (B, N + S, D)."""
     scale = cfg.d_model ** 0.5 if cfg.scale_embeds else None
-    x = L.embed_tokens(params["embed"], tokens, scale)
+    group = tp.group if tp is not None and tp.emb_vocab else None
+    x = L.embed_tokens(params["embed"], tokens, scale, group)
     if frontend_embeds is not None:
         fe = L.dense(params["frontend_proj"], frontend_embeds.to(x.dtype))
         x = torch.cat([fe, x], dim=1)
     return x
 
 
-def logits_out(params, cfg: ModelConfig, x):
+def logits_out(params, cfg: ModelConfig, x, tp=None):
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps, cfg.norm_plus_one)
     if cfg.tie_embeddings:
-        return L.tied_lm_head(params["embed"], x, cfg.final_logit_softcap)
-    return L.lm_head(params["head"], x, cfg.final_logit_softcap)
+        group = tp.group if tp is not None and tp.emb_vocab else None
+        return L.tied_lm_head(params["embed"], x, cfg.final_logit_softcap,
+                              group)
+    group = tp.group if tp is not None and tp.vocab else None
+    return L.lm_head(params["head"], x, cfg.final_logit_softcap, group)
 
 
 # ---------------------------------------------------------------------------
@@ -309,12 +384,13 @@ def _forward(params, cfg: ModelConfig, tokens, frontend_embeds, *,
     max(pad_to or S, S), Kh, hd) cache, zero past the sequence.  With
     ``remat`` each group runs under :func:`_remat`."""
     pat = layer_pattern(cfg)
+    tp = TP.plan(cfg)
     cdt = L.dtype_of(cfg.dtype)
     pc = cast_params({k: v for k, v in params.items() if k != "layers"}, cdt)
     # the stack is cast once a call (the f32 masters' gradients flow back
     # through the cast), then split into groups of views
     groups = unbind_groups(cast_params(params["layers"], cdt), n_groups(cfg))
-    x = embed_inputs(pc, cfg, tokens, frontend_embeds)
+    x = embed_inputs(pc, cfg, tokens, frontend_embeds, tp)
     b, s, _ = x.shape
     cache = make_cache(cfg, b, max(pad_to or s, s), device=x.device) \
         if collect_cache else None
@@ -323,7 +399,7 @@ def _forward(params, cfg: ModelConfig, tokens, frontend_embeds, *,
         aux, kvs = x.new_zeros((), dtype=torch.float32), []
         for i, kind in enumerate(pat):
             x, a, kv = block_full(gp[f"sub{i}"], cfg, x, kind,
-                                  attn_impl=attn_impl)
+                                  attn_impl=attn_impl, tp=tp)
             aux = aux + a
             kvs.append(kv)
         return x, aux, kvs
@@ -338,7 +414,7 @@ def _forward(params, cfg: ModelConfig, tokens, frontend_embeds, *,
                 cache["k"][gi, i, :, :s] = k
                 cache["v"][gi, i, :, :s] = v
         del kvs
-    logits = logits_out(pc, cfg, x[:, -1:] if last_only else x)
+    logits = logits_out(pc, cfg, x[:, -1:] if last_only else x, tp)
     return logits, aux, cache
 
 
@@ -377,11 +453,14 @@ def prefill(params, cfg: ModelConfig, tokens, frontend_embeds=None,
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device="cuda"):
     """Zero cache {"k", "v": (groups, group, batch, max_len, Kh, hd),
-    "pos": 0}; ``pos`` is a host int."""
+    "pos": 0}; ``pos`` is a host int.  Over a mesh Kh is this member's KV
+    heads."""
     dev = resolve_device(device)
     dt = L.dtype_of(dtype or cfg.dtype)
+    tp = TP.plan(cfg)
+    kh = tp.kv_n if tp is not None and tp.heads else cfg.n_kv_heads
     shape = (n_groups(cfg), len(layer_pattern(cfg)), batch, max_len,
-             cfg.n_kv_heads, cfg.head_dim)
+             kh, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dt, device=dev),
             "v": torch.zeros(shape, dtype=dt, device=dev), "pos": 0}
 
@@ -402,17 +481,18 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, *,
     if attn_impl not in ops.IMPLS:
         raise ValueError(f"unknown attn_impl {attn_impl!r}; have {ops.IMPLS}")
     pat = layer_pattern(cfg)
+    tp = TP.plan(cfg)
     cdt = L.dtype_of(cfg.dtype)
     pc = cast_params({k: v for k, v in params.items() if k != "layers"}, cdt)
     layers = cast_params(params["layers"], cdt)
     pos = cache["pos"]
-    x = embed_inputs(pc, cfg, tokens)
+    x = embed_inputs(pc, cfg, tokens, tp=tp)
     for gi in range(n_groups(cfg)):
         for i, kind in enumerate(pat):
             sub = _map(lambda a: a[gi], layers[f"sub{i}"])
             x, _, _ = block_decode(sub, cfg, x, kind, cache["k"][gi, i],
-                                   cache["v"][gi, i], pos)
-    logits = logits_out(pc, cfg, x)
+                                   cache["v"][gi, i], pos, tp)
+    logits = logits_out(pc, cfg, x, tp)
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
 
 

@@ -67,6 +67,29 @@ def _init_dec_layer(gen, cfg: ModelConfig, dev):
     }
 
 
+def whisper_specs(cfg: ModelConfig):
+    attn = A.attention_specs(cfg)
+    enc = {"ln1": L.layernorm_specs(), "ln2": L.layernorm_specs(),
+           "attn": attn, "mlp": L.mlp_specs()}
+    dec = {"ln1": L.layernorm_specs(), "ln_c": L.layernorm_specs(),
+           "ln2": L.layernorm_specs(), "attn": attn, "cross": attn,
+           "mlp": L.mlp_specs()}
+    return {
+        "frontend_proj": L.dense_specs(None, "embed", bias=True),
+        "enc_layers": L.stack_specs(enc, "layers"),
+        "enc_ln": L.layernorm_specs(),
+        "embed": L.embedding_specs(),
+        "dec_layers": L.stack_specs(dec, "layers"),
+        "dec_ln": L.layernorm_specs(),
+    }
+
+
+def cache_specs(cfg: ModelConfig):
+    kv = (None, "batch", "kv_seq", "kv_heads", None)
+    return {"self_k": kv, "self_v": kv, "cross_k": kv, "cross_v": kv,
+            "pos": ()}
+
+
 def init_whisper(seed: int, cfg: ModelConfig, device="cuda"):
     """Random parameters in ``cfg.dtype`` from a ``torch.Generator`` seeded
     with ``seed``, on ``device``, with the reference's distributions and

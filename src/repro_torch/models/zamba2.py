@@ -52,6 +52,28 @@ def _init_shared(gen, cfg: ModelConfig, dev):
     }
 
 
+def zamba2_specs(cfg: ModelConfig):
+    return {
+        "embed": L.embedding_specs(),
+        "mamba": L.stack_specs(M2.mamba2_specs(cfg), "layers", None),
+        "shared": {
+            "ln1": L.rmsnorm_specs(), "ln2": L.rmsnorm_specs(),
+            "attn": A.attention_specs(cfg),
+            "ffn": L.glu_mlp_specs(),
+        },
+        "final_norm": L.rmsnorm_specs(),
+        "head": L.lm_head_specs(),
+    }
+
+
+def cache_specs(cfg: ModelConfig):
+    return {"attn_k": (None, "batch", "kv_seq", "kv_heads", None),
+            "attn_v": (None, "batch", "kv_seq", "kv_heads", None),
+            "conv": (None, None, "batch", None, "heads"),
+            "ssd": (None, None, "batch", "heads", None, None),
+            "pos": ()}
+
+
 def init_zamba2(seed: int, cfg: ModelConfig, device="cuda"):
     """Random parameters in ``cfg.dtype`` from a ``torch.Generator`` seeded
     with ``seed``, on ``device``, with the reference's distributions and

@@ -13,6 +13,13 @@ Everything is written into ``step_<n>.tmp`` and committed by ``os.replace``
 of the directory and then of LATEST, so a process dying mid-write leaves the
 previous step live.  Leaves are tensors whose types numpy has (the training
 state is f32 with an int32 ``count``).
+
+A state laid out over a mesh (``layout=``, a ``sharding/partition.py::
+Layout``) is saved as the reference saves a sharded one, full leaves: the
+members' blocks are gathered on the caller's thread (every member calls
+``save``; the writer thread issues no collective) and the mesh's first
+rank writes.  ``restore(..., layout=)`` cuts each full leaf for any mesh,
+as the reference's ``restore(shardings=)`` places it.
 """
 from __future__ import annotations
 
@@ -24,6 +31,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from repro_torch.sharding import partition
 
 
 def _flatten(tree, prefix=()) -> dict:
@@ -38,6 +47,14 @@ def _flatten(tree, prefix=()) -> dict:
             out.update(_flatten(t, prefix + (str(i),)))
         return out
     return {"/".join(prefix): tree}
+
+
+def _flatten_specs(specs) -> dict:
+    """A spec tree's leaves by the keys :func:`_flatten` gives the tree."""
+    out = {}
+    partition.map_specs(lambda path, s: out.__setitem__("/".join(path), s),
+                        specs)
+    return out
 
 
 def _unflatten_like(tree, values, prefix=()):
@@ -56,11 +73,26 @@ def _to_host(x: torch.Tensor) -> np.ndarray:
     return x.detach().to("cpu", copy=True).numpy()
 
 
+def _gathered(tree, layout):
+    """(full tree, whether this process writes): the members' blocks put
+    together over ``layout``'s mesh; its first rank writes."""
+    if layout is None:
+        return tree, True
+    full = partition.gather_tree(tree, layout)
+    mesh = layout.mesh
+    return full, mesh.is_member and mesh.ranks[0] == (
+        torch.distributed.get_rank() if torch.distributed.is_initialized()
+        else mesh.ranks[0])
+
+
 def save(ckpt_dir: str, step: int, tree, *, extra: Optional[dict] = None,
-         keep: int = 3) -> str:
-    """Blocking atomic save.  Returns the committed directory."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+         keep: int = 3, layout=None) -> str:
+    """Blocking atomic save.  Returns the committed directory.  With
+    ``layout`` every member calls it and the mesh's first rank writes."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    tree, writer = _gathered(tree, layout)
+    if not writer:
+        return final
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -99,8 +131,15 @@ class AsyncCheckpointer:
         self._thread: Optional[threading.Thread] = None
         self.last_error: Optional[BaseException] = None
 
-    def save(self, step: int, tree, extra: Optional[dict] = None):
+    def save(self, step: int, tree, extra: Optional[dict] = None,
+             layout=None):
+        """With ``layout`` every member calls it: the gather runs here, on
+        the caller's thread, and only the mesh's first rank starts a
+        writer."""
         self.wait()
+        tree, writer = _gathered(tree, layout)
+        if not writer:
+            return
         host_tree = {k: _to_host(v) for k, v in _flatten(tree).items()}
 
         def work():
@@ -131,16 +170,19 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, tree_like, *, step: Optional[int] = None,
-            device=None):
+            device=None, layout=None):
     """Restore into the structure of ``tree_like`` -> (tree, step).  Each
     leaf takes its ``tree_like`` leaf's type and lands on ``device`` (by
     default that leaf's device), one leaf at a time, so the host holds one
-    leaf's bytes beyond what it keeps."""
+    leaf's bytes beyond what it keeps.  With ``layout`` each full leaf is
+    cut to this member's block (``tree_like``'s leaves give only structure,
+    type and device)."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     like = _flatten(tree_like)
+    specs = _flatten_specs(layout.specs) if layout is not None else {}
     out = {}
     with np.load(os.path.join(d, "arrays.npz")) as z:
         missing = [k for k in like if k not in z.files]
@@ -148,8 +190,10 @@ def restore(ckpt_dir: str, tree_like, *, step: Optional[int] = None,
             raise KeyError(f"checkpoint missing leaves: {missing[:5]}...")
         for key, ref in like.items():
             dev = device if device is not None else ref.device
-            out[key] = torch.from_numpy(z[key]).to(device=dev,
-                                                   dtype=ref.dtype)
+            arr = torch.from_numpy(z[key])
+            if key in specs:
+                arr = partition.shard_leaf(arr, specs[key], layout.mesh)
+            out[key] = arr.to(device=dev, dtype=ref.dtype)
     return _unflatten_like(tree_like, out), step
 
 

@@ -6,14 +6,19 @@ The state mirrors the parameters: ``{"m": tree, "v": tree, "count": int32
 v in place, leaf by leaf, so the transient stays one leaf's size (the
 largest at granite-moe-3b-a800m is 4 GB in f32): the reference returns new
 trees.  Each leaf takes the reference's operations in its order (which
-``torch.optim.AdamW`` does not).  The sharding specs (``adamw_specs``) wait
-for the launch tooling (ROADMAP A14f).
+``torch.optim.AdamW`` does not).  Over a mesh the state's leaves are the
+members' blocks of the parameters' (:func:`adamw_layout`); the update is
+elementwise, and :func:`global_norm` sums the squares of the cut leaves
+over the model group.  The reference's ``adamw_specs`` (the dry-run's
+optimizer shardings) wait for the launch tooling (ROADMAP A14f).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from repro_torch.sharding import partition
 
 
 def leaves(tree) -> list:
@@ -80,20 +85,42 @@ def cosine_schedule(step, *, peak_lr: float = 3e-4, warmup: int = 100,
     return peak_lr * torch.where(sf < warmup, warm, cos)
 
 
-def global_norm(tree):
+def adamw_layout(param_layout):
+    """The optimizer state's layout from the parameters': m and v as the
+    parameters, the step count whole."""
+    from repro_torch.sharding import partition
+    return partition.Layout(param_layout.mesh, {
+        "m": param_layout.specs, "v": param_layout.specs, "count": ()})
+
+
+def global_norm(tree, *, cut=None, group=None):
     """sqrt of the sum of every leaf's squares (f32), leaves summed one
-    after another in :func:`leaves` order, as the reference's ``sum``."""
-    total = 0
-    for x in leaves(tree):
-        total = total + torch.sum(torch.square(x.float()))
-    return torch.sqrt(total)
+    after another in :func:`leaves` order, as the reference's ``sum``.
+    ``cut`` (one bool a leaf, in :func:`leaves` order) marks the leaves
+    that are this member's block of a leaf cut over ``group``: their sum is
+    all-reduced over the group, and each whole (replicated) leaf counts
+    once."""
+    if cut is None or group is None:
+        total = 0
+        for x in leaves(tree):
+            total = total + torch.sum(torch.square(x.float()))
+        return torch.sqrt(total)
+    parts = [0, 0]
+    for x, c in zip(leaves(tree), cut, strict=True):
+        parts[c] = parts[c] + torch.sum(torch.square(x.float()))
+    local = torch.as_tensor(parts[1], dtype=torch.float32,
+                            device=leaves(tree)[0].device).reshape(1)
+    torch.distributed.all_reduce(local, group=group)
+    return torch.sqrt(parts[0] + local[0])
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float = 1.0):
+def clip_by_global_norm(grads, max_norm: float = 1.0, *, cut=None,
+                        group=None):
     """Scale the gradients in place so their global norm is at most
-    ``max_norm`` -> (grads, the norm before clipping)."""
-    norm = global_norm(grads)
+    ``max_norm`` -> (grads, the norm before clipping); ``cut`` and
+    ``group`` as in :func:`global_norm`."""
+    norm = global_norm(grads, cut=cut, group=group)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in leaves(grads):
         g.mul_(scale.to(g.dtype))

@@ -4,13 +4,22 @@
   train_step  : fwd + loss + bwd + clip + AdamW, with gradient accumulation
   prefill_step: no-grad forward over the prompt, last position's logits
   serve_step  : one greedy decode step against a cache / recurrent state
+
+Under an ambient mesh (``sharding/partition.py::axis_rules``) the train
+step is data- and tensor-parallel: each data member takes its slice of the
+batch, the model runs tensor-parallel over the model axis, the gradients
+are all-reduced over the data axis and divided by its size (the GSPMD sum
+of the reference's mean loss), and the clipping norm counts each cut leaf's
+blocks once across the model axis.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import api
+from repro_torch.sharding import partition
 from repro_torch.train import optimizer as opt
 
 
@@ -35,7 +44,28 @@ def make_train_step(cfg: ModelConfig, *, peak_lr: float = 3e-4,
                                   attn_impl=attn_impl)
         return api.loss(cfg, logits, batch["labels"], aux)
 
+    def members(batch):
+        """(this data member's batch, data group, data size, the leaves'
+        cut flags, model group) under the ambient mesh."""
+        mesh = partition.current_mesh()
+        if mesh is None:
+            return batch, None, 1, None, None
+        nd = mesh.shape["data"]
+        if nd > 1:
+            n = batch["tokens"].shape[0]
+            if n % nd:
+                raise ValueError(f"batch {n} does not split over {nd} data "
+                                 "members")
+            lo = mesh.index("data") * (n // nd)
+            batch = {k: v[lo:lo + n // nd] for k, v in batch.items()}
+        cut = None
+        if mesh.shape["model"] > 1:
+            cut = opt.leaves(partition.map_specs(
+                lambda _, s: "model" in s, api.param_layout(cfg).specs))
+        return batch, mesh.group("data"), nd, cut, mesh.group("model")
+
     def train_step(params, opt_state, batch):
+        batch, data_group, nd, cut, model_group = members(batch)
         n = batch["tokens"].shape[0]
         if n % accum_steps:
             raise ValueError(f"batch {n} does not split into {accum_steps} "
@@ -65,7 +95,14 @@ def make_train_step(cfg: ModelConfig, *, peak_lr: float = 3e-4,
                 loss = loss * inv
                 for g in grads:
                     g.mul_(inv)
-            grads, grad_norm = opt.clip_by_global_norm(grads, grad_clip)
+            if data_group is not None:
+                loss = loss.reshape(1)
+                for t in [loss] + grads:
+                    dist.all_reduce(t, group=data_group)
+                    t.mul_(1.0 / nd)
+                loss = loss[0]
+            grads, grad_norm = opt.clip_by_global_norm(
+                grads, grad_clip, cut=cut, group=model_group)
             lr = opt.cosine_schedule(opt_state["count"], peak_lr=peak_lr,
                                      total=total_steps)
             params, opt_state = opt.adamw_update(grads, opt_state, params,

@@ -782,7 +782,10 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "examples/quickstart.py", "examples/serve_lm_decode.py",
                 "kernels/flash_attention_bwd.py", "train/optimizer.py",
                 "train/steps.py", "data/pipeline.py", "runtime/checkpoint.py",
-                "launch/train.py", "examples/train_lm.py"):
+                "launch/train.py", "examples/train_lm.py",
+                "sharding/partition.py", "sharding/tp.py", "launch/specs.py",
+                "launch/mesh.py", "train/grad_compression.py",
+                "runtime/elastic.py", "examples/failure_recovery.py"):
         assert port / new in files, new
     for path in files:
         for mod in _imports(path):
