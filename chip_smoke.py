@@ -268,12 +268,39 @@ Phases, each on lines of its own:
      Frobenius 5e-2 of one device's, 3 prefills timed, one profiled (the
      collectives' host time and device work), ``LMEngine`` twice,
      identical, on both members;
+ 11b. ``[members-ssm]`` (after rwkv6-1.6b is freed): the WKV kernel held
+     against its plain version at a member's shape (B 2, S 4096, H 16,
+     f32; row ``rwkv6_wkv/rwkv6_members_heads``); the one-device values:
+     f32 at 4 layers (the last position's logits, and the 8th prompt token
+     fed through decode_step), bf16 at full depth through the kernel and
+     through the plain WKV (their relative Frobenius distance x 3 is the
+     members' gate), ``LMEngine`` tokens; then two processes over gloo, as
+     13b, on a (1, 2) mesh (16 of 32 heads, half the channel mix and the
+     vocab): f32 parity at 1e-4, the full 24-layer bf16 model (1.72 GB a
+     member): a 2 x 4096 prefill launching the kernel 24 times at (2,
+     4096, 16) with 49 all_reduce and 1 all_gather, its logits within the
+     gate, a warm prefill timed, one profiled, ``LMEngine`` twice,
+     identical;
+ 19e. ``[members-hybrid]`` (after zamba2-2.7b is freed): the flash kernel
+     held at a member's heads (B 2, S 4608, H 16 = Kh 16, hd 80, causal,
+     bf16; row ``flash_attention/zamba2_members_heads``) beside
+     scaled_dot_product_attention; then as 11b for zamba2-2.7b (f32 at 12
+     layers; 40 of 80 Mamba-2 heads, their z / x / dt columns, B and C
+     whole; the shared block's 16 heads, half its MLP, half the vocab;
+     2.44 GB a member): a 2 x 4608 prefill launching flash 9 times at
+     (16, 16, 80) with 127 all_reduce (wo and down a shared invocation,
+     out_proj and the gate_norm statistic a mamba layer, the embedding)
+     and 1 all_gather, ``LMEngine`` once;
  20f. ``[members-train]``: granite-moe-3b-a800m at full width, 8 of 32
      layers: one step on one device, then on two members a data-parallel
      step ((2, 1) mesh, a row each) and a tensor-parallel one ((1, 2)
      mesh) against it (loss 1e-3, grad_norm 1e-2 relative), and
      ``compressed_psum`` of the largest leaf (the stacked expert gate,
-     1.0 GB f32) bit for bit against an f32 model of its int8 sum;
+     1.0 GB f32) bit for bit against an f32 model of its int8 sum; then
+     the same two steps, each against one device's, for rwkv6-1.6b at 8
+     of 24 layers in f32 (B6 under autograd), zamba2-2.7b at 12 of 54
+     layers (B5 under autograd at a member's heads) and whisper-tiny
+     whole (data-parallel, and replicated on the (1, 2) mesh);
  20g. ``[members-elastic]``: ``ElasticRunner`` on the granite smoke config,
      data-parallel over two members, a checkpoint every 2 steps; a
      ``NodeFailure`` at step 3 leaves rank 0, which restores step 2 onto
@@ -2530,11 +2557,11 @@ def lm_serve_phase(dev, card):
     return launches, by_key
 
 
-def wkv_inputs(b, s, gen, dev, *, regime="default"):
-    """Seeded WKV inputs at H 32, K = V = 64: r, k, v ~ N(0,1); logw =
+def wkv_inputs(b, s, gen, dev, *, regime="default", h=WKV_HEADS):
+    """Seeded WKV inputs at H ``h``, K = V = 64: r, k, v ~ N(0,1); logw =
     -exp(N(0,1)) (default), -exp(N(-4,1)) (long memory) or -50 (each
     token's state dies at the next); u ~ 0.5 N(0,1); state0 ~ 0.1 N(0,1)."""
-    h, kk = WKV_HEADS, 64
+    kk = 64
     r, k, v = (torch.randn((b, s, h, kk), generator=gen, device=dev)
                for _ in range(3))
     if regime == "extreme":
@@ -2553,6 +2580,35 @@ def hold_wkv(name, got, plain):
     ``WKV_REL`` of the plain version's; returns the errors of each."""
     return [hold(f"{name} {part}", g, p, WKV_TOL, WKV_REL)
             for part, g, p in zip(("out", "state"), got, plain)]
+
+
+def wkv_row(name, x, max_abs_err):
+    """The kernel row of the WKV inputs ``x``, held already: the kernel's
+    and the plain chunked version's times (the plain one over 3 runs: it
+    walks the chunks from Python) and the byte bound (r, k, v, logw, out
+    and u read or written once, the state in and out)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_wkv as wk
+
+    b, s, h, _ = x[0].shape
+    n_bytes = 5 * x[0].numel() * 4 + x[4].numel() * 4 + 2 * x[5].numel() * 4
+    flops = 4 * 64 * 64 * b * s * h
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    row = {"name": name, "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
+           "replaces": "src/repro/kernels/rwkv6_wkv.py:94",
+           "launches": 0, "max_abs_err": max_abs_err,
+           "ms": time_ms(lambda: wk.rwkv6_wkv(*x)),
+           "plain_ms": time_ms(lambda: ref.rwkv6_wkv_chunked_ref(*x),
+                               reps=3, warmup=1),
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": None}
+    log(f"[kernel] {name}: max_abs_err={row['max_abs_err']:.3e} "
+        f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+        f"library_ms=None (no PyTorch call computes WKV-6) "
+        f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
+    return row
 
 
 def wkv_phase(dev):
@@ -2604,24 +2660,7 @@ def wkv_phase(dev):
                 f"relative Frobenius error {errs[0][1]:.3e}; state "
                 f"{errs[1][0]:.3e}, {errs[1][1]:.3e})")
         del controls
-        n_bytes = 5 * x[0].numel() * 4 + x[4].numel() * 4 \
-            + 2 * x[5].numel() * 4
-        flops = 4 * 64 * 64 * b * s * WKV_HEADS
-        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS
-        row = {"name": name, "route": "cuda",
-               "source": "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
-               "replaces": "src/repro/kernels/rwkv6_wkv.py:94",
-               "launches": 0, "max_abs_err": max(err, s_err),
-               "ms": time_ms(lambda: wk.rwkv6_wkv(*x)),
-               "plain_ms": time_ms(lambda: ref.rwkv6_wkv_chunked_ref(*x),
-                                   reps=3, warmup=1),
-               "bound_ms": max(t_bytes, t_ops) * 1e3,
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "library_ms": None}
-        log(f"[kernel] {name}: max_abs_err={row['max_abs_err']:.3e} "
-            f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-            f"library_ms=None (no PyTorch call computes WKV-6) "
-            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
+        row = wkv_row(name, x, max(err, s_err))
         rows.append((row, wk.launch_key(b, s, WKV_HEADS)))
         # the two passes alone, on the chunk-start states one run wrote
         args = wk.check_args(*x)
@@ -3199,10 +3238,12 @@ MEMBERS_BF16_FACTOR = 3.0
 MEMBERS_A2A_CF = 8.0
 MEMBERS_COLLECTIVES = ("all_reduce", "all_gather", "all_to_all_single")
 COLLECTIVE_RANGE = "members.collective"
-# [members-train]: granite-moe-3b-a800m at full width, depth cut to 8 of
-# its 32 layers (f32 masters, m and v: 10.7 GB at P = 1; a data member
-# holds all of it, a tensor member ~half) on the train phase's batch
-MEMBERS_TRAIN_LAYERS = 8
+# [members-train]: granite-moe-3b-a800m at full width, depth cut to 4 of
+# its 32 layers (8, whose f32 masters, m and v took 10.7 GB at P = 1,
+# until the rwkv6, zamba2 and whisper steps joined the phase; a data
+# member holds all of it, a tensor member ~half) on the train phase's
+# batch
+MEMBERS_TRAIN_LAYERS = 4
 # [members-elastic]: the granite smoke config, 2 x 64-token batches, a
 # checkpoint every 2 steps, the failure at step 3 (rank 1 leaves)
 ELASTIC_STEPS, ELASTIC_FAIL_AT, ELASTIC_CKPT_EVERY = 6, 3, 2
@@ -3572,7 +3613,77 @@ def member_train(rank, world, d, inputs):
         f"members: bit-identical to the f32 model of its int8 sum; "
         f"{res['psum']['ms']:.1f} ms (median of 3), max |int8 sum - f32 "
         f"sum| {res['psum']['max_abs_vs_exact']:.3e}")
+    del x, out, parts, total, model
+    torch.cuda.empty_cache()
+    for arch, layers in MEMBERS_FAMILY_TRAIN:
+        res[arch] = member_family_steps(arch, layers, world, inputs)
     return res
+
+
+def member_family_steps(arch, layers, world, inputs):
+    """One member's data-parallel ((world, 1) mesh, a row each) and
+    tensor-parallel ((1, world) mesh; whisper's rules are all None, so it
+    runs replicated) steps of ``arch`` at full width and ``layers`` layers,
+    each against the one-device step in ``inputs``: B6 under
+    autograd for rwkv6, B5 for zamba2 (at the member's heads on the
+    tensor-parallel mesh) and whisper."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import specs
+    from repro_torch.models import api
+    from repro_torch.sharding import partition
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import steps as steps_mod
+
+    dev = torch.device(MEMBER_DEVICE)
+    cfg = family_train_config(arch, layers)
+    batch = train_batch(cfg, dev)
+    kernel = "rwkv6_wkv" if cfg.family == "ssm" else "flash_attention"
+    out = {}
+    for name, model in (("dp", 1), ("tp", world)):
+        mesh = mesh_mod.make_host_mesh(model=model)
+        rules = specs.arch_rules(cfg, mesh, ShapeConfig(
+            "train", "train", TRAIN_SEQ, TRAIN_BATCH))
+        accum = MEMBERS_FAMILY_ACCUM // mesh.shape["data"]
+        torch.cuda.reset_peak_memory_stats()
+        with partition.axis_rules(mesh, rules):
+            params = api.init(SEED, cfg, dev, dtype="float32",
+                              layout=api.param_layout(cfg))
+            step = steps_mod.make_train_step(cfg, accum_steps=accum)
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, opt.adamw_init(params), batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        r = {k: float(v) for k, v in m.items()}
+        r.update(step_s=dt, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 launches=ops.kernels()[kernel].launches,
+                 by_key={str(k): v for k, v in fa.FLASH.by_key.items()},
+                 mesh=[mesh.shape["data"], mesh.shape["model"]], accum=accum)
+        for key, rel in (("loss", TRAIN_LOSS_REL),
+                         ("grad_norm", TRAIN_GNORM_REL)):
+            want = float(inputs[f"{arch}/{key}"])
+            if not (np.isfinite(r[key]) and
+                    abs(r[key] - want) <= rel * abs(want)):
+                raise AssertionError(f"{arch} {name} step {key} {r[key]!r} "
+                                     f"vs one device {want!r} (relative "
+                                     f"{rel})")
+        if not r["launches"]:
+            raise AssertionError(f"{arch} {name} step launched no {kernel}")
+        out[name] = r
+        log(f"[members-train] {arch} {name} step on a {tuple(r['mesh'])} mesh "
+            f"({accum} microbatches): loss {r['loss']!r} grad_norm "
+            f"{r['grad_norm']!r} vs one device "
+            f"{float(inputs[f'{arch}/loss'])!r} / "
+            f"{float(inputs[f'{arch}/grad_norm'])!r}; {dt:.2f} s, peak "
+            f"{r['peak_gb']:.2f} GB, {kernel} launches {r['launches']}"
+            + (f" by key {r['by_key']}" if r["by_key"] else ""))
+        del params, state, step
+        torch.cuda.empty_cache()
+    return out
 
 
 def member_elastic(rank, world, d, inputs):
@@ -3637,10 +3748,6 @@ def member_elastic(rank, world, d, inputs):
         _paths(params), opt.leaves(params))})
     return {"evicted": False, "recoveries": rec, "steps": events["steps"],
             "mesh": [new_mesh.shape["data"], new_mesh.shape["model"]]}
-
-
-MEMBER_TASKS = {"serve": member_serve, "train": member_train,
-                "elastic": member_elastic}
 
 
 def _paths(tree, prefix=""):
@@ -3713,8 +3820,9 @@ def members_serve_phase(dev, card, p1):
 
 
 def members_train_phase(dev, card):
-    """[members-train]: the one-device step of granite-moe-3b-a800m at
-    MEMBERS_TRAIN_LAYERS layers, then ``member_train`` on 2 members."""
+    """[members-train]: the one-device steps of granite-moe-3b-a800m at
+    MEMBERS_TRAIN_LAYERS layers and of MEMBERS_FAMILY_TRAIN, then
+    ``member_train`` on 2 members."""
     from repro_torch.configs.granite_moe_3b_a800m import CONFIG as GRANITE
     from repro_torch.models import api
     from repro_torch.train import optimizer as opt
@@ -3737,6 +3845,45 @@ def members_train_phase(dev, card):
         f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     del params, state, step
     torch.cuda.empty_cache()
+    one = {}
+    for arch, layers in MEMBERS_FAMILY_TRAIN:
+        fcfg = family_train_config(arch, layers)
+        batch = train_batch(fcfg, dev)
+        plain_kw = {"wkv_impl": "interpret"} if fcfg.family == "ssm" else \
+            {"attn_impl": "ref"}
+        # the kernel's step (the members' reference), then the plain
+        # version's: how far a rounding-level change moves one device
+        for kw in ({}, plain_kw):
+            torch.cuda.reset_peak_memory_stats()
+            params = api.init(SEED, fcfg, dev, dtype="float32")
+            step = steps_mod.make_train_step(
+                fcfg, accum_steps=MEMBERS_FAMILY_ACCUM, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, state, m = step(params, opt.adamw_init(params), batch)
+            torch.cuda.synchronize()
+            if not kw:
+                one[arch] = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated() / 1e9
+            for k, v in m.items():
+                p1[f"{arch}/{'plain_' if kw else ''}{k}"] = float(v)
+            del params, state, step
+            torch.cuda.empty_cache()
+        plain_rel = abs(p1[f"{arch}/plain_grad_norm"] -
+                        p1[f"{arch}/grad_norm"]) / p1[f"{arch}/grad_norm"]
+        depth = family_train_config(arch, None).n_layers
+        log(f"[members-train] one device: {arch} full width, "
+            f"{fcfg.n_layers} of {depth} layers, {fcfg.dtype}, batch "
+            f"{tuple(batch['tokens'].shape)} tokens"
+            + (f" and {tuple(batch['frames'].shape)} frames"
+               if "frames" in batch else "")
+            + f" in {MEMBERS_FAMILY_ACCUM} microbatches: loss "
+            f"{p1[f'{arch}/loss']!r} grad_norm {p1[f'{arch}/grad_norm']!r},"
+            f" {one[arch]:.2f} s, peak {peak:.2f} GB; the plain version "
+            f"({plain_kw}) in place of the kernel: grad_norm "
+            f"{p1[f'{arch}/plain_grad_norm']!r} (relative {plain_rel:.3e}; "
+            f"the members' gate {TRAIN_GNORM_REL})")
+        del batch
     res = run_members("train", p1)
     for name in ("dp", "tp"):
         a, b = res[0][name], res[1][name]
@@ -3748,6 +3895,18 @@ def members_train_phase(dev, card):
         f"{[x['dp']['peak_gb'] for x in res]} GB, tp "
         f"{[x['tp']['peak_gb'] for x in res]} GB; compressed_psum "
         f"{res[0]['psum']['ms']:.1f} ms; card {card!r}")
+    for arch, _ in MEMBERS_FAMILY_TRAIN:
+        for name in ("dp", "tp"):
+            a, b = res[0][arch][name], res[1][arch][name]
+            if (a["loss"], a["grad_norm"]) != (b["loss"], b["grad_norm"]):
+                raise AssertionError(f"{arch} {name}: the members' metrics "
+                                     "differ")
+        log(f"[members-train] {arch}: dp step "
+            f"{res[0][arch]['dp']['step_s']:.2f} s, tp step "
+            f"{res[0][arch]['tp']['step_s']:.2f} s, one device "
+            f"{one[arch]:.2f} s; peak per member dp "
+            f"{[x[arch]['dp']['peak_gb'] for x in res]} GB, tp "
+            f"{[x[arch]['tp']['peak_gb'] for x in res]} GB; card {card!r}")
 
 
 def members_elastic_phase(dev, card):
@@ -3793,6 +3952,350 @@ def members_elastic_phase(dev, card):
         f"onto one member and replays; steps (step, members) {ran}; final "
         f"parameters max_abs {err:.3e} from the uninterrupted one-device "
         f"run (gate {ELASTIC_TOL}); phase wall {wall_s:.1f} s; card {card!r}")
+
+
+# [members-ssm] and [members-hybrid]: rwkv6-1.6b and zamba2-2.7b at full
+# width and depth on a (1, 2) mesh under arch_rules (time mix and channel
+# mix cut; Mamba-2 heads, the shared block's heads and MLP, the vocab
+# cut), each member drawing the one-device weights and keeping its
+# blocks.  The one-device values each is held against are computed in the
+# phase, before the members start: f32 at the parity depth (the last
+# position's logits, and the MEMBERS_DECODE_FED-th prompt token fed
+# through decode_step from an empty cache), bf16 at the parity depth and
+# at full depth, each through the kernel and through the plain version
+# (their distance sets the gate, as in [members-serve]), and LMEngine's
+# tokens.  At full depth that gate bounds rounding grown through the
+# layers (rwkv6: ~0.9 relative Frobenius) and cannot see a layout fault;
+# the parity depth's f32 (1e-4) and bf16 gates can
+MEMBERS_SSM_PROMPT = 4096
+MEMBERS_DECODE_FED = 8
+MEMBERS_GEN_PROMPT = 64
+# [members-train] for the other families, each at full width in its
+# configured bf16: rwkv6 cut to 2 of its 24 layers and zamba2 to 12 of 54
+# (two shared invocations), whisper whole; the train phase's batch
+# (whisper: 2 x 4096 frames and 1024 tokens) in two microbatches of one
+# row on one device and on a (1, 2) mesh, one row a member on a (2, 1)
+# mesh.  rwkv6's bf16 gradient on 4096 tokens is rounding-dominated past a
+# few layers (src/repro_torch/tools/tp_grad_diff.py on an H100: at 8
+# layers one device's is 37-282% from its f32 twin leaf by leaf and its
+# norm 45% above; at 4 layers a tensor-parallel step's norm is 4.8% from
+# one device's; at 2 layers 3e-5), so a 1e-2 gate holds at 2 layers
+MEMBERS_FAMILY_TRAIN = (("rwkv6-1.6b", 2), ("zamba2-2.7b", 12),
+                        ("whisper-tiny", None))
+MEMBERS_FAMILY_ACCUM = 2
+
+
+def recurrent_parity_logits(params, cfg, toks):
+    """The last position's forward logits and the logits of the
+    MEMBERS_DECODE_FED-th prompt token fed one at a time through
+    ``api.decode_step`` from an empty cache, on the host."""
+    from repro_torch.models import api
+
+    last, _ = api.forward(params, cfg, {"tokens": toks}, remat=False,
+                          last_only=True)
+    cache = api.make_cache(cfg, toks.shape[0], MEMBERS_DECODE_FED,
+                           device=toks.device)
+    for t in range(MEMBERS_DECODE_FED):
+        step, cache = api.decode_step(params, cfg, toks[:, t:t + 1], cache)
+    return {"f32_last": last.float().cpu().numpy(),
+            "f32_decode": step.float().cpu().numpy()}
+
+
+def bf16_cut_logits(cfg, parity_layers, toks, dev, **kw):
+    """The last position's forward logits of ``cfg`` (bf16) at
+    ``parity_layers`` layers, laid out under the ambient mesh, on the
+    host."""
+    from repro_torch.models import api
+
+    c = cfg.replace(n_layers=parity_layers)
+    params = api.init(SEED, c, dev, layout=params_layout(c))
+    last = api.forward(params, c, {"tokens": toks}, remat=False,
+                       last_only=True, **kw)[0]
+    return last.float().cpu().numpy()
+
+
+def members_gen_prompts(vocab: int) -> np.ndarray:
+    return np.random.default_rng(SEED + 1).integers(
+        0, vocab, (LM_BATCH, MEMBERS_GEN_PROMPT)).astype(np.int32)
+
+
+def family_one_device(tag, cfg, toks, parity_layers, plain_kw, dev):
+    """The one-device values a members phase of ``cfg`` is held against
+    (see above); -> a dict for ``run_members``."""
+    from repro_torch.models import api
+    from repro_torch.serving.engine import LMEngine
+
+    c = cfg.replace(n_layers=parity_layers, dtype="float32")
+    params = api.init(SEED, c, dev)
+    out = recurrent_parity_logits(params, c, toks)
+    del params
+    out["bf16_cut_last"] = bf16_cut_logits(cfg, parity_layers, toks, dev)
+    out["bf16_cut_plain_rel"] = rel_fro(bf16_cut_logits(
+        cfg, parity_layers, toks, dev, **plain_kw), out["bf16_cut_last"])
+    torch.cuda.empty_cache()
+    params = api.init(SEED, cfg, dev)
+    batch = {"tokens": toks}
+    kern = api.forward(params, cfg, batch, remat=False, last_only=True)[0]
+    plain = api.forward(params, cfg, batch, remat=False, last_only=True,
+                        **plain_kw)[0]
+    out["bf16_last"] = kern.float().cpu().numpy()
+    out["bf16_plain_rel"] = rel_fro(plain.float().cpu().numpy(),
+                                    out["bf16_last"])
+    del kern, plain
+    torch.cuda.empty_cache()
+    eng = LMEngine(params, cfg, max_len=MEMBERS_GEN_PROMPT + LM_NEW,
+                   device=dev)
+    out["bf16_tokens"] = eng.generate(members_gen_prompts(cfg.vocab_size),
+                                      LM_NEW)
+    out["decode_p50_ms"] = eng.monitor.percentile(0.5) * 1e3
+    out.update(prompts=toks.cpu().numpy(), parity_layers=parity_layers)
+    log(f"{tag} one device: {cfg.name} bf16, B {LM_BATCH} x "
+        f"{toks.shape[1]} tokens: the plain version in place of the kernel "
+        f"moves the last-position logits by {out['bf16_plain_rel']:.3e} "
+        f"at full depth, {out['bf16_cut_plain_rel']:.3e} at "
+        f"{parity_layers} layers (relative Frobenius); LMEngine decode "
+        f"ms/token p50 {out['decode_p50_ms']:.3f}")
+    del params, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def member_family(rank, world, d, inputs):
+    """[members-ssm] / [members-hybrid], one member: rwkv6-1.6b or
+    zamba2-2.7b (``inputs["arch"]``) over a (1, world) mesh under
+    ``arch_rules``: f32 parity at the cut depth against one device, then
+    the full bf16 model: a prefill with its kernel launches (B6 at the
+    member's heads, or B5 once a shared invocation) and collectives
+    counted and its logits against one device's, a second (warm) prefill
+    profiled, ``LMEngine`` (twice, identical, for rwkv6)."""
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rwkv6_wkv as wk
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import specs
+    from repro_torch.models import api
+    from repro_torch.models import zamba2 as Z
+    from repro_torch.serving.engine import LMEngine
+    from repro_torch.sharding import partition
+    from repro_torch.train import steps as steps_mod
+
+    dev = torch.device(MEMBER_DEVICE)
+    cfg = get_arch(str(inputs["arch"])).config
+    ssm = cfg.family == "ssm"
+    tag = "[members-ssm]" if ssm else "[members-hybrid]"
+    toks = torch.from_numpy(inputs["prompts"]).to(dev)
+    b, s = toks.shape
+    mesh = mesh_mod.make_host_mesh(model=world)
+    rules = specs.arch_rules(cfg, mesh, ShapeConfig("prefill", "prefill", s,
+                                                    b))
+    res = {}
+    with partition.axis_rules(mesh, rules), torch.no_grad():
+        c = cfg.replace(n_layers=int(inputs["parity_layers"]),
+                        dtype="float32")
+        params = api.init(SEED, c, dev, layout=api.param_layout(c))
+        got = recurrent_parity_logits(params, c, toks)
+        for k in ("f32_last", "f32_decode"):
+            torch.testing.assert_close(torch.from_numpy(got[k]),
+                                       torch.from_numpy(inputs[k]), **LM_TOL)
+            res[k] = float(np.abs(got[k] - inputs[k]).max())
+        del params, got
+        res["bf16_cut_rel"] = rel_fro(
+            bf16_cut_logits(cfg, c.n_layers, toks, dev),
+            inputs["bf16_cut_last"])
+        cut_gate = max(MEMBERS_BF16_CUT_REL, MEMBERS_BF16_FACTOR *
+                       float(inputs["bf16_cut_plain_rel"]))
+        if res["bf16_cut_rel"] > cut_gate:
+            raise AssertionError(f"{tag} bf16 at {c.n_layers} layers over "
+                                 f"members: relative Frobenius "
+                                 f"{res['bf16_cut_rel']:.3e} > {cut_gate:.3e}")
+        torch.cuda.empty_cache()
+        log(f"{tag} rank {rank}: {cfg.name} f32 at {c.n_layers} layers over "
+            f"{world} members vs one device: last-position logits "
+            f"max_abs_err {res['f32_last']:.3e}, the "
+            f"{MEMBERS_DECODE_FED}th prompt token fed through decode_step "
+            f"{res['f32_decode']:.3e} (rtol = atol = 1e-4); bf16 at "
+            f"{c.n_layers} layers: last-position logits relative Frobenius "
+            f"{res['bf16_cut_rel']:.3e} (gate {cut_gate:.3e}: the larger of "
+            f"{MEMBERS_BF16_CUT_REL} and {MEMBERS_BF16_FACTOR} x one "
+            f"device's kernel-vs-plain distance there)")
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = api.init(SEED, cfg, dev, layout=api.param_layout(cfg))
+        torch.cuda.synchronize()
+        res["init_s"] = time.perf_counter() - t0
+        res["weight_gb"] = weight_bytes(params) / 1e9
+        step = steps_mod.make_prefill_step(cfg)
+        batch = {"tokens": toks}
+        ops.reset_launches()
+        with count_collectives() as calls:
+            t0 = time.perf_counter()
+            last = step(params, batch)
+            torch.cuda.synchronize()
+            times = [(time.perf_counter() - t0) * 1e3]
+        if ssm:
+            key, n = wk.launch_key(b, s, cfg.d_model // 64 // world), \
+                cfg.n_layers
+            by_key = dict(wk.WKV.by_key)
+        else:
+            key, n = fa.launch_key(cfg.n_heads // world,
+                                   cfg.n_kv_heads // world, cfg.head_dim,
+                                   0), Z.n_groups(cfg)
+            by_key = dict(fa.FLASH.by_key)
+        if by_key != {key: n}:
+            raise AssertionError(f"member prefill launched {by_key}, not "
+                                 f"{n} at {key}")
+        # row-parallel sums: rwkv6's wo and cm_v a layer; zamba2's wo and
+        # MLP down a shared invocation, out_proj and the gate_norm
+        # statistic a mamba layer; the embedding's one; the head's gather
+        reduces = 2 * cfg.n_layers + 1 + (0 if ssm else 2 * n)
+        want_calls = {"all_reduce": reduces, "all_gather": 1}
+        res.update(launches=n, key=list(key),
+                   calls={k: v for k, v in calls.items() if v})
+        if res["calls"] != want_calls:
+            raise AssertionError(f"member prefill made {res['calls']}, not "
+                                 f"{want_calls}")
+        mine = last.float().cpu().numpy()
+        if not np.isfinite(mine).all():
+            raise AssertionError("bf16 logits over members not finite")
+        want = inputs["bf16_last"]
+        res["bf16_rel"] = rel_fro(mine, want)
+        res["bf16_max_abs"] = float(np.abs(mine - want).max())
+        res["argmax_equal"] = bool((mine.argmax(-1) ==
+                                    want.argmax(-1)).all())
+        del last
+        res["profile"] = members_profile(lambda: step(params, batch))
+        res["prefill_ms"] = times + [res["profile"]["wall_ms"]]
+        prompts = members_gen_prompts(cfg.vocab_size)
+        eng = LMEngine(params, cfg, max_len=MEMBERS_GEN_PROMPT + LM_NEW,
+                       device=dev)
+        first = eng.generate(prompts, LM_NEW)
+        if ssm:
+            eng.monitor.reset()
+            check_generated(first, eng.generate(prompts, LM_NEW),
+                            cfg.vocab_size)
+        res["decode_p50_ms"] = eng.monitor.percentile(0.5) * 1e3
+        res["decode_p99_ms"] = eng.monitor.percentile(0.99) * 1e3
+        res["tokens_row0"] = first[0].tolist()
+        res["tokens_match_p1"] = float((first == inputs["bf16_tokens"])
+                                       .mean())
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return res
+
+
+def members_family_phase(tag, task, cfg, row, p1, card, what):
+    """Run ``member_family`` on MEMBERS members; log each member's lines
+    and hold the bf16 full-depth logits within MEMBERS_BF16_FACTOR x the
+    plain version's distance of one device's; -> ``row`` with member 0's
+    launches."""
+    t0 = time.perf_counter()
+    res = run_members(task, dict(p1, arch=cfg.name))
+    wall_s = time.perf_counter() - t0
+    if res[0]["tokens_row0"] != res[1]["tokens_row0"]:
+        raise AssertionError("the members generated different tokens")
+    row["launches"] = res[0]["launches"]
+    gate = MEMBERS_BF16_FACTOR * float(p1["bf16_plain_rel"])
+    for r, x in enumerate(res):
+        pr, warm = x["profile"], x["prefill_ms"][1]
+        log(f"{tag} member {r} of {MEMBERS} (gloo, CUDA tensors, one card): "
+            f"{cfg.name} {cfg.n_layers} layers bf16, {x['weight_gb']:.3f} GB "
+            f"of weights (init {x['init_s']:.1f} s); B {LM_BATCH} x prompt "
+            f"{p1['prompts'].shape[1]}: prefill ms {x['prefill_ms'][0]:.1f} "
+            f"first, {warm:.1f} warm (profiled); LMEngine B {LM_BATCH} x prompt "
+            f"{MEMBERS_GEN_PROMPT} (fed token by token): decode ms/token p50 "
+            f"{x['decode_p50_ms']:.3f} p99 {x['decode_p99_ms']:.3f} (one "
+            f"device p50 {float(p1['decode_p50_ms']):.3f}); "
+            f"max_memory_allocated {x['peak_gb']:.3f} GB; {what} launches a "
+            f"prefill {x['launches']} at {x['key']}")
+        device = (f"device busy {pr['busy_ms']:.1f} ms "
+                  f"({100 * pr['busy_ms'] / pr['wall_ms']:.1f}% of wall), "
+                  f"{pr['collective_device_ms']:.1f} ms of it inside the "
+                  f"collectives ({pr['collective_device_ops']} staging ops)"
+                  if pr["busy_ms"] else "the profiler saw no device "
+                  "activity: device time not measured")
+        log(f"{tag} member {r} profiled prefill: wall {pr['wall_ms']:.1f} "
+            f"ms; {pr['collective_calls']} collectives took "
+            f"{pr['collective_host_ms']:.1f} ms on the host "
+            f"({100 * pr['collective_host_ms'] / pr['wall_ms']:.1f}% of "
+            f"wall); {device}")
+    x = res[0]
+    log(f"{tag} bf16 full depth over {MEMBERS} members vs one device: "
+        f"last-position logits relative Frobenius {x['bf16_rel']:.3e} (gate "
+        f"{gate:.3e}: {MEMBERS_BF16_FACTOR} x the plain version's "
+        f"{float(p1['bf16_plain_rel']):.3e}; a bound on the rounding at "
+        f"full depth, too loose to see a layout fault: the f32 parity at "
+        f"{int(p1['parity_layers'])} layers is that check), max_abs "
+        f"{x['bf16_max_abs']:.3e}"
+        f", argmax equal {x['argmax_equal']}; generated tokens equal to one "
+        f"device's {100 * x['tokens_match_p1']:.1f}%; collective calls a "
+        f"prefill {x['calls']}; phase wall {wall_s:.1f} s; card {card!r}")
+    if x["bf16_rel"] > gate:
+        raise AssertionError(f"{tag} bf16 full depth over members: relative "
+                             f"Frobenius {x['bf16_rel']:.3e} > {gate:.3e}")
+    return row
+
+
+def members_ssm_phase(dev, card):
+    """[members-ssm]: B6 held against its plain version at a member's shape
+    (B 2, S MEMBERS_SSM_PROMPT, H 16, f32), the one-device values, then
+    ``member_family`` for rwkv6-1.6b on 2 members; -> the B6 row."""
+    from repro_torch.configs.rwkv6_1_6b import CONFIG as cfg
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_wkv as wk
+
+    name = "rwkv6_wkv/rwkv6_members_heads"
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    x = wkv_inputs(LM_BATCH, MEMBERS_SSM_PROMPT, gen, dev,
+                   h=cfg.d_model // 64 // MEMBERS)
+    out, again = wk.rwkv6_wkv(*x), wk.rwkv6_wkv(*x)
+    plain = ref.rwkv6_wkv_chunked_ref(*x)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, c) for a, c in zip(out, again)):
+        raise AssertionError(f"{name}: two kernel runs differ")
+    (err, fro, need), (s_err, s_fro, _) = hold_wkv(name, out, plain)
+    log(f"[kernel] {name}: out max_abs_err {err:.3e}, relative Frobenius "
+        f"error {fro:.3e}, least atol {need:.3e}; final state max_abs_err "
+        f"{s_err:.3e}, relative Frobenius error {s_fro:.3e}")
+    row = wkv_row(name, x, max(err, s_err))
+    del x, out, again, plain
+    torch.cuda.empty_cache()
+    toks = torch.from_numpy(rwkv_prompt(cfg.vocab_size, LM_BATCH,
+                                        MEMBERS_SSM_PROMPT)).to(dev)
+    p1 = family_one_device("[members-ssm]", cfg, toks, RWKV_PARITY_LAYERS,
+                           {"wkv_impl": "interpret"}, dev)
+    return members_family_phase("[members-ssm]", "family", cfg, row, p1,
+                                card, "WKV (B, S, H)")
+
+
+def members_hybrid_phase(dev, card):
+    """[members-hybrid]: B5 held at a member's heads of zamba2-2.7b (B 2,
+    S LM_PROMPT, H 16 = Kh 16, hd 80, causal, bf16) beside SDPA, the
+    one-device values, then ``member_family`` for zamba2-2.7b on 2
+    members; -> the B5 row."""
+    from repro_torch.configs.zamba2_2_7b import CONFIG as cfg
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    row, _ = flash_row("flash_attention/zamba2_members_heads", gen, dev,
+                       LM_BATCH, LM_PROMPT, cfg.n_heads // MEMBERS,
+                       cfg.n_kv_heads // MEMBERS, cfg.head_dim)
+    toks = torch.from_numpy(lm_prompts(cfg.vocab_size)).to(dev)
+    p1 = family_one_device("[members-hybrid]", cfg, toks,
+                           ZAMBA_PARITY_LAYERS, {"attn_impl": "ref"}, dev)
+    return members_family_phase("[members-hybrid]", "family", cfg, row, p1,
+                                card, "flash (H, Kh, hd, window, causal)")
+
+
+def family_train_config(arch, layers):
+    """``arch``'s config at ``layers`` layers (all where None)."""
+    from repro_torch.configs.base import get_arch
+
+    cfg = get_arch(arch).config
+    return cfg.replace(n_layers=layers or cfg.n_layers)
+
+
+MEMBER_TASKS = {"serve": member_serve, "train": member_train,
+                "elastic": member_elastic, "family": member_family}
 
 
 # the phases of the rest of the attention families, after the MoE ones:
@@ -5135,6 +5638,10 @@ def main() -> int:
     from repro_torch.models.dlrm import init_dlrm
 
     t_start = time.perf_counter()
+
+    def lap(what):
+        log(f"[time] {what} done at {time.perf_counter() - t_start:.1f} s")
+
     card = card_identity()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5190,38 +5697,50 @@ def main() -> int:
             rows.append(row)
         rows.append(ragged_row)
         log(f"[reshard] phase 5e launches by shape {by_key_5e}")
+        lap("dlrm")
         # the LM phases need the card's memory: drop the 7.33 GB stack
         del params
         torch.cuda.empty_cache()
         flash_rows = flash_phase(dev)
         lm_parity_phase(dev)
         _, by_key = lm_serve_phase(dev, card)
+        lap("gemma2")
         # the rwkv6 phases need the card's memory: gemma2-9b went with
         # lm_serve_phase's frame
         torch.cuda.empty_cache()
         wkv_rows = wkv_phase(dev)
         rwkv_parity_phase(dev)
         wkv_by_key = rwkv_serve_phase(dev, card)
-        # the qwen2-moe phases need the card's memory: rwkv6-1.6b went with
-        # rwkv_serve_phase's frame
+        lap("rwkv6")
+        # rwkv6-1.6b over 2 members on this card: the one-device model went
+        # with rwkv_serve_phase's frame
+        torch.cuda.empty_cache()
+        ssm_row = members_ssm_phase(dev, card)
+        lap("members-ssm")
+        # the qwen2-moe phases need the card's memory
         torch.cuda.empty_cache()
         p1 = moe_parity_phase(dev)
         moe_by_key, p1_serve = moe_serve_phase(dev, card)
         p1.update(p1_serve)
+        lap("qwen2-moe")
         # qwen2-moe-a2.7b over 2 members on this card (two processes over
         # gloo): the one-device model went with moe_serve_phase's frame
         torch.cuda.empty_cache()
         members_row = members_serve_phase(dev, card, p1)
+        lap("members-serve")
         del p1, p1_serve
         # the rest of the attention families, one model on the card at a
         # time: qwen2-moe-a2.7b went with moe_serve_phase's frame
         torch.cuda.empty_cache()
         family_rows = families_flash_phase(dev)
         glm_by_key = dense_family_phase("glm", GLM, dev, card)
+        lap("chatglm3")
         llava_by_key = llava_phase(dev, card)
+        lap("llava")
         q72_by_key = dense_family_phase(
             "qwen72", QWEN72, dev, card, n_layers=QWEN72_LAYERS,
             parity_layers=QWEN72_PARITY_LAYERS)
+        lap("qwen2-72b")
         whisper_by_key = whisper_phase(dev, card)
         # the hybrid family, one model on the card at a time: whisper-tiny
         # went with whisper_phase's frame
@@ -5231,8 +5750,13 @@ def main() -> int:
         smoke_by_key = smoke_serve_phase()
         zamba2_parity_phase(dev)
         zamba_by_key = zamba2_serve_phase(dev, card)
-        # the training phases need the card's memory: zamba2-2.7b went
-        # with zamba2_serve_phase's frame
+        lap("whisper, zamba2")
+        # zamba2-2.7b over 2 members on this card: the one-device model
+        # went with zamba2_serve_phase's frame
+        torch.cuda.empty_cache()
+        hybrid_row = members_hybrid_phase(dev, card)
+        lap("members-hybrid")
+        # the training phases need the card's memory
         torch.cuda.empty_cache()
         lse_phase(dev)
     # training runs with grad enabled
@@ -5240,9 +5764,11 @@ def main() -> int:
     train_cut_phase(dev)
     train_smoke_phase(dev)
     train_row["launches"] = train_full_phase(dev, card)
+    lap("train")
     # the training phases over members (two processes on this card)
     torch.cuda.empty_cache()
     members_train_phase(dev, card)
+    lap("members-train")
     members_elastic_phase(dev, card)
     # each flash or WKV row takes the served launches of its own shape:
     # qwen3's heads and the B 8 WKV shape are timed but not served, so
@@ -5259,7 +5785,8 @@ def main() -> int:
     # four f32 smoke serves
     zamba_row["launches"] = zamba_by_key.get(zkey, 0)
     hd8_row["launches"] = smoke_by_key.get(hd8_key, 0)
-    rows += [zamba_row, zamba_f32_row, hd8_row, train_row, members_row]
+    rows += [zamba_row, zamba_f32_row, hd8_row, train_row, members_row,
+             hybrid_row, ssm_row]
     for row, key in wkv_rows:
         row["launches"] = wkv_by_key.get(key, 0)
         rows.append(row)

@@ -14,9 +14,14 @@ Sharding policy, resolved per arch:
 
 The port reads these rules for the ``model`` axis only: parameters are
 whole on every data member (no FSDP) and activations are not
-sequence-parallel; see ``models/api.py::param_layout``.  The rest of the
-reference's module (the dry-run cells: input specs, batch and state
-shardings, step lowering) is the launch tooling, ROADMAP A14f.
+sequence-parallel; see ``models/api.py::param_layout``.  They cut every
+family but whisper: the transformer families (dense, MoE, VLM), rwkv6's
+time mix (heads) and channel mix ("mlp"), and zamba2's Mamba-2 heads
+(its fused ``in_proj`` and conv segment by segment) and shared block;
+whisper's rules are all None, so it runs data-parallel (replicated on a
+model axis).  The rest of the reference's module (the dry-run cells:
+input specs, batch and state shardings, step lowering) is the launch
+tooling, ROADMAP A14f.
 """
 from __future__ import annotations
 

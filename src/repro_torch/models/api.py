@@ -12,17 +12,20 @@ Batch dict convention:
   patches (B, n_front, d_front) — vision stub (llava), optional
 
 Over a mesh (``sharding/partition.py::axis_rules``) the transformer
-families (dense, moe, vlm) run tensor- and expert-parallel with no new
-argument: each member holds the blocks :func:`param_layout` gives it, from
-:func:`init` with a ``layout`` or from :func:`shard_params` of a whole
-tree.  The other families keep every leaf whole on every member and run
-replicated (ROADMAP A14d-2).
+families (dense, moe, vlm) run tensor- and expert-parallel, rwkv6 (ssm)
+and zamba2 (hybrid) tensor-parallel, with no new argument: each member
+holds the blocks :func:`param_layout` gives it, from :func:`init` with a
+``layout`` or from :func:`shard_params` of a whole tree, and a cache of
+its own heads (:func:`make_cache`).  whisper (audio) keeps every leaf
+whole: ``launch/specs.py::arch_rules`` sets all its rules to None, so it
+runs data-parallel (on a model axis, replicated).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as M
 from repro_torch.models import rwkv6, transformer, whisper, zamba2
 from repro_torch.sharding import partition
@@ -40,9 +43,6 @@ def check_ported(cfg: ModelConfig) -> None:
     if cfg.family in UNPORTED:
         raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} family is "
                                   f"not ported yet ({UNPORTED[cfg.family]})")
-
-
-TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
 
 
 def init(seed: int, cfg: ModelConfig, device="cuda", n_shards: int = 16,
@@ -107,11 +107,28 @@ def batch_spec_axes(cfg: ModelConfig, kind: str) -> dict:
     return out
 
 
+# rwkv6's per-layer leaves that the port cuts, and the plan field that
+# says whether: the time mix's projections by heads, the channel mix's by
+# its hidden width.  ``cm_r`` (("embed", "heads") in the reference) stays
+# whole: its output gates the channel mix's reduced output, so a cut one
+# would need an all_gather a layer; ``time_decay``, ``decay_B`` and
+# ``ln_x`` are "embed" leaves, whole, each member taking its heads'
+# columns.
+RWKV6_CUT = {"wr": "heads", "wk": "heads", "wv": "heads", "wg": "heads",
+             "wo": "heads", "time_faaaa": "heads", "cm_k": "mlp",
+             "cm_v": "mlp"}
+
+
 def _cut(cfg: ModelConfig, tp, path: tuple) -> bool:
     """Whether the port cuts the leaf at ``path`` over the model axis (the
     rules' choice, narrowed by ``tp``: whole heads, even blocks)."""
-    if tp is None or cfg.family not in TRANSFORMER_FAMILIES:
+    if tp is None or cfg.family == "audio":
         return False
+    if cfg.family == "ssm" and path[0] == "layers":
+        field = RWKV6_CUT.get(path[1])
+        return field is not None and getattr(tp, field)
+    if path[0] == "mamba":
+        return tp.ssm_heads
     if "attn" in path:
         leaf = path[path.index("attn") + 1]
         return {"wq": tp.heads, "wo": tp.heads,
@@ -125,6 +142,21 @@ def _cut(cfg: ModelConfig, tp, path: tuple) -> bool:
     return {"embed": tp.emb_vocab, "head": tp.vocab}.get(path[0], False)
 
 
+def _segments(cfg: ModelConfig, path: tuple):
+    """The :class:`partition.Segments` entry of a fused Mamba-2 leaf cut by
+    heads (``in_proj`` columns z | x | B | C | dt, the conv's channels
+    x | B | C: z, x and dt by heads, B and C whole, since every head reads
+    them), else None."""
+    if path[0] != "mamba" or path[1] not in ("in_proj", "conv_w", "conv_b"):
+        return None
+    d_inner, nh, _ = M2.dims(cfg)
+    n = cfg.ssm.d_state
+    if path[1] == "in_proj":
+        return partition.Segments("model", (d_inner, d_inner, n, n, nh),
+                                  (True, True, False, False, True))
+    return partition.Segments("model", (d_inner, n, n), (True, False, False))
+
+
 def param_layout(cfg: ModelConfig, mesh=None,
                  rules: Optional[dict] = None) -> partition.Layout:
     """Where each parameter lives over ``mesh`` under ``rules`` (default:
@@ -132,16 +164,20 @@ def param_layout(cfg: ModelConfig, mesh=None,
     ``tree_shardings`` does (``partition.tree_layout``); the port keeps
     only the ``model`` axis (parameters are whole on every data member:
     no FSDP) and cuts a leaf only where :func:`sharding.tp.plan` runs it
-    cut: whole query heads, KV heads whole or replicated, even blocks.
-    The families other than the transformer's keep every leaf whole."""
+    cut: whole query heads, KV heads whole or replicated, rwkv6's and
+    Mamba-2's heads, even blocks; a part whose heads do not divide keeps
+    its leaves whole.  Mamba-2's fused leaves are cut segment by segment
+    (:func:`_segments`).  whisper keeps every leaf whole."""
     mesh = mesh if mesh is not None else partition.current_mesh()
     base = partition.tree_layout(specs(cfg), mesh, rules)
     tp = TP.plan(cfg, mesh, rules)
 
     def narrow(path, spec):
-        cut = _cut(cfg, tp, path)
-        return tuple("model" if cut and "model" in partition._axes(e)
-                     else None for e in spec)
+        cut = "model" if _cut(cfg, tp, path) else None
+        if cut:
+            cut = _segments(cfg, path) or cut
+        return tuple(cut if cut and "model" in partition._axes(e) else None
+                     for e in spec)
 
     return partition.Layout(mesh, partition.map_specs(narrow, base.specs))
 
@@ -186,7 +222,8 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     """The transformer's KV cache, whisper's self- and cross-attention
     caches (zero cross K/V over ``AUDIO_ENC_LEN`` frames), rwkv6's
     recurrent state (constant in ``max_len``), or zamba2's shared-block K/V
-    beside its mamba layers' conv and SSD states."""
+    beside its mamba layers' conv and SSD states.  Under the ambient mesh
+    the heads are this member's (:func:`sharding.tp.plan`)."""
     check_ported(cfg)
     if cfg.family == "ssm":
         return rwkv6.make_state(cfg, batch, dtype, device)

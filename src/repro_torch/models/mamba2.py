@@ -15,6 +15,18 @@ Parameters keep the reference's layout.  Where the reference combines a
 bf16 parameter (``A_log``, ``dt_bias``, ``D`` after ``cast_params``) with an
 f32 activation or state (JAX promotes to f32), the port takes the
 parameter to f32 itself.
+
+Over a model axis whose plan cuts the heads (``sharding/tp.py::Plan.
+ssm_heads``) each member holds its heads' ``z``/``x``/``dt`` columns of
+``in_proj`` and the whole ``B``/``C`` ones (``ngroups`` is 1: every head
+reads them; ``partition.Segments`` lays them out), its ``x`` conv channels
+beside the ``B``/``C`` ones, its heads of ``A_log``, ``dt_bias``, ``D``,
+``gate_norm`` and the SSD state, and its rows of the row-parallel
+``out_proj``, which leaves through ``reduce_from``.  The whole ``B``/``C``
+columns enter through ``copy_to_slice``, so their gradient is summed over
+the members.  ``gate_norm`` normalises over the whole ``d_inner``: its
+sum of squares is summed over the members by ``sum_shared`` (a B·S f32
+vector a layer), whose backward sums too.
 """
 from __future__ import annotations
 
@@ -24,6 +36,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.sharding import tp as TP
 
 
 def dims(cfg: ModelConfig):
@@ -32,6 +45,17 @@ def dims(cfg: ModelConfig):
     n_heads = d_inner // ssm.head_dim
     conv_ch = d_inner + 2 * ssm.d_state
     return d_inner, n_heads, conv_ch
+
+
+def member_dims(cfg: ModelConfig, tp=None):
+    """:func:`dims` of this member's share under ``tp`` (its heads' inner
+    width and heads, its conv channels), and the model group (None where
+    the heads run whole)."""
+    d_inner, nh, _ = dims(cfg)
+    if tp is None or not tp.ssm_heads:
+        return d_inner, nh, d_inner + 2 * cfg.ssm.d_state, None
+    d_inner, nh = d_inner // tp.n, nh // tp.n
+    return d_inner, nh, d_inner + 2 * cfg.ssm.d_state, tp.group
 
 
 # ---------------------------------------------------------------------------
@@ -173,25 +197,38 @@ def ssd_chunked(x, dt, A_log, B, C, D, state, chunk: int = 128):
 # ---------------------------------------------------------------------------
 
 
-def _split_proj(cfg: ModelConfig, zxbcdt):
-    d_inner, nh, _ = dims(cfg)
-    return torch.split(zxbcdt, [d_inner, d_inner + 2 * cfg.ssm.d_state, nh],
-                       dim=-1)
+def _gate_norm(p, y, cfg: ModelConfig, group):
+    """RMSNorm over the whole ``d_inner`` (f32 inside, as
+    ``layers.rmsnorm``), each member holding its channels under ``group``:
+    the sum of squares summed over the members (``sum_shared``; the
+    identity without a group)."""
+    yf = y.float()
+    d_inner, _, _ = dims(cfg)
+    ss = TP.sum_shared(yf.square().sum(-1, keepdim=True), group)
+    return (yf * torch.rsqrt(ss / d_inner + cfg.norm_eps)
+            * p["scale"].float()).to(y.dtype)
 
 
-def block(p, cfg: ModelConfig, x, state=None, chunked: bool = True):
+def block(p, cfg: ModelConfig, x, state=None, chunked: bool = True, *,
+          tp=None):
     """x:(B,S,D).  state: None (a full sequence) or dict(conv (B,k-1,C),
     ssd (B,H,P,N)) -> (x + out, new state: "ssd", and "conv" when a state
     was given).  The chunked evaluator runs only when ``chunked`` and S is
     a whole number (> 1) of chunks, as in the reference; any other length
-    runs the token-by-token scan."""
+    runs the token-by-token scan.  Under ``tp`` cutting the heads, H and C
+    are this member's (the module docstring)."""
     ssm = cfg.ssm
-    d_inner, nh, _ = dims(cfg)
+    d_inner, nh, _, group = member_dims(cfg, tp)
     b, s, _ = x.shape
-    h = L.rmsnorm(p["norm"], x, cfg.norm_eps)
-    z, xbc, dt = _split_proj(cfg, L.dense(p["in_proj"], h))
+    h = TP.copy_to(L.rmsnorm(p["norm"], x, cfg.norm_eps), group)
+    w_in = TP.copy_to_slice(p["in_proj"]["kernel"], group, 2 * d_inner,
+                            2 * ssm.d_state)
+    z, xbc, dt = torch.split(L.dense(dict(p["in_proj"], kernel=w_in), h),
+                             [d_inner, d_inner + 2 * ssm.d_state, nh],
+                             dim=-1)
     new_state = {}
-    w, bias = p["conv_w"].to(xbc.dtype), p["conv_b"].to(xbc.dtype)
+    w, bias = (TP.copy_to_slice(p[k], group, d_inner, 2 * ssm.d_state)
+               .to(xbc.dtype) for k in ("conv_w", "conv_b"))
     if state is None:
         xbc = conv_full(w, bias, xbc)
     else:
@@ -211,8 +248,8 @@ def block(p, cfg: ModelConfig, x, state=None, chunked: bool = True):
     else:
         y, new_state["ssd"] = ssd_recurrent(*args)
     y = y.reshape(b, s, d_inner).to(x.dtype)
-    y = L.rmsnorm(p["gate_norm"], y * F.silu(z), cfg.norm_eps)
-    return x + L.dense(p["out_proj"], y), new_state
+    y = _gate_norm(p["gate_norm"], y * F.silu(z), cfg, group)
+    return x + TP.reduce_from(L.dense(p["out_proj"], y), group), new_state
 
 
 def make_state(cfg: ModelConfig, batch: int, dtype=None, device="cuda"):

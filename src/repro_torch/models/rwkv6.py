@@ -17,6 +17,19 @@ parameters.  Where the reference multiplies an f32 activation by a bf16
 weight (JAX promotes to f32), the port takes the weight to f32 itself.
 
 State per layer = two token-shift vectors (B,1,D) + WKV state (B,H,K,V).
+
+Over a model axis (``sharding/tp.py::plan``) each member runs its
+H / n heads of the time mix and its d_ff / n columns of the channel mix.
+The ddlerp and the decay LoRA's first product stay replicated; the five
+mixes enter the column-parallel ``wr``/``wk``/``wv``/``wg`` through
+``copy_to``, ``time_faaaa`` and the WKV state are cut by heads, and each
+member takes its heads' columns of the whole "embed" leaves
+``time_decay``, ``decay_B`` and ``ln_x`` (each through ``copy_to``, so
+its gradient is summed over the members); the per-head group norm is
+local; ``wo`` is row-parallel and leaves through ``reduce_from``.  The
+channel mix's ``cm_k`` is column-parallel and ``cm_v`` row-parallel;
+``cm_r`` stays whole (its output gates the reduced ``cm_v`` output).
+Where the heads or the width do not divide, that part runs replicated.
 """
 from __future__ import annotations
 
@@ -28,6 +41,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.sharding import tp as TP
 
 HEAD_SIZE = 64
 LORA_MAA = 32
@@ -41,6 +55,19 @@ wkv_chunked = ref.rwkv6_wkv_chunked_ref
 
 def n_heads(cfg: ModelConfig) -> int:
     return cfg.d_model // HEAD_SIZE
+
+
+def _member(tp, cut: bool):
+    """(group, members, this member) of a part cut over the model axis, or
+    (None, 1, 0) where it runs whole."""
+    return (tp.group, tp.n, tp.m) if tp is not None and cut else \
+        (None, 1, 0)
+
+
+def _cols(leaf, group, cols):
+    """This member's columns of a whole leaf used inside a cut region
+    (its gradient summed over ``group``)."""
+    return TP.copy_to(leaf, group)[..., cols]
 
 
 # ---------------------------------------------------------------------------
@@ -169,21 +196,27 @@ def _shift(x, prev=None):
 
 
 def time_mix(p, cfg: ModelConfig, x, *, shift_prev=None, wkv_state=None,
-             chunked: bool = True, wkv_impl: str = "auto"):
+             chunked: bool = True, wkv_impl: str = "auto", tp=None):
     """-> (out, last token's x for the next shift, WKV state).  A chunked
     call with S a multiple of ``CHUNK`` (and S > 1) takes
     ``ops.rwkv6_wkv_op`` with ``wkv_impl`` ("auto": the CUDA kernel on the
-    card); everything else, decode included, the plain recurrence."""
-    b, s, d = x.shape
-    h = n_heads(cfg)
+    card); everything else, decode included, the plain recurrence.  With
+    ``tp`` cutting the heads, this member's H / n heads (the module
+    docstring)."""
+    b, s, _ = x.shape
+    group, n, m = _member(tp, tp is not None and tp.heads)
+    h, d = n_heads(cfg) // n, cfg.d_model // n
+    cols = slice(m * d, (m + 1) * d)
     shifted = _shift(x, shift_prev)
     xr, xk, xv, xw, xg = _ddlerp(p, x, shifted)
+    xr, xk, xv, xg = (TP.copy_to(t, group) for t in (xr, xk, xv, xg))
     r = L.dense(p["wr"], xr).reshape(b, s, h, HEAD_SIZE)
     k = L.dense(p["wk"], xk).reshape(b, s, h, HEAD_SIZE)
     v = L.dense(p["wv"], xv).reshape(b, s, h, HEAD_SIZE)
     g = F.silu(L.dense(p["wg"], xg))
-    dec = p["time_decay"].float() + torch.tanh(
-        xw.float() @ p["decay_A"].float()) @ p["decay_B"].float()
+    lora = TP.copy_to(torch.tanh(xw.float() @ p["decay_A"].float()), group)
+    dec = _cols(p["time_decay"], group, cols).float() + \
+        lora @ _cols(p["decay_B"], group, cols).float()
     logw = -torch.exp(dec).reshape(b, s, h, HEAD_SIZE)
     if wkv_state is None:
         wkv_state = torch.zeros((b, h, HEAD_SIZE, HEAD_SIZE),
@@ -198,32 +231,37 @@ def time_mix(p, cfg: ModelConfig, x, *, shift_prev=None, wkv_state=None,
     # per-head group norm (population variance, as jnp.var) + gate
     var, mu = torch.var_mean(out, dim=-1, keepdim=True, correction=0)
     out = (out - mu) * torch.rsqrt(var + 64e-5)
-    out = out.reshape(b, s, d) * p["ln_x"]["scale"] + p["ln_x"]["bias"]
+    ln_x = {k: _cols(v, group, cols) for k, v in p["ln_x"].items()}
+    out = out.reshape(b, s, d) * ln_x["scale"] + ln_x["bias"]
     out = out.to(x.dtype) * g
-    return L.dense(p["wo"], out), x[:, -1:], wkv_state
+    return TP.reduce_from(L.dense(p["wo"], out), group), x[:, -1:], \
+        wkv_state
 
 
-def channel_mix(p, x, *, shift_prev=None):
+def channel_mix(p, x, *, shift_prev=None, tp=None):
+    """With ``tp`` cutting the MLP width, this member's ``cm_k`` columns and
+    ``cm_v`` rows, the ``cm_v`` product summed over the members."""
+    group, _, _ = _member(tp, tp is not None and tp.mlp)
     shifted = _shift(x, shift_prev)
     delta = shifted - x
     xk = x + delta * p["cm_maa_k"]
     xr = x + delta * p["cm_maa_r"]
-    kk = torch.relu(L.dense(p["cm_k"], xk)).square()
-    return torch.sigmoid(L.dense(p["cm_r"], xr)) * L.dense(p["cm_v"], kk), \
-        x[:, -1:]
+    kk = torch.relu(L.dense(p["cm_k"], TP.copy_to(xk, group))).square()
+    return torch.sigmoid(L.dense(p["cm_r"], xr)) * TP.reduce_from(
+        L.dense(p["cm_v"], kk), group), x[:, -1:]
 
 
 def block(p, cfg: ModelConfig, x, state=None, chunked: bool = True, *,
-          wkv_impl: str = "auto"):
+          wkv_impl: str = "auto", tp=None):
     """state: None (full sequence) or dict(tm_shift (B,1,D), cm_shift,
-    wkv (B,H,K,V))."""
+    wkv (B,H,K,V)); H is this member's heads under ``tp``."""
     st = state or {}
     tm_out, tm_shift, wkv = time_mix(
         p, cfg, L.layernorm(p["ln1"], x), shift_prev=st.get("tm_shift"),
-        wkv_state=st.get("wkv"), chunked=chunked, wkv_impl=wkv_impl)
+        wkv_state=st.get("wkv"), chunked=chunked, wkv_impl=wkv_impl, tp=tp)
     x = x + tm_out
     cm_out, cm_shift = channel_mix(p, L.layernorm(p["ln2"], x),
-                                   shift_prev=st.get("cm_shift"))
+                                   shift_prev=st.get("cm_shift"), tp=tp)
     x = x + cm_out
     return x, {"tm_shift": tm_shift, "cm_shift": cm_shift, "wkv": wkv}
 
@@ -257,11 +295,12 @@ def forward(params, cfg: ModelConfig, tokens, *, collect_cache: bool = False,
     under autograd the chunked op goes through ``ops.Rwkv6WkvFn``."""
     if wkv_impl not in ops.IMPLS:
         raise ValueError(f"unknown wkv_impl {wkv_impl!r}; have {ops.IMPLS}")
+    tp = TP.plan(cfg)
     pc, layers = _cast(params, cfg)
-    x = L.layernorm(pc["ln0"], L.embed_tokens(pc["embed"], tokens))
+    x = L.layernorm(pc["ln0"], T.embed_inputs(pc, cfg, tokens, tp=tp))
 
     def layer(x, lp):
-        return block(lp, cfg, x, wkv_impl=wkv_impl)
+        return block(lp, cfg, x, wkv_impl=wkv_impl, tp=tp)
 
     body = T._remat(layer, cfg) if remat else layer
     states = []
@@ -270,24 +309,34 @@ def forward(params, cfg: ModelConfig, tokens, *, collect_cache: bool = False,
         if collect_cache:
             states.append(st)
     x = L.layernorm(pc["final_norm"], x[:, -1:] if last_only else x)
-    logits = L.lm_head(pc["head"], x)
+    logits = _head(pc, x, tp)
     aux = logits.new_zeros((), dtype=torch.float32)
     if collect_cache:
         return logits, aux, _stack_states(states)
     return logits, aux
 
 
+def _head(pc, x, tp):
+    """The LM head, vocab-parallel under ``tp``."""
+    group, _, _ = _member(tp, tp is not None and tp.vocab)
+    return L.lm_head(pc["head"], x, group=group)
+
+
 def make_state(cfg: ModelConfig, batch: int, dtype=None, device="cuda"):
     """Zero state {"tm_shift", "cm_shift": (L, B, 1, D), "wkv":
-    (L, B, H, K, V) f32, "pos": 0}; ``pos`` is a host int."""
+    (L, B, H, K, V) f32, "pos": 0}; ``pos`` is a host int.  Under the
+    ambient mesh H is this member's heads."""
     dev = resolve_device(device)
     dt = L.dtype_of(dtype or cfg.dtype)
+    tp = TP.plan(cfg)
+    _, n, _ = _member(tp, tp is not None and tp.heads)
     shift = (cfg.n_layers, batch, 1, cfg.d_model)
     return {
         "tm_shift": torch.zeros(shift, dtype=dt, device=dev),
         "cm_shift": torch.zeros(shift, dtype=dt, device=dev),
-        "wkv": torch.zeros((cfg.n_layers, batch, n_heads(cfg), HEAD_SIZE,
-                            HEAD_SIZE), dtype=torch.float32, device=dev),
+        "wkv": torch.zeros((cfg.n_layers, batch, n_heads(cfg) // n,
+                            HEAD_SIZE, HEAD_SIZE), dtype=torch.float32,
+                           device=dev),
         "pos": 0,
     }
 
@@ -295,15 +344,16 @@ def make_state(cfg: ModelConfig, batch: int, dtype=None, device="cuda"):
 def decode_step(params, cfg: ModelConfig, tokens, state):
     """tokens: (B,1).  Returns (logits (B,1,V), new state); the state handed
     in is not changed."""
+    tp = TP.plan(cfg)
     pc, layers = _cast(params, cfg)
-    x = L.layernorm(pc["ln0"], L.embed_tokens(pc["embed"], tokens))
+    x = L.layernorm(pc["ln0"], T.embed_inputs(pc, cfg, tokens, tp=tp))
     states = []
     for i in range(cfg.n_layers):
         x, st = block(T._map(lambda a: a[i], layers), cfg, x,
                       state={key: state[key][i]
                              for key in ("tm_shift", "cm_shift", "wkv")},
-                      chunked=False)
+                      chunked=False, tp=tp)
         states.append(st)
     x = L.layernorm(pc["final_norm"], x)
-    logits = L.lm_head(pc["head"], x)
+    logits = _head(pc, x, tp)
     return logits, dict(_stack_states(states), pos=state["pos"] + 1)

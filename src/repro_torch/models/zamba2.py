@@ -17,6 +17,13 @@ then a no-op.  The shared block's prefill attention goes through
 ``ops.flash_attention_op`` (the CUDA kernel on the card, at head dim 80 for
 zamba2-2.7b); its decode attention and every SSD evaluator are plain
 PyTorch, as in the reference.
+
+Over a model axis (``sharding/tp.py::plan``) the mamba layers run their
+members' heads (``mamba2.block``), the shared block the transformer's
+tensor-parallel attention and GLU MLP under the same plan (zamba2-2.7b's
+32 query heads over 32 KV heads: the flash kernel runs at the member's
+heads), and the embedding and LM head are the transformer's
+vocab-parallel ones; the cache holds this member's heads.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import transformer as T
+from repro_torch.sharding import tp as TP
 
 
 def n_groups(cfg: ModelConfig) -> int:
@@ -112,12 +120,17 @@ def _group(params, cfg: ModelConfig, g: int):
                          L.dtype_of(cfg.dtype))
 
 
-def _shared_full(p, cfg: ModelConfig, x, attn_impl: str):
+def _mlp_group(tp):
+    return tp.group if tp is not None and tp.mlp else None
+
+
+def _shared_full(p, cfg: ModelConfig, x, attn_impl: str, tp=None):
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    attn, kv = A.attend_full(p["attn"], cfg, h, attn_impl=attn_impl)
+    attn, kv = A.attend_full(p["attn"], cfg, h, attn_impl=attn_impl, tp=tp)
     x = x + attn
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + L.glu_mlp(p["ffn"], h, cfg.act), kv
+    return x + L.glu_mlp(p["ffn"], h, cfg.act, _mlp_group(tp)), kv
+
 
 
 def forward(params, cfg: ModelConfig, tokens, *, collect_cache: bool = False,
@@ -135,17 +148,18 @@ def forward(params, cfg: ModelConfig, tokens, *, collect_cache: bool = False,
     when grad is enabled, as the reference's does."""
     if attn_impl not in ops.IMPLS:
         raise ValueError(f"unknown attn_impl {attn_impl!r}; have {ops.IMPLS}")
+    tp = TP.plan(cfg)
     pc = _cast(params, cfg)
-    x = L.embed_tokens(pc["embed"], tokens)
+    x = T.embed_inputs(pc, cfg, tokens, tp=tp)
     shared = pc["shared"]
     cdt = L.dtype_of(cfg.dtype)
 
     def group_fn(x, gp):
         gp = T.cast_params(gp, cdt)
-        x, kv = _shared_full(shared, cfg, x, attn_impl)
+        x, kv = _shared_full(shared, cfg, x, attn_impl, tp)
         sts = []
         for lp in T.unbind_groups(gp, cfg.shared_attn_every):
-            x, st = M2.block(lp, cfg, x)
+            x, st = M2.block(lp, cfg, x, tp=tp)
             sts.append(st["ssd"])
         return x, kv, sts
 
@@ -158,9 +172,7 @@ def forward(params, cfg: ModelConfig, tokens, *, collect_cache: bool = False,
             ks.append(k)
             vs.append(v)
         del k, v, sts
-    x = L.rmsnorm(pc["final_norm"], x[:, -1:] if last_only else x,
-                  cfg.norm_eps)
-    logits = L.lm_head(pc["head"], x)
+    logits = T.logits_out(pc, cfg, x[:, -1:] if last_only else x, tp)
     aux = logits.new_zeros((), dtype=torch.float32)
     if collect_cache:
         ssd = torch.stack(ssds).view(n_groups(cfg), cfg.shared_attn_every,
@@ -175,12 +187,15 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     """Zero cache {"attn_k", "attn_v": (n_groups, B, max_len, Kh, hd),
     "conv": (n_groups, shared_attn_every, B, k-1, conv_ch) in ``dtype``
     (the config's by default), "ssd": (n_groups, shared_attn_every, B, H,
-    P, N) in f32, "pos": 0}; ``pos`` is a host int."""
+    P, N) in f32, "pos": 0}; ``pos`` is a host int.  Under the ambient
+    mesh Kh, conv_ch and H are this member's."""
     dev = resolve_device(device)
     dt = L.dtype_of(dtype or cfg.dtype)
     g, e = n_groups(cfg), cfg.shared_attn_every
-    _, nh, conv_ch = M2.dims(cfg)
-    kv = (g, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    tp = TP.plan(cfg)
+    _, nh, conv_ch, _ = M2.member_dims(cfg, tp)
+    kh = tp.kv_n if tp is not None and tp.heads else cfg.n_kv_heads
+    kv = (g, batch, max_len, kh, cfg.head_dim)
     return {
         "attn_k": torch.zeros(kv, dtype=dt, device=dev),
         "attn_v": torch.zeros(kv, dtype=dt, device=dev),
@@ -199,25 +214,25 @@ def decode_step(params, cfg: ModelConfig, tokens, cache):
     tensors are updated in place (each shared invocation's K/V through
     ``attention.decode_step`` on its group's views, each mamba layer's conv
     and SSD state after the layer has read them)."""
+    tp = TP.plan(cfg)
     pc = _cast(params, cfg)
-    x = L.embed_tokens(pc["embed"], tokens)
+    x = T.embed_inputs(pc, cfg, tokens, tp=tp)
     shared = pc["shared"]
     pos = cache["pos"]
     for g in range(n_groups(cfg)):
         gp = _group(params, cfg, g)
         h = L.rmsnorm(shared["ln1"], x, cfg.norm_eps)
         attn, _ = A.decode_step(shared["attn"], cfg, h, cache["attn_k"][g],
-                                cache["attn_v"][g], pos)
+                                cache["attn_v"][g], pos, tp=tp)
         x = x + attn
         h = L.rmsnorm(shared["ln2"], x, cfg.norm_eps)
-        x = x + L.glu_mlp(shared["ffn"], h, cfg.act)
+        x = x + L.glu_mlp(shared["ffn"], h, cfg.act, _mlp_group(tp))
         for i in range(cfg.shared_attn_every):
             x, st = M2.block(T._map(lambda a: a[i], gp), cfg, x,
                              state={"conv": cache["conv"][g, i],
                                     "ssd": cache["ssd"][g, i]},
-                             chunked=False)
+                             chunked=False, tp=tp)
             cache["conv"][g, i] = st["conv"]
             cache["ssd"][g, i] = st["ssd"]
-    x = L.rmsnorm(pc["final_norm"], x, cfg.norm_eps)
-    logits = L.lm_head(pc["head"], x)
+    logits = T.logits_out(pc, cfg, x, tp)
     return logits, dict(cache, pos=pos + 1)

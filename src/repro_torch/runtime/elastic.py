@@ -104,7 +104,8 @@ def _reshard_leaf(x, spec_from, spec_to, old, new):
         parts = [torch.empty_like(x) for _ in range(new.size)]
         dist.all_gather(parts, x.contiguous(), group=group)
         at = {r: parts[j] for j, r in enumerate(new.ranks)}
-        full = torch.cat([at[holders[i]] for i in range(n)], dim=d)
+        full = partition.join_blocks([at[holders[i]] for i in range(n)],
+                                     spec_from[d], d)
     return partition.shard_leaf(full, spec_to, new)
 
 

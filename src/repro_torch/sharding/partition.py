@@ -14,7 +14,11 @@ reference's rank check.  :func:`gather_tree` puts full leaves back together
 A layout (:class:`Layout`) is a mesh and a tree of per-leaf specs: one
 entry per dimension, None (whole), a mesh axis name, or a tuple of names
 (the dimension cut over their product, row-major), as the reference's
-``PartitionSpec`` entries.
+``PartitionSpec`` entries, or a :class:`Segments` entry: a fused dimension
+(Mamba-2's ``in_proj`` columns z | x | B | C | dt) whose segments are each
+cut or whole, where the reference's one "heads" axis cuts the dimension as
+a contiguous block.  Saved and gathered leaves keep the reference's full
+layout, column for column.
 """
 from __future__ import annotations
 
@@ -147,11 +151,36 @@ def constrain(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
     return x
 
 
+@dataclasses.dataclass(frozen=True)
+class Segments:
+    """A layout entry for a dimension that concatenates segments of
+    ``sizes`` (full widths), each cut over the mesh axis ``axis`` where
+    ``cut`` says so and whole on every member elsewhere.  A member's block
+    is its block of each cut segment and every whole one, in the same
+    order."""
+    axis: str
+    sizes: tuple
+    cut: tuple
+
+    def local(self, n: int) -> list:
+        """A member's segment widths over ``n`` blocks."""
+        for size, c in zip(self.sizes, self.cut):
+            if c and size % n:
+                raise ValueError(f"segment of {size} does not split into "
+                                 f"{n} blocks")
+        return [size // n if c else size
+                for size, c in zip(self.sizes, self.cut)]
+
+    def pieces(self, x: torch.Tensor, dim: int, n: int) -> list:
+        """(segment, cut) pairs of a member's block ``x`` along ``dim``."""
+        return list(zip(torch.split(x, self.local(n), dim), self.cut))
+
+
 def is_spec(t) -> bool:
-    """A spec-tree leaf: a tuple of logical (or mesh) axis names and Nones."""
-    return isinstance(t, tuple) and all(a is None or isinstance(a, (str,
-                                                                    tuple))
-                                        for a in t)
+    """A spec-tree leaf: a tuple of logical (or mesh) axis names, Nones and
+    :class:`Segments` entries."""
+    return isinstance(t, tuple) and all(
+        a is None or isinstance(a, (str, tuple, Segments)) for a in t)
 
 
 def map_specs(fn, tree, *rest, path=()):
@@ -192,7 +221,40 @@ def tree_layout(spec_tree, mesh=None, rules: Optional[dict] = None) -> Layout:
 def _axes(entry) -> tuple:
     if entry is None:
         return ()
+    if isinstance(entry, Segments):
+        return (entry.axis,)
     return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def is_cut(spec_: tuple) -> bool:
+    """Whether a leaf of this spec is cut over some mesh axis."""
+    return any(_axes(e) for e in spec_)
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentedCut:
+    """A member's block of a leaf with a :class:`Segments` entry at ``dim``
+    over ``n`` blocks: :meth:`pieces` tells its cut segments from its whole
+    ones (``optimizer.global_norm`` counts a whole one once)."""
+    dim: int
+    segments: Segments
+    n: int
+
+    def pieces(self, x: torch.Tensor) -> list:
+        return self.segments.pieces(x, self.dim, self.n)
+
+
+def cut_flags(layout: "Layout"):
+    """A tree of each leaf's cut flag under ``layout``: whether it is cut,
+    or a :class:`SegmentedCut` for a leaf with a cut :class:`Segments`
+    entry."""
+    def flag(_, spec_):
+        for d, e in enumerate(spec_):
+            if isinstance(e, Segments) and layout.mesh.shape[e.axis] > 1:
+                return SegmentedCut(d, e, layout.mesh.shape[e.axis])
+        return is_cut(spec_)
+
+    return map_specs(flag, layout.specs)
 
 
 def block(mesh, entry) -> tuple[int, int]:
@@ -217,6 +279,11 @@ def shard_leaf(x: torch.Tensor, spec_: tuple, mesh) -> torch.Tensor:
         if out.shape[d] % n:
             raise ValueError(f"dimension {d} of {tuple(x.shape)} does not "
                              f"split into {n} blocks")
+        if isinstance(entry, Segments):
+            out = torch.cat([
+                p.narrow(d, i * (p.shape[d] // n), p.shape[d] // n) if c
+                else p for p, c in entry.pieces(out, d, 1)], dim=d)
+            continue
         size = out.shape[d] // n
         out = out.narrow(d, i * size, size)
     return out if out is x else out.clone()
@@ -228,18 +295,40 @@ def shard_tree(full_tree, layout: Layout):
                      layout.specs, full_tree)
 
 
-def _all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+def _gather_blocks(x: torch.Tensor, group) -> list:
     n = dist.get_world_size(group)
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x, group=group)
-    return torch.cat(parts, dim=dim)
+    return parts
+
+
+def _all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return torch.cat(_gather_blocks(x, group), dim=dim)
+
+
+def join_blocks(blocks: list, entry, dim: int) -> torch.Tensor:
+    """The full dimension ``dim`` from every member's block of it, in block
+    order: their concatenation, or for a :class:`Segments` entry each cut
+    segment's blocks concatenated and each whole segment taken once."""
+    if not isinstance(entry, Segments):
+        return torch.cat(blocks, dim=dim)
+    n = len(blocks)
+    split = [entry.pieces(b, dim, n) for b in blocks]
+    return torch.cat([torch.cat([s[j][0] for s in split], dim=dim) if c
+                      else split[0][j][0]
+                      for j, c in enumerate(entry.cut)], dim=dim)
 
 
 def gather_leaf(x: torch.Tensor, spec_: tuple, mesh) -> torch.Tensor:
     """The full leaf from every member's block: one ``all_gather`` along
     each cut dimension over each of its mesh axes (the innermost first)."""
     for d, entry in enumerate(spec_):
+        if isinstance(entry, Segments):
+            if mesh.shape[entry.axis] > 1:
+                x = join_blocks(_gather_blocks(x, mesh.group(entry.axis)),
+                                entry, d)
+            continue
         for a in reversed(_axes(entry)):
             if mesh.shape[a] > 1:
                 x = _all_gather(x, d, mesh.group(a))

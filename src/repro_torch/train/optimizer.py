@@ -96,10 +96,12 @@ def adamw_layout(param_layout):
 def global_norm(tree, *, cut=None, group=None):
     """sqrt of the sum of every leaf's squares (f32), leaves summed one
     after another in :func:`leaves` order, as the reference's ``sum``.
-    ``cut`` (one bool a leaf, in :func:`leaves` order) marks the leaves
-    that are this member's block of a leaf cut over ``group``: their sum is
-    all-reduced over the group, and each whole (replicated) leaf counts
-    once."""
+    ``cut`` (one flag a leaf, in :func:`leaves` order:
+    ``partition.cut_flags``) marks the leaves that are this member's block
+    of a leaf cut over ``group``: their sum is all-reduced over the group,
+    and each whole (replicated) leaf counts once; a flag with ``pieces``
+    (a fused leaf, ``partition.SegmentedCut``) splits its leaf into cut
+    and whole segments."""
     if cut is None or group is None:
         total = 0
         for x in leaves(tree):
@@ -107,7 +109,10 @@ def global_norm(tree, *, cut=None, group=None):
         return torch.sqrt(total)
     parts = [0, 0]
     for x, c in zip(leaves(tree), cut, strict=True):
-        parts[c] = parts[c] + torch.sum(torch.square(x.float()))
+        for piece, is_cut in (c.pieces(x) if hasattr(c, "pieces")
+                              else [(x, c)]):
+            parts[is_cut] = parts[is_cut] + torch.sum(
+                torch.square(piece.float()))
     local = torch.as_tensor(parts[1], dtype=torch.float32,
                             device=leaves(tree)[0].device).reshape(1)
     torch.distributed.all_reduce(local, group=group)

@@ -25,7 +25,8 @@ from repro_torch.train import optimizer as opt
 
 def make_train_step(cfg: ModelConfig, *, peak_lr: float = 3e-4,
                     grad_clip: float = 1.0, total_steps: int = 10_000,
-                    accum_steps: int = 1, attn_impl: str = "auto"):
+                    accum_steps: int = 1, attn_impl: str = "auto",
+                    wkv_impl: str = "auto"):
     """(params, opt_state, batch) -> (params, opt_state, metrics {"loss",
     "grad_norm", "lr"}, f32 0-d tensors).  The forward runs with
     ``remat=True`` (``cfg.remat``), the loss is ``api.loss``.  With
@@ -35,13 +36,14 @@ def make_train_step(cfg: ModelConfig, *, peak_lr: float = 3e-4,
     tree is not kept), and the summed loss and gradients are scaled by
     1 / accum_steps, the reference's mean.  Parameters (f32 masters from
     ``api.init(..., dtype="float32")``) and the optimizer state are
-    updated in place and returned; ``attn_impl`` as in ``api.forward``."""
+    updated in place and returned; ``attn_impl`` and ``wkv_impl`` as in
+    ``api.forward``."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
 
     def loss_fn(params, batch):
         logits, aux = api.forward(params, cfg, batch, remat=True,
-                                  attn_impl=attn_impl)
+                                  attn_impl=attn_impl, wkv_impl=wkv_impl)
         return api.loss(cfg, logits, batch["labels"], aux)
 
     def members(batch):
@@ -60,8 +62,7 @@ def make_train_step(cfg: ModelConfig, *, peak_lr: float = 3e-4,
             batch = {k: v[lo:lo + n // nd] for k, v in batch.items()}
         cut = None
         if mesh.shape["model"] > 1:
-            cut = opt.leaves(partition.map_specs(
-                lambda _, s: "model" in s, api.param_layout(cfg).specs))
+            cut = opt.leaves(partition.cut_flags(api.param_layout(cfg)))
         return batch, mesh.group("data"), nd, cut, mesh.group("model")
 
     def train_step(params, opt_state, batch):
