@@ -10,9 +10,10 @@ Phases, each on lines of its own:
   2. the CUDA kernels built from ``src/repro_torch/kernels/csrc`` with nvcc
      into ``build/kernels/`` (one nvcc per source, all at once), and one
      line per kernel of registers and stack/spill bytes from ptxas, with
-     the dynamic shared memory of the wgmma flash body (and its key tile
-     and K/V stages) and of the two WKV passes; the wgmma body must not
-     spill;
+     the dynamic shared memory of the wgmma flash bodies (and their key
+     tile and K/V stages: ``flash_wgmma_ws`` at hd 64 and 80,
+     ``flash_wgmma`` at 128 and 256) and of the two WKV passes; neither
+     wgmma body may spill;
   3. the DLRM kernels held against their plain PyTorch versions at full
      ``dlrm-kaggle`` width (rtol = atol = 1e-5: the summation order
      differs), two runs of each bit-identical and each bit-identical to
@@ -230,9 +231,13 @@ Phases, each on lines of its own:
      identical, one decode step profiled; ``[zamba2-*]`` lines;
  20. training, after zamba2-2.7b and outside ``torch.no_grad()``: (a) each
      body of the flash kernel asked for each row's log-sum-exp (hd 64 and
-     80 on mma.sync, 128 and 256 on wgmma in bf16, 64, 80 and the padded
-     8 in f32): lse against the plain version's, the output bit-identical
-     to a serving call's; (b) ``ops.FlashAttentionFn``'s gradients at
+     80 on the warp-specialised wgmma body, one of them with a window and
+     a softcap, 32 on mma.sync, 128 and 256 on wgmma in bf16, 64, 80 and
+     the padded 8 in f32): lse against the plain version's, the output
+     bit-identical to a serving call's; the CPU model of the hd 64/80
+     body's tile walk (``ref.flash_attention_tiled_ref``) run on the card
+     against the kernel at hd 64 and hd 80 (output at the flash tolerance,
+     lse at 1e-3); (b) ``ops.FlashAttentionFn``'s gradients at
      granite-moe-3b-a800m's train shape (B 1, S 4096, H 24 over Kh 8, hd
      64, bf16; relative Frobenius 2e-2) and in f32 at S 1024 (1e-4)
      against autograd through the plain attention, and the row
@@ -496,14 +501,16 @@ def check_kernel(name, replaces, source, kernel_fn, plain_fn, library_fn,
     return row
 
 
-KERNEL_NAMES = re.compile(r"(flash_wgmma|flash_bf16|flash_f32|"
-                          r"wkv_state_pass|wkv_output_pass|bag_pool_f32|"
+KERNEL_NAMES = re.compile(r"(flash_wgmma_ws|flash_wgmma|flash_bf16|"
+                          r"flash_f32|wkv_state_pass|wkv_output_pass|"
+                          r"bag_pool_f32|"
                           r"dot_interaction_f32|"
                           r"dot_interaction_empty_kernel)((?:I?Li\d+E)*)")
-# the wgmma flash body keeps its 128 (hd 256) accumulator registers only
-# if nothing spills, and the bag keeps two batches of rows in flight in
-# registers: their reports must show no stack and no spill stores
-NO_SPILL = ("flash_wgmma", "bag_pool_f32")
+# the wgmma flash bodies keep their accumulators (128 registers at hd 256;
+# scores, P and output beside a producer warp at hd 64/80) only if nothing
+# spills, and the bag keeps two batches of rows in flight in registers:
+# their reports must show no stack and no spill stores
+NO_SPILL = ("flash_wgmma", "flash_wgmma_ws", "bag_pool_f32")
 
 
 def ptxas_report(text: str) -> list:
@@ -530,18 +537,19 @@ def ptxas_report(text: str) -> list:
 
 def build_report(logs: dict) -> None:
     """One [build] line per kernel built: registers and stack/spill bytes
-    from ptxas, the dynamic shared memory of the wgmma flash body and the
-    two WKV passes, and the flash tiling; fails if the wgmma body or the
-    bag spills."""
+    from ptxas, the dynamic shared memory of the wgmma flash bodies and the
+    two WKV passes, and the flash tiling; fails if a wgmma body or the bag
+    spills."""
     from repro_torch.kernels import _build
 
     for src, text in logs.items():
         lib = _build.library(src)
         for name, arg, used, stack, spill in ptxas_report(text):
             extra = ""
-            if name == "flash_wgmma":
+            if name in ("flash_wgmma", "flash_wgmma_ws"):
                 bk, st, sm = (ctypes.c_int(), ctypes.c_int(), ctypes.c_int())
-                lib.flash_attention_tiling(int(arg), ctypes.byref(bk),
+                lib.flash_attention_tiling(int(arg.split(",")[0]),
+                                           ctypes.byref(bk),
                                            ctypes.byref(st), ctypes.byref(sm))
                 extra = (f"; BK {bk.value} keys, {st.value} K/V stages, "
                          f"{sm.value} bytes of dynamic shared memory")
@@ -5105,8 +5113,11 @@ LSE_TOL = {torch.bfloat16: {"rtol": 0.0, "atol": 1e-3},
            torch.float32: {"rtol": 0.0, "atol": 1e-5}}
 # each body of B5: (label, B, S, H, Kh, hd, type, window, softcap, causal)
 LSE_CASES = (
-    ("mma.sync hd 64", 1, TRAIN_SEQ, 24, 8, 64, torch.bfloat16, 0, 0.0, True),
-    ("mma.sync hd 80", 2, 1000, 8, 8, 80, torch.bfloat16, 0, 0.0, True),
+    ("wgmma_ws hd 64", 1, TRAIN_SEQ, 24, 8, 64, torch.bfloat16, 0, 0.0, True),
+    ("wgmma_ws hd 80", 2, 1000, 8, 8, 80, torch.bfloat16, 0, 0.0, True),
+    ("wgmma_ws hd 80, window, softcap", 1, 1100, 8, 2, 80, torch.bfloat16,
+     300, 50.0, True),
+    ("mma.sync hd 32", 2, 600, 4, 2, 32, torch.bfloat16, 0, 0.0, True),
     ("wgmma hd 128", 1, 1100, 16, 8, 128, torch.bfloat16, 0, 0.0, True),
     ("wgmma hd 256, window, softcap", 1, 1100, 16, 8, 256, torch.bfloat16,
      300, 50.0, True),
@@ -5170,6 +5181,47 @@ def lse_phase(dev):
             f"(atol {LSE_TOL[dt]['atol']}), output bit-identical to the "
             f"null-lse call, output vs plain {out_err:.3e}")
         del q, k, v, served, out, lse, plain, plain_lse
+    torch.cuda.empty_cache()
+
+
+# the CPU model of the hd 64/80 body's tile walk held against the kernel on
+# the card: (label, B, S, H, Kh, hd, window, causal)
+TILED_CASES = (("hd 64", 1, TRAIN_SEQ, 24, 8, 64, 0, True),
+               ("hd 80, window 300", 2, 1000, 8, 8, 80, 300, True))
+
+
+def tiled_model_phase(dev):
+    """Phase 20a': ``ref.flash_attention_tiled_ref`` (the hd 64/80 body's
+    tile walk: 128 x 128 tiles from the window's start rounded down, f32
+    running max and sum, the scale folded into exp2, P rounded to bf16
+    before P V, hd 80's P V in columns 0-63 and 64-79) run on the card
+    against the kernel in bf16, output at FLASH_TOL and FLASH_REL and lse
+    at LSE_TOL, beside the plain version's distance from the kernel."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    for label, b, s, h, kh, hd, window, causal in TILED_CASES:
+        q, k, v = ((torch.randn((b, s, n, hd), generator=gen, device=dev)
+                    * sc).to(torch.bfloat16)
+                   for n, sc in ((h, FLASH_Q_SCALE), (kh, 1.0), (kh, 1.0)))
+        kw = {"causal": causal, "window": window}
+        out, lse = fa.attend(q, k, v, return_lse=True, **kw)
+        model, model_lse = ref.flash_attention_tiled_ref(
+            q, k, v, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        err, fro, _ = hold(f"tiled model {label}", out, model, FLASH_TOL,
+                           FLASH_REL)
+        lse_err, _, _ = hold(f"tiled model {label} lse", lse, model_lse,
+                             LSE_TOL[torch.bfloat16])
+        _, plain_fro, _ = errors(out, ref.flash_attention_ref(q, k, v, **kw),
+                                 FLASH_TOL["rtol"])
+        log(f"[train-lse] tiled model {label}: B {b} S {s} H {h} over Kh "
+            f"{kh}, bf16: kernel vs model max_abs_err {err:.3e}, relative "
+            f"Frobenius error {fro:.3e} (the plain version's {plain_fro:.3e})"
+            f", lse max_abs_err {lse_err:.3e}")
+        del q, k, v, out, lse, model, model_lse
     torch.cuda.empty_cache()
 
 
@@ -5759,6 +5811,7 @@ def main() -> int:
         # the training phases need the card's memory
         torch.cuda.empty_cache()
         lse_phase(dev)
+        tiled_model_phase(dev)
     # training runs with grad enabled
     train_row = train_flash_phase(dev)
     train_cut_phase(dev)

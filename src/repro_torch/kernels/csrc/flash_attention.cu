@@ -30,39 +30,65 @@
 // from window - 1 keys before its first query when windowed, so dead tiles
 // cost nothing.  Heavy (late) query tiles are scheduled first.  The
 // running max, sum and output accumulator stay in registers in float32.
-// Three bodies:
-//   - bfloat16 at head dims 128 and 256 (the dense, MoE and VLM shapes):
-//     128 queries a block, two warpgroups of 64 rows.  Q arrives once and
-//     K/V tiles of BK keys (64 at hd 256, 128 at hd 128) stream by TMA
-//     from 4-d tensor maps (hd, heads, S, B) into a ring of as many stages
-//     as fit (2 at hd 256, 3 at hd 128), 128-byte swizzled, each stage
-//     behind mbarriers (K landed, V landed, K released, V released); the
-//     maps zero-fill the ragged S edge per sequence.  S = Q K^T is a
-//     wgmma m64nBKk16 from shared memory (both K-major); the softmax runs
-//     on its registers (the softcap's tanh and the exponentials on
-//     tanh.approx and ex2.approx; the mask only on tiles that need it;
-//     uncapped, the scale folds into the exponent), and P goes to bf16 in
-//     registers as the A operand of O += P V, a wgmma m64n{hd}k16 with V
-//     from shared memory (MN-major).  S_{i+1} and O += P_i V_i are issued
-//     together, so tile i + 1's softmax runs while P_i V_i is on the
-//     tensor cores.  Thread 0 is also the producer: K_j is refilled as
-//     soon as both warpgroups formed S_j, V_j once they finished P_j V_j.
-//     The output leaves through the Q tile's shared memory and one TMA
-//     store, which clips rows past S.  What bounds it now: with the
-//     tile's exponentials (16 a clock per SM) and the K/V ring only two
-//     stages deep at hd 256, the tensor cores are busy about half the
-//     time.  A producer warpgroup with setmaxnreg was tried first: ptxas
-//     then held the consumers to 168 registers and serialised every wgmma
-//     (it needs ~235 at hd 256), so the two warpgroups own all 255.
-//   - bfloat16 at head dims 16, 32, 64 and 80 (whisper-tiny's 64,
-//     zamba2-2.7b's shared block at 80): four warps of 16 query rows each
-//     over a 64-query tile, mma.sync m16n8k16 fed by ldmatrix, K and V
-//     double-buffered by cp.async over 32-key tiles; wgmma's 64-row tiles
-//     do not pay at these widths, and the wgmma body's TMA boxes of 64
-//     columns need a multiple of 64.  At 80: 5 k-steps of 16, 10 output
-//     n-tiles of 8, rows padded to 88 elements (176 bytes: every cp.async
-//     and ldmatrix address 16-byte aligned, and the 8 rows of an ldmatrix
-//     start in distinct banks), 33,792 bytes of dynamic shared memory.
+// Four bodies, by type and head dim:
+//   - bfloat16 at head dims 128 and 256 (the dense, MoE and VLM shapes),
+//     flash_wgmma: 128 queries a block, two warpgroups of 64 rows.  Q
+//     arrives once and K/V tiles of BK keys (64 at hd 256, 128 at hd 128)
+//     stream by TMA from 4-d tensor maps (hd, heads, S, B) into a ring of
+//     as many stages as fit (2 at hd 256, 3 at hd 128), 128-byte swizzled,
+//     each stage behind mbarriers (K landed, V landed, K released, V
+//     released); the maps zero-fill the ragged S edge per sequence.  S =
+//     Q K^T is a wgmma m64nBKk16 from shared memory (both K-major); the
+//     softmax runs on its registers (the softcap's tanh and the
+//     exponentials on tanh.approx and ex2.approx; the mask only on tiles
+//     that need it; uncapped, the scale folds into the exponent), and P
+//     goes to bf16 in registers as the A operand of O += P V, a wgmma
+//     m64n{hd}k16 with V from shared memory (MN-major).  S_{i+1} and O +=
+//     P_i V_i are issued together, so tile i + 1's softmax runs while P_i
+//     V_i is on the tensor cores.  Thread 0 is also the producer: K_j is
+//     refilled as soon as both warpgroups formed S_j, V_j once they
+//     finished P_j V_j.  The output leaves through the Q tile's shared
+//     memory and one TMA store, which clips rows past S.  What bounds it
+//     now: with the tile's exponentials (16 a clock per SM) and the K/V
+//     ring only two stages deep at hd 256, the tensor cores are busy about
+//     half the time.  A producer warpgroup with setmaxnreg was tried
+//     first: ptxas then held the consumers to 168 registers and serialised
+//     every wgmma (it needs ~235 at hd 256), so the two warpgroups own all
+//     255.
+//   - bfloat16 at head dims 64 and 80 (granite-moe's and whisper-tiny's
+//     64, zamba2-2.7b's shared block at 80), flash_wgmma_ws: the same
+//     tiles (128 queries, two consumer warpgroups, K/V tiles of 128 keys,
+//     S = Q K^T in m64n128k16 steps, S_{i+1} issued with O += P_i V_i)
+//     with three changes.  What bounds it: an admitted pair costs 4 hd
+//     flops (256 at hd 64) of the tensor cores' 4,096 a clock per SM, and
+//     one exponential of the SFU's 16 a clock, so at hd 64 the
+//     exponentials take as long as the products (at hd 80 four fifths)
+//     and a body that runs them one after the other cannot pass half the
+//     flop bound.  (1) The warpgroups take turns on two named barriers:
+//     each waits for its turn, issues its products and hands the turn
+//     over, so one warpgroup's softmax can run while the other's products
+//     are on the tensor cores (tools/ab_flash.py times it against free
+//     issue: about even so far; the softmax alone takes most of the
+//     time).  (2) Registers are no longer scarce (S 64
+//     floats, O 32 or 40, P 32), so a producer warp of its own keeps the
+//     ring full (6 stages of 32 KB at hd 64, 5 of 40 KB at hd 80); with
+//     thread 0 as the producer it was slower at every shape timed.  (3) hd 80's 160-byte
+//     rows fit no swizzle atom: each Q, K, V and output tile is two TMA
+//     boxes, columns 0-63 128-byte swizzled and columns 64-79 32-byte
+//     swizzled, so S takes a fifth k-step from the second box and O += P
+//     V is a pair, m64n64k16 plus m64n16k16 (accumulators 32 + 8 floats).
+//     Padding hd 80 to 128 would cost 1.6x the tensor work.  The last tile
+//     issues O += P V in a step of its own, a warp whose rows kept their
+//     max skips the output's rescale (exactly 1), whether a softcap
+//     applies is a template argument (kCap), and the grid runs (batch,
+//     head) pairs in groups of 8, heaviest tile first within a group, so
+//     a wave reads the K/V of few heads.  Each warpgroup stores its own 64
+//     output rows.
+//   - bfloat16 at head dims 16 and 32 (the smoke configs' 8, padded to
+//     16), flash_bf16: four warps of 16 query rows each over a 64-query
+//     tile, mma.sync m16n8k16 fed by ldmatrix, K and V double-buffered by
+//     cp.async over 32-key tiles: at these widths wgmma's 64-row tiles and
+//     TMA boxes of 64 columns do not pay, and the launch is the time.
 //   - float32: 256 threads on the CUDA cores, each owning 4 query rows x
 //     4 keys of the score tile and 4 rows x hd/16 columns of the output.
 //     K rows are padded to hd + 1 floats so the 16 keys a warp reads at one
@@ -79,6 +105,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -123,7 +151,7 @@ __device__ __forceinline__ void live_keys(const Params& p, int q0, int q_last,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 at head dims 16, 32, 64: mma.sync
+// bfloat16 at head dims 16 and 32: mma.sync
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
@@ -185,7 +213,7 @@ __device__ __forceinline__ float tanh_approx(float x) {
   return y;
 }
 
-// head dims 16, 32, 64: 32 keys a tile, K and V double-buffered
+// head dims 16 and 32: 32 keys a tile, K and V double-buffered
 constexpr int kBf16BlockK = 32;
 
 template <int HD>
@@ -378,7 +406,8 @@ __global__ void __launch_bounds__(128) flash_bf16(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 at head dims 128 and 256: wgmma fed by TMA
+// bfloat16 at head dims 128 and 256: wgmma fed by TMA (the helpers below
+// serve the hd 64/80 body too)
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -444,6 +473,15 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// The descriptor of an operand stored as 32-byte rows (16 bf16 columns)
+// with the 32-byte swizzle, its 8-row groups 256 bytes apart: K-major, one
+// 16-element k-step is a whole row; MN-major, 16 columns are the whole N
+// extent, so the leading byte offset is unused either way.
+__device__ __forceinline__ uint64_t sw32_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)(256 >> 4) << 32) | (3ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -587,6 +625,39 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 64, f32) += a (64 x 16, registers) b (16 x 64, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 16, f32) += a (64 x 16, registers) b (16 x 16, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int BK>
 __device__ __forceinline__ void wgmma_scores(float (&d)[BK / 2], uint64_t da,
                                              uint64_t db, int scale_d) {
@@ -644,8 +715,11 @@ __device__ __forceinline__ float ex2_approx(float x) {
 // the scale goes into the exponent): returns the factor
 // exp(m_old - m_new) of each of the thread's two rows in corr, and adds the
 // probabilities to l.  kMask (boundary tiles only) gives the keys a row
-// does not admit the sentinel score and probability 0.
-template <int NS, bool kMask>
+// does not admit the sentinel score and probability 0.  kCap 0 or 1 fixes
+// whether a softcap applies at compile time (-1: read from p); with kCap 1
+// the scores (and m) stay in tanh units, t = tanh(s * scale / softcap),
+// and the softcap folds into the exponent as well.
+template <int NS, bool kMask, int kCap = -1>
 __device__ __forceinline__ void online_softmax(float (&sc)[NS * 4],
                                                const Params& p, int row0,
                                                int k0, int lane,
@@ -654,8 +728,10 @@ __device__ __forceinline__ void online_softmax(float (&sc)[NS * 4],
                                                float (&corr)[2]) {
   // Without a softcap the scale is folded into the exponent: scores stay
   // raw (and so do m and the sentinel), exp2(s * scale * log2 e - m').
-  const bool capped = p.softcap > 0.f;
-  const float unit = capped ? kLog2e : p.scale * kLog2e;
+  const bool capped = kCap < 0 ? p.softcap > 0.f : kCap > 0;
+  const float unit = kCap == 1 ? p.softcap * kLog2e
+                     : capped  ? kLog2e
+                               : p.scale * kLog2e;
   uint64_t ok = 0;
   float mx[2] = {kMasked, kMasked};
 #pragma unroll
@@ -663,7 +739,10 @@ __device__ __forceinline__ void online_softmax(float (&sc)[NS * 4],
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float x = sc[4 * n + e];
-      if (capped) x = p.softcap * tanh_approx(x * p.scale * inv_cap);
+      if (kCap == 1)
+        x = tanh_approx(x * p.scale * inv_cap);
+      else if (capped)
+        x = p.softcap * tanh_approx(x * p.scale * inv_cap);
       if constexpr (kMask) {
         const int qi = row0 + (e >> 1) * 8;
         const int kj = k0 + n * 8 + (lane & 3) * 2 + (e & 1);
@@ -928,6 +1007,316 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16 at head dims 64 and 80: wgmma fed by TMA, a producer warp, and
+// two consumer warpgroups that take turns on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kWsThreads = 288;   // two consumer warpgroups, a producer warp
+constexpr int kGroup = 8;         // (batch, head) pairs a group of the grid
+
+// 128 queries a block, 64 per consumer warpgroup; K/V tiles of 128 keys.
+// Columns 0-63 of every tile are one box of 128-byte rows (128-byte
+// swizzle); at hd 80 columns 64-79 are a second box right after it, of
+// 32-byte rows (32-byte swizzle): a 160-byte row fits no swizzle atom.
+template <int HD>
+struct WsTile {
+  static constexpr int BK = 128;
+  static constexpr int kNarrow = HD - 64;            // columns past 64
+  static constexpr int kQWide = kWgBlockQ * 128;     // bytes of Q's first box
+  static constexpr int kKWide = BK * 128;
+  static constexpr int kQBytes = kWgBlockQ * HD * 2;
+  static constexpr int kKBytes = BK * HD * 2;
+  // as many K/V stages as fit beside Q, 1 KB of alignment and the barriers
+  static constexpr int kStages = (kMaxSmem - kQBytes - 2048) / (2 * kKBytes);
+  static constexpr int kBarOffset = kQBytes + 2 * kStages * kKBytes;
+  static constexpr size_t kSmemBytes = kBarOffset + 8 * (1 + 4 * kStages) +
+                                       1024;
+  static_assert(HD == 64 || HD == 80, "head dims 64 and 80");
+  static_assert(kStages >= 2, "two K/V stages must fit");
+};
+
+// kCap: 1 when a softcap applies.  Fixed per instantiation, since a test
+// of it among the scores costs instructions on every one.
+template <int HD, int kCap>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_wgmma_ws(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tq2,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tk2,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tv2,
+                   const __grid_constant__ CUtensorMap to,
+                   const __grid_constant__ CUtensorMap to2, Params p) {
+  using Tile = WsTile<HD>;
+  constexpr int BK = Tile::BK, NST = Tile::kStages;
+  constexpr int NS = BK / 8;   // score n8 blocks per thread
+  constexpr bool kSplit = Tile::kNarrow > 0;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;   // swizzle atoms 1024-aligned
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t qs = base;
+  const uint32_t bars = base + Tile::kBarOffset;
+  const uint32_t qbar = bars;
+  auto k_smem = [&](int st) {
+    return base + Tile::kQBytes + st * 2 * Tile::kKBytes;
+  };
+  // per stage: K landed, V landed, K read by both warpgroups, V read
+  auto full_k = [&](int st) { return bars + 8 * (1 + st); };
+  auto full_v = [&](int st) { return bars + 8 * (1 + NST + st); };
+  auto free_k = [&](int st) { return bars + 8 * (1 + 2 * NST + st); };
+  auto free_v = [&](int st) { return bars + 8 * (1 + 3 * NST + st); };
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  // 0 and 1: the consumer warpgroups; 2: the producer warp.  Broadcast from
+  // lane 0 so the compiler sees it uniform across the warp
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  // The (batch, head) pairs go in groups of kGroup; within a group the
+  // blocks run heaviest query tile first, the group's heads side by side:
+  // a wave reads the K/V of a few heads (which stay in L2), and the
+  // lightest tiles come last
+  const int nq = (p.s + kWgBlockQ - 1) / kWgBlockQ;
+  const int n_bh = (int)gridDim.x / nq;
+  const int group = (int)blockIdx.x / (kGroup * nq);
+  const int in_group = (int)blockIdx.x - group * kGroup * nq;
+  const int g_size = min(kGroup, n_bh - group * kGroup);
+  const int bh = group * kGroup + in_group % g_size;
+  const int q0 = (nq - 1 - in_group / g_size) * kWgBlockQ;
+  const int q_last = min(q0 + kWgBlockQ, p.s) - 1;
+  const int head = bh % p.h, batch = bh / p.h;
+  const int kvh = head / (p.h / p.kh);
+  int lo, hi;
+  live_keys(p, q0, q_last, BK, &lo, &hi);
+  const int n_tiles = lo < hi ? (hi - lo + BK - 1) / BK : 0;
+
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+    for (int st = 0; st < NST; ++st) {
+      mbar_init(full_k(st), 1);
+      mbar_init(full_v(st), 1);
+      mbar_init(free_k(st), 8);   // one arrival per consumer warp
+      mbar_init(free_v(st), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // The producer: one thread loads Q, then keeps every stage of the ring
+    // in flight, K_j and V_j each as soon as both warpgroups released the
+    // stage's previous tile.  A warp of its own: thread 0 of a consumer as
+    // the producer (the hd 128 body's way) held its warpgroup on every
+    // refill and was slower here.
+    if (lane == 0) {
+      mbar_expect(qbar, Tile::kQBytes);
+      tma_load(qs, &tq, qbar, 0, head, q0, batch);
+      if constexpr (kSplit)
+        tma_load(qs + Tile::kQWide, &tq2, qbar, 64, head, q0, batch);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % NST, free_parity = ((j / NST) & 1) ^ 1;
+        const int k0 = lo + j * BK;
+        const uint32_t ks = k_smem(st), vs = ks + Tile::kKBytes;
+        mbar_wait(free_k(st), free_parity);
+        mbar_expect(full_k(st), Tile::kKBytes);
+        tma_load(ks, &tk, full_k(st), 0, kvh, k0, batch);
+        if constexpr (kSplit)
+          tma_load(ks + Tile::kKWide, &tk2, full_k(st), 64, kvh, k0, batch);
+        mbar_wait(free_v(st), free_parity);
+        mbar_expect(full_v(st), Tile::kKBytes);
+        tma_load(vs, &tv, full_v(st), 0, kvh, k0, batch);
+        if constexpr (kSplit)
+          tma_load(vs + Tile::kKWide, &tv2, full_v(st), 64, kvh, k0, batch);
+      }
+    }
+    return;
+  }
+
+  // The two warpgroups issue their products in turn (named barrier 1 is
+  // warpgroup 0's turn, 2 warpgroup 1's): each waits for its turn, issues,
+  // and hands the turn over, so one warpgroup's softmax runs while the
+  // other's products are on the tensor cores.  Warpgroup 0 goes first;
+  // warpgroup 1 hands no turn over after its last issue, so every wait is
+  // matched by exactly one hand-over.
+  auto my_turn = [&]() {
+    asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
+  };
+  auto your_turn = [&]() {
+    asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
+  };
+
+  const int wq = (tid / 32) & 3;           // warp within it: 16 rows each
+  const int rq = 64 * wg + 16 * wq + (lane >> 2);   // rows rq, rq + 8
+  const int row0 = q0 + rq;
+  const int qa = q0 + 64 * wg, qb = min(qa + 63, p.s - 1);
+  const uint32_t q_rows = qs + wg * 64 * 128;
+  const uint32_t q_rows2 = qs + Tile::kQWide + wg * 64 * 32;
+  // a tile whose every (row, key) pair is admitted skips the mask
+  auto full_tile = [&](int k0) {
+    return k0 + BK <= p.t && (!p.causal || k0 + BK - 1 <= qa) &&
+           (p.window <= 0 || qb - k0 < p.window);
+  };
+  // S = Q K^T for the tile in stage st, both operands K-major from shared
+  // memory: 4 k-steps in the first box, at hd 80 a fifth in the second
+  float sc[BK / 2];
+  auto issue_scores = [&](int st) {
+    const uint32_t ks = k_smem(st);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_n128(sc, sw128_desc(q_rows + kk * 32, 16),
+                    sw128_desc(ks + kk * 32, 16), kk > 0);
+    if constexpr (kSplit)
+      wgmma_ss_n128(sc, sw32_desc(q_rows2), sw32_desc(ks + Tile::kKWide), 1);
+    wgmma_commit();
+  };
+  // O += P V for the tile in stage st, P from registers, V MN-major from
+  // shared memory: columns 0-63 in one product, at hd 80 columns 64-79 in
+  // a second (accumulator split 32 + 8 floats)
+  uint32_t pa[BK / 16][4];
+  float acc[32];
+  float acc2[kSplit ? 8 : 1];
+  auto issue_values = [&](int st) {
+    const uint32_t vs = k_smem(st) + Tile::kKBytes;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      wgmma_rs_n64(acc, pa[kk], sw128_desc(vs + kk * 16 * 128, Tile::kKWide));
+      if constexpr (kSplit)
+        wgmma_rs_n16(acc2, pa[kk], sw32_desc(vs + Tile::kKWide + kk * 16 * 32));
+    }
+    wgmma_commit();
+  };
+  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f}, corr[2] = {1.f, 1.f};
+  const float inv_cap = kCap ? 1.f / p.softcap : 0.f;
+  auto softmax_tile = [&](int k0) {
+    if (full_tile(k0)) {
+      online_softmax<NS, false, kCap>(sc, p, row0, k0, lane, inv_cap, m, l,
+                                      corr);
+    } else {
+      online_softmax<NS, true, kCap>(sc, p, row0, k0, lane, inv_cap, m, l,
+                                     corr);
+    }
+  };
+  // P (in sc) to the bf16 A fragments: rows (r, r + 8) x keys 16 (n / 2) ..
+  // + 15; the output rescaled by corr
+  auto to_values = [&]() {
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      pa[n >> 1][(n & 1) * 2] = pack_bf16(sc[4 * n], sc[4 * n + 1]);
+      pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(sc[4 * n + 2], sc[4 * n + 3]);
+    }
+    // a warp none of whose rows raised its max leaves the output as it is
+    // (corr is exactly 1 then)
+    if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] *= corr[(i >> 1) & 1];
+      if constexpr (kSplit) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc2[i] *= corr[(i >> 1) & 1];
+      }
+    }
+  };
+
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (kSplit ? 8 : 1); ++i) acc2[i] = 0.f;
+  mbar_wait(qbar, 0);
+  if (n_tiles > 0) {
+    if (wg == 1) your_turn();   // warpgroup 0 goes first
+    mbar_wait(full_k(0), 0);
+    fence_regs(sc);
+    my_turn();
+    wgmma_fence();
+    issue_scores(0);
+    your_turn();   // never the last issue: O += P_0 V_0 follows
+    wgmma_wait<0>();
+    fence_regs(sc);
+    if (lane == 0) mbar_arrive(free_k(0));
+    softmax_tile(lo);
+  }
+
+  // Tile i: S_{i+1} = Q K_{i+1}^T and O += P_i V_i go out together, and
+  // the softmax of tile i + 1 runs while O += P_i V_i is on the tensor
+  // cores.  The last tile issues O += P V alone, in a step of its own: no
+  // wgmma sits under a branch (ptxas then serialises every wgmma).
+  auto step = [&](int i, auto has_next) {
+    constexpr bool kNext = decltype(has_next)::value;
+    const int st = i % NST, parity = (i / NST) & 1;
+    const int st1 = (i + 1) % NST, parity1 = ((i + 1) / NST) & 1;
+    to_values();
+    mbar_wait(full_v(st), parity);
+    if constexpr (kNext) mbar_wait(full_k(st1), parity1);
+    fence_regs(sc);
+    fence_regs(acc);
+    fence_regs(acc2);
+    fence_regs(pa);
+    my_turn();
+    wgmma_fence();
+    if constexpr (kNext) issue_scores(st1);
+    issue_values(st);
+    if (kNext || wg == 0) your_turn();
+    if constexpr (kNext) {
+      wgmma_wait<1>();   // the scores; O += P V may still run
+      fence_regs(sc);
+      if (lane == 0) mbar_arrive(free_k(st1));
+      softmax_tile(lo + (i + 1) * BK);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(acc2);
+    fence_regs(pa);
+    if (lane == 0) mbar_arrive(free_v(st));
+  };
+  for (int i = 0; i + 1 < n_tiles; ++i) step(i, std::true_type{});
+  if (n_tiles > 0) step(n_tiles - 1, std::false_type{});
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+    // m is in raw score units uncapped (the scale went into the exponent),
+    // in tanh units capped (the softcap went there)
+    const int qi = row0 + 8 * r;
+    if (p.lse != nullptr && (lane & 3) == 0 && qi < p.s)
+      store_lse(p, batch, head, qi,
+                m[r] == kMasked ? m[r] : m[r] * (kCap ? p.softcap : p.scale),
+                l[r]);
+    l[r] = 1.f / l[r];
+  }
+  // out into this warpgroup's own Q rows (read by no wgmma any more), in
+  // the tensor maps' swizzled layouts, then the warpgroup's own TMA store
+  // of its 64 rows; rows past S are clipped by the store
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = rq + 8 * r;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const uint32_t off = row * 128 + ((n ^ (row & 7)) * 16) +
+                           (lane & 3) * 4;
+      *reinterpret_cast<uint32_t*>(gbase + off) =
+          pack_bf16(acc[4 * n + 2 * r] * l[r], acc[4 * n + 2 * r + 1] * l[r]);
+    }
+    if constexpr (kSplit) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const uint32_t off = Tile::kQWide + row * 32 +
+                             ((n ^ ((row >> 2) & 1)) * 16) + (lane & 3) * 4;
+        *reinterpret_cast<uint32_t*>(gbase + off) = pack_bf16(
+            acc2[4 * n + 2 * r] * l[r], acc2[4 * n + 2 * r + 1] * l[r]);
+      }
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(3 + wg) : "memory");
+  if (tid % 128 == 0) {
+    tma_store(&to, q_rows, 0, head, qa, batch);
+    if constexpr (kSplit) tma_store(&to2, q_rows2, 64, head, qa, batch);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
+// ---------------------------------------------------------------------------
 // float32 on the CUDA cores
 // ---------------------------------------------------------------------------
 
@@ -1119,22 +1508,25 @@ EncodeTiled encode_tiled() {
 }
 
 // A bf16 (B, rows, heads, hd) tensor as a 4-d map (hd, heads, rows, B):
-// boxes of 64 columns x one head x box_rows rows x one sequence, 128-byte
-// swizzled; rows past `rows` read as zeros and are not written, per
-// sequence
+// boxes of box_cols columns (64, 128-byte swizzled; or 16, 32-byte
+// swizzled) x one head x box_rows rows x one sequence; rows past `rows`
+// read as zeros and are not written, per sequence
 bool make_map(CUtensorMap* map, const void* ptr, int hd, int heads, int rows,
-              int b, int box_rows) {
+              int b, int box_rows, int box_cols = 64) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t row = (cuuint64_t)heads * hd * 2;
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
                               (cuuint64_t)rows, (cuuint64_t)b};
   const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, row, row * rows};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, 1, (cuuint32_t)box_rows,
+                             1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                           : CU_TENSOR_MAP_SWIZZLE_32B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -1157,11 +1549,41 @@ int launch_wgmma(const Params& p, int b, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <int HD, int kCap>
+int launch_ws(const Params& p, int b, cudaStream_t stream) {
+  using Tile = WsTile<HD>;
+  // at hd 80 each tensor is two maps over the same memory: columns 0-63
+  // and 64-79 (at hd 64 the second is never read)
+  constexpr int kCols2 = Tile::kNarrow > 0 ? Tile::kNarrow : 64;
+  CUtensorMap tq, tq2, tk, tk2, tv, tv2, to, to2;
+  if (!make_map(&tq, p.q, HD, p.h, p.s, b, kWgBlockQ) ||
+      !make_map(&tq2, p.q, HD, p.h, p.s, b, kWgBlockQ, kCols2) ||
+      !make_map(&tk, p.k, HD, p.kh, p.t, b, Tile::BK) ||
+      !make_map(&tk2, p.k, HD, p.kh, p.t, b, Tile::BK, kCols2) ||
+      !make_map(&tv, p.v, HD, p.kh, p.t, b, Tile::BK) ||
+      !make_map(&tv2, p.v, HD, p.kh, p.t, b, Tile::BK, kCols2) ||
+      !make_map(&to, p.out, HD, p.h, p.s, b, 64) ||
+      !make_map(&to2, p.out, HD, p.h, p.s, b, 64, kCols2))
+    return (int)cudaErrorNotSupported;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_wgmma_ws<HD, kCap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Tile::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  // one dimension over (batch, head, query tile), in the kernel's order
+  const dim3 grid(p.h * b * ((p.s + kWgBlockQ - 1) / kWgBlockQ));
+  flash_wgmma_ws<HD, kCap><<<grid, kWsThreads, Tile::kSmemBytes, stream>>>(
+      tq, tq2, tk, tk2, tv, tv2, to, to2, p);
+  return (int)cudaGetLastError();
+}
+
 template <int HD>
 int launch_hd(int dtype, const Params& p, int b, cudaStream_t stream) {
   if (dtype == 1) {
     if constexpr (HD >= 128) {
       return launch_wgmma<HD>(p, b, stream);
+    } else if constexpr (HD >= 64) {
+      return p.softcap > 0.f ? launch_ws<HD, 1>(p, b, stream)
+                             : launch_ws<HD, 0>(p, b, stream);
     } else {
       return launch(flash_bf16<HD>, 128, kBf16SmemBytes<HD>, p, b, stream);
     }
@@ -1200,16 +1622,28 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   }
 }
 
-// The wgmma body's tiling at head dim hd (128 or 256): keys a tile, K/V
-// stages and dynamic shared memory; returns -1 for another head dim.
+namespace {
+template <typename Tile>
+int tiling(int* bk, int* stages, int* smem_bytes) {
+  *bk = Tile::BK;
+  *stages = Tile::kStages;
+  *smem_bytes = (int)Tile::kSmemBytes;
+  return 0;
+}
+}  // namespace
+
+// The bf16 tiling of a wgmma body at head dim hd (64 and 80: flash_wgmma_ws;
+// 128 and 256: flash_wgmma): keys a tile, K/V stages and dynamic shared
+// memory; returns -1 for another head dim.
 extern "C" int flash_attention_tiling(int hd, int* bk, int* stages,
                                       int* smem_bytes) {
-  if (hd != 128 && hd != 256) return -1;
-  *bk = hd == 256 ? WgTile<256>::BK : WgTile<128>::BK;
-  *stages = hd == 256 ? WgTile<256>::kStages : WgTile<128>::kStages;
-  *smem_bytes = (int)(hd == 256 ? WgTile<256>::kSmemBytes
-                                : WgTile<128>::kSmemBytes);
-  return 0;
+  switch (hd) {
+    case 64: return tiling<WsTile<64>>(bk, stages, smem_bytes);
+    case 80: return tiling<WsTile<80>>(bk, stages, smem_bytes);
+    case 128: return tiling<WgTile<128>>(bk, stages, smem_bytes);
+    case 256: return tiling<WgTile<256>>(bk, stages, smem_bytes);
+    default: return -1;
+  }
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -29,6 +29,11 @@ FLASH = Kernel("flash_attention.cu", "flash_attention_launch",
                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 
+# The head dims the kernel is built for, and the body each runs in bf16:
+# 16 and 32 mma.sync (flash_bf16), 64 and 80 the warp-specialised wgmma
+# body (flash_wgmma_ws: a producer warp, two consumer warpgroups taking
+# turns), 128 and 256 wgmma with thread 0 as producer (flash_wgmma); f32
+# runs every one on the CUDA cores (flash_f32)
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 # head dim -> the built head dim it is zero-padded to
 PADDED_HEAD_DIMS = {8: 16}
@@ -64,8 +69,10 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     :data:`PADDED_HEAD_DIMS` and H a multiple of Kh -> (B, S, H, hd) in q's
     type; with ``return_lse`` also each query row's log-sum-exp, (B, Kh,
     H / Kh, S) float32 (the reference's ``_flash_fwd_impl`` layout, the
-    scale of the true head dim).  Each launch is counted on ``FLASH`` under
-    :func:`launch_key` with the true head dim."""
+    scale of the true head dim).  bf16 runs ``mma.sync`` at hd 16 and 32
+    (8 padded), ``wgmma`` fed by TMA at 64 and up (see
+    :data:`HEAD_DIMS`); f32 the CUDA cores.  Each launch is counted on
+    ``FLASH`` under :func:`launch_key` with the true head dim."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.dtype not in DTYPES:
             raise NotImplementedError(
@@ -125,9 +132,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0, return_lse: bool = False):
     """q (B, S, H, hd), k and v (B, T, Kh, hd) -> (B, S, H, hd), and with
     ``return_lse`` the rows' log-sum-exp (B, Kh, H / Kh, S).  The
-    reference's ``cq``/``ck`` TPU tiles have no counterpart: the kernel
-    tiles by 128 queries at head dims 128 and 256 (64 below) and takes any
-    S and T; head dim 8 runs padded to 16."""
+    reference's ``cq``/``ck`` TPU tiles have no counterpart: in bf16 the
+    kernel tiles by 128 queries at head dims 64 to 256 (64 below and in
+    f32) and takes any S and T; head dim 8 runs padded to 16."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap, return_lse=return_lse)

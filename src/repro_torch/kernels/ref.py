@@ -7,7 +7,9 @@ The WKV has two: the exact recurrence (the oracle, and the model's decode
 path) and the chunked form (the CUDA kernel's plain version).  The bag, the
 interaction and the WKV kernels also have a CPU model of the order in which
 each kernel sums (``embedding_bag_split_ref``, ``dot_interaction_split_ref``,
-``rwkv6_wkv_two_pass_ref``), held against the reference by the tests.
+``rwkv6_wkv_two_pass_ref``), and the flash kernel's hd 64/80 body one of its
+tile walk (``flash_attention_tiled_ref``), held against the reference by
+the tests.
 
 Ids are clamped to ``[0, R-1]`` (and table ids to ``[0, T-1]``) explicitly:
 JAX clamps out-of-bounds gathers silently, torch indexing raises.
@@ -165,6 +167,78 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
         return out
     live = ok.any(-1)[:, None]
     return out, (torch.where(live, m, 0.0) + den.log()).squeeze(-1)
+
+
+LOG2E = 1.4426950408889634
+
+
+def flash_attention_tiled_ref(q, k, v, *, block_q: int = 128,
+                              block_k: int = 128, causal: bool = True,
+                              window: int = 0, softcap: float = 0.0,
+                              scale=None, return_lse: bool = False):
+    """The CUDA kernel's tile walk at head dims 64 and 80
+    (``flash_wgmma_ws``), with the arguments and result of
+    :func:`flash_attention_ref`.  Each tile of ``block_q`` queries walks the
+    live key tiles as the kernel's ``live_keys`` computes them: from the
+    window's start rounded down to a tile to one past its last query's
+    last admitted key.  The running max and sum stay in f32; uncapped, the
+    scale folds into ``exp2`` (scores and max stay raw); P is summed in f32
+    and rounded to the input type before P V, which at hd 80 runs as
+    columns 0-63 and 64-79; the output is the sum times ``1 / l``."""
+    b, s, h, hd = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    scale = hd ** -0.5 if scale is None else scale
+    unit = LOG2E if softcap else scale * LOG2E
+    qf = q.float().reshape(b, s, kh, h // kh, hd).permute(0, 2, 3, 1, 4)
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]       # (B, Kh, 1, T, hd)
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    cols = [(0, min(hd, 64))] + ([(64, hd)] if hd > 64 else [])
+    out = torch.empty_like(qf)
+    lse = torch.empty(qf.shape[:-1], dtype=torch.float32, device=q.device)
+    for q0 in range(0, s, block_q):
+        q1 = min(q0 + block_q, s)
+        qi = torch.arange(q0, q1, device=q.device)[:, None]
+        lo, hi = 0, t
+        if causal:
+            hi = min(hi, q1)
+        if window > 0:
+            lo = max(0, q0 - window + 1)
+        lo = lo // block_k * block_k
+        m = torch.full(qf.shape[:-2] + (q1 - q0,), NEG_INF,
+                       dtype=torch.float32, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(m.shape + (hd,), dtype=torch.float32,
+                          device=q.device)
+        for k0 in range(lo, hi, block_k):
+            k1 = min(k0 + block_k, t)
+            sc = qf[..., q0:q1, :] @ kf[..., k0:k1, :].transpose(-1, -2)
+            if softcap:
+                sc = softcap * torch.tanh(sc * (scale / softcap))
+            kj = torch.arange(k0, k1, device=q.device)[None, :]
+            ok = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool,
+                            device=q.device)
+            if causal:
+                ok &= kj <= qi
+            if window:
+                ok &= (qi - kj) < window
+            sc = sc.masked_fill(~ok, NEG_INF)
+            m_new = torch.maximum(m, sc.amax(-1))
+            corr = torch.exp2((m - m_new) * unit)
+            p = torch.exp2(sc * unit - (m_new * unit)[..., None])
+            p = p.masked_fill(~ok, 0.0)
+            l = l * corr + p.sum(-1)
+            p = p.to(q.dtype).float()
+            acc = acc * corr[..., None] + torch.cat(
+                [p @ vf[..., k0:k1, c0:c1] for c0, c1 in cols], dim=-1)
+            m = m_new
+        l = l.clamp_min(1e-30)
+        out[..., q0:q1, :] = acc * (1.0 / l)[..., None]
+        # uncapped, m is in raw score units; a row that admitted no key
+        # kept the sentinel
+        lse[..., q0:q1] = torch.where(m == NEG_INF, 0.0,
+                                      m if softcap else m * scale) + l.log()
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd).to(q.dtype)
+    return (out, lse) if return_lse else out
 
 
 def rwkv6_wkv_ref(r, k, v, logw, u, state):

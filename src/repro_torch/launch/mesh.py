@@ -17,12 +17,16 @@ default group's world, as the reference's builds it over every device.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Optional
 
 import torch
 import torch.distributed as dist
 
 AXES = ("data", "model")
+# whether this torch's new_group can keep its ranks in the order given
+# (older ones always sort them)
+_KEEPS_ORDER = "sort_ranks" in inspect.signature(dist.new_group).parameters
 
 
 def init_model_group(backend: str, world_size: int, rank: int,
@@ -79,10 +83,28 @@ class Mesh:
         return self.coords[axis] if self.coords is not None else 0
 
 
+def _new_group(line):
+    """A process group over the global ranks of ``line`` whose group ranks
+    follow the line's order.  Collective over the default group."""
+    line = list(line)
+    if line == sorted(line):
+        return dist.new_group(ranks=line)
+    if not _KEEPS_ORDER:
+        raise NotImplementedError(
+            f"a group over ranks {line} (not ascending) needs a torch whose "
+            f"new_group takes sort_ranks; this one sorts them")
+    return dist.new_group(ranks=line, sort_ranks=False)
+
+
 def _grid(ranks, data: int, model: int) -> Mesh:
     """A mesh over the global ``ranks`` in a (data, model) grid.  Every
     process of the default group must call this, members or not, in the
-    same order: ``dist.new_group`` is collective over the default group."""
+    same order: ``dist.new_group`` is collective over the default group.
+
+    Each group keeps its ranks in grid order (:func:`_new_group`), so a
+    member's rank in its group along an axis is its coordinate there, as
+    ``shard_leaf`` cuts and every gather joins; ``WORLD`` serves only the
+    identity order."""
     ranks = tuple(int(r) for r in ranks)
     if len(ranks) != data * model:
         raise ValueError(f"{len(ranks)} ranks do not fill a ({data}, "
@@ -97,9 +119,8 @@ def _grid(ranks, data: int, model: int) -> Mesh:
     if not dist.is_initialized():
         return Mesh(shape, ranks, coords, groups)
     if len(ranks) > 1:
-        whole = len(ranks) == dist.get_world_size() and \
-            sorted(ranks) == list(range(len(ranks)))
-        g = dist.group.WORLD if whole else dist.new_group(ranks=list(ranks))
+        g = dist.group.WORLD if ranks == tuple(range(dist.get_world_size())) \
+            else _new_group(ranks)
         if coords is not None:
             groups["all"] = g
     rows = [ranks[i * model:(i + 1) * model] for i in range(data)]
@@ -108,9 +129,16 @@ def _grid(ranks, data: int, model: int) -> Mesh:
         if n == 1:
             continue
         for line in lines:
-            g = dist.new_group(ranks=list(line))
+            g = _new_group(line)
             if me in line:
                 groups[axis] = g
+    if coords is not None:
+        at = {"all": ranks.index(me), **coords}
+        for axis, g in groups.items():
+            if g is not None and dist.get_rank(g) != at[axis]:
+                raise RuntimeError(
+                    f"rank {me} is {dist.get_rank(g)} in its {axis!r} group "
+                    f"but at {at[axis]} on the mesh")
     return Mesh(shape, ranks, coords, groups)
 
 

@@ -369,6 +369,55 @@ class TestFlashAttention:
         np.testing.assert_allclose(port.reshape(2, s, -1).numpy(),
                                    np.asarray(want), atol=1e-5)
 
+    # the CUDA body at hd 64 and 80 walks 128 x 128 tiles; its CPU model
+    # (ref.flash_attention_tiled_ref) in f32 against the interpret-mode
+    # Pallas kernel: (S, H, Kh, window, causal, softcap, the Pallas tile)
+    TILED_CASES = [
+        (256, 2, 2, 0, True, 0.0, 128),
+        # S not a multiple of 128, GQA, not causal
+        (288, 4, 2, 0, False, 0.0, 96),
+        # the window's first live tile (keys 0-127) admits no key of the
+        # query tile's rows past 134
+        (288, 4, 1, 8, True, 0.0, 96),
+        (160, 4, 2, 40, False, 30.0, 32),
+    ]
+
+    @pytest.mark.parametrize("hd", [64, 80])
+    @pytest.mark.parametrize("s,h,kh,window,causal,cap,tile", TILED_CASES)
+    def test_tiled_model_matches_jax_kernel_interpret(self, hd, s, h, kh,
+                                                      window, causal, cap,
+                                                      tile):
+        q, k, v = _qkv(hd + s + window, 1, s, h, kh, hd)
+        kw = {"causal": causal, "window": window, "softcap": cap}
+        port = tref.flash_attention_tiled_ref(
+            *map(torch.from_numpy, (q, k, v)), **kw)
+        out = jfa.flash_attention_pallas(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), cq=tile,
+            ck=tile, interpret=True, **kw)
+        np.testing.assert_allclose(port.numpy(), np.asarray(out), atol=1e-5)
+
+    @pytest.mark.parametrize("hd", [64, 80])
+    @pytest.mark.parametrize("s,h,kh,window,causal,cap,tile", TILED_CASES)
+    def test_tiled_model_lse_matches_the_vjp_residual(self, hd, s, h, kh,
+                                                      window, causal, cap,
+                                                      tile):
+        # the residual of the reference's _flash_vjp_fwd (out, lse), which
+        # the training path asks the kernel for
+        q, k, v = _qkv(hd + s + window, 1, s, h, kh, hd)
+        cfg = ModelConfig(name="t", family="dense", n_layers=1, d_model=64,
+                          n_heads=h, n_kv_heads=kh, d_ff=64, vocab_size=64,
+                          attn_logit_softcap=cap, dtype="float32")
+        _, res = jattn._flash_vjp_fwd(cfg, *map(jnp.asarray, (q, k, v)),
+                                      window, causal, tile, tile)
+        port, lse = tref.flash_attention_tiled_ref(
+            *map(torch.from_numpy, (q, k, v)), causal=causal, window=window,
+            softcap=cap, return_lse=True)
+        assert lse.shape == res[4].shape == (1, kh, h // kh, s)
+        np.testing.assert_allclose(lse.numpy(), np.asarray(res[4]),
+                                   atol=1e-5)
+        np.testing.assert_allclose(port.reshape(1, s, -1).numpy(),
+                                   np.asarray(res[3]), atol=1e-5)
+
     def test_bf16_stays_bf16(self):
         q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
                    for a in _qkv(5, 1, 40, 2, 1, 16))
