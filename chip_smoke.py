@@ -311,7 +311,36 @@ Phases, each on lines of its own:
      ``NodeFailure`` at step 3 leaves rank 0, which restores step 2 onto
      one member and replays; its final state within 1e-6 of an
      uninterrupted one-device run;
- 21. one JSON line of kernel numbers, the card's name and power limit, and
+ 22. ``[cells]``: four cells of the launch tooling, each built by
+     ``launch/specs.py::build_cell`` on a one-member mesh at one data
+     member's rows of the production (16, 16) mesh (the global batch over
+     16): qwen3-14b ``prefill_32k`` (2 x 32768 tokens, full width and
+     depth, 29.5 GB of bf16 weights; 40 B5 launches at 40 over 8 heads),
+     dlrm-alicpp ``dlrm_infer`` (8192 rows, the 16.4 GB f32 stack of 32
+     padded tables; ``forward_distributed`` at bound 4 over 16
+     microbatches on the one-rank NCCL group, the bag and the interaction
+     once a microbatch, the CTRs within 1e-5 of ``forward_local``),
+     whisper-tiny ``train_4k`` (16 rows, 2 microbatches; B5 under
+     autograd) and chatglm3-6b ``decode_32k`` (8 rows, a 32768-position
+     bf16 cache; one serve step, no kernel).  First the dry run's record
+     of each cut cell (``launch/dryrun.py::run_cell`` on fake CPU tensors
+     over a fake one-rank group); then on the card each argument drawn by
+     the port's ``init``, cast to its stand-in's type, must have the
+     stand-ins' shapes and types and the record's argument bytes exactly;
+     each cell's fn runs warm, then timed with CUDA events beside its
+     bound (the record's flops over 989 TFLOP/s) and its peak memory
+     beside the record's argument + temp; then the rows
+     ``embedding_bag_pool/alicpp_mb512`` (the bag at dlrm-alicpp's
+     microbatch beside ``F.embedding_bag``) and
+     ``flash_attention/qwen3_prefill_32k`` (B5 at B 2, S 32768, H 40 over
+     Kh 8, hd 128, causal, bf16, beside scaled_dot_product_attention,
+     against the plain version 1024 query rows at a time);
+ 23. ``[multihost]`` (on the same one-rank NCCL group): ``bringup()`` with
+     no coordinator in the environment (one process), ``host_batch_slice``,
+     ``form_global_array`` onto the card, and
+     ``RestartBarrier.agree_on_step`` through one NCCL all_reduce: 7 is
+     agreed, None raises;
+ 24. one JSON line of kernel numbers, the card's name and power limit, and
      last ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or with any phase failing, it exits non-zero and
 prints no result.
@@ -472,8 +501,9 @@ def hold(name, out, plain, tol, rel=None):
 
 def check_kernel(name, replaces, source, kernel_fn, plain_fn, library_fn,
                  *, n_bytes, flops, flush, tol=TOL, rel=None,
-                 peak_flops=F32_FLOPS):
-    """Hold one kernel against its plain version and time the three."""
+                 peak_flops=F32_FLOPS, plain_reps=20):
+    """Hold one kernel against its plain version and time the three (the
+    plain version over ``plain_reps`` calls)."""
     out = kernel_fn()
     again = kernel_fn()
     plain = plain_fn()
@@ -490,7 +520,8 @@ def check_kernel(name, replaces, source, kernel_fn, plain_fn, library_fn,
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": 0, "max_abs_err": err,
            "ms": time_ms(kernel_fn, flush=flush),
-           "plain_ms": time_ms(plain_fn, flush=flush),
+           "plain_ms": time_ms(plain_fn, flush=flush, reps=plain_reps,
+                               warmup=min(3, plain_reps)),
            "bound_ms": max(t_bytes, t_ops) * 1e3,
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "library_ms": (time_ms(library_fn, flush=flush)
@@ -2328,7 +2359,7 @@ def reshard_scrub_phase(params, cfg, dev, card, cache, ctr5):
 
 
 def flash_row(name, gen, dev, b, s, h, kh, hd, *, window=0, cap=0.0,
-              causal=True, dtype=torch.bfloat16):
+              causal=True, dtype=torch.bfloat16, plain_rows=0):
     """One flash-kernel row: q (at FLASH_Q_SCALE), k, v of shape (b, s,
     heads, hd) in ``dtype`` from ``gen``, the kernel held against its plain
     version and timed (check_kernel; bf16 at FLASH_TOL and FLASH_REL on the
@@ -2336,7 +2367,10 @@ def flash_row(name, gen, dev, b, s, h, kh, hd, *, window=0, cap=0.0,
     scaled_dot_product_attention where one PyTorch call computes the
     function (no softcap, no window); the plain version without the
     softcap, without the window and, for a non-causal row, with the causal
-    mask must fail the check.  Returns (row, launch key)."""
+    mask must fail the check.  With ``plain_rows`` the plain version runs
+    that many query rows at a time (``ref.flash_attention_ref_rows``: its
+    whole scores would not fit on the card), timed over 3 calls.  Returns
+    (row, launch key)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
@@ -2353,22 +2387,28 @@ def flash_row(name, gen, dev, b, s, h, kh, hd, *, window=0, cap=0.0,
             return F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 is_causal=causal, enable_gqa=True).transpose(1, 2)
+    if plain_rows:
+        def plain_fn():
+            return ref.flash_attention_ref_rows(q, k, v, chunk=plain_rows,
+                                                **kw)
+    else:
+        def plain_fn():
+            return ref.flash_attention_ref(q, k, v, **kw)
     row = check_kernel(
         name, "src/repro/kernels/flash_attention.py:97",
         "src/repro_torch/kernels/csrc/flash_attention.cu",
-        lambda: fa.flash_attention(q, k, v, **kw),
-        lambda: ref.flash_attention_ref(q, k, v, **kw),
+        lambda: fa.flash_attention(q, k, v, **kw), plain_fn,
         library, n_bytes=q.element_size() * (2 * q.numel() + 2 * k.numel()),
         flops=4 * hd * admitted_pairs(s, window, causal) * b * h, flush=None,
         tol=TOL if f32 else FLASH_TOL, rel=None if f32 else FLASH_REL,
-        peak_flops=F32_FLOPS if f32 else BF16_FLOPS)
+        peak_flops=F32_FLOPS if f32 else BF16_FLOPS,
+        plain_reps=3 if plain_rows else 20)
     if row["library_ms"] is not None:
         log(f"[kernel] {name}: kernel {row['ms']:.4f} ms beside "
             f"scaled_dot_product_attention {row['library_ms']:.4f} ms in "
             f"this run ({row['ms'] / row['library_ms']:.2f}x)")
     # the check sees each branch: a kernel that dropped the softcap or the
     # window, or masked a non-causal layer, would fail it
-    plain = ref.flash_attention_ref(q, k, v, **kw)
     branches = []
     if cap:
         branches.append(("without the softcap", dict(kw, softcap=0.0)))
@@ -2376,6 +2416,7 @@ def flash_row(name, gen, dev, b, s, h, kh, hd, *, window=0, cap=0.0,
         branches.append(("without the window", dict(kw, window=0)))
     if not causal:
         branches.append(("with the causal mask", dict(kw, causal=True)))
+    plain = plain_fn() if branches else None
     for branch, bkw in branches:
         wrong = ref.flash_attention_ref(q, k, v, **bkw)
         if torch.allclose(wrong, plain, **FLASH_TOL):
@@ -5668,6 +5709,353 @@ def train_full_phase(dev, card):
     return TRAIN_FLASH_PER_STEP
 
 
+# phase 22: the launch tooling's cells on the card.  Four dry-run cells,
+# each built by ``launch/specs.py::build_cell`` on a one-member mesh at one
+# data member's rows of the production (16, 16) mesh (the global batch over
+# CELLS_DATA): the arguments drawn on the card by the port's ``init`` (each
+# leaf cast to its stand-in's type) must have the stand-ins' shapes and
+# types and the bytes of the dry run's record of the same cut cell
+# (``launch/dryrun.py::run_cell``, traced on fake tensors before the card
+# runs it); each cell's fn runs once warm and once timed.  qwen3-14b and
+# dlrm-alicpp run at full width and depth.
+CELLS_DATA = 16
+CELLS = (("qwen3-14b", "prefill_32k"), ("dlrm-alicpp", "dlrm_infer"),
+         ("whisper-tiny", "train_4k"), ("chatglm3-6b", "decode_32k"))
+# the plain flash's query rows a step at S 32768 (its whole scores would
+# take 343 GB at qwen3-14b's heads)
+CELLS_PLAIN_ROWS = 1024
+
+
+def cut_shape(arch: str, shape_name: str):
+    """The cell's shape at one data member's rows of the (16, 16) mesh."""
+    from repro_torch.configs import base as cb
+
+    shape = next(s for s in cb.get_arch(arch).shapes if s.name == shape_name)
+    return dataclasses.replace(shape,
+                               global_batch=shape.global_batch // CELLS_DATA)
+
+
+def cell_records() -> dict:
+    """The dry run's record of each cut cell on a one-member mesh, traced as
+    the dry run traces (a fake process group of one rank, fake CPU
+    tensors)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dryrun.fake_world(1)
+    try:
+        mesh = make_host_mesh()
+        return {f"{a}/{s}": dryrun.run_cell(a, cut_shape(a, s), mesh, False)
+                for a, s in CELLS}
+    finally:
+        dist.destroy_process_group()
+
+
+def cell_args(cell, dev):
+    """The cell's arguments on the card: parameters from the port's init
+    (f32 masters and AdamW state for a train cell), each leaf cast to its
+    stand-in's type and cut by the cell's layout, a seeded batch of the
+    stand-ins' shapes, and a decode cell's cache from ``api.make_cache``."""
+    from repro_torch.configs.base import DLRMConfig
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models import api
+    from repro_torch.models import dlrm
+    from repro_torch.sharding import partition
+    from repro_torch.train import optimizer as opt
+
+    cfg, kind = cell.cfg, cell.shape.kind
+    if isinstance(cfg, DLRMConfig):
+        params = dlrm.init_dlrm(SEED, cfg, n_shards=16, device=dev)
+    else:
+        params = api.init(SEED, cfg, dev,
+                          dtype="float32" if kind == "train" else None)
+    params = partition.shard_tree(params, cell.layouts[0])
+    params = _cast_like(params, cell.args[0])
+    args = [params]
+    if kind == "train":
+        args.append(opt.adamw_init(params))
+    gen = np.random.default_rng(SEED)
+    stand = cell.args[len(args)]
+    if isinstance(cfg, DLRMConfig):
+        rows, t_pad = stand["idx"].shape[:2]
+        b = make_batch(cfg, rows, mode="uniform", t_pad=t_pad, seed=SEED)
+        args.append({k: torch.from_numpy(getattr(b, k)).to(dev)
+                     for k in ("dense", "idx", "mask")})
+        return args
+
+    def draw(x):
+        if x.dtype == torch.int32:
+            return torch.from_numpy(gen.integers(
+                0, cfg.vocab_size, tuple(x.shape)).astype(np.int32)).to(dev)
+        return torch.from_numpy(gen.standard_normal(
+            tuple(x.shape)).astype(np.float32)).to(dev, x.dtype)
+
+    if kind == "decode":
+        args.append(draw(stand))
+        args.append(api.make_cache(cfg, stand.shape[0], cell.shape.seq_len,
+                                   dtype="bfloat16", device=dev))
+    else:
+        args.append({k: draw(x) for k, x in stand.items()})
+    return args
+
+
+def _cast_like(tree, like):
+    if isinstance(tree, dict):
+        return {k: _cast_like(tree[k], like[k]) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cast_like(a, b) for a, b in zip(tree, like))
+    return tree if tree.dtype == like.dtype else tree.to(like.dtype)
+
+
+def check_stand_ins(name, args, stand_ins, want_bytes):
+    """Fail unless every argument leaf has its stand-in's shape and type
+    and the arguments' bytes are the dry run's, exactly."""
+    from repro_torch.launch import specs
+    from repro_torch.train import optimizer as opt
+
+    for i, (a, s) in enumerate(zip(args, stand_ins)):
+        got = [(tuple(x.shape), x.dtype) for x in opt.leaves(a)
+               if isinstance(x, torch.Tensor)]
+        want = [(tuple(x.shape), x.dtype) for x in opt.leaves(s)
+                if isinstance(x, torch.Tensor)]
+        if got != want:
+            bad = [(g, w) for g, w in zip(got, want) if g != w][:3]
+            raise AssertionError(f"{name}: argument {i} differs from its "
+                                 f"stand-ins ({len(got)} against "
+                                 f"{len(want)} leaves; {bad})")
+    n = specs.nbytes(args)
+    if n != want_bytes:
+        raise AssertionError(f"{name}: {n} argument bytes on the card, the "
+                             f"dry run's record says {want_bytes}")
+    return n
+
+
+def run_cell_on_card(cell, args):
+    """The cell's fn once warm and once timed with CUDA events, under its
+    rules -> (output, ms, peak bytes, each kernel's launches on the timed
+    run by key)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import partition
+
+    mesh = make_host_mesh()
+    with partition.axis_rules(mesh, cell.rules):
+        cell.fn(*args)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = cell.fn(*args)
+        end.record()
+        end.synchronize()
+    launches = {k: dict(v.by_key) for k, v in ops.kernels().items()
+                if v.launches}
+    return out, start.elapsed_time(end), torch.cuda.max_memory_allocated(), \
+        launches
+
+
+def cells_phase(dev, card):
+    """Phase 22: the four cut cells on the card (see CELLS), then the two
+    new kernel rows at their served shapes: B5 at qwen3-14b's prefill_32k
+    heads beside SDPA, and the bag at dlrm-alicpp's microbatch beside
+    ``F.embedding_bag``.  Returns (row, launches) pairs."""
+    from repro_torch.configs import base as cb
+    from repro_torch.kernels import dot_interaction as di
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import dlrm
+
+    t0 = time.perf_counter()
+    records = cell_records()
+    log(f"[cells] dry-run records of the {len(CELLS)} cut cells traced on "
+        f"fake CPU tensors in {time.perf_counter() - t0:.1f} s: "
+        + "; ".join(f"{k} args {r['memory']['argument_size_in_bytes']} "
+                    f"temp {r['memory']['temp_size_in_bytes']} flops "
+                    f"{r['flops']}" for k, r in records.items()))
+    rows = []
+    l2 = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    with model_group("nccl"):
+        mesh = make_host_mesh()
+        for arch, shape_name in CELLS:
+            name = f"{arch}/{shape_name}"
+            rec = records[name]
+            cut = cut_shape(arch, shape_name)
+            full = next(s for s in cb.get_arch(arch).shapes
+                        if s.name == shape_name)
+            cell = specs.build_cell(arch, cut, mesh)
+            t1 = time.perf_counter()
+            args = cell_args(cell, dev)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t1
+            n_bytes = check_stand_ins(
+                name, args, cell.args,
+                rec["memory"]["argument_size_in_bytes"])
+            out, ms, peak, launches = run_cell_on_card(cell, args)
+            bound_ms = rec["flops"] / BF16_FLOPS * 1e3
+            est = rec["memory"]["argument_size_in_bytes"] + \
+                rec["memory"]["temp_size_in_bytes"]
+            log(f"[cells] {name}: cut to {cut.global_batch} of "
+                f"{full.global_batch} rows (one data member of 16) x "
+                f"{cut.seq_len}; arguments {n_bytes} bytes on the card == "
+                f"the dry run's record, each leaf its stand-in's shape and "
+                f"type; init {init_s:.1f} s; timed call {ms:.3f} ms beside "
+                f"the bound {bound_ms:.3f} ms (the record's "
+                f"{rec['flops']} plain-path flops over 989 TFLOP/s bf16); "
+                f"peak {peak} bytes beside the dry run's argument + temp "
+                f"{est}; launches {launches}; card {card!r}")
+            if arch == "qwen3-14b":
+                c = cell.cfg
+                key = fa.launch_key(c.n_heads, c.n_kv_heads, c.head_dim, 0,
+                                    True)
+                if launches != {"flash_attention": {key: c.n_layers}}:
+                    raise AssertionError(f"{name}: launches {launches}, not "
+                                         f"{c.n_layers} of B5 at {key}")
+                if out.shape[0] != cut.global_batch or \
+                        not torch.isfinite(out.float()).all():
+                    raise AssertionError(f"{name}: logits "
+                                         f"{tuple(out.shape)} not finite")
+                qwen = (cell.cfg, key, c.n_layers)
+            elif arch == "dlrm-alicpp":
+                b = args[1]
+                c = cell.cfg
+                mb = cut.global_batch // 16
+                t_pad = b["idx"].shape[1]
+                bag_key = eb.launch_key(mb * t_pad, 1, c.embed_dim, t_pad)
+                dot_key = di.launch_key(mb, c.n_tables + 1, c.embed_dim)
+                want = {"embedding_bag_pool": {bag_key: 16},
+                        "dot_interaction": {dot_key: 16}}
+                if launches != want:
+                    raise AssertionError(f"{name}: launches {launches}, not "
+                                         f"{want}")
+                plain = torch.sigmoid(dlrm.forward_local(
+                    args[0], c.replace(sparse_backend="ref"), b["dense"],
+                    b["idx"], b["mask"]))
+                torch.testing.assert_close(out, plain, **TOL)
+                if not ((out > 0) & (out < 1)).all():
+                    raise AssertionError(f"{name}: CTRs outside (0, 1)")
+                log(f"[cells] {name}: {out.numel()} CTRs within 1e-5 of "
+                    f"the plain forward_local on the same rows (max abs "
+                    f"err {(out - plain).abs().max().item():.3e})")
+                rows.append((dlrm_cell_bag_row(args, c, mb, l2.zero_),
+                             launches["embedding_bag_pool"][bag_key]))
+                del plain
+            elif arch == "whisper-tiny":
+                c = cell.cfg
+                heads = (c.n_heads, c.n_kv_heads, c.head_dim, 0)
+                keys = {fa.launch_key(*heads, False),
+                        fa.launch_key(*heads, True)}
+                if set(launches) != {"flash_attention"} or \
+                        set(launches["flash_attention"]) != keys:
+                    raise AssertionError(f"{name}: launches {launches}, not "
+                                         f"B5 at {keys}")
+                loss = float(out[2]["loss"])
+                if not np.isfinite(loss):
+                    raise AssertionError(f"{name}: loss {loss}")
+                log(f"[cells] {name}: loss {loss:.4f}, grad_norm "
+                    f"{float(out[2]['grad_norm']):.4f}")
+            else:
+                toks, cache = out
+                if launches:
+                    raise AssertionError(f"{name}: a decode step launched "
+                                         f"{launches}")
+                if toks.shape != (cut.global_batch, 1) or \
+                        toks.dtype != torch.int32 or \
+                        not ((toks >= 0) & (toks < cell.cfg.vocab_size)).all():
+                    raise AssertionError(f"{name}: tokens {tuple(toks.shape)}"
+                                         f" {toks.dtype} out of range")
+                del cache
+            del out, args, cell
+            torch.cuda.empty_cache()
+        multihost_phase(dev)
+    del l2
+    torch.cuda.empty_cache()
+    c, key, n = qwen
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    row, row_key = flash_row(
+        "flash_attention/qwen3_prefill_32k", gen, dev,
+        cut_shape("qwen3-14b", "prefill_32k").global_batch,
+        cut_shape("qwen3-14b", "prefill_32k").seq_len, c.n_heads,
+        c.n_kv_heads, c.head_dim, plain_rows=CELLS_PLAIN_ROWS)
+    assert row_key == key
+    rows.append((row, n))
+    return rows
+
+
+def dlrm_cell_bag_row(args, cfg, mb: int, flush):
+    """The bag at dlrm-alicpp's served microbatch (the first ``mb`` rows,
+    every padded table, hot 1) on the cell's stack, held and timed as in
+    phase 3."""
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import ref
+
+    tables = args[0]["tables"]
+    t, r, s = tables.shape
+    flat = tables.reshape(t * r, s)
+    idx = args[1]["idx"][:mb].contiguous()
+    mask = args[1]["mask"][:mb].contiguous()
+    hot = idx.shape[2]
+    gid = (torch.arange(t, device=idx.device)[None, :, None] * r
+           + idx.long().clamp(0, r - 1)).reshape(mb * t, hot)
+    w = mask.reshape(mb * t, hot)
+    return bag_kernel_row(
+        f"embedding_bag_pool/alicpp_mb{mb}", f"{EB_PY}:867",
+        lambda: eb.embedding_bag_stacked(tables, idx, mask),
+        lambda: ref.embedding_bag_stacked_ref(tables, idx, mask),
+        lambda: F.embedding_bag(gid, flat, mode="sum",
+                                per_sample_weights=w).reshape(mb, t, s),
+        gid, idx.reshape(mb * t, hot), w, mb * t, table=flat, rows=r,
+        n_tables=t, flush=flush)
+
+
+def multihost_phase(dev) -> None:
+    """Phase 23: ``launch/multihost.py`` on the one-rank NCCL group:
+    ``bringup()`` with no coordinator in the environment (one process,
+    nothing initialised), ``host_batch_slice``, ``form_global_array`` onto
+    the card, and ``RestartBarrier.agree_on_step`` through one NCCL
+    all_reduce: 7 is agreed, and None raises."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.multihost import (RestartBarrier, bringup,
+                                              form_global_array,
+                                              host_batch_slice)
+
+    info = bringup()
+    want = {"process_index": 0, "process_count": 1, "local_devices": 1,
+            "global_devices": 1}
+    if info != want:
+        raise AssertionError(f"bringup() gave {info}, not {want}")
+    if host_batch_slice(64) != (0, 64):
+        raise AssertionError(f"host_batch_slice(64) = "
+                             f"{host_batch_slice(64)}")
+    mesh = make_host_mesh()
+    local = np.arange(16.0, dtype=np.float32).reshape(8, 2)
+    arr = form_global_array(local, mesh, ("data", None))
+    if arr.device.type != "cuda" or not torch.equal(
+            arr.cpu(), torch.from_numpy(local)):
+        raise AssertionError(f"form_global_array gave {arr} on {arr.device}")
+    barrier = RestartBarrier()
+    agreed = barrier.agree_on_step(7, mesh)
+    if agreed != 7:
+        raise AssertionError(f"agree_on_step(7) = {agreed}")
+    try:
+        barrier.agree_on_step(None, mesh)
+    except FileNotFoundError:
+        pass
+    else:
+        raise AssertionError("agree_on_step(None) did not raise")
+    log(f"[multihost] bringup() {info}; host_batch_slice(64) (0, 64); "
+        f"form_global_array (8, 2) onto {arr.device}; agree_on_step 7 "
+        f"through one NCCL all_reduce over the one-rank group, None raises "
+        f"FileNotFoundError")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5823,6 +6211,11 @@ def main() -> int:
     members_train_phase(dev, card)
     lap("members-train")
     members_elastic_phase(dev, card)
+    lap("members-elastic")
+    # the launch tooling's cells and multihost, with the card free again
+    torch.cuda.empty_cache()
+    cell_rows = cells_phase(dev, card)
+    lap("cells, multihost")
     # each flash or WKV row takes the served launches of its own shape:
     # qwen3's heads and the B 8 WKV shape are timed but not served, so
     # their rows read 0; each new family's row its phase's run (one
@@ -5842,6 +6235,10 @@ def main() -> int:
              hybrid_row, ssm_row]
     for row, key in wkv_rows:
         row["launches"] = wkv_by_key.get(key, 0)
+        rows.append(row)
+    # the cells' rows take their cell's timed run's launches
+    for row, n in cell_rows:
+        row["launches"] = n
         rows.append(row)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))

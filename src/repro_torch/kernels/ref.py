@@ -131,6 +131,33 @@ def embedding_bag_split_ref(table_flat, idx, w, *, rows: int, n_tables: int,
 NEG_INF = -1e30
 
 
+def _attend_rows(q, k, v, q0: int, k0: int, *, causal: bool, window: int,
+                 softcap: float, scale):
+    """Query rows ``q0 .. q0 + S - 1`` against keys ``k0 .. k0 + T - 1`` ->
+    (out in f32 (B, Kh, G, S, hd) before the division, the rows' max, the
+    clamped sum, the (S, T) admitted-key mask)."""
+    b, s, h, hd = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, s, kh, h // kh, hd)
+    sc = torch.einsum("bskgd,btkd->bkgst", qf, k.float()).mul_(
+        hd ** -0.5 if scale is None else scale)
+    if softcap:
+        sc.div_(softcap).tanh_().mul_(softcap)
+    qi = torch.arange(q0, q0 + s, device=q.device)[:, None]
+    kj = torch.arange(k0, k0 + t, device=q.device)[None, :]
+    ok = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kj <= qi
+    if window:
+        ok &= (qi - kj) < window
+    sc.masked_fill_(~ok, NEG_INF)
+    m = sc.amax(-1, keepdim=True)
+    sc.sub_(m).exp_().masked_fill_(~ok, 0.0)
+    den = sc.sum(-1, keepdim=True).clamp_min_(1e-30)
+    out = torch.einsum("bkgst,btkd->bkgsd", sc, v.float()).div_(den)
+    return out, m, den, ok
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                         softcap: float = 0.0, scale=None,
                         return_lse: bool = False):
@@ -144,29 +171,37 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     p, 1e-30)), (B, Kh, H / Kh, S) f32, with the max taken as 0 for a row
     that admits no key (the reference's ``_flash_fwd_impl`` guard)."""
     b, s, h, hd = q.shape
-    t, kh = k.shape[1], k.shape[2]
-    qf = q.float().reshape(b, s, kh, h // kh, hd)
-    sc = torch.einsum("bskgd,btkd->bkgst", qf, k.float()).mul_(
-        hd ** -0.5 if scale is None else scale)
-    if softcap:
-        sc.div_(softcap).tanh_().mul_(softcap)
-    qi = torch.arange(s, device=q.device)[:, None]
-    kj = torch.arange(t, device=q.device)[None, :]
-    ok = torch.ones((s, t), dtype=torch.bool, device=q.device)
-    if causal:
-        ok &= kj <= qi
-    if window:
-        ok &= (qi - kj) < window
-    sc.masked_fill_(~ok, NEG_INF)
-    m = sc.amax(-1, keepdim=True)
-    sc.sub_(m).exp_().masked_fill_(~ok, 0.0)
-    den = sc.sum(-1, keepdim=True).clamp_min_(1e-30)
-    out = torch.einsum("bkgst,btkd->bkgsd", sc, v.float()).div_(den)
+    out, m, den, ok = _attend_rows(q, k, v, 0, 0, causal=causal,
+                                   window=window, softcap=softcap,
+                                   scale=scale)
     out = out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd).to(q.dtype)
     if not return_lse:
         return out
     live = ok.any(-1)[:, None]
     return out, (torch.where(live, m, 0.0) + den.log()).squeeze(-1)
+
+
+def flash_attention_ref_rows(q, k, v, *, causal: bool = True,
+                             window: int = 0, softcap: float = 0.0,
+                             chunk: int = 1024):
+    """:func:`flash_attention_ref`'s output (S = T) computed ``chunk`` query
+    rows at a time, each against only the keys its rows can admit, so the
+    scores held at once are (B, H, chunk, <= T): the plain version at a
+    length whose whole (B, H, S, T) scores do not fit on the card."""
+    b, s, h, hd = q.shape
+    if k.shape[1] != s:
+        raise ValueError(f"{s} query rows against {k.shape[1]} keys")
+    out = torch.empty_like(q)
+    for q0 in range(0, s, chunk):
+        c = min(chunk, s - q0)
+        hi = q0 + c if causal else s
+        lo = max(0, q0 - window + 1) if window else 0
+        rows, *_ = _attend_rows(q[:, q0:q0 + c], k[:, lo:hi], v[:, lo:hi],
+                                q0, lo, causal=causal, window=window,
+                                softcap=softcap, scale=None)
+        out[:, q0:q0 + c] = rows.permute(0, 3, 1, 2, 4).reshape(
+            b, c, h, hd).to(q.dtype)
+    return out
 
 
 LOG2E = 1.4426950408889634

@@ -13,13 +13,19 @@ counterpart of the reference's ``jax.sharding.Mesh``: a (data, model) grid
 of global ranks with one process group per row (the ``model`` axis) and one
 per column (the ``data`` axis).  :func:`make_host_mesh` builds it over the
 default group's world, as the reference's builds it over every device.
+:func:`make_production_mesh` gives the reference's production grids, (data
+16, model 16) over ranks 0-255 and (pod 2, data 16, model 16) over ranks
+0-511; the ``pod`` axis carries only the batch (the "batch" rule's
+``("pod", "data")``), as in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
 import inspect
+import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -53,8 +59,10 @@ def destroy_model_group() -> None:
 
 @dataclasses.dataclass
 class Mesh:
-    """A (data, model) grid of global ranks, row-major: rank ``ranks[i *
-    model + j]`` sits at data ``i``, model ``j``.
+    """A grid of global ranks over the axes of ``shape`` (``(data, model)``,
+    or ``(pod, data, model)`` for the multi-pod production grid),
+    row-major: on a (data, model) grid rank ``ranks[i * model + j]`` sits
+    at data ``i``, model ``j``.
 
     ``shape`` and ``coords`` are dicts by axis name (``coords`` is None on a
     process the grid leaves out); ``groups[axis]`` is this process's group
@@ -70,7 +78,7 @@ class Mesh:
 
     @property
     def size(self) -> int:
-        return self.shape["data"] * self.shape["model"]
+        return math.prod(self.shape.values())
 
     @property
     def is_member(self) -> bool:
@@ -96,42 +104,43 @@ def _new_group(line):
     return dist.new_group(ranks=line, sort_ranks=False)
 
 
-def _grid(ranks, data: int, model: int) -> Mesh:
-    """A mesh over the global ``ranks`` in a (data, model) grid.  Every
-    process of the default group must call this, members or not, in the
-    same order: ``dist.new_group`` is collective over the default group.
+def _grid(ranks, shape: dict) -> Mesh:
+    """A mesh over the global ``ranks`` in a grid of ``shape`` (axis name ->
+    size, row-major).  Every process of the default group must call this,
+    members or not, in the same order: ``dist.new_group`` is collective
+    over the default group.
 
     Each group keeps its ranks in grid order (:func:`_new_group`), so a
     member's rank in its group along an axis is its coordinate there, as
     ``shard_leaf`` cuts and every gather joins; ``WORLD`` serves only the
     identity order."""
     ranks = tuple(int(r) for r in ranks)
-    if len(ranks) != data * model:
-        raise ValueError(f"{len(ranks)} ranks do not fill a ({data}, "
-                         f"{model}) grid")
-    shape = {"data": data, "model": model}
+    axes, sizes = tuple(shape), tuple(shape.values())
+    if len(ranks) != math.prod(sizes):
+        raise ValueError(f"{len(ranks)} ranks do not fill a {sizes} grid")
+    shape = dict(shape)
     me = dist.get_rank() if dist.is_initialized() else ranks[0]
     coords = None
     if me in ranks:
-        at = ranks.index(me)
-        coords = {"data": at // model, "model": at % model}
-    groups = {"data": None, "model": None, "all": None}
+        coords = {a: int(c) for a, c in
+                  zip(axes, np.unravel_index(ranks.index(me), sizes))}
+    groups = {**{a: None for a in axes}, "all": None}
     if not dist.is_initialized():
-        return Mesh(shape, ranks, coords, groups)
+        return Mesh(shape, ranks, coords, groups, axes)
     if len(ranks) > 1:
         g = dist.group.WORLD if ranks == tuple(range(dist.get_world_size())) \
             else _new_group(ranks)
         if coords is not None:
             groups["all"] = g
-    rows = [ranks[i * model:(i + 1) * model] for i in range(data)]
-    cols = [ranks[j::model] for j in range(model)]
-    for axis, lines, n in (("model", rows, model), ("data", cols, data)):
-        if n == 1:
+    grid = np.array(ranks).reshape(sizes)
+    # the model rows first, then the data columns, then the pod lines
+    for i in reversed(range(len(axes))):
+        if sizes[i] == 1:
             continue
-        for line in lines:
+        for line in np.moveaxis(grid, i, -1).reshape(-1, sizes[i]).tolist():
             g = _new_group(line)
             if me in line:
-                groups[axis] = g
+                groups[axes[i]] = g
     if coords is not None:
         at = {"all": ranks.index(me), **coords}
         for axis, g in groups.items():
@@ -139,7 +148,7 @@ def _grid(ranks, data: int, model: int) -> Mesh:
                 raise RuntimeError(
                     f"rank {me} is {dist.get_rank(g)} in its {axis!r} group "
                     f"but at {at[axis]} on the mesh")
-    return Mesh(shape, ranks, coords, groups)
+    return Mesh(shape, ranks, coords, groups, axes)
 
 
 def make_host_mesh(model: int = 1) -> Mesh:
@@ -151,10 +160,21 @@ def make_host_mesh(model: int = 1) -> Mesh:
     model = min(model, n)
     if n % model:
         raise ValueError(f"a model axis of {model} does not divide {n} ranks")
-    return _grid(range(n), n // model, model)
+    return _grid(range(n), {"data": n // model, "model": model})
 
 
 def make_mesh(ranks, data: int, model: int) -> Mesh:
     """A (data, model) grid over the given global ranks (collective over the
     default group; see :func:`_grid`)."""
-    return _grid(ranks, data, model)
+    return _grid(ranks, {"data": data, "model": model})
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """Single pod: (data 16, model 16) over ranks 0-255 of the default
+    group.  Multi-pod: (pod 2, data 16, model 16) over ranks 0-511; the
+    pod axis carries pure data parallelism (training) or replica serving
+    (inference).  Collective over the default group (see :func:`_grid`),
+    which must hold at least that many ranks."""
+    shape = {"pod": 2, "data": 16, "model": 16} if multi_pod else \
+        {"data": 16, "model": 16}
+    return _grid(range(math.prod(shape.values())), shape)

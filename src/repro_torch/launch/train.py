@@ -12,8 +12,9 @@ over ``env://``: NCCL on the card, gloo on the CPU) it runs over
 ``make_host_mesh(model=1)``, pure data parallelism over every rank as the
 reference's driver runs over every device: each rank takes its slice of
 every batch, gradients are averaged over the data axis, the first rank
-logs and writes checkpoints.  The production mesh (``--production-mesh``)
-waits for the launch tooling (ROADMAP A14f).
+logs and writes checkpoints.  Training on the production mesh
+(``--production-mesh``) waits for its layout (FSDP and sequence
+parallelism, ROADMAP A14f-4).
 
 Resuming differs from the reference on purpose.  A checkpoint saved after
 step i holds the state after that step's update; the port resumes at step
@@ -170,9 +171,10 @@ def main(argv=None, params=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.production_mesh:
-        raise NotImplementedError("--production-mesh: the (16, 16) "
-                                  "production mesh waits for the launch "
-                                  "tooling (ROADMAP A14f)")
+        raise NotImplementedError("--production-mesh: training on the "
+                                  "(16, 16) production mesh waits for its "
+                                  "layout, FSDP and sequence parallelism "
+                                  "(ROADMAP A14f-4)")
     spec = cb.get_arch(args.arch)
     cfg = spec.smoke() if args.smoke else spec.config
     mesh, log = None, print

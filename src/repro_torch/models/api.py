@@ -52,7 +52,9 @@ def init(seed: int, cfg: ModelConfig, device="cuda", n_shards: int = 16,
     of it).  Leaves are drawn in f32 and kept in ``cfg.dtype``, or in
     ``dtype`` ("float32": the training masters, the reference's ``init``
     leaves).  With ``layout`` (:func:`param_layout`) each member keeps its
-    block of the same draws."""
+    block of the same draws.  On ``device="meta"`` nothing is drawn or
+    allocated: every leaf has its shape and type (the dry run's
+    ``launch/specs.py::param_shapes``)."""
     check_ported(cfg)
     if dtype is not None:
         cfg = cfg.replace(dtype=dtype)

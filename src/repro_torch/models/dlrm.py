@@ -69,12 +69,12 @@ def table_stats(cfg: DLRMConfig, n_shards: int = 16) -> dict:
 def init_dlrm(seed: int, cfg: DLRMConfig, *, n_shards: int,
               device="cuda"):
     """Random parameters from a ``torch.Generator`` seeded with ``seed``,
-    made on ``device``.  ``n_shards`` (the model-axis size) sets the table
-    padding; the reference defaults it to 16, which pads Kaggle's 26 tables
-    to 32, so the port asks for it."""
+    made on ``device`` (on "meta": every leaf's shape and type, nothing
+    drawn).  ``n_shards`` (the model-axis size) sets the table padding;
+    the reference defaults it to 16, which pads Kaggle's 26 tables to 32,
+    so the port asks for it."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = L.generator(seed, dev)
     t_pad = padded_tables(cfg, n_shards)
     r_max = max(cfg.table_sizes)
 
@@ -94,6 +94,20 @@ def init_dlrm(seed: int, cfg: DLRMConfig, *, n_shards: int,
     top_dims = (n_inter + cfg.embed_dim, *cfg.top_mlp)
     return {"tables": tables, "bot": mlp_params(bot_dims),
             "top": mlp_params(top_dims)}
+
+
+def dlrm_specs(cfg: DLRMConfig):
+    """The reference's tree of logical axes for :func:`init_dlrm`'s tree.
+    No rule names "table_shard": the reference's ``forward_distributed``
+    cuts the stack over ``model`` in its ``shard_map``, and the port's
+    takes the full stack or this member's shard of it."""
+    return {
+        "tables": ("table_shard", None, None),
+        "bot": [L.dense_specs(None, None, bias=True)
+                for _ in range(len(cfg.bottom_mlp))],
+        "top": [L.dense_specs(None, None, bias=True)
+                for _ in range(len(cfg.top_mlp))],
+    }
 
 
 def params_from_jax(np_params, device="cuda"):
@@ -924,7 +938,8 @@ def build_forward_plans(params, cfg: DLRMConfig, idx, *,
 def bce_loss(logits, labels):
     """Mean binary cross-entropy of CTR logits in the reference's stable
     form, max(x, 0) - x y + log1p(exp(-|x|)), in f32.  The reference trains
-    no DLRM outside its dry-run cell (ROADMAP A14f)."""
+    no DLRM outside its dry-run cell, which the port's waits for
+    (ROADMAP A14f-4)."""
     lf, yf = logits.float(), labels.float()
     return torch.mean(torch.clamp(lf, min=0) - lf * yf
                       + torch.log1p(torch.exp(-lf.abs())))

@@ -36,10 +36,24 @@ def dtype_of(name: str) -> torch.dtype:
     return dt
 
 
-def truncated_normal(gen: torch.Generator, shape, scale: float,
+def generator(seed: int, device: torch.device) -> Optional[torch.Generator]:
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``, or None on
+    the meta device: there the inits draw nothing, and every leaf keeps its
+    shape and type with no value (:func:`truncated_normal`)."""
+    if device.type == "meta":
+        return None
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
+def truncated_normal(gen: Optional[torch.Generator], shape, scale: float,
                      dtype: torch.dtype, device) -> torch.Tensor:
     """Standard normal truncated to [-2, 2], times ``scale`` — the
-    reference's distribution; the draws themselves differ from JAX's."""
+    reference's distribution; the draws themselves differ from JAX's.  On
+    the meta device, an empty leaf of the same shape and type."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     x = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return x.mul_(scale).to(dtype)

@@ -107,8 +107,9 @@ def moe_specs(cfg: ModelConfig):
 def route(router_w, x, moe: MoEConfig, e_pad: int):
     """x:(T,D) -> (weights (T,k), expert_idx (T,k), router_probs (T,E_pad)).
     The top k by a stable descending sort: among equal probabilities the
-    lower expert comes first, as ``jax.lax.top_k`` orders them."""
-    logits = x.float() @ router_w                        # (T, E_pad)
+    lower expert comes first, as ``jax.lax.top_k`` orders them.  A bf16
+    router (a serving cell's) is widened to f32, as JAX promotes it."""
+    logits = x.float() @ router_w.float()                # (T, E_pad)
     if e_pad > moe.n_experts:  # phantom padding experts never win
         mask = torch.arange(e_pad, device=x.device) < moe.n_experts
         logits = torch.where(mask, logits, float("-inf"))

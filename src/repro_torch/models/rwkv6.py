@@ -152,8 +152,7 @@ def init_rwkv6(seed: int, cfg: ModelConfig, device="cuda"):
     layout; layers are drawn one after another into ``(n_layers, ...)``
     leaves."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = L.generator(seed, dev)
     dt = cfg.dtype
     p = {"embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model, dt, dev),
          "ln0": L.init_layernorm(cfg.d_model, dt, dev)}

@@ -182,8 +182,7 @@ def init_lm(seed: int, cfg: ModelConfig, device="cuda", n_shards: int = 16,
     if dtype is not None:
         cfg = cfg.replace(dtype=dtype)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = L.generator(seed, dev)
     pat, g = layer_pattern(cfg), n_groups(cfg)
 
     def cut(path, tree):

@@ -95,8 +95,7 @@ def init_whisper(seed: int, cfg: ModelConfig, device="cuda"):
     with ``seed``, on ``device``, with the reference's distributions and
     layout."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = L.generator(seed, dev)
     return {
         "frontend_proj": L.init_dense(gen, cfg.d_frontend, cfg.d_model,
                                       cfg.dtype, dev, bias=True),

@@ -88,8 +88,7 @@ def init_zamba2(seed: int, cfg: ModelConfig, device="cuda"):
     layout; the mamba layers are drawn one after another into
     ``(n_groups, shared_attn_every, ...)`` leaves."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = L.generator(seed, dev)
     g, e = n_groups(cfg), cfg.shared_attn_every
     p = {"embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model,
                                    cfg.dtype, dev)}

@@ -9,8 +9,9 @@ trees.  Each leaf takes the reference's operations in its order (which
 ``torch.optim.AdamW`` does not).  Over a mesh the state's leaves are the
 members' blocks of the parameters' (:func:`adamw_layout`); the update is
 elementwise, and :func:`global_norm` sums the squares of the cut leaves
-over the model group.  The reference's ``adamw_specs`` (the dry-run's
-optimizer shardings) wait for the launch tooling (ROADMAP A14f).
+over the model group.  :func:`adamw_specs` gives the state's logical axes
+(the dry run's optimizer layouts).  On the meta device
+:func:`adamw_init` makes the state's stand-ins.
 """
 from __future__ import annotations
 
@@ -85,12 +86,16 @@ def cosine_schedule(step, *, peak_lr: float = 3e-4, warmup: int = 100,
     return peak_lr * torch.where(sf < warmup, warm, cos)
 
 
+def adamw_specs(param_specs):
+    """Optimizer-state logical axes mirror the parameters'."""
+    return {"m": param_specs, "v": param_specs, "count": ()}
+
+
 def adamw_layout(param_layout):
     """The optimizer state's layout from the parameters': m and v as the
     parameters, the step count whole."""
-    from repro_torch.sharding import partition
-    return partition.Layout(param_layout.mesh, {
-        "m": param_layout.specs, "v": param_layout.specs, "count": ()})
+    return partition.Layout(param_layout.mesh,
+                            adamw_specs(param_layout.specs))
 
 
 def global_norm(tree, *, cut=None, group=None):

@@ -7,10 +7,11 @@
 
 Under an ambient mesh (``sharding/partition.py::axis_rules``) the train
 step is data- and tensor-parallel: each data member takes its slice of the
-batch, the model runs tensor-parallel over the model axis, the gradients
-are all-reduced over the data axis and divided by its size (the GSPMD sum
-of the reference's mean loss), and the clipping norm counts each cut leaf's
-blocks once across the model axis.
+batch (over ``data``, and ``pod`` on the multi-pod grid: the "batch"
+rule's axes), the model runs tensor-parallel over the model axis, the
+gradients are all-reduced over those axes and divided by their size (the
+GSPMD sum of the reference's mean loss), and the clipping norm counts each
+cut leaf's blocks once across the model axis.
 """
 from __future__ import annotations
 
@@ -47,26 +48,31 @@ def make_train_step(cfg: ModelConfig, *, peak_lr: float = 3e-4,
         return api.loss(cfg, logits, batch["labels"], aux)
 
     def members(batch):
-        """(this data member's batch, data group, data size, the leaves'
-        cut flags, model group) under the ambient mesh."""
+        """(this data member's batch, the groups of the batch's mesh axes,
+        their members, the leaves' cut flags, model group) under the
+        ambient mesh.  The batch is cut over the axes the "batch" rule
+        names: ``data``, and ``pod`` too on the multi-pod grid."""
         mesh = partition.current_mesh()
         if mesh is None:
-            return batch, None, 1, None, None
-        nd = mesh.shape["data"]
+            return batch, [], 1, None, None
+        entry = partition.spec("batch", mesh=mesh)[0]
+        nd, i = partition.block(mesh, entry)
         if nd > 1:
             n = batch["tokens"].shape[0]
             if n % nd:
                 raise ValueError(f"batch {n} does not split over {nd} data "
                                  "members")
-            lo = mesh.index("data") * (n // nd)
+            lo = i * (n // nd)
             batch = {k: v[lo:lo + n // nd] for k, v in batch.items()}
         cut = None
         if mesh.shape["model"] > 1:
             cut = opt.leaves(partition.cut_flags(api.param_layout(cfg)))
-        return batch, mesh.group("data"), nd, cut, mesh.group("model")
+        groups = [g for g in map(mesh.group, partition._axes(entry))
+                  if g is not None]
+        return batch, groups, nd, cut, mesh.group("model")
 
     def train_step(params, opt_state, batch):
-        batch, data_group, nd, cut, model_group = members(batch)
+        batch, data_groups, nd, cut, model_group = members(batch)
         n = batch["tokens"].shape[0]
         if n % accum_steps:
             raise ValueError(f"batch {n} does not split into {accum_steps} "
@@ -96,10 +102,11 @@ def make_train_step(cfg: ModelConfig, *, peak_lr: float = 3e-4,
                 loss = loss * inv
                 for g in grads:
                     g.mul_(inv)
-            if data_group is not None:
+            if data_groups:
                 loss = loss.reshape(1)
                 for t in [loss] + grads:
-                    dist.all_reduce(t, group=data_group)
+                    for g in data_groups:
+                        dist.all_reduce(t, group=g)
                     t.mul_(1.0 / nd)
                 loss = loss[0]
             grads, grad_norm = opt.clip_by_global_norm(

@@ -317,6 +317,22 @@ class TestFlashAttention:
             window=window, softcap=softcap, cq=32, ck=32, interpret=True)
         np.testing.assert_allclose(port.numpy(), np.asarray(out), atol=1e-5)
 
+    @pytest.mark.parametrize("h,kh,window,causal,softcap", [
+        (4, 4, 0, True, 0.0), (4, 2, 24, True, 0.0), (8, 1, 0, False, 0.0),
+        (4, 2, 0, True, 50.0), (4, 2, 24, False, 50.0),
+    ])
+    def test_plain_by_rows_matches_plain(self, h, kh, window, causal,
+                                         softcap):
+        # the plain version a block of query rows at a time (the card's
+        # check at S 32768), against the whole plain version
+        q, k, v = map(torch.from_numpy, _qkv(h + kh + window, 2, 100, h, kh,
+                                             16))
+        kw = {"causal": causal, "window": window, "softcap": softcap}
+        got = tref.flash_attention_ref_rows(q, k, v, chunk=32, **kw)
+        torch.testing.assert_close(got, tref.flash_attention_ref(q, k, v,
+                                                                 **kw),
+                                   rtol=1e-6, atol=1e-6)
+
     @pytest.mark.parametrize("h,kh,causal", [(4, 4, True), (4, 2, False)])
     def test_hd80_matches_jax_kernel_interpret(self, h, kh, causal):
         # zamba2-2.7b's shared block attends at head dim 80
@@ -834,7 +850,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "launch/train.py", "examples/train_lm.py",
                 "sharding/partition.py", "sharding/tp.py", "launch/specs.py",
                 "launch/mesh.py", "train/grad_compression.py",
-                "runtime/elastic.py", "examples/failure_recovery.py"):
+                "runtime/elastic.py", "examples/failure_recovery.py",
+                "launch/dryrun.py", "launch/multihost.py"):
         assert port / new in files, new
     for path in files:
         for mod in _imports(path):
