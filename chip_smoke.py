@@ -321,7 +321,9 @@ Phases, each on lines of its own:
      microbatches on the one-rank NCCL group, the bag and the interaction
      once a microbatch, the CTRs within 1e-5 of ``forward_local``),
      whisper-tiny ``train_4k`` (16 rows, 2 microbatches; B5 under
-     autograd) and chatglm3-6b ``decode_32k`` (8 rows, a 32768-position
+     autograd, and one step from the first state held against one with
+     the plain attention: loss 1e-3, grad_norm 1e-2 relative) and
+     chatglm3-6b ``decode_32k`` (8 rows, a 32768-position
      bf16 cache; one serve step, no kernel).  First the dry run's record
      of each cut cell (``launch/dryrun.py::run_cell`` on fake CPU tensors
      over a fake one-rank group); then on the card each argument drawn by
@@ -336,8 +338,9 @@ Phases, each on lines of its own:
      Kh 8, hd 128, causal, bf16, beside scaled_dot_product_attention,
      against the plain version 1024 query rows at a time);
  23. ``[multihost]`` (on the same one-rank NCCL group): ``bringup()`` with
-     no coordinator in the environment (one process), ``host_batch_slice``,
-     ``form_global_array`` onto the card, and
+     no coordinator in the environment (one process), ``host_batch_slice``
+     with and without the mesh, ``form_global_array`` onto the card with
+     its rows checked against the global batch, and
      ``RestartBarrier.agree_on_step`` through one NCCL all_reduce: 7 is
      agreed, None raises;
  24. one JSON line of kernel numbers, the card's name and power limit, and
@@ -457,6 +460,13 @@ def card_identity() -> str:
 SPIN_CYCLES = 1_000_000
 
 
+# a plain version slower than this a call is timed over 3 calls
+PLAIN_SLOW_S = 0.5
+# the plain flash's query rows a step where its whole scores would not fit
+# (qwen3-14b's heads at S 32768: 343 GB of f32 scores)
+FLASH_PLAIN_ROWS = 1024
+
+
 def time_ms(fn, *, reps: int = 20, warmup: int = 3, flush=None) -> float:
     """Median of ``reps`` CUDA-event timings of one call, after warm-up;
     ``flush`` runs before each call, outside the timed window."""
@@ -501,13 +511,17 @@ def hold(name, out, plain, tol, rel=None):
 
 def check_kernel(name, replaces, source, kernel_fn, plain_fn, library_fn,
                  *, n_bytes, flops, flush, tol=TOL, rel=None,
-                 peak_flops=F32_FLOPS, plain_reps=20):
+                 peak_flops=F32_FLOPS):
     """Hold one kernel against its plain version and time the three (the
-    plain version over ``plain_reps`` calls)."""
+    plain version over 3 calls after 1 warm-up where one call took over
+    PLAIN_SLOW_S, as wkv_row times the chunked WKV)."""
     out = kernel_fn()
     again = kernel_fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     plain = plain_fn()
     torch.cuda.synchronize()
+    slow = time.perf_counter() - t0 > PLAIN_SLOW_S
     if not torch.equal(out, again):
         raise AssertionError(f"{name}: two kernel runs differ")
     err, fro, need = hold(name, out, plain, tol, rel)
@@ -520,8 +534,8 @@ def check_kernel(name, replaces, source, kernel_fn, plain_fn, library_fn,
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": 0, "max_abs_err": err,
            "ms": time_ms(kernel_fn, flush=flush),
-           "plain_ms": time_ms(plain_fn, flush=flush, reps=plain_reps,
-                               warmup=min(3, plain_reps)),
+           "plain_ms": time_ms(plain_fn, flush=flush, reps=3 if slow else 20,
+                               warmup=1 if slow else 3),
            "bound_ms": max(t_bytes, t_ops) * 1e3,
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "library_ms": (time_ms(library_fn, flush=flush)
@@ -2359,7 +2373,7 @@ def reshard_scrub_phase(params, cfg, dev, card, cache, ctr5):
 
 
 def flash_row(name, gen, dev, b, s, h, kh, hd, *, window=0, cap=0.0,
-              causal=True, dtype=torch.bfloat16, plain_rows=0):
+              causal=True, dtype=torch.bfloat16):
     """One flash-kernel row: q (at FLASH_Q_SCALE), k, v of shape (b, s,
     heads, hd) in ``dtype`` from ``gen``, the kernel held against its plain
     version and timed (check_kernel; bf16 at FLASH_TOL and FLASH_REL on the
@@ -2367,10 +2381,10 @@ def flash_row(name, gen, dev, b, s, h, kh, hd, *, window=0, cap=0.0,
     scaled_dot_product_attention where one PyTorch call computes the
     function (no softcap, no window); the plain version without the
     softcap, without the window and, for a non-causal row, with the causal
-    mask must fail the check.  With ``plain_rows`` the plain version runs
-    that many query rows at a time (``ref.flash_attention_ref_rows``: its
-    whole scores would not fit on the card), timed over 3 calls.  Returns
-    (row, launch key)."""
+    mask must fail the check.  Where the plain version's whole f32 scores
+    would take over a quarter of the card's memory, it runs FLASH_PLAIN_ROWS
+    query rows at a time (``ref.flash_attention_ref_rows``).  Returns (row,
+    launch key)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
@@ -2387,10 +2401,11 @@ def flash_row(name, gen, dev, b, s, h, kh, hd, *, window=0, cap=0.0,
             return F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 is_causal=causal, enable_gqa=True).transpose(1, 2)
-    if plain_rows:
+    scores = b * h * s * s * 4
+    if scores > torch.cuda.get_device_properties(dev).total_memory // 4:
         def plain_fn():
-            return ref.flash_attention_ref_rows(q, k, v, chunk=plain_rows,
-                                                **kw)
+            return ref.flash_attention_ref_rows(q, k, v,
+                                                chunk=FLASH_PLAIN_ROWS, **kw)
     else:
         def plain_fn():
             return ref.flash_attention_ref(q, k, v, **kw)
@@ -2401,8 +2416,7 @@ def flash_row(name, gen, dev, b, s, h, kh, hd, *, window=0, cap=0.0,
         library, n_bytes=q.element_size() * (2 * q.numel() + 2 * k.numel()),
         flops=4 * hd * admitted_pairs(s, window, causal) * b * h, flush=None,
         tol=TOL if f32 else FLASH_TOL, rel=None if f32 else FLASH_REL,
-        peak_flops=F32_FLOPS if f32 else BF16_FLOPS,
-        plain_reps=3 if plain_rows else 20)
+        peak_flops=F32_FLOPS if f32 else BF16_FLOPS)
     if row["library_ms"] is not None:
         log(f"[kernel] {name}: kernel {row['ms']:.4f} ms beside "
             f"scaled_dot_product_attention {row['library_ms']:.4f} ms in "
@@ -5372,6 +5386,17 @@ def train_batch(cfg, dev, index=0, batch=None, seq=None):
     return {k: v.to(dev) for k, v in list(data)[index].items()}
 
 
+def hold_train_metrics(label, kernel: dict, plain: dict) -> None:
+    """Fail unless the kernel step's loss is within TRAIN_LOSS_REL and its
+    grad_norm within TRAIN_GNORM_REL, relative, of the plain step's."""
+    for key, rel in (("loss", TRAIN_LOSS_REL), ("grad_norm",
+                                               TRAIN_GNORM_REL)):
+        a, b = kernel[key], plain[key]
+        if not (np.isfinite(a) and abs(a - b) <= rel * abs(b)):
+            raise AssertionError(f"{label} {key}: kernel {a} vs plain {b} "
+                                 f"(relative gate {rel})")
+
+
 def train_cut_phase(dev):
     """Phase 20c: granite-moe-3b-a800m at full width, depth cut to
     TRAIN_CUT_LAYERS: one train step with the kernel against one with the
@@ -5400,12 +5425,7 @@ def train_cut_phase(dev):
         metrics[impl] = {k: float(v) for k, v in m.items()}
         del params, state
         torch.cuda.empty_cache()
-    for key, rel in (("loss", TRAIN_LOSS_REL), ("grad_norm",
-                                               TRAIN_GNORM_REL)):
-        a, b = metrics["auto"][key], metrics["ref"][key]
-        if not (np.isfinite(a) and abs(a - b) <= rel * abs(b)):
-            raise AssertionError(f"cut-depth step {key}: kernel {a} vs plain "
-                                 f"{b} (relative gate {rel})")
+    hold_train_metrics("cut-depth step", metrics["auto"], metrics["ref"])
     log(f"[train-cut] {TRAIN_ARCH} at {TRAIN_CUT_LAYERS} layers, full width, "
         f"B {TRAIN_BATCH} x S {TRAIN_SEQ} in {cfg.train_accum} microbatches: "
         f"kernel step {metrics['auto']} vs plain attention {metrics['ref']}")
@@ -5721,9 +5741,6 @@ def train_full_phase(dev, card):
 CELLS_DATA = 16
 CELLS = (("qwen3-14b", "prefill_32k"), ("dlrm-alicpp", "dlrm_infer"),
          ("whisper-tiny", "train_4k"), ("chatglm3-6b", "decode_32k"))
-# the plain flash's query rows a step at S 32768 (its whole scores would
-# take 343 GB at qwen3-14b's heads)
-CELLS_PLAIN_ROWS = 1024
 
 
 def cut_shape(arch: str, shape_name: str):
@@ -5897,6 +5914,9 @@ def cells_phase(dev, card):
             n_bytes = check_stand_ins(
                 name, args, cell.args,
                 rec["memory"]["argument_size_in_bytes"])
+            # a train cell updates its arguments in place: the gate below
+            # starts from copies of the first state
+            state = _clone(args[:2]) if cut.kind == "train" else None
             out, ms, peak, launches = run_cell_on_card(cell, args)
             bound_ms = rec["flops"] / BF16_FLOPS * 1e3
             est = rec["memory"]["argument_size_in_bytes"] + \
@@ -5960,6 +5980,8 @@ def cells_phase(dev, card):
                     raise AssertionError(f"{name}: loss {loss}")
                 log(f"[cells] {name}: loss {loss:.4f}, grad_norm "
                     f"{float(out[2]['grad_norm']):.4f}")
+                train_cell_gate(name, cell, state, args[2], mesh)
+                del state
             else:
                 toks, cache = out
                 if launches:
@@ -5983,10 +6005,42 @@ def cells_phase(dev, card):
         "flash_attention/qwen3_prefill_32k", gen, dev,
         cut_shape("qwen3-14b", "prefill_32k").global_batch,
         cut_shape("qwen3-14b", "prefill_32k").seq_len, c.n_heads,
-        c.n_kv_heads, c.head_dim, plain_rows=CELLS_PLAIN_ROWS)
+        c.n_kv_heads, c.head_dim)
     assert row_key == key
     rows.append((row, n))
     return rows
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone(v) for v in tree)
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def train_cell_gate(name, cell, state, batch, mesh) -> None:
+    """One step of the train cell's fn (B5 under autograd) against one of
+    ``make_train_step(..., attn_impl="ref")`` (the plain attention), each
+    from its own copy of ``state`` (the first parameters and AdamW state)
+    on the same batch and rules, held as phase 20c holds granite."""
+    from repro_torch.sharding import partition
+    from repro_torch.train import steps as steps_mod
+
+    plain = steps_mod.make_train_step(
+        cell.cfg, accum_steps=cell.cfg.train_accum, attn_impl="ref")
+    metrics = {}
+    for impl, fn in (("kernel", cell.fn), ("plain", plain)):
+        params, opt_state = _clone(state)
+        with partition.axis_rules(mesh, cell.rules):
+            m = fn(params, opt_state, batch)[2]
+        metrics[impl] = {k: float(v) for k, v in m.items()}
+        del params, opt_state, m
+        torch.cuda.empty_cache()
+    hold_train_metrics(name, metrics["kernel"], metrics["plain"])
+    log(f"[cells] {name}: one step from the same state, kernel "
+        f"{metrics['kernel']} vs plain attention {metrics['plain']} (loss "
+        f"{TRAIN_LOSS_REL}, grad_norm {TRAIN_GNORM_REL} relative)")
 
 
 def dlrm_cell_bag_row(args, cfg, mb: int, flush):
@@ -6031,12 +6085,12 @@ def multihost_phase(dev) -> None:
             "global_devices": 1}
     if info != want:
         raise AssertionError(f"bringup() gave {info}, not {want}")
-    if host_batch_slice(64) != (0, 64):
-        raise AssertionError(f"host_batch_slice(64) = "
-                             f"{host_batch_slice(64)}")
     mesh = make_host_mesh()
+    for got in (host_batch_slice(64), host_batch_slice(64, mesh)):
+        if got != (0, 64):
+            raise AssertionError(f"host_batch_slice(64) = {got}")
     local = np.arange(16.0, dtype=np.float32).reshape(8, 2)
-    arr = form_global_array(local, mesh, ("data", None))
+    arr = form_global_array(local, mesh, ("data", None), global_batch=8)
     if arr.device.type != "cuda" or not torch.equal(
             arr.cpu(), torch.from_numpy(local)):
         raise AssertionError(f"form_global_array gave {arr} on {arr.device}")
@@ -6050,7 +6104,8 @@ def multihost_phase(dev) -> None:
         pass
     else:
         raise AssertionError("agree_on_step(None) did not raise")
-    log(f"[multihost] bringup() {info}; host_batch_slice(64) (0, 64); "
+    log(f"[multihost] bringup() {info}; host_batch_slice(64) and "
+        f"host_batch_slice(64, mesh) (0, 64); "
         f"form_global_array (8, 2) onto {arr.device}; agree_on_step 7 "
         f"through one NCCL all_reduce over the one-rank group, None raises "
         f"FileNotFoundError")

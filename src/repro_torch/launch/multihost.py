@@ -9,6 +9,11 @@ from the reference's environment variables; ``host_batch_slice`` and
 input path; ``RestartBarrier`` agrees on the step to restore.  With one
 process everything degrades to identity, so the code path is always
 exercised.
+
+A reference host holds several devices, so its rows by process index are
+the rows of its devices.  Here a process is one member: on a mesh with a
+model axis the members of one data row must load the same rows, so
+``host_batch_slice`` takes the mesh and cuts by the data block.
 """
 from __future__ import annotations
 
@@ -59,36 +64,44 @@ def _process() -> tuple[int, int]:
     return dist.get_world_size(), dist.get_rank()
 
 
-def host_batch_slice(global_batch: int) -> tuple:
-    """[start, stop) rows of the global batch this process must load."""
-    n, i = _process()
+def host_batch_slice(global_batch: int, mesh=None) -> tuple:
+    """[start, stop) rows of the global batch this process must load: with
+    ``mesh``, its member's block along the axes of the "batch" rule (the
+    members of one data row load the same rows); without, its share by
+    process index (pure data parallelism, the reference's host)."""
+    if mesh is None:
+        n, i = _process()
+        what = "processes"
+    else:
+        n, i = partition.block(mesh, partition.spec("batch", mesh=mesh)[0])
+        what = "data blocks"
     if global_batch % n:
         raise ValueError(f"global batch {global_batch} does not split over "
-                         f"{n} processes")
+                         f"{n} {what}")
     per = global_batch // n
     return i * per, (i + 1) * per
 
 
 def form_global_array(host_local: np.ndarray, mesh, spec: tuple, *,
+                      global_batch: Optional[int] = None,
                       device="cuda") -> torch.Tensor:
-    """This process's rows (``host_local``, batch-major: its
-    :func:`host_batch_slice` of the global batch, every column) as its
-    member's block of the global array laid out by ``spec`` (one mesh-axis
-    entry a dimension, as ``partition.spec`` resolves them) on ``mesh``,
-    on ``device``.  The port holds no global array: each member keeps its
-    block.  The rows must be the block ``spec`` gives this member along
-    the first dimension; a later dimension that ``spec`` cuts is narrowed
-    to this member's block."""
+    """This process's rows (``host_local``, batch-major, every column) as
+    its member's block of the global array laid out by ``spec`` (one
+    mesh-axis entry a dimension, as ``partition.spec`` resolves them) on
+    ``mesh``, on ``device``.  The port holds no global array: each member
+    keeps its block.  The rows are the block ``spec`` gives this member
+    along the first dimension (:func:`host_batch_slice` with the mesh);
+    with ``global_batch`` their count is checked against it.  A later
+    dimension that ``spec`` cuts is narrowed to this member's block."""
     x = torch.as_tensor(np.asarray(host_local))
     spec = tuple(spec) + (None,) * (x.dim() - len(spec))
-    n_proc, _ = _process()
-    n_rows, _ = partition.block(mesh, spec[0])
-    rows = x.shape[0] * n_proc
-    if rows % n_rows or x.shape[0] != rows // n_rows:
-        raise ValueError(
-            f"{x.shape[0]} host rows of a {rows}-row global batch over "
-            f"{n_proc} processes are not this member's block along "
-            f"{spec[0]!r} ({n_rows} blocks)")
+    if global_batch is not None:
+        n_rows, _ = partition.block(mesh, spec[0])
+        if global_batch % n_rows or x.shape[0] != global_batch // n_rows:
+            raise ValueError(
+                f"{x.shape[0]} host rows are not this member's block of a "
+                f"{global_batch}-row global batch along {spec[0]!r} "
+                f"({n_rows} blocks)")
     return partition.shard_leaf(x, (None,) + spec[1:], mesh).to(
         resolve_device(device))
 

@@ -6,7 +6,8 @@ Reads ``<dir>/inputs.npz`` (``port``: the coordinator's port, ``latest``:
 each process's latest committed step, -1 for none, ``rows``: the global
 batch), joins a gloo group through ``bringup`` and writes
 ``<dir>/out_<rank>.npz``: ``bringup``'s keys, this process's
-``host_batch_slice``, its ``form_global_array`` block, the step
+``host_batch_slice`` and ``form_global_array`` block on the (4, 1) mesh
+and on the (2, 2) mesh (with its data index there), the step
 ``RestartBarrier`` agrees on, and whether the barrier raised when one
 process has no step and ``form_global_array`` when the rows are not the
 member's block.  Imports only the port (``src`` on PYTHONPATH).
@@ -30,13 +31,26 @@ def main(rank: int, world: int, d: Path) -> None:
                    device="cpu")
     mesh = make_host_mesh()
     out = {k: np.asarray(v) for k, v in info.items()}
-    lo, hi = host_batch_slice(int(data["rows"].shape[0]))
+    rows = data["rows"]
+    n = rows.shape[0]
+    lo, hi = host_batch_slice(n)
+    if host_batch_slice(n, mesh) != (lo, hi):
+        raise AssertionError("on the (4, 1) mesh the data block is the "
+                             "process's share")
     out["slice"] = np.array([lo, hi])
-    out["block"] = form_global_array(data["rows"][lo:hi], mesh,
-                                     ("data", None), device="cpu").numpy()
-    try:
-        form_global_array(data["rows"][lo:hi], make_host_mesh(model=2),
-                          ("data", None), device="cpu")
+    out["block"] = form_global_array(rows[lo:hi], mesh, ("data", None),
+                                     global_batch=n, device="cpu").numpy()
+    # (data 2, model 2): the two members of a data row load its rows
+    mesh22 = make_host_mesh(model=2)
+    lo2, hi2 = host_batch_slice(n, mesh22)
+    out["data_index"] = np.asarray(mesh22.index("data"))
+    out["slice22"] = np.array([lo2, hi2])
+    out["block22"] = form_global_array(rows[lo2:hi2], mesh22,
+                                       ("data", None), global_batch=n,
+                                       device="cpu").numpy()
+    try:    # rows by process index are not a member's block there
+        form_global_array(rows[lo:hi], mesh22, ("data", None),
+                          global_batch=n, device="cpu")
         out["mismatch_raised"] = np.asarray(False)
     except ValueError:
         out["mismatch_raised"] = np.asarray(True)

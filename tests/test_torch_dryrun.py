@@ -4,9 +4,9 @@ and the dry run itself on a fake (16, 16) process group.
 The whole slice against JAX: a smoke config is registered in both
 registries with tiny shapes (popped after the test); the reference's
 ``build_cell(...).fn``, jitted on the one-device host mesh, and the port's
-``cell.fn`` on CPU tensors carried over from the reference's ``init``
-(its f32 leaves, as ``params_from_jax`` carries them) take the same seeded
-batch: prefill logits at 1e-4, a decode step's tokens exactly, DLRM CTRs
+``cell.fn`` take the same f32 parameters (drawn by the port's ``init``,
+which is quick on the CPU, and carried into the reference's tree leaf for
+leaf) and the same seeded batch: prefill logits at 1e-4, a decode step's tokens exactly, DLRM CTRs
 at 1e-5, a train step's loss at 1e-3.  The smoke configs compute in f32;
 a serving cell's stand-ins hold bf16 leaves, whose products the two
 frameworks round in other orders, so both sides take the f32 leaves, and
@@ -34,13 +34,12 @@ import torch
 from repro.configs import base as jcb
 from repro.launch import specs as jspecs
 from repro.launch.mesh import make_host_mesh as jhost_mesh
-from repro.models import dlrm as jdlrm
-from repro.models import api as japi
 from repro.sharding import partition as jpart
 from repro.train import optimizer as jopt
 from repro_torch.configs import base as tcb
 from repro_torch.launch import specs as tspecs
 from repro_torch.launch.mesh import make_host_mesh as thost_mesh
+from repro_torch.models import api as tapi
 from repro_torch.models import dlrm as tdlrm
 from repro_torch.models import transformer as tT
 from repro_torch.sharding import partition as tpart
@@ -112,11 +111,26 @@ def _to_torch(tree, like):
     return torch.from_numpy(np.array(tree, copy=True))
 
 
-def _jparams(jcfg, seed=0):
-    key = jax.random.PRNGKey(seed)
-    if isinstance(jcfg, jcb.DLRMConfig):
-        return jdlrm.init_dlrm(key, jcfg, 16)
-    return japi.init(key, jcfg, 16)
+def _to_numpy(tree, like):
+    """The port's torch tree as numpy arrays in the reference's tree
+    ``like``, each leaf of its stand-in's shape."""
+    if isinstance(like, dict):
+        assert set(tree) == set(like)
+        return {k: _to_numpy(tree[k], like[k]) for k in like}
+    if isinstance(like, (list, tuple)):
+        assert len(tree) == len(like)
+        return type(like)(_to_numpy(a, b) for a, b in zip(tree, like))
+    assert tuple(tree.shape) == tuple(like.shape)
+    return tree.detach().numpy().copy()
+
+
+def _params(tcfg, like, seed=0):
+    """f32 parameters from the port's ``init`` in the reference's tree."""
+    if isinstance(tcfg, tcb.DLRMConfig):
+        p = tdlrm.init_dlrm(seed, tcfg, n_shards=16, device="cpu")
+    else:
+        p = tapi.init(seed, tcfg, "cpu", n_shards=16, dtype="float32")
+    return _to_numpy(p, like)
 
 
 def _run_both(arch, kind, jcfg, tcfg):
@@ -130,7 +144,7 @@ def _run_both(arch, kind, jcfg, tcfg):
     idx_max = min(jcfg.table_sizes) if is_dlrm else None
     batch = _batch(tspecs.input_specs(tcfg, tcell.shape), vocab, rng,
                    idx_max)
-    jp = jax.tree.map(np.asarray, _jparams(jcfg))
+    jp = _params(tcfg, jcell.args[0])
     jargs = [jax.tree.map(jnp.asarray, jp)]
     targs = [_to_torch(jp, tcell.args[0])]
     if kind == "train":
@@ -194,7 +208,7 @@ KEYS = {"arch", "shape", "mesh", "status", "trace_s", "memory", "flops",
         "replicated_leaves", "global_batch", "seq_len"}
 
 _RUN = textwrap.dedent('''
-    import json, sys
+    import json, os, subprocess, sys
     import torch
     from repro_torch.configs.base import DLRMConfig
     from repro_torch.launch import dryrun, specs
@@ -243,7 +257,14 @@ _RUN = textwrap.dedent('''
             expect[f"{arch}/{shape}"] = total
     with open(out, "w") as f:
         json.dump(recs, f)
-    print(json.dumps(expect))
+    # the CLI over the same file: whisper's three cells are done, its
+    # long_500k cell is skipped with the reference's reason
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                          "--arch", "whisper-tiny", "--out",
+                          os.path.dirname(out)], capture_output=True,
+                         text=True, timeout=600)
+    print(json.dumps({"recs": recs, "expect": expect, "cli_rc": cli.returncode,
+                      "cli_out": cli.stdout, "cli_err": cli.stderr[-4000:]}))
 ''')
 
 
@@ -253,8 +274,9 @@ def _env():
 
 @pytest.fixture(scope="module", autouse=True)
 def dry_started(tmp_path_factory):
-    """The dry run's subprocess, started with the module's first test so
-    that it runs beside the parity tests."""
+    """The dry run's subprocess (four cells' records, then the CLI over
+    the record file), started with the module's first test so that it
+    runs beside the parity tests."""
     d = tmp_path_factory.mktemp("dryrun")
     proc = subprocess.Popen([sys.executable, "-c", _RUN,
                              json.dumps(RUN_CELLS),
@@ -274,17 +296,11 @@ def dry(dry_started):
     d, proc = dry_started
     out, err = proc.communicate(timeout=600)
     assert proc.returncode == 0, err[-4000:]
-    expect = json.loads(out.strip().splitlines()[-1])
+    res = json.loads(out.strip().splitlines()[-1])
+    assert res["cli_rc"] == 0, res["cli_err"]
     path = d / "dryrun_16x16.json"
-    recs = json.loads(path.read_text())
-    # the CLI over the same file: whisper's three cells are done, its
-    # long_500k cell is skipped with the reference's reason
-    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
-                          "--arch", "whisper-tiny", "--out", str(d)],
-                         env=_env(), capture_output=True, text=True,
-                         timeout=600)
-    assert cli.returncode == 0, cli.stderr[-4000:]
-    return recs, expect, cli.stdout, json.loads(path.read_text())
+    return (res["recs"], res["expect"], res["cli_out"],
+            json.loads(path.read_text()))
 
 
 @pytest.mark.parametrize("cell", [f"{a}/{s}" for a, s in RUN_CELLS[:4]])

@@ -43,6 +43,13 @@ def test_form_global_array_roundtrip():
     assert arr.shape == (8, 2)
     assert arr.device.type == "cpu"
     assert np.allclose(arr.numpy(), local)
+    assert host_batch_slice(8, mesh) == (0, 8)
+    checked = form_global_array(local, mesh, ("data", None), global_batch=8,
+                                device="cpu")
+    assert torch.equal(checked, arr)
+    with pytest.raises(ValueError):
+        form_global_array(local, mesh, ("data", None), global_batch=16,
+                          device="cpu")
 
 
 def test_agree_on_step_single_process():
@@ -78,7 +85,14 @@ def test_host_batch_slice_at_each_rank(runs, rank):
     assert runs[rank]["slice"].tolist() == [rank * per, (rank + 1) * per]
     np.testing.assert_array_equal(runs[rank]["block"],
                                   ROWS[rank * per:(rank + 1) * per])
-    # on a (2, 2) mesh a data member's block is 2 processes' rows
+    # on the (2, 2) mesh the members of a data row (row-major: ranks 2d
+    # and 2d + 1) load that row's half of the batch
+    d, half = rank // 2, ROWS.shape[0] // 2
+    assert int(runs[rank]["data_index"]) == d
+    assert runs[rank]["slice22"].tolist() == [d * half, (d + 1) * half]
+    np.testing.assert_array_equal(runs[rank]["block22"],
+                                  ROWS[d * half:(d + 1) * half])
+    # rows by process index there are not the member's block
     assert bool(runs[rank]["mismatch_raised"])
 
 

@@ -178,14 +178,28 @@ SERVE_CELLS = [(a, s) for a, s in CELLS
                if a in LM_ARCHS and s in ("prefill_32k", "decode_32k")]
 
 
-@pytest.fixture(scope="module")
-def per_member():
+@pytest.fixture(scope="module", autouse=True)
+def per_member_started():
+    """The per-member subprocess, started with the module's first test so
+    that it runs beside the full-size shape tests."""
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
-    res = subprocess.run([sys.executable, "-c", _PER_MEMBER,
-                          json.dumps(SERVE_CELLS)], env=env,
-                         capture_output=True, text=True, timeout=300)
-    assert res.returncode == 0, res.stderr[-4000:]
-    return json.loads(res.stdout.strip().splitlines()[-1])
+    proc = subprocess.Popen([sys.executable, "-c", _PER_MEMBER,
+                             json.dumps(SERVE_CELLS)], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        yield proc
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+@pytest.fixture(scope="module")
+def per_member(per_member_started):
+    out, err = per_member_started.communicate(timeout=300)
+    assert per_member_started.returncode == 0, err[-4000:]
+    return json.loads(out.strip().splitlines()[-1])
 
 
 @pytest.mark.parametrize("arch,shape", SERVE_CELLS)
