@@ -3301,12 +3301,12 @@ MEMBERS_BF16_FACTOR = 3.0
 MEMBERS_A2A_CF = 8.0
 MEMBERS_COLLECTIVES = ("all_reduce", "all_gather", "all_to_all_single")
 COLLECTIVE_RANGE = "members.collective"
-# [members-train]: granite-moe-3b-a800m at full width, depth cut to 4 of
-# its 32 layers (8, whose f32 masters, m and v took 10.7 GB at P = 1,
-# until the rwkv6, zamba2 and whisper steps joined the phase; a data
-# member holds all of it, a tensor member ~half) on the train phase's
-# batch
-MEMBERS_TRAIN_LAYERS = 4
+# [members-train]: granite-moe-3b-a800m at full width, depth cut to 2 of
+# its 32 layers (8 until the rwkv6, zamba2 and whisper steps joined the
+# phase, 4 until the data-parallel steps ran fully sharded: their
+# per-layer gathers over gloo made the phase ~25 s longer) on the train
+# phase's batch
+MEMBERS_TRAIN_LAYERS = 2
 # [members-elastic]: the granite smoke config, 2 x 64-token batches, a
 # checkpoint every 2 steps, the failure at step 3 (rank 1 leaves)
 ELASTIC_STEPS, ELASTIC_FAIL_AT, ELASTIC_CKPT_EVERY = 6, 3, 2
@@ -3602,6 +3602,14 @@ def member_train(rank, world, d, inputs):
     dev = torch.device(MEMBER_DEVICE)
     cfg = GRANITE.replace(n_layers=MEMBERS_TRAIN_LAYERS)
     batch = train_batch(cfg, dev)
+    # the whole leaves' shapes, nothing drawn: the largest leaf and the one
+    # device's f32 masters + AdamW bytes
+    whole = api.init(SEED, cfg, "meta", n_shards=1, dtype="float32")
+    leaf, big = max(zip(_paths(whole), opt.leaves(whole)),
+                    key=lambda kv: kv[1].numel())
+    full_shape = tuple(big.shape)
+    one_bytes = 3 * specs.nbytes(whole) + 4
+    del whole, big
     res = {}
     for name, model in (("dp", 1), ("tp", world)):
         mesh = mesh_mod.make_host_mesh(model=model)
@@ -3610,8 +3618,10 @@ def member_train(rank, world, d, inputs):
         accum = cfg.train_accum // mesh.shape["data"]
         torch.cuda.reset_peak_memory_stats()
         with partition.axis_rules(mesh, rules):
+            layout = api.param_layout(cfg)
+            fsdp_check(name, layout)
             params = api.init(SEED, cfg, dev, n_shards=1, dtype="float32",
-                              layout=api.param_layout(cfg))
+                              layout=layout)
             step = steps_mod.make_train_step(cfg, accum_steps=accum)
             ops.reset_launches()
             torch.cuda.synchronize()
@@ -3623,7 +3633,8 @@ def member_train(rank, world, d, inputs):
         r.update(step_s=dt, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                  by_key={str(k): v for k, v in fa.FLASH.by_key.items()},
                  mesh=[mesh.shape["data"], mesh.shape["model"]],
-                 accum=accum)
+                 accum=accum, state_bytes=specs.nbytes((params, state)),
+                 one_bytes=one_bytes)
         for key, rel in (("loss", TRAIN_LOSS_REL),
                          ("grad_norm", TRAIN_GNORM_REL)):
             want = float(inputs[key])
@@ -3639,12 +3650,8 @@ def member_train(rank, world, d, inputs):
             f"{r['loss']!r} grad_norm {r['grad_norm']!r} vs one device "
             f"{float(inputs['loss'])!r} / {float(inputs['grad_norm'])!r}; "
             f"{dt:.2f} s, peak {r['peak_gb']:.2f} GB, flash by key "
-            f"{r['by_key']}")
-        if name == "dp":       # whole leaves: the largest one's name, shape
-            big = max(zip(_paths(params), opt.leaves(params)),
-                      key=lambda kv: kv[1].numel())
-            leaf, full_shape = big[0], tuple(big[1].shape)
-            del big
+            f"{r['by_key']}; f32 masters + AdamW {r['state_bytes']} bytes "
+            f"on this member beside one device's {one_bytes}")
         del params, state, step
         torch.cuda.empty_cache()
     # compressed_psum on the largest leaf of the cut model, seeded per rank
@@ -3683,6 +3690,19 @@ def member_train(rank, world, d, inputs):
     return res
 
 
+def fsdp_check(name, layout) -> None:
+    """A data-parallel step (``name`` starting "dp") runs fully sharded
+    over ``data``: its layout cuts leaves over it; a tensor-parallel one
+    does not."""
+    from repro_torch.sharding import partition
+
+    cut = []
+    partition.map_specs(lambda path, s: cut.append(path) if "data" in s
+                        else None, layout.specs)
+    if bool(cut) != name.split()[-1].startswith("dp"):
+        raise AssertionError(f"{name} step: {len(cut)} leaves cut over data")
+
+
 def member_family_steps(arch, layers, world, inputs):
     """One member's data-parallel ((world, 1) mesh, a row each) and
     tensor-parallel ((1, world) mesh; whisper's rules are all None, so it
@@ -3704,6 +3724,8 @@ def member_family_steps(arch, layers, world, inputs):
     cfg = family_train_config(arch, layers)
     batch = train_batch(cfg, dev)
     kernel = "rwkv6_wkv" if cfg.family == "ssm" else "flash_attention"
+    one_bytes = 3 * specs.nbytes(api.init(SEED, cfg, "meta",
+                                          dtype="float32")) + 4
     out = {}
     for name, model in (("dp", 1), ("tp", world)):
         mesh = mesh_mod.make_host_mesh(model=model)
@@ -3712,8 +3734,10 @@ def member_family_steps(arch, layers, world, inputs):
         accum = MEMBERS_FAMILY_ACCUM // mesh.shape["data"]
         torch.cuda.reset_peak_memory_stats()
         with partition.axis_rules(mesh, rules):
+            layout = api.param_layout(cfg)
+            fsdp_check(f"{arch} {name}", layout)
             params = api.init(SEED, cfg, dev, dtype="float32",
-                              layout=api.param_layout(cfg))
+                              layout=layout)
             step = steps_mod.make_train_step(cfg, accum_steps=accum)
             ops.reset_launches()
             torch.cuda.synchronize()
@@ -3725,7 +3749,9 @@ def member_family_steps(arch, layers, world, inputs):
         r.update(step_s=dt, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                  launches=ops.kernels()[kernel].launches,
                  by_key={str(k): v for k, v in fa.FLASH.by_key.items()},
-                 mesh=[mesh.shape["data"], mesh.shape["model"]], accum=accum)
+                 mesh=[mesh.shape["data"], mesh.shape["model"]], accum=accum,
+                 state_bytes=specs.nbytes((params, state)),
+                 one_bytes=one_bytes)
         for key, rel in (("loss", TRAIN_LOSS_REL),
                          ("grad_norm", TRAIN_GNORM_REL)):
             want = float(inputs[f"{arch}/{key}"])
@@ -3743,7 +3769,9 @@ def member_family_steps(arch, layers, world, inputs):
             f"{float(inputs[f'{arch}/loss'])!r} / "
             f"{float(inputs[f'{arch}/grad_norm'])!r}; {dt:.2f} s, peak "
             f"{r['peak_gb']:.2f} GB, {kernel} launches {r['launches']}"
-            + (f" by key {r['by_key']}" if r["by_key"] else ""))
+            + (f" by key {r['by_key']}" if r["by_key"] else "")
+            + f"; f32 masters + AdamW {r['state_bytes']} bytes on this "
+            f"member beside one device's {one_bytes}")
         del params, state, step
         torch.cuda.empty_cache()
     return out
@@ -3796,7 +3824,10 @@ def member_elastic(rank, world, d, inputs):
             raise elastic.NodeFailure([0])
 
     mesh = mesh_mod.make_host_mesh(model=1)
-    params = api.init(SEED, cfg, dev, n_shards=1, dtype="float32")
+    # the data-parallel mesh cuts the leaves over data (FSDP)
+    params = api.init(SEED, cfg, dev, n_shards=1, dtype="float32",
+                      layout=partition.Layout(mesh,
+                                              layout_of(mesh).specs[0]))
     runner = elastic.ElasticRunner(make_shardings=layout_of,
                                    ckpt_dir=str(d / "ckpt"))
     try:
@@ -3956,7 +3987,10 @@ def members_train_phase(dev, card):
         f"{res[0]['tp']['step_s']:.2f} s, one device {dt:.2f} s (gloo "
         f"stages every all_reduce through host memory); peak per member dp "
         f"{[x['dp']['peak_gb'] for x in res]} GB, tp "
-        f"{[x['tp']['peak_gb'] for x in res]} GB; compressed_psum "
+        f"{[x['tp']['peak_gb'] for x in res]} GB; f32 masters + AdamW "
+        f"bytes per member dp (FSDP) {[x['dp']['state_bytes'] for x in res]}"
+        f", tp {[x['tp']['state_bytes'] for x in res]}, one device "
+        f"{res[0]['dp']['one_bytes']}; compressed_psum "
         f"{res[0]['psum']['ms']:.1f} ms; card {card!r}")
     for arch, _ in MEMBERS_FAMILY_TRAIN:
         for name in ("dp", "tp"):
@@ -3969,7 +4003,11 @@ def members_train_phase(dev, card):
             f"{res[0][arch]['tp']['step_s']:.2f} s, one device "
             f"{one[arch]:.2f} s; peak per member dp "
             f"{[x[arch]['dp']['peak_gb'] for x in res]} GB, tp "
-            f"{[x[arch]['tp']['peak_gb'] for x in res]} GB; card {card!r}")
+            f"{[x[arch]['tp']['peak_gb'] for x in res]} GB; f32 masters + "
+            f"AdamW bytes per member dp (FSDP) "
+            f"{[x[arch]['dp']['state_bytes'] for x in res]}, tp "
+            f"{[x[arch]['tp']['state_bytes'] for x in res]}, one device "
+            f"{res[0][arch]['dp']['one_bytes']}; card {card!r}")
 
 
 def members_elastic_phase(dev, card):
@@ -4034,8 +4072,8 @@ MEMBERS_SSM_PROMPT = 4096
 MEMBERS_DECODE_FED = 8
 MEMBERS_GEN_PROMPT = 64
 # [members-train] for the other families, each at full width in its
-# configured bf16: rwkv6 cut to 2 of its 24 layers and zamba2 to 12 of 54
-# (two shared invocations), whisper whole; the train phase's batch
+# configured bf16: rwkv6 cut to 2 of its 24 layers and zamba2 to 6 of 54
+# (one shared invocation), whisper whole; the train phase's batch
 # (whisper: 2 x 4096 frames and 1024 tokens) in two microbatches of one
 # row on one device and on a (1, 2) mesh, one row a member on a (2, 1)
 # mesh.  rwkv6's bf16 gradient on 4096 tokens is rounding-dominated past a
@@ -4043,7 +4081,8 @@ MEMBERS_GEN_PROMPT = 64
 # layers one device's is 37-282% from its f32 twin leaf by leaf and its
 # norm 45% above; at 4 layers a tensor-parallel step's norm is 4.8% from
 # one device's; at 2 layers 3e-5), so a 1e-2 gate holds at 2 layers
-MEMBERS_FAMILY_TRAIN = (("rwkv6-1.6b", 2), ("zamba2-2.7b", 12),
+# (zamba2 at 12 until the data-parallel steps ran fully sharded)
+MEMBERS_FAMILY_TRAIN = (("rwkv6-1.6b", 2), ("zamba2-2.7b", 6),
                         ("whisper-tiny", None))
 MEMBERS_FAMILY_ACCUM = 2
 
@@ -5740,7 +5779,12 @@ def train_full_phase(dev, card):
 # dlrm-alicpp run at full width and depth.
 CELLS_DATA = 16
 CELLS = (("qwen3-14b", "prefill_32k"), ("dlrm-alicpp", "dlrm_infer"),
-         ("whisper-tiny", "train_4k"), ("chatglm3-6b", "decode_32k"))
+         ("whisper-tiny", "train_4k"), ("chatglm3-6b", "decode_32k"),
+         ("dlrm-kaggle", "dlrm_train"))
+# the DLRM train cell's gates: its step with the kernels against one with
+# the plain bag and interaction, from the same state: the loss (relative)
+# and every leaf's gradient (relative Frobenius)
+DLRM_TRAIN_LOSS_REL, DLRM_TRAIN_GRAD_REL = 1e-5, 1e-4
 
 
 def cut_shape(arch: str, shape_name: str):
@@ -5799,7 +5843,7 @@ def cell_args(cell, dev):
         rows, t_pad = stand["idx"].shape[:2]
         b = make_batch(cfg, rows, mode="uniform", t_pad=t_pad, seed=SEED)
         args.append({k: torch.from_numpy(getattr(b, k)).to(dev)
-                     for k in ("dense", "idx", "mask")})
+                     for k in stand})
         return args
 
     def draw(x):
@@ -5888,6 +5932,7 @@ def cells_phase(dev, card):
     from repro_torch.launch import specs
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import dlrm
+    from repro_torch.sharding import partition
 
     t0 = time.perf_counter()
     records = cell_records()
@@ -5915,8 +5960,13 @@ def cells_phase(dev, card):
                 name, args, cell.args,
                 rec["memory"]["argument_size_in_bytes"])
             # a train cell updates its arguments in place: the gate below
-            # starts from copies of the first state
-            state = _clone(args[:2]) if cut.kind == "train" else None
+            # starts from copies of the first state; the DLRM train cell's
+            # (45 GB of state and gradients) runs first, on the first state
+            dlrm_train = arch == "dlrm-kaggle"
+            if dlrm_train:
+                gate = dlrm_train_gate(name, cell, args)
+            state = _clone(args[:2]) if cut.kind == "train" and \
+                not dlrm_train else None
             out, ms, peak, launches = run_cell_on_card(cell, args)
             bound_ms = rec["flops"] / BF16_FLOPS * 1e3
             est = rec["memory"]["argument_size_in_bytes"] + \
@@ -5966,6 +6016,36 @@ def cells_phase(dev, card):
                 rows.append((dlrm_cell_bag_row(args, c, mb, l2.zero_),
                              launches["embedding_bag_pool"][bag_key]))
                 del plain
+            elif dlrm_train:
+                c = cell.cfg
+                n_rows, t_pad = args[2]["idx"].shape[:2]
+                bag_key = eb.launch_key(n_rows * t_pad, 1, c.embed_dim,
+                                        t_pad)
+                dot_key = di.launch_key(n_rows, c.n_tables + 1, c.embed_dim)
+                want = {"embedding_bag_pool": {bag_key: 1},
+                        "dot_interaction": {dot_key: 1}}
+                if launches != want:
+                    raise AssertionError(f"{name}: launches {launches}, not "
+                                         f"{want}")
+                loss = float(out[2]["loss"])
+                if not np.isfinite(loss):
+                    raise AssertionError(f"{name}: loss {loss}")
+                # AdamW reads the masters, the gradient, m and v and writes
+                # the masters, m and v: 7 passes over the parameters
+                p_bytes = specs.nbytes(args[0])
+                step_bound = 7 * p_bytes / HBM_BYTES_PER_S * 1e3
+                log(f"[cells] {name}: step {ms:.3f} ms beside its byte "
+                    f"bound {step_bound:.3f} ms (AdamW's 7 passes over the "
+                    f"{p_bytes} bytes of f32 parameters at 3.35 TB/s); peak "
+                    f"{peak} bytes; launches a step: bag "
+                    f"{launches['embedding_bag_pool'][bag_key]}, interaction "
+                    f"{launches['dot_interaction'][dot_key]}; loss {loss:.6f};"
+                    f" the gate's steps {gate}; card {card!r}")
+                # where the step's time goes, by kernel (one more step)
+                with partition.axis_rules(mesh, cell.rules):
+                    profile_device(f"{name} one step",
+                                   lambda: cell.fn(*args), top=10,
+                                   tag="cells")
             elif arch == "whisper-tiny":
                 c = cell.cfg
                 heads = (c.n_heads, c.n_kv_heads, c.head_dim, 0)
@@ -6041,6 +6121,56 @@ def train_cell_gate(name, cell, state, batch, mesh) -> None:
     log(f"[cells] {name}: one step from the same state, kernel "
         f"{metrics['kernel']} vs plain attention {metrics['plain']} (loss "
         f"{TRAIN_LOSS_REL}, grad_norm {TRAIN_GNORM_REL} relative)")
+
+
+def dlrm_train_gate(name, cell, args) -> dict:
+    """The DLRM train cell's loss and gradient (``dlrm.loss_and_grads``,
+    the cell's own, from its first state) with the bag and interaction
+    kernels forward under autograd, against the same with
+    ``sparse_backend="ref"``: the loss within DLRM_TRAIN_LOSS_REL and
+    every leaf's gradient within DLRM_TRAIN_GRAD_REL relative Frobenius.
+    The gradients are compared, not the updated leaves: AdamW's first
+    step is about lr * sign(g).  -> each one's time in ms."""
+    from repro_torch.models import dlrm
+    from repro_torch.train import optimizer as opt
+
+    params, batch = args[0], args[2]
+    losses, grads, ms_of = {}, {}, {}
+    for impl, c in (("kernel", cell.cfg),
+                    ("plain", cell.cfg.replace(sparse_backend="ref"))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses[impl], g = dlrm.loss_and_grads(params, c, batch)
+        torch.cuda.synchronize()
+        ms_of[impl] = (time.perf_counter() - t0) * 1e3
+        grads[impl] = opt.leaves(g)
+    lk, lp = float(losses["kernel"]), float(losses["plain"])
+    if not (np.isfinite(lk) and abs(lk - lp) <= DLRM_TRAIN_LOSS_REL *
+            abs(lp)):
+        raise AssertionError(f"{name}: loss {lk!r} with the kernels, {lp!r} "
+                             f"plain")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(grads["kernel"], grads["plain"],
+                                   strict=True)):
+        rel = float(torch.linalg.vector_norm(a - b)
+                    / torch.linalg.vector_norm(b))
+        if not rel <= DLRM_TRAIN_GRAD_REL or not b.abs().max() > 0:
+            raise AssertionError(f"{name}: leaf {i} {tuple(a.shape)} "
+                                 f"gradient relative Frobenius error "
+                                 f"{rel:.3e} (max |g| {b.abs().max():.3e})")
+        worst = max(worst, rel)
+    log(f"[cells] {name}: loss and gradient with the kernels forward "
+        f"under autograd vs sparse_backend='ref' from the same state: loss "
+        f"{lk!r} vs {lp!r}; the {len(grads['plain'])} leaves' gradients "
+        f"within {worst:.3e} relative Frobenius (gate "
+        f"{DLRM_TRAIN_GRAD_REL}), the tables' "
+        f"{max((tuple(g.shape) for g in grads['plain']), key=np.prod)} "
+        f"included; "
+        f"{ms_of['kernel']:.1f} ms with the kernels, {ms_of['plain']:.1f} "
+        f"ms plain (one call each, cold)")
+    del grads
+    torch.cuda.empty_cache()
+    return {k: round(v, 1) for k, v in ms_of.items()}
 
 
 def dlrm_cell_bag_row(args, cfg, mb: int, flush):

@@ -13,12 +13,16 @@ TPU tiling and planning knobs (``cq``/``ck``, ``chunk``, ``plan_method``)
 are validated and change no value: see each op.
 
 Autograd.  The kernels compute forwards only.  With grad enabled and an
-input that requires grad, attention goes through :class:`FlashAttentionFn`
-and the WKV through :class:`Rwkv6WkvFn`, whose forwards are the kernels
-on the card (or the plain versions on the CPU) and whose backwards are
-plain PyTorch, as the reference's are jnp.  The bags and the interaction
-have no backward (the reference trains no DLRM): on the card they raise
-for such inputs rather than return a tensor cut from the graph.
+input that requires grad, attention goes through :class:`FlashAttentionFn`,
+the WKV through :class:`Rwkv6WkvFn`, each bag form through
+:class:`EmbeddingBagFn` and the interaction through
+:class:`DotInteractionFn`, whose forwards are the kernels on the card (or
+the plain versions on the CPU) and whose backwards are plain PyTorch, as
+the reference's are jnp autodiff: the bags' is ``ref.embedding_bag_grad_ref``
+(a dense gradient of the table), the interaction's
+``ref.dot_interaction_grad_ref``.  A bag's ``mask`` has no gradient: one
+that requires grad is refused on every path rather than returned cut from
+the graph.
 """
 from __future__ import annotations
 
@@ -70,12 +74,13 @@ def wants_grad(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
-def _no_grad_kernel(name: str, *tensors) -> None:
-    """A kernel without a backward refuses inputs that autograd tracks."""
-    if wants_grad(*tensors):
-        raise RuntimeError(f"the {name} kernel has no backward; call it "
-                           f"under torch.no_grad() or on tensors that do "
-                           f"not require grad")
+def _no_grad_mask(mask) -> None:
+    """The bags differentiate their table only: a mask that autograd
+    tracks is refused on every path."""
+    if wants_grad(mask):
+        raise RuntimeError("the embedding bag has no backward for its mask; "
+                           "call it under torch.no_grad() or with a mask "
+                           "that does not require grad")
 
 
 def _no_ref_plan(impl: str) -> None:
@@ -107,9 +112,11 @@ def _check_positive(**kw) -> None:
 
 
 def dot_interaction_op(z, *, impl: str = "auto", batch_tile: int = 128):
-    if not use_kernel(impl, z):
+    kernel = use_kernel(impl, z)
+    if wants_grad(z):
+        return DotInteractionFn.apply(z, kernel)
+    if not kernel:
         return ref.dot_interaction_ref(z)
-    _no_grad_kernel("interaction", z)
     return dot_interaction(z, batch_tile=batch_tile)
 
 
@@ -120,18 +127,26 @@ def embedding_bag_op(table, idx, mask, *, impl: str = "auto",
     """``plan_method`` ('sort', 'count' or 'auto') is validated: both
     methods give the same plan bit for bit, and no plan is built here."""
     _check_plan_method(plan_method)
-    if not use_kernel(impl, table):
-        if plan is not None:
-            _no_ref_plan(impl)
-            r, s = table.shape
-            check_plan(plan, n_tables=1, rows=r, s=s,
-                       itemsize=table.element_size(), n_bags=idx.shape[0],
-                       hot=idx.shape[1], tile=batch_tile,
-                       row_block=row_block)
-        return ref.embedding_bag_ref(table, idx, mask)
-    _no_grad_kernel("embedding bag", table, mask)
-    return embedding_bag(table, idx, mask, batch_tile=batch_tile,
-                         row_block=row_block, pool_mode=pool_mode, plan=plan)
+    _no_grad_mask(mask)
+    kernel = use_kernel(impl, table)
+    if not kernel and plan is not None:
+        _no_ref_plan(impl)
+        r, s = table.shape
+        check_plan(plan, n_tables=1, rows=r, s=s,
+                   itemsize=table.element_size(), n_bags=idx.shape[0],
+                   hot=idx.shape[1], tile=batch_tile, row_block=row_block)
+
+    def pool(tab):
+        if not kernel:
+            return ref.embedding_bag_ref(tab, idx, mask)
+        return embedding_bag(tab, idx, mask, batch_tile=batch_tile,
+                             row_block=row_block, pool_mode=pool_mode,
+                             plan=plan)
+
+    if wants_grad(table):
+        return EmbeddingBagFn.apply(
+            table, ref.clamped_ids(idx, table.shape[0]), mask, pool)
+    return pool(table)
 
 
 def embedding_bag_stacked_op(tables, idx, mask, *, impl: str = "auto",
@@ -141,16 +156,26 @@ def embedding_bag_stacked_op(tables, idx, mask, *, impl: str = "auto",
     """(T,R,s) stacked embedding bags -> (B,T,s); the model hot path.
     ``plan_method`` as in :func:`embedding_bag_op`."""
     _check_plan_method(plan_method)
-    if not use_kernel(impl, tables):
-        if plan is not None:
-            _no_ref_plan(impl)
-            check_stacked_plan(plan, tables, idx, batch_tile=batch_tile,
-                               row_block=row_block)
-        return ref.embedding_bag_stacked_ref(tables, idx, mask)
-    _no_grad_kernel("embedding bag", tables, mask)
-    return embedding_bag_stacked(tables, idx, mask, batch_tile=batch_tile,
-                                 row_block=row_block, pool_mode=pool_mode,
-                                 plan=plan)
+    _no_grad_mask(mask)
+    kernel = use_kernel(impl, tables)
+    if not kernel and plan is not None:
+        _no_ref_plan(impl)
+        check_stacked_plan(plan, tables, idx, batch_tile=batch_tile,
+                           row_block=row_block)
+
+    def pool(tab):
+        if not kernel:
+            return ref.embedding_bag_stacked_ref(tab, idx, mask)
+        return embedding_bag_stacked(tab, idx, mask, batch_tile=batch_tile,
+                                     row_block=row_block,
+                                     pool_mode=pool_mode, plan=plan)
+
+    if wants_grad(tables):
+        t, r, _ = tables.shape
+        tab = torch.arange(t, device=idx.device)[None, :, None]
+        return EmbeddingBagFn.apply(
+            tables, tab * r + ref.clamped_ids(idx, r), mask, pool)
+    return pool(tables)
 
 
 def embedding_bag_rows_op(tables, tid, idx, mask, *, impl: str = "auto",
@@ -160,11 +185,20 @@ def embedding_bag_rows_op(tables, tid, idx, mask, *, impl: str = "auto",
     """(N, hot) packed rows pooled against their own tables -> (N, s).
     ``plan_method`` as in :func:`embedding_bag_op`."""
     _check_plan_method(plan_method)
-    if not use_kernel(impl, tables):
-        return ref.embedding_bag_rows_ref(tables, tid, idx, mask)
-    _no_grad_kernel("embedding bag", tables, mask)
-    return embedding_bag_rows(tables, tid, idx, mask, row_tile=row_tile,
-                              row_block=row_block, pool_mode=pool_mode)
+    _no_grad_mask(mask)
+    kernel = use_kernel(impl, tables)
+
+    def pool(tab):
+        if not kernel:
+            return ref.embedding_bag_rows_ref(tab, tid, idx, mask)
+        return embedding_bag_rows(tab, tid, idx, mask, row_tile=row_tile,
+                                  row_block=row_block, pool_mode=pool_mode)
+
+    if wants_grad(tables):
+        t, r, _ = tables.shape
+        gid = ref.clamped_ids(tid, t)[:, None] * r + ref.clamped_ids(idx, r)
+        return EmbeddingBagFn.apply(tables, gid, mask, pool)
+    return pool(tables)
 
 
 def flash_attention_op(q, k, v, *, causal: bool = True, window: int = 0,
@@ -264,3 +298,42 @@ class Rwkv6WkvFn(torch.autograd.Function):
                                          allow_unused=True))
         return (*(next(grads) if x.requires_grad else None
                   for x in inputs), None, None)
+
+
+class EmbeddingBagFn(torch.autograd.Function):
+    """A bag form under autograd (the reference differentiates its jnp
+    bags).  Forward: ``pool(table)``, the form's CUDA kernel on the card
+    or its plain version on the CPU, exactly as without autograd.
+    Backward: :func:`ref.embedding_bag_grad_ref`, ``mask * dout``
+    scatter-added into the rows the forward read (``gid``: each slot's
+    flat row in the table's (rows, s) row space, clamped as the forward
+    clamps), a dense gradient of the table in its type."""
+
+    @staticmethod
+    def forward(ctx, table, gid, mask, pool):
+        ctx.shape, ctx.dtype = table.shape, table.dtype
+        ctx.save_for_backward(gid, mask)
+        return pool(table)
+
+    @staticmethod
+    def backward(ctx, dout):
+        gid, mask = ctx.saved_tensors
+        return ref.embedding_bag_grad_ref(ctx.shape, ctx.dtype, gid, mask,
+                                          dout), None, None, None
+
+
+class DotInteractionFn(torch.autograd.Function):
+    """The interaction under autograd.  Forward: the CUDA kernel
+    (``kernel`` true) or the plain version.  Backward:
+    :func:`ref.dot_interaction_grad_ref`, dZ = (G + G^T) Z with G the
+    output gradient scattered into the strict lower triangle."""
+
+    @staticmethod
+    def forward(ctx, z, kernel):
+        ctx.save_for_backward(z)
+        return dot_interaction(z) if kernel else ref.dot_interaction_ref(z)
+
+    @staticmethod
+    def backward(ctx, dout):
+        z, = ctx.saved_tensors
+        return ref.dot_interaction_grad_ref(z, dout), None

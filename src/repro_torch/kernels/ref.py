@@ -16,6 +16,8 @@ JAX clamps out-of-bounds gathers silently, torch indexing raises.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -74,13 +76,14 @@ def dot_interaction_split_ref(z: torch.Tensor, kparts: int) -> torch.Tensor:
     return parts[0].to(z.dtype)
 
 
-def _clamped(idx: torch.Tensor, n: int) -> torch.Tensor:
+def clamped_ids(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Ids as int64, clamped to ``[0, n - 1]`` as the bags read them."""
     return idx.long().clamp(0, n - 1)
 
 
 def embedding_bag_ref(table, idx, mask):
     """table:(R,S) idx:(B,hot) mask:(B,hot) -> (B,S) masked-sum bags."""
-    rows = table[_clamped(idx, table.shape[0])]             # (B,hot,S)
+    rows = table[clamped_ids(idx, table.shape[0])]             # (B,hot,S)
     return (rows * mask[..., None].to(rows.dtype)).sum(1)
 
 
@@ -89,7 +92,7 @@ def embedding_bag_stacked_ref(tables, idx, mask):
     Materializes the (B,T,hot,S) gather the kernel avoids."""
     t, r, _ = tables.shape
     tab = torch.arange(t, device=tables.device)[None, :, None]
-    rows = tables[tab, _clamped(idx, r)]                      # (B,T,hot,S)
+    rows = tables[tab, clamped_ids(idx, r)]                      # (B,T,hot,S)
     return (rows * mask[..., None].to(rows.dtype)).sum(2)
 
 
@@ -97,8 +100,35 @@ def embedding_bag_rows_ref(tables, tid, idx, mask):
     """tables:(T,R,S) tid:(N,) idx/mask:(N,hot) -> (N,S) masked sums, each
     row pooled against its own table."""
     t, r, _ = tables.shape
-    rows = tables[_clamped(tid, t)[:, None], _clamped(idx, r)]
+    rows = tables[clamped_ids(tid, t)[:, None], clamped_ids(idx, r)]
     return (rows * mask[..., None].to(rows.dtype)).sum(1)
+
+
+def embedding_bag_grad_ref(shape, dtype, gid, mask, dout):
+    """The gradient of every bag form w.r.t. its table of ``shape`` (...,
+    S): ``mask * dout`` scatter-added into the rows the forward read, a
+    dense gradient in ``dtype``.  gid (..., hot) holds each slot's flat
+    row in the table's (prod(shape[:-1]), S) row space (clamped as the
+    forward clamps), mask (..., hot) its weight, dout (..., S) the bag's
+    output gradient."""
+    s = shape[-1]
+    grad = torch.zeros((math.prod(shape[:-1]), s),
+                       dtype=dtype, device=dout.device)
+    vals = (mask[..., None].to(dout.dtype) * dout[..., None, :]).to(dtype)
+    grad.index_add_(0, gid.reshape(-1), vals.reshape(-1, s))
+    return grad.reshape(shape)
+
+
+def dot_interaction_grad_ref(z, dout):
+    """The gradient of :func:`dot_interaction_ref` w.r.t. z (B, F, S) for
+    the output gradient dout (B, F(F-1)/2): dZ = (G + G^T) Z, G the (F, F)
+    strict lower triangle that holds dout in ``np.tril_indices(F, -1)``
+    order; in f32, returned in z's type."""
+    b, f, _ = z.shape
+    ii, jj = torch.tril_indices(f, f, -1, device=z.device)
+    g = torch.zeros((b, f, f), dtype=torch.float32, device=z.device)
+    g[:, ii, jj] = dout.float()
+    return torch.bmm(g + g.transpose(1, 2), z.float()).to(z.dtype)
 
 
 def embedding_bag_split_ref(table_flat, idx, w, *, rows: int, n_tables: int,
@@ -114,8 +144,8 @@ def embedding_bag_split_ref(table_flat, idx, w, *, rows: int, n_tables: int,
     if tid is None:
         t = torch.arange(n, device=idx.device) % n_tables
     else:
-        t = _clamped(tid, n_tables)
-    x = table_flat[t[:, None] * rows + _clamped(idx, rows)] \
+        t = clamped_ids(tid, n_tables)
+    x = table_flat[t[:, None] * rows + clamped_ids(idx, rows)] \
         * w[..., None].to(table_flat.dtype)                   # (N, hot, s)
     out = None
     for k in range(groups):

@@ -174,7 +174,14 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     group.  Multi-pod: (pod 2, data 16, model 16) over ranks 0-511; the
     pod axis carries pure data parallelism (training) or replica serving
     (inference).  Collective over the default group (see :func:`_grid`),
-    which must hold at least that many ranks."""
+    which must hold at least that many ranks: with fewer it raises
+    ``ValueError``, as the reference fails without the devices."""
     shape = {"pod": 2, "data": 16, "model": 16} if multi_pod else \
         {"data": 16, "model": 16}
-    return _grid(range(math.prod(shape.values())), shape)
+    need = math.prod(shape.values())
+    have = dist.get_world_size() if dist.is_initialized() else 1
+    if have < need:
+        raise ValueError(f"the production mesh {tuple(shape.values())} "
+                         f"needs {need} processes; the process group has "
+                         f"{have}")
+    return _grid(range(need), shape)

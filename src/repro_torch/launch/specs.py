@@ -15,14 +15,16 @@ Sharding policy (DESIGN.md §6), resolved dynamically per arch
   * whisper-tiny: pure DP (37M params; TP over a 16-way axis would shard
     6-head attention unevenly for zero benefit).
 
-The port reads these rules for the ``model`` axis only: parameters are
-whole on every data member (no FSDP) and activations are not
-sequence-parallel; see ``models/api.py::param_layout``.  They cut every
-family but whisper: the transformer families (dense, MoE, VLM), rwkv6's
-time mix (heads) and channel mix ("mlp"), and zamba2's Mamba-2 heads
-(its fused ``in_proj`` and conv segment by segment) and shared block;
-whisper's rules are all None, so it runs data-parallel (replicated on a
-model axis).  The FSDP and sequence-parallel layout is ROADMAP A14f-4.
+The port reads these rules for the ``model`` and ``data`` axes of the
+parameters (``models/api.py::param_layout``); activations are not
+sequence-parallel (``res_seq`` and ``kv_seq`` are ROADMAP A14f-5).  On
+``model`` they cut every family but whisper: the transformer families
+(dense, MoE, VLM), rwkv6's time mix (heads) and channel mix ("mlp"), and
+zamba2's Mamba-2 heads (its fused ``in_proj`` and conv segment by segment)
+and shared block; whisper's model rules are all None.  Under the train
+rules every family, whisper included, is fully sharded over ``data`` on
+its d_model ("embed") dimension, as the reference's (``sharding/fsdp.py``
+gathers the blocks where the forward uses them).
 
 Where the cells differ from the reference's:
   * A stand-in is a meta tensor (:func:`sds`), the counterpart of
@@ -34,14 +36,16 @@ Where the cells differ from the reference's:
     :class:`Cell` holds each argument as this member holds it: its block
     of every parameter and optimizer leaf under the port's layout
     (``api.param_layout``), its rows of a serving batch, and the cache
-    ``api.make_cache`` builds for its rows and heads.  The train step
-    takes the whole batch and cuts its rows itself
-    (``train/steps.py``), so a train cell holds the batch whole.  Each
-    cell keeps the layouts beside (:class:`partition.Layout` in place of
+    ``api.make_cache`` builds for its rows and heads.  A train cell holds
+    its rows of the batch too: the train step takes a batch of its
+    block's rows as this member's (``train/steps.py``).  Each cell keeps
+    the layouts beside (:class:`partition.Layout` in place of
     ``NamedSharding``).
-  * A DLRM serve cell holds this member's tables: the port's
-    ``forward_distributed`` takes the member's shard, where the
-    reference's ``shard_map`` cuts a replicated stack.
+  * A DLRM cell holds this member's tables (and, training, their AdamW
+    state): the port's ``forward_distributed`` takes the member's shard,
+    where the reference's ``shard_map`` cuts a replicated stack.  The
+    train cell's gradient is the function's: the reference's table
+    gradient through its uint8 wire is zero (ROADMAP C2).
   * ``Cell.lower`` becomes :meth:`Cell.trace` (nothing is lowered in
     torch), and the reference's donated arguments are the port's in-place
     updates (``Cell.in_place``).
@@ -229,11 +233,6 @@ def nbytes(tree) -> int:
                if isinstance(t, torch.Tensor))
 
 
-def _whole(tree, mesh) -> partition.Layout:
-    return partition.Layout(mesh, opt_mod._like(
-        tree, lambda t: (None,) * t.dim()))
-
-
 # ---------------------------------------------------------------------------
 # cells
 # ---------------------------------------------------------------------------
@@ -321,17 +320,18 @@ def build_cell(arch_name: str, shape_name: Union[str, ShapeConfig], mesh,
     if shape.kind == "train":
         params = param_shapes(cfg)
         opt_state = opt_mod.adamw_init(params)
-        step = steps_mod.make_train_step(cfg, accum_steps=cfg.train_accum)
+        # the step takes this member's rows of the global batch
+        step = steps_mod.make_train_step(cfg, accum_steps=cfg.train_accum,
+                                         global_batch=shape.global_batch)
         pshard = api.param_layout(cfg, mesh, rules)
         oshard = opt_mod.adamw_layout(pshard)
-        # the train step takes the whole batch and cuts its rows itself
-        wshard = _whole(batch, mesh)
         ref = partition.shard_tree(params,
                                    tree_shardings(pspec, mesh, rules))
         return Cell(arch_name, shape, step,
                     (partition.shard_tree(params, pshard),
-                     partition.shard_tree(opt_state, oshard), batch),
-                    (pshard, oshard, wshard), rules, cfg,
+                     partition.shard_tree(opt_state, oshard),
+                     partition.shard_tree(batch, bshard)),
+                    (pshard, oshard, bshard), rules, cfg,
                     in_place=(0, 1), ref_params=ref)
 
     serve_cfg = cfg
@@ -359,17 +359,33 @@ def build_cell(arch_name: str, shape_name: Union[str, ShapeConfig], mesh,
 
 def _build_dlrm_cell(arch_name, cfg, shape, batch, bshard, pspec, mesh,
                      rules, *, bound: int = 4, microbatches: int = 16):
-    if shape.kind == "train":
-        raise NotImplementedError(
-            f"{arch_name}/{shape.name}: the DLRM train cell needs a gradient "
-            f"through the bag kernels, which the port's refuse (ROADMAP "
-            f"A14f-4)")
     params = param_shapes(cfg, dtype=F32)
     ref = partition.shard_tree(params, tree_shardings(pspec, mesh, rules))
     # forward_distributed takes this member's tables: the model axis cuts
     # the stack as the reference's shard_map does
     pshard = tree_shardings(pspec, mesh, {**rules, "table_shard": "model"})
     group = mesh.group("model")
+    local = partition.shard_tree(batch, bshard)
+    if shape.kind == "train":
+        data_groups, _ = steps_mod.data_members(mesh)
+
+        def train_fn(p, opt_state, b):
+            # the reference's value_and_grad of bce_loss over the
+            # unpipelined forward, the cosine schedule and AdamW, in place
+            loss, grads = dlrm_mod.loss_and_grads(
+                p, cfg, b, bound=0, microbatches=1, group=group,
+                data_groups=data_groups)
+            lr = opt_mod.cosine_schedule(opt_state["count"])
+            p, opt_state = opt_mod.adamw_update(grads, opt_state, p, lr)
+            return p, opt_state, {"loss": loss}
+
+        oshard = opt_mod.adamw_layout(pshard)
+        return Cell(arch_name, shape, train_fn,
+                    (partition.shard_tree(params, pshard),
+                     partition.shard_tree(opt_mod.adamw_init(params),
+                                          oshard), local),
+                    (pshard, oshard, bshard), rules, cfg, in_place=(0, 1),
+                    ref_params=ref)
 
     @torch.no_grad()
     def serve_fn(p, b):
@@ -382,8 +398,7 @@ def _build_dlrm_cell(arch_name, cfg, shape, batch, bshard, pspec, mesh,
         return torch.sigmoid(logits)
 
     return Cell(arch_name, shape, serve_fn,
-                (partition.shard_tree(params, pshard),
-                 partition.shard_tree(batch, bshard)),
+                (partition.shard_tree(params, pshard), local),
                 (pshard, bshard), rules, cfg, ref_params=ref)
 
 

@@ -12,9 +12,11 @@ over ``env://``: NCCL on the card, gloo on the CPU) it runs over
 ``make_host_mesh(model=1)``, pure data parallelism over every rank as the
 reference's driver runs over every device: each rank takes its slice of
 every batch, gradients are averaged over the data axis, the first rank
-logs and writes checkpoints.  Training on the production mesh
-(``--production-mesh``) waits for its layout (FSDP and sequence
-parallelism, ROADMAP A14f-4).
+logs and writes checkpoints.  ``--production-mesh`` trains on the (16, 16)
+mesh of ``make_production_mesh`` over the process group (256 processes;
+fewer raise ``ValueError``), under the shape's ``arch_rules``: fully
+sharded over ``data`` and cut over ``model``.  Sequence parallelism
+(``res_seq``) is not ported (ROADMAP A14f-5).
 
 Resuming differs from the reference on purpose.  A checkpoint saved after
 step i holds the state after that step's update; the port resumes at step
@@ -167,33 +169,33 @@ def main(argv=None, params=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--production-mesh", action="store_true",
-                    help="16x16 mesh (requires 256 devices)")
+                    help="16x16 mesh (requires 256 processes)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.production_mesh:
-        raise NotImplementedError("--production-mesh: training on the "
-                                  "(16, 16) production mesh waits for its "
-                                  "layout, FSDP and sequence parallelism "
-                                  "(ROADMAP A14f-4)")
     spec = cb.get_arch(args.arch)
     cfg = spec.smoke() if args.smoke else spec.config
     mesh, log = None, print
+    rank = 0
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:   # under torchrun
         rank = int(os.environ["RANK"])
         backend = "nccl" if args.device.startswith("cuda") else "gloo"
         if backend == "nccl":
             torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank)))
         torch.distributed.init_process_group(backend, init_method="env://")
-        mesh = mesh_mod.make_host_mesh(model=1)
+    try:
+        if args.production_mesh:
+            # the (16, 16) mesh over the process group, under the shape's
+            # arch_rules (FSDP over data, the model axis's cuts)
+            mesh = mesh_mod.make_production_mesh()
+        elif torch.distributed.is_initialized():
+            mesh = mesh_mod.make_host_mesh(model=1)
         if rank:
             log = lambda *a, **k: None  # noqa: E731
-    try:
         train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
               ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
               device=args.device, params=params, mesh=mesh, log=log)
     finally:
-        if mesh is not None:
-            mesh_mod.destroy_model_group()
+        mesh_mod.destroy_model_group()
     log("training done")
 
 

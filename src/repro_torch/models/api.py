@@ -17,8 +17,11 @@ and zamba2 (hybrid) tensor-parallel, with no new argument: each member
 holds the blocks :func:`param_layout` gives it, from :func:`init` with a
 ``layout`` or from :func:`shard_params` of a whole tree, and a cache of
 its own heads (:func:`make_cache`).  whisper (audio) keeps every leaf
-whole: ``launch/specs.py::arch_rules`` sets all its rules to None, so it
-runs data-parallel (on a model axis, replicated).
+whole over ``model``: ``launch/specs.py::arch_rules`` sets its model
+rules to None, so it runs data-parallel (on a model axis, replicated).
+Under the train rules every family is also fully sharded over ``data``
+(``sharding/fsdp.py``): each data member holds a block of every leaf
+with a d_model ("embed") dimension, gathered where the forward uses it.
 """
 from __future__ import annotations
 
@@ -163,23 +166,28 @@ def param_layout(cfg: ModelConfig, mesh=None,
                  rules: Optional[dict] = None) -> partition.Layout:
     """Where each parameter lives over ``mesh`` under ``rules`` (default:
     the ambient ones).  The rules resolve every leaf as the reference's
-    ``tree_shardings`` does (``partition.tree_layout``); the port keeps
-    only the ``model`` axis (parameters are whole on every data member:
-    no FSDP) and cuts a leaf only where :func:`sharding.tp.plan` runs it
-    cut: whole query heads, KV heads whole or replicated, rwkv6's and
-    Mamba-2's heads, even blocks; a part whose heads do not divide keeps
-    its leaves whole.  Mamba-2's fused leaves are cut segment by segment
-    (:func:`_segments`).  whisper keeps every leaf whole."""
+    ``tree_shardings`` does (``partition.tree_layout``).  The port keeps
+    every ``data`` entry of a data axis of more than one member (FSDP:
+    the train rules put "embed" on ``data``, and ``sharding/fsdp.py``
+    gathers the blocks where the forward uses them), and on the
+    ``model`` axis cuts a leaf only where
+    :func:`sharding.tp.plan` runs it cut: whole query heads, KV heads
+    whole or replicated, rwkv6's and Mamba-2's heads, even blocks; a part
+    whose heads do not divide keeps its leaves whole over ``model``.
+    Mamba-2's fused leaves are cut segment by segment (:func:`_segments`).
+    whisper keeps every leaf whole over ``model``."""
     mesh = mesh if mesh is not None else partition.current_mesh()
     base = partition.tree_layout(specs(cfg), mesh, rules)
     tp = TP.plan(cfg, mesh, rules)
+
+    fsdp = "data" if mesh.shape.get("data", 1) > 1 else None
 
     def narrow(path, spec):
         cut = "model" if _cut(cfg, tp, path) else None
         if cut:
             cut = _segments(cfg, path) or cut
-        return tuple(cut if cut and "model" in partition._axes(e) else None
-                     for e in spec)
+        return tuple(cut if cut and "model" in partition._axes(e)
+                     else (fsdp if e == "data" else None) for e in spec)
 
     return partition.Layout(mesh, partition.map_specs(narrow, base.specs))
 

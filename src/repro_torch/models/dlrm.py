@@ -21,6 +21,15 @@ bound k (``core/bls.py``).  With a cache each member pools its own slice's
 hits locally and only the miss residual rides the wire; the ragged exchange
 ships only the live (sample, table) rows, pooled through the bag kernel's
 rows form.
+
+Training (:func:`loss_and_grads`, the ``dlrm_train`` cell): the bags and
+the interaction run their kernels forward under autograd
+(``ops.EmbeddingBagFn``, ``ops.DotInteractionFn``), and the dense
+exchange over the float32 wire runs through :class:`_DenseExchangeFn`,
+whose backward returns the received slices' gradient to the members
+owning their tables.  The reference's uint8 wire carries no gradient, so
+its distributed table gradient is zero (ROADMAP C2); the port's is the
+function's.
 """
 from __future__ import annotations
 
@@ -42,6 +51,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import layers as L
 from repro_torch.serving import hot_cache as hc_mod
+from repro_torch.sharding import tp as TP
 
 # ---------------------------------------------------------------------------
 # params
@@ -434,6 +444,15 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
     // R] // t_loc`` and gathers the exchanged columns back to original
     order before the interaction.
 
+    Under autograd (a parameter that requires grad) the exchange is the
+    dense one over the float32 wire and the mono pipeline ('auto' takes
+    mono; ring and mono give the same bits), at any bound and microbatch
+    count: a cache, the ragged exchange, the bf16 and int8 codecs, an
+    explicit ring pipeline and the riders raise ``ValueError``.  The
+    logits' all-gather keeps this member's slice of their gradient (every
+    member computes the same loss) and the MLPs' gradient is summed over
+    the group, as the transpose of the reference's ``shard_map``.
+
     Every rider comes back in the diagnostics, so each needs
     ``return_diag``.  ``group`` defaults to the model group of
     ``launch/mesh.py``; with none the forward falls back to
@@ -468,6 +487,18 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
             return logits, ExchangeDiag(0, 0, 0, "local")
         return logits
 
+    # under autograd the exchange runs through _DenseExchangeFn
+    train = ops.wants_grad(*_param_leaves(params))
+    pipe_opt = exchange_pipeline if exchange_pipeline is not None \
+        else cfg.exchange_pipeline
+    if train:
+        _check_differentiable(
+            cache=cache is not None and cache.cache_rows > 0,
+            wire=wire, exchange=exchange if exchange is not None
+            else cfg.exchange, ring=pipe_opt == "ring", riders=rides)
+        params = {"tables": params["tables"],
+                  "bot": _replicated(params["bot"], group),
+                  "top": _replicated(params["top"], group)}
     n_shards = dist.get_world_size(group)
     m = dist.get_rank(group)
     t_pad = idx.shape[1]
@@ -508,9 +539,8 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
         use_cache=use_cache,
         cap=ragged_cap if ragged_cap is not None else cfg.ragged_cap,
         dense_rows=dense_rows)
-    pipe = resolve_pipeline(
-        exchange_pipeline if exchange_pipeline is not None
-        else cfg.exchange_pipeline, n_shards)
+    # ring and mono give the same bits: under autograd 'auto' takes mono
+    pipe = "mono" if train else resolve_pipeline(pipe_opt, n_shards)
     # the riders, each an opaque sub-blob of the fused slot: (wire field,
     # its leaves' prefix, sub-layout, the member's (mb, ...) slices, their
     # bucket cap)
@@ -664,6 +694,8 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
     def stage_a(j):
         rows = slice(j * b_mb, (j + 1) * b_mb)
         ix, mk = idx[rows], mask[rows]
+        # member m's dense rows of microbatch j (matches a2a delivery)
+        dm = dense[j * b_mb + m * bs:j * b_mb + (m + 1) * bs]
         ix_loc, miss_mk = local_miss(ix, mk)
         hits = None
         if use_cache:
@@ -693,6 +725,9 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
                                else plan.map(lambda a: a[j]))
             # destination-major: all_to_all's split groups are the leading
             # bs-row blocks, a free reshape
+            if train:
+                return pooled.reshape(n_shards, bs, *pooled.shape[1:]), \
+                    (apply_mlp(params["bot"], dm), hits)
             payload = {k: v.reshape(n_shards, bs, *v.shape[1:])
                        for k, v in a2a_mod.encode_wire(pooled, wire).items()}
         for f, blob in packed.items():
@@ -706,11 +741,11 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
             # corruption: the receiver's verify must catch it
             integ.wire_stamp(buf, layout)
             buf[:, first] ^= flip[m]
-        # member m's dense rows of microbatch j (matches a2a delivery)
-        dm = dense[j * b_mb + m * bs:j * b_mb + (m + 1) * bs]
         return buf, (apply_mlp(params["bot"], dm), hits)      # z0 (bs, s)
 
     def collective(buf):
+        if train:
+            return bls_mod.Issued(_DenseExchangeFn.apply(buf, layout, group))
         if pipe == "ring":
             # the exchange is deferred to stage_b's rounds: the send buffer
             # itself rides the BLS ring slot
@@ -766,6 +801,12 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
                 recv, group, n_shards, consume,
                 (torch.empty((bs, t_pad, s), dtype=emb_dtype,
                              device=recv.device), harvest))
+        elif train:
+            # (P_src, bs, t_loc, s) decoded by the exchange's Function
+            emb_all = recv.permute(1, 0, 2, 3).reshape(bs, t_pad, s)
+            if deg:
+                emb_all = emb_all * (1 - deg_cols.to(emb_all.dtype))[
+                    None, :, None]
         else:
             f = a2a_mod.defuse_wire(recv, layout)
             for name, o in h_off.items():
@@ -811,6 +852,15 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
                                    list(range(mb)), bound)
     outs, harvest = zip(*outs)
     out = torch.stack(outs)                                    # (mb, bs)
+    logits = None
+    if train:
+        # every member computes the same loss of the gathered logits, so
+        # the backward keeps this member's slice of their gradient
+        logits = TP.gather_from(out[None], group, dim=0) \
+            .permute(1, 0, 2).reshape(-1)
+        if not return_diag:
+            return logits
+        out = out.detach()
     words = torch.empty(0, dtype=torch.int32, device=out.device)
     if return_diag:
         # live-count / drop diagnostics for the cap autotuner: per
@@ -841,8 +891,9 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
     got = torch.stack(got)
     # (P, mb, bs) -> input order (mb, P, bs): with one data row this is
     # also the pipeline order, so restore_order changes nothing
-    logits = got[:, :n_out].contiguous().view(out.dtype) \
-        .reshape((n_shards,) + out.shape).permute(1, 0, 2).reshape(-1)
+    if logits is None:
+        logits = got[:, :n_out].contiguous().view(out.dtype) \
+            .reshape((n_shards,) + out.shape).permute(1, 0, 2).reshape(-1)
     if not return_diag:
         return logits
     ctr = got[:, n_out:n_out + n_w].contiguous().view(torch.int32)
@@ -866,6 +917,65 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
         "ragged" if use_ragged else "dense", cap, dense_rows,
         staged.get("xdelta"), staged.get("xmig"), staged.get("xrep"), wbad,
         audit)
+
+
+def _param_leaves(params) -> list:
+    return [params["tables"]] + [v for lp in (*params["bot"], *params["top"])
+                                 for v in lp.values()]
+
+
+def _replicated(mlp, group):
+    """The MLP's leaves entering the member's part of the loss: the
+    identity, whose backward sums their gradient over ``group``, as the
+    transpose of the reference's ``shard_map`` sums a replicated input's."""
+    return [{k: TP.copy_to(v, group) for k, v in lp.items()} for lp in mlp]
+
+
+def _check_differentiable(*, cache: bool, wire: str, exchange: str,
+                          ring: bool, riders: dict) -> None:
+    """Under autograd the exchange is the dense one over the float32 wire
+    and the mono pipeline: no configuration of the reference trains
+    through the others, and its table gradient there is zero (ROADMAP
+    C2).  Each other option raises, named."""
+    bad = [name for name, on in (
+        ("a hot-row cache", cache), (f"the {wire} wire codec",
+                                     wire != "float32"),
+        ("the ragged exchange", exchange == "ragged"),
+        ("the ring pipeline", ring),
+        *((f"the riders ({name})", on) for name, on in riders.items()))
+        if on]
+    if bad:
+        raise ValueError(
+            f"forward_distributed under autograd runs the dense exchange "
+            f"over the float32 wire and the mono pipeline; {bad[0]} has no "
+            f"gradient here (call it under torch.no_grad())")
+
+
+class _DenseExchangeFn(torch.autograd.Function):
+    """The dense exchange under autograd.  Forward: the float32 codec,
+    the fused wire, one ``all_to_all_single`` and its decode, bit for bit
+    the untracked path's (waited on here: the bound changes when it is
+    waited on, never the values).  pooled (P_dst, bs, t_loc, s) ->
+    (P_src, bs, t_loc, s).  Backward: the reverse ``all_to_all_single`` of
+    the received slices' gradient, which hands each source its (P_dst,
+    bs, t_loc, s) pooled gradient: the uint8 wire, which carries no
+    gradient, is not in its path."""
+
+    @staticmethod
+    def forward(ctx, pooled, layout, group):
+        ctx.group = group
+        buf = a2a_mod.fuse_wire(a2a_mod.encode_wire(pooled, "float32"),
+                                layout)
+        recv = a2a_mod.alltoallv_fused(buf, group).wait()
+        return a2a_mod.decode_wire(a2a_mod.defuse_wire(recv, layout),
+                                   pooled.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous()
+        out = torch.empty_like(grad)
+        dist.all_to_all_single(out, grad, group=ctx.group)
+        return out, None, None
 
 
 def table_means(tables, t_pad: int, group):
@@ -937,9 +1047,56 @@ def build_forward_plans(params, cfg: DLRMConfig, idx, *,
 
 def bce_loss(logits, labels):
     """Mean binary cross-entropy of CTR logits in the reference's stable
-    form, max(x, 0) - x y + log1p(exp(-|x|)), in f32.  The reference trains
-    no DLRM outside its dry-run cell, which the port's waits for
-    (ROADMAP A14f-4)."""
+    form, max(x, 0) - x y + log1p(exp(-|x|)), in f32: the loss of the
+    DLRM train cell (``launch/specs.py``, :func:`loss_and_grads`)."""
     lf, yf = logits.float(), labels.float()
     return torch.mean(torch.clamp(lf, min=0) - lf * yf
                       + torch.log1p(torch.exp(-lf.abs())))
+
+
+def loss_and_grads(params, cfg: DLRMConfig, batch: dict, *, bound: int = 0,
+                   microbatches: int = 1, group=None, data_groups=()):
+    """The DLRM train cell's loss and gradient (the reference's
+    ``value_and_grad`` of :func:`bce_loss` over :func:`forward_distributed`
+    with ``restore_order=False``): ``batch`` holds this member's rows
+    (``dense``, ``idx``, ``mask``, ``labels``), ``params`` its tables and
+    the MLPs.  -> (loss, gradient tree like ``params``).
+
+    Every member of ``group`` computes the loss of its data row's
+    gathered logits; its tables' gradient comes back through the
+    exchange's backward, and the MLPs' is summed over ``group``.  Over
+    ``data_groups`` (the data rows, each a replica of the tables) the
+    loss and every gradient are all-reduced and divided by their members,
+    the gradient of the global mean.  The gradient is the function's: the
+    reference's distributed table gradient is zero, since its uint8 wire
+    carries none (ROADMAP C2)."""
+    leaves = _param_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        with torch.enable_grad():
+            logits = forward_distributed(
+                params, cfg, batch["dense"], batch["idx"], batch["mask"],
+                bound=bound, microbatches=microbatches, restore_order=False,
+                group=group)
+            loss = bce_loss(logits, batch["labels"])
+            grads = list(torch.autograd.grad(loss, leaves))
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    loss = loss.detach()
+    if data_groups:
+        nd = 1
+        loss = loss.reshape(1)
+        for g in data_groups:
+            nd *= dist.get_world_size(g)
+            for t in [loss] + grads:
+                dist.all_reduce(t, group=g)
+        for t in [loss] + grads:
+            t.mul_(1.0 / nd)
+        loss = loss[0]
+    it = iter(grads)
+    tree = {"tables": next(it)}
+    for k in ("bot", "top"):
+        tree[k] = [{n: next(it) for n in lp} for lp in params[k]]
+    return loss, tree

@@ -41,6 +41,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.sharding import fsdp
 from repro_torch.sharding import tp as TP
 
 HEAD_SIZE = 64
@@ -295,10 +296,17 @@ def forward(params, cfg: ModelConfig, tokens, *, collect_cache: bool = False,
     if wkv_impl not in ops.IMPLS:
         raise ValueError(f"unknown wkv_impl {wkv_impl!r}; have {ops.IMPLS}")
     tp = TP.plan(cfg)
+    specs = rwkv6_specs(cfg)
     pc, layers = _cast(params, cfg)
+    # FSDP: the non-layer leaves gathered over data here, each layer's at
+    # the top of its (remat) body
+    pc = fsdp.gathered(pc, specs)
     x = L.layernorm(pc["ln0"], T.embed_inputs(pc, cfg, tokens, tp=tp))
 
+    gather = fsdp.gatherer(specs["layers"], skip=1)
+
     def layer(x, lp):
+        lp = gather(lp)
         return block(lp, cfg, x, wkv_impl=wkv_impl, tp=tp)
 
     body = T._remat(layer, cfg) if remat else layer

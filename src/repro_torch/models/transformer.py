@@ -47,7 +47,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
-from repro_torch.sharding import partition
+from repro_torch.sharding import fsdp, partition
 from repro_torch.sharding import tp as TP
 
 # ---------------------------------------------------------------------------
@@ -203,15 +203,15 @@ def init_lm(seed: int, cfg: ModelConfig, device="cuda", n_shards: int = 16,
             gen, cfg, dev, g, n_shards,
             functools.partial(cut, ("layers", f"sub{i}")))
             for i in range(len(pat))},
-        "final_norm": L.init_rmsnorm(cfg.d_model, cfg.dtype, dev,
-                                     cfg.norm_plus_one),
+        "final_norm": cut(("final_norm",), L.init_rmsnorm(
+            cfg.d_model, cfg.dtype, dev, cfg.norm_plus_one)),
     }
     if not cfg.tie_embeddings:
         p["head"] = cut(("head",), L.init_lm_head(
             gen, cfg.d_model, cfg.vocab_size, cfg.dtype, dev))
     if cfg.frontend != "none":
-        p["frontend_proj"] = L.init_dense(gen, cfg.d_frontend, cfg.d_model,
-                                          cfg.dtype, dev)
+        p["frontend_proj"] = cut(("frontend_proj",), L.init_dense(
+            gen, cfg.d_frontend, cfg.d_model, cfg.dtype, dev))
     return p
 
 
@@ -385,7 +385,11 @@ def _forward(params, cfg: ModelConfig, tokens, frontend_embeds, *,
     pat = layer_pattern(cfg)
     tp = TP.plan(cfg)
     cdt = L.dtype_of(cfg.dtype)
-    pc = cast_params({k: v for k, v in params.items() if k != "layers"}, cdt)
+    specs = lm_specs(cfg)
+    # FSDP: the non-layer leaves are gathered over data here, each group's
+    # at the top of its (remat) body
+    pc = fsdp.gathered(cast_params(
+        {k: v for k, v in params.items() if k != "layers"}, cdt), specs)
     # the stack is cast once a call (the f32 masters' gradients flow back
     # through the cast), then split into groups of views
     groups = unbind_groups(cast_params(params["layers"], cdt), n_groups(cfg))
@@ -394,7 +398,10 @@ def _forward(params, cfg: ModelConfig, tokens, frontend_embeds, *,
     cache = make_cache(cfg, b, max(pad_to or s, s), device=x.device) \
         if collect_cache else None
 
+    gather = fsdp.gatherer(specs["layers"], skip=1)
+
     def group_fn(x, gp):
+        gp = gather(gp)
         aux, kvs = x.new_zeros((), dtype=torch.float32), []
         for i, kind in enumerate(pat):
             x, a, kv = block_full(gp[f"sub{i}"], cfg, x, kind,

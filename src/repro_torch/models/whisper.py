@@ -29,6 +29,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.sharding import fsdp
 
 
 def sinusoids(length: int, channels: int, device=None):
@@ -110,9 +111,14 @@ def init_whisper(seed: int, cfg: ModelConfig, device="cuda"):
     }
 
 
-def _top(params, cdt):
-    return T.cast_params({k: v for k, v in params.items()
-                          if k not in ("enc_layers", "dec_layers")}, cdt)
+def _top(params, cdt, specs=None, keys=None):
+    """The non-layer leaves (those of ``keys`` only, if given) in the
+    compute type, gathered over data under FSDP (``specs``:
+    :func:`whisper_specs`)."""
+    pc = T.cast_params({k: v for k, v in params.items()
+                        if k not in ("enc_layers", "dec_layers")
+                        and (keys is None or k in keys)}, cdt)
+    return pc if specs is None else fsdp.gathered(pc, specs)
 
 
 def _layer(layers, i: int):
@@ -129,11 +135,14 @@ def encode(params, cfg: ModelConfig, frames, *, attn_impl: str = "auto"):
     Each layer's self-attention is non-causal, through the flash kernel on
     the card (``attn_impl`` as in ``transformer.forward``)."""
     cdt = L.dtype_of(cfg.dtype)
-    pc = _top(params, cdt)
+    specs = whisper_specs(cfg)
+    pc = _top(params, cdt, specs, ("frontend_proj", "enc_ln"))
     x = L.dense(pc["frontend_proj"], frames.to(cdt))
     x = x + sinusoids(x.shape[1], cfg.d_model, x.device).to(cdt)
     layers = T.cast_params(params["enc_layers"], cdt)
+    gather = fsdp.gatherer(specs["enc_layers"], skip=1)
     for lp in T.unbind_groups(layers, cfg.n_encoder_layers):
+        lp = gather(lp)
         out, _ = A.attend_full(lp["attn"], cfg, L.layernorm(lp["ln1"], x),
                                causal=False, attn_impl=attn_impl)
         x = x + out
@@ -148,8 +157,11 @@ def _cross_kv(params, cfg: ModelConfig, enc_out):
     h, hd = cfg.n_kv_heads, cfg.head_dim
     cross = T.cast_params(params["dec_layers"]["cross"],
                           L.dtype_of(cfg.dtype))
+    gather = fsdp.gatherer(whisper_specs(cfg)["dec_layers"]["cross"],
+                           skip=1)
     ks, vs = [], []
     for c in T.unbind_groups(cross, cfg.n_layers):
+        c = gather({k: c[k] for k in ("wk", "wv")})
         ks.append(L.dense(c["wk"], enc_out).reshape(b, s, h, hd))
         vs.append(L.dense(c["wv"], enc_out).reshape(b, s, h, hd))
     return torch.stack(ks), torch.stack(vs)
@@ -180,14 +192,20 @@ def forward(params, cfg: ModelConfig, tokens, frames, *,
     ``cfg.remat`` when grad is enabled, as the reference's does (its
     encoder layers run without)."""
     cdt = L.dtype_of(cfg.dtype)
-    pc = _top(params, cdt)
+    specs = whisper_specs(cfg)
+    pc = _top(params, cdt, specs, ("embed", "dec_ln"))
     enc_out = encode(params, cfg, frames, attn_impl=attn_impl)
     cross_k, cross_v = _cross_kv(params, cfg, enc_out)
     x = L.embed_tokens(pc["embed"], tokens)
     x = x + sinusoids(x.shape[1], cfg.d_model, x.device).to(cdt)
     layers = T.cast_params(params["dec_layers"], cdt)
 
+    gather = fsdp.gatherer(specs["dec_layers"], skip=1)
+
     def layer(x, lp, ck, cv):
+        # the cross K/V projections ran in _cross_kv
+        lp = gather({**lp, "cross": {k: v for k, v in lp["cross"].items()
+                                     if k not in ("wk", "wv")}})
         return _dec_layer_full(lp, cfg, x, ck, cv, attn_impl=attn_impl)
 
     body = T._remat(layer, cfg) if remat else layer

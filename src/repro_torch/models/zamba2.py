@@ -36,6 +36,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import transformer as T
+from repro_torch.sharding import fsdp
 from repro_torch.sharding import tp as TP
 
 
@@ -148,13 +149,19 @@ def forward(params, cfg: ModelConfig, tokens, *, collect_cache: bool = False,
     if attn_impl not in ops.IMPLS:
         raise ValueError(f"unknown attn_impl {attn_impl!r}; have {ops.IMPLS}")
     tp = TP.plan(cfg)
-    pc = _cast(params, cfg)
+    specs = zamba2_specs(cfg)
+    # FSDP: the non-layer leaves (the shared block's too, which every group
+    # calls) gathered over data here, each group's mamba leaves at the top
+    # of its (remat) body
+    pc = fsdp.gathered(_cast(params, cfg), specs)
     x = T.embed_inputs(pc, cfg, tokens, tp=tp)
     shared = pc["shared"]
     cdt = L.dtype_of(cfg.dtype)
 
+    gather = fsdp.gatherer(specs["mamba"], skip=1)
+
     def group_fn(x, gp):
-        gp = T.cast_params(gp, cdt)
+        gp = gather(T.cast_params(gp, cdt))
         x, kv = _shared_full(shared, cfg, x, attn_impl, tp)
         sts = []
         for lp in T.unbind_groups(gp, cfg.shared_attn_every):

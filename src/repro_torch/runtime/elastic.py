@@ -18,6 +18,7 @@ where they are still alive; a process the new mesh leaves out raises
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Callable, Optional
 
 import torch
@@ -66,46 +67,53 @@ def make_group_from(ranks) -> object:
     return dist.new_group(ranks=ranks)
 
 
-def _cut_dim(spec: tuple):
-    cut = [d for d, e in enumerate(spec) if partition._axes(e)]
-    if len(cut) > 1:
-        raise ValueError(f"reshard: spec {spec} cuts {len(cut)} dimensions")
-    return cut[0] if cut else None
-
-
-def _holder_block(old, rank: int, spec: tuple) -> int:
+def _holder_block(old, rank: int, entry) -> int:
+    """The block of a dimension cut over ``entry`` that ``rank`` held on
+    the ``old`` mesh."""
     at = old.ranks.index(rank)
     coords = {"data": at // old.shape["model"],
               "model": at % old.shape["model"]}
-    n, i = 1, 0
-    for e in spec:
-        for a in partition._axes(e):
-            n, i = n * old.shape[a], i * old.shape[a] + coords[a]
+    i = 0
+    for a in partition._axes(entry):
+        i = i * old.shape[a] + coords[a]
     return i
 
 
 def _reshard_leaf(x, spec_from, spec_to, old, new):
-    d = _cut_dim(spec_from)
-    if d is None:
+    """One leaf from its ``old`` layout to its ``new``: the full leaf
+    joined from survivors holding every block (of each cut dimension: a
+    leaf may be cut over ``model`` and ``data`` both), then cut anew."""
+    dims = [d for d, e in enumerate(spec_from) if partition._axes(e)]
+    if not dims:
         return partition.shard_leaf(x, spec_to, new)
-    n, _ = partition.block(old, spec_from[d])
+    counts = [partition.block(old, spec_from[d])[0] for d in dims]
     holders = {}
     for r in new.ranks:
         if r in old.ranks:
-            holders.setdefault(_holder_block(old, r, spec_from), r)
-    missing = [i for i in range(n) if i not in holders]
+            holders.setdefault(tuple(_holder_block(old, r, spec_from[d])
+                                     for d in dims), r)
+    missing = [i for i in itertools.product(*map(range, counts))
+               if i not in holders]
     if missing:
         raise ValueError(f"reshard: no survivor holds block(s) {missing} of "
-                         f"{n} of a leaf cut by {spec_from}")
+                         f"{tuple(counts)} of a leaf cut by {spec_from}")
     group = new.group("all")
-    if group is None:          # the one survivor holds every block: n == 1
+    if group is None:          # the one survivor holds every block
         full = x
     else:
         parts = [torch.empty_like(x) for _ in range(new.size)]
         dist.all_gather(parts, x.contiguous(), group=group)
         at = {r: parts[j] for j, r in enumerate(new.ranks)}
-        full = partition.join_blocks([at[holders[i]] for i in range(n)],
-                                     spec_from[d], d)
+
+        def join(prefix):
+            k = len(prefix)
+            if k == len(dims):
+                return at[holders[prefix]]
+            return partition.join_blocks(
+                [join(prefix + (i,)) for i in range(counts[k])],
+                spec_from[dims[k]], dims[k])
+
+        full = join(())
     return partition.shard_leaf(full, spec_to, new)
 
 

@@ -245,14 +245,15 @@ class SegmentedCut:
 
 
 def cut_flags(layout: "Layout"):
-    """A tree of each leaf's cut flag under ``layout``: whether it is cut,
+    """A tree of each leaf's cut flag under ``layout``: whether it is cut
+    over ``model`` (a cut over ``data`` is FSDP's, ``sharding/fsdp.py``),
     or a :class:`SegmentedCut` for a leaf with a cut :class:`Segments`
     entry."""
     def flag(_, spec_):
         for d, e in enumerate(spec_):
             if isinstance(e, Segments) and layout.mesh.shape[e.axis] > 1:
                 return SegmentedCut(d, e, layout.mesh.shape[e.axis])
-        return is_cut(spec_)
+        return any("model" in _axes(e) for e in spec_)
 
     return map_specs(flag, layout.specs)
 

@@ -9,7 +9,7 @@ trees.  Each leaf takes the reference's operations in its order (which
 ``torch.optim.AdamW`` does not).  Over a mesh the state's leaves are the
 members' blocks of the parameters' (:func:`adamw_layout`); the update is
 elementwise, and :func:`global_norm` sums the squares of the cut leaves
-over the model group.  :func:`adamw_specs` gives the state's logical axes
+over the model group, and of the FSDP blocks over the data group.  :func:`adamw_specs` gives the state's logical axes
 (the dry run's optimizer layouts).  On the meta device
 :func:`adamw_init` makes the state's stand-ins.
 """
@@ -98,7 +98,8 @@ def adamw_layout(param_layout):
                             adamw_specs(param_layout.specs))
 
 
-def global_norm(tree, *, cut=None, group=None):
+def global_norm(tree, *, cut=None, group=None, data_cut=None,
+                data_group=None):
     """sqrt of the sum of every leaf's squares (f32), leaves summed one
     after another in :func:`leaves` order, as the reference's ``sum``.
     ``cut`` (one flag a leaf, in :func:`leaves` order:
@@ -106,31 +107,49 @@ def global_norm(tree, *, cut=None, group=None):
     of a leaf cut over ``group``: their sum is all-reduced over the group,
     and each whole (replicated) leaf counts once; a flag with ``pieces``
     (a fused leaf, ``partition.SegmentedCut``) splits its leaf into cut
-    and whole segments."""
-    if cut is None or group is None:
+    and whole segments.  ``data_cut`` marks the leaves cut over
+    ``data_group`` too (FSDP): their sums are all-reduced over it once."""
+    if group is None:
+        cut = None
+    if data_group is None:
+        data_cut = None
+    if cut is None and data_cut is None:
         total = 0
         for x in leaves(tree):
             total = total + torch.sum(torch.square(x.float()))
         return torch.sqrt(total)
-    parts = [0, 0]
-    for x, c in zip(leaves(tree), cut, strict=True):
+    xs = leaves(tree)
+    cut = cut or [False] * len(xs)
+    data_cut = data_cut or [False] * len(xs)
+    # by (cut over the group, cut over data): whole, model, data, both
+    parts = [0, 0, 0, 0]
+    for x, c, dc in zip(xs, cut, data_cut, strict=True):
         for piece, is_cut in (c.pieces(x) if hasattr(c, "pieces")
                               else [(x, c)]):
-            parts[is_cut] = parts[is_cut] + torch.sum(
-                torch.square(piece.float()))
-    local = torch.as_tensor(parts[1], dtype=torch.float32,
-                            device=leaves(tree)[0].device).reshape(1)
-    torch.distributed.all_reduce(local, group=group)
-    return torch.sqrt(parts[0] + local[0])
+            k = int(bool(is_cut)) + 2 * int(bool(dc))
+            parts[k] = parts[k] + torch.sum(torch.square(piece.float()))
+    local = torch.stack([torch.as_tensor(p, dtype=torch.float32,
+                                         device=xs[0].device)
+                         for p in parts[1:]])
+    if group is not None:
+        m = local[0::2].contiguous()             # model, both
+        torch.distributed.all_reduce(m, group=group)
+        local[0::2] = m
+    if data_group is not None:
+        d = local[1:].contiguous()               # data, both
+        torch.distributed.all_reduce(d, group=data_group)
+        local[1:] = d
+    return torch.sqrt(parts[0] + local[0] + local[1] + local[2])
 
 
 @torch.no_grad()
 def clip_by_global_norm(grads, max_norm: float = 1.0, *, cut=None,
-                        group=None):
+                        group=None, data_cut=None, data_group=None):
     """Scale the gradients in place so their global norm is at most
-    ``max_norm`` -> (grads, the norm before clipping); ``cut`` and
-    ``group`` as in :func:`global_norm`."""
-    norm = global_norm(grads, cut=cut, group=group)
+    ``max_norm`` -> (grads, the norm before clipping); the cut flags and
+    groups as in :func:`global_norm`."""
+    norm = global_norm(grads, cut=cut, group=group, data_cut=data_cut,
+                       data_group=data_group)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in leaves(grads):
         g.mul_(scale.to(g.dtype))

@@ -191,9 +191,11 @@ def test_dlrm_serve_cell_matches_the_reference():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **CTR_TOL)
 
 
-def test_dlrm_train_cell_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A14f-4"):
-        tspecs.build_cell("dlrm-kaggle", "dlrm_train", thost_mesh())
+def test_dlrm_train_cell_builds():
+    cell = tspecs.build_cell("dlrm-kaggle", "dlrm_train", thost_mesh())
+    assert cell.in_place == (0, 1)
+    assert set(cell.args[2]) == {"dense", "idx", "mask", "labels"}
+    assert tspecs.nbytes(cell.args[1]["m"]) == tspecs.nbytes(cell.args[0])
 
 
 # ---------------------------------------------------------------------------
@@ -202,7 +204,8 @@ def test_dlrm_train_cell_names_its_roadmap_item():
 
 RUN_CELLS = [("whisper-tiny", "train_4k"), ("rwkv6-1.6b", "decode_32k"),
              ("qwen2-moe-a2.7b", "decode_32k"), ("dlrm-kaggle", "dlrm_infer"),
-             ("whisper-tiny", "prefill_32k"), ("whisper-tiny", "decode_32k")]
+             ("whisper-tiny", "prefill_32k"), ("whisper-tiny", "decode_32k"),
+             ("dlrm-kaggle", "dlrm_train")]
 KEYS = {"arch", "shape", "mesh", "status", "trace_s", "memory", "flops",
         "collective_bytes", "per_collective", "replicated_param_bytes",
         "replicated_leaves", "global_batch", "seq_len"}
@@ -230,7 +233,10 @@ _RUN = textwrap.dedent('''
         cfg, shape = cell.cfg, cell.shape
         batch = specs.input_specs(cfg, shape)
         if isinstance(cfg, DLRMConfig):
-            return specs.param_shapes(cfg, dtype=torch.float32), batch
+            p = specs.param_shapes(cfg, dtype=torch.float32)
+            if shape.kind == "train":
+                return p, opt.adamw_init(p), batch
+            return p, batch
         if shape.kind == "train":
             p = specs.param_shapes(cfg)
             return p, opt.adamw_init(p), batch
@@ -319,7 +325,8 @@ def test_run_cell_records(dry, cell):
 
 def test_dlrm_record_holds_the_member_tables(dry):
     recs, _, _, _ = dry
-    rec = next(r for r in recs if r["arch"] == "dlrm-kaggle")
+    rec = next(r for r in recs if r["arch"] == "dlrm-kaggle"
+               and r["shape"] == "dlrm_infer")
     cfg = tcb.get_arch("dlrm-kaggle").config
     stats = tdlrm.table_stats(cfg)
     # a member's 2 of 32 padded tables, the MLPs whole, 8192 rows
@@ -334,6 +341,32 @@ def test_dlrm_record_holds_the_member_tables(dry):
     want = sum((a + 1) * b for d in (dims, top) for a, b in zip(d, d[1:]))
     assert mlp == 4 * want
     assert rec["replicated_param_bytes"] == 0
+
+
+def test_dlrm_train_record_holds_the_member_state(dry):
+    """The train cell's record on (16, 16): a member's 2 of 32 tables and
+    the MLPs in f32, AdamW's m and v of the same, its step count, and the
+    member's 8192 rows with their labels; the step issues the exchange,
+    its backward and the data all-reduces."""
+    recs, expect, _, _ = dry
+    rec = next(r for r in recs if r["arch"] == "dlrm-kaggle"
+               and r["shape"] == "dlrm_train")
+    assert rec["status"] == "ok" and set(rec) == KEYS
+    cfg = tcb.get_arch("dlrm-kaggle").config
+    stats = tdlrm.table_stats(cfg)
+    dims = [cfg.n_dense_features, *cfg.bottom_mlp]
+    n_feat = cfg.n_tables + 1
+    top = [n_feat * (n_feat - 1) // 2 + cfg.embed_dim, *cfg.top_mlp]
+    mlp = 4 * sum((a + 1) * b for d in (dims, top) for a, b in zip(d, d[1:]))
+    params = stats["bytes"] // 16 + mlp
+    rows = 131_072 // 16
+    batch = rows * (cfg.n_dense_features + 2 * stats["t_pad"] + 1) * 4
+    want = 3 * params + 4 + batch
+    assert rec["memory"]["argument_size_in_bytes"] == want == \
+        expect["dlrm-kaggle/dlrm_train"]
+    assert rec["memory"]["alias_size_in_bytes"] == 3 * params + 4
+    assert rec["replicated_param_bytes"] == 0
+    assert {"alltoall_base_", "allreduce_"} <= set(rec["per_collective"])
 
 
 def test_cli_resumes_and_keeps_skip_reasons(dry):

@@ -148,7 +148,9 @@ _PER_MEMBER = textwrap.dedent('''
         sh = next(s for s in jcb.get_arch(arch).shapes if s.name == shape)
         rules = jspecs.arch_rules(cfg, jm, sh)
         shard = jspecs.tree_shardings(jspecs.param_spec_tree(cfg), jm, rules)
-        ps = jspecs.param_shapes(cfg, dtype=jnp.bfloat16)
+        # a train cell holds the f32 masters, a serve cell bf16 leaves
+        ps = jspecs.param_shapes(
+            cfg, dtype=None if sh.kind == "train" else jnp.bfloat16)
         leaves = {}
         for (path, p), s in zip(jax.tree_util.tree_flatten_with_path(ps)[0],
                                 jax.tree.leaves(shard)):
@@ -175,7 +177,8 @@ _PER_MEMBER = textwrap.dedent('''
 ''')
 
 SERVE_CELLS = [(a, s) for a, s in CELLS
-               if a in LM_ARCHS and s in ("prefill_32k", "decode_32k")]
+               if a in LM_ARCHS and s in ("prefill_32k", "decode_32k",
+                                          "train_4k")]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -207,7 +210,9 @@ def test_member_param_bytes_match_the_reference(per_member, arch, shape):
     """A member's block of every parameter equals JAX's
     ``NamedSharding.shard_shape`` under the same rules, but for the leaves
     the port keeps whole (or less cut), whose excess is the cell's
-    ``replicated_leaves``, exactly."""
+    ``replicated_leaves``, exactly.  A train cell is cut over ``data`` as
+    the reference's (FSDP): its ``replicated_leaves`` are the leaves the
+    port keeps whole over ``model``, those of the arch's prefill cell."""
     rec = per_member[f"{arch}/{shape}"]
     assert set(rec["port"]) == set(rec["jax"])
     extra = {k: rec["port"][k] - rec["jax"][k] for k in rec["port"]
@@ -215,5 +220,8 @@ def test_member_param_bytes_match_the_reference(per_member, arch, shape):
     assert extra == rec["replicated"], (
         f"{arch}/{shape}: leaves the port holds beyond the reference's "
         f"rules: {sorted(extra)}")
+    if shape == "train_4k" and f"{arch}/prefill_32k" in per_member:
+        assert set(extra) == set(
+            per_member[f"{arch}/prefill_32k"]["replicated"])
     if arch == "qwen3-14b":    # 40 query heads over 8 KV heads at model 16
         assert {k.split("/")[-2] for k in extra} == {"wq", "wk", "wv", "wo"}

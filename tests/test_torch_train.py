@@ -277,23 +277,27 @@ def test_rmsnorm_vjp_matches_the_reference(dtype, plus_one):
 
 
 def test_kernel_ops_without_a_backward_raise_on_tracked_inputs(monkeypatch):
-    # the dispatch predicate sends CPU tensors to the kernels here; the ops
-    # must refuse inputs that require grad before any launch
+    # the dispatch predicate sends CPU tensors to the kernels here (whose
+    # wrappers take their plain versions on the CPU): a tracked table or z
+    # goes through the op's autograd Function, and a bag's mask, which has
+    # no backward, is refused before any launch
     monkeypatch.setattr(ops, "use_kernel", lambda impl, t: True)
     z = torch.randn(4, 3, 8, requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ops.dot_interaction_op(z)
+    assert type(ops.dot_interaction_op(z).grad_fn).__name__ == \
+        "DotInteractionFnBackward"
     table = torch.randn(10, 8, requires_grad=True)
     idx = torch.zeros(4, 2, dtype=torch.int32)
     mask = torch.ones(4, 2)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ops.embedding_bag_op(table, idx, mask)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ops.embedding_bag_stacked_op(table[None], idx[:, None],
-                                     mask[:, None])
-    with pytest.raises(RuntimeError, match="no backward"):
-        ops.embedding_bag_rows_op(table[None], torch.zeros(4, dtype=torch.int32),
-                                  idx, mask)
+    calls = (lambda t, w: ops.embedding_bag_op(t, idx, w),
+             lambda t, w: ops.embedding_bag_stacked_op(t[None], idx[:, None],
+                                                       w[:, None]),
+             lambda t, w: ops.embedding_bag_rows_op(
+                 t[None], torch.zeros(4, dtype=torch.int32), idx, w))
+    for call in calls:
+        assert type(call(table, mask).grad_fn).__name__ == \
+            "EmbeddingBagFnBackward"
+        with pytest.raises(RuntimeError, match="no backward"):
+            call(table.detach(), mask.clone().requires_grad_())
 
 
 # ---------------------------------------------------------------------------

@@ -248,8 +248,11 @@ def test_launch_train_resumes_from_its_checkpoint(tmp_path, capsys):
     assert tC.latest_step(ck) == 3
 
 
-def test_launch_train_refuses_a_production_mesh():
-    with pytest.raises(NotImplementedError, match="A14f"):
+def test_launch_train_production_mesh_needs_256_processes():
+    """``--production-mesh`` trains on the (16, 16) mesh over the process
+    group; with fewer processes it raises, as the reference does without
+    256 devices."""
+    with pytest.raises(ValueError, match="256"):
         ttrain.main(["--arch", "qwen3-14b", "--smoke", "--production-mesh",
                      "--device", "cpu"])
 
