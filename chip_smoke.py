@@ -263,16 +263,20 @@ Phases, each on lines of its own:
      ``flash_attention/qwen2moe_members_heads``), then two processes on
      this card over gloo with CUDA tensors (``chip_smoke.py --member``;
      NCCL refuses two ranks on one device), each on a (1, 2) mesh under
-     ``arch_rules`` (heads, MLP, vocab and experts over ``model``): f32
-     parity at 2 layers against one device (1e-4), an a2a-dispatch
-     prefill (S 4608 in 2 slices) against the gather one at capacity
-     factor 8 (1e-4), a2a decode raising; the full 24-layer bf16 model,
-     each member drawing the one-device weights and keeping its blocks
-     (15.15 GB): a prefill with 24 flash launches at the member's shape
-     and its collectives counted, last-position logits within relative
-     Frobenius 5e-2 of one device's, 3 prefills timed, one profiled (the
-     collectives' host time and device work), ``LMEngine`` twice,
-     identical, on both members;
+     the decode rules of ``arch_rules`` (heads, MLP, vocab and experts
+     over ``model``; the KV cache cut by positions, ``kv_seq``): f32
+     parity at 2 layers against one device (1e-4): a prefill into a
+     9224-position cache cut in 2 blocks and 8 decode steps, the first 4
+     with member 1's block all masked; an a2a-dispatch prefill (S 4608 in
+     2 slices) against the gather one at capacity factor 8 (1e-4), a2a
+     decode raising; the full 24-layer bf16 model, each member drawing
+     the one-device weights and keeping its blocks (15.15 GB): a prefill
+     with 24 flash launches at the member's shape and its collectives
+     counted, its cache every KV head of half the positions (half one
+     device's bytes), last-position logits within the gate of one
+     device's, 3 prefills timed, one profiled (the collectives' host time
+     and device work), ``LMEngine`` twice, identical, on both members,
+     one decode step profiled (its collectives and their host share);
  11b. ``[members-ssm]`` (after rwkv6-1.6b is freed): the WKV kernel held
      against its plain version at a member's shape (B 2, S 4096, H 16,
      f32; row ``rwkv6_wkv/rwkv6_members_heads``); the one-device values:
@@ -295,11 +299,18 @@ Phases, each on lines of its own:
      2.44 GB a member): a 2 x 4608 prefill launching flash 9 times at
      (16, 16, 80) with 127 all_reduce (wo and down a shared invocation,
      out_proj and the gate_norm statistic a mamba layer, the embedding)
-     and 1 all_gather, ``LMEngine`` once;
- 20f. ``[members-train]``: granite-moe-3b-a800m at full width, 8 of 32
+     and 1 all_gather, ``LMEngine`` once, decoding over the shared
+     attention's cache cut by positions (``kv_seq``);
+ 20f. ``[members-train]``: B5 with lse at a member's heads of granite's
+     train shape (B 1, S 4096, H 12 over Kh 4, hd 64; row
+     ``flash_attention/granite_members_train_lse``, beside its plain
+     version and SDPA); granite-moe-3b-a800m at full width, 2 of 32
      layers: one step on one device, then on two members a data-parallel
      step ((2, 1) mesh, a row each) and a tensor-parallel one ((1, 2)
-     mesh) against it (loss 1e-3, grad_norm 1e-2 relative), and
+     mesh) under the train rules' ``res_seq`` (the residual stream cut by
+     sequence) against it (loss 1e-3, grad_norm 1e-2 relative), the
+     tensor-parallel step again with the stream whole (its peak beside),
+     and
      ``compressed_psum`` of the largest leaf (the stacked expert gate,
      1.0 GB f32) bit for bit against an f32 model of its int8 sum; then
      the same two steps, each against one device's, for rwkv6-1.6b at 8
@@ -3300,6 +3311,12 @@ MEMBERS_BF16_FACTOR = 3.0
 # the config's 1.25: capacity is per member's slice in a2a)
 MEMBERS_A2A_CF = 8.0
 MEMBERS_COLLECTIVES = ("all_reduce", "all_gather", "all_to_all_single")
+# [members-serve]'s f32 parity under the decode rules (``kv_seq`` over
+# ``model``): a cache of MEMBERS_PARITY_LEN positions in MEMBERS blocks,
+# the prompt in member 0's; the decode steps cross into member 1's block,
+# which holds no live position for the first half of them
+MEMBERS_DECODE_STEPS = 8
+MEMBERS_PARITY_LEN = MEMBERS * (LM_PROMPT + MEMBERS_DECODE_STEPS // 2)
 COLLECTIVE_RANGE = "members.collective"
 # [members-train]: granite-moe-3b-a800m at full width, depth cut to 2 of
 # its 32 layers (8 until the rwkv6, zamba2 and whisper steps joined the
@@ -3317,14 +3334,18 @@ ELASTIC_CKPT = (ELASTIC_FAIL_AT - 1) - (ELASTIC_FAIL_AT - 1) % \
 
 
 def members_parity_logits(params, cfg, toks):
-    """(last-position prefill logits, the first decode step's logits) of
-    ``cfg`` on ``toks`` in f32, and the last-position logits of the same
-    draws in bf16, on the host."""
+    """(last-position prefill logits into a cache of MEMBERS_PARITY_LEN
+    positions, MEMBERS_DECODE_STEPS decode steps' logits fed the prompt's
+    first tokens) of ``cfg`` on ``toks`` in f32, and the last-position
+    logits of the same draws in bf16, on the host."""
     from repro_torch.models import transformer as T
 
-    last, cache = T.prefill(params, cfg, toks, pad_to=toks.shape[1] + 1)
-    step, _ = T.decode_step(params, cfg, toks[:, -1:], cache)
-    out = {"f32_last": last.cpu().numpy(), "f32_decode": step.cpu().numpy()}
+    last, cache = T.prefill(params, cfg, toks, pad_to=MEMBERS_PARITY_LEN)
+    steps = []
+    for i in range(MEMBERS_DECODE_STEPS):
+        step, cache = T.decode_step(params, cfg, toks[:, i:i + 1], cache)
+        steps.append(step.cpu().numpy())
+    out = {"f32_last": last.cpu().numpy(), "f32_decode": np.stack(steps)}
     del last, cache, step
     b16 = cfg.replace(dtype="bfloat16")
     pb = T.init_lm(SEED, b16, toks.device, layout=params_layout(b16))
@@ -3460,11 +3481,14 @@ def members_profile(fn):
 
 def member_serve(rank, world, d, inputs):
     """[members-serve], one member: qwen2-moe-a2.7b over a (1, world) mesh
-    under ``arch_rules`` (heads, MLP, vocab and experts over ``model``):
-    f32 parity at MOE_PARITY_LAYERS against P = 1, the a2a prefill against
-    the gather one, then the full bf16 model: a prefill with its flash
-    launches and collectives counted and its logits against P = 1,
-    prefills timed, one profiled, LMEngine twice."""
+    under the decode rules of ``arch_rules`` (heads, MLP, vocab and
+    experts over ``model``; the KV cache cut by positions, ``kv_seq``):
+    f32 parity at MOE_PARITY_LAYERS against P = 1 (a prefill and
+    MEMBERS_DECODE_STEPS decode steps over the cut cache), the a2a prefill
+    against the gather one, then the full bf16 model: a prefill with its
+    flash launches and collectives counted, its cache (every KV head, a
+    block of positions) and its logits against P = 1, prefills timed, one
+    profiled, LMEngine twice, one decode step profiled."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.configs.qwen2_moe_a2_7b import CONFIG
     from repro_torch.kernels import flash_attention as fa
@@ -3475,12 +3499,15 @@ def member_serve(rank, world, d, inputs):
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import LMEngine
     from repro_torch.sharding import partition
+    from repro_torch.train import steps as steps_mod
 
     dev = torch.device(MEMBER_DEVICE)
     cfg = CONFIG
     mesh = mesh_mod.make_host_mesh(model=world)
     rules = specs.arch_rules(cfg, mesh, ShapeConfig(
-        "prefill", "prefill", LM_PROMPT, LM_BATCH))
+        "decode", "decode", LM_MAX_LEN, LM_BATCH))
+    if rules.get("kv_seq") != "model":
+        raise AssertionError(f"the decode rules cut no cache: {rules}")
     prompts = lm_prompts(cfg.vocab_size)
     toks = torch.from_numpy(prompts).to(dev)
     res = {}
@@ -3520,7 +3547,11 @@ def member_serve(rank, world, d, inputs):
         log(f"[members-serve] rank {rank}: qwen2-moe-a2.7b f32 at "
             f"{MOE_PARITY_LAYERS} layers over {world} members vs one "
             f"device: prefill logits max_abs_err {res['f32_last']:.3e}, "
-            f"decode {res['f32_decode']:.3e} (rtol = atol = 1e-4); bf16 "
+            f"{MEMBERS_DECODE_STEPS} decode steps over a cache of "
+            f"{MEMBERS_PARITY_LEN} positions cut in {world} blocks (member "
+            f"1's block holds no live position for the first "
+            f"{MEMBERS_DECODE_STEPS // 2}) {res['f32_decode']:.3e} (rtol = "
+            f"atol = 1e-4); bf16 "
             f"last-position logits relative Frobenius "
             f"{res['bf16_cut_rel']:.3e} (gate {MEMBERS_BF16_CUT_REL}); a2a "
             f"prefill (S {LM_PROMPT} in {world} slices) vs gather at "
@@ -3550,8 +3581,20 @@ def member_serve(rank, world, d, inputs):
         res["launches"] = launches["flash_attention"]
         res["key"] = list(key)
         res["calls"] = {k: v for k, v in calls.items() if v}
-        res["cache_gb"] = sum(cache[k].numel() * cache[k].element_size()
-                              for k in ("k", "v")) / 1e9
+        cache_bytes = sum(cache[k].numel() * cache[k].element_size()
+                          for k in ("k", "v"))
+        res["cache_gb"] = cache_bytes / 1e9
+        res["cache_shape"] = list(cache["k"].shape)
+        # one device's cache: every layer, row, position and KV head
+        one = 2 * cfg.n_layers * LM_BATCH * LM_MAX_LEN * cfg.n_kv_heads * \
+            cfg.head_dim * cache["k"].element_size()
+        res["one_cache_gb"] = one / 1e9
+        if cache["k"].shape[-3:-1] != (LM_MAX_LEN // world,
+                                       cfg.n_kv_heads) or \
+                cache_bytes * world != one:
+            raise AssertionError(f"member cache {tuple(cache['k'].shape)}, "
+                                 f"{cache_bytes} bytes: not every KV head "
+                                 f"of 1/{world} of one device's {one}")
         want = inputs["bf16_last"]
         mine = last.float().cpu().numpy()
         if not np.isfinite(mine).all():
@@ -3575,6 +3618,14 @@ def member_serve(rank, world, d, inputs):
         res["tokens_match_p1"] = float((first == inputs["bf16_tokens"])
                                        .mean())
         res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        # one decode step over the cut cache: its collectives and their
+        # share of the step's wall time
+        step = steps_mod.make_serve_step(cfg)
+        _, cache = T.prefill(params, cfg, toks, pad_to=LM_MAX_LEN)
+        step(params, toks[:, -1:], cache)
+        res["decode_profile"] = members_profile(
+            lambda: step(params, toks[:, -1:], cache)[0].cpu())
+        del cache
     return res
 
 
@@ -3582,9 +3633,12 @@ def member_train(rank, world, d, inputs):
     """[members-train], one member: granite-moe-3b-a800m at full width and
     MEMBERS_TRAIN_LAYERS layers, one data-parallel step ((world, 1) mesh,
     each member one of the batch's rows) and one tensor-parallel step ((1,
-    world) mesh, the whole batch in the config's microbatches) from the
-    same draws; then ``compressed_psum`` on the model's largest leaf
-    against an f32 model of the same int8 sum."""
+    world) mesh, the whole batch in the config's microbatches, the
+    residual stream cut by sequence under the train rules' ``res_seq``)
+    from the same draws, and the tensor-parallel step again with
+    ``res_seq`` overridden to None (its peak beside); then
+    ``compressed_psum`` on the model's largest leaf against an f32 model
+    of the same int8 sum."""
     import torch.distributed as dist
 
     from repro_torch.configs.base import ShapeConfig
@@ -3595,6 +3649,7 @@ def member_train(rank, world, d, inputs):
     from repro_torch.launch import specs
     from repro_torch.models import api
     from repro_torch.sharding import partition
+    from repro_torch.sharding import tp as TP
     from repro_torch.train import grad_compression as GC
     from repro_torch.train import optimizer as opt
     from repro_torch.train import steps as steps_mod
@@ -3611,13 +3666,20 @@ def member_train(rank, world, d, inputs):
     one_bytes = 3 * specs.nbytes(whole) + 4
     del whole, big
     res = {}
-    for name, model in (("dp", 1), ("tp", world)):
+    # the tensor-parallel step under the train rules' res_seq, and the same
+    # step with the residual stream whole on every member
+    for name, model, over in (("dp", 1, {}), ("tp", world, {}),
+                              ("tp_whole_stream", world, {"res_seq": None})):
         mesh = mesh_mod.make_host_mesh(model=model)
         rules = specs.arch_rules(cfg, mesh, ShapeConfig(
             "train", "train", TRAIN_SEQ, TRAIN_BATCH))
+        rules.update(over)
         accum = cfg.train_accum // mesh.shape["data"]
         torch.cuda.reset_peak_memory_stats()
         with partition.axis_rules(mesh, rules):
+            plan = TP.plan(cfg)
+            if (plan is not None and plan.res_seq) != (name == "tp"):
+                raise AssertionError(f"{name} step: res_seq {plan}")
             layout = api.param_layout(cfg)
             fsdp_check(name, layout)
             params = api.init(SEED, cfg, dev, n_shards=1, dtype="float32",
@@ -3895,6 +3957,19 @@ def members_serve_phase(dev, card, p1):
             f"took {pr['collective_host_ms']:.1f} ms on the host "
             f"({100 * pr['collective_host_ms'] / pr['wall_ms']:.1f}% of "
             f"wall); {device}")
+        dp = x["decode_profile"]
+        log(f"[members-serve] member {r} cache over the decode rules' "
+            f"kv_seq: {tuple(x['cache_shape'])} (groups, group, B, "
+            f"positions, KV heads, hd), {x['cache_gb']:.4f} GB, half one "
+            f"device's {x['one_cache_gb']:.4f} GB; one profiled decode step "
+            f"(B {LM_BATCH}, {cfg.n_layers} layers): wall "
+            f"{dp['wall_ms']:.2f} ms, {dp['collective_calls']} collectives "
+            f"(a layer: the q/k/v gather over heads, the gather of the "
+            f"softmax join's max, sum and output, wo's and the MoE FFN's "
+            f"all_reduce) took "
+            f"{dp['collective_host_ms']:.2f} ms on the host "
+            f"({100 * dp['collective_host_ms'] / dp['wall_ms']:.1f}% of "
+            f"wall; gloo stages each through host memory)")
     x = res[0]
     log(f"[members-serve] bf16 full depth over {MEMBERS} members vs one "
         f"device: last-position logits relative Frobenius "
@@ -3904,7 +3979,9 @@ def members_serve_phase(dev, card, p1):
         f"generated tokens equal to one device's {100 * x['tokens_match_p1']:.1f}%"
         f"; collective calls a prefill {calls} ({cfg.n_layers} layers: "
         f"attention's wo and the MoE FFN (routed and shared experts) one "
-        f"all_reduce each, the embedding one, the head one all_gather); "
+        f"all_reduce each, the K/V's move to a block of positions one "
+        f"all_to_all_single, the embedding one all_reduce, the head one "
+        f"all_gather); "
         f"phase wall "
         f"{wall_s:.1f} s; card {card!r}")
     if x["bf16_rel"] > gate:
@@ -3914,14 +3991,24 @@ def members_serve_phase(dev, card, p1):
 
 
 def members_train_phase(dev, card):
-    """[members-train]: the one-device steps of granite-moe-3b-a800m at
-    MEMBERS_TRAIN_LAYERS layers and of MEMBERS_FAMILY_TRAIN, then
-    ``member_train`` on 2 members."""
+    """[members-train]: B5 with lse at a member's heads of granite's train
+    shape (the tensor-parallel step's attention), the one-device steps of
+    granite-moe-3b-a800m at MEMBERS_TRAIN_LAYERS layers and of
+    MEMBERS_FAMILY_TRAIN, then ``member_train`` on 2 members.  Returns the
+    kernel row, its launches the first member's sequence-parallel step's
+    at that shape."""
     from repro_torch.configs.granite_moe_3b_a800m import CONFIG as GRANITE
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import api
     from repro_torch.train import optimizer as opt
     from repro_torch.train import steps as steps_mod
 
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    h, kh = GRANITE.n_heads // MEMBERS, GRANITE.n_kv_heads // MEMBERS
+    row = train_lse_row("flash_attention/granite_members_train_lse", gen,
+                        dev, h, kh, GRANITE.head_dim)
+    key = str(fa.launch_key(h, kh, GRANITE.head_dim, 0))
     cfg = GRANITE.replace(n_layers=MEMBERS_TRAIN_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     params = api.init(SEED, cfg, dev, n_shards=1, dtype="float32")
@@ -3979,15 +4066,24 @@ def members_train_phase(dev, card):
             f"the members' gate {TRAIN_GNORM_REL})")
         del batch
     res = run_members("train", p1)
-    for name in ("dp", "tp"):
+    for name in ("dp", "tp", "tp_whole_stream"):
         a, b = res[0][name], res[1][name]
         if (a["loss"], a["grad_norm"]) != (b["loss"], b["grad_norm"]):
             raise AssertionError(f"{name}: the members' metrics differ")
+    row["launches"] = res[0]["tp"]["by_key"].get(key, 0)
+    if not row["launches"]:
+        raise AssertionError(f"the sequence-parallel step launched no flash "
+                             f"kernel at {key}: {res[0]['tp']['by_key']}")
     log(f"[members-train] dp step {res[0]['dp']['step_s']:.2f} s, tp step "
-        f"{res[0]['tp']['step_s']:.2f} s, one device {dt:.2f} s (gloo "
-        f"stages every all_reduce through host memory); peak per member dp "
-        f"{[x['dp']['peak_gb'] for x in res]} GB, tp "
-        f"{[x['tp']['peak_gb'] for x in res]} GB; f32 masters + AdamW "
+        f"under res_seq {res[0]['tp']['step_s']:.2f} s, tp step with the "
+        f"stream whole {res[0]['tp_whole_stream']['step_s']:.2f} s, one "
+        f"device {dt:.2f} s (gloo stages every collective through host "
+        f"memory: these times measure that, not scaling); peak per member "
+        f"dp {[x['dp']['peak_gb'] for x in res]} GB, tp under res_seq "
+        f"{[x['tp']['peak_gb'] for x in res]} GB beside the stream whole "
+        f"{[x['tp_whole_stream']['peak_gb'] for x in res]} GB; the tp step's "
+        f"flash launches at the member's heads {key}: {row['launches']}; "
+        f"f32 masters + AdamW "
         f"bytes per member dp (FSDP) {[x['dp']['state_bytes'] for x in res]}"
         f", tp {[x['tp']['state_bytes'] for x in res]}, one device "
         f"{res[0]['dp']['one_bytes']}; compressed_psum "
@@ -4008,6 +4104,7 @@ def members_train_phase(dev, card):
             f"{[x[arch]['dp']['state_bytes'] for x in res]}, tp "
             f"{[x[arch]['tp']['state_bytes'] for x in res]}, one device "
             f"{res[0][arch]['dp']['one_bytes']}; card {card!r}")
+    return row
 
 
 def members_elastic_phase(dev, card):
@@ -4283,6 +4380,20 @@ def member_family(rank, world, d, inputs):
         res["tokens_match_p1"] = float((first == inputs["bf16_tokens"])
                                        .mean())
         res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if not ssm:
+            # the engine's cache under the rules' kv_seq: the shared
+            # attention's K/V a block of positions for every KV head
+            max_len = MEMBERS_GEN_PROMPT + LM_NEW
+            shape = tuple(api.make_cache(cfg, prompts.shape[0], max_len,
+                                         device="meta")["attn_k"].shape)
+            if shape[2:4] != (-(-max_len // world), cfg.n_kv_heads):
+                raise AssertionError(f"{tag} engine cache {shape}: not a "
+                                     f"block of positions of {max_len}")
+            log(f"{tag} rank {rank}: LMEngine decoded over the shared "
+                f"attention's cache cut by positions (kv_seq): attn_k "
+                f"{shape} (groups, B, positions, KV heads, hd) of "
+                f"{max_len} positions; the mamba states keep the member's "
+                f"heads")
     return res
 
 
@@ -5338,9 +5449,6 @@ def train_flash_phase(dev):
     train shape beside its plain version and SDPA, the plain backward
     beside SDPA's forward and backward.  Returns the row."""
     from repro_torch.configs.granite_moe_3b_a800m import CONFIG as GRANITE
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 6)
@@ -5365,8 +5473,19 @@ def train_flash_phase(dev):
                 f"through the plain attention")
         del q, k, v, dout, got, want
         torch.cuda.empty_cache()
+    return train_lse_row("flash_attention/granite_train_lse", gen, dev, h,
+                         kh, hd)
 
-    # the train row: the kernel asked for lse, at the train shape
+
+def train_lse_row(name, gen, dev, h, kh, hd):
+    """The flash kernel asked for lse (as ``FlashAttentionFn``'s forward
+    asks) at B 1, S TRAIN_SEQ, ``h`` over ``kh`` heads, bf16, held against
+    its plain version and timed beside SDPA; the plain backward timed
+    beside SDPA's forward and backward.  Returns the row."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
+
     q, k, v = ((torch.randn((1, TRAIN_SEQ, n, hd), generator=gen,
                             device=dev) * sc).to(torch.bfloat16)
                for n, sc in ((h, FLASH_Q_SCALE), (kh, 1.0), (kh, 1.0)))
@@ -5378,8 +5497,7 @@ def train_flash_phase(dev):
             is_causal=True, enable_gqa=True).transpose(1, 2)
 
     row = check_kernel(
-        "flash_attention/granite_train_lse",
-        "src/repro/kernels/flash_attention.py:97",
+        name, "src/repro/kernels/flash_attention.py:97",
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         lambda: fa.attend(q, k, v, return_lse=True)[0],
         lambda: ref.flash_attention_ref(q, k, v), sdpa,
@@ -5404,12 +5522,12 @@ def train_flash_phase(dev):
     row["library_fwd_bwd_ms"] = time_ms(sdpa_fwd_bwd)
     row["shape"] = (f"B 1, S {TRAIN_SEQ}, H {h} over Kh {kh}, hd {hd}, "
                     f"causal, bf16, with lse")
-    log(f"[train-flash] {row['name']}: kernel with lse {row['ms']:.4f} ms "
-        f"(null lse {row['serving_ms']:.4f} ms), "
-        f"SDPA forward {row['library_ms']:.4f} ms, bound "
-        f"{row['bound_ms']:.4f} ms; plain backward (chunks of 1024, f32 "
-        f"sums) {row['plain_bwd_ms']:.4f} ms beside SDPA forward + backward "
-        f"{row['library_fwd_bwd_ms']:.4f} ms")
+    log(f"[train-flash] {row['name']} ({row['shape']}): kernel with lse "
+        f"{row['ms']:.4f} ms (null lse {row['serving_ms']:.4f} ms), "
+        f"plain {row['plain_ms']:.4f} ms, SDPA forward "
+        f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms; plain "
+        f"backward (chunks of 1024, f32 sums) {row['plain_bwd_ms']:.4f} ms "
+        f"beside SDPA forward + backward {row['library_fwd_bwd_ms']:.4f} ms")
     del q, k, v, dout, out, lse, qs
     torch.cuda.empty_cache()
     return row
@@ -5980,6 +6098,15 @@ def cells_phase(dev, card):
                 f"{rec['flops']} plain-path flops over 989 TFLOP/s bf16); "
                 f"peak {peak} bytes beside the dry run's argument + temp "
                 f"{est}; launches {launches}; card {card!r}")
+            if cut.kind == "decode" and len(args) == 3:
+                log(f"[cells] {name}: cache {specs.nbytes(args[2])} bytes on "
+                    f"the card == the record's cache_size_in_bytes "
+                    f"{rec['memory']['cache_size_in_bytes']} (one member: "
+                    f"the kv_seq cut is the identity)")
+                if specs.nbytes(args[2]) != \
+                        rec["memory"]["cache_size_in_bytes"]:
+                    raise AssertionError(f"{name}: cache bytes differ from "
+                                         "the dry run's record")
             if arch == "qwen3-14b":
                 c = cell.cfg
                 key = fa.launch_key(c.n_heads, c.n_kv_heads, c.head_dim, 0,
@@ -6393,7 +6520,7 @@ def main() -> int:
     lap("train")
     # the training phases over members (two processes on this card)
     torch.cuda.empty_cache()
-    members_train_phase(dev, card)
+    members_train_row = members_train_phase(dev, card)
     lap("members-train")
     members_elastic_phase(dev, card)
     lap("members-elastic")
@@ -6417,7 +6544,7 @@ def main() -> int:
     zamba_row["launches"] = zamba_by_key.get(zkey, 0)
     hd8_row["launches"] = smoke_by_key.get(hd8_key, 0)
     rows += [zamba_row, zamba_f32_row, hd8_row, train_row, members_row,
-             hybrid_row, ssm_row]
+             hybrid_row, ssm_row, members_train_row]
     for row, key in wkv_rows:
         row["launches"] = wkv_by_key.get(key, 0)
         rows.append(row)

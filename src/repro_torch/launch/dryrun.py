@@ -24,6 +24,9 @@ A record keeps the reference's keys where they mean the same thing:
 ``memory.argument_size_in_bytes`` (this member's arguments, exact, from
 the layouts), ``output_size_in_bytes`` (the outputs') and
 ``alias_size_in_bytes`` (outputs that are arguments updated in place),
+``cache_size_in_bytes`` (of the arguments, the cache or recurrent state a
+decode cell's member holds: its block under ``api.cache_layout``; 0
+elsewhere),
 ``temp_size_in_bytes`` (``MemTracker``'s peak less the arguments, on
 the plain path: ``temp_basis`` says so), ``flops``
 (``FlopCounterMode``'s count for this member), ``collective_bytes`` and
@@ -153,6 +156,8 @@ def run_cell(arch: str, shape_name, mesh, multi_pod: bool,
             "argument_size_in_bytes": n_args,
             "output_size_in_bytes": nbytes(out),
             "alias_size_in_bytes": nbytes(aliased),
+            "cache_size_in_bytes": nbytes(cell.args[2])
+            if shape.kind == "decode" and len(cell.args) == 3 else 0,
             "temp_size_in_bytes": peak - n_args,
             "temp_basis": "MemTracker peak less the arguments, plain "
                           "PyTorch path",

@@ -30,6 +30,9 @@ import torch
 import torch.distributed as dist
 
 AXES = ("data", "model")
+# the lines over several axes whose groups a mesh builds: the batch-1
+# rule cuts a KV cache's positions over (data, model)
+MULTI_AXES = (("data", "model"),)
 # whether this torch's new_group can keep its ranks in the order given
 # (older ones always sort them)
 _KEEPS_ORDER = "sort_ranks" in inspect.signature(dist.new_group).parameters
@@ -66,10 +69,11 @@ class Mesh:
 
     ``shape`` and ``coords`` are dicts by axis name (``coords`` is None on a
     process the grid leaves out); ``groups[axis]`` is this process's group
-    along ``axis`` (its row for ``model``, its column for ``data``), and
-    ``groups["all"]`` the whole grid's; each is None where it has one
-    member or the process is no member: a collective over one member is
-    the identity, and the port skips it."""
+    along ``axis`` (its row for ``model``, its column for ``data``),
+    ``groups[axes]`` its group over a tuple of :data:`MULTI_AXES` (row-major
+    over them), and ``groups["all"]`` the whole grid's; each is None where
+    it has one member or the process is no member: a collective over one
+    member is the identity, and the port skips it."""
     shape: dict
     ranks: tuple
     coords: Optional[dict]
@@ -84,7 +88,15 @@ class Mesh:
     def is_member(self) -> bool:
         return self.coords is not None
 
-    def group(self, axis: str):
+    def group(self, axis):
+        """The group along ``axis``, or over a tuple of axes (those of one
+        member dropped): a member's rank in it is its block, row-major
+        over the axes."""
+        if isinstance(axis, tuple):
+            axes = tuple(a for a in axis if self.shape[a] > 1)
+            if len(axes) > 1:
+                return self.groups.get(axes)
+            axis = axes[0] if axes else None
         return self.groups.get(axis)
 
     def index(self, axis: str) -> int:
@@ -125,6 +137,9 @@ def _grid(ranks, shape: dict) -> Mesh:
         coords = {a: int(c) for a, c in
                   zip(axes, np.unravel_index(ranks.index(me), sizes))}
     groups = {**{a: None for a in axes}, "all": None}
+    live = tuple(a for a, n in zip(axes, sizes) if n > 1)
+    multi = [m for m in MULTI_AXES
+             if set(m) <= set(axes) and all(shape[a] > 1 for a in m)]
     if not dist.is_initialized():
         return Mesh(shape, ranks, coords, groups, axes)
     if len(ranks) > 1:
@@ -141,14 +156,38 @@ def _grid(ranks, shape: dict) -> Mesh:
             g = _new_group(line)
             if me in line:
                 groups[axes[i]] = g
+    # the planes over several axes: the whole grid's group where they are
+    # all its axes of more than one member
+    for m in multi:
+        if m == live:
+            groups[m] = groups["all"]
+            continue
+        dims = [axes.index(a) for a in m]
+        rest = [i for i in range(len(axes)) if i not in dims]
+        planes = np.transpose(grid, rest + dims).reshape(
+            -1, math.prod(sizes[i] for i in dims))
+        for plane in planes.tolist():
+            g = _new_group(plane)
+            if me in plane:
+                groups[m] = g
     if coords is not None:
         at = {"all": ranks.index(me), **coords}
+        for m in multi:
+            at[m] = _block_index(coords, shape, m)
         for axis, g in groups.items():
             if g is not None and dist.get_rank(g) != at[axis]:
                 raise RuntimeError(
                     f"rank {me} is {dist.get_rank(g)} in its {axis!r} group "
                     f"but at {at[axis]} on the mesh")
     return Mesh(shape, ranks, coords, groups, axes)
+
+
+def _block_index(coords: dict, shape: dict, axes: tuple) -> int:
+    """A member's block over ``axes``, row-major (``partition.block``)."""
+    i = 0
+    for a in axes:
+        i = i * shape[a] + coords[a]
+    return i
 
 
 def make_host_mesh(model: int = 1) -> Mesh:

@@ -16,9 +16,13 @@ Sharding policy (DESIGN.md §6), resolved dynamically per arch
     6-head attention unevenly for zero benefit).
 
 The port reads these rules for the ``model`` and ``data`` axes of the
-parameters (``models/api.py::param_layout``); activations are not
-sequence-parallel (``res_seq`` and ``kv_seq`` are ROADMAP A14f-5).  On
-``model`` they cut every family but whisper: the transformer families
+parameters (``models/api.py::param_layout``) and for the sequence: under
+the train rules' ``res_seq`` the residual stream of the dense, MoE and
+VLM families is cut by sequence over ``model`` between blocks, and under
+the serving rules' ``kv_seq`` every KV cache is cut by positions, each
+member holding every KV head of its block (``models/api.py::
+cache_layout``).  On ``model`` the parameter rules cut every family but
+whisper: the transformer families
 (dense, MoE, VLM), rwkv6's time mix (heads) and channel mix ("mlp"), and
 zamba2's Mamba-2 heads (its fused ``in_proj`` and conv segment by segment)
 and shared block; whisper's model rules are all None.  Under the train
@@ -36,7 +40,8 @@ Where the cells differ from the reference's:
     :class:`Cell` holds each argument as this member holds it: its block
     of every parameter and optimizer leaf under the port's layout
     (``api.param_layout``), its rows of a serving batch, and the cache
-    ``api.make_cache`` builds for its rows and heads.  A train cell holds
+    ``api.make_cache`` builds for its rows and positions
+    (``api.cache_layout``).  A train cell holds
     its rows of the batch too: the train step takes a batch of its
     block's rows as this member's (``train/steps.py``).  Each cell keeps
     the layouts beside (:class:`partition.Layout` in place of
@@ -254,8 +259,8 @@ class Cell:
     """One (arch × shape) dry-run program, ready to trace under a mesh.
 
     ``args`` are stand-ins of the step's arguments as this member holds
-    them (see the module docstring), ``layouts`` the layout of each (None
-    for a cache, which ``api.make_cache`` builds per member), and
+    them (see the module docstring), ``layouts`` the layout of each (a
+    cache's ``api.cache_layout``), and
     ``ref_params`` the stand-ins of this member's parameter blocks under
     the reference's rules (``tree_shardings``), which the dry run compares
     with the port's.  ``in_place`` names the arguments the step updates in
@@ -345,7 +350,7 @@ def build_cell(arch_name: str, shape_name: Union[str, ShapeConfig], mesh,
         return Cell(arch_name, shape, step, (pblocks, local),
                     (pshard, bshard), rules, cfg, ref_params=ref)
 
-    # decode: the cache of this member's rows and heads
+    # decode: the cache of this member's rows and positions
     with partition.axis_rules(mesh, rules):
         cache = api.make_cache(serve_cfg, local["tokens"].shape[0],
                                shape.seq_len, dtype="bfloat16",
@@ -353,8 +358,8 @@ def build_cell(arch_name: str, shape_name: Union[str, ShapeConfig], mesh,
     step = steps_mod.make_serve_step(serve_cfg)
     tshard = partition.Layout(mesh, bshard.specs["tokens"])
     return Cell(arch_name, shape, step, (pblocks, local["tokens"], cache),
-                (pshard, tshard, None), rules, cfg, in_place=(2,),
-                ref_params=ref)
+                (pshard, tshard, api.cache_layout(serve_cfg, mesh, rules)),
+                rules, cfg, in_place=(2,), ref_params=ref)
 
 
 def _build_dlrm_cell(arch_name, cfg, shape, batch, bshard, pspec, mesh,

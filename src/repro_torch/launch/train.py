@@ -15,8 +15,9 @@ every batch, gradients are averaged over the data axis, the first rank
 logs and writes checkpoints.  ``--production-mesh`` trains on the (16, 16)
 mesh of ``make_production_mesh`` over the process group (256 processes;
 fewer raise ``ValueError``), under the shape's ``arch_rules``: fully
-sharded over ``data`` and cut over ``model``.  Sequence parallelism
-(``res_seq``) is not ported (ROADMAP A14f-5).
+sharded over ``data`` and cut over ``model``, the residual stream of the
+dense, MoE and VLM families cut by sequence over ``model`` between blocks
+where the sequence divides (the train rules' ``res_seq``).
 
 Resuming differs from the reference on purpose.  A checkpoint saved after
 step i holds the state after that step's update; the port resumes at step

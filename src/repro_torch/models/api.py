@@ -15,8 +15,10 @@ Over a mesh (``sharding/partition.py::axis_rules``) the transformer
 families (dense, moe, vlm) run tensor- and expert-parallel, rwkv6 (ssm)
 and zamba2 (hybrid) tensor-parallel, with no new argument: each member
 holds the blocks :func:`param_layout` gives it, from :func:`init` with a
-``layout`` or from :func:`shard_params` of a whole tree, and a cache of
-its own heads (:func:`make_cache`).  whisper (audio) keeps every leaf
+``layout`` or from :func:`shard_params` of a whole tree, and its block of
+a cache (:func:`make_cache`, :func:`cache_layout`): its own heads, or
+under the ``kv_seq`` rule a block of positions for every KV head.
+whisper (audio) keeps every leaf
 whole over ``model``: ``launch/specs.py::arch_rules`` sets its model
 rules to None, so it runs data-parallel (on a model axis, replicated).
 Under the train rules every family is also fully sharded over ``data``
@@ -192,6 +194,51 @@ def param_layout(cfg: ModelConfig, mesh=None,
     return partition.Layout(mesh, partition.map_specs(narrow, base.specs))
 
 
+def cache_layout(cfg: ModelConfig, mesh=None,
+                 rules: Optional[dict] = None) -> partition.Layout:
+    """Where each leaf of :func:`make_cache`'s cache lives over ``mesh``
+    under ``rules`` (default: the ambient ones): the batch over the
+    rules' axes; a KV cache's positions over the axes "kv_seq" claims
+    (``tp.kv_cut``), every KV head on every member, or without that cut
+    its KV heads over ``model`` where the port cuts them; a recurrent
+    state's heads over ``model`` where the port cuts them (zamba2's conv
+    channels by :func:`_segments`' x | B | C).  A cut that does not
+    divide gives each member a padded block (``tp.SeqCut.size``).  Where
+    a member projects one KV head that its query heads share ("select")
+    and the cache is not cut by positions, no block layout names its
+    heads: that raises."""
+    mesh = mesh if mesh is not None else partition.current_mesh()
+    logical = cache_specs(cfg)
+    base = partition.tree_layout(logical, mesh, rules)
+    tp = TP.plan(cfg, mesh, rules)
+    cut = TP.kv_cut(mesh, rules)
+    heads = {"ssm": tp is not None and tp.heads,
+             "hybrid": tp is not None and tp.ssm_heads}.get(cfg.family,
+                                                            False)
+
+    def entry(path, ax, e):
+        if ax == "batch":
+            return e
+        if ax == "kv_seq":
+            return None if cut is None else \
+                (cut.axes[0] if len(cut.axes) == 1 else cut.axes)
+        if ax == "kv_heads" and cut is None and tp is not None and \
+                tp.heads:
+            if tp.kv == "select":
+                raise ValueError(f"{cfg.name}: a member's one KV head "
+                                 "('select') has no block layout")
+            return "model" if tp.kv == "cut" else None
+        if ax == "heads" and heads:
+            return _segments(cfg, ("mamba", "conv_w")) \
+                if path[-1] == "conv" else "model"
+        return None
+
+    return partition.Layout(mesh, partition.map_specs(
+        lambda path, axes, spec: tuple(entry(path, a, e)
+                                       for a, e in zip(axes, spec)),
+        logical, base.specs))
+
+
 def shard_params(params, cfg: ModelConfig, mesh=None,
                  rules: Optional[dict] = None):
     """This member's blocks of a whole parameter tree (``init``'s, or the
@@ -233,7 +280,9 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     caches (zero cross K/V over ``AUDIO_ENC_LEN`` frames), rwkv6's
     recurrent state (constant in ``max_len``), or zamba2's shared-block K/V
     beside its mamba layers' conv and SSD states.  Under the ambient mesh
-    the heads are this member's (:func:`sharding.tp.plan`)."""
+    each member holds its block (:func:`cache_layout`): its heads
+    (:func:`sharding.tp.plan`), or under ``kv_seq`` its block of
+    positions."""
     check_ported(cfg)
     if cfg.family == "ssm":
         return rwkv6.make_state(cfg, batch, dtype, device)

@@ -210,10 +210,17 @@ def glu_mlp_specs():
             "down": ("mlp", "embed")}
 
 
-def glu_mlp(params, x, act: str = "silu", group=None):
+def glu_mlp(params, x, act: str = "silu", group=None, seq: bool = False):
     """With ``group`` the parameters are this member's block of the hidden
     width (column-parallel ``gate``/``up``, row-parallel ``down``) and one
-    ``all_reduce`` sums the members' outputs."""
+    ``all_reduce`` sums the members' outputs.  With ``seq`` too, ``x`` is
+    this member's block of the sequence: the region enters through
+    ``tp.gather_seq`` and leaves through ``tp.scatter_seq`` (this member's
+    block of the sum)."""
+    if seq and group is not None:
+        x = tp.gather_seq(x, group)
+        h = activation(act)(x @ params["gate"]) * (x @ params["up"])
+        return tp.scatter_seq(h @ params["down"], group)
     x = tp.copy_to(x, group)
     h = activation(act)(x @ params["gate"]) * (x @ params["up"])
     return tp.reduce_from(h @ params["down"], group)
@@ -290,18 +297,22 @@ def embedding_specs():
     return {"table": ("emb_vocab", "emb_col")}
 
 
-def embed_tokens(params, tokens, scale: Optional[float] = None, group=None):
+def embed_tokens(params, tokens, scale: Optional[float] = None, group=None,
+                 seq: bool = False):
     """Rows of the table; the ``scale`` multiply is in f32.  An id outside
     [0, vocab) raises (JAX would clamp it).  With ``group`` the table is
     this member's block of rows: ids outside it look up zeros and one
     ``all_reduce`` over the group leaves the one non-zero term (exact); an
-    id outside the whole vocab gives zeros there."""
+    id outside the whole vocab gives zeros there.  With ``seq`` too the
+    sum is a reduce-scatter to this member's block of the sequence."""
     if group is not None:
         rows = params["table"].shape[0]
         local = tokens - dist.get_rank(group) * rows
         hit = (local >= 0) & (local < rows)
         out = params["table"][local.clamp(0, rows - 1)]
-        out = tp.reduce_from(torch.where(hit[..., None], out, 0), group)
+        out = torch.where(hit[..., None], out, 0)
+        out = tp.scatter_seq(out, group) if seq else \
+            tp.reduce_from(out, group)
     else:
         out = params["table"][tokens]
     if scale is not None:

@@ -246,12 +246,14 @@ def moe_gather(params, cfg: ModelConfig, x, group=None):
     return _add_shared(params, cfg, x, out.reshape(b, s, d)), aux
 
 
-def _add_shared(params, cfg: ModelConfig, x, routed, group=None):
+def _add_shared(params, cfg: ModelConfig, x, routed, group=None,
+                seq: bool = False):
     """routed + the gated shared experts (with ``group``: this member's
-    part of their hidden width, summed over the group)."""
+    part of their hidden width, summed over the group; with ``seq`` too,
+    ``x`` is this member's block of the sequence, ``layers.glu_mlp``)."""
     if not cfg.moe.n_shared_experts:
         return routed
-    shared = L.glu_mlp(params["shared"], x, cfg.act, group)
+    shared = L.glu_mlp(params["shared"], x, cfg.act, group, seq=seq)
     g = torch.sigmoid(L.dense(params["shared_gate"], x).float())
     return routed + (shared.float() * g).to(routed.dtype)
 
@@ -386,51 +388,70 @@ def moe_members(params, cfg: ModelConfig, x, tp):
     exchange of :func:`moe_a2a`, one ``all_gather`` of the slices; the
     shared experts as a column/row-parallel MLP.  The a2a exchange is not
     differentiable: under autograd it raises, as it does where S does not
-    split into n slices (decode: S = 1)."""
+    split into n slices (decode: S = 1).
+
+    Under ``res_seq`` (``tp.res_seq``) ``x`` is this member's block of
+    the sequence and so is the output.  ``gather``: the region enters
+    through ``tp.gather_seq`` (routing and the shared gate, whole on every
+    member, through ``tp.own_seq``) and the sum leaves through
+    ``tp.scatter_seq``.  ``a2a``: the block is the member's slice, so the
+    exchange's output needs no gather.  Shared experts whose width is not
+    cut run token by token on the block, their leaves' gradients summed
+    over the members."""
     moe = cfg.moe
     if not tp.experts:
         raise ValueError(f"{cfg.name}: the rules leave the routed experts "
                          "whole on a model axis of "
                          f"{tp.n} members; the port cuts them")
     b, s, d = x.shape
-    n, m, group = tp.n, tp.m, tp.group
+    n, m, group, seq = tp.n, tp.m, tp.group, tp.res_seq
     e_loc = params["gate"].shape[0]
     e_pad = e_loc * n
-    xl = x.reshape(b * s, d)
     shared_group = group if tp.shared_mlp else None
+    if seq and shared_group is None and moe.n_shared_experts:
+        # whole shared experts run on the block: their leaves see this
+        # member's positions
+        params = dict(params, **{k: {kk: TP.copy_to(vv, group)
+                                     for kk, vv in params[k].items()}
+                                 for k in ("shared", "shared_gate")})
     if moe.dispatch == "a2a":
-        if s % n:
+        if not seq and s % n:
             raise ValueError(f"moe a2a over {n} members needs the sequence "
                              f"to split into {n} slices: S = {s}, P = {n}")
         if torch.is_grad_enabled() and (x.requires_grad or
                                         params["gate"].requires_grad):
             raise NotImplementedError("moe a2a over members is not "
                                       "differentiable; train with 'gather'")
-        xs = x[:, m * (s // n):(m + 1) * (s // n)].reshape(-1, d)
-        c_send, c_exp = a2a_capacities(xs.shape[0], moe, n, e_pad)
-        payload, side = a2a_stage_a(params["router"], xs, moe, e_pad, n,
-                                    c_send)
+        xs = x if seq else x[:, m * (s // n):(m + 1) * (s // n)]
+        c_send, c_exp = a2a_capacities(b * xs.shape[1], moe, n, e_pad)
+        payload, side = a2a_stage_a(params["router"], xs.reshape(-1, d),
+                                    moe, e_pad, n, c_send)
         recv = a2a_dispatch(payload, group).wait()
         out = a2a_stage_b({k: params[k] for k in ("gate", "up", "down")},
-                          cfg.act, recv, side, group, c_exp)
-        routed = TP.gather_from(out.view(b, s // n, d), group, dim=1)
+                          cfg.act, recv, side, group, c_exp).view(xs.shape)
+        routed = out if seq else TP.gather_from(out, group, dim=1)
         probs, idx = side[-2:]
-        return _add_shared(params, cfg, x, routed, shared_group), \
+        return _add_shared(params, cfg, x, routed, shared_group, seq), \
             load_balance_loss(probs, idx, moe.n_experts)
-    cap = capacity(b * s, moe.experts_per_token, e_pad, moe.capacity_factor)
-    w, idx, probs = route(params["router"], xl, moe, e_pad)
-    xe = TP.copy_to(xl, group)
-    out = _experts_combine(params, xe, TP.copy_to(w, group), idx, cfg.act,
-                           cap, m * e_loc, e_loc).view(b, s, d)
+    # the region's input: summed over the members backward (the experts'
+    # parts), and as the replicated routing and shared gate see it
+    xe = TP.gather_seq(x, group) if seq else TP.copy_to(x, group)
+    xr = TP.own_seq(xe, group) if seq else x
+    t = xe.shape[0] * xe.shape[1]
+    cap = capacity(t, moe.experts_per_token, e_pad, moe.capacity_factor)
+    w, idx, probs = route(params["router"], xr.reshape(t, d), moe, e_pad)
+    out = _experts_combine(params, xe.reshape(t, d), TP.copy_to(w, group),
+                           idx, cfg.act, cap, m * e_loc, e_loc)
+    out = out.view(xe.shape)
     aux = load_balance_loss(probs, idx, moe.n_experts)
+    leave = TP.scatter_seq if seq else TP.reduce_from
     if moe.n_shared_experts and shared_group is not None:
         # the local part of the shared experts joins the routed sum
-        shared = L.glu_mlp(params["shared"], xe.view(b, s, d), cfg.act)
-        g = torch.sigmoid(L.dense(params["shared_gate"], x).float())
+        shared = L.glu_mlp(params["shared"], xe, cfg.act)
+        g = torch.sigmoid(L.dense(params["shared_gate"], xr).float())
         out = out + (shared.float() * TP.copy_to(g, group)).to(out.dtype)
-        return TP.reduce_from(out, group), aux
-    out = TP.reduce_from(out, group)
-    return _add_shared(params, cfg, x, out), aux
+        return leave(out, group), aux
+    return _add_shared(params, cfg, x, leave(out, group), seq=seq), aux
 
 
 # ---------------------------------------------------------------------------

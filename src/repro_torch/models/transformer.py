@@ -29,9 +29,17 @@ ambient mesh and rules where the reference calls ``constrain``: each
 member holds its block of every parameter (``api.param_layout``) and
 :func:`sharding.tp.plan` says which; attention, the MLP or MoE FFN, the
 embedding and the head issue their collectives over the model group, and
-the cache holds the member's KV heads.  No argument of the entry points
-changes.  The batch is the caller's: the forward runs the batch it is
-given, which a data member of a training step has already cut.
+the cache holds the member's KV heads.  Under the train rules'
+``res_seq`` the residual stream between blocks is this member's block of
+the sequence (Megatron's sequence parallelism, ``sharding/tp.py``): the
+embedding leaves into it, the norms run on it (their scales' gradients
+summed over the members), attention and the FFN gather it on entry and
+reduce-scatter on exit, and it is gathered whole before the final norm,
+so the loss is the one-device one.  Under ``kv_seq`` the cache holds a
+block of positions for every KV head (``attention.decode_step``).  No
+argument of the entry points changes.  The batch is the caller's: the
+forward runs the batch it is given, which a data member of a training
+step has already cut.
 """
 from __future__ import annotations
 
@@ -255,15 +263,39 @@ def _ffn(params, cfg: ModelConfig, h, tp=None):
             return M.moe_ffn(params, cfg, h)
         return M.moe_members(params, cfg, h, tp)
     group = tp.group if tp is not None and tp.mlp else None
-    return L.glu_mlp(params, h, cfg.act, group), \
+    seq = TP.seq_group(tp)
+    if seq is not None and group is None:
+        # a whole MLP runs token by token on the block: its leaves see
+        # this member's positions
+        params = A._shared(params, seq)
+    return L.glu_mlp(params, h, cfg.act, group, seq=seq is not None), \
         h.new_zeros((), dtype=torch.float32)
+
+
+# the sublayer's norms: on the sequence-cut stream they see this member's
+# positions only
+NORMS = ("ln1", "ln2", "ln1_post", "ln2_post")
+
+
+def seq_norms(params, tp):
+    """``params`` with its norm scales through ``tp.copy_to`` over the
+    model group under ``res_seq`` (their gradients summed over the
+    members), else as they are."""
+    seq = TP.seq_group(tp)
+    if seq is None:
+        return params
+    return {k: A._shared(v, seq) if k in NORMS else v
+            for k, v in params.items()}
 
 
 def block_full(params, cfg: ModelConfig, x, kind: str, *,
                attn_impl: str = "auto", tp=None):
     """One sublayer over a full sequence (prefill).  Returns (x, aux_loss,
-    (k, v)); k, v build the cache."""
+    (k, v)); k, v build the cache.  Under ``res_seq`` ``x`` is this
+    member's block of the sequence and the norms run on it (the
+    reference's "Megatron LN placement"); k, v are the whole sequence's."""
     window = cfg.sliding_window if kind == "local" else 0
+    params = seq_norms(params, tp)
     h = L.rmsnorm(params["ln1"], x, cfg.norm_eps, cfg.norm_plus_one)
     attn, kv = A.attend_full(params["attn"], cfg, h, window=window,
                              attn_impl=attn_impl, tp=tp)
@@ -280,11 +312,12 @@ def block_full(params, cfg: ModelConfig, x, kind: str, *,
 
 
 def block_decode(params, cfg: ModelConfig, x, kind: str, cache_k, cache_v,
-                 pos: int, tp=None):
+                 pos: int, tp=None, cut=None, length=None):
     window = cfg.sliding_window if kind == "local" else 0
     h = L.rmsnorm(params["ln1"], x, cfg.norm_eps, cfg.norm_plus_one)
     attn, (ck, cv) = A.decode_step(params["attn"], cfg, h, cache_k, cache_v,
-                                   pos, window=window, tp=tp)
+                                   pos, window=window, tp=tp, cut=cut,
+                                   length=length)
     if cfg.post_norms:
         attn = L.rmsnorm(params["ln1_post"], attn, cfg.norm_eps,
                          cfg.norm_plus_one)
@@ -306,14 +339,19 @@ def embed_inputs(params, cfg: ModelConfig, tokens, frontend_embeds=None,
                  tp=None):
     """Token embeddings (B, S, D); with ``frontend_embeds`` (B, N,
     d_frontend), their projection (in the compute type) ahead of them ->
-    (B, N + S, D)."""
+    (B, N + S, D).  Under ``res_seq`` this member's block of that
+    sequence: the vocab-parallel sum reduce-scattered to it, or the joint
+    sequence (or a whole table's rows) split."""
     scale = cfg.d_model ** 0.5 if cfg.scale_embeds else None
     group = tp.group if tp is not None and tp.emb_vocab else None
-    x = L.embed_tokens(params["embed"], tokens, scale, group)
+    seq = TP.seq_group(tp)
+    scatter = seq is not None and group is not None and \
+        frontend_embeds is None
+    x = L.embed_tokens(params["embed"], tokens, scale, group, seq=scatter)
     if frontend_embeds is not None:
         fe = L.dense(params["frontend_proj"], frontend_embeds.to(x.dtype))
         x = torch.cat([fe, x], dim=1)
-    return x
+    return x if scatter else TP.split_seq(x, seq)
 
 
 def logits_out(params, cfg: ModelConfig, x, tp=None):
@@ -383,7 +421,8 @@ def _forward(params, cfg: ModelConfig, tokens, frontend_embeds, *,
     max(pad_to or S, S), Kh, hd) cache, zero past the sequence.  With
     ``remat`` each group runs under :func:`_remat`."""
     pat = layer_pattern(cfg)
-    tp = TP.plan(cfg)
+    n_front = 0 if frontend_embeds is None else frontend_embeds.shape[1]
+    tp = TP.for_sequence(TP.plan(cfg), n_front + tokens.shape[1])
     cdt = L.dtype_of(cfg.dtype)
     specs = lm_specs(cfg)
     # FSDP: the non-layer leaves are gathered over data here, each group's
@@ -394,9 +433,10 @@ def _forward(params, cfg: ModelConfig, tokens, frontend_embeds, *,
     # through the cast), then split into groups of views
     groups = unbind_groups(cast_params(params["layers"], cdt), n_groups(cfg))
     x = embed_inputs(pc, cfg, tokens, frontend_embeds, tp)
-    b, s, _ = x.shape
+    b, s = x.shape[0], n_front + tokens.shape[1]
     cache = make_cache(cfg, b, max(pad_to or s, s), device=x.device) \
         if collect_cache else None
+    cut = TP.cache_cut(tp)
 
     gather = fsdp.gatherer(specs["layers"], skip=1)
 
@@ -417,9 +457,16 @@ def _forward(params, cfg: ModelConfig, tokens, frontend_embeds, *,
         aux = aux + a
         if cache is not None:
             for i, (k, v) in enumerate(kvs):
-                cache["k"][gi, i, :, :s] = k
-                cache["v"][gi, i, :, :s] = v
+                if cut is None:
+                    cache["k"][gi, i, :, :s] = k
+                    cache["v"][gi, i, :, :s] = v
+                    continue
+                cache["k"][gi, i], cache["v"][gi, i] = A.cache_block(
+                    cfg, k, v, tp, cut, cache["k"].shape[3])
         del kvs
+    # the head and the loss see the whole stream (the gather's backward
+    # keeps this member's block of their gradient, whole on every member)
+    x = TP.gather_from(x, TP.seq_group(tp), dim=1)
     logits = logits_out(pc, cfg, x[:, -1:] if last_only else x, tp)
     return logits, aux, cache
 
@@ -460,15 +507,25 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device="cuda"):
     """Zero cache {"k", "v": (groups, group, batch, max_len, Kh, hd),
     "pos": 0}; ``pos`` is a host int.  Over a mesh Kh is this member's KV
-    heads."""
+    heads; under ``kv_seq`` (``tp.kv_cut``) the cache is this member's
+    block of ``cut.size(max_len)`` positions for every KV head (the last
+    block padded where ``max_len`` does not divide), and "len" keeps
+    ``max_len``."""
     dev = resolve_device(device)
     dt = L.dtype_of(dtype or cfg.dtype)
     tp = TP.plan(cfg)
+    cut = TP.cache_cut(tp)
     kh = tp.kv_n if tp is not None and tp.heads else cfg.n_kv_heads
-    shape = (n_groups(cfg), len(layer_pattern(cfg)), batch, max_len,
+    t = max_len
+    if cut is not None:
+        kh, t = cfg.n_kv_heads, cut.size(max_len)
+    shape = (n_groups(cfg), len(layer_pattern(cfg)), batch, t,
              kh, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev), "pos": 0}
+    cache = {"k": torch.zeros(shape, dtype=dt, device=dev),
+             "v": torch.zeros(shape, dtype=dt, device=dev), "pos": 0}
+    if cut is not None:
+        cache["len"] = max_len
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -492,14 +549,17 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, *,
     pc = cast_params({k: v for k, v in params.items() if k != "layers"}, cdt)
     layers = cast_params(params["layers"], cdt)
     pos = cache["pos"]
+    tp = TP.for_sequence(tp, 1)      # one position: the stream stays whole
+    cut = TP.cache_cut(tp)
     x = embed_inputs(pc, cfg, tokens, tp=tp)
     for gi in range(n_groups(cfg)):
         for i, kind in enumerate(pat):
             sub = _map(lambda a: a[gi], layers[f"sub{i}"])
             x, _, _ = block_decode(sub, cfg, x, kind, cache["k"][gi, i],
-                                   cache["v"][gi, i], pos, tp)
+                                   cache["v"][gi, i], pos, tp, cut,
+                                   cache.get("len"))
     logits = logits_out(pc, cfg, x, tp)
-    return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+    return logits, dict(cache, pos=pos + 1)
 
 
 # ---------------------------------------------------------------------------

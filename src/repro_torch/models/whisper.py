@@ -16,7 +16,12 @@ keys does, so ``transformer.params_from_jax`` converts them by a plain
 copy.  :func:`init_whisper` draws each leaf in f32 and casts it to
 ``cfg.dtype``, the bits the reference's apply-time cast of its f32 masters
 gives.  :func:`decode_step` writes the self-attention cache in place, as
-``attention.decode_step`` does.
+``attention.decode_step`` does.  Whisper's model rules are all None, so
+its leaves stay whole over ``model``; under ``kv_seq`` its caches are cut
+by positions as the reference's ``cache_specs`` cut them: the decoder's
+self-attention cache and the cross K/V each hold this member's block of
+their positions (``attention.decode_step``, ``attention.attend_cross``
+join the members' parts).
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.sharding import fsdp
+from repro_torch.sharding import tp as TP
 
 
 def sinusoids(length: int, channels: int, device=None):
@@ -228,11 +234,21 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int,
                dtype=None, device="cuda"):
     """Zero cache {"self_k", "self_v": (L, batch, max_len, Kh, hd),
     "cross_k", "cross_v": (L, batch, enc_len, Kh, hd), "pos": 0}; ``pos``
-    is a host int."""
+    is a host int.  Under ``kv_seq`` each holds this member's block of its
+    positions (``enc_len`` must divide into the blocks), and "len" keeps
+    ``max_len``."""
     dev = resolve_device(device)
     dt = L.dtype_of(dtype or cfg.dtype)
     n, h, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-    return {
+    cut = TP.kv_cut()
+    extra = {}
+    if cut is not None:
+        if enc_len % cut.n:
+            raise ValueError(f"an encoder of {enc_len} positions does not "
+                             f"split into {cut.n} blocks")
+        extra = {"len": max_len}
+        max_len, enc_len = cut.size(max_len), enc_len // cut.n
+    return {**extra,
         "self_k": torch.zeros((n, batch, max_len, h, hd), dtype=dt,
                               device=dev),
         "self_v": torch.zeros((n, batch, max_len, h, hd), dtype=dt,
@@ -255,7 +271,8 @@ def decode_step(params, cfg: ModelConfig, tokens, cache):
     cdt = L.dtype_of(cfg.dtype)
     pc = _top(params, cdt)
     pos = cache["pos"]
-    max_len = cache["self_k"].shape[2]
+    cut = TP.kv_cut()
+    max_len = cache.get("len", cache["self_k"].shape[2])
     x = L.embed_tokens(pc["embed"], tokens)
     row = min(pos, max_len - 1)
     x = x + sinusoids(max_len, cfg.d_model,
@@ -264,10 +281,11 @@ def decode_step(params, cfg: ModelConfig, tokens, cache):
     for i in range(cfg.n_layers):
         lp = _layer(layers, i)
         attn, _ = A.decode_step(lp["attn"], cfg, L.layernorm(lp["ln1"], x),
-                                cache["self_k"][i], cache["self_v"][i], pos)
+                                cache["self_k"][i], cache["self_v"][i], pos,
+                                cut=cut, length=max_len)
         x = x + attn
         x = x + A.attend_cross(lp["cross"], cfg, L.layernorm(lp["ln_c"], x),
-                               cache["cross_k"][i], cache["cross_v"][i])
+                               cache["cross_k"][i], cache["cross_v"][i], cut)
         x = x + L.mlp(lp["mlp"], L.layernorm(lp["ln2"], x), cfg.act)
     logits = L.tied_lm_head(pc["embed"], L.layernorm(pc["dec_ln"], x))
     return logits, dict(cache, pos=pos + 1)

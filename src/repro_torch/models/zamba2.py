@@ -23,7 +23,10 @@ members' heads (``mamba2.block``), the shared block the transformer's
 tensor-parallel attention and GLU MLP under the same plan (zamba2-2.7b's
 32 query heads over 32 KV heads: the flash kernel runs at the member's
 heads), and the embedding and LM head are the transformer's
-vocab-parallel ones; the cache holds this member's heads.
+vocab-parallel ones; the cache holds this member's heads, or under
+``kv_seq`` the shared attention's cache holds a block of positions for
+every KV head (over ``model``, or over (``data``, ``model``) under the
+batch-1 rule) while the mamba states keep this member's heads.
 """
 from __future__ import annotations
 
@@ -194,15 +197,21 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     "conv": (n_groups, shared_attn_every, B, k-1, conv_ch) in ``dtype``
     (the config's by default), "ssd": (n_groups, shared_attn_every, B, H,
     P, N) in f32, "pos": 0}; ``pos`` is a host int.  Under the ambient
-    mesh Kh, conv_ch and H are this member's."""
+    mesh Kh, conv_ch and H are this member's; under ``kv_seq`` the K/V
+    are this member's block of positions for every KV head, and "len"
+    keeps ``max_len`` (``transformer.make_cache``)."""
     dev = resolve_device(device)
     dt = L.dtype_of(dtype or cfg.dtype)
     g, e = n_groups(cfg), cfg.shared_attn_every
     tp = TP.plan(cfg)
+    cut = TP.cache_cut(tp)
     _, nh, conv_ch, _ = M2.member_dims(cfg, tp)
     kh = tp.kv_n if tp is not None and tp.heads else cfg.n_kv_heads
     kv = (g, batch, max_len, kh, cfg.head_dim)
-    return {
+    if cut is not None:
+        kv = (g, batch, cut.size(max_len), cfg.n_kv_heads, cfg.head_dim)
+    extra = {} if cut is None else {"len": max_len}
+    return {**extra,
         "attn_k": torch.zeros(kv, dtype=dt, device=dev),
         "attn_v": torch.zeros(kv, dtype=dt, device=dev),
         "conv": torch.zeros((g, e, batch, cfg.ssm.d_conv - 1, conv_ch),
@@ -221,6 +230,7 @@ def decode_step(params, cfg: ModelConfig, tokens, cache):
     ``attention.decode_step`` on its group's views, each mamba layer's conv
     and SSD state after the layer has read them)."""
     tp = TP.plan(cfg)
+    cut = TP.cache_cut(tp)
     pc = _cast(params, cfg)
     x = T.embed_inputs(pc, cfg, tokens, tp=tp)
     shared = pc["shared"]
@@ -229,7 +239,8 @@ def decode_step(params, cfg: ModelConfig, tokens, cache):
         gp = _group(params, cfg, g)
         h = L.rmsnorm(shared["ln1"], x, cfg.norm_eps)
         attn, _ = A.decode_step(shared["attn"], cfg, h, cache["attn_k"][g],
-                                cache["attn_v"][g], pos, tp=tp)
+                                cache["attn_v"][g], pos, tp=tp, cut=cut,
+                                length=cache.get("len"))
         x = x + attn
         h = L.rmsnorm(shared["ln2"], x, cfg.norm_eps)
         x = x + L.glu_mlp(shared["ffn"], h, cfg.act, _mlp_group(tp))

@@ -1188,7 +1188,12 @@ class LMEngine:
     encoder-decoder one (whisper, with zero cross K/V, as the reference's
     engine runs it) consume them token by token through ``decode_step``,
     as the reference does; then one serve step per token, each step's
-    latency observed by the straggler monitor."""
+    latency observed by the straggler monitor.  Under the ambient rules'
+    ``kv_seq`` the cache of ``max_len`` positions is cut into the
+    members' blocks, the last padded where ``max_len`` does not divide
+    (its padding masked); a step past the end writes logical slot
+    ``max_len - 1``, as the reference's ``dynamic_update_slice`` clamps
+    it (``attention.decode_step``)."""
 
     def __init__(self, params, cfg: ModelConfig, *, max_len: int = 256,
                  device="cuda"):

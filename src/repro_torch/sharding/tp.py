@@ -29,6 +29,27 @@ leaves whole and runs replicated (no collective), as chatglm3's KV heads
 do: rwkv6's smoke config has 2 heads, so at P = 4 its time mix is
 replicated while its channel mix is cut.
 
+The sequence axis (the production layout's ``res_seq`` and ``kv_seq``
+rules).  Under ``res_seq`` (``Plan.res_seq``) the residual stream between
+blocks is this member's block of the sequence, Megatron's sequence
+parallelism: a region enters through :func:`gather_seq` (all-gather
+forward, reduce-scatter backward) in place of :func:`copy_to` and leaves
+through :func:`scatter_seq` (reduce-scatter forward, all-gather backward)
+in place of :func:`reduce_from`; :func:`split_seq` enters the cut stream
+from a replicated tensor (this member's block forward, all-gather
+backward).  Inside such a region every gradient is a member's part, summed
+by the entry's reduce-scatter; a replicated computation there whose
+gradient is whole on every member (MoE routing) takes its input through
+:func:`own_seq`, which keeps only this member's block of that gradient.  A
+replicated leaf used on the cut stream (the norm scales, or a part that
+runs replicated) sees only this member's positions: it goes through
+:func:`copy_to`, so its gradient is summed over the members in the
+backward.  Under ``kv_seq`` (:func:`kv_cut`, ``Plan.kv_seq``) a KV cache
+is cut by positions: each member holds a block of positions for every KV
+head (``models/attention.py::decode_step``).  Every group is resolved in
+the forward and held by the backward's context, never read from the
+ambient mesh there.
+
 Without a model axis of more than one member :func:`plan` is None and the
 model code runs exactly its one-device path.
 """
@@ -40,7 +61,7 @@ from typing import Any, Optional
 import torch
 import torch.distributed as dist
 
-from repro_torch.sharding import partition
+from repro_torch.sharding import fsdp, partition
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,7 +84,12 @@ class Plan:
     ``mlp`` for its channel mix (``cm_k`` columns, ``cm_v`` rows).
     ``ssm_heads``: Mamba-2's heads (d_inner / head_dim) are cut, checked
     apart from the hybrid's shared attention, which reads the fields
-    above."""
+    above.
+
+    ``res_seq``: the rules put the residual stream's sequence on
+    ``model`` (the forward drops it for a sequence that does not divide
+    into ``n`` blocks, :func:`for_sequence`).  ``kv_seq``: the cut of the
+    KV cache's positions (:func:`kv_cut`), or None."""
     n: int
     m: int
     group: Any
@@ -77,6 +103,72 @@ class Plan:
     emb_vocab: bool
     experts: bool
     ssm_heads: bool = False
+    res_seq: bool = False
+    kv_seq: Optional["SeqCut"] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqCut:
+    """A sequence axis cut into ``n`` blocks of consecutive positions over
+    ``group`` (the mesh axes ``axes``, row-major, the rules' order);
+    this member holds block ``m``.  An axis of L positions takes blocks of
+    ``size(L)``; the last is padded where L does not divide."""
+    n: int
+    m: int
+    group: Any
+    axes: tuple
+
+    def size(self, length: int) -> int:
+        return -(-length // self.n)
+
+
+# the KV caches' logical axes: "batch" claims its mesh axes first, then
+# "kv_seq", then "kv_heads" (``partition._physical``)
+_CACHE_AXES = ("batch", "kv_seq", "kv_heads")
+
+
+def kv_cut(mesh=None, rules: Optional[dict] = None) -> Optional[SeqCut]:
+    """The cut of a KV cache's positions under ``mesh`` and ``rules``
+    (default: the ambient ones): the mesh axes of more than one member
+    that "kv_seq" claims after "batch" ("model" for a batch of rows,
+    ("data", "model") under the batch-1 rule), or None."""
+    mesh = mesh if mesh is not None else partition.current_mesh()
+    if mesh is None:
+        return None
+    rules = partition.current_rules() if rules is None else \
+        partition._merged(rules)
+    entry = partition._physical(_CACHE_AXES, rules, mesh)[1]
+    axes = tuple(a for a in partition._axes(entry) if mesh.shape[a] > 1)
+    if not axes:
+        return None
+    n, m = partition.block(mesh, axes)
+    return SeqCut(n=n, m=m, group=mesh.group(axes), axes=axes)
+
+
+def cache_cut(tp: Optional[Plan]) -> Optional[SeqCut]:
+    """The KV cache's cut: the plan's, or without a plan (no model axis)
+    the ambient rules' (a cut over ``data`` alone)."""
+    return tp.kv_seq if tp is not None else kv_cut()
+
+
+def for_sequence(tp: Optional[Plan], length: int) -> Optional[Plan]:
+    """``tp`` for a forward over ``length`` positions: ``res_seq`` holds
+    only where they divide into the members' blocks, as the reference's
+    rules test the cell's sequence."""
+    if tp is None or not tp.res_seq or length % tp.n == 0:
+        return tp
+    return dataclasses.replace(tp, res_seq=False)
+
+
+def seq_group(tp: Optional[Plan]):
+    """The model group when the residual stream is cut by sequence, else
+    None."""
+    return tp.group if tp is not None and tp.res_seq else None
+
+
+# the families whose residual stream the "res_seq" rule cuts (the
+# reference's train rules set it for these only)
+SEQ_FAMILIES = ("dense", "moe", "vlm")
 
 
 def _to_model(ax: str, rules: dict, mesh) -> bool:
@@ -95,6 +187,11 @@ def plan(cfg, mesh=None, rules: Optional[dict] = None) -> Optional[Plan]:
     rules = partition.current_rules() if rules is None else \
         partition._merged(rules)
     n, m = mesh.shape["model"], mesh.index("model")
+    kv_seq = kv_cut(mesh, rules)
+    if kv_seq is not None and "model" in kv_seq.axes and \
+            kv_seq.axes[-1] != "model":
+        raise ValueError(f"a KV cache cut over {kv_seq.axes}: the port "
+                         "needs 'model' innermost")
     h, kh = cfg.n_heads, cfg.n_kv_heads
     if cfg.family == "ssm":      # rwkv6's time mix: heads of HEAD_SIZE 64
         h = kh = cfg.d_model // 64
@@ -123,7 +220,9 @@ def plan(cfg, mesh=None, rules: Optional[dict] = None) -> Optional[Plan]:
                 and cfg.vocab_size % n == 0,
                 emb_vocab=_to_model("emb_vocab", rules, mesh)
                 and cfg.vocab_size % n == 0,
-                experts=experts, ssm_heads=ssm_heads)
+                experts=experts, ssm_heads=ssm_heads,
+                res_seq=_to_model("res_seq", rules, mesh) and
+                cfg.family in SEQ_FAMILIES, kv_seq=kv_seq)
 
 
 # ---------------------------------------------------------------------------
@@ -257,3 +356,111 @@ def gather_from(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
     if _tracked(x):
         return _GatherFrom.apply(x, group, dim)
     return partition._all_gather(x, dim, group)
+
+
+# ---------------------------------------------------------------------------
+# the sequence collectives (``res_seq``; differentiable under autograd)
+# ---------------------------------------------------------------------------
+
+
+def _block(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n, m = dist.get_world_size(group), dist.get_rank(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"a sequence of {x.shape[dim]} does not split into "
+                         f"{n} blocks")
+    size = x.shape[dim] // n
+    return x.narrow(dim, m * size, size).contiguous()
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return partition._all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return fsdp._reduce_scatter(g, ctx.dim, ctx.group), None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return fsdp._reduce_scatter(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return partition._all_gather(g, ctx.dim, ctx.group), None, None
+
+
+class _SplitSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _block(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return partition._all_gather(g, ctx.dim, ctx.group), None, None
+
+
+class _OwnSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.dim = dim
+        ctx.n, ctx.m = dist.get_world_size(group), dist.get_rank(group)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        size = g.shape[ctx.dim] // ctx.n
+        out = torch.zeros_like(g)
+        out.narrow(ctx.dim, ctx.m * size, size).copy_(
+            g.narrow(ctx.dim, ctx.m * size, size))
+        return out, None, None
+
+
+def gather_seq(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    """Enter a region from the sequence-cut stream: the members' blocks
+    concatenated along ``dim`` (one ``all_gather``); backward, this
+    member's block of the sum of the members' gradients (a
+    reduce-scatter)."""
+    if group is None:
+        return x
+    if _tracked(x):
+        return _GatherSeq.apply(x, group, dim)
+    return partition._all_gather(x, dim, group)
+
+
+def scatter_seq(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    """Leave a region into the sequence-cut stream: this member's block
+    along ``dim`` of the sum of the members' parts (a reduce-scatter);
+    backward, the members' gradient blocks concatenated (an
+    ``all_gather``)."""
+    if group is None:
+        return x
+    if _tracked(x):
+        return _ScatterSeq.apply(x, group, dim)
+    return fsdp._reduce_scatter(x, dim, group)
+
+
+def split_seq(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    """Enter the sequence-cut stream from a tensor whole on every member:
+    this member's block along ``dim``; backward, the members' gradient
+    blocks concatenated (an ``all_gather``)."""
+    if group is None:
+        return x
+    if _tracked(x):
+        return _SplitSeq.apply(x, group, dim)
+    return _block(x, dim, group)
+
+
+def own_seq(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    """The identity for a replicated computation inside a region entered
+    by :func:`gather_seq` whose gradient is whole on every member (MoE
+    routing): backward keeps this member's block of the gradient along
+    ``dim`` and zeroes the rest, so that the entry's sum counts it once."""
+    if group is None or not _tracked(x):
+        return x
+    return _OwnSeq.apply(x, group, dim)

@@ -14,7 +14,13 @@ put "embed" there (``sharding/fsdp.py``), the gradients are all-reduced
 over the batch's axes (a data-cut leaf's already summed over ``data`` by
 its gather's backward) and divided by their size (the GSPMD sum of the
 reference's mean loss), and the clipping norm counts each cut leaf's
-blocks once across the model axis and the data axis.
+blocks once across the model axis and the data axis.  Under the train
+rules' ``res_seq`` a replicated leaf used on the sequence-cut stream (the
+norm scales; a part that runs replicated) sees only this member's
+positions; its gradient is summed over ``model`` in the backward by the
+``tp.copy_to`` it goes through, as a data-cut leaf's is summed over
+``data`` by its gather, so it reaches the step whole and the norm counts
+it once.
 """
 from __future__ import annotations
 

@@ -100,8 +100,9 @@ def batch_of(cfg, data, prefix, keys=("tokens", "labels")):
 
 
 def cache_layout(cfg):
-    """The logical layout of a member's cache on the model axis: its heads
-    (zamba2's conv channels as the fused x | B | C segments)."""
+    """The logical layout of a member's states on the model axis: its heads
+    (zamba2's conv channels as the fused x | B | C segments), as
+    ``forward(collect_cache=True)`` returns them."""
     tp = TP.plan(cfg)
     if cfg.family == "ssm":
         heads = "model" if tp is not None and tp.heads else None
@@ -115,6 +116,14 @@ def cache_layout(cfg):
             "attn_v": (None, None, None, kv, None),
             "conv": (None, None, None, None, seg),
             "ssd": (None, None, None, heads, None, None)}
+
+
+def decode_cache_layout(cfg):
+    """A member's decode cache under the ambient rules
+    (``api.cache_layout``): under ``kv_seq`` zamba2's shared attention
+    holds a block of positions for every KV head."""
+    specs_ = api.cache_layout(cfg).specs
+    return {k: v for k, v in specs_.items() if k != "pos"}
 
 
 def gathered(tree, specs_, mesh):
@@ -161,7 +170,8 @@ def serve_case(case, data, mesh, out):
                                             cache)
                 out[f"{case}/decode{i}"] = lg.numpy()
             if cspec is not None:
-                flat(f"{case}/cache", gathered(cache, cspec, mesh), out)
+                flat(f"{case}/cache", gathered(
+                    cache, decode_cache_layout(cfg), mesh), out)
             eng = LMEngine(params, cfg, max_len=MAX_LEN, device="cpu")
             out[f"{case}/tokens"] = eng.generate(data["serve/tokens"], GEN)
         # gradients of the training loss, gathered to whole leaves

@@ -215,12 +215,16 @@ _RUN = textwrap.dedent('''
     import torch
     from repro_torch.configs.base import DLRMConfig
     from repro_torch.launch import dryrun, specs
+    from repro_torch.models import api
     from repro_torch.sharding import partition
     from repro_torch.train import optimizer as opt
 
     def block_bytes(mesh, spec, t):
         # a member's block of the whole stand-in t: each dimension over the
-        # blocks its entry names (a fused leaf's cut segments only)
+        # blocks its entry names (a fused leaf's cut segments only); a
+        # cache's host int "pos" holds no bytes
+        if not isinstance(t, torch.Tensor):
+            return 0
         n_el = 1
         for d, e in enumerate(spec):
             if isinstance(e, partition.Segments):
@@ -243,7 +247,10 @@ _RUN = textwrap.dedent('''
         p = specs.param_shapes(cfg, dtype=torch.bfloat16)
         if shape.kind == "prefill":
             return p, batch
-        return p, batch["tokens"], None
+        # the whole cache (no ambient mesh), which the cell's layout cuts
+        cache = api.make_cache(cfg, shape.global_batch, shape.seq_len,
+                               dtype="bfloat16", device="meta")
+        return p, batch["tokens"], cache
 
     cells, out = json.loads(sys.argv[1]), sys.argv[2]
     recs, expect = [], {}
@@ -254,9 +261,6 @@ _RUN = textwrap.dedent('''
             total = 0
             for i, (whole, lay) in enumerate(zip(whole_args(cell),
                                                  cell.layouts)):
-                if lay is None:   # the cache: make_cache's, per member
-                    total += specs.nbytes(cell.args[i])
-                    continue
                 total += sum(opt.leaves(partition.map_specs(
                     lambda _, spec, t: block_bytes(mesh, spec, t),
                     lay.specs, whole)))

@@ -140,9 +140,24 @@ _PER_MEMBER = textwrap.dedent('''
     from repro.launch.mesh import make_production_mesh as jmesh
     from repro_torch.launch import dryrun, specs as tspecs
 
-    cells = json.loads(sys.argv[1])
+    cells, cache_cells = json.loads(sys.argv[1]), json.loads(sys.argv[2])
     jm = jmesh()
     out = {}
+    from repro.models import api as japi
+    for arch, shape in cache_cells:
+        cfg = jcb.get_arch(arch).config
+        sh = next(s for s in jcb.get_arch(arch).shapes if s.name == shape)
+        rules = jspecs.arch_rules(cfg, jm, sh)
+        shard = jspecs.tree_shardings(japi.cache_specs(cfg), jm, rules)
+        whole = jax.eval_shape(lambda: japi.make_cache(
+            cfg, sh.global_batch, sh.seq_len, dtype=jnp.bfloat16))
+        blocks = {}
+        for (path, c), s in zip(jax.tree_util.tree_flatten_with_path(
+                whole)[0], jax.tree.leaves(shard)):
+            if c.ndim:
+                blocks["/".join(str(getattr(k, "key", k)) for k in path)] = \
+                    list(s.shard_shape(c.shape))
+        out[f"cache:{arch}/{shape}"] = {"jax": blocks}
     for arch, shape in cells:
         cfg = jcb.get_arch(arch).config
         sh = next(s for s in jcb.get_arch(arch).shapes if s.name == shape)
@@ -173,6 +188,11 @@ _PER_MEMBER = textwrap.dedent('''
             walk(cell.args[0], [])
             out[f"{arch}/{shape}"].update(
                 port=port, replicated=dryrun.replicated_leaves(cell))
+        for arch, shape in cache_cells:
+            cell = tspecs.build_cell(arch, shape, mesh)
+            out[f"cache:{arch}/{shape}"]["port"] = {
+                k: list(v.shape) for k, v in cell.args[2].items()
+                if hasattr(v, "shape")}
     print(json.dumps(out))
 ''')
 
@@ -181,13 +201,20 @@ SERVE_CELLS = [(a, s) for a, s in CELLS
                                           "train_4k")]
 
 
+# every cell with a KV cache or a recurrent state that the arch runs
+CACHE_CELLS = [(a, s) for a, s in CELLS if a in LM_ARCHS
+               and s in ("decode_32k", "long_500k")
+               and not tcb.get_arch(a).skips.get(s)]
+
+
 @pytest.fixture(scope="module", autouse=True)
 def per_member_started():
     """The per-member subprocess, started with the module's first test so
     that it runs beside the full-size shape tests."""
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
     proc = subprocess.Popen([sys.executable, "-c", _PER_MEMBER,
-                             json.dumps(SERVE_CELLS)], env=env,
+                             json.dumps(SERVE_CELLS),
+                             json.dumps(CACHE_CELLS)], env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
     try:
@@ -225,3 +252,30 @@ def test_member_param_bytes_match_the_reference(per_member, arch, shape):
             per_member[f"{arch}/prefill_32k"]["replicated"])
     if arch == "qwen3-14b":    # 40 query heads over 8 KV heads at model 16
         assert {k.split("/")[-2] for k in extra} == {"wq", "wk", "wv", "wo"}
+
+
+@pytest.mark.parametrize("arch,shape", CACHE_CELLS)
+def test_member_cache_blocks_match_the_reference(per_member, arch, shape):
+    """A member's block of every cache leaf equals JAX's
+    ``NamedSharding.shard_shape`` of the reference's ``cache_specs`` under
+    ``arch_rules``, exactly: under ``kv_seq`` a KV cache holds a block of
+    positions for every KV head (qwen3-14b's decode_32k cache 1/16 of its
+    rows' whole cache).  zamba2's conv state alone differs: the port cuts
+    its channels x | B | C segment by segment (x by heads, B and C whole),
+    where the reference's one "heads" axis cuts them as one block."""
+    rec = per_member[f"cache:{arch}/{shape}"]
+    assert set(rec["port"]) == set(rec["jax"])
+    for k, want in rec["jax"].items():
+        got = rec["port"][k]
+        if arch == "zamba2-2.7b" and k == "conv":
+            cfg = tcb.get_arch(arch).config
+            d_inner = cfg.ssm.expand * cfg.d_model
+            assert got[:-1] == want[:-1]
+            assert got[-1] == d_inner // 16 + 2 * cfg.ssm.d_state
+            continue
+        assert got == want, (k, got, want)
+    if (arch, shape) == ("qwen3-14b", "decode_32k"):
+        cfg = tcb.get_arch(arch).config
+        rows = 128 // 16
+        assert rec["port"]["k"] == [cfg.n_layers, 1, rows, 32_768 // 16,
+                                    cfg.n_kv_heads, cfg.head_dim]
