@@ -26,7 +26,8 @@ Phases, each on lines of its own:
   4. the bag and interaction kernels on their edge cases (ids and table ids
      out of range, all-masked bags, a NaN row under weight 0, every vector
      width and lane count, bags split over groups, F 2 and 27, S 4, 6, 64,
-     small-integer inputs bit-exact);
+     small-integer inputs bit-exact), on f32 and on bf16 tables and
+     features;
   5. full-width ``dlrm-kaggle`` serving of 4 x 512 hetero requests through
      ``DLRMEngine(bound=2, microbatches=4)`` on a one-rank NCCL group: the
      CTRs finite, in (0, 1), bit-identical to ``bound=0`` and within
@@ -115,6 +116,22 @@ Phases, each on lines of its own:
      ledger's boot time, the mirror copy, the sweep's and the audit's
      device times against their bounds, the ``wcs`` stamp and verify, and
      flush p50 with and without scrub;
+ 5f. the f32 stack freed, ``dlrm-kaggle`` with ``dtype="bfloat16"`` (a
+     3.67 GB bf16 stack) on a new one-rank NCCL group: the bf16 bag
+     (128 x 26 bags of hot 100; the rows form at phase 5b's cap) and the
+     bf16 interaction at (128, 27, 64) held against their plain versions
+     (one bf16 step: both sum in f32, in other orders) and bit for bit
+     against their summation models, timed beside F.embedding_bag and
+     bmm in bf16; then, every launch count reset, ``DLRMEngine`` at bound
+     2 and 0 over the dense f32 wire (bit-identical, CTRs within 1e-2 of
+     the plain forward), a 4096-row bf16 cache with the ragged exchange
+     over the bf16 and int8 wires, mono and ring (ring == mono bit for
+     bit, zero drops, logits within 5e-2 / 1e-1), one freshness window
+     (the stack and cache bit-identical to ``oracle_tables``), one scrub
+     sweep repairing a flipped bit (exactly that bit flipped, the repaired
+     stack bit-identical to the clean one) and ``forward_distributed`` on
+     bf16 dense features (the interaction in bf16, bound 2 == bound 0);
+     the three kernels' rows take this run's launches at their shapes;
   6. the flash-attention kernel held against its plain version in bf16
      (rtol 1e-2, atol 5e-3, and the relative Frobenius error under 5e-3:
      the plain version computes in f32 on the same bf16 inputs) at the
@@ -364,6 +381,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import itertools
 import json
 import re
 import socket
@@ -522,10 +540,11 @@ def hold(name, out, plain, tol, rel=None):
 
 def check_kernel(name, replaces, source, kernel_fn, plain_fn, library_fn,
                  *, n_bytes, flops, flush, tol=TOL, rel=None,
-                 peak_flops=F32_FLOPS):
+                 peak_flops=F32_FLOPS, library_tol=None):
     """Hold one kernel against its plain version and time the three (the
     plain version over 3 calls after 1 warm-up where one call took over
-    PLAIN_SLOW_S, as wkv_row times the chunked WKV)."""
+    PLAIN_SLOW_S, as wkv_row times the chunked WKV).  The library call is
+    held at ``library_tol`` (``tol`` unless given)."""
     out = kernel_fn()
     again = kernel_fn()
     torch.cuda.synchronize()
@@ -537,7 +556,8 @@ def check_kernel(name, replaces, source, kernel_fn, plain_fn, library_fn,
         raise AssertionError(f"{name}: two kernel runs differ")
     err, fro, need = hold(name, out, plain, tol, rel)
     if library_fn is not None:
-        hold(f"{name} library", library_fn(), plain, tol, rel)
+        hold(f"{name} library", library_fn(), plain, library_tol or tol,
+             rel)
     log(f"[kernel] {name}: relative Frobenius error {fro:.3e}, least atol "
         f"passing at rtol {tol['rtol']}: {need:.3e}, median |plain| "
         f"{plain.float().abs().median().item():.3e}")
@@ -557,16 +577,22 @@ def check_kernel(name, replaces, source, kernel_fn, plain_fn, library_fn,
     return row
 
 
-KERNEL_NAMES = re.compile(r"(flash_wgmma_ws|flash_wgmma|flash_bf16|"
+# a kernel's name in its mangled symbol, where its length's digits precede
+# it (the anonymous namespace's own name carries the file's, as
+# "18_dot_interaction_cu"), then its integer template arguments and the
+# row or input type of the DLRM kernels
+KERNEL_NAMES = re.compile(r"(?<=\d)(flash_wgmma_ws|flash_wgmma|flash_bf16|"
                           r"flash_f32|wkv_state_pass|wkv_output_pass|"
-                          r"bag_pool_f32|"
-                          r"dot_interaction_f32|"
-                          r"dot_interaction_empty_kernel)((?:I?Li\d+E)*)")
+                          r"bag_pool|"
+                          r"dot_interaction_empty_kernel|"
+                          r"dot_interaction)((?:I?Li\d+E)*)"
+                          r"(f|13__nv_bfloat16)?")
 # the wgmma flash bodies keep their accumulators (128 registers at hd 256;
 # scores, P and output beside a producer warp at hd 64/80) only if nothing
 # spills, and the bag keeps two batches of rows in flight in registers:
 # their reports must show no stack and no spill stores
-NO_SPILL = ("flash_wgmma", "flash_wgmma_ws", "bag_pool_f32")
+NO_SPILL = ("flash_wgmma", "flash_wgmma_ws", "bag_pool_f32",
+            "bag_pool_bf16")
 
 
 def ptxas_report(text: str) -> list:
@@ -580,6 +606,9 @@ def ptxas_report(text: str) -> list:
             name, arg = ((m.group(1), ",".join(re.findall(r"Li(\d+)E",
                                                          m.group(2)))
                           or None) if m else ("?", None))
+            if m and m.group(3):
+                # the bag's row type, the interaction's input type
+                name += "_bf16" if m.group(3) != "f" else "_f32"
             spill = 0
         elif "spill stores" in line:
             spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
@@ -598,6 +627,7 @@ def build_report(logs: dict) -> None:
     spills."""
     from repro_torch.kernels import _build
 
+    spills = []
     for src, text in logs.items():
         lib = _build.library(src)
         for name, arg, used, stack, spill in ptxas_report(text):
@@ -615,15 +645,18 @@ def build_report(logs: dict) -> None:
             log(f"[build] {src} {name}{f'<{arg}>' if arg else ''}: {used}; "
                 f"stack {stack} bytes, spill stores {spill} bytes{extra}")
             if name in NO_SPILL and (stack or spill):
-                raise AssertionError(f"{name}<{arg}> spills: stack {stack} "
-                                     f"bytes, spill stores {spill} bytes")
+                spills.append(f"{name}<{arg}> spills: stack {stack} bytes, "
+                              f"spill stores {spill} bytes")
+    if spills:
+        raise AssertionError("; ".join(spills))
 
 
-def bag_bytes(gid, n_out, s) -> int:
+def bag_bytes(gid, n_out, s, itemsize=4) -> int:
     """Bytes a bag call must move: every distinct row it reads, its ids
-    and weights, and its output."""
+    and weights, and its output (rows and output of ``itemsize`` bytes an
+    element)."""
     rows = torch.unique(gid).numel()
-    return rows * s * 4 + 2 * gid.numel() * 4 + n_out * s * 4
+    return rows * s * itemsize + 2 * gid.numel() * 4 + n_out * s * itemsize
 
 
 def hold_bag_model(name, out, table_flat, ids, w, *, rows, n_tables,
@@ -636,11 +669,12 @@ def hold_bag_model(name, out, table_flat, ids, w, *, rows, n_tables,
 
     n, hot = ids.shape
     plan = eb.launch_plan(n, hot, table_flat.shape[1], n_tables,
-                          rows_form=rows_form)
+                          rows_form=rows_form, dtype=table_flat.dtype)
     model = ref.embedding_bag_split_ref(table_flat, ids, w, rows=rows,
                                         n_tables=n_tables, tid=tid,
                                         groups=plan["groups"])
-    if not torch.equal(torch.isnan(out), torch.isnan(model)) or not \
+    if out.dtype != model.dtype or \
+            not torch.equal(torch.isnan(out), torch.isnan(model)) or not \
             torch.equal(out.nan_to_num(), model.nan_to_num()):
         raise AssertionError(f"{name}: kernel differs from its summation "
                              f"model (plan {plan})")
@@ -657,7 +691,8 @@ def hold_dot_model(name, out, z):
 
     _, f, s = z.shape
     kp = di.kparts(f, s)
-    if not torch.equal(out, ref.dot_interaction_split_ref(z, kp)):
+    model = ref.dot_interaction_split_ref(z, kp)
+    if out.dtype != model.dtype or not torch.equal(out, model):
         raise AssertionError(f"{name}: kernel differs from its summation "
                              f"model (KP {kp})")
     return kp
@@ -670,19 +705,22 @@ EB_PY = "src/repro/kernels/embedding_bag.py"
 
 def bag_kernel_row(name, replaces, kernel_fn, plain_fn, library_fn, gid,
                    ids, w, n_out, *, table, rows, n_tables, flush, tid=None,
-                   extra_bytes=0):
+                   extra_bytes=0, tol=TOL, library_tol=None):
     """One bag row: the kernel held against its plain version and timed
     (:func:`check_kernel`), then bit for bit against its summation model
-    with the launcher's plan; returns the row."""
+    with the launcher's plan; returns the row.  A bf16 table moves 2
+    bytes an element."""
     s = table.shape[1]
+    item = table.element_size()
     row = check_kernel(name, replaces, BAG_SRC, kernel_fn, plain_fn,
                        library_fn,
-                       n_bytes=bag_bytes(gid, n_out, s) + extra_bytes,
-                       flops=2 * gid.numel() * s, flush=flush)
+                       n_bytes=bag_bytes(gid, n_out, s, item) + extra_bytes,
+                       flops=2 * gid.numel() * s, flush=flush, tol=tol,
+                       library_tol=library_tol)
     plan = hold_bag_model(name, kernel_fn().reshape(n_out, s), table, ids,
                           w, rows=rows, n_tables=n_tables, tid=tid,
                           rows_form=tid is not None)
-    slot_bytes = gid.numel() * s * 4
+    slot_bytes = gid.numel() * s * item
     log(f"[kernel] {name}: bit-identical to its summation model; plan "
         f"{plan}; all-slot bytes {slot_bytes / 1e6:.1f} MB, "
         f"{slot_bytes / row['ms'] / 1e9:.3f} TB/s all-slot rate")
@@ -811,7 +849,11 @@ def dlrm_edge_phase(dev) -> None:
     held against the plain version at 1e-5 and bit for bit against its
     summation model.  The interaction at F in {2, 27} x S in {4, 6, 64}:
     seeded normals at 1e-5 (and, at S 4 and 64, bit for bit against its
-    summation model), small integers (exact dots) bit for bit."""
+    summation model), small integers (exact dots) bit for bit.  All of it
+    again on bf16 tables and features (the bf16 entry points: s 5 and 6
+    read one element a lane, 16 to 128 eight; S 6 scalar loads), held at
+    ``BF16_TOL`` against the plain version, bit for bit against the
+    summation model."""
     from repro_torch.kernels import dot_interaction as di
     from repro_torch.kernels import embedding_bag as eb
     from repro_torch.kernels import ref
@@ -820,76 +862,87 @@ def dlrm_edge_phase(dev) -> None:
     gen.manual_seed(SEED)
     t, r, b = 5, 300, 24
     cases = 0
-    for s in (5, 6, 16, 64, 128):
-        for hot in (1, 7, 100, 300):
-            tables = torch.randn((t, r, s), generator=gen, device=dev)
-            tables[2, 11] = float("nan")
-            idx = torch.randint(0, r, (b, t, hot), generator=gen,
-                                device=dev, dtype=torch.int32)
-            mask = (torch.rand((b, t, hot), generator=gen, device=dev)
-                    < 0.5).float()
-            # row 11 of table 2 is NaN: only the one weight-0 slot names it
-            idx[:, 2][idx[:, 2] == 11] = 12
-            idx[:, :, 0] = -7
-            if hot > 1:
-                idx[:, :, 1] = r + 10_000
-            mask[3] = 0.0                      # sample 3: every bag empty
-            idx[5, 2, hot - 1], mask[5, 2, hot - 1] = 11, 0.0  # NaN row, w 0
-            out = eb.embedding_bag_stacked(tables, idx, mask)
-            plain = ref.embedding_bag_stacked_ref(tables, idx, mask)
-            torch.cuda.synchronize()
-            label = f"s {s} hot {hot}"
-            torch.testing.assert_close(out, plain, equal_nan=True, **TOL)
-            if not torch.equal(out[3], torch.zeros_like(out[3])):
-                raise AssertionError(f"bag edge {label}: all-masked bags "
-                                     "are not exactly 0")
-            if not (torch.isnan(out[5, 2]).all()
-                    and torch.isnan(plain[5, 2]).all()):
-                raise AssertionError(f"bag edge {label}: NaN row under "
-                                     "weight 0 did not give NaN")
-            flat = tables.reshape(t * r, s)
-            hold_bag_model(f"bag edge {label}", out.reshape(b * t, s), flat,
-                           idx.reshape(b * t, hot), mask.reshape(b * t, hot),
-                           rows=r, n_tables=t)
-            tid = torch.randint(-2, t + 3, (b,), generator=gen, device=dev,
-                                dtype=torch.int32)
-            tid[0], tid[1] = -1, t + 7
-            ridx, rmask = idx[:, 0].contiguous(), mask[:, 1].contiguous()
-            out_r = eb.embedding_bag_rows(tables, tid, ridx, rmask)
-            torch.testing.assert_close(
-                out_r, ref.embedding_bag_rows_ref(tables, tid, ridx, rmask),
-                equal_nan=True, **TOL)
-            hold_bag_model(f"bag edge rows {label}", out_r, flat, ridx,
-                           rmask, rows=r, n_tables=t, tid=tid,
-                           rows_form=True)
-            out_1 = eb.embedding_bag(tables[1], ridx, rmask)
-            torch.testing.assert_close(
-                out_1, ref.embedding_bag_ref(tables[1], ridx, rmask),
-                equal_nan=True, **TOL)
-            hold_bag_model(f"bag edge single {label}", out_1, tables[1],
-                           ridx, rmask, rows=r, n_tables=1)
-            cases += 1
-    log(f"[edge] bag: {cases} (s, hot) cases x stacked, rows and single "
-        f"forms: ids -7 and R + 10^4 clamp, table ids -1 and T + 7 clamp, "
-        f"all-masked bags exactly 0, a NaN row under weight 0 NaN as in the "
-        f"plain version; within 1e-5 of the plain version and bit-identical "
-        f"to the summation model")
-    for f in (2, 27):
-        for s in (4, 6, 64):
-            z = torch.randn((SERVED_MB, f, s), generator=gen, device=dev)
-            out = di.dot_interaction(z)
-            torch.testing.assert_close(out, ref.dot_interaction_ref(z), **TOL)
-            if s % 4 == 0:
-                hold_dot_model(f"interaction edge F {f} S {s}", out, z)
-            zi = torch.randint(-3, 4, (SERVED_MB, f, s), generator=gen,
-                               device=dev).float()
-            if not torch.equal(di.dot_interaction(zi),
-                               ref.dot_interaction_ref(zi)):
-                raise AssertionError(f"interaction F {f} S {s}: small "
-                                     "integers not bit-exact")
-    log("[edge] interaction: F in {2, 27} x S in {4, 6, 64} at B 128 within "
-        "1e-5 of the plain version, bit-identical to the summation model at "
-        "S 4 and 64, small-integer inputs bit-exact")
+    for dtype, s, hot in itertools.product(
+            (torch.float32, torch.bfloat16), (5, 6, 16, 64, 128),
+            (1, 7, 100, 300)):
+        tol = TOL if dtype == torch.float32 else BF16_TOL
+        tables = torch.randn((t, r, s), generator=gen, device=dev) \
+            .to(dtype)
+        tables[2, 11] = float("nan")
+        idx = torch.randint(0, r, (b, t, hot), generator=gen,
+                            device=dev, dtype=torch.int32)
+        mask = (torch.rand((b, t, hot), generator=gen, device=dev)
+                < 0.5).float()
+        # row 11 of table 2 is NaN: only the one weight-0 slot names it
+        idx[:, 2][idx[:, 2] == 11] = 12
+        idx[:, :, 0] = -7
+        if hot > 1:
+            idx[:, :, 1] = r + 10_000
+        mask[3] = 0.0                      # sample 3: every bag empty
+        idx[5, 2, hot - 1], mask[5, 2, hot - 1] = 11, 0.0  # NaN row, w 0
+        out = eb.embedding_bag_stacked(tables, idx, mask)
+        plain = ref.embedding_bag_stacked_ref(tables, idx, mask)
+        torch.cuda.synchronize()
+        label = f"{dtype} s {s} hot {hot}"
+        torch.testing.assert_close(out, plain, equal_nan=True, **tol)
+        if not torch.equal(out[3], torch.zeros_like(out[3])):
+            raise AssertionError(f"bag edge {label}: all-masked bags "
+                                 "are not exactly 0")
+        if not (torch.isnan(out[5, 2]).all()
+                and torch.isnan(plain[5, 2]).all()):
+            raise AssertionError(f"bag edge {label}: NaN row under "
+                                 "weight 0 did not give NaN")
+        flat = tables.reshape(t * r, s)
+        hold_bag_model(f"bag edge {label}", out.reshape(b * t, s), flat,
+                       idx.reshape(b * t, hot), mask.reshape(b * t, hot),
+                       rows=r, n_tables=t)
+        tid = torch.randint(-2, t + 3, (b,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        tid[0], tid[1] = -1, t + 7
+        ridx, rmask = idx[:, 0].contiguous(), mask[:, 1].contiguous()
+        out_r = eb.embedding_bag_rows(tables, tid, ridx, rmask)
+        torch.testing.assert_close(
+            out_r, ref.embedding_bag_rows_ref(tables, tid, ridx, rmask),
+            equal_nan=True, **tol)
+        hold_bag_model(f"bag edge rows {label}", out_r, flat, ridx,
+                       rmask, rows=r, n_tables=t, tid=tid,
+                       rows_form=True)
+        # the kernel takes 16-byte aligned tables: a bf16 table view at
+        # s 5 starts 3000 bytes in
+        one = tables[1] if tables[1].data_ptr() % 16 == 0 \
+            else tables[1].clone()
+        out_1 = eb.embedding_bag(one, ridx, rmask)
+        torch.testing.assert_close(
+            out_1, ref.embedding_bag_ref(one, ridx, rmask),
+            equal_nan=True, **tol)
+        hold_bag_model(f"bag edge single {label}", out_1, one, ridx,
+                       rmask, rows=r, n_tables=1)
+        cases += 1
+    log(f"[edge] bag: {cases} (dtype, s, hot) cases x stacked, rows and "
+        f"single forms, f32 and bf16 tables: ids -7 and R + 10^4 clamp, "
+        f"table ids -1 and T + 7 clamp, all-masked bags exactly 0, a NaN row "
+        f"under weight 0 NaN as in the plain version; within 1e-5 (bf16: "
+        f"one bf16 step) of the plain version and bit-identical to the "
+        f"summation model")
+    for dtype, f, s in itertools.product((torch.float32, torch.bfloat16),
+                                         (2, 27), (4, 6, 64)):
+        tol = TOL if dtype == torch.float32 else BF16_TOL
+        z = torch.randn((SERVED_MB, f, s), generator=gen, device=dev) \
+            .to(dtype)
+        out = di.dot_interaction(z)
+        torch.testing.assert_close(out, ref.dot_interaction_ref(z), **tol)
+        if s % 4 == 0:
+            hold_dot_model(f"interaction edge {dtype} F {f} S {s}", out, z)
+        zi = torch.randint(-3, 4, (SERVED_MB, f, s), generator=gen,
+                           device=dev).to(dtype)
+        if not torch.equal(di.dot_interaction(zi),
+                           ref.dot_interaction_ref(zi)):
+            raise AssertionError(f"interaction {dtype} F {f} S {s}: small "
+                                 "integers not bit-exact")
+    log("[edge] interaction: f32 and bf16 x F in {2, 27} x S in {4, 6, 64} "
+        "at B 128 within 1e-5 (bf16: one bf16 step) of the plain version, "
+        "bit-identical to the summation model at S 4 and 64, small-integer "
+        "inputs bit-exact")
 
 
 def serve(params, cfg, batch, bound, dev, *, calibrate=None,
@@ -1102,7 +1155,7 @@ def ragged_phase(params, cfg, dev, card):
     logits within 5e-2 and 1e-1 of it.  Then the exchanged bytes, a
     profiled ragged flush and the rows kernel's row at the served shape
     (the packed residual of microbatch 0 at the settled cap).  Returns
-    that row."""
+    that row, the cache and the cap."""
     from repro_torch.core import alltoallv as a2a
     from repro_torch.data.synthetic import make_batch
     from repro_torch.kernels import embedding_bag as eb
@@ -1244,20 +1297,9 @@ def ragged_phase(params, cfg, dev, card):
     profile_flush(params, cfg, traffic, dev, tag="profile-ragged",
                   cache=cache, exchange="ragged", ragged_cap=cap)
 
-    # the rows kernel at the served shape: what the ragged pack hands it
-    # for microbatch 0 (live rows of the miss residual, cap-padded)
-    ix = torch.from_numpy(traffic.idx[:SERVED_MB]).to(dev)
-    mk = torch.from_numpy(traffic.mask[:SERVED_MB]).to(dev)
-    res = hc.miss_mask_of(cache.slot_of, ix, mk)
-    flat_n = SERVED_MB * t
-    packed, counts, drops = a2a.pack_ragged_segments(
-        {"idx": ix.reshape(flat_n, hot), "mask": res.reshape(flat_n, hot),
-         "tid": torch.arange(flat_n, device=dev, dtype=torch.int32) % t},
-        (res > 0).any(-1).reshape(-1), 1, cap)
-    tid = packed["tid"].reshape(cap).contiguous()
-    pidx = packed["idx"].reshape(cap, hot).contiguous()
-    pmask = packed["mask"].reshape(cap, hot).contiguous()
-    gid = tid.long()[:, None] * r + pidx.long().clamp(0, r - 1)
+    # the rows kernel at the served shape
+    tid, pidx, pmask, gid, live, drops = packed_residual(
+        traffic, cache.slot_of, cap, r, dev)
     flat = tables.reshape(t * r, s)
     l2 = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     name = f"embedding_bag_pool/rows_hot{hot}_cap{cap}"
@@ -1271,10 +1313,34 @@ def ragged_phase(params, cfg, dev, card):
         flush=l2.zero_, tid=tid, extra_bytes=cap * 4)
     row["launches"] = runs["float32", "mono", 2][1]["embedding_bag_pool"] \
         .get(eb.launch_key(cap, hot, s, t, rows_form=True), 0)
-    log(f"[kernel] {name}: microbatch 0 packs {int(counts.sum())} live rows "
-        f"into cap {cap} ({int(drops)} dropped); launches on the f32 mono "
-        f"ragged run {row['launches']}")
-    return row, cache
+    log(f"[kernel] {name}: microbatch 0 packs {live} live rows into cap "
+        f"{cap} ({drops} dropped); launches on the f32 mono ragged run "
+        f"{row['launches']}")
+    return row, cache, cap
+
+
+def packed_residual(traffic, slot_of, cap, r, dev):
+    """What the ragged pack hands the rows kernel for microbatch 0 of
+    ``traffic``: the live rows of its miss residual under the cache's
+    ``slot_of``, cap-padded -> (tid, idx, mask, flat row ids, live rows,
+    dropped rows)."""
+    from repro_torch.core import alltoallv as a2a
+    from repro_torch.serving import hot_cache as hc
+
+    ix = torch.from_numpy(traffic.idx[:SERVED_MB]).to(dev)
+    mk = torch.from_numpy(traffic.mask[:SERVED_MB]).to(dev)
+    _, t, hot = ix.shape
+    res = hc.miss_mask_of(slot_of, ix, mk)
+    flat_n = SERVED_MB * t
+    packed, counts, drops = a2a.pack_ragged_segments(
+        {"idx": ix.reshape(flat_n, hot), "mask": res.reshape(flat_n, hot),
+         "tid": torch.arange(flat_n, device=dev, dtype=torch.int32) % t},
+        (res > 0).any(-1).reshape(-1), 1, cap)
+    tid = packed["tid"].reshape(cap).contiguous()
+    pidx = packed["idx"].reshape(cap, hot).contiguous()
+    pmask = packed["mask"].reshape(cap, hot).contiguous()
+    gid = tid.long()[:, None] * r + pidx.long().clamp(0, r - 1)
+    return tid, pidx, pmask, gid, int(counts.sum()), int(drops)
 
 
 def served_launches(label, cfg, n_flushes=N_BATCHES, bags_per_mb=1):
@@ -2381,6 +2447,362 @@ def reshard_scrub_phase(params, cfg, dev, card, cache, ctr5):
     del seng, clean, sc, scache
     torch.cuda.empty_cache()
     return launches
+
+
+# phase 5f: the bf16 DLRM.  Its kernels against their plain versions: both
+# sum in f32 and round once to bf16, in other orders (the plain bag sums
+# with torch's reduction, the plain interaction with cuBLAS's f32 bmm), so
+# an element may sit one bf16 step (2^-7 relative at most) apart; the
+# CUDA kernels equal their summation models bit for bit.  The library
+# calls (F.embedding_bag and bmm in bf16) accumulate in f32 as well and
+# are held at two steps.
+BF16_TOL = {"rtol": 2 ** -7, "atol": 1e-5}
+BF16_LIBRARY_TOL = {"rtol": 2 ** -6, "atol": 1e-4}
+# the served runs' flushes of 512 (the first 4 of phase 5b's traffic), the
+# freshness window's versions and the flushes given to it, the scrub
+# engine's budget (blocks of 32 rows a flush: a sweep of the 26-table
+# stack in 4 flushes) and its flip (table 0, row 700, bit 13: byte 1 of
+# the row's first element, at flush 0)
+BF16_BATCHES = 4
+BF16_FRESH_VERSIONS, BF16_FRESH_FLUSHES = 4, 8
+BF16_SCRUB_BUDGET, BF16_SCRUB_FLUSHES = 262_144, 6
+BF16_FLIP = (0, 700, 13, 0)
+# CTRs of the served runs against the plain forward at the same bf16
+# parameters (bags one bf16 step apart move a CTR by ~1e-4 here), and the
+# bf16 logits of the bf16-dense forward (the MLPs in bf16 too)
+BF16_CTR_TOL = 1e-2
+BF16_LOGIT_TOL = {"rtol": 2e-2, "atol": 2e-2}
+BF16_KERNELS = ("embedding_bag_pool_bf16", "dot_interaction",
+                "dot_interaction_bf16")
+# 26 x 1,101,304 x 64 bf16 rows: 3.665 GB
+BF16_STACK_GB = (3.6, 3.7)
+
+
+def bf16_dlrm_phase(cfg, dev, card, cap):
+    """Phase 5f: ``dlrm-kaggle`` with ``dtype="bfloat16"`` at full width
+    (the 3.67 GB bf16 stack, built after the f32 stack is freed) on a
+    one-rank NCCL group.  (1) The bf16 bag and interaction kernels against
+    their plain versions at the served shapes (128 x 26 bags of hot 100;
+    the rows form at phase 5b's cap ``cap`` on the bf16 cache's packed
+    residual; the interaction at (128, 27, 64) in bf16), bit for bit
+    against their summation models, timed beside F.embedding_bag and
+    bmm.  (2) The main path, counts reset before it (after one warm-up
+    flush that sets up the new group's communicator): ``DLRMEngine`` at
+    bound 2 and 0 over the dense f32 wire (bit-identical; CTRs within
+    ``BF16_CTR_TOL`` of the plain forward); a 4096-row bf16 cache with the
+    ragged exchange at ``cap`` over the bf16 and int8 wires, mono and ring
+    (ring == mono bit for bit, logits within phase 5b's tolerances, zero
+    drops); one freshness window (the stack after it ``oracle_tables``'
+    bit for bit); a scrub sweep with one flipped bit found, quarantined
+    and repaired (the flip exactly one bit of the named byte; the row
+    equal to the mirror after; later flushes bit-identical to a clean
+    engine's); and ``forward_distributed`` with bf16 dense features, where
+    the interaction runs in bf16.  Every bf16 kernel must have launched.
+    Returns the rows, their launches from that run set."""
+    from repro_torch.core import alltoallv as a2a
+    from repro_torch.data.synthetic import (Batch, delta_stream,
+                                            make_batch, make_delta_batch)
+    from repro_torch.kernels import dot_interaction as di
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import dlrm
+    from repro_torch.runtime.faults import FaultInjector, FaultPlan
+    from repro_torch.runtime.freshness import FreshnessManager, oracle_tables
+    from repro_torch.serving import hot_cache as hc
+    from repro_torch.serving.engine import DLRMEngine
+
+    bcfg = cfg.replace(dtype="bfloat16")
+    t0 = time.perf_counter()
+    params = dlrm.init_dlrm(SEED, bcfg, n_shards=1, device=dev)
+    torch.cuda.synchronize()
+    base = params["tables"]
+    stack_gb = base.numel() * base.element_size() / 1e9
+    log(f"[bf16] dlrm-kaggle dtype=bfloat16: tables {tuple(base.shape)} "
+        f"{base.dtype}, {stack_gb:.3f} GB (init {time.perf_counter() - t0:.2f}"
+        f" s); device memory allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    if base.dtype != torch.bfloat16 or \
+            not BF16_STACK_GB[0] < stack_gb < BF16_STACK_GB[1]:
+        raise AssertionError(f"bf16 stack {base.dtype} {stack_gb:.3f} GB")
+    tables = base[:cfg.n_tables]
+    t, r, s = tables.shape
+    hot = cfg.max_hot
+    flat = tables.reshape(t * r, s)
+    l2 = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    rows = []
+
+    # (1) the kernels at the served shapes
+    het = make_batch(cfg, BATCH, mode="hetero", seed=SEED)
+    idx = torch.from_numpy(het.idx[:SERVED_MB]).to(dev).contiguous()
+    mask = torch.from_numpy(het.mask[:SERVED_MB]).to(dev).contiguous()
+    gid = (torch.arange(t, device=dev)[None, :, None] * r
+           + idx.long().clamp(0, r - 1)).reshape(SERVED_MB * t, hot)
+    w = mask.reshape(SERVED_MB * t, hot)
+    w16 = w.to(torch.bfloat16)
+    name = "embedding_bag_pool_bf16/stacked_hot100_mb128"
+    rows.append((bag_kernel_row(
+        name, f"{EB_PY}:619",
+        lambda: eb.embedding_bag_stacked(tables, idx, mask),
+        lambda: ref.embedding_bag_stacked_ref(tables, idx, mask),
+        lambda: F.embedding_bag(gid, flat, mode="sum",
+                                per_sample_weights=w16)
+        .reshape(SERVED_MB, t, s),
+        gid, idx.reshape(SERVED_MB * t, hot), w, SERVED_MB * t, table=flat,
+        rows=r, n_tables=t, flush=l2.zero_, tol=BF16_TOL,
+        library_tol=BF16_LIBRARY_TOL),
+        ("embedding_bag_pool_bf16", eb.launch_key(SERVED_MB * t, hot, s, t))))
+
+    traffic = make_batch(cfg, RAGGED_BATCHES * BATCH, mode="powerlaw_hetero",
+                         seed=SEED)
+    n_req = BF16_BATCHES * BATCH
+    traffic = Batch(*(a[:n_req] for a in (traffic.dense, traffic.idx,
+                                          traffic.mask, traffic.labels)))
+    warm = make_batch(cfg, BATCH, mode="powerlaw_hetero", seed=SEED + 1)
+    cache = hc.build_from_batch(base, warm.idx, warm.mask, CACHE_ROWS)
+    slot_host = cache.slot_of.cpu().numpy()
+    _, live_want = host_live(slot_host, traffic.idx, traffic.mask)
+    if max(live_want) > cap:
+        raise AssertionError(f"bf16: live rows {live_want} over phase 5b's "
+                             f"cap {cap}")
+    tid, pidx, pmask, gid_r, live, _ = packed_residual(
+        traffic, cache.slot_of, cap, r, dev)
+    name = f"embedding_bag_pool_bf16/rows_hot{hot}_cap{cap}"
+    rows.append((bag_kernel_row(
+        name, f"{EB_PY}:619",
+        lambda: eb.embedding_bag_rows(tables, tid, pidx, pmask),
+        lambda: ref.embedding_bag_rows_ref(tables, tid, pidx, pmask),
+        lambda: F.embedding_bag(gid_r, flat, mode="sum",
+                                per_sample_weights=pmask.to(torch.bfloat16)),
+        gid_r, pidx, pmask, cap, table=flat, rows=r, n_tables=t,
+        flush=l2.zero_, tid=tid, extra_bytes=cap * 4, tol=BF16_TOL,
+        library_tol=BF16_LIBRARY_TOL),
+        ("embedding_bag_pool_bf16", eb.launch_key(cap, hot, s, t,
+                                                  rows_form=True))))
+    log(f"[kernel] {name}: microbatch 0 packs {live} live rows into cap "
+        f"{cap}")
+    del l2
+
+    f = t + 1
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    z = torch.randn((SERVED_MB, f, s), generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    ii, jj = torch.tril_indices(f, f, -1, device=dev)
+    n_out = f * (f - 1) // 2
+    name = "dot_interaction_bf16/mb128"
+    row = check_kernel(
+        name, "src/repro/kernels/dot_interaction.py:52", DOT_SRC,
+        lambda: di.dot_interaction(z), lambda: ref.dot_interaction_ref(z),
+        lambda: torch.bmm(z, z.transpose(1, 2))[:, ii, jj],
+        n_bytes=(SERVED_MB * f * s + SERVED_MB * n_out) * 2,
+        flops=2 * SERVED_MB * n_out * s, flush=None, tol=BF16_TOL,
+        library_tol=BF16_LIBRARY_TOL)
+    kp = hold_dot_model(name, di.dot_interaction(z), z)
+    if di.dot_interaction(z).dtype != torch.bfloat16:
+        raise AssertionError(f"{name}: output not bf16")
+    log(f"[kernel] {name}: bit-identical to its summation model (KP {kp})")
+    rows.append((row, ("dot_interaction_bf16",
+                       di.launch_key(SERVED_MB, f, s))))
+
+    # (2) the main path, every count from 0
+    plain_cfg = bcfg.replace(sparse_backend="ref")
+
+    def plain_logits(batch, dense_dtype=torch.float32):
+        out = []
+        for j in range(batch.dense.shape[0] // BATCH):
+            sl = slice(j * BATCH, (j + 1) * BATCH)
+            out.append(dlrm.forward_local(
+                params, plain_cfg,
+                torch.from_numpy(batch.dense[sl]).to(dev, dense_dtype),
+                torch.from_numpy(batch.idx[sl]).to(dev),
+                torch.from_numpy(batch.mask[sl]).to(dev)))
+        return torch.cat(out).float().cpu()
+
+    # warm-up: the new group's first collective sets up its communicator
+    serve(params, bcfg, warm, 2, dev, exchange="dense")
+    ops.reset_launches()
+    t_main = time.perf_counter()
+    want = plain_logits(traffic)
+    want_ctr = torch.sigmoid(want).numpy()
+    ctr2, eng2 = serve(params, bcfg, traffic, 2, dev, exchange="dense")
+    ctr0, _ = serve(params, bcfg, traffic, 0, dev, exchange="dense")
+    if not np.array_equal(ctr2, ctr0):
+        raise AssertionError("bf16: bound=2 CTRs differ from bound=0")
+    if not (np.isfinite(ctr2).all() and ctr2.shape == (n_req,)):
+        raise AssertionError("bf16: CTRs not finite or of the wrong shape")
+    dense_err = float(np.abs(ctr2 - want_ctr).max())
+    if dense_err > BF16_CTR_TOL:
+        raise AssertionError(f"bf16 dense: CTRs {dense_err:.3e} from the "
+                             f"plain forward, over {BF16_CTR_TOL}")
+    log_serve("bf16", "dense f32 wire bound=2", eng2, card)
+    runs, errs = {}, {}
+    for wire in ("bfloat16", "int8"):
+        for pipe in ("mono", "ring"):
+            ctr, eng = serve(params, bcfg, traffic, 2, dev, cache=cache,
+                             exchange="ragged", ragged_cap=cap,
+                             wire_dtype=wire, exchange_pipeline=pipe)
+            if eng.cap_tuner.total_drops or \
+                    list(eng.cap_tuner.live) != live_want:
+                raise AssertionError(
+                    f"bf16 ragged {wire} {pipe}: drops "
+                    f"{eng.cap_tuner.total_drops}, live "
+                    f"{list(eng.cap_tuner.live)} (host {live_want})")
+            runs[wire, pipe] = ctr
+            log_serve("bf16", f"cache + ragged cap {cap} {wire} {pipe}",
+                      eng, card)
+        if not np.array_equal(runs[wire, "ring"], runs[wire, "mono"]):
+            raise AssertionError(f"bf16 ragged {wire}: ring differs from "
+                                 "mono")
+        got = torch.logit(torch.from_numpy(runs[wire, "mono"]).double())
+        errs[wire] = (got - want.double()).abs().max().item()
+        if errs[wire] > RAGGED_LOGIT_TOL[wire]:
+            raise AssertionError(f"bf16 ragged {wire}: logits "
+                                 f"{errs[wire]:.3e} from the plain forward")
+    log(f"[bf16] served {BF16_BATCHES} x {BATCH} powerlaw_hetero requests: "
+        f"dense f32 wire bound=2 == bound=0 bit-identical, CTRs within "
+        f"{dense_err:.3e} of the plain forward at the same bf16 parameters "
+        f"(<= {BF16_CTR_TOL}); a {CACHE_ROWS}-row bf16 cache "
+        f"({cache.hot_rows.numel() * 2 / 1e6:.1f} MB) with the ragged "
+        f"exchange at cap {cap}: ring == mono bit-identical per wire, max "
+        f"|logit - plain| bf16 {errs['bfloat16']:.3e} (<= 5e-2), int8 "
+        f"{errs['int8']:.3e} (<= 1e-1), zero drops, live_max the host's")
+
+    # one freshness window on a copy of the stack and of the cache
+    fparams = dict(params, tables=base.clone())
+    fcache = hc.HotCache(hot_ids=cache.hot_ids,
+                         hot_rows=cache.hot_rows.clone(),
+                         slot_of=cache.slot_of)
+    versions = [make_delta_batch(cfg, v, rows_per_version=FRESH_ROWS,
+                                 mode="powerlaw", seed=7)
+                for v in range(1, BF16_FRESH_VERSIONS + 1)]
+    fm = FreshnessManager(itertools.islice(delta_stream(
+        cfg, rows_per_version=FRESH_ROWS, mode="powerlaw", seed=7),
+        BF16_FRESH_VERSIONS), k_fresh=FRESH_K, slice_cap=FRESH_CAP)
+    feng = DLRMEngine(fparams, bcfg, batch_size=BATCH, bound=2,
+                      microbatches=4, exchange="dense", device=dev,
+                      cache=fcache, freshness=fm)
+    flushes = 0
+    for step in range(BF16_FRESH_FLUSHES):
+        b = make_batch(cfg, BATCH, mode="powerlaw_hetero", seed=SEED + 2,
+                       step=step)
+        for i in range(BATCH):
+            feng.submit(b.dense[i], b.idx[i], b.mask[i])
+        flushes += 1
+        if fm.fully_committed:
+            break
+    n_rows = sum(v.n_rows for v in versions)
+    oracle = oracle_tables(base, versions)
+    ids = fcache.hot_ids.long()
+    if not fm.fully_committed or fm.rows_applied != n_rows or \
+            not torch.equal(fparams["tables"].view(torch.int16),
+                            oracle.view(torch.int16)) or \
+            not torch.equal(fcache.hot_rows.view(torch.int16),
+                            oracle[torch.arange(ids.shape[0], device=dev)
+                                   [:, None], ids].view(torch.int16)):
+        raise AssertionError(f"bf16 freshness: committed "
+                             f"{fm.fully_committed}, rows {fm.rows_applied} "
+                             f"of {n_rows}; the stack or the cache differs "
+                             "from oracle_tables")
+    log(f"[bf16] freshness: {BF16_FRESH_VERSIONS} versions x {FRESH_ROWS} "
+        f"rows ({n_rows} after dedup) rounded once to bf16 and committed "
+        f"in {flushes} flushes; {fm.cache_refreshed} cached rows refreshed; "
+        f"the stack and the cache bit-identical to oracle_tables")
+    del fparams, fcache, feng, fm, oracle
+    torch.cuda.empty_cache()
+
+    # a scrub sweep with one flipped bit on a copy of the stack
+    tb, row_f, bit, when = BF16_FLIP
+    fp = FaultPlan.none(1, 64).with_bitflip(0, tb, row_f, bit, when=when)
+    seng = DLRMEngine(dict(params, tables=base.clone()), bcfg,
+                      batch_size=BATCH, bound=2, microbatches=4,
+                      exchange="dense", device=dev,
+                      faults=FaultInjector(fp, time_scale=0.0),
+                      scrub_budget=BF16_SCRUB_BUDGET)
+    clean = DLRMEngine(params, bcfg, batch_size=BATCH, bound=2,
+                       microbatches=4, exchange="dense", device=dev)
+    sc = seng.scrub
+    if sc.mirror.dtype != np.uint16:
+        raise AssertionError(f"bf16 scrub: mirror {sc.mirror.dtype}")
+    outs = {"scrub": [], "clean": []}
+    flipped = None
+    for step in range(BF16_SCRUB_FLUSHES):
+        b = make_batch(cfg, BATCH, mode="powerlaw_hetero", seed=9, step=step)
+        for key, e in (("scrub", seng), ("clean", clean)):
+            for i in range(BATCH):
+                o = e.submit(b.dense[i], b.idx[i], b.mask[i])
+            outs[key].append(o)
+        if step == when:
+            x = (seng.params["tables"][tb, row_f].view(torch.int16)
+                 ^ base[tb, row_f].view(torch.int16)).cpu().numpy()
+            flipped = [(int(i), int(v)) for i, v in
+                       zip(np.flatnonzero(x), x[x != 0].view(np.uint16))]
+    want_flip = [(bit // 16, 1 << (bit % 16))]
+    st = seng.stats
+    if flipped != want_flip or st.detections != 1 or \
+            st.repaired_rows != 1 or not sc.fully_repaired:
+        raise AssertionError(f"bf16 scrub: flip {flipped} (want element, "
+                             f"bits {want_flip}), detections "
+                             f"{st.detections}, repaired {st.repaired_rows},"
+                             f" fully repaired {sc.fully_repaired}")
+    if not torch.equal(seng.params["tables"].view(torch.int16),
+                       base.view(torch.int16)) or \
+            a2a.to_numpy(seng.params["tables"][tb, row_f]).tobytes() != \
+            sc.mirror[tb, row_f].tobytes():
+        raise AssertionError("bf16 scrub: the repaired stack differs from "
+                             "the clean one or the mirror")
+    last = outs["scrub"][-1], outs["clean"][-1]
+    if not np.array_equal(*last):
+        raise AssertionError("bf16 scrub: the last flush after the repair "
+                             "differs from the clean engine's")
+    log(f"[bf16] scrub: budget {BF16_SCRUB_BUDGET} blocks of "
+        f"{sc.block_rows} rows a flush ({sc.ledger.n_blocks} blocks a "
+        f"table), ledger boot {sc.boot['ledger_ms']} ms on the card, "
+        f"mirror copy {sc.boot['mirror_s']:.2f} s "
+        f"({sc.mirror.nbytes / 1e9:.3f} GB of uint16); bit {bit} of row "
+        f"({tb}, {row_f}) flipped at flush "
+        f"{when} (element {flipped[0][0]}, bits {flipped[0][1]:#06x}), "
+        f"detected, repaired through xrep ({st.repaired_rows} row); the "
+        f"stack bit-identical to the clean one, the last flush's CTRs to "
+        f"the clean engine's")
+    del seng, clean, sc
+    torch.cuda.empty_cache()
+
+    # bf16 dense features: the interaction in bf16 (B3's bf16 domain)
+    b = make_batch(cfg, BATCH, mode="hetero", seed=SEED + 3)
+    args = [torch.from_numpy(b.dense).to(dev, torch.bfloat16),
+            torch.from_numpy(b.idx).to(dev), torch.from_numpy(b.mask).to(dev)]
+    got2 = dlrm.forward_distributed(params, bcfg, *args, bound=2,
+                                    microbatches=4)
+    got0 = dlrm.forward_distributed(params, bcfg, *args, bound=0,
+                                    microbatches=4)
+    plain16 = dlrm.forward_local(params, plain_cfg, *args)
+    if got2.dtype != torch.bfloat16 or not torch.equal(got2, got0):
+        raise AssertionError(f"bf16 dense: logits {got2.dtype}, bound 2 == "
+                             f"bound 0 {torch.equal(got2, got0)}")
+    torch.testing.assert_close(got2.float(), plain16.float(),
+                               **BF16_LOGIT_TOL)
+    main_s = time.perf_counter() - t_main
+    by_key = {k: dict(ops.kernels()[k].by_key) for k in BF16_KERNELS}
+    launches = {k: ops.kernels()[k].launches for k in BF16_KERNELS}
+    log(f"[bf16] bf16 dense features through forward_distributed: bf16 "
+        f"logits, bound 2 == bound 0 bit-identical, within "
+        f"{(got2.float() - plain16.float()).abs().max().item():.3e} of the "
+        f"plain forward; the main path took {main_s:.1f} s")
+    log(f"[bf16] launches on the main path: {launches}; by shape {by_key}")
+    if not all(launches.values()):
+        raise AssertionError(f"bf16: a kernel of the path did not launch: "
+                             f"{launches}")
+    if ops.kernels()["embedding_bag_pool"].launches:
+        raise AssertionError("bf16: the f32 bag kernel launched on a bf16 "
+                             "stack")
+    out = []
+    for row, (kern, key) in rows:
+        row["launches"] = by_key[kern].get(key, 0)
+        if not row["launches"]:
+            raise AssertionError(f"{row['name']}: no launch at its shape on "
+                                 f"the main path")
+        out.append(row)
+    return out
 
 
 def flash_row(name, gen, dev, b, s, h, kh, hd, *, window=0, cap=0.0,
@@ -6423,7 +6845,8 @@ def main() -> int:
         dlrm_edge_phase(dev)
         with model_group("nccl"):
             dlrm_by_key, ctr5 = serve_phase(params, CONFIG, dev, card)
-            ragged_row, cache = ragged_phase(params, CONFIG, dev, card)
+            ragged_row, cache, ragged_cap = ragged_phase(params, CONFIG,
+                                                         dev, card)
             plans_chaos_phase(params, CONFIG, dev, card)
             frontend_fresh_phase(params, CONFIG, dev, card, cache)
             by_key_5e = reshard_scrub_phase(params, CONFIG, dev, card,
@@ -6450,8 +6873,14 @@ def main() -> int:
         rows.append(ragged_row)
         log(f"[reshard] phase 5e launches by shape {by_key_5e}")
         lap("dlrm")
-        # the LM phases need the card's memory: drop the 7.33 GB stack
+        # the bf16 DLRM in the f32 stack's place
         del params
+        torch.cuda.empty_cache()
+        with model_group("nccl"):
+            rows += bf16_dlrm_phase(CONFIG, dev, card, ragged_cap)
+        lap("dlrm bf16")
+        # the LM phases need the card's memory: the bf16 stack went with
+        # bf16_dlrm_phase's frame
         torch.cuda.empty_cache()
         flash_rows = flash_phase(dev)
         lm_parity_phase(dev)

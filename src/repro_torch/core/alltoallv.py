@@ -78,9 +78,48 @@ def _tree_map(fn, tree):
 
 
 def to_numpy(a) -> np.ndarray:
-    """A tensor (on any device) or an array-like as a host numpy array."""
-    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
-        else np.asarray(a)
+    """A tensor (on any device) or an array-like as a host numpy array.
+    numpy has no bf16: a bf16 tensor comes back as its raw 16-bit
+    patterns, ``np.uint16`` (the bytes a wire or a checksum sees)."""
+    if not isinstance(a, torch.Tensor):
+        return np.asarray(a)
+    a = a.detach().cpu()
+    if a.dtype == torch.bfloat16:
+        return a.view(torch.int16).numpy().view(np.uint16)
+    return a.numpy()
+
+
+def host_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype a host copy of ``dtype`` elements takes: its own,
+    or ``np.uint16`` bit patterns for bf16."""
+    if dtype == torch.bfloat16:
+        return np.dtype(np.uint16)
+    return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+def round_to_host(a, dtype: torch.dtype) -> np.ndarray:
+    """Values (any real array) rounded once to ``dtype`` (to nearest, ties
+    to even, as a cast on either framework rounds), as a host array of
+    :func:`host_dtype`: a bf16 row ships as its 16-bit patterns."""
+    t = torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dtype)
+    return to_numpy(t)
+
+
+def from_host(a, dtype=None) -> torch.Tensor:
+    """A host array as a CPU tensor, the inverse of :func:`to_numpy`: a
+    ``np.uint16`` copy of bf16 rows, for a bf16 ``dtype``, and an array of
+    numpy's ``bfloat16`` extension type (known by its name: the port does
+    not import the package that defines it) come back as the bf16 bits
+    they hold; any other array is converted to ``dtype`` (kept as it is
+    without one).  Shares the array's memory where no conversion is
+    needed."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16" or (dtype == torch.bfloat16
+                                      and a.dtype == np.uint16):
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t if dtype is None else t.to(dtype)
 
 
 def canon_wire(wire_dtype) -> str:

@@ -41,6 +41,14 @@
 // 227 KB of dynamic shared memory.  dot_interaction_empty launches an empty
 // kernel on the same grid, so a run can time the launch-and-ramp floor
 // beside the kernel.
+// bf16 features (dot_interaction_bf16_launch) take the same body: each
+// sample's block is read as 8-byte units of 4 bf16 (single elements where
+// S is not a multiple of 4 or z not 8-byte aligned), widened to f32
+// exactly and staged in the same padded f32 layout, so the products, the
+// KP split and the combine are the f32 kernel's; each output is rounded
+// once to bf16 (to nearest, ties to even).  Shared memory holds the
+// staged f32 rows: (F + 1) x (S + 4) floats, as for f32.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -54,6 +62,35 @@ constexpr size_t kDefaultSmem = 48 * 1024;
 template <int V> struct Vec;
 template <> struct Vec<1> { using T = float; };
 template <> struct Vec<4> { using T = float4; };
+
+// The V-element unit a thread loads from a row of type In while staging,
+// and its exact widening to the f32 vector it stores
+template <typename In, int V> struct Stage;
+template <int V> struct Stage<float, V> {
+  using T = typename Vec<V>::T;
+  static __device__ __forceinline__ T widen(T x) { return x; }
+};
+template <> struct Stage<__nv_bfloat16, 1> {
+  using T = unsigned short;
+  static __device__ __forceinline__ float widen(T x) {
+    return __uint_as_float((unsigned)x << 16);
+  }
+};
+template <> struct Stage<__nv_bfloat16, 4> {
+  using T = uint2;
+  static __device__ __forceinline__ float4 widen(T x) {
+    return make_float4(__uint_as_float(x.x << 16),
+                       __uint_as_float(x.x & 0xffff0000u),
+                       __uint_as_float(x.y << 16),
+                       __uint_as_float(x.y & 0xffff0000u));
+  }
+};
+
+// a dot stored in the input's type, rounded once
+__device__ __forceinline__ void store(float* o, float x) { *o = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* o, float x) {
+  *o = __float2bfloat16_rn(x);
+}
 
 __device__ __forceinline__ void fma_v(float (&acc)[1], float a, float b) {
   acc[0] = fmaf(a, b, acc[0]);
@@ -76,21 +113,22 @@ __host__ __device__ __forceinline__ int stride_of(int s, int v) {
   return (units | 1) * v;
 }
 
-template <int V>
+template <int V, typename In>
 __global__ void __launch_bounds__(kThreads)
-dot_interaction_f32(const float* __restrict__ z, float* __restrict__ out,
-                    int f, int s, int kp_log2) {
+dot_interaction(const In* __restrict__ z, In* __restrict__ out, int f, int s,
+                int kp_log2) {
   using VT = typename Vec<V>::T;
+  using LT = typename Stage<In, V>::T;
   extern __shared__ float4 smem4[];
   float* sz = reinterpret_cast<float*>(smem4);
   const int ld = stride_of(s, V);
   const int fp = (f + 1) & ~1;
   const int nv = s / V;
-  const VT* src = reinterpret_cast<const VT*>(z + (int64_t)blockIdx.x * f * s);
+  const LT* src = reinterpret_cast<const LT*>(z + (int64_t)blockIdx.x * f * s);
   // every load of a round is issued before the first store, so staging
   // costs one round trip per kStageUnroll x kThreads vectors
   for (int e0 = 0; e0 < f * nv; e0 += kStageUnroll * kThreads) {
-    VT v[kStageUnroll];
+    LT v[kStageUnroll];
 #pragma unroll
     for (int u = 0; u < kStageUnroll; ++u) {
       const int e = e0 + u * kThreads + threadIdx.x;
@@ -100,7 +138,9 @@ dot_interaction_f32(const float* __restrict__ z, float* __restrict__ out,
     for (int u = 0; u < kStageUnroll; ++u) {
       const int e = e0 + u * kThreads + threadIdx.x;
       const int row = e / nv;
-      if (e < f * nv) reinterpret_cast<VT*>(sz + row * ld)[e - row * nv] = v[u];
+      if (e < f * nv)
+        reinterpret_cast<VT*>(sz + row * ld)[e - row * nv] =
+            Stage<In, V>::widen(v[u]);
     }
   }
   if (fp > f)
@@ -108,7 +148,7 @@ dot_interaction_f32(const float* __restrict__ z, float* __restrict__ out,
   __syncthreads();
 
   const int n_out = f * (f - 1) / 2;
-  float* dst = out + (int64_t)blockIdx.x * n_out;
+  In* dst = out + (int64_t)blockIdx.x * n_out;
   const int tf = fp / 2;
   const int kp_n = 1 << kp_log2;
   const int total = tf * (tf + 1) / 2 * kp_n;
@@ -155,7 +195,7 @@ dot_interaction_f32(const float* __restrict__ z, float* __restrict__ out,
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
           const int i = 2 * ti + p, j = 2 * tj + q;
-          if (i > j && i < f) dst[i * (i - 1) / 2 + j] = dot[p][q];
+          if (i > j && i < f) store(dst + i * (i - 1) / 2 + j, dot[p][q]);
         }
     }
   }
@@ -175,18 +215,17 @@ int kparts_log2(int f, int s, int v) {
   return kp_log2;
 }
 
-template <int V>
-int launch(const float* z, float* out, int batch, int f, int s,
-           cudaStream_t st) {
+template <int V, typename In>
+int launch(const In* z, In* out, int batch, int f, int s, cudaStream_t st) {
   const int fp = (f + 1) & ~1;
   const size_t smem = (size_t)fp * stride_of(s, V) * sizeof(float);
   if (smem > kDefaultSmem) {
     cudaError_t err = cudaFuncSetAttribute(
-        dot_interaction_f32<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        dot_interaction<V, In>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  dot_interaction_f32<V><<<batch, kThreads, smem, st>>>(
+  dot_interaction<V, In><<<batch, kThreads, smem, st>>>(
       z, out, f, s, kparts_log2(f, s, V));
   return (int)cudaGetLastError();
 }
@@ -199,6 +238,19 @@ extern "C" int dot_interaction_f32_launch(const void* z, void* out, int batch,
   float* oo = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (s % 4 == 0 && reinterpret_cast<uintptr_t>(z) % 16 == 0)
+    return launch<4>(zz, oo, batch, f, s, st);
+  return launch<1>(zz, oo, batch, f, s, st);
+}
+
+// bf16 features and output, f32 products and sums (the same schedule and
+// KP as the f32 entry point)
+extern "C" int dot_interaction_bf16_launch(const void* z, void* out,
+                                           int batch, int f, int s,
+                                           void* stream) {
+  const __nv_bfloat16* zz = static_cast<const __nv_bfloat16*>(z);
+  __nv_bfloat16* oo = static_cast<__nv_bfloat16*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (s % 4 == 0 && reinterpret_cast<uintptr_t>(z) % 8 == 0)
     return launch<4>(zz, oo, batch, f, s, st);
   return launch<1>(zz, oo, batch, f, s, st);
 }

@@ -54,6 +54,19 @@
 //    Row offsets are 64-bit: a Kaggle-width stack holds 1.8e9 elements.
 //    kernels/ref.py::embedding_bag_split_ref is the CPU model of this
 //    summation order (bit-exact to it).
+//  * bf16 tables (embedding_bag_pool_bf16) take the same body, templated
+//    on the row type: a lane reads 16 bytes of 8 bf16 (one element where
+//    s is not a multiple of 8), widens them to f32 exactly (a bf16 is the
+//    top half of an f32), weighs them with the f32 weight and adds them
+//    in f32 in the same order as the f32 body, and the bag's sum is
+//    rounded once to bf16 (to nearest, ties to even) at the store: the
+//    output takes the table's type, as the reference's out_shape does.
+//    At s = 64 a row is 128 B, read by 8 lanes, so a block has twice the
+//    groups of the f32 body; a batch is 4 rows (8 in flight a group),
+//    which keeps a block's rows in flight at the f32 body's 128 and the
+//    registers of a batch of 16-byte vectors under the 128 that 4
+//    resident blocks allow (8-row batches spilled).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -74,31 +87,72 @@ constexpr int kPartialBytes = 32 * 1024;
 constexpr int kIdBytes = 16 * 1024;
 constexpr int kStageUnroll = 8;
 
-template <int V> struct Vec;
-template <> struct Vec<1> { using T = float; };
-template <> struct Vec<2> { using T = float2; };
-template <> struct Vec<4> { using T = float4; };
+// The V-element vector one lane loads from a row of type R, and its
+// widening to V floats: f32 rows as float / float2 / float4, bf16 rows as
+// one element or 16 bytes of 8 (element 2i the low half of word i)
+template <typename R, int V> struct RowVec;
+template <> struct RowVec<float, 1> {
+  using T = float;
+  static __device__ __forceinline__ void widen(T x, float (&f)[1]) {
+    f[0] = x;
+  }
+};
+template <> struct RowVec<float, 2> {
+  using T = float2;
+  static __device__ __forceinline__ void widen(T x, float (&f)[2]) {
+    f[0] = x.x;
+    f[1] = x.y;
+  }
+};
+template <> struct RowVec<float, 4> {
+  using T = float4;
+  static __device__ __forceinline__ void widen(T x, float (&f)[4]) {
+    f[0] = x.x;
+    f[1] = x.y;
+    f[2] = x.z;
+    f[3] = x.w;
+  }
+};
+template <> struct RowVec<__nv_bfloat16, 1> {
+  using T = unsigned short;
+  static __device__ __forceinline__ void widen(T x, float (&f)[1]) {
+    f[0] = __uint_as_float((unsigned)x << 16);
+  }
+};
+template <> struct RowVec<__nv_bfloat16, 8> {
+  using T = uint4;
+  static __device__ __forceinline__ void widen(T x, float (&f)[8]) {
+    const unsigned u[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(u[i] << 16);
+      f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+    }
+  }
+};
 
-__device__ __forceinline__ void add_scaled(float (&acc)[1], float w, float v) {
-  acc[0] = __fadd_rn(acc[0], __fmul_rn(w, v));
+// the rounded product added to the running sum, element by element
+template <typename R, int V>
+__device__ __forceinline__ void add_scaled(float (&acc)[V], float w,
+                                           typename RowVec<R, V>::T x) {
+  float f[V];
+  RowVec<R, V>::widen(x, f);
+#pragma unroll
+  for (int v = 0; v < V; ++v) acc[v] = __fadd_rn(acc[v], __fmul_rn(w, f[v]));
 }
-__device__ __forceinline__ void add_scaled(float (&acc)[2], float w, float2 v) {
-  acc[0] = __fadd_rn(acc[0], __fmul_rn(w, v.x));
-  acc[1] = __fadd_rn(acc[1], __fmul_rn(w, v.y));
-}
-__device__ __forceinline__ void add_scaled(float (&acc)[4], float w, float4 v) {
-  acc[0] = __fadd_rn(acc[0], __fmul_rn(w, v.x));
-  acc[1] = __fadd_rn(acc[1], __fmul_rn(w, v.y));
-  acc[2] = __fadd_rn(acc[2], __fmul_rn(w, v.z));
-  acc[3] = __fadd_rn(acc[3], __fmul_rn(w, v.w));
+
+// the bag's f32 sum stored in the table's type, rounded once
+__device__ __forceinline__ void store(float* o, float x) { *o = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* o, float x) {
+  *o = __float2bfloat16_rn(x);
 }
 
 struct Args {
-  const float* table;
+  const void* table;    // float or __nv_bfloat16 rows
   const int32_t* idx;
   const float* w;
   const int32_t* tid;   // nullptr: table n % n_tables
-  float* out;
+  void* out;            // the table's type
   int64_t n_bags, rows;
   int hot, s, n_tables;
   int lanes_log2;       // L = 1 << lanes_log2 lanes read one row
@@ -112,12 +166,12 @@ struct Args {
 // issued back to back with no branch between them.  A slot past the group's
 // last (j >= n_mine) repeats the last slot read, whose row is in flight or
 // just landed; the adds skip it.
-template <int V, int U>
-__device__ __forceinline__ void fetch(typename Vec<V>::T (&x)[U],
+template <typename R, int V, int U>
+__device__ __forceinline__ void fetch(typename RowVec<R, V>::T (&x)[U],
                                       float (&wt)[U], const int2* slots,
                                       int j0, int n_mine, int step,
-                                      const float* base, int s, int c) {
-  using VT = typename Vec<V>::T;
+                                      const R* base, int s, int c) {
+  using VT = typename RowVec<R, V>::T;
   int r[U];
   const int tail = min(j0, max(n_mine - 1, 0));
 #pragma unroll
@@ -128,15 +182,17 @@ __device__ __forceinline__ void fetch(typename Vec<V>::T (&x)[U],
   }
 #pragma unroll
   for (int u = 0; u < U; ++u) {
-    const float* p = base + (int64_t)r[u] * s + c;
+    const R* p = base + (int64_t)r[u] * s + c;
     x[u] = __ldg(reinterpret_cast<const VT*>(p));
   }
 }
 
-template <int V, int U>
+template <int V, int U, typename R>
 __global__ void __launch_bounds__(kThreads, U == 1 ? 4 : kMinBlocks)
-bag_pool_f32(const Args a) {
-  using VT = typename Vec<V>::T;
+bag_pool(const Args a) {
+  using VT = typename RowVec<R, V>::T;
+  const R* table = static_cast<const R*>(a.table);
+  R* out = static_cast<R*>(a.out);
   extern __shared__ float4 smem4[];
   const int lanes = 1 << a.lanes_log2;
   const int n_groups = kThreads >> a.lanes_log2;
@@ -174,7 +230,7 @@ bag_pool_f32(const Args a) {
     t = a.tid != nullptr ? min(max(__ldg(a.tid + bag), 0), a.n_tables - 1)
                          : (int)(bag % a.n_tables);
   }
-  const float* base = a.table + (int64_t)t * a.rows * a.s;
+  const R* base = table + (int64_t)t * a.rows * a.s;
   // ids are int32, so clamping to min(rows - 1, INT_MAX) loses nothing
   const int last = (int)min(a.rows - 1, (int64_t)0x7fffffff);
   if constexpr (U == 1) {
@@ -186,13 +242,13 @@ bag_pool_f32(const Args a) {
       for (int v = 0; v < V; ++v) acc[v] = 0.0f;
       if (a.hot == 1) {
         const int r = min(max(__ldg(a.idx + bag), 0), last);
-        add_scaled(acc, __ldg(a.w + bag),
-                   __ldg(reinterpret_cast<const VT*>(base + (int64_t)r * a.s +
-                                                     c)));
+        add_scaled<R, V>(acc, __ldg(a.w + bag),
+                         __ldg(reinterpret_cast<const VT*>(
+                             base + (int64_t)r * a.s + c)));
       }
-      float* o = a.out + bag * a.s + c;
+      R* o = out + bag * a.s + c;
 #pragma unroll
-      for (int v = 0; v < V; ++v) o[v] = acc[v];
+      for (int v = 0; v < V; ++v) store(o + v, acc[v]);
     }
     return;
   }
@@ -239,14 +295,15 @@ bag_pool_f32(const Args a) {
       VT xa[U];
       float wa[U];
       // the next batch's rows load while this batch is added
-      fetch<V, U>(xa, wa, mine, 0, n_mine, a.groups, base, a.s, c);
+      fetch<R, V, U>(xa, wa, mine, 0, n_mine, a.groups, base, a.s, c);
       for (int j0 = 0; j0 < n_mine; j0 += U) {
         VT xb[U];
         float wb[U];
-        fetch<V, U>(xb, wb, mine, j0 + U, n_mine, a.groups, base, a.s, c);
+        fetch<R, V, U>(xb, wb, mine, j0 + U, n_mine, a.groups, base, a.s,
+                       c);
 #pragma unroll
         for (int u = 0; u < U; ++u) {
-          if (j0 + u < n_mine) add_scaled(acc, wa[u], xa[u]);
+          if (j0 + u < n_mine) add_scaled<R, V>(acc, wa[u], xa[u]);
           xa[u] = xb[u];
           wa[u] = wb[u];
         }
@@ -254,9 +311,9 @@ bag_pool_f32(const Args a) {
     }
     if (a.groups == 1) {
       if (active) {
-        float* o = a.out + bag * a.s + c;
+        R* o = out + bag * a.s + c;
 #pragma unroll
-        for (int v = 0; v < V; ++v) o[v] = acc[v];
+        for (int v = 0; v < V; ++v) store(o + v, acc[v]);
       }
     } else if (c < a.s) {
       float* p = part + gi * a.s + c;
@@ -273,7 +330,7 @@ bag_pool_f32(const Args a) {
     const float* p = part + sl * a.groups * a.s + c;
     float sum = p[0];
     for (int g = 1; g < a.groups; ++g) sum = __fadd_rn(sum, p[g * a.s]);
-    a.out[(first + sl * stride) * a.s + c] = sum;
+    store(out + (first + sl * stride) * a.s + c, sum);
   }
 }
 
@@ -356,39 +413,44 @@ int plan(Args* a, Plan* p) {
   return 0;
 }
 
-template <int V, int U>
+template <typename R, int V, int U>
 int launch_with(const Args& a, const Plan& p, cudaStream_t st) {
   if (p.smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        bag_pool_f32<V, U>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bag_pool<V, U, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)p.smem);
     if (err != cudaSuccess) return (int)err;
   }
-  bag_pool_f32<V, U><<<(unsigned)p.blocks, kThreads, p.smem, st>>>(a);
+  bag_pool<V, U, R><<<(unsigned)p.blocks, kThreads, p.smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
 // one-slot bags (the hot-1 traffic) take U = 1: their id comes straight
 // from device memory, and the registers a batch of rows would hold buy
 // resident blocks instead
-template <int V>
+// rows a group loads in one batch: kUnroll, or half of it for bf16 rows
+// read as 16-byte vectors (8-lane groups, twice as many a block)
+template <typename R, int V>
+constexpr int kBatchRows = sizeof(R) == 2 && V == 8 ? kUnroll / 2 : kUnroll;
+
+template <typename R, int V>
 int launch(Args a, cudaStream_t st) {
   Plan p;
   const int err = plan<V>(&a, &p);
   if (err) return err;
-  return a.hot <= 1 ? launch_with<V, 1>(a, p, st)
-                    : launch_with<V, kUnroll>(a, p, st);
+  return a.hot <= 1 ? launch_with<R, V, 1>(a, p, st)
+                    : launch_with<R, V, kBatchRows<R, V>>(a, p, st);
 }
 
 Args make_args(const void* table, const void* idx, const void* w,
                const void* tid, void* out, int64_t n_bags, int hot, int s,
                int64_t rows, int n_tables) {
   Args a;
-  a.table = static_cast<const float*>(table);
+  a.table = table;
   a.idx = static_cast<const int32_t*>(idx);
   a.w = static_cast<const float*>(w);
   a.tid = static_cast<const int32_t*>(tid);
-  a.out = static_cast<float*>(out);
+  a.out = out;
   a.n_bags = n_bags;
   a.rows = rows;
   a.hot = hot;
@@ -408,23 +470,39 @@ extern "C" int embedding_bag_pool_f32(const void* table, const void* idx,
   const Args a = make_args(table, idx, w, tid, out, n_bags, hot, s, rows,
                            n_tables);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (s % 4 == 0) return launch<4>(a, st);
-  if (s % 2 == 0) return launch<2>(a, st);
-  return launch<1>(a, st);
+  if (s % 4 == 0) return launch<float, 4>(a, st);
+  if (s % 2 == 0) return launch<float, 2>(a, st);
+  return launch<float, 1>(a, st);
+}
+
+// The same pooling over a bf16 table: bf16 rows and output, f32 ids'
+// weights and sums (the table 16-byte aligned)
+extern "C" int embedding_bag_pool_bf16(const void* table, const void* idx,
+                                       const void* w, const void* tid,
+                                       void* out, int64_t n_bags, int hot,
+                                       int s, int64_t rows, int n_tables,
+                                       void* stream) {
+  const Args a = make_args(table, idx, w, tid, out, n_bags, hot, s, rows,
+                           n_tables);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (s % 8 == 0) return launch<__nv_bfloat16, 8>(a, st);
+  return launch<__nv_bfloat16, 1>(a, st);
 }
 
 // The plan a call with these shapes would launch (tid_given: the rows
-// form): out[0] lanes per row, out[1] groups per bag, out[2] table-major,
-// out[3] blocks, out[4] bytes of dynamic shared memory.
+// form; bf16: a bf16 table): out[0] lanes per row, out[1] groups per bag,
+// out[2] table-major, out[3] blocks, out[4] bytes of dynamic shared
+// memory.
 extern "C" int embedding_bag_plan(int64_t n_bags, int hot, int s,
-                                  int n_tables, int tid_given,
+                                  int n_tables, int tid_given, int bf16,
                                   int64_t* out) {
   static const int32_t some_tid = 0;
   Args a = make_args(nullptr, nullptr, nullptr,
                      tid_given ? &some_tid : nullptr, nullptr, n_bags, hot,
                      s, 1, n_tables);
   Plan p;
-  const int err = s % 4 == 0   ? plan<4>(&a, &p)
+  const int err = bf16 ? (s % 8 == 0 ? plan<8>(&a, &p) : plan<1>(&a, &p))
+                  : s % 4 == 0 ? plan<4>(&a, &p)
                   : s % 2 == 0 ? plan<2>(&a, &p)
                                : plan<1>(&a, &p);
   if (err) return err;

@@ -5,7 +5,10 @@ All three entry points — :func:`embedding_bag` (one table),
 :func:`embedding_bag_stacked` (the (T, R, s) model stack) and
 :func:`embedding_bag_rows` (packed rows, each against its own table) —
 address the stack as one flat (T·R, s) row space with global row id
-t·R + clip(idx), and go through the one kernel, :func:`pool_rows`.
+t·R + clip(idx), and go through the one kernel, :func:`pool_rows`: its
+float32 entry point (``POOL``) or, for a bf16 stack, its bf16 one
+(``POOL_BF16``: bf16 rows widened to f32, weighed and summed in f32,
+each bag rounded once to bf16).
 
 For CPU tensors the wrappers take the plain versions in ``kernels/ref.py``;
 for CUDA tensors they launch the kernel or raise.  ``row_block`` and
@@ -36,28 +39,34 @@ POOL = Kernel("embedding_bag.cu", "embedding_bag_pool_f32",
               [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int,
                                        ctypes.c_int, ctypes.c_int64,
                                        ctypes.c_int, ctypes.c_void_p])
+POOL_BF16 = Kernel("embedding_bag.cu", "embedding_bag_pool_bf16",
+                   POOL.argtypes)
+# the entry point that pools a table of each type
+POOLS = {torch.float32: POOL, torch.bfloat16: POOL_BF16}
 
 
 def launch_key(n_bags: int, hot: int, s: int, n_tables: int,
                rows_form: bool = False) -> tuple:
-    """What ``POOL.by_key`` counts a launch under: its bags, slots per bag,
-    width, tables and whether it is the rows form."""
+    """What ``POOL.by_key`` (and ``POOL_BF16.by_key``) counts a launch
+    under: its bags, slots per bag, width, tables and whether it is the
+    rows form."""
     return (n_bags, hot, s, n_tables, rows_form)
 
 
 def launch_plan(n_bags: int, hot: int, s: int, n_tables: int, *,
-                rows_form: bool = False) -> dict:
-    """The plan the CUDA launcher picks for a call of these shapes on the
-    current card (it reads the card's SM count, so it needs one): lanes
-    per row, groups per bag (``ref.embedding_bag_split_ref``'s
-    ``groups``), whether the schedule is table-major, blocks and bytes of
-    dynamic shared memory."""
+                rows_form: bool = False, dtype=torch.float32) -> dict:
+    """The plan the CUDA launcher picks for a call of these shapes over a
+    ``dtype`` table on the current card (it reads the card's SM count, so
+    it needs one): lanes per row, groups per bag
+    (``ref.embedding_bag_split_ref``'s ``groups``), whether the schedule
+    is table-major, blocks and bytes of dynamic shared memory."""
     fn = _build.library("embedding_bag.cu").embedding_bag_plan
     fn.argtypes = [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int64 * 5)()
-    err = fn(n_bags, hot, s, n_tables, int(rows_form), out)
+    err = fn(n_bags, hot, s, n_tables, int(rows_form),
+             int(dtype == torch.bfloat16), out)
     if err:
         raise RuntimeError(f"embedding_bag_plan: CUDA error {err}")
     return dict(zip(("lanes", "groups", "table_major", "blocks", "smem"),
@@ -447,22 +456,24 @@ def _check(name, t, dtype, shape, device):
 
 
 def pool_rows(table_flat, idx, w, *, rows: int, n_tables: int, tid=None):
-    """The CUDA kernel: table_flat (n_tables·rows, s) float32, idx (N, hot)
-    int32, w (N, hot) float32 and optionally tid (N,) int32 -> (N, s).
-    Bag n pools against table tid[n], or n % n_tables without tid; ids are
-    clamped to [0, rows-1] and table ids to [0, n_tables-1] in the kernel.
-    Raises for anything but contiguous CUDA tensors of those types."""
+    """The CUDA kernel: table_flat (n_tables·rows, s) float32 or bf16, idx
+    (N, hot) int32, w (N, hot) float32 and optionally tid (N,) int32 ->
+    (N, s) in the table's type.  Bag n pools against table tid[n], or n %
+    n_tables without tid; ids are clamped to [0, rows-1] and table ids to
+    [0, n_tables-1] in the kernel.  A bf16 table takes the bf16 entry
+    point (sums in f32, rounded once).  Raises for anything but contiguous
+    CUDA tensors of those types."""
     dev = table_flat.device
     if dev.type != "cuda":
         raise RuntimeError(f"pool_rows launches a CUDA kernel; got a tensor "
                            f"on {dev}")
-    if table_flat.dtype != torch.float32:
-        raise NotImplementedError(
-            f"the CUDA bag kernel takes float32 tables, got "
-            f"{table_flat.dtype} (bf16 tables: ROADMAP B-section)")
+    kernel = POOLS.get(table_flat.dtype)
+    if kernel is None:
+        raise ValueError(f"the CUDA bag kernel takes float32 or bf16 "
+                         f"tables, got {table_flat.dtype}")
     n, hot = idx.shape
     s = table_flat.shape[1]
-    _check("table_flat", table_flat, torch.float32, (n_tables * rows, s),
+    _check("table_flat", table_flat, table_flat.dtype, (n_tables * rows, s),
            dev)
     _check("idx", idx, torch.int32, (n, hot), dev)
     _check("w", w, torch.float32, (n, hot), dev)
@@ -472,11 +483,11 @@ def pool_rows(table_flat, idx, w, *, rows: int, n_tables: int, tid=None):
         raise ValueError(f"empty table stack ({n_tables} x {rows} rows)")
     if table_flat.data_ptr() % 16:
         raise ValueError("table_flat must be 16-byte aligned")
-    out = torch.empty((n, s), dtype=torch.float32, device=dev)
+    out = torch.empty((n, s), dtype=table_flat.dtype, device=dev)
     if n == 0 or s == 0:
         return out
     with torch.cuda.device(dev):
-        POOL(table_flat.data_ptr(), idx.data_ptr(), w.data_ptr(),
+        kernel(table_flat.data_ptr(), idx.data_ptr(), w.data_ptr(),
              None if tid is None else tid.data_ptr(), out.data_ptr(),
              n, hot, s, rows, n_tables,
              torch.cuda.current_stream(dev).cuda_stream,

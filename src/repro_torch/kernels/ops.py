@@ -29,8 +29,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.dot_interaction import DOT, dot_interaction
-from repro_torch.kernels.embedding_bag import (POOL, check_plan,
+from repro_torch.kernels.dot_interaction import (DOT, DOT_BF16,
+                                                 dot_interaction)
+from repro_torch.kernels.embedding_bag import (POOL, POOL_BF16, check_plan,
                                                check_stacked_plan,
                                                embedding_bag,
                                                embedding_bag_rows,
@@ -43,8 +44,10 @@ IMPLS = ("ref", "pallas", "interpret", "auto")
 
 
 def kernels():
-    """Every hand-written kernel of the port, by name."""
-    return {"embedding_bag_pool": POOL, "dot_interaction": DOT,
+    """Every entry point of the port's hand-written kernels, by name (the
+    bag and the interaction have one for f32 and one for bf16)."""
+    return {"embedding_bag_pool": POOL, "embedding_bag_pool_bf16": POOL_BF16,
+            "dot_interaction": DOT, "dot_interaction_bf16": DOT_BF16,
             "flash_attention": FLASH, "rwkv6_wkv": WKV}
 
 

@@ -13,6 +13,11 @@ the tests.
 
 Ids are clamped to ``[0, R-1]`` (and table ids to ``[0, T-1]``) explicitly:
 JAX clamps out-of-bounds gathers silently, torch indexing raises.
+
+bf16 inputs: the bags and the interaction widen them to f32, compute in
+f32 and round the result once to the input's type, as their kernels and
+the reference's kernels do; a bf16 bag therefore differs from one summed
+in bf16 (or from XLA's sum, in another order) by at most a rounding.
 """
 from __future__ import annotations
 
@@ -60,7 +65,8 @@ def dot_interaction_split_ref(z: torch.Tensor, kparts: int) -> torch.Tensor:
     launcher's) takes columns kp, kp + kparts, ... and keeps one running
     fused multiply-add per float4 component from 0; each thread folds its
     four as (x + y) + (z + w), and the threads meet in an xor tree (1, 2, 4,
-    ...).  S must be a multiple of 4."""
+    ...).  S must be a multiple of 4.  bf16 features are widened to f32
+    and each dot rounded once to bf16, as the bf16 entry point does."""
     b, f, s = z.shape
     zf = z.float().reshape(b, f, s // 4, 4)
     ii, jj = torch.tril_indices(f, f, -1, device=z.device)
@@ -81,10 +87,17 @@ def clamped_ids(idx: torch.Tensor, n: int) -> torch.Tensor:
     return idx.long().clamp(0, n - 1)
 
 
+def _pool(rows, mask, dim: int):
+    """Masked sum of gathered ``rows`` over ``dim``: the rows widened to
+    f32, weighed by the f32 mask and summed in f32, the sum rounded once
+    to the rows' type (a no-op cast for f32 tables)."""
+    return (rows.float() * mask[..., None].float()).sum(dim).to(rows.dtype)
+
+
 def embedding_bag_ref(table, idx, mask):
     """table:(R,S) idx:(B,hot) mask:(B,hot) -> (B,S) masked-sum bags."""
     rows = table[clamped_ids(idx, table.shape[0])]             # (B,hot,S)
-    return (rows * mask[..., None].to(rows.dtype)).sum(1)
+    return _pool(rows, mask, 1)
 
 
 def embedding_bag_stacked_ref(tables, idx, mask):
@@ -93,7 +106,7 @@ def embedding_bag_stacked_ref(tables, idx, mask):
     t, r, _ = tables.shape
     tab = torch.arange(t, device=tables.device)[None, :, None]
     rows = tables[tab, clamped_ids(idx, r)]                      # (B,T,hot,S)
-    return (rows * mask[..., None].to(rows.dtype)).sum(2)
+    return _pool(rows, mask, 2)
 
 
 def embedding_bag_rows_ref(tables, tid, idx, mask):
@@ -101,7 +114,7 @@ def embedding_bag_rows_ref(tables, tid, idx, mask):
     row pooled against its own table."""
     t, r, _ = tables.shape
     rows = tables[clamped_ids(tid, t)[:, None], clamped_ids(idx, r)]
-    return (rows * mask[..., None].to(rows.dtype)).sum(1)
+    return _pool(rows, mask, 1)
 
 
 def embedding_bag_grad_ref(shape, dtype, gid, mask, dout):
@@ -138,23 +151,25 @@ def embedding_bag_split_ref(table_flat, idx, w, *, rows: int, n_tables: int,
     against table clamp(tid[n]) (or n % n_tables without tid); its slots
     are split over ``groups`` groups, group k adding the rounded products
     of slots k, k + groups, ... in order to a sum that starts at 0, and the
-    group sums are added in order 0, 1, ....  Bit-exact to the kernel with
-    the same ``groups`` (``embedding_bag.launch_plan`` reads the kernel's)."""
+    group sums are added in order 0, 1, ....  All of it in f32 (a bf16 row
+    widened exactly, weighed by the f32 weight), the bag rounded once to
+    the table's type.  Bit-exact to the kernel with the same ``groups``
+    (``embedding_bag.launch_plan`` reads the kernel's)."""
     n, hot = idx.shape
     if tid is None:
         t = torch.arange(n, device=idx.device) % n_tables
     else:
         t = clamped_ids(tid, n_tables)
-    x = table_flat[t[:, None] * rows + clamped_ids(idx, rows)] \
-        * w[..., None].to(table_flat.dtype)                   # (N, hot, s)
+    x = table_flat[t[:, None] * rows + clamped_ids(idx, rows)].float() \
+        * w[..., None].float()                                # (N, hot, s)
     out = None
     for k in range(groups):
-        acc = torch.zeros((n, table_flat.shape[1]), dtype=table_flat.dtype,
+        acc = torch.zeros((n, table_flat.shape[1]), dtype=torch.float32,
                           device=table_flat.device)
         for h in range(k, hot, groups):
             acc = acc + x[:, h]
         out = acc if out is None else out + acc
-    return out
+    return out.to(table_flat.dtype)
 
 
 # the Pallas kernel's finite mask sentinel (flash_attention.py:22)

@@ -123,11 +123,13 @@ def dlrm_specs(cfg: DLRMConfig):
 def params_from_jax(np_params, device="cuda"):
     """The reference's parameter pytree (``repro.models.dlrm.init_dlrm``),
     its leaves as numpy arrays, -> the port's parameters on ``device``.
-    The layouts agree, so this is a plain copy."""
+    The layouts agree, so this is a plain copy, bit for bit: a bf16 leaf
+    (numpy's ``bfloat16`` extension type, known here by its name) crosses
+    as its raw 16-bit patterns."""
     dev = resolve_device(device)
 
     def conv(a):
-        return torch.from_numpy(np.array(a, copy=True)).to(dev)
+        return a2a_mod.from_host(np.array(a, copy=True)).to(dev)
 
     return {"tables": conv(np_params["tables"]),
             "bot": [{k: conv(v) for k, v in lp.items()}
@@ -334,6 +336,14 @@ def resolve_slice(cfg: DLRMConfig, *, wire_dtype: Optional[str] = None,
     if pipe not in ("mono", "ring", "auto"):
         raise ValueError(f"unknown exchange_pipeline {pipe!r}")
     return wire
+
+
+def _rider_leaf(v) -> torch.Tensor:
+    """A rider leaf as a tensor.  Host copies of bf16 rows are their
+    16-bit patterns (``np.uint16``: numpy has no bf16), taken back here as
+    the bf16 values they are."""
+    t = torch.as_tensor(v)
+    return t.view(torch.bfloat16) if t.dtype == torch.uint16 else t
 
 
 def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
@@ -552,7 +562,7 @@ def forward_distributed(params, cfg: DLRMConfig, dense, idx, mask, *,
         if leaves is not None:
             rcap = int(leaves[p + "gid"].shape[-1])
             riders.append((field, p, make(n_shards, rcap, s, emb_dtype),
-                           {k: torch.as_tensor(v)[m].to(dev)
+                           {k: _rider_leaf(v)[m].to(dev)
                             for k, v in leaves.items()}, rcap))
     sub = {f: lay for f, _, lay, _, _ in riders}
     # the ONE layout both exchange halves (and the BLS ring slot) agree on,

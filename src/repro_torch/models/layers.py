@@ -83,7 +83,13 @@ def stack_specs(tree, *axes):
 
 
 def dense(params, x):
-    y = x @ params["kernel"]
+    """``x @ kernel + bias`` under JAX's type promotion: an f32 ``x``
+    through a bf16 layer computes in f32 (the bf16 weights widened
+    exactly), as the reference's ``x @ w`` does; operands of one type are
+    used as they are."""
+    kernel = params["kernel"]
+    dt = torch.promote_types(x.dtype, kernel.dtype)
+    y = x.to(dt) @ kernel.to(dt)
     if "bias" in params:
         y = y + params["bias"]
     return y

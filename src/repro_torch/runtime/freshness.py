@@ -49,6 +49,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from repro_torch.core.alltoallv import (from_host, host_dtype,
+                                         round_to_host, to_numpy)
 from repro_torch.core.integrity import row_checksum
 from repro_torch.runtime.elastic import NodeFailure
 from repro_torch.serving import hot_cache as hc_mod
@@ -203,11 +205,8 @@ class FreshnessManager:
         mb = engine.microbatches
         tables = engine.params["tables"]
         s = tables.shape[2]
-        if tables.dtype != torch.float32:
-            # the bag kernels serve float32 tables (ROADMAP B2)
-            raise NotImplementedError(
-                f"delta rows for {tables.dtype} tables are not ported")
-        emb_dt = np.dtype(np.float32)
+        # rows ship in the table's type; a bf16 row as its 16-bit patterns
+        emb_dt = host_dtype(tables.dtype)
         dcap = self.slice_cap
         # a flush that died between ship and ingest left rows marked in
         # flight that never arrived: ship them again
@@ -258,10 +257,10 @@ class FreshnessManager:
             m, j = slices[si]
             si += 1
             b, gix = self._batches[v0]
-            for i, (_, g) in enumerate(take):
-                dvec[m, j, i] = np.asarray(b.vec[gix[g]], emb_dt)
-                dgid[m, j, i] = g
             n = len(take)
+            dvec[m, j, :n] = round_to_host(
+                b.vec[[gix[g] for _, g in take]], tables.dtype)
+            dgid[m, j, :n] = [g for _, g in take]
             dcnt[m, j, 0] = n
             dver[m, j, 0] = v0
             dcs[m, j, :n] = row_checksum(dvec[m, j, :n], dgid[m, j, :n], v0)
@@ -303,7 +302,7 @@ class FreshnessManager:
         (host, done), self._held = self._held, None
         if done is not None:
             done.synchronize()
-        dd = {k: v.numpy() for k, v in host.items()}
+        dd = {k: to_numpy(v) for k, v in host.items()}
         p_dst, mb, p_src = dd["dgid"].shape[:3]
         requeue = []
         # empty slices (a drained stream) cost one sum, not a sweep
@@ -379,6 +378,9 @@ class FreshnessManager:
             tab = inv[tab].astype(np.int64)
         tables, cache = engine.params["tables"], engine.cache
         dev = tables.device
+        # the rows as the table holds them (rounded once to its type): what
+        # is written, and what the mirror and a banked copy must equal
+        vecs = round_to_host(vecs, tables.dtype)
         events = None
         if dev.type == "cuda":
             events = (torch.cuda.Event(enable_timing=True),
@@ -386,8 +388,7 @@ class FreshnessManager:
             events[0].record()
         # two uploads: the (table, row) pairs and the rows
         tr = torch.from_numpy(np.stack([tab, row])).to(dev)
-        upd = torch.from_numpy(np.ascontiguousarray(vecs)).to(dev) \
-            .to(tables.dtype)
+        upd = from_host(vecs, tables.dtype).to(dev)
         ti, ri = tr[0], tr[1]        # in range: checked at the pull
         kept = tables[ti, ri]                    # the undo log (a copy)
         refreshed, kept_c = 0, None
@@ -425,7 +426,7 @@ class FreshnessManager:
         # every authorized write
         resh = getattr(engine, "reshard", None)
         scrub = getattr(engine, "scrub", None)
-        dt = np.dtype(np.float32)        # deltas serve f32 stacks only
+        dt = vecs.dtype
         for k, g in enumerate(gids):
             if resh is not None and resh.active:
                 resh.note_applied(int(g), vecs[k], dt)

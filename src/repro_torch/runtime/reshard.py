@@ -33,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.alltoallv import from_host, host_dtype, to_numpy
 from repro_torch.core.integrity import row_checksum
 # MIG_STAGES: the five migration steps a fault plan can kill (shipping,
 # banking, verifying, installing, and the window between the two commit
@@ -54,8 +55,7 @@ def install_stack(tables, order, mov_slots, slot_ix, row_ix, vals):
 
     new = tables[ix(order)]
     new[ix(mov_slots)] = 0
-    new[ix(slot_ix), ix(row_ix)] = torch.from_numpy(
-        np.ascontiguousarray(vals)).to(dev, tables.dtype)
+    new[ix(slot_ix), ix(row_ix)] = from_host(vals, tables.dtype).to(dev)
     return new
 
 
@@ -198,7 +198,7 @@ class ReshardExecutor:
         (host, done), self._held = self._held, None
         if done is not None:
             done.synchronize()
-        dd = {k: v.numpy() for k, v in host.items()}
+        dd = {k: to_numpy(v) for k, v in host.items()}
         p_dst, mb, p_src = dd["mgid"].shape[:3]
         if dd["mcnt"].any():
             for m in range(p_dst):
@@ -283,8 +283,9 @@ class ReshardExecutor:
                 slot_ix.append(slot)
                 row_ix.append(j)
                 vals.append(self.banked[ti * r + j])
-        vals_a = (np.stack(vals).astype(np.float32) if vals
-                  else np.zeros((0, s), np.float32))
+        # the banked rows' bytes, a bf16 row as its 16-bit patterns
+        vals_a = (np.stack(vals) if vals
+                  else np.zeros((0, s), host_dtype(old.dtype)))
         staged_tables = install_stack(old, order, mov_slots, slot_ix,
                                       row_ix, vals_a)
         del old

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import integrity as integ
+from repro_torch.core.alltoallv import from_host, host_dtype, to_numpy
 from repro_torch.core.integrity import row_checksum
 from repro_torch.runtime.freshness import to_host_async
 from repro_torch.serving import hot_cache as hc_mod
@@ -87,10 +88,6 @@ class Scrubber:
             raise ValueError(
                 f"quarantine_cap must be >= 1, got {quarantine_cap}")
         tables = engine.params["tables"]
-        if tables.dtype != torch.float32:
-            # the bag kernels serve float32 tables (ROADMAP B2)
-            raise NotImplementedError(
-                f"scrubbing {tables.dtype} tables is not ported")
         self.budget = int(budget)
         self.block_rows = int(block_rows)
         self.slice_cap = int(slice_cap)
@@ -117,10 +114,12 @@ class Scrubber:
             ledger_ms = ev[0].elapsed_time(ev[1])
         self.mirror = None
         if mirror:
-            self.mirror = np.empty(tuple(tables.shape), np.float32)
+            # the table's bytes: a bf16 stack as its 16-bit patterns
+            self.mirror = np.empty(tuple(tables.shape),
+                                   host_dtype(tables.dtype))
             for t in range(tables.shape[0]):
                 phys = int(inv[t]) if inv is not None else t
-                self.mirror[t] = tables[phys].cpu().numpy()
+                self.mirror[t] = to_numpy(tables[phys])
         self.boot = {"ledger_ms": ledger_ms, "ledger_s": t1 - t0,
                      "mirror_s": time.perf_counter() - t1}
         self.quarantined: set = set()    # original gids masked from serving
@@ -183,7 +182,7 @@ class Scrubber:
         host, done = held
         if done is not None:
             done.synchronize()
-        return {k: v.numpy() for k, v in host.items()}
+        return {k: to_numpy(v) for k, v in host.items()}
 
     # -- checksum-shadow bookkeeping ---------------------------------------
 
@@ -468,7 +467,8 @@ class Scrubber:
             self.reships += len(self._inflight)
             self._repairq = sorted(set(self._repairq) | set(self._inflight))
             self._inflight = []
-        rvec = np.zeros((p, mb, cap, s), np.float32)
+        rvec = np.zeros((p, mb, cap, s),
+                        host_dtype(engine.params["tables"].dtype))
         rgid = np.zeros((p, mb, cap), np.int32)
         rcs = np.zeros((p, mb, cap), np.uint32)
         rcnt = np.zeros((p, mb, 1), np.int32)
@@ -585,8 +585,7 @@ class Scrubber:
         tables, cache = engine.params["tables"], engine.cache
         dev = tables.device
         tr = torch.from_numpy(np.stack([tab, row])).to(dev)
-        upd = torch.from_numpy(np.ascontiguousarray(vecs)).to(dev) \
-            .to(tables.dtype)
+        upd = from_host(vecs, tables.dtype).to(dev)
         ti, ri = tr[0], tr[1]
         kept = tables[ti, ri]                    # the undo log (a copy)
         kept_c = None
@@ -614,7 +613,7 @@ class Scrubber:
         resh = getattr(engine, "reshard", None)
         if resh is not None and resh.active:
             for k, g in enumerate(gids):
-                resh.note_applied(int(g), vecs[k], np.dtype(np.float32))
+                resh.note_applied(int(g), vecs[k], vecs.dtype)
         for g, _ in ready:
             self.quarantined.discard(g)
         self.repaired_rows += len(ready)
@@ -641,11 +640,12 @@ class Scrubber:
         if t_pad <= old:
             self.row_cs = self.row_cs[:t_pad].copy()
         else:
-            s = engine.params["tables"].shape[2]
+            tables = engine.params["tables"]
             gids = (np.arange(old, t_pad)[:, None] * r
                     + np.arange(r)[None, :])
-            zcs = row_checksum(np.zeros((t_pad - old, r, s), np.float32),
-                               gids, 0)
+            zeros = np.zeros((t_pad - old, r, tables.shape[2]),
+                             host_dtype(tables.dtype))
+            zcs = row_checksum(zeros, gids, 0)
             self.row_cs = np.concatenate([self.row_cs, zcs], axis=0)
         self.ledger = integ.IntegrityLedger(
             block_rows=self.block_rows, n_rows=r,

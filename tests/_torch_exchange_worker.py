@@ -3,8 +3,9 @@
     python tests/_torch_exchange_worker.py <rank> <world_size> <dir>
 
 Reads ``<dir>/inputs.npz``: per config (``configs``) the reference
-parameters (flattened by ``_torch_dist_worker.flatten``), a batch and the
-cache sizes to build from it; optionally (``engine``) a calibration batch
+parameters (flattened by ``_torch_dist_worker.flatten``; those of the bf16
+config ``smoke_bf16`` as their 16-bit patterns), a batch and the cache
+sizes to build from it; optionally (``engine``) a calibration batch
 and the serving batches of the cap-autotuner run.  Joins a gloo group
 through ``file://<dir>/store`` and writes ``<dir>/out_<rank>.npz``: per
 config and grid point (cache rows, codec, exchange, pipeline, bound and
@@ -37,7 +38,28 @@ def config(name):
         return DLRMConfig(name="t", table_sizes=(100, 50, 80, 60, 90, 40),
                           embed_dim=16, bottom_mlp=(32, 16),
                           top_mlp=(32, 1), max_hot=4)
+    if name == "smoke_bf16":
+        return dlrm_kaggle.smoke().replace(dtype="bfloat16")
     return getattr(dlrm_kaggle, name)()
+
+
+def port_params(name, data):
+    """The port's parameters of config ``name``; a bf16 config's leaves
+    cross the npz as their 16-bit patterns."""
+    from repro_torch.models import dlrm
+
+    params = dlrm.params_from_jax(unflatten(name, data), "cpu")
+    if config(name).dtype != "bfloat16":
+        return params
+
+    def bf16(t):
+        return t.view(torch.bfloat16)
+
+    return {"tables": bf16(params["tables"]),
+            "bot": [{k: bf16(v) for k, v in lp.items()}
+                    for lp in params["bot"]],
+            "top": [{k: bf16(v) for k, v in lp.items()}
+                    for lp in params["top"]]}
 
 
 def key(name, rows, wire, ex, pipe, bound, mb):
@@ -106,7 +128,6 @@ def engine_runs(params, data, out):
 
 def main(rank, world, d):
     from repro_torch.launch import mesh
-    from repro_torch.models import dlrm
 
     torch.set_num_threads(1)
     data = dict(np.load(d / "inputs.npz"))
@@ -116,11 +137,10 @@ def main(rank, world, d):
         with torch.no_grad():
             for name in data["configs"]:
                 name = str(name)
-                params = dlrm.params_from_jax(unflatten(name, data), "cpu")
-                grid(name, config(name), params, data, out)
+                grid(name, config(name), port_params(name, data), data,
+                     out)
             if "engine/idx" in data:
-                engine_runs(dlrm.params_from_jax(unflatten("smoke", data),
-                                                 "cpu"), data, out)
+                engine_runs(port_params("smoke", data), data, out)
     finally:
         mesh.destroy_model_group()
     np.savez(d / f"out_{rank}.npz", **out)
