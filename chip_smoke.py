@@ -161,6 +161,19 @@ Phases, each on lines of its own:
      u bonus, and with state0 ignored, must fail that check; timed as in 3,
      and its state pass and output pass timed alone, with the bytes of the
      chunk-start-state scratch;
+  9b. the WKV kernel across its domain (ROADMAP B item 3): bf16 at
+     the served prefill shape, bf16 and f16 at B 8 x S 4096, and (K, V)
+     (32, 32) at H 64, (128, 128) at H 16, (64, 128) at H 32 in f32 and
+     bf16 (``WKV_DOMAIN_ROWS``): two runs bit-identical, out and state
+     held against the plain chunked version (a 16-bit out at one more
+     step of its type), and each 16-bit kernel bit for bit the f32 kernel
+     on the widened inputs with its output rounded once (bf16 also with
+     an f32 logw); every variant's launch counted under its key;
+  9c. the flash kernel across its domain (ROADMAP B item 4): hd 96
+     in bf16 at phi-3-mini's heads (zero-padded to 128) beside SDPA, and
+     f16 at zamba2's f32 row shape and at qwen3-14b's heads beside SDPA in
+     f16; each f16 output bit for bit the f32 kernel's on the widened
+     inputs rounded once, its lse equal;
  10. full-width rwkv6-1.6b in f32 on 4096 tokens, first at 4 layers: the
      forward's logits and every layer's state through the kernel held
      against the plain WKV (rtol = atol = 1e-4), and 128 tokens decoded one
@@ -449,6 +462,24 @@ WKV_HEADS = 32
 # recurrence, up to 2e-4 in single elements of |out| up to ~90
 WKV_TOL = {"rtol": 1e-4, "atol": 2e-3}
 WKV_REL = 1e-5
+# B6 beyond the served f32 K = V = 64 (phase 9b): (label, B, S, H, K, V,
+# type of r, k, v and logw); H K stays 2048 as in rwkv6-1.6b
+WKV_DOMAIN_ROWS = (
+    ("prefill_32k_bf16", 1, 32_768, 32, 64, 64, torch.bfloat16),
+    ("b8_s4096_bf16", 8, 4_096, 32, 64, 64, torch.bfloat16),
+    ("b8_s4096_f16", 8, 4_096, 32, 64, 64, torch.float16),
+    ("k32_v32", 8, 4_096, 64, 32, 32, torch.float32),
+    ("k32_v32_bf16", 8, 4_096, 64, 32, 32, torch.bfloat16),
+    ("k128_v128", 8, 4_096, 16, 128, 128, torch.float32),
+    ("k128_v128_bf16", 8, 4_096, 16, 128, 128, torch.bfloat16),
+    ("k64_v128", 8, 4_096, 32, 64, 128, torch.float32),
+    ("k64_v128_bf16", 8, 4_096, 32, 64, 128, torch.bfloat16))
+# one step of a 16-bit type at 1 (2^-(mantissa bits)): a kernel and a plain
+# version that round an f32 result once each may land one step apart
+T_STEP = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
+# phi-3-mini's attention (32 heads of 96, no GQA): B5 at a head dim that
+# runs zero-padded to 128 (phase 9c)
+PHI3_HEADS = (32, 32, 96)
 RWKV_PARITY_LEN, RWKV_DECODE_CHECK = 4_096, 128
 RWKV_DECODE_TOL = {"rtol": 0.0, "atol": 2e-3}
 # the 1e-4 and decode checks hold on 4 layers (kernel vs plain 4.0e-5);
@@ -580,19 +611,25 @@ def check_kernel(name, replaces, source, kernel_fn, plain_fn, library_fn,
 # a kernel's name in its mangled symbol, where its length's digits precede
 # it (the anonymous namespace's own name carries the file's, as
 # "18_dot_interaction_cu"), then its integer template arguments and the
-# row or input type of the DLRM kernels
+# row or input type of the DLRM kernels, the f32/f16 flash body and the
+# WKV passes
 KERNEL_NAMES = re.compile(r"(?<=\d)(flash_wgmma_ws|flash_wgmma|flash_bf16|"
                           r"flash_f32|wkv_state_pass|wkv_output_pass|"
                           r"bag_pool|"
                           r"dot_interaction_empty_kernel|"
                           r"dot_interaction)((?:I?Li\d+E)*)"
-                          r"(f|13__nv_bfloat16)?")
+                          r"(f|13__nv_bfloat16|6__half)?")
+TYPE_SUFFIX = {"f": "_f32", "13__nv_bfloat16": "_bf16", "6__half": "_f16"}
+WKV_CODES = {"_f32": 0, "_bf16": 1, "_f16": 2}
 # the wgmma flash bodies keep their accumulators (128 registers at hd 256;
 # scores, P and output beside a producer warp at hd 64/80) only if nothing
-# spills, and the bag keeps two batches of rows in flight in registers:
+# spills, the bag keeps two batches of rows in flight in registers, and
+# the WKV passes keep their state slices and output rows there:
 # their reports must show no stack and no spill stores
 NO_SPILL = ("flash_wgmma", "flash_wgmma_ws", "bag_pool_f32",
-            "bag_pool_bf16")
+            "bag_pool_bf16") + tuple(
+                f"wkv_{p}_pass_{t}" for p in ("state", "output")
+                for t in ("f32", "bf16", "f16"))
 
 
 def ptxas_report(text: str) -> list:
@@ -607,8 +644,9 @@ def ptxas_report(text: str) -> list:
                                                          m.group(2)))
                           or None) if m else ("?", None))
             if m and m.group(3):
-                # the bag's row type, the interaction's input type
-                name += "_bf16" if m.group(3) != "f" else "_f32"
+                # the bag's row type, the interaction's input type, the
+                # flash f32 body's and the WKV passes' load type
+                name += TYPE_SUFFIX[m.group(3)]
             spill = 0
         elif "spill stores" in line:
             spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
@@ -621,14 +659,14 @@ def ptxas_report(text: str) -> list:
 
 
 def build_report(logs: dict) -> None:
-    """One [build] line per kernel built: registers and stack/spill bytes
-    from ptxas, the dynamic shared memory of the wgmma flash bodies and the
-    two WKV passes, and the flash tiling; fails if a wgmma body or the bag
-    spills."""
+    """One [build] line per kernel that ``_build.build`` built (``logs``,
+    its return): registers and stack/spill bytes from ptxas, the dynamic
+    shared memory of the wgmma flash bodies and the two WKV passes, and the
+    flash tiling; fails if a wgmma body or the bag spills."""
     from repro_torch.kernels import _build
 
     spills = []
-    for src, text in logs.items():
+    for src, (text, _) in logs.items():
         lib = _build.library(src)
         for name, arg, used, stack, spill in ptxas_report(text):
             extra = ""
@@ -639,9 +677,15 @@ def build_report(logs: dict) -> None:
                                            ctypes.byref(st), ctypes.byref(sm))
                 extra = (f"; BK {bk.value} keys, {st.value} K/V stages, "
                          f"{sm.value} bytes of dynamic shared memory")
-            elif name in ("wkv_state_pass", "wkv_output_pass"):
-                extra = (f"; {lib.rwkv6_wkv_smem(1 if 'state' in name else 2)}"
-                         f" bytes of dynamic shared memory")
+            elif name.startswith("wkv_"):
+                # the state pass's template is <K, T> (any V), the output
+                # pass's <K, V, T>
+                widths = [int(x) for x in arg.split(",")]
+                smem = lib.rwkv6_wkv_smem(
+                    1 if "state" in name else 2,
+                    WKV_CODES[name[name.rindex("_"):]], widths[0],
+                    widths[-1])
+                extra = f"; {smem} bytes of dynamic shared memory"
             log(f"[build] {src} {name}{f'<{arg}>' if arg else ''}: {used}; "
                 f"stack {stack} bytes, spill stores {spill} bytes{extra}")
             if name in NO_SPILL and (stack or spill):
@@ -2809,8 +2853,10 @@ def flash_row(name, gen, dev, b, s, h, kh, hd, *, window=0, cap=0.0,
               causal=True, dtype=torch.bfloat16):
     """One flash-kernel row: q (at FLASH_Q_SCALE), k, v of shape (b, s,
     heads, hd) in ``dtype`` from ``gen``, the kernel held against its plain
-    version and timed (check_kernel; bf16 at FLASH_TOL and FLASH_REL on the
-    tensor cores' peak, f32 at TOL on the CUDA cores'), beside
+    version and timed (check_kernel; bf16 and f16 at FLASH_TOL and
+    FLASH_REL on the tensor cores' peak, which NVIDIA gives as one for
+    both, f32 at TOL on the CUDA cores'; an f16 kernel also bit for bit
+    against the f32 kernel on the widened inputs), beside
     scaled_dot_product_attention where one PyTorch call computes the
     function (no softcap, no window); the plain version without the
     softcap, without the window and, for a non-causal row, with the causal
@@ -2854,6 +2900,20 @@ def flash_row(name, gen, dev, b, s, h, kh, hd, *, window=0, cap=0.0,
         log(f"[kernel] {name}: kernel {row['ms']:.4f} ms beside "
             f"scaled_dot_product_attention {row['library_ms']:.4f} ms in "
             f"this run ({row['ms'] / row['library_ms']:.2f}x)")
+    if dtype == torch.float16:
+        # the f16 kernel is the f32 body on f16 widened as it loads: its
+        # output is the f32 kernel's on the widened inputs rounded once,
+        # its lse that kernel's, bit for bit
+        got = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        wide = fa.flash_attention(q.float(), k.float(), v.float(),
+                                  return_lse=True, **kw)
+        if not (torch.equal(got[0], wide[0].half())
+                and torch.equal(got[1], wide[1])):
+            raise AssertionError(f"{name}: not the f32 kernel on the "
+                                 f"widened inputs rounded once")
+        log(f"[kernel] {name}: out and lse bit for bit the f32 kernel's on "
+            f"the widened inputs, out rounded once to f16")
+        del got, wide
     # the check sees each branch: a kernel that dropped the softcap or the
     # window, or masked a non-causal layer, would fail it
     branches = []
@@ -2875,7 +2935,7 @@ def flash_row(name, gen, dev, b, s, h, kh, hd, *, window=0, cap=0.0,
         del wrong
     del q, k, v, library, plain
     torch.cuda.empty_cache()
-    return row, fa.launch_key(h, kh, hd, window, causal)
+    return row, fa.launch_key(h, kh, hd, window, causal, dtype)
 
 
 def flash_phase(dev):
@@ -3021,8 +3081,9 @@ def lm_serve_phase(dev, card):
     gen_s = time.perf_counter() - t0
     check_generated(first, second, cfg.vocab_size)
     heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
-    want = {fa.launch_key(*heads, cfg.sliding_window): cfg.n_layers // 2,
-            fa.launch_key(*heads, 0): cfg.n_layers // 2}
+    want = {fa.launch_key(*heads, cfg.sliding_window, dtype=cfg.dtype):
+            cfg.n_layers // 2,
+            fa.launch_key(*heads, 0, dtype=cfg.dtype): cfg.n_layers // 2}
     if launches["flash_attention"] != cfg.n_layers or by_key != want:
         raise AssertionError(f"generate launched {launches}, flash by key "
                              f"{by_key}, not {want}")
@@ -3047,19 +3108,21 @@ def lm_serve_phase(dev, card):
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; card {card!r}")
     log(f"[lm-serve] tokens identical across two runs; first row "
         f"{first[0].tolist()}; launches per generate {launches}; flash "
-        f"launches by (H, Kh, hd, window, causal) {by_key}")
+        f"launches by (H, Kh, hd, window, causal, type) {by_key}")
     log(f"[lm-serve] decode weight-read bound {n_bytes / HBM_BYTES_PER_S * 1e3:.3f} "
         f"ms/token ({n_bytes / 1e9:.3f} GB at 3.35 TB/s)")
     return launches, by_key
 
 
-def wkv_inputs(b, s, gen, dev, *, regime="default", h=WKV_HEADS):
-    """Seeded WKV inputs at H ``h``, K = V = 64: r, k, v ~ N(0,1); logw =
-    -exp(N(0,1)) (default), -exp(N(-4,1)) (long memory) or -50 (each
-    token's state dies at the next); u ~ 0.5 N(0,1); state0 ~ 0.1 N(0,1)."""
-    kk = 64
-    r, k, v = (torch.randn((b, s, h, kk), generator=gen, device=dev)
-               for _ in range(3))
+def wkv_inputs(b, s, gen, dev, *, regime="default", h=WKV_HEADS, kk=64,
+               vv=64):
+    """Seeded f32 WKV inputs at H ``h``, K ``kk``, V ``vv``: r, k, v ~
+    N(0,1); logw = -exp(N(0,1)) (default), -exp(N(-4,1)) (long memory) or
+    -50 (each token's state dies at the next); u ~ 0.5 N(0,1); state0 ~
+    0.1 N(0,1)."""
+    r, k = (torch.randn((b, s, h, kk), generator=gen, device=dev)
+            for _ in range(2))
+    v = torch.randn((b, s, h, vv), generator=gen, device=dev)
     if regime == "extreme":
         logw = torch.full((b, s, h, kk), -50.0, device=dev)
     else:
@@ -3067,7 +3130,7 @@ def wkv_inputs(b, s, gen, dev, *, regime="default", h=WKV_HEADS):
         logw = -torch.exp(torch.randn((b, s, h, kk), generator=gen,
                                       device=dev) + mean)
     u = 0.5 * torch.randn((h, kk), generator=gen, device=dev)
-    s0 = 0.1 * torch.randn((b, h, kk, kk), generator=gen, device=dev)
+    s0 = 0.1 * torch.randn((b, h, kk, vv), generator=gen, device=dev)
     return r, k, v, logw, u, s0
 
 
@@ -3082,14 +3145,21 @@ def wkv_row(name, x, max_abs_err):
     """The kernel row of the WKV inputs ``x``, held already: the kernel's
     and the plain chunked version's times (the plain one over 3 runs: it
     walks the chunks from Python) and the byte bound (r, k, v, logw, out
-    and u read or written once, the state in and out)."""
+    and u read or written once in their own types, out in r's, the state
+    in and out in f32)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import rwkv6_wkv as wk
 
-    b, s, h, _ = x[0].shape
-    n_bytes = 5 * x[0].numel() * 4 + x[4].numel() * 4 + 2 * x[5].numel() * 4
-    flops = 4 * 64 * 64 * b * s * h
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    r, k, v, logw, u, s0 = x
+    b, s, h, kk = r.shape
+    vv = v.shape[-1]
+    n_bytes = (sum(t.numel() * t.element_size() for t in (r, k, v, logw, u))
+               + v.numel() * r.element_size() + 2 * s0.numel() * 4)
+    flops = 4 * kk * vv * b * s * h
+    # the peak of the inputs' type: a 16-bit WKV's products could run on
+    # the tensor cores, whatever this kernel's f32 body does
+    peak = F32_FLOPS if r.dtype == torch.float32 else BF16_FLOPS
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
     row = {"name": name, "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
            "replaces": "src/repro/kernels/rwkv6_wkv.py:94",
@@ -3186,6 +3256,137 @@ def wkv_phase(dev):
             f"error {s_fro:.3e}")
         del x, out
     torch.cuda.empty_cache()
+    return rows
+
+
+def wkv_domains_phase(dev):
+    """Phase 9b: the WKV kernel across its domain (``WKV_DOMAIN_ROWS``):
+    each variant run twice (bit-identical), out in r's type and the state
+    in f32, held against the plain chunked version (which widens, computes
+    in f32 and rounds out once: a 16-bit out may land one step of its type
+    away), and each 16-bit kernel held bit for bit to the f32 kernel on the
+    widened inputs with its output rounded once (the bf16 row at B 8 also
+    with an f32 logw, the model path's mix, and with r, k, v and logw in
+    three types, which the wrapper widens to f32); timed as ``wkv_row``.  Every
+    variant must have launched under its own key.  Returns (row, launch
+    key) pairs: no served model runs these variants, so the rows read 0
+    launches on the main path."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_wkv as wk
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 9)
+    rows = []
+    before = dict(wk.WKV.by_key)
+    for label, b, s, h, kk, vv, dtype in WKV_DOMAIN_ROWS:
+        name = f"rwkv6_wkv/{label}"
+        x32 = wkv_inputs(b, s, gen, dev, h=h, kk=kk, vv=vv)
+        x = tuple(t.to(dtype) for t in x32[:4]) + x32[4:]
+        del x32
+        out = wk.rwkv6_wkv(*x)
+        again = wk.rwkv6_wkv(*x)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(out, again)):
+            raise AssertionError(f"{name}: two kernel runs differ")
+        if out[0].dtype != dtype or out[1].dtype != torch.float32:
+            raise AssertionError(f"{name}: out {out[0].dtype}, state "
+                                 f"{out[1].dtype}; want {dtype}, float32")
+        del again
+        plain = ref.rwkv6_wkv_chunked_ref(*x)
+        step = T_STEP.get(dtype, 0.0)
+        err, fro, need = hold(
+            f"{name} out", out[0], plain[0],
+            {"rtol": WKV_TOL["rtol"] + step, "atol": WKV_TOL["atol"]},
+            WKV_REL + step)
+        s_err, s_fro, _ = hold(f"{name} state", out[1], plain[1], WKV_TOL,
+                               WKV_REL)
+        del plain
+        bits = ""
+        if dtype != torch.float32:
+            logws = ((x[3], "logw in r's type"),)
+            if label == "b8_s4096_bf16":
+                logws += ((x[3].float(), "an f32 logw"),)
+            for logw, what in logws:
+                got = wk.rwkv6_wkv(*x[:3], logw, *x[4:])
+                wide = wk.rwkv6_wkv(*(t.float() for t in x[:3]),
+                                    logw.float(), *x[4:])
+                if not (torch.equal(got[0], wide[0].to(dtype))
+                        and torch.equal(got[1], wide[1])):
+                    raise AssertionError(
+                        f"{name} with {what}: not the f32 kernel on the "
+                        f"widened inputs rounded once")
+                bits += (f"; with {what} bit for bit the f32 kernel on the "
+                         f"widened inputs, out rounded once")
+                del got, wide
+            if label == "b8_s4096_bf16":
+                # mixed types (r bf16, k f16, v f32, logw f16): the wrapper
+                # widens them to f32 and launches the f32 kernel, out
+                # rounded once to r's type
+                mixed = (x[0], x[1].half(), x[2].float(), x[3].half())
+                got = wk.rwkv6_wkv(*mixed, *x[4:])
+                wide = wk.rwkv6_wkv(*(t.float() for t in mixed), *x[4:])
+                if got[0].dtype != dtype or not (
+                        torch.equal(got[0], wide[0].to(dtype))
+                        and torch.equal(got[1], wide[1])):
+                    raise AssertionError(
+                        f"{name} with r bf16, k f16, v f32, logw f16: not "
+                        f"the f32 kernel on the widened inputs rounded once")
+                bits += ("; with r bf16, k f16, v f32, logw f16 bit for bit "
+                         "the f32 kernel on the widened inputs, out rounded "
+                         "once to bf16")
+                del mixed, got, wide
+        log(f"[kernel] {name}: B {b} x S {s} x H {h}, K {kk}, V {vv}, "
+            f"{dtype}: out max_abs_err {err:.3e}, relative Frobenius error "
+            f"{fro:.3e}, least atol passing at rtol "
+            f"{WKV_TOL['rtol'] + step:.3e}: {need:.3e}; state max_abs_err "
+            f"{s_err:.3e}, relative Frobenius error {s_fro:.3e}; two runs "
+            f"bit-identical{bits}")
+        rows.append((wkv_row(name, x, max(err, s_err)),
+                     wk.launch_key(b, s, h, kk, vv, dtype)))
+        del x, out
+        torch.cuda.empty_cache()
+    for row, key in rows:
+        if wk.WKV.by_key[key] - before.get(key, 0) < 2:
+            raise AssertionError(f"{row['name']}: its kernel variant {key} "
+                                 f"did not launch")
+    log(f"[kernel] rwkv6_wkv domain variants launched: "
+        f"{[(k, wk.WKV.by_key[k] - before.get(k, 0)) for _, k in rows]}")
+    return rows
+
+
+def flash_domains_phase(dev):
+    """Phase 9c: the flash kernel across its domain: hd 96 in bf16 at
+    phi-3-mini's heads (B 2 x S 4608, H = Kh = 32, causal; zero-padded to
+    128) beside SDPA, and f16 (the f32 body on widened f16) at zamba2's
+    f32 row shape (B 2 x S ZAMBA_F32_S, hd 80) and at qwen3-14b's heads
+    (B 2 x S 4608, H 40 over Kh 8, hd 128) beside SDPA in f16 (``flash_row``
+    holds each f16 output bit for bit to the f32 kernel's on the widened
+    inputs).  Every row must have launched at least twice under its own
+    key, which carries the true head dim and the type (the f32 comparison
+    runs count under the f32 key).  Returns (row, launch key) pairs: each
+    row reads its key's launches on the main path, 0 where no served model
+    has hd 96 or runs f16."""
+    from repro_torch.configs.qwen3_14b import CONFIG as QWEN
+    from repro_torch.configs.zamba2_2_7b import CONFIG as ZAMBA
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 10)
+    before = dict(fa.FLASH.by_key)
+    rows = [flash_row("flash_attention/phi3_heads_hd96", gen, dev, LM_BATCH,
+                      LM_PROMPT, *PHI3_HEADS),
+            flash_row("flash_attention/zamba2_heads_f16", gen, dev,
+                      LM_BATCH, ZAMBA_F32_S, ZAMBA.n_heads, ZAMBA.n_kv_heads,
+                      ZAMBA.head_dim, dtype=torch.float16),
+            flash_row("flash_attention/qwen3_heads_f16", gen, dev, LM_BATCH,
+                      LM_PROMPT, QWEN.n_heads, QWEN.n_kv_heads,
+                      QWEN.head_dim, dtype=torch.float16)]
+    for row, key in rows:
+        if fa.FLASH.by_key[key] - before.get(key, 0) < 2:
+            raise AssertionError(f"{row['name']}: its kernel variant {key} "
+                                 f"did not launch")
+    log(f"[kernel] flash_attention domain variants launched: "
+        f"{[(k, fa.FLASH.by_key[k] - before.get(k, 0)) for _, k in rows]}")
     return rows
 
 
@@ -3660,8 +3861,8 @@ def moe_serve_phase(dev, card):
     second = eng.generate(prompts, LM_NEW)
     gen_s = time.perf_counter() - t0
     check_generated(first, second, cfg.vocab_size)
-    want = {fa.launch_key(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 0):
-            cfg.n_layers}
+    want = {fa.launch_key(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 0,
+                          dtype=cfg.dtype): cfg.n_layers}
     if launches["flash_attention"] != cfg.n_layers or by_key != want:
         raise AssertionError(f"generate launched {launches}, flash by key "
                              f"{by_key}, not {want}")
@@ -3688,7 +3889,7 @@ def moe_serve_phase(dev, card):
         f"steps only), generate wall {gen_s * 1e3:.1f} ms; card {card!r}")
     log(f"[moe-serve] tokens identical across two runs; first row "
         f"{first[0].tolist()}; launches per generate {launches}; flash "
-        f"launches by (H, Kh, hd, window, causal) {by_key}")
+        f"launches by (H, Kh, hd, window, causal, type) {by_key}")
     log(f"[moe-serve] prefill bound {flops / BF16_FLOPS * 1e3:.3f} ms "
         f"({flops / 1e12:.3f} TFLOP at 989 TFLOP/s; weights "
         f"{read / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s); decode "
@@ -3995,7 +4196,7 @@ def member_serve(rank, world, d, inputs):
         launches = {k: v.launches for k, v in ops.kernels().items()}
         by_key = dict(fa.FLASH.by_key)
         key = fa.launch_key(cfg.n_heads // world, cfg.n_kv_heads // world,
-                            cfg.head_dim, 0)
+                            cfg.head_dim, 0, dtype=cfg.dtype)
         if launches["flash_attention"] != cfg.n_layers or \
                 by_key != {key: cfg.n_layers}:
             raise AssertionError(f"member prefill launched {launches}, by "
@@ -4366,7 +4567,8 @@ def members_serve_phase(dev, card, p1):
             f"{warm:.1f} warm; decode ms/token p50 {x['decode_p50_ms']:.3f} "
             f"p99 {x['decode_p99_ms']:.3f}; max_memory_allocated "
             f"{x['peak_gb']:.3f} GB; flash launches a prefill "
-            f"{x['launches']} at (H, Kh, hd, window, causal) {x['key']}")
+            f"{x['launches']} at (H, Kh, hd, window, causal, type) "
+            f"{x['key']}")
         device = (f"device busy {pr['busy_ms']:.1f} ms "
                   f"({100 * pr['busy_ms'] / pr['wall_ms']:.1f}% of wall), "
                   f"{pr['collective_device_ms']:.1f} ms of it inside the "
@@ -4430,7 +4632,8 @@ def members_train_phase(dev, card):
     h, kh = GRANITE.n_heads // MEMBERS, GRANITE.n_kv_heads // MEMBERS
     row = train_lse_row("flash_attention/granite_members_train_lse", gen,
                         dev, h, kh, GRANITE.head_dim)
-    key = str(fa.launch_key(h, kh, GRANITE.head_dim, 0))
+    key = str(fa.launch_key(h, kh, GRANITE.head_dim, 0,
+                            dtype=GRANITE.dtype))
     cfg = GRANITE.replace(n_layers=MEMBERS_TRAIN_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     params = api.init(SEED, cfg, dev, n_shards=1, dtype="float32")
@@ -4762,7 +4965,7 @@ def member_family(rank, world, d, inputs):
         else:
             key, n = fa.launch_key(cfg.n_heads // world,
                                    cfg.n_kv_heads // world, cfg.head_dim,
-                                   0), Z.n_groups(cfg)
+                                   0, dtype=cfg.dtype), Z.n_groups(cfg)
             by_key = dict(fa.FLASH.by_key)
         if by_key != {key: n}:
             raise AssertionError(f"member prefill launched {by_key}, not "
@@ -4918,7 +5121,8 @@ def members_hybrid_phase(dev, card):
     p1 = family_one_device("[members-hybrid]", cfg, toks,
                            ZAMBA_PARITY_LAYERS, {"attn_impl": "ref"}, dev)
     return members_family_phase("[members-hybrid]", "family", cfg, row, p1,
-                                card, "flash (H, Kh, hd, window, causal)")
+                                card,
+                                "flash (H, Kh, hd, window, causal, type)")
 
 
 def family_train_config(arch, layers):
@@ -5172,8 +5376,8 @@ def dense_family_phase(tag, full, dev, card, *, n_layers=None,
     second = eng.generate(prompts, LM_NEW)
     gen_s = time.perf_counter() - t0
     check_generated(first, second, cfg.vocab_size)
-    want = {fa.launch_key(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 0):
-            cfg.n_layers}
+    want = {fa.launch_key(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 0,
+                          dtype=cfg.dtype): cfg.n_layers}
     if by_key != want:
         raise AssertionError(f"generate launched flash {by_key}, not {want}")
     step = steps_mod.make_serve_step(cfg)
@@ -5258,8 +5462,8 @@ def llava_phase(dev, card):
         gen_s = time.perf_counter() - t_run
         del cache
     check_generated(runs[0], runs[1], cfg.vocab_size)
-    want = {fa.launch_key(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 0):
-            cfg.n_layers}
+    want = {fa.launch_key(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 0,
+                          dtype=cfg.dtype): cfg.n_layers}
     if by_key != want:
         raise AssertionError(f"the patch prefill launched flash {by_key}, "
                              f"not {want}")
@@ -5276,7 +5480,7 @@ def llava_phase(dev, card):
                            "tokens)")
     log(f"[llava-serve] prefill + make_serve_step loop: tokens identical "
         f"across two runs; first row {runs[0][0].tolist()}; flash launches "
-        f"of one prefill by (H, Kh, hd, window, causal) {by_key}")
+        f"of one prefill by (H, Kh, hd, window, causal, type) {by_key}")
     eng = LMEngine(params, cfg, max_len=LM_MAX_LEN, device=dev)
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -5340,8 +5544,8 @@ def whisper_phase(dev, card):
     fwd_ms = (time.perf_counter() - t0) * 1e3
     by_key = dict(fa.FLASH.by_key)
     heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 0)
-    want = {fa.launch_key(*heads, False): cfg.n_encoder_layers,
-            fa.launch_key(*heads, True): cfg.n_layers}
+    want = {fa.launch_key(*heads, False, cfg.dtype): cfg.n_encoder_layers,
+            fa.launch_key(*heads, True, cfg.dtype): cfg.n_layers}
     if by_key != want:
         raise AssertionError(f"api.forward launched flash {by_key}, not "
                              f"{want}")
@@ -5361,7 +5565,7 @@ def whisper_phase(dev, card):
     log(f"[whisper-serve] whisper-tiny ({n_bytes / 1e6:.1f} MB of bf16 "
         f"weights): api.forward of B {LM_BATCH} x {WHISPER_FRAMES} frames "
         f"and {WHISPER_PROMPT} tokens {fwd_ms:.1f} ms (first call), flash "
-        f"launches by (H, Kh, hd, window, causal) {by_key}; LMEngine "
+        f"launches by (H, Kh, hd, window, causal, type) {by_key}; LMEngine "
         f"{WHISPER_PROMPT}-token prompts fed token by token + {LM_NEW} "
         f"greedy tokens (cross K/V over {cache['cross_k'].shape[2]} zero "
         f"frames): generate wall {gen_s * 1e3:.1f} ms, decode ms/token p50 "
@@ -5452,15 +5656,16 @@ def smoke_serve_phase():
                                  f"{cfg.head_dim}, not 8")
         ops.reset_launches()
         serve.main(["--arch", arch, "--smoke", "--tokens", "4"])
-        want = {fa.launch_key(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 0):
-                cfg.n_layers}
+        want = {fa.launch_key(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 0,
+                              dtype=cfg.dtype): cfg.n_layers}
         if dict(fa.FLASH.by_key) != want:
             raise AssertionError(f"{arch} --smoke launched flash "
                                  f"{dict(fa.FLASH.by_key)}, not {want}")
         for key, n in fa.FLASH.by_key.items():
             by_key[key] = by_key.get(key, 0) + n
     log(f"[zamba2-smoke] serve --smoke on the card ({', '.join(SMOKE_ARCHS)}"
-        f"): hd 8, flash launches by (H, Kh, hd, window, causal) {by_key}")
+        f"): hd 8, flash launches by (H, Kh, hd, window, causal, type) "
+        f"{by_key}")
     return by_key
 
 
@@ -5623,8 +5828,8 @@ def zamba2_serve_phase(dev, card):
         f" in {time.perf_counter() - t0:.2f} s")
     batch = {"tokens": torch.from_numpy(lm_prompts(cfg.vocab_size)).to(dev)}
     step = steps_mod.make_prefill_step(cfg)
-    want = {fa.launch_key(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 0):
-            Z.n_groups(cfg)}
+    want = {fa.launch_key(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 0,
+                          dtype=cfg.dtype): Z.n_groups(cfg)}
     prefill_ms, by_key = [], None
     for _ in range(3):
         ops.reset_launches()
@@ -5699,8 +5904,8 @@ def zamba2_serve_phase(dev, card):
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     log(f"[zamba2-serve] tokens identical across two runs; first row "
         f"{first[0].tolist()}; kernel launches per generate {gen_launches}; "
-        f"flash launches of one prefill by (H, Kh, hd, window, causal) "
-        f"{by_key}")
+        f"flash launches of one prefill by (H, Kh, hd, window, causal, "
+        f"type) {by_key}")
     log(f"[zamba2-serve] decode weight-read bound "
         f"{read / HBM_BYTES_PER_S * 1e3:.3f} ms/token ({read / 1e9:.3f} GB "
         f"of weights a step at 3.35 TB/s; with the conv and SSD states read "
@@ -6244,7 +6449,8 @@ def train_full_phase(dev, card):
     probe = {"embed": params["embed"]["table"][:4].clone(),
              "gate": params["layers"]["sub0"]["ffn"]["gate"][0, 0, :4]
              .clone()}
-    key = fa.launch_key(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 0, True)
+    key = fa.launch_key(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 0, True,
+                        cfg.dtype)
     ops.reset_launches()
     run = train_mod.train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
                           seq=TRAIN_SEQ, device=dev, params=params, log=log)
@@ -6279,8 +6485,8 @@ def train_full_phase(dev, card):
         f"{[round(t, 4) for t in times]}; p50 of steps 1-{TRAIN_STEPS - 1} "
         f"{p50 * 1e3:.1f} ms, {tokens / p50:.0f} tokens/s; "
         f"max_memory_allocated {peak / 1e9:.3f} GB; card {card!r}")
-    log(f"[train] flash launches by (H, Kh, hd, window, causal) {by_key} = "
-        f"{TRAIN_FLASH_PER_STEP} a step; launches {launches}")
+    log(f"[train] flash launches by (H, Kh, hd, window, causal, type) "
+        f"{by_key} = {TRAIN_FLASH_PER_STEP} a step; launches {launches}")
     log(f"[train] flop bound: {fl['active_params']:,} active matmul "
         f"parameters ({cfg.moe.experts_per_token} of {cfg.moe.n_experts} "
         f"experts of d_expert "
@@ -6532,7 +6738,7 @@ def cells_phase(dev, card):
             if arch == "qwen3-14b":
                 c = cell.cfg
                 key = fa.launch_key(c.n_heads, c.n_kv_heads, c.head_dim, 0,
-                                    True)
+                                    True, c.dtype)
                 if launches != {"flash_attention": {key: c.n_layers}}:
                     raise AssertionError(f"{name}: launches {launches}, not "
                                          f"{c.n_layers} of B5 at {key}")
@@ -6598,8 +6804,8 @@ def cells_phase(dev, card):
             elif arch == "whisper-tiny":
                 c = cell.cfg
                 heads = (c.n_heads, c.n_kv_heads, c.head_dim, 0)
-                keys = {fa.launch_key(*heads, False),
-                        fa.launch_key(*heads, True)}
+                keys = {fa.launch_key(*heads, False, c.dtype),
+                        fa.launch_key(*heads, True, c.dtype)}
                 if set(launches) != {"flash_attention"} or \
                         set(launches["flash_attention"]) != keys:
                     raise AssertionError(f"{name}: launches {launches}, not "
@@ -6829,6 +7035,8 @@ def main() -> int:
     logs = _build.build()
     log(f"[build] {len(logs)} kernels built in "
         f"{time.perf_counter() - t0:.2f} s into {_build.BUILD_DIR}")
+    for src, (_, secs) in sorted(logs.items()):
+        log(f"[build] {src}: nvcc {secs:.2f} s")
     build_report(logs)
 
     dev = torch.device("cuda")
@@ -6890,6 +7098,9 @@ def main() -> int:
         # lm_serve_phase's frame
         torch.cuda.empty_cache()
         wkv_rows = wkv_phase(dev)
+        wkv_rows += wkv_domains_phase(dev)
+        domain_rows = flash_domains_phase(dev)
+        lap("kernel domains")
         rwkv_parity_phase(dev)
         wkv_by_key = rwkv_serve_phase(dev, card)
         lap("rwkv6")
@@ -6967,13 +7178,18 @@ def main() -> int:
     for row, key in flash_rows + family_rows:
         row["launches"] = sum(k.get(key, 0) for k in served)
         rows.append(row)
-    # launch keys carry no type: zamba2's bf16 row reads one served
+    # launch keys carry the type: zamba2's bf16 row reads one served
     # prefill, its f32 row 0 (the served model is bf16), the hd-8 row the
-    # four f32 smoke serves
+    # four f32 smoke serves; the domain rows (hd 96, f16) read every served
+    # run, where no model launches them
     zamba_row["launches"] = zamba_by_key.get(zkey, 0)
     hd8_row["launches"] = smoke_by_key.get(hd8_key, 0)
+    for row, key in domain_rows:
+        row["launches"] = sum(k.get(key, 0) for k in served + (
+            zamba_by_key, smoke_by_key))
     rows += [zamba_row, zamba_f32_row, hd8_row, train_row, members_row,
-             hybrid_row, ssm_row, members_train_row]
+             hybrid_row, ssm_row, members_train_row] + [
+                 row for row, _ in domain_rows]
     for row, key in wkv_rows:
         row["launches"] = wkv_by_key.get(key, 0)
         rows.append(row)

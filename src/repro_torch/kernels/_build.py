@@ -6,7 +6,8 @@ plain C interface (no PyTorch headers, so a build takes seconds).  The
 library lands in ``build/kernels/`` at the repository root under a name
 that carries a digest of its source and flags, so an edited source is
 rebuilt and a built one is reused.  :func:`build` starts one ``nvcc`` per
-source, all at once.  Nothing is built or loaded at import time.
+source, all at once, and returns each one's output and seconds.  Nothing is
+built or loaded at import time.
 """
 from __future__ import annotations
 
@@ -15,7 +16,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -44,28 +47,34 @@ def target(source: str) -> Path:
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:12]}.so"
 
 
-def build(sources=SOURCES) -> dict[str, str]:
+def build(sources=SOURCES) -> dict[str, tuple[str, float]]:
     """Compile every source whose library is missing, one ``nvcc`` process
-    per source, all started together.  Returns the compiler's output
-    (``ptxas`` register and shared-memory report) per source built; raises
-    with that output if any build fails."""
+    per source, all started together.  Returns, per source built, the
+    compiler's output (``ptxas`` register and shared-memory report) and
+    the wall seconds its ``nvcc`` took; raises with that output if any
+    build fails."""
     todo = [s for s in sources if not target(s).exists()]
     if not todo:
         return {}
     cc = nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for src in todo:
+
+    def compile_one(src):
         tmp = target(src).with_suffix(f".{os.getpid()}.tmp")
-        procs[src] = (tmp, subprocess.Popen(
+        t0 = time.perf_counter()
+        proc = subprocess.run(
             [cc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        return tmp, proc, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(todo)) as pool:
+        done = dict(zip(todo, pool.map(compile_one, todo)))
     logs, failed = {}, []
-    for src, (tmp, proc) in procs.items():
-        logs[src] = proc.communicate()[0]
+    for src, (tmp, proc, secs) in done.items():
+        logs[src] = (proc.stdout, secs)
         if proc.returncode:
             failed.append(f"{src}: nvcc exited {proc.returncode}\n"
-                          f"{logs[src]}")
+                          f"{proc.stdout}")
         else:
             os.replace(tmp, target(src))
     if failed:

@@ -89,12 +89,20 @@
 //     tile, mma.sync m16n8k16 fed by ldmatrix, K and V double-buffered by
 //     cp.async over 32-key tiles: at these widths wgmma's 64-row tiles and
 //     TMA boxes of 64 columns do not pay, and the launch is the time.
-//   - float32: 256 threads on the CUDA cores, each owning 4 query rows x
-//     4 keys of the score tile and 4 rows x hd/16 columns of the output.
-//     K rows are padded to hd + 1 floats so the 16 keys a warp reads at one
-//     depth lie in distinct banks.  This form exists for float32 parity;
-//     above hd 64 its tile passes the 48 KB default of dynamic shared
-//     memory (78,336 bytes at hd 80) and launch() opts in.
+//   - float32 and float16, flash_f32: 256 threads on the CUDA cores, each
+//     owning 4 query rows x 4 keys of the score tile and 4 rows x hd/16
+//     columns of the output.  K rows are padded to hd + 1 floats so the 16
+//     keys a warp reads at one depth lie in distinct banks.  This form
+//     exists for float32 parity; above hd 64 its tile passes the 48 KB
+//     default of dynamic shared memory (78,336 bytes at hd 80) and launch()
+//     opts in.  float16 runs the same body with q, k and v widened to f32
+//     as they are staged and the output rounded once to f16, so it
+//     computes what the reference computes (everything in f32, P too) and
+//     its output is the f32 body's on the widened inputs rounded once, its
+//     lse the f32 body's, bit for bit.  (An f16 tensor-core body is later
+//     work.)
+// Other head dims up to 256 reach a built one zero-padded by the caller
+// (the zero columns add nothing to q . k, and the scale is the true hd's).
 // Masked scores take the finite sentinel -1e30, as the Pallas kernel does,
 // and their probability is 0 by the admitted test, so a row whose first
 // live tile admits none of its keys never forms exp(-inf + inf).  No
@@ -102,6 +110,7 @@
 // zero-filled and masked.
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -1343,7 +1352,16 @@ __device__ __forceinline__ float max16(float x) {
   return x;
 }
 
-template <int HD>
+// an input element in f32 (exact), an output rounded once to its type
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+__device__ __forceinline__ void store_out(float* o, float x) { *o = x; }
+__device__ __forceinline__ void store_out(__half* o, float x) {
+  *o = __float2half_rn(x);
+}
+
+// T: the type of q, k, v and out (float, or __half widened on load)
+template <int HD, typename T>
 __global__ void __launch_bounds__(kF32Threads) flash_f32(Params p) {
   constexpr int BK = kF32BlockK, LDK = HD + 1, LDP = BK + 1, NC = HD / 16;
   extern __shared__ float smem[];
@@ -1361,18 +1379,17 @@ __global__ void __launch_bounds__(kF32Threads) flash_f32(Params p) {
   const int head = blockIdx.y, batch = blockIdx.z;
   const int kvh = head / (p.h / p.kh);
   const int64_t q_step = (int64_t)p.h * HD, kv_step = (int64_t)p.kh * HD;
-  const float* qg = static_cast<const float*>(p.q) +
-                    ((int64_t)batch * p.s * p.h + head) * HD;
-  const float* kg = static_cast<const float*>(p.k) +
-                    ((int64_t)batch * p.t * p.kh + kvh) * HD;
-  const float* vg = static_cast<const float*>(p.v) +
-                    ((int64_t)batch * p.t * p.kh + kvh) * HD;
-  float* og = static_cast<float*>(p.out) +
-              ((int64_t)batch * p.s * p.h + head) * HD;
+  const T* qg = static_cast<const T*>(p.q) +
+                ((int64_t)batch * p.s * p.h + head) * HD;
+  const T* kg = static_cast<const T*>(p.k) +
+                ((int64_t)batch * p.t * p.kh + kvh) * HD;
+  const T* vg = static_cast<const T*>(p.v) +
+                ((int64_t)batch * p.t * p.kh + kvh) * HD;
+  T* og = static_cast<T*>(p.out) + ((int64_t)batch * p.s * p.h + head) * HD;
 
   for (int e = tid; e < kBlockQ * HD; e += kF32Threads) {
     const int r = e / HD, d = e - r * HD, qi = q0 + r;
-    qs[e] = qi < p.s ? qg[qi * q_step + d] : 0.f;
+    qs[e] = qi < p.s ? to_f32(qg[qi * q_step + d]) : 0.f;
   }
 
   float acc[4][NC], m[4], l[4];
@@ -1391,8 +1408,8 @@ __global__ void __launch_bounds__(kF32Threads) flash_f32(Params p) {
     for (int e = tid; e < BK * HD; e += kF32Threads) {
       const int r = e / HD, d = e - r * HD, kj = k0 + r;
       const bool in = kj < p.t;
-      ks[r * LDK + d] = in ? kg[kj * kv_step + d] : 0.f;
-      vs[r * HD + d] = in ? vg[kj * kv_step + d] : 0.f;
+      ks[r * LDK + d] = in ? to_f32(kg[kj * kv_step + d]) : 0.f;
+      vs[r * HD + d] = in ? to_f32(vg[kj * kv_step + d]) : 0.f;
     }
     __syncthreads();
 
@@ -1464,7 +1481,8 @@ __global__ void __launch_bounds__(kF32Threads) flash_f32(Params p) {
     if (qi >= p.s) continue;
     if (p.lse != nullptr && tx == 0) store_lse(p, batch, head, qi, m[i], li);
 #pragma unroll
-    for (int c = 0; c < NC; ++c) og[qi * q_step + tx + 16 * c] = acc[i][c] / li;
+    for (int c = 0; c < NC; ++c)
+      store_out(og + qi * q_step + tx + 16 * c, acc[i][c] / li);
   }
 }
 
@@ -1588,14 +1606,18 @@ int launch_hd(int dtype, const Params& p, int b, cudaStream_t stream) {
       return launch(flash_bf16<HD>, 128, kBf16SmemBytes<HD>, p, b, stream);
     }
   }
-  return launch(flash_f32<HD>, kF32Threads, F32Tile<HD>::kSmemBytes, p, b,
-                stream);
+  if (dtype == 2)
+    return launch(flash_f32<HD, __half>, kF32Threads,
+                  F32Tile<HD>::kSmemBytes, p, b, stream);
+  return launch(flash_f32<HD, float>, kF32Threads, F32Tile<HD>::kSmemBytes,
+                p, b, stream);
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  q, out (B, S, H, hd) and k, v (B, T, Kh,
-// hd), contiguous, 16-byte aligned; lse null, or (B, H, S) float32.
+// dtype: 0 float32, 1 bfloat16, 2 float16.  q, out (B, S, H, hd) and k, v
+// (B, T, Kh, hd), contiguous, 16-byte aligned; lse null, or (B, H, S)
+// float32.
 // Returns a cudaError_t; an unsupported head dim or type is
 // cudaErrorInvalidValue and launches nothing.
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -1605,7 +1627,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int hd, int causal, int window,
                                       float scale, float softcap,
                                       void* stream) {
-  if ((dtype != 0 && dtype != 1) || b < 1 || s < 1 || t < 1 || kh < 1 ||
+  if (dtype < 0 || dtype > 2 || b < 1 || s < 1 || t < 1 || kh < 1 ||
       h % kh != 0)
     return (int)cudaErrorInvalidValue;
   const Params p{q, k, v, out, static_cast<float*>(lse), s, t, h, kh,

@@ -3,18 +3,28 @@
 // Replaces B6, the Pallas kernel _kernel (:34) of
 // src/repro/kernels/rwkv6_wkv.py (pallas_call at :94, wkv_chunked_pallas).
 // For r, k, logw (B, S, H, K), v (B, S, H, V), u (H, K) and state0
-// (B, H, K, V), all float32 with K = V = 64 and logw <= 0, every (b, h)
-// runs the recurrence
+// (B, H, K, V) with logw <= 0, every (b, h) runs the recurrence
 //   out_t = r_t . (S_{t-1} + diag(u) k_t v_t^T),
 //   S_t   = diag(exp(logw_t)) S_{t-1} + k_t v_t^T,   S_{-1} = state0,
 // and the kernel returns out (B, S, H, V) and S_{S-1} (B, H, K, V).
 //
+// The domain (the reference kernel's, cut to what is built): K and V each
+// in {32, 64, 128}; r, k, v and out in one type T, float32, bfloat16 or
+// float16; logw in T or in float32; u, state0, the state and the scratch
+// in float32.  Every T is widened to f32 as it leaves shared memory (the
+// reference widens on load too), the products, sums and exponentials are
+// the f32 body's in the f32 body's order, and the output store rounds once
+// to T (round to nearest even).  So the T kernel's output is the f32
+// kernel's output on the widened inputs rounded once to T, bit for bit,
+// and its state is that kernel's state, bit for bit.
+//
 // What bounds it on the H100: bytes.  At the served rwkv6-1.6b prefill
-// (B 1, S 32768, H 32) the function reads r, k, v and logw and writes out
-// once: 1.34 GB, 0.40 ms at 3.35 TB/s, against about 4 K V flops per token
-// and head, 0.26 ms of the f32 pipes.  The TPU kernel walked the chunks of
-// a (b, h) as its sequential grid axis, carried the (K, V) state in VMEM
-// scratch, and built the (C, C, K) in-chunk decay in VMEM.
+// (B 1, S 32768, H 32, K = V = 64, f32) the function reads r, k, v and logw
+// and writes out once: 1.34 GB, 0.40 ms at 3.35 TB/s, against about 4 K V
+// flops per token and head, 0.26 ms of the f32 pipes.  The TPU kernel
+// walked the chunks of a (b, h) as its sequential grid axis, carried the
+// (K, V) state in VMEM scratch, and built the (C, C, K) in-chunk decay in
+// VMEM.
 //
 // Design: two passes over chunks of C = 32 tokens, split along what is
 // truly sequential.  With L_t the inclusive cumulative log-decay of a chunk
@@ -24,26 +34,33 @@
 //       S <- diag(2^L_{C-1}) S + sum_s (k_s * 2^(L_{C-1} - L_s)) v_s^T,
 //     writing the state at the start of every chunk to a scratch tensor
 //     (B, H, n_chunks, K, V) and the final state to the output.  No
-//     pairwise score is formed there: a chunk is one rank-C update.  Warps
-//     0-3 apply chunk c's update while warps 4-7 form chunk c + 1's decayed
-//     keys, and a loader warp keeps up to five chunks' rows in flight by
-//     TMA, so one barrier a chunk is the whole sequential chain.
+//     pairwise score is formed there: a chunk is one rank-C update.  Four
+//     update warps apply chunk c's update (each thread K / 32 key rows of
+//     four columns) while K / 16 decay warps form chunk c + 1's decayed keys
+//     (32 columns of 16 tokens a warp), and a loader warp keeps up to five
+//     chunks' rows in flight by TMA, so one barrier a chunk is the whole
+//     sequential chain.  T rows stay T in shared memory and are widened as
+//     the decay and update warps read them.
 //   pass 2, the output pass, grid (chunk, b * h), fully parallel (32,768
 //     blocks at the served prefill): each block forms its chunk's 32 x 32
-//     pairwise scores once for all 64 value columns (in 2 x 2 blocks, two
+//     pairwise scores once for all V value columns (in 2 x 2 blocks, two
 //     threads to a block over the halves of k) and writes
 //       out_t = (r_t * 2^L_{t-1}) . S_c + sum_{s<t} score_ts v_s
 //               + (r_t . (u * k_t)) v_t
 //     from the chunk-start state S_c, each thread accumulating four rows
-//     of two value columns.
+//     of V / 32 value columns.  T rows land by TMA in a staging buffer and
+//     one widening copy writes them into the f32 tiles the body reads; an
+//     f32 logw beside T rows lands in its tile directly.
 // Rows arrive by TMA (one instruction a tile; cp.async of 16 bytes a
 // thread spent more issue slots on the copies than the products took);
-// the output pass's rows land 128-byte swizzled, so the scores' reads of
-// eight rows at one column lie in distinct banks.  The scratch costs
+// the output pass's f32 tiles are 128-byte swizzled, so the scores' reads
+// of eight rows at one column lie in distinct banks.  The scratch costs
 // B H S/C K V 4 bytes (537 MB at the served prefill), written once and
 // read once: 0.32 ms of traffic beside the function's own bytes.  C = 64
 // would halve it but double the pairs per chunk of the output pass, whose
-// exponentials already take longer than its bytes; C = 32 is kept.
+// exponentials already take longer than its bytes; C = 32 is kept.  At
+// K = V = 128 the output pass's chunk-start state alone is 64 KB, so one
+// block fits an SM where four do at 64.
 // What bounds it now (H100 SXM, found by removing one part at a time):
 // the state pass's 1,024-step chain, about 1,400 cycles a chunk, of which
 // the row loads and the barrier alone take a third (four slice blocks of a
@@ -60,21 +77,61 @@
 // past S of each sequence (r = k = v = logw = 0 leaves the state as it
 // is), and those rows are not written.
 #include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kK = 64;                  // key width (head size)
-constexpr int kV = 64;                  // value width
 constexpr int kC = 32;                  // tokens per chunk
-constexpr int kThreads = 256;         // the output pass
+constexpr int kThreads = 256;           // the output pass
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// ---------------------------------------------------------------------------
+// element types: widened exactly on the way out of shared memory, rounded
+// once on the way out of the kernel
+// ---------------------------------------------------------------------------
+
+template <typename T> constexpr bool kIsF32 = false;
+template <> constexpr bool kIsF32<float> = true;
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float widen(__half x) { return __half2float(x); }
+
+// four consecutive elements: 16 bytes of f32, or 8 of a 2-byte type
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(x.x << 16),
+                     __uint_as_float(x.x & 0xffff0000u),
+                     __uint_as_float(x.y << 16),
+                     __uint_as_float(x.y & 0xffff0000u));
+}
+__device__ __forceinline__ float4 load4(const __half* p) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&x.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&x.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ void narrow(float* o, float x) { *o = x; }
+__device__ __forceinline__ void narrow(__nv_bfloat16* o, float x) {
+  *o = __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ void narrow(__half* o, float x) {
+  *o = __float2half_rn(x);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
@@ -142,38 +199,55 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 // ---------------------------------------------------------------------------
 
 constexpr int kVS = 16;                 // value columns per block
-constexpr int kSlices = kV / kVS;
-constexpr int kKR = 2, kCV = 4;         // keys x columns per update thread
-constexpr int kUpdateThreads = (kK / kKR) * (kVS / kCV);
-constexpr int kDecayWarps = 4;          // decay warps
-constexpr int kStateThreads = kUpdateThreads + 32 * kDecayWarps;
-constexpr int kStateBlock = kStateThreads + 32;   // and the loader warp
+constexpr int kCV = 4;                  // columns per update thread
+constexpr int kUpdateThreads = 128;     // (K / kKR) x (kVS / kCV)
 constexpr int kBufs = 5;                // chunk j in buffer j % kBufs
 
+template <int K>
+struct StateShape {
+  static constexpr int kKR = K / 32;            // key rows per update thread
+  static constexpr int kGroups = K / 32;        // 32-column groups of a row
+  static constexpr int kDecayWarps = 2 * kGroups;   // x two halves of C
+  static constexpr int kThreads = kUpdateThreads + 32 * kDecayWarps;
+  static constexpr int kBlock = kThreads + 32;  // and the loader warp
+};
+
+template <int K, typename T>
 struct alignas(128) StateSmem {
-  float k[kBufs][kC][kK];               // dense rows, as TMA writes them
-  float w[kBufs][kC][kK];
-  float v[kBufs][kC][kVS];
-  float kd[2][kC][kK];                  // k_s * 2^(L_{C-1} - L_s)
-  float etot[2][kK];                    // 2^L_{C-1}
-  float later[kK];                      // the second half's log-decay sums
+  T k[kBufs][kC][K];                    // dense rows, as TMA writes them
+  float w[kBufs][kC][K];                // logw: f32 rows, or T rows packed
+                                        // at the start of each buffer
+  T v[kBufs][kC][kVS];
+  float kd[2][kC][K];                   // k_s * 2^(L_{C-1} - L_s)
+  float etot[2][K];                     // 2^L_{C-1}
+  float later[K];                       // the second half's log-decay sums
   uint64_t full[kBufs];                 // chunk rows landed
   uint64_t done[kBufs];                 // every warp is done with them
 };
 
-// The decay warps (4-7): chunk c's decayed keys and total decay from its
-// staged k and w.  A dense TMA row puts column j in bank j % 32 whatever
-// the row, so each warp reads 32 columns of one row at a time: warp 4 + q
-// owns columns 32 (q & 1) .. + 31 over tokens 16 (q >> 1) .. + 15.  The
-// suffix sums sum_{t' > t} logw_t' run backwards; the first half of the
-// tokens adds the second half's total, passed through shared memory.
-__device__ __forceinline__ void decay_keys(StateSmem& sm, int buf, int out,
-                                           int tid) {
+// The decay warps: chunk c's decayed keys and total decay from its staged
+// k and w.  A dense row of 32 columns puts them in distinct banks (or
+// halves of banks) whatever the row, so each warp reads 32 columns of one
+// row at a time: decay warp q owns columns 32 (q % kGroups) .. + 31 over
+// tokens 16 (q / kGroups) .. + 15.  The suffix sums sum_{t' > t} logw_t'
+// run backwards; the first half of the tokens adds the second half's
+// total, passed through shared memory.
+template <int K, typename T>
+__device__ __forceinline__ void decay_keys(StateSmem<K, T>& sm, int buf,
+                                           int out, int tid, bool w32) {
+  using Shape = StateShape<K>;
   const int q = (tid - kUpdateThreads) >> 5;
-  const int j = 32 * (q & 1) + (tid & 31), half = q >> 1, tb = 16 * half;
+  const int j = 32 * (q % Shape::kGroups) + (tid & 31);
+  const int half = q / Shape::kGroups, tb = 16 * half;
   float wv[16], sfx[16];
+  if (kIsF32<T> || w32) {
 #pragma unroll
-  for (int i = 0; i < 16; ++i) wv[i] = sm.w[buf][tb + i][j];
+    for (int i = 0; i < 16; ++i) wv[i] = sm.w[buf][tb + i][j];
+  } else {
+    const T* wt = reinterpret_cast<const T*>(&sm.w[buf][0][0]);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) wv[i] = widen(wt[(tb + i) * K + j]);
+  }
   float acc = 0.0f;
 #pragma unroll
   for (int i = 15; i >= 0; --i) {
@@ -181,32 +255,41 @@ __device__ __forceinline__ void decay_keys(StateSmem& sm, int buf, int out,
     acc += wv[i];
   }
   if (half) sm.later[j] = acc;
-  // the four decay warps only
-  asm volatile("bar.sync 2, %0;\n" ::"n"(32 * kDecayWarps) : "memory");
+  // the decay warps only
+  asm volatile("bar.sync 2, %0;\n" ::"n"(32 * Shape::kDecayWarps) : "memory");
   const float add = half ? 0.0f : sm.later[j];
 #pragma unroll
   for (int i = 0; i < 16; ++i)
     sm.kd[out][tb + i][j] =
-        sm.k[buf][tb + i][j] * ex2((sfx[i] + add) * kLog2e);
+        widen(sm.k[buf][tb + i][j]) * ex2((sfx[i] + add) * kLog2e);
   if (!half) sm.etot[out][j] = ex2((acc + add) * kLog2e);
 }
 
-__global__ void __launch_bounds__(kStateBlock)
+// nv: the value width V (nv / 16 slice blocks a head); w32: logw is f32
+// (always, for T = float)
+template <int K, typename T>
+__global__ void __launch_bounds__(StateShape<K>::kBlock)
 wkv_state_pass(const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tw,
                const __grid_constant__ CUtensorMap tv,
                const float* __restrict__ s0, float* __restrict__ starts,
-               float* __restrict__ sout, int s, int h) {
+               float* __restrict__ sout, int s, int h, int nv, int w32) {
+  using Shape = StateShape<K>;
+  constexpr int kKR = Shape::kKR;
+  constexpr int kStateThreads = Shape::kThreads;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
-  StateSmem& sm = *reinterpret_cast<StateSmem*>(
+  StateSmem<K, T>& sm = *reinterpret_cast<StateSmem<K, T>*>(
       smem_raw + (((raw + 127) & ~127u) - raw));
   const int tid = threadIdx.x;
-  const int bh = blockIdx.x / kSlices;
-  const int v0 = (blockIdx.x % kSlices) * kVS;
+  const int slices = nv / kVS;
+  const int bh = blockIdx.x / slices;
+  const int v0 = (blockIdx.x % slices) * kVS;
   const int b = bh / h, hh = bh % h;
   const int n_chunks = (s + kC - 1) / kC;
-  constexpr int kBytes = (2 * kK + kVS) * kC * 4;
+  const bool wf = kIsF32<T> || w32;
+  const int bytes =
+      kC * ((K + kVS) * (int)sizeof(T) + K * (wf ? 4 : (int)sizeof(T)));
 
   // the loader warp's lane 0 fetches chunk c's rows into buffer c % kBufs
   // once every compute warp is done with the chunk it held
@@ -215,7 +298,7 @@ wkv_state_pass(const __grid_constant__ CUtensorMap tk,
     const uint32_t bar = smem_addr(&sm.full[buf]);
     mbar_wait(smem_addr(&sm.done[buf]), ((c / kBufs) & 1) ^ 1);
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    mbar_expect(bar, kBytes);
+    mbar_expect(bar, bytes);
     tma_load(&sm.k[buf][0][0], &tk, bar, 0, hh, c * kC, b);
     tma_load(&sm.w[buf][0][0], &tw, bar, 0, hh, c * kC, b);
     tma_load(&sm.v[buf][0][0], &tv, bar, v0, hh, c * kC, b);
@@ -225,7 +308,8 @@ wkv_state_pass(const __grid_constant__ CUtensorMap tk,
   };
   // the compute warps' barrier (the loader warp runs on its own)
   auto sync_compute = [] {
-    asm volatile("bar.sync 1, %0;\n" ::"n"(kStateThreads) : "memory");
+    asm volatile("bar.sync 1, %0;\n" ::"n"(StateShape<K>::kThreads)
+                 : "memory");
   };
   if (tid == 0) {
     for (int i = 0; i < kBufs; ++i) {
@@ -244,9 +328,10 @@ wkv_state_pass(const __grid_constant__ CUtensorMap tk,
   // the update warps own the state: key rows kr .. kr + kKR - 1 and
   // columns cv .. cv + kCV - 1
   const int kr = (tid / (kVS / kCV)) * kKR, cv = (tid % (kVS / kCV)) * kCV;
+  const int64_t chunk_elems = (int64_t)K * nv;
   float st[kKR][kCV];
   float* const s_row =
-      starts + ((int64_t)bh * n_chunks * kK + kr) * kV + v0 + cv;
+      starts + ((int64_t)bh * n_chunks * K + kr) * nv + v0 + cv;
   const bool updater = tid < kUpdateThreads;
   if (updater) {
 #pragma unroll
@@ -254,13 +339,13 @@ wkv_state_pass(const __grid_constant__ CUtensorMap tk,
 #pragma unroll
       for (int i = 0; i < kCV; i += 4) {
         const float4 a = *reinterpret_cast<const float4*>(
-            s0 + ((int64_t)bh * kK + kr + r) * kV + v0 + cv + i);
+            s0 + ((int64_t)bh * K + kr + r) * nv + v0 + cv + i);
         st[r][i] = a.x; st[r][i + 1] = a.y; st[r][i + 2] = a.z;
         st[r][i + 3] = a.w;
       }
   }
   wait_rows(0);
-  if (!updater) decay_keys(sm, 0, 0, tid);
+  if (!updater) decay_keys(sm, 0, 0, tid, w32);
 
   for (int c = 0; c < n_chunks; ++c) {
     // chunk c + 1's rows have landed; chunk c's decayed keys are written;
@@ -268,13 +353,13 @@ wkv_state_pass(const __grid_constant__ CUtensorMap tk,
     if (c + 1 < n_chunks) wait_rows(c + 1);
     sync_compute();
     if (updater) {
-      float* out = s_row + (int64_t)c * kK * kV;
+      float* out = s_row + c * chunk_elems;
       const int buf = c % kBufs, kb = c & 1;
 #pragma unroll
       for (int r = 0; r < kKR; ++r) {
 #pragma unroll
         for (int i = 0; i < kCV; i += 4)
-          *reinterpret_cast<float4*>(out + r * kV + i) =
+          *reinterpret_cast<float4*>(out + r * nv + i) =
               make_float4(st[r][i], st[r][i + 1], st[r][i + 2], st[r][i + 3]);
         const float e = sm.etot[kb][kr + r];
 #pragma unroll
@@ -299,8 +384,7 @@ wkv_state_pass(const __grid_constant__ CUtensorMap tk,
           }
 #pragma unroll
           for (int i = 0; i < kCV; i += 4) {
-            const float4 x = *reinterpret_cast<const float4*>(
-                &sm.v[buf][sp0 + j][cv + i]);
+            const float4 x = load4(&sm.v[buf][sp0 + j][cv + i]);
             vv[j][i] = x.x; vv[j][i + 1] = x.y; vv[j][i + 2] = x.z;
             vv[j][i + 3] = x.w;
           }
@@ -314,7 +398,7 @@ wkv_state_pass(const __grid_constant__ CUtensorMap tk,
               st[r][i] = fmaf(kk[j][r], vv[j][i], st[r][i]);
       }
     } else if (c + 1 < n_chunks) {
-      decay_keys(sm, (c + 1) % kBufs, (c + 1) & 1, tid);
+      decay_keys(sm, (c + 1) % kBufs, (c + 1) & 1, tid, w32);
     }
     // chunk c's rows are read: v by this chunk's update, k and w by the
     // last iteration's decay
@@ -327,7 +411,7 @@ wkv_state_pass(const __grid_constant__ CUtensorMap tk,
     for (int r = 0; r < kKR; ++r)
 #pragma unroll
       for (int i = 0; i < kCV; i += 4)
-        *reinterpret_cast<float4*>(sout + ((int64_t)bh * kK + kr + r) * kV +
+        *reinterpret_cast<float4*>(sout + ((int64_t)bh * K + kr + r) * nv +
                                    v0 + cv + i) =
             make_float4(st[r][i], st[r][i + 1], st[r][i + 2], st[r][i + 3]);
   }
@@ -337,11 +421,9 @@ wkv_state_pass(const __grid_constant__ CUtensorMap tk,
 // pass 2: every chunk's outputs from its chunk-start state
 // ---------------------------------------------------------------------------
 
-// A chunk tile of 32 rows x 64 columns as TMA writes it with the 128-byte
-// swizzle: two boxes of 32 columns, each row 128 bytes whose 16-byte
+// A chunk tile of 32 rows x W columns as TMA writes it with the 128-byte
+// swizzle: W / 32 boxes of 32 columns, each row 128 bytes whose 16-byte
 // pieces are permuted by the row's low three bits.
-constexpr int kTileFloats = kC * kK;
-
 __device__ __forceinline__ int sw(int t, int j) {
   return (j >> 5) * (kC * 32) + t * 32 + ((((j & 31) >> 2) ^ (t & 7)) << 2) +
          (j & 3);
@@ -363,21 +445,47 @@ __device__ __forceinline__ float4 lds4(uint32_t key, int q) {
   return v;
 }
 
-struct alignas(1024) OutSmem {
-  float r[kTileFloats];
+// The rows of a 2-byte T as TMA lands them (dense, one box a tile) before
+// the widening copy; f32 rows land in their tiles directly.
+template <int K, int V, typename T>
+struct OutStage {
+  alignas(128) T r[kC * K];
+  alignas(128) T k[kC * K];
+  alignas(128) T w[kC * K];
+  alignas(128) T v[kC * V];
+};
+template <int K, int V>
+struct OutStage<K, V, float> {};
+
+template <int K, int V, typename T>
+struct alignas(1024) OutSmem : OutStage<K, V, T> {
+  alignas(1024) float r[kC * K];
   union {
-    float k[kTileFloats];
-    float at[kK][kC];                   // after the scores: (r_t 2^L_{t-1})^T
+    float k[kC * K];
+    float at[K][kC];                    // after the scores: (r_t 2^L_{t-1})^T
   };
-  float lin[kTileFloats];               // logw, then L_t (base 2)
-  float v[kTileFloats];
-  float state[kK][kV];                  // the chunk-start state
+  float lin[kC * K];                    // logw, then L_t (base 2)
+  float v[kC * V];
+  float state[K][V];                    // the chunk-start state
   float mix[kC][kC + 4];                // [s][t]: score_ts for s < t, the u
                                         // bonus for s = t, 0 for s > t
-  float u[kK];
+  float u[K];
   float bonus[kC];
   uint64_t full;
 };
+
+// blocks of the output pass an SM holds by shared memory (228 KB, 1 KB of
+// it reserved a block, 1 KB of alignment slack): the register budget
+// ptxas is given, at most 4, and at most 2 at K = 128, whose score loop
+// spilled at the 80 registers of 3 blocks
+template <int K, int V, typename T>
+constexpr int kSmemBlocks =
+    (int)(228 * 1024 / (sizeof(OutSmem<K, V, T>) + 2048));
+template <int K, int V, typename T>
+constexpr int kOutBlocks =
+    kSmemBlocks<K, V, T> < 1 ? 1
+    : kSmemBlocks<K, V, T> > (K == 128 ? 2 : 4) ? (K == 128 ? 2 : 4)
+                                                : kSmemBlocks<K, V, T>;
 
 // The strict lower triangle of the 32 x 32 scores: the 120 2 x 2 blocks
 // below the diagonal (rows 2a, 2a + 1 against columns 2b, 2b + 1, b < a),
@@ -401,66 +509,136 @@ __device__ __forceinline__ float score4(float acc, float4 r, float4 la,
   return fmaf(r.w * k.w, ex2(la.w - l.w), acc);
 }
 
-__global__ void __launch_bounds__(kThreads, 4)
+// A dense (32, W) tile of T widened into the f32 swizzled layout, four
+// columns a thread at a time.
+template <int W, typename T>
+__device__ __forceinline__ void widen_tile(const T* src, float* dst,
+                                           int tid) {
+#pragma unroll 4
+  for (int e = 4 * tid; e < kC * W; e += 4 * kThreads) {
+    const int t = e / W, j = e % W;
+    *reinterpret_cast<float4*>(dst + sw(t, j)) = load4(src + e);
+  }
+}
+
+// n consecutive floats of shared memory, 4 n bytes aligned
+template <int N>
+__device__ __forceinline__ void lds_cols(const float* p, float (&x)[N]) {
+  if constexpr (N == 1) {
+    x[0] = p[0];
+  } else if constexpr (N == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    x[0] = a.x; x[1] = a.y;
+  } else {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  }
+}
+
+// one output row's N columns, each rounded once to T
+template <int N, typename T>
+__device__ __forceinline__ void store_cols(T* dst, const float (&o)[N]) {
+  if constexpr (kIsF32<T> && N == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(o[0], o[1]);
+  } else if constexpr (kIsF32<T> && N == 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < N; ++c) narrow(dst + c, o[c]);
+  }
+}
+
+// w32: logw is f32 (always, for T = float)
+template <int K, int V, typename T>
+__global__ void __launch_bounds__(kThreads, (kOutBlocks<K, V, T>))
 wkv_output_pass(const __grid_constant__ CUtensorMap tr,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tw,
                 const __grid_constant__ CUtensorMap tv,
                 const float* __restrict__ u, const float* __restrict__ starts,
-                float* __restrict__ out, int s, int h) {
+                T* __restrict__ out, int s, int h, int w32) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // the swizzle pattern follows address bits, so the tiles sit 1024-aligned
   const uint32_t raw = smem_addr(smem_raw);
-  OutSmem& sm = *reinterpret_cast<OutSmem*>(
+  OutSmem<K, V, T>& sm = *reinterpret_cast<OutSmem<K, V, T>*>(
       smem_raw + (((raw + 1023) & ~1023u) - raw));
   const int tid = threadIdx.x, lane = tid & 31;
   const int c = blockIdx.x, bh = blockIdx.y;
   const int n_chunks = gridDim.x;
   const int b = bh / h, hh = bh % h;
-  const int64_t stride = (int64_t)h * kK;
-  const int64_t row0 = (int64_t)b * s * stride + (int64_t)hh * kK;
+  const int64_t stride = (int64_t)h * V;
+  const int64_t row0 = (int64_t)b * s * stride + (int64_t)hh * V;
   const int t0 = c * kC;
+  const bool wf = kIsF32<T> || w32;
 
   const uint32_t bar = smem_addr(&sm.full);
   if (tid == 0) {
     mbar_init(bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    mbar_expect(bar, 4 * kTileFloats * 4 + kK * kV * 4 + kK * 4);
-    const CUtensorMap* maps[4] = {&tr, &tk, &tw, &tv};
-    float* tiles[4] = {sm.r, sm.k, sm.lin, sm.v};
-    for (int i = 0; i < 4; ++i)
-      for (int half = 0; half < 2; ++half)
-        tma_load(tiles[i] + half * kC * 32, maps[i], bar, 32 * half, hh, t0,
-                 b);
-    bulk_load(&sm.state[0][0], starts + ((int64_t)bh * n_chunks + c) * kK * kV,
-              kK * kV * 4, bar);
-    bulk_load(sm.u, u + hh * kK, kK * 4, bar);
+    mbar_expect(bar, kC * ((2 * K + V) * (int)sizeof(T) +
+                           K * (wf ? 4 : (int)sizeof(T))) +
+                         K * V * 4 + K * 4);
+    if constexpr (kIsF32<T>) {
+      const CUtensorMap* maps[3] = {&tr, &tk, &tv};
+      float* tiles[3] = {sm.r, sm.k, sm.v};
+      for (int i = 0; i < 3; ++i)
+        for (int box = 0; box < (i == 2 ? V : K) / 32; ++box)
+          tma_load(tiles[i] + box * kC * 32, maps[i], bar, 32 * box, hh, t0,
+                   b);
+    } else {
+      OutStage<K, V, T>& stage = sm;
+      tma_load(stage.r, &tr, bar, 0, hh, t0, b);
+      tma_load(stage.k, &tk, bar, 0, hh, t0, b);
+      tma_load(stage.v, &tv, bar, 0, hh, t0, b);
+      if (!wf) tma_load(stage.w, &tw, bar, 0, hh, t0, b);
+    }
+    if (wf)
+      for (int box = 0; box < K / 32; ++box)
+        tma_load(sm.lin + box * kC * 32, &tw, bar, 32 * box, hh, t0, b);
+    bulk_load(&sm.state[0][0], starts + ((int64_t)bh * n_chunks + c) * K * V,
+              K * V * 4, bar);
+    bulk_load(sm.u, u + hh * K, K * 4, bar);
   }
   __syncthreads();
   mbar_wait(bar, 0);
+  if constexpr (!kIsF32<T>) {
+    const OutStage<K, V, T>& stage = sm;
+    widen_tile<K>(stage.r, sm.r, tid);
+    widen_tile<K>(stage.k, sm.k, tid);
+    widen_tile<V>(stage.v, sm.v, tid);
+    if (!wf) widen_tile<K>(stage.w, sm.lin, tid);
+    __syncthreads();
+  }
 
   // 1. warps 0-3: L_t in place of logw (lane l of warp q owns column
-  //    16 q + (l & 15) over the 16 tokens of half l >> 4); warps 4-7: the
-  //    u bonus, four lanes a token
+  //    16 q + (l & 15) of each 64-column group over the 16 tokens of half
+  //    l >> 4); warps 4-7: the u bonus, four lanes a token
   if (tid < 128) {
-    const int j = (tid >> 5) * 16 + (lane & 15);
     const int half = lane >> 4, tb = half * 16;
-    float lv[16];
-    float acc = 0.0f;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      acc += sm.lin[sw(tb + i, j)];
-      lv[i] = acc;
+    for (int j0 = 0; j0 < K; j0 += 64) {
+      const int j = j0 + (tid >> 5) * 16 + (lane & 15);
+      if (j < K) {      // a whole warp or none (K = 32: warps 0-1)
+        float lv[16];
+        float acc = 0.0f;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          acc += sm.lin[sw(tb + i, j)];
+          lv[i] = acc;
+        }
+        const float tot0 = __shfl_up_sync(0xffffffffu, acc, 16);
+        const float add = half ? tot0 : 0.0f;
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          sm.lin[sw(tb + i, j)] = (lv[i] + add) * kLog2e;
+      }
     }
-    const float tot0 = __shfl_up_sync(0xffffffffu, acc, 16);
-    const float add = half ? tot0 : 0.0f;
-#pragma unroll
-    for (int i = 0; i < 16; ++i) sm.lin[sw(tb + i, j)] = (lv[i] + add) * kLog2e;
   } else {
-    const int t = (tid - 128) >> 2, q = (tid & 3) * 16;
+    constexpr int kQ = K / 4;
+    const int t = (tid - 128) >> 2, q = (tid & 3) * kQ;
     float acc = 0.0f;
 #pragma unroll
-    for (int j = q; j < q + 16; ++j)
+    for (int j = q; j < q + kQ; ++j)
       acc = fmaf(sm.r[sw(t, j)] * sm.u[j], sm.k[sw(t, j)], acc);
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     acc += __shfl_xor_sync(0xffffffffu, acc, 2);
@@ -473,14 +651,14 @@ wkv_output_pass(const __grid_constant__ CUtensorMap tr,
     int a, bb;
     off_block(tid >> 1, &a, &bb);
     const int t0 = 2 * a, t1 = t0 + 1, s0 = 2 * bb, s1 = s0 + 1;
-    const int q0 = (tid & 1) * (kK / 8);
+    const int q0 = (tid & 1) * (K / 8);
     const uint32_t r0 = row_key(sm.r, t0), r1 = row_key(sm.r, t1);
     const uint32_t l0 = row_key(sm.lin, t0 - 1), l1 = row_key(sm.lin, t0);
     const uint32_t k0 = row_key(sm.k, s0), k1 = row_key(sm.k, s1);
     const uint32_t m0 = row_key(sm.lin, s0), m1 = row_key(sm.lin, s1);
     float a00 = 0.0f, a01 = 0.0f, a10 = 0.0f, a11 = 0.0f;
 #pragma unroll
-    for (int q = 0; q < kK / 8; ++q) {
+    for (int q = 0; q < K / 8; ++q) {
       const float4 x0 = lds4(r0, q0 + q), x1 = lds4(r1, q0 + q);
       const float4 la0 = lds4(l0, q0 + q), la1 = lds4(l1, q0 + q);
       const float4 y0 = lds4(k0, q0 + q), y1 = lds4(k1, q0 + q);
@@ -508,7 +686,7 @@ wkv_output_pass(const __grid_constant__ CUtensorMap tr,
     const uint32_t k0 = row_key(sm.k, s0);
     float a10 = 0.0f;
 #pragma unroll
-    for (int q = 0; q < kK / 4; ++q)
+    for (int q = 0; q < K / 4; ++q)
       a10 = score4(a10, lds4(r1, q), lds4(l1, q), lds4(k0, q), lds4(l1, q));
     sm.mix[s0][t1] = a10;
   }
@@ -516,7 +694,7 @@ wkv_output_pass(const __grid_constant__ CUtensorMap tr,
 
   // 3. r decayed from the chunk's start, transposed over k (no longer
   //    read); the bonus on the diagonal of mix and zeros above it
-  for (int e = tid; e < kC * kK; e += kThreads) {
+  for (int e = tid; e < kC * K; e += kThreads) {
     const int t = e % kC, j = e / kC;
     sm.at[j][t] = sm.r[sw(t, j)] * (t ? ex2(sm.lin[sw(t - 1, j)]) : 1.0f);
   }
@@ -526,30 +704,36 @@ wkv_output_pass(const __grid_constant__ CUtensorMap tr,
   }
   __syncthreads();
 
-  // 4. rows 4 g .. 4 g + 3 (g = warp) of value columns 2 l, 2 l + 1 (l =
-  //    lane): per k or token, one 16-byte load the warp shares and one
-  //    8-byte load feed eight FMAs
-  const int tr4 = 4 * (tid >> 5), c2 = 2 * lane;
-  float o[4][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
-  auto accumulate = [&](const float* rows4, float2 x) {
+  // 4. rows 4 g .. 4 g + 3 (g = warp) of value columns kN l .. kN l +
+  //    kN - 1 (l = lane, kN = V / 32): per k or token, one 16-byte load the
+  //    warp shares and one load of kN columns feed 4 kN FMAs
+  constexpr int kN = V / 32;
+  const int tr4 = 4 * (tid >> 5), cn = kN * lane;
+  float o[4][kN];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int n = 0; n < kN; ++n) o[i][n] = 0.f;
+  auto accumulate = [&](const float* rows4, const float* cols) {
     const float4 p = *reinterpret_cast<const float4*>(rows4);
-    o[0][0] = fmaf(p.x, x.x, o[0][0]); o[0][1] = fmaf(p.x, x.y, o[0][1]);
-    o[1][0] = fmaf(p.y, x.x, o[1][0]); o[1][1] = fmaf(p.y, x.y, o[1][1]);
-    o[2][0] = fmaf(p.z, x.x, o[2][0]); o[2][1] = fmaf(p.z, x.y, o[2][1]);
-    o[3][0] = fmaf(p.w, x.x, o[3][0]); o[3][1] = fmaf(p.w, x.y, o[3][1]);
+    float x[kN];
+    lds_cols(cols, x);
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      o[0][n] = fmaf(p.x, x[n], o[0][n]);
+      o[1][n] = fmaf(p.y, x[n], o[1][n]);
+      o[2][n] = fmaf(p.z, x[n], o[2][n]);
+      o[3][n] = fmaf(p.w, x[n], o[3][n]);
+    }
   };
 #pragma unroll 8
-  for (int j = 0; j < kK; ++j)
-    accumulate(&sm.at[j][tr4],
-               *reinterpret_cast<const float2*>(&sm.state[j][c2]));
+  for (int j = 0; j < K; ++j) accumulate(&sm.at[j][tr4], &sm.state[j][cn]);
   for (int s2 = 0; s2 < tr4 + 4; ++s2)
-    accumulate(&sm.mix[s2][tr4],
-               *reinterpret_cast<const float2*>(&sm.v[sw(s2, c2)]));
+    accumulate(&sm.mix[s2][tr4], &sm.v[sw(s2, cn)]);
 #pragma unroll
   for (int i = 0; i < 4; ++i)
     if (t0 + tr4 + i < s)
-      *reinterpret_cast<float2*>(out + row0 + (t0 + tr4 + i) * stride + c2) =
-          make_float2(o[i][0], o[i][1]);
+      store_cols(out + row0 + (t0 + tr4 + i) * stride + cn, o[i]);
 }
 
 // ---------------------------------------------------------------------------
@@ -578,21 +762,32 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A float32 (B, S, H, 64) tensor as a 4-d map (64, H, S, B): boxes of
-// `cols` columns x one head x 32 tokens x one sequence; tokens past S read
-// as zeros, per sequence
-bool make_map(CUtensorMap* map, const void* ptr, int b, int s, int h,
-              int cols, bool swizzle) {
+// type codes: 0 float32, 1 bfloat16, 2 float16
+template <typename T> constexpr int kCode = 0;
+template <> constexpr int kCode<__nv_bfloat16> = 1;
+template <> constexpr int kCode<__half> = 2;
+
+// A (B, S, H, width) tensor of type `code` as a 4-d map (width, H, S, B):
+// boxes of `cols` columns x one head x 32 tokens x one sequence (f32 boxes
+// of 32 columns 128-byte swizzled when `swizzle`); tokens past S read as
+// zeros, per sequence
+bool make_map(CUtensorMap* map, const void* ptr, int code, int b, int s,
+              int h, int width, int cols, bool swizzle) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t row = (cuuint64_t)h * kK * 4;
-  const cuuint64_t dims[4] = {(cuuint64_t)kK, (cuuint64_t)h, (cuuint64_t)s,
-                              (cuuint64_t)b};
-  const cuuint64_t strides[3] = {(cuuint64_t)kK * 4, row, row * s};
+  const cuuint64_t es = code == 0 ? 4 : 2;
+  const cuuint64_t row = (cuuint64_t)h * width * es;
+  const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)h,
+                              (cuuint64_t)s, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)width * es, row, row * s};
   const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)kC, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(ptr),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  const CUtensorMapDataType type =
+      code == 0   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+      : code == 1 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                  : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  return fn(map, type, 4, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE,
             swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -607,57 +802,146 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
 }
 
-}  // namespace
+struct Args {
+  const void *r, *k, *v, *logw, *u, *state0;
+  void *out, *state, *scratch;
+  int b, s, h, wcode, passes;
+};
 
-// scratch: (B, H, ceil(S / 32), 64, 64) float32, the chunk-start states.
-// passes: 1 the state pass, 2 the output pass (reads the scratch the state
-// pass wrote), 3 both in order (the WKV).  Returns a cudaError_t.
-extern "C" int rwkv6_wkv_launch(const void* r, const void* k, const void* v,
-                                const void* logw, const void* u,
-                                const void* state0, void* out, void* state,
-                                void* scratch, int b, int s, int h,
-                                int passes, void* stream) {
-  const int n_chunks = (s + kC - 1) / kC;
-  // the output pass's grid is (n_chunks, B H)
-  if (b < 1 || s < 1 || h < 1 || passes < 1 || passes > 3 || b * h > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (passes & 1) {
+template <int K>
+size_t state_smem(int code) {
+  switch (code) {
+    case 0: return sizeof(StateSmem<K, float>) + 128;
+    case 1: return sizeof(StateSmem<K, __nv_bfloat16>) + 128;
+    default: return sizeof(StateSmem<K, __half>) + 128;
+  }
+}
+
+template <int K, int V>
+size_t out_smem(int code) {
+  switch (code) {
+    case 0: return sizeof(OutSmem<K, V, float>) + 1024;
+    case 1: return sizeof(OutSmem<K, V, __nv_bfloat16>) + 1024;
+    default: return sizeof(OutSmem<K, V, __half>) + 1024;
+  }
+}
+
+template <int K>
+size_t out_smem_v(int code, int vv) {
+  return vv == 32   ? out_smem<K, 32>(code)
+         : vv == 64 ? out_smem<K, 64>(code)
+                    : out_smem<K, 128>(code);
+}
+
+template <int K, int V, typename T>
+int launch_wkv(const Args& a, cudaStream_t st) {
+  constexpr int code = kCode<T>;
+  const int n_chunks = (a.s + kC - 1) / kC;
+  const int w32 = a.wcode == 0;
+  if (a.passes & 1) {
     CUtensorMap tk, tw, tv;
-    if (!make_map(&tk, k, b, s, h, kK, false) ||
-        !make_map(&tw, logw, b, s, h, kK, false) ||
-        !make_map(&tv, v, b, s, h, kVS, false))
+    if (!make_map(&tk, a.k, code, a.b, a.s, a.h, K, K, false) ||
+        !make_map(&tw, a.logw, a.wcode, a.b, a.s, a.h, K, K, false) ||
+        !make_map(&tv, a.v, code, a.b, a.s, a.h, V, kVS, false))
       return (int)cudaErrorNotSupported;
-    const size_t smem = sizeof(StateSmem) + 128;
-    cudaError_t err = allow_smem(wkv_state_pass, smem);
+    const size_t smem = sizeof(StateSmem<K, T>) + 128;
+    cudaError_t err = allow_smem(wkv_state_pass<K, T>, smem);
     if (err != cudaSuccess) return (int)err;
-    wkv_state_pass<<<b * h * kSlices, kStateBlock, smem, st>>>(
-        tk, tw, tv, static_cast<const float*>(state0),
-        static_cast<float*>(scratch), static_cast<float*>(state), s, h);
+    wkv_state_pass<K, T>
+        <<<a.b * a.h * (V / kVS), StateShape<K>::kBlock, smem, st>>>(
+            tk, tw, tv, static_cast<const float*>(a.state0),
+            static_cast<float*>(a.scratch), static_cast<float*>(a.state), a.s,
+            a.h, V, w32);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  if (passes & 2) {
+  if (a.passes & 2) {
+    // f32 rows: boxes of 32 columns, swizzled into the tiles; T rows: one
+    // dense box a tile into the staging buffer
+    const bool f32 = code == 0;
+    const int cols_k = f32 ? 32 : K, cols_v = f32 ? 32 : V;
     CUtensorMap tr, tk, tw, tv;
-    if (!make_map(&tr, r, b, s, h, 32, true) ||
-        !make_map(&tk, k, b, s, h, 32, true) ||
-        !make_map(&tw, logw, b, s, h, 32, true) ||
-        !make_map(&tv, v, b, s, h, 32, true))
+    if (!make_map(&tr, a.r, code, a.b, a.s, a.h, K, cols_k, f32) ||
+        !make_map(&tk, a.k, code, a.b, a.s, a.h, K, cols_k, f32) ||
+        !make_map(&tw, a.logw, a.wcode, a.b, a.s, a.h, K, w32 ? 32 : K,
+                  w32) ||
+        !make_map(&tv, a.v, code, a.b, a.s, a.h, V, cols_v, f32))
       return (int)cudaErrorNotSupported;
-    const size_t smem = sizeof(OutSmem) + 1024;
-    cudaError_t err = allow_smem(wkv_output_pass, smem);
+    const size_t smem = sizeof(OutSmem<K, V, T>) + 1024;
+    cudaError_t err = allow_smem(wkv_output_pass<K, V, T>, smem);
     if (err != cudaSuccess) return (int)err;
-    wkv_output_pass<<<dim3(n_chunks, b * h), kThreads, smem, st>>>(
-        tr, tk, tw, tv, static_cast<const float*>(u),
-        static_cast<const float*>(scratch), static_cast<float*>(out), s, h);
+    wkv_output_pass<K, V, T><<<dim3(n_chunks, a.b * a.h), kThreads, smem,
+                               st>>>(
+        tr, tk, tw, tv, static_cast<const float*>(a.u),
+        static_cast<const float*>(a.scratch), static_cast<T*>(a.out), a.s,
+        a.h, w32);
   }
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory of the state pass (1) or the output pass (2).
-extern "C" int rwkv6_wkv_smem(int pass) {
-  return pass == 1 ? (int)(sizeof(StateSmem) + 128)
-                   : (int)(sizeof(OutSmem) + 1024);
+template <int K, typename T>
+int launch_v(int vv, const Args& a, cudaStream_t st) {
+  switch (vv) {
+    case 32: return launch_wkv<K, 32, T>(a, st);
+    case 64: return launch_wkv<K, 64, T>(a, st);
+    case 128: return launch_wkv<K, 128, T>(a, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int launch_kv(int kk, int vv, const Args& a, cudaStream_t st) {
+  switch (kk) {
+    case 32: return launch_v<32, T>(vv, a, st);
+    case 64: return launch_v<64, T>(vv, a, st);
+    case 128: return launch_v<128, T>(vv, a, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+bool width_ok(int w) { return w == 32 || w == 64 || w == 128; }
+
+}  // namespace
+
+// r, k, v, out in the type `dtype` (0 float32, 1 bfloat16, 2 float16);
+// logw in `wdtype` (dtype, or 0); u, state0, state float32; K, V each 32,
+// 64 or 128.  scratch: (B, H, ceil(S / 32), K, V) float32, the chunk-start
+// states.  passes: 1 the state pass, 2 the output pass (reads the scratch
+// the state pass wrote), 3 both in order (the WKV).  Returns a cudaError_t;
+// anything outside that domain is cudaErrorInvalidValue and launches
+// nothing.
+extern "C" int rwkv6_wkv_launch(const void* r, const void* k, const void* v,
+                                const void* logw, const void* u,
+                                const void* state0, void* out, void* state,
+                                void* scratch, int b, int s, int h, int kk,
+                                int vv, int dtype, int wdtype, int passes,
+                                void* stream) {
+  // the output pass's grid is (n_chunks, B H)
+  if (b < 1 || s < 1 || h < 1 || passes < 1 || passes > 3 || b * h > 65535 ||
+      !width_ok(kk) || !width_ok(vv) || dtype < 0 || dtype > 2 ||
+      (wdtype != 0 && wdtype != dtype))
+    return (int)cudaErrorInvalidValue;
+  const Args a{r, k, v, logw, u, state0, out, state, scratch, b, s, h,
+               wdtype, passes};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return launch_kv<float>(kk, vv, a, st);
+    case 1: return launch_kv<__nv_bfloat16>(kk, vv, a, st);
+    default: return launch_kv<__half>(kk, vv, a, st);
+  }
+}
+
+// Dynamic shared memory of the state pass (1) or the output pass (2) at
+// type `dtype` and widths K, V; -1 outside the domain.
+extern "C" int rwkv6_wkv_smem(int pass, int dtype, int kk, int vv) {
+  if (!width_ok(kk) || !width_ok(vv) || dtype < 0 || dtype > 2) return -1;
+  if (pass == 1)
+    return (int)(kk == 32   ? state_smem<32>(dtype)
+                 : kk == 64 ? state_smem<64>(dtype)
+                            : state_smem<128>(dtype));
+  return (int)(kk == 32   ? out_smem_v<32>(dtype, vv)
+               : kk == 64 ? out_smem_v<64>(dtype, vv)
+                          : out_smem_v<128>(dtype, vv));
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -4,10 +4,11 @@
 
 :func:`flash_attention` takes the plain version in ``kernels/ref.py`` for a
 CPU tensor and launches the kernel (:func:`attend`) for a CUDA one.  The
-kernel is built for the head dims in :data:`HEAD_DIMS`; one in
-:data:`PADDED_HEAD_DIMS` (the smoke configs' 8) is zero-padded to a built
-one by :func:`pad_head_dim`, which changes no score, and the output sliced
-back.
+kernel is built for the head dims in :data:`HEAD_DIMS`; any other head
+dim up to the largest (the smoke configs' 8, phi-3-mini's 96) is
+zero-padded to the next built one by :func:`pad_head_dim`, which changes no
+score, and the output sliced back.  Head dims past 256 are ROADMAP B item 4.
+It takes float32, bfloat16 and float16 (:data:`DTYPES`).
 
 The kernel is forward-only and takes no part in autograd: on the card a
 call with grad enabled and an input that requires grad raises (training
@@ -33,29 +34,42 @@ FLASH = Kernel("flash_attention.cu", "flash_attention_launch",
 # 16 and 32 mma.sync (flash_bf16), 64 and 80 the warp-specialised wgmma
 # body (flash_wgmma_ws: a producer warp, two consumer warpgroups taking
 # turns), 128 and 256 wgmma with thread 0 as producer (flash_wgmma); f32
-# runs every one on the CUDA cores (flash_f32)
+# and f16 run every one on the CUDA cores (flash_f32, f16 widened on load)
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
-# head dim -> the built head dim it is zero-padded to
-PADDED_HEAD_DIMS = {8: 16}
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def launch_key(h: int, kh: int, hd: int, window: int,
-               causal: bool = True) -> tuple:
+               causal: bool = True, dtype=torch.bfloat16) -> tuple:
     """What ``FLASH.by_key`` counts a launch under: the head shape, the
-    window (0 for a global layer) and whether the mask is causal (whisper's
-    encoder is not)."""
-    return (h, kh, hd, window, bool(causal))
+    window (0 for a global layer), whether the mask is causal (whisper's
+    encoder is not) and the name of the inputs' type (a ``torch.dtype`` or
+    a config's ``dtype`` string; the key holds the string, so it goes into
+    JSON as it is)."""
+    return (h, kh, hd, window, bool(causal),
+            str(dtype).removeprefix("torch."))
+
+
+def padded_head_dim(hd: int) -> int:
+    """The built head dim a head dim runs at: the least of
+    :data:`HEAD_DIMS` at or above it; raises past the largest."""
+    for built in HEAD_DIMS:
+        if hd <= built:
+            return built
+    raise NotImplementedError(
+        f"the CUDA flash kernel takes head dims up to {HEAD_DIMS[-1]} "
+        f"(ROADMAP B item 4), got {hd}")
 
 
 def pad_head_dim(q, k, v):
-    """(q, k, v) with a head dim in :data:`PADDED_HEAD_DIMS` zero-padded to
-    the built one, contiguous, and the scale of the true head dim
-    (``hd ** -0.5``); other head dims pass through.  The zero columns add
-    nothing to q . k, and the output's padded columns (the zero columns of
+    """(q, k, v) with a head dim outside :data:`HEAD_DIMS` zero-padded to
+    :func:`padded_head_dim` (8 -> 16, 24 -> 32, 96 -> 128, 160 -> 256),
+    contiguous, and the scale of the true head dim (``hd ** -0.5``); a
+    built head dim passes through.  The zero columns add nothing to q . k,
+    in any float type, and the output's padded columns (the zero columns of
     v) are to be sliced off."""
     hd = q.shape[-1]
-    to = PADDED_HEAD_DIMS.get(hd, hd)
+    to = padded_head_dim(hd)
     if to != hd:
         q, k, v = (F.pad(x, (0, to - hd)).contiguous() for x in (q, k, v))
     return q, k, v, hd ** -0.5
@@ -65,19 +79,21 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            causal: bool = True, window: int = 0, softcap: float = 0.0,
            return_lse: bool = False):
     """The CUDA kernel: q (B, S, H, hd), k and v (B, T, Kh, hd), contiguous,
-    on one card, all float32 or all bfloat16, hd in :data:`HEAD_DIMS` or
-    :data:`PADDED_HEAD_DIMS` and H a multiple of Kh -> (B, S, H, hd) in q's
-    type; with ``return_lse`` also each query row's log-sum-exp, (B, Kh,
-    H / Kh, S) float32 (the reference's ``_flash_fwd_impl`` layout, the
-    scale of the true head dim).  bf16 runs ``mma.sync`` at hd 16 and 32
-    (8 padded), ``wgmma`` fed by TMA at 64 and up (see
-    :data:`HEAD_DIMS`); f32 the CUDA cores.  Each launch is counted on
-    ``FLASH`` under :func:`launch_key` with the true head dim."""
+    on one card, all of one type of :data:`DTYPES`, any hd up to 256 (one
+    outside :data:`HEAD_DIMS` runs zero-padded, :func:`pad_head_dim`) and H
+    a multiple of Kh -> (B, S, H, hd) in q's type; with ``return_lse`` also
+    each query row's log-sum-exp, (B, Kh, H / Kh, S) float32 (the
+    reference's ``_flash_fwd_impl`` layout, the scale of the true head
+    dim).  bf16 runs ``mma.sync`` at built hd 16 and 32, ``wgmma`` fed by
+    TMA at 64 and up (see :data:`HEAD_DIMS`); f32 the CUDA cores, and f16
+    the f32 body on f16 widened as it loads, its output rounded once to
+    f16.  Each launch is counted on ``FLASH`` under :func:`launch_key` with
+    the true head dim and q's type."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.dtype not in DTYPES:
             raise NotImplementedError(
-                f"the CUDA flash kernel takes float32 or bfloat16, {name} is "
-                f"{x.dtype}")
+                f"the CUDA flash kernel takes {tuple(DTYPES)} (ROADMAP B item "
+                f"4), {name} is {x.dtype}")
         if x.dim() != 4 or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 4-d tensor, got "
                              f"shape {tuple(x.shape)}")
@@ -89,9 +105,7 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v types differ: {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
-    if hd not in HEAD_DIMS and hd not in PADDED_HEAD_DIMS:
-        raise NotImplementedError(f"head dim {hd} not in {HEAD_DIMS} or "
-                                  f"{tuple(PADDED_HEAD_DIMS)}")
+    padded_head_dim(hd)
     if kh < 1 or h % kh:
         raise ValueError(f"{h} query heads do not group over {kh} kv heads")
     if window < 0 or softcap < 0:
@@ -123,7 +137,7 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               s, t, h, kh, qp.shape[-1], int(causal), int(window), scale,
               float(softcap),
               torch.cuda.current_stream(q.device).cuda_stream,
-              key=launch_key(h, kh, hd, int(window), causal))
+              key=launch_key(h, kh, hd, int(window), causal, q.dtype))
     out = out if qp is q else out[..., :hd].contiguous()
     return (out, lse) if return_lse else out
 
@@ -133,8 +147,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q (B, S, H, hd), k and v (B, T, Kh, hd) -> (B, S, H, hd), and with
     ``return_lse`` the rows' log-sum-exp (B, Kh, H / Kh, S).  The
     reference's ``cq``/``ck`` TPU tiles have no counterpart: in bf16 the
-    kernel tiles by 128 queries at head dims 64 to 256 (64 below and in
-    f32) and takes any S and T; head dim 8 runs padded to 16."""
+    kernel tiles by 128 queries at head dims 64 to 256 (64 below, and in
+    f32 and f16) and takes any S and T; a head dim outside
+    :data:`HEAD_DIMS` runs padded (8 to 16, 96 to 128)."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap, return_lse=return_lse)

@@ -234,7 +234,9 @@ def rwkv6_wkv_op(r, k, v, logw, u, state0, *, impl: str = "auto",
     'interpret', and 'auto' on a CPU tensor, the chunked form at ``chunk``
     tokens a chunk.  The CUDA kernel's chunk is fixed by its design
     (``rwkv6_wkv.CHUNK``): there ``chunk`` is validated and changes no
-    value."""
+    value.  Types: the chunked paths (kernel and plain) widen to f32 and
+    return out in r's type and the state in f32, as the reference's Pallas
+    kernel; 'ref' promotes as the reference's oracle."""
     _check_positive(chunk=chunk)
     if impl == "ref":
         return ref.rwkv6_wkv_ref(r, k, v, logw, u, state0)
@@ -254,7 +256,7 @@ class FlashAttentionFn(torch.autograd.Function):
     tensor), or the plain version on the CPU; it saves q, k, v, out and
     lse.  Backward: :func:`flash_attention_bwd`, plain PyTorch, as the
     reference's VJP is jnp.  The head dim's own scale holds for a padded
-    one (hd 8)."""
+    one (hd 8, 96, ...), and f16 goes through the same entry."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, kernel):
@@ -279,7 +281,9 @@ class Rwkv6WkvFn(torch.autograd.Function):
     (``kernel`` true) or the plain chunked form at ``chunk`` tokens a
     chunk.  Backward: the plain chunked form recomputed with grad and its
     vector-Jacobian product taken, since the reference differentiates its
-    jnp ``wkv_chunked``; the final state's cotangent is honoured."""
+    jnp ``wkv_chunked``; the final state's cotangent is honoured.  The
+    recomputation widens 16-bit inputs to f32, so each gradient comes back
+    in its input's own type."""
 
     @staticmethod
     def forward(ctx, r, k, v, logw, u, state0, kernel, chunk):

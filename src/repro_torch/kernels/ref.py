@@ -17,7 +17,11 @@ JAX clamps out-of-bounds gathers silently, torch indexing raises.
 bf16 inputs: the bags and the interaction widen them to f32, compute in
 f32 and round the result once to the input's type, as their kernels and
 the reference's kernels do; a bf16 bag therefore differs from one summed
-in bf16 (or from XLA's sum, in another order) by at most a rounding.
+in bf16 (or from XLA's sum, in another order) by at most a rounding.  The
+chunked WKV forms do the same for any float type (the reference's Pallas
+kernel widens every input on load): the output comes back in r's type and
+the state in f32.  The WKV recurrence follows the reference's oracle
+instead: jnp's promotion, out and state in the promoted type.
 """
 from __future__ import annotations
 
@@ -325,14 +329,28 @@ def rwkv6_wkv_ref(r, k, v, logw, u, state):
     """Exact WKV recurrence, token by token.  r, k, logw:(B,S,H,K)
     v:(B,S,H,V) u:(H,K) state:(B,H,K,V) -> (out (B,S,H,V), final state):
     out_t = r_t . (S + diag(u) k_t v_t^T);  S <- diag(exp(logw_t)) S +
-    k_t v_t^T."""
+    k_t v_t^T.  Types promote op by op as in the reference's oracle (a
+    ``lax.scan`` of jnp ops): the state is carried in the promoted type of
+    state0, k, v, u and logw, each output in that of r and the state (bf16
+    inputs with an f32 state0 give f32 out and state; all bf16, bf16)."""
+    carry = state.dtype
+    for x in (k, v, logw, u):
+        carry = torch.promote_types(carry, x.dtype)
+    odt = torch.promote_types(r.dtype, carry)
+    state = state.to(carry)
     uu = u[None, :, :, None]
     outs = []
     for t in range(r.shape[1]):
         kv = k[:, t, :, :, None] * v[:, t, :, None, :]        # (B,H,K,V)
-        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t], state + uu * kv))
-        state = torch.exp(logw[:, t])[..., None] * state + kv
+        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t].to(odt),
+                                 (state + uu * kv).to(odt)))
+        state = (torch.exp(logw[:, t])[..., None] * state + kv).to(carry)
     return torch.stack(outs, dim=1), state
+
+
+def _widen(*xs):
+    """Each tensor in float32 (the chunked forms' working type)."""
+    return tuple(x.float() for x in xs)
 
 
 def rwkv6_wkv_chunked_ref(r, k, v, logw, u, state, chunk: int = 32):
@@ -341,7 +359,12 @@ def rwkv6_wkv_chunked_ref(r, k, v, logw, u, state, chunk: int = 32):
     cumulative log-decays with s <= a, so <= 0: exact, no overflow.
     Materializes the (B, C, C, H, K) in-chunk decay the kernel keeps on
     chip.  A ragged S is padded to a multiple of ``chunk`` with tokens of
-    zero r, k, v and log-decay, which leave the state as it is."""
+    zero r, k, v and log-decay, which leave the state as it is.  Any float
+    types: every input is widened to f32, as the reference's Pallas kernel
+    widens on load, and the output comes back in r's type (rounded once),
+    the state in f32."""
+    out_dtype = r.dtype
+    r, k, v, logw, u, state = _widen(r, k, v, logw, u, state)
     b, s, h, kk = r.shape
     vv = v.shape[-1]
     pad = -s % chunk
@@ -352,7 +375,7 @@ def rwkv6_wkv_chunked_ref(r, k, v, logw, u, state, chunk: int = 32):
     rs = r.reshape(b, nc, chunk, h, kk)
     ks = k.reshape(b, nc, chunk, h, kk)
     vs = v.reshape(b, nc, chunk, h, vv)
-    ws = logw.reshape(b, nc, chunk, h, kk).float()
+    ws = logw.reshape(b, nc, chunk, h, kk)
     below = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                   device=r.device), -1)[None, :, :, None, None]
     outs = []
@@ -371,7 +394,7 @@ def rwkv6_wkv_chunked_ref(r, k, v, logw, u, state, chunk: int = 32):
         kdec = kc * torch.exp(ltot - linc)
         state = torch.exp(ltot[:, 0])[..., None] * state + \
             torch.einsum("bshk,bshv->bhkv", kdec, vc)
-    return torch.cat(outs, dim=1)[:, :s], state
+    return torch.cat(outs, dim=1)[:, :s].to(out_dtype), state
 
 
 def _chunked_decays(logw, chunk: int):
@@ -395,8 +418,10 @@ def wkv_chunk_states_ref(k, v, logw, state0, chunk: int = 32):
     """Pass 1 of the two-pass WKV (the CUDA kernel's state pass): the only
     sequential part, S <- diag(e^L_{C-1}) S + sum_s (k_s e^(L_{C-1} - L_s))
     v_s^T, chunk by chunk, with no pairwise scores.  k, logw (B,S,H,K),
-    v (B,S,H,V), state0 (B,H,K,V) -> (the state at the start of every
-    chunk (B, H, n_chunks, K, V), the final state (B,H,K,V))."""
+    v (B,S,H,V), state0 (B,H,K,V), any float types, widened to f32 ->
+    (the state at the start of every chunk (B, H, n_chunks, K, V), the
+    final state (B,H,K,V)), both f32."""
+    k, v, logw, state0 = _widen(k, v, logw, state0)
     linc, ltot = _chunked_decays(logw, chunk)
     kdec = _chunks(k, chunk) * torch.exp(ltot - linc)       # (B,nc,C,H,K)
     upd = torch.einsum("bcshk,bcshv->bchkv", kdec, _chunks(v, chunk))
@@ -413,7 +438,10 @@ def wkv_chunk_outputs_ref(r, k, v, logw, u, starts, chunk: int = 32):
     chunk at once from its chunk-start state ``starts`` (B, H, n_chunks, K,
     V), out_t = (r_t e^L_{t-1}) S_c + sum_{s<t} score_ts v_s +
     (r_t . (u k_t)) v_t, with the pairwise decay exponentiated per
-    (t, s, k) from L_{t-1} - L_s <= 0.  -> out (B,S,H,V)."""
+    (t, s, k) from L_{t-1} - L_s <= 0, in f32 on widened inputs.  -> out
+    (B,S,H,V) in r's type, rounded once."""
+    out_dtype = r.dtype
+    r, k, v, logw, u, starts = _widen(r, k, v, logw, u, starts)
     s = r.shape[1]
     linc, _ = _chunked_decays(logw, chunk)
     lexc = linc - _chunks(logw.float(), chunk)
@@ -427,13 +455,14 @@ def wkv_chunk_outputs_ref(r, k, v, logw, u, starts, chunk: int = 32):
     intra = torch.einsum("bchts,bcshv->bcthv", scores, vc)
     bonus = (rc * u[None, None, None] * kc).sum(-1, keepdim=True)
     out = cross + intra + bonus * vc
-    return out.reshape(r.shape[0], -1, *out.shape[3:])[:, :s]
+    return out.reshape(r.shape[0], -1, *out.shape[3:])[:, :s].to(out_dtype)
 
 
 def rwkv6_wkv_two_pass_ref(r, k, v, logw, u, state0, chunk: int = 32):
     """The WKV split as the CUDA kernel splits it: the chunk-start states
     by :func:`wkv_chunk_states_ref`, then every chunk's outputs from them
     by :func:`wkv_chunk_outputs_ref`.  Same arguments and result as
-    :func:`rwkv6_wkv_chunked_ref`; ragged S is padded with zero tokens."""
+    :func:`rwkv6_wkv_chunked_ref` (out in r's type, the state in f32);
+    ragged S is padded with zero tokens."""
     starts, state = wkv_chunk_states_ref(k, v, logw, state0, chunk)
     return wkv_chunk_outputs_ref(r, k, v, logw, u, starts, chunk), state

@@ -443,9 +443,11 @@ class TestFlashAttention:
                                         window=8)
         torch.testing.assert_close(out.float(), want, rtol=0, atol=2e-2)
 
+    # hd 264 is past the largest built head dim (ROADMAP B item 4; any hd
+    # up to 256 runs zero-padded) and float64 outside the kernel's types
     @pytest.mark.parametrize("change,err", [
-        ({"hd": 24}, NotImplementedError), ({"dtype": torch.float16},
-                                            NotImplementedError),
+        ({"hd": 264}, NotImplementedError), ({"dtype": torch.float64},
+                                             NotImplementedError),
         ({"kh": 3}, ValueError), ({"transpose": True}, ValueError),
     ])
     def test_launcher_rejects_what_the_kernel_does_not_take(self, change,
@@ -590,10 +592,12 @@ class TestRwkv6Wkv:
         np.testing.assert_allclose(final.numpy(), np.asarray(want),
                                    **WKV_TOL)
 
-    @pytest.mark.parametrize("b,s,h,chunks", [(1, 32768, 32, 1024),
-                                              (2, 45, 3, 2), (1, 1, 1, 1)])
-    def test_scratch_holds_one_state_per_chunk(self, b, s, h, chunks):
-        assert twkv.scratch_shape(b, s, h) == (b, h, chunks, 64, 64)
+    @pytest.mark.parametrize("b,s,h,kk,vv,chunks", [
+        (1, 32768, 32, 64, 64, 1024), (2, 45, 3, 32, 128, 2),
+        (1, 1, 1, 128, 64, 1)])
+    def test_scratch_holds_one_state_per_chunk(self, b, s, h, kk, vv,
+                                               chunks):
+        assert twkv.scratch_shape(b, s, h, kk, vv) == (b, h, chunks, kk, vv)
 
     def test_bf16_u_is_taken_to_f32(self):
         r, k, v, w, u, s0 = map(torch.from_numpy, _wkv_inputs(4, 1, 32, 2))
@@ -603,9 +607,11 @@ class TestRwkv6Wkv:
         assert got[0].dtype == torch.float32
         assert all(torch.equal(a, b) for a, b in zip(got, want))
 
+    # K 48 and V 96 lie outside the built widths {32, 64, 128} and float64
+    # outside the kernel's types (ROADMAP B item 3)
     @pytest.mark.parametrize("change,err", [
-        ({"kk": 32}, NotImplementedError),
-        ({"dtype": torch.bfloat16}, NotImplementedError),
+        ({"kk": 48}, NotImplementedError), ({"vv": 96}, NotImplementedError),
+        ({"dtype": torch.float64}, NotImplementedError),
         ({"u_heads": 3}, ValueError), ({"state_b": 2}, ValueError),
         ({"transpose": True}, ValueError), ({}, RuntimeError),
     ])
@@ -614,6 +620,8 @@ class TestRwkv6Wkv:
         r, k, v, w, u, s0 = map(torch.from_numpy, _wkv_inputs(
             5, 1, 8, 2, kk=change.get("kk", 64)))
         r = r.to(change.get("dtype", torch.float32))
+        if "vv" in change:
+            v = torch.zeros(v.shape[:-1] + (change["vv"],))
         if "u_heads" in change:
             u = torch.zeros(change["u_heads"], u.shape[1])
         if "state_b" in change:
@@ -782,14 +790,14 @@ class TestDispatch:
         # n_tables, stream), (z, out, batch, f, s, stream), (q, k, v, out,
         # lse, dtype, b, s, t, h, kh, hd, causal, window, scale, softcap,
         # stream)
-        # and (r, k, v, logw, u, state0, out, state, scratch, b, s, h,
-        # passes, stream)
+        # and (r, k, v, logw, u, state0, out, state, scratch, b, s, h, K,
+        # V, dtype, wdtype, passes, stream)
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         f = ctypes.c_float
         assert teb.POOL.argtypes == [p] * 5 + [i64, i, i, i64, i, p]
         assert tdot.DOT.argtypes == [p, p, i, i, i, p]
         assert tfa.FLASH.argtypes == [p] * 5 + [i] * 9 + [f, f, p]
-        assert twkv.WKV.argtypes == [p] * 9 + [i] * 4 + [p]
+        assert twkv.WKV.argtypes == [p] * 9 + [i] * 8 + [p]
         for k in ops.kernels().values():
             src = (_build.CSRC / k.source).read_text()
             assert f'extern "C" int {k.symbol}(' in src
