@@ -11,9 +11,10 @@ Phases, each on lines of its own:
      into ``build/kernels/`` (one nvcc per source, all at once), and one
      line per kernel of registers and stack/spill bytes from ptxas, with
      the dynamic shared memory of the wgmma flash bodies (and their key
-     tile and K/V stages: ``flash_wgmma_ws`` at hd 64 and 80,
-     ``flash_wgmma`` at 128 and 256) and of the two WKV passes; neither
-     wgmma body may spill;
+     tile and K/V stages: ``flash_wgmma_ws`` at hd 64, 80 and 96,
+     ``flash_wgmma`` at 128 and 256, each in bf16 and f16) and of the two
+     WKV passes; no wgmma body may spill, every 16-bit flash body must be
+     built in both types, and no f32 flash body on f16;
   3. the DLRM kernels held against their plain PyTorch versions at full
      ``dlrm-kaggle`` width (rtol = atol = 1e-5: the summation order
      differs), two runs of each bit-identical and each bit-identical to
@@ -170,10 +171,12 @@ Phases, each on lines of its own:
      on the widened inputs with its output rounded once (bf16 also with
      an f32 logw); every variant's launch counted under its key;
   9c. the flash kernel across its domain (ROADMAP B item 4): hd 96
-     in bf16 at phi-3-mini's heads (zero-padded to 128) beside SDPA, and
-     f16 at zamba2's f32 row shape and at qwen3-14b's heads beside SDPA in
-     f16; each f16 output bit for bit the f32 kernel's on the widened
-     inputs rounded once, its lse equal;
+     in bf16 at phi-3-mini's heads (built natively on the warp-specialised
+     body, no padded copy) beside SDPA, and f16 (the tensor-core bodies'
+     f16 instantiations) at zamba2's f32 row shape and at qwen3-14b's heads
+     beside SDPA in f16; each f16 row at the flash tolerance, two runs
+     bit-identical, its error logged beside the bf16 kernel's on the same
+     values rounded to bf16;
  10. full-width rwkv6-1.6b in f32 on 4096 tokens, first at 4 layers: the
      forward's logits and every layer's state through the kernel held
      against the plain WKV (rtol = atol = 1e-4), and 128 tokens decoded one
@@ -260,14 +263,15 @@ Phases, each on lines of its own:
      64-token prompts fed token by token and 16 greedy tokens, twice,
      identical, one decode step profiled; ``[zamba2-*]`` lines;
  20. training, after zamba2-2.7b and outside ``torch.no_grad()``: (a) each
-     body of the flash kernel asked for each row's log-sum-exp (hd 64 and
-     80 on the warp-specialised wgmma body, one of them with a window and
-     a softcap, 32 on mma.sync, 128 and 256 on wgmma in bf16, 64, 80 and
-     the padded 8 in f32): lse against the plain version's, the output
-     bit-identical to a serving call's; the CPU model of the hd 64/80
-     body's tile walk (``ref.flash_attention_tiled_ref``) run on the card
-     against the kernel at hd 64 and hd 80 (output at the flash tolerance,
-     lse at 1e-3); (b) ``ops.FlashAttentionFn``'s gradients at
+     body of the flash kernel asked for each row's log-sum-exp (hd 64, 80
+     and 96 on the warp-specialised wgmma body, one of them with a window
+     and a softcap, 32 on mma.sync, 128 and 256 on wgmma in bf16; hd 32,
+     80 and 128 in f16; 64, 80 and the padded 8 in f32): lse against the
+     plain version's, the output bit-identical to a serving call's; the
+     CPU model of the hd 64/80/96 body's tile walk
+     (``ref.flash_attention_tiled_ref``) run on the card against the
+     kernel at hd 64, 80 and 96 in bf16 and at hd 96 in f16 (output at the
+     flash tolerance, lse at 1e-3); (b) ``ops.FlashAttentionFn``'s gradients at
      granite-moe-3b-a800m's train shape (B 1, S 4096, H 24 over Kh 8, hd
      64, bf16; relative Frobenius 2e-2) and in f32 at S 1024 (1e-4)
      against autograd through the plain attention, and the row
@@ -611,7 +615,7 @@ def check_kernel(name, replaces, source, kernel_fn, plain_fn, library_fn,
 # a kernel's name in its mangled symbol, where its length's digits precede
 # it (the anonymous namespace's own name carries the file's, as
 # "18_dot_interaction_cu"), then its integer template arguments and the
-# row or input type of the DLRM kernels, the f32/f16 flash body and the
+# row or input type of the DLRM kernels, the 16-bit flash bodies and the
 # WKV passes
 KERNEL_NAMES = re.compile(r"(?<=\d)(flash_wgmma_ws|flash_wgmma|flash_bf16|"
                           r"flash_f32|wkv_state_pass|wkv_output_pass|"
@@ -622,14 +626,30 @@ KERNEL_NAMES = re.compile(r"(?<=\d)(flash_wgmma_ws|flash_wgmma|flash_bf16|"
 TYPE_SUFFIX = {"f": "_f32", "13__nv_bfloat16": "_bf16", "6__half": "_f16"}
 WKV_CODES = {"_f32": 0, "_bf16": 1, "_f16": 2}
 # the wgmma flash bodies keep their accumulators (128 registers at hd 256;
-# scores, P and output beside a producer warp at hd 64/80) only if nothing
-# spills, the bag keeps two batches of rows in flight in registers, and
-# the WKV passes keep their state slices and output rows there:
+# scores, P and output beside a producer warp at hd 64/80/96) only if
+# nothing spills, the bag keeps two batches of rows in flight in registers,
+# and the WKV passes keep their state slices and output rows there:
 # their reports must show no stack and no spill stores
-NO_SPILL = ("flash_wgmma", "flash_wgmma_ws", "bag_pool_f32",
-            "bag_pool_bf16") + tuple(
-                f"wkv_{p}_pass_{t}" for p in ("state", "output")
-                for t in ("f32", "bf16", "f16"))
+WGMMA_FLASH = tuple(f"{body}_{t}" for body in ("flash_wgmma",
+                                               "flash_wgmma_ws")
+                    for t in ("bf16", "f16"))
+NO_SPILL = WGMMA_FLASH + ("bag_pool_f32", "bag_pool_bf16") + tuple(
+    f"wkv_{p}_pass_{t}" for p in ("state", "output")
+    for t in ("f32", "bf16", "f16"))
+# every instantiation of the 16-bit flash bodies that flash_attention.cu
+# must build, (name with type, template arguments): each head dim in both
+# types (the warp-specialised body with and without the softcap); the f32
+# body ("flash_f32", no type) at every head dim, and on no other type
+FLASH_BUILT = {(f"{body}_{t}", arg) for t in ("bf16", "f16")
+               for body, args in (
+                   ("flash_bf16", ("16", "32")),
+                   ("flash_wgmma_ws", tuple(f"{hd},{cap}"
+                                            for hd in (64, 80, 96)
+                                            for cap in (0, 1))),
+                   ("flash_wgmma", ("128", "256")))
+               for arg in args} | {
+                   ("flash_f32", str(hd))
+                   for hd in (16, 32, 64, 80, 96, 128, 256)}
 
 
 def ptxas_report(text: str) -> list:
@@ -662,21 +682,38 @@ def build_report(logs: dict) -> None:
     """One [build] line per kernel that ``_build.build`` built (``logs``,
     its return): registers and stack/spill bytes from ptxas, the dynamic
     shared memory of the wgmma flash bodies and the two WKV passes, and the
-    flash tiling; fails if a wgmma body or the bag spills."""
-    from repro_torch.kernels import _build
+    flash tiling; fails if a wgmma body or the bag spills, or if the
+    flash source's kernels are not exactly ``FLASH_BUILT``."""
+    from repro_torch.kernels import _build, ref
 
     spills = []
     for src, (text, _) in logs.items():
         lib = _build.library(src)
-        for name, arg, used, stack, spill in ptxas_report(text):
+        report = ptxas_report(text)
+        if src == "flash_attention.cu":
+            built = {(name, arg) for name, arg, *_ in report
+                     if name.startswith("flash_")}
+            if built != FLASH_BUILT:
+                raise AssertionError(
+                    f"flash_attention.cu built {sorted(built - FLASH_BUILT)}"
+                    f" beyond and lacks {sorted(FLASH_BUILT - built)}")
+            log(f"[build] flash_attention.cu: {len(built)} kernels, every "
+                f"16-bit body in bf16 and f16, flash_f32 on f32 alone")
+        for name, arg, used, stack, spill in report:
             extra = ""
-            if name in ("flash_wgmma", "flash_wgmma_ws"):
+            if name in WGMMA_FLASH:
+                hd = int(arg.split(",")[0])
                 bk, st, sm = (ctypes.c_int(), ctypes.c_int(), ctypes.c_int())
-                lib.flash_attention_tiling(int(arg.split(",")[0]),
-                                           ctypes.byref(bk),
+                lib.flash_attention_tiling(hd, ctypes.byref(bk),
                                            ctypes.byref(st), ctypes.byref(sm))
                 extra = (f"; BK {bk.value} keys, {st.value} K/V stages, "
                          f"{sm.value} bytes of dynamic shared memory")
+                # the CPU model of the hd 64/80/96 body walks its key tiles
+                if name.startswith("flash_wgmma_ws") and \
+                        bk.value != ref.ws_block_k(hd):
+                    raise AssertionError(
+                        f"{name}<{arg}>: BK {bk.value}, but the tiled model "
+                        f"walks {ref.ws_block_k(hd)} keys a tile")
             elif name.startswith("wkv_"):
                 # the state pass's template is <K, T> (any V), the output
                 # pass's <K, V, T>
@@ -2853,10 +2890,11 @@ def flash_row(name, gen, dev, b, s, h, kh, hd, *, window=0, cap=0.0,
               causal=True, dtype=torch.bfloat16):
     """One flash-kernel row: q (at FLASH_Q_SCALE), k, v of shape (b, s,
     heads, hd) in ``dtype`` from ``gen``, the kernel held against its plain
-    version and timed (check_kernel; bf16 and f16 at FLASH_TOL and
-    FLASH_REL on the tensor cores' peak, which NVIDIA gives as one for
-    both, f32 at TOL on the CUDA cores'; an f16 kernel also bit for bit
-    against the f32 kernel on the widened inputs), beside
+    version and timed (check_kernel: two runs bit-identical; bf16 and f16
+    at FLASH_TOL and FLASH_REL on the tensor cores' peak, which NVIDIA
+    gives as one for both, f32 at TOL on the CUDA cores'; an f16 row's
+    errors logged beside the bf16 kernel's on the same values rounded to
+    bf16), beside
     scaled_dot_product_attention where one PyTorch call computes the
     function (no softcap, no window); the plain version without the
     softcap, without the window and, for a non-causal row, with the causal
@@ -2901,19 +2939,23 @@ def flash_row(name, gen, dev, b, s, h, kh, hd, *, window=0, cap=0.0,
             f"scaled_dot_product_attention {row['library_ms']:.4f} ms in "
             f"this run ({row['ms'] / row['library_ms']:.2f}x)")
     if dtype == torch.float16:
-        # the f16 kernel is the f32 body on f16 widened as it loads: its
-        # output is the f32 kernel's on the widened inputs rounded once,
-        # its lse that kernel's, bit for bit
-        got = fa.flash_attention(q, k, v, return_lse=True, **kw)
-        wide = fa.flash_attention(q.float(), k.float(), v.float(),
-                                  return_lse=True, **kw)
-        if not (torch.equal(got[0], wide[0].half())
-                and torch.equal(got[1], wide[1])):
-            raise AssertionError(f"{name}: not the f32 kernel on the "
-                                 f"widened inputs rounded once")
-        log(f"[kernel] {name}: out and lse bit for bit the f32 kernel's on "
-            f"the widened inputs, out rounded once to f16")
-        del got, wide
+        # the f16 instantiation of a tensor-core body (held above at
+        # FLASH_TOL and FLASH_REL, two runs bit-identical) beside the bf16
+        # one on the same values rounded to bf16: f16 keeps 3 more mantissa
+        # bits, so its error should be about 8x under bf16's
+        errs = {}
+        for t in (torch.float16, torch.bfloat16):
+            qt, kt, vt = (x.to(t) for x in (q, k, v))
+            errs[t] = errors(fa.flash_attention(qt, kt, vt, **kw),
+                             plain_fn() if t == dtype else
+                             ref.flash_attention_ref(qt, kt, vt, **kw),
+                             FLASH_TOL["rtol"])[:2]
+            del qt, kt, vt
+        (e16, f16), (eb, fb) = errs[torch.float16], errs[torch.bfloat16]
+        log(f"[kernel] {name}: f16 max_abs_err {e16:.3e}, relative "
+            f"Frobenius error {f16:.3e}; the bf16 kernel on the same values "
+            f"in bf16 {eb:.3e}, {fb:.3e} ({eb / e16:.1f}x, {fb / f16:.1f}x "
+            f"the f16 errors)")
     # the check sees each branch: a kernel that dropped the softcap or the
     # window, or masked a non-causal layer, would fail it
     branches = []
@@ -3356,16 +3398,17 @@ def wkv_domains_phase(dev):
 
 def flash_domains_phase(dev):
     """Phase 9c: the flash kernel across its domain: hd 96 in bf16 at
-    phi-3-mini's heads (B 2 x S 4608, H = Kh = 32, causal; zero-padded to
-    128) beside SDPA, and f16 (the f32 body on widened f16) at zamba2's
-    f32 row shape (B 2 x S ZAMBA_F32_S, hd 80) and at qwen3-14b's heads
-    (B 2 x S 4608, H 40 over Kh 8, hd 128) beside SDPA in f16 (``flash_row``
-    holds each f16 output bit for bit to the f32 kernel's on the widened
-    inputs).  Every row must have launched at least twice under its own
-    key, which carries the true head dim and the type (the f32 comparison
-    runs count under the f32 key).  Returns (row, launch key) pairs: each
-    row reads its key's launches on the main path, 0 where no served model
-    has hd 96 or runs f16."""
+    phi-3-mini's heads (B 2 x S 4608, H = Kh = 32, causal; built natively,
+    ``flash_wgmma_ws<96, ...>``) beside SDPA, and f16 (the tensor-core
+    bodies' f16 instantiations) at zamba2's f32 row shape (B 2 x S
+    ZAMBA_F32_S, hd 80) and at qwen3-14b's heads (B 2 x S 4608, H 40 over
+    Kh 8, hd 128) beside SDPA in f16 (``flash_row`` logs each f16 row's
+    errors beside the bf16 kernel's).  At hd 96 ``attend`` must allocate
+    its output and nothing else (no padded copy).  Every row must have
+    launched at least twice under its own key, which carries the true head
+    dim and the type (the bf16 comparison runs count under bf16 keys).
+    Returns (row, launch key) pairs: each row reads its key's launches on
+    the main path, 0 where no served model has hd 96 or runs f16."""
     from repro_torch.configs.qwen3_14b import CONFIG as QWEN
     from repro_torch.configs.zamba2_2_7b import CONFIG as ZAMBA
     from repro_torch.kernels import flash_attention as fa
@@ -3373,6 +3416,24 @@ def flash_domains_phase(dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 10)
     before = dict(fa.FLASH.by_key)
+    # hd 96 is built: attend's only allocation is its output (no zero-padded
+    # q, k, v and no sliced output, as at hd 96 before it was built)
+    h, kh, hd = PHI3_HEADS
+    q, k, v = (torch.randn((LM_BATCH, 512, n, hd), generator=gen,
+                           device=dev).to(torch.bfloat16) for n in (h, kh, kh))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = fa.attend(q, k, v)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated(dev) - base
+    if fa.padded_head_dim(hd) != hd or \
+            extra != out.numel() * out.element_size():
+        raise AssertionError(f"hd {hd}: attend allocated {extra} bytes "
+                             f"beside a {out.numel() * 2}-byte output")
+    log(f"[kernel] flash_attention hd {hd}: built (padded_head_dim {hd}), "
+        f"attend allocated {extra} bytes, its output's alone")
+    del q, k, v, out
     rows = [flash_row("flash_attention/phi3_heads_hd96", gen, dev, LM_BATCH,
                       LM_PROMPT, *PHI3_HEADS),
             flash_row("flash_attention/zamba2_heads_f16", gen, dev,
@@ -5939,9 +6000,11 @@ TRAIN_RESUME_REL = 1e-6
 # the Function's gradients against autograd through the plain attention:
 # bf16 operands and the bf16 rounding of p and ds (2^-8 relative each)
 TRAIN_GRAD_REL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
-# lse against the plain version: f32 at 1e-5; bf16 (operands rounded
-# alike, the kernel's ex2/tanh approximations) at 1e-3
+# lse against the plain version: f32 at 1e-5; bf16 and f16 (the scores'
+# products of 16-bit operands are exact in f32 on both sides; the kernel's
+# ex2/tanh approximations and summation order) at 1e-3
 LSE_TOL = {torch.bfloat16: {"rtol": 0.0, "atol": 1e-3},
+           torch.float16: {"rtol": 0.0, "atol": 1e-3},
            torch.float32: {"rtol": 0.0, "atol": 1e-5}}
 # each body of B5: (label, B, S, H, Kh, hd, type, window, softcap, causal)
 LSE_CASES = (
@@ -5949,10 +6012,15 @@ LSE_CASES = (
     ("wgmma_ws hd 80", 2, 1000, 8, 8, 80, torch.bfloat16, 0, 0.0, True),
     ("wgmma_ws hd 80, window, softcap", 1, 1100, 8, 2, 80, torch.bfloat16,
      300, 50.0, True),
+    ("wgmma_ws hd 96", 2, 1000, 8, 4, 96, torch.bfloat16, 0, 0.0, True),
     ("mma.sync hd 32", 2, 600, 4, 2, 32, torch.bfloat16, 0, 0.0, True),
     ("wgmma hd 128", 1, 1100, 16, 8, 128, torch.bfloat16, 0, 0.0, True),
     ("wgmma hd 256, window, softcap", 1, 1100, 16, 8, 256, torch.bfloat16,
      300, 50.0, True),
+    ("mma.sync hd 32, f16", 2, 600, 4, 2, 32, torch.float16, 0, 0.0, True),
+    ("wgmma_ws hd 80, window, softcap, f16", 1, 1100, 8, 2, 80,
+     torch.float16, 300, 50.0, True),
+    ("wgmma hd 128, f16", 1, 1100, 16, 8, 128, torch.float16, 0, 0.0, True),
     ("f32 hd 64", 1, 1024, 24, 8, 64, torch.float32, 0, 0.0, True),
     ("f32 hd 80, window, softcap", 2, 500, 4, 2, 80, torch.float32, 64,
      30.0, True),
@@ -6016,27 +6084,31 @@ def lse_phase(dev):
     torch.cuda.empty_cache()
 
 
-# the CPU model of the hd 64/80 body's tile walk held against the kernel on
-# the card: (label, B, S, H, Kh, hd, window, causal)
-TILED_CASES = (("hd 64", 1, TRAIN_SEQ, 24, 8, 64, 0, True),
-               ("hd 80, window 300", 2, 1000, 8, 8, 80, 300, True))
+# the CPU model of the hd 64/80/96 body's tile walk held against the kernel
+# on the card: (label, B, S, H, Kh, hd, window, causal, type)
+TILED_CASES = (
+    ("hd 64", 1, TRAIN_SEQ, 24, 8, 64, 0, True, torch.bfloat16),
+    ("hd 80, window 300", 2, 1000, 8, 8, 80, 300, True, torch.bfloat16),
+    ("hd 96, GQA", 1, 1100, 8, 2, 96, 0, True, torch.bfloat16),
+    ("hd 96, window 300, f16", 2, 1000, 8, 8, 96, 300, True, torch.float16))
 
 
 def tiled_model_phase(dev):
-    """Phase 20a': ``ref.flash_attention_tiled_ref`` (the hd 64/80 body's
-    tile walk: 128 x 128 tiles from the window's start rounded down, f32
-    running max and sum, the scale folded into exp2, P rounded to bf16
-    before P V, hd 80's P V in columns 0-63 and 64-79) run on the card
-    against the kernel in bf16, output at FLASH_TOL and FLASH_REL and lse
-    at LSE_TOL, beside the plain version's distance from the kernel."""
+    """Phase 20a': ``ref.flash_attention_tiled_ref`` (the hd 64/80/96
+    body's tile walk: 128 x 128 tiles from the window's start rounded
+    down, f32 running max and sum, the scale folded into exp2, P rounded to
+    the input type before P V, hd 80's and 96's P V in columns 0-63 and
+    the rest) run on the card against the kernel in bf16 and f16, output
+    at FLASH_TOL and FLASH_REL and lse at LSE_TOL, beside the plain
+    version's distance from the kernel."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 7)
-    for label, b, s, h, kh, hd, window, causal in TILED_CASES:
+    for label, b, s, h, kh, hd, window, causal, dt in TILED_CASES:
         q, k, v = ((torch.randn((b, s, n, hd), generator=gen, device=dev)
-                    * sc).to(torch.bfloat16)
+                    * sc).to(dt)
                    for n, sc in ((h, FLASH_Q_SCALE), (kh, 1.0), (kh, 1.0)))
         kw = {"causal": causal, "window": window}
         out, lse = fa.attend(q, k, v, return_lse=True, **kw)
@@ -6046,11 +6118,11 @@ def tiled_model_phase(dev):
         err, fro, _ = hold(f"tiled model {label}", out, model, FLASH_TOL,
                            FLASH_REL)
         lse_err, _, _ = hold(f"tiled model {label} lse", lse, model_lse,
-                             LSE_TOL[torch.bfloat16])
+                             LSE_TOL[dt])
         _, plain_fro, _ = errors(out, ref.flash_attention_ref(q, k, v, **kw),
                                  FLASH_TOL["rtol"])
         log(f"[train-lse] tiled model {label}: B {b} S {s} H {h} over Kh "
-            f"{kh}, bf16: kernel vs model max_abs_err {err:.3e}, relative "
+            f"{kh}, {dt}: kernel vs model max_abs_err {err:.3e}, relative "
             f"Frobenius error {fro:.3e} (the plain version's {plain_fro:.3e})"
             f", lse max_abs_err {lse_err:.3e}")
         del q, k, v, out, lse, model, model_lse

@@ -30,8 +30,15 @@
 // from window - 1 keys before its first query when windowed, so dead tiles
 // cost nothing.  Heavy (late) query tiles are scheduled first.  The
 // running max, sum and output accumulator stay in registers in float32.
-// Four bodies, by type and head dim:
-//   - bfloat16 at head dims 128 and 256 (the dense, MoE and VLM shapes),
+// Four bodies, by type and head dim.  The three tensor-core bodies are
+// templated on their 16-bit input type T, bfloat16 or float16: wgmma and
+// mma.sync take both in the same shapes at the same rate, accumulating in
+// f32, so a body's f16 instantiation differs from its bf16 one only in the
+// PTX type of its products, the type P is rounded to for P V, the tensor
+// maps' element type and the output's rounding.  Scores, the running max,
+// sum and lse stay f32 in both (P <= 1 and |out| <= max |v|: nothing
+// overflows f16's range).
+//   - 16-bit at head dims 128 and 256 (the dense, MoE and VLM shapes),
 //     flash_wgmma: 128 queries a block, two warpgroups of 64 rows.  Q
 //     arrives once and K/V tiles of BK keys (64 at hd 256, 128 at hd 128)
 //     stream by TMA from 4-d tensor maps (hd, heads, S, B) into a ring of
@@ -42,7 +49,7 @@
 //     softmax runs on its registers (the softcap's tanh and the
 //     exponentials on tanh.approx and ex2.approx; the mask only on tiles
 //     that need it; uncapped, the scale folds into the exponent), and P
-//     goes to bf16 in registers as the A operand of O += P V, a wgmma
+//     goes to T in registers as the A operand of O += P V, a wgmma
 //     m64n{hd}k16 with V from shared memory (MN-major).  S_{i+1} and O +=
 //     P_i V_i are issued together, so tile i + 1's softmax runs while P_i
 //     V_i is on the tensor cores.  Thread 0 is also the producer: K_j is
@@ -55,52 +62,50 @@
 //     first: ptxas then held the consumers to 168 registers and serialised
 //     every wgmma (it needs ~235 at hd 256), so the two warpgroups own all
 //     255.
-//   - bfloat16 at head dims 64 and 80 (granite-moe's and whisper-tiny's
-//     64, zamba2-2.7b's shared block at 80), flash_wgmma_ws: the same
-//     tiles (128 queries, two consumer warpgroups, K/V tiles of 128 keys,
-//     S = Q K^T in m64n128k16 steps, S_{i+1} issued with O += P_i V_i)
-//     with three changes.  What bounds it: an admitted pair costs 4 hd
-//     flops (256 at hd 64) of the tensor cores' 4,096 a clock per SM, and
-//     one exponential of the SFU's 16 a clock, so at hd 64 the
-//     exponentials take as long as the products (at hd 80 four fifths)
-//     and a body that runs them one after the other cannot pass half the
-//     flop bound.  (1) The warpgroups take turns on two named barriers:
-//     each waits for its turn, issues its products and hands the turn
-//     over, so one warpgroup's softmax can run while the other's products
-//     are on the tensor cores (tools/ab_flash.py times it against free
-//     issue: about even so far; the softmax alone takes most of the
-//     time).  (2) Registers are no longer scarce (S 64
-//     floats, O 32 or 40, P 32), so a producer warp of its own keeps the
-//     ring full (6 stages of 32 KB at hd 64, 5 of 40 KB at hd 80); with
-//     thread 0 as the producer it was slower at every shape timed.  (3) hd 80's 160-byte
-//     rows fit no swizzle atom: each Q, K, V and output tile is two TMA
-//     boxes, columns 0-63 128-byte swizzled and columns 64-79 32-byte
-//     swizzled, so S takes a fifth k-step from the second box and O += P
-//     V is a pair, m64n64k16 plus m64n16k16 (accumulators 32 + 8 floats).
-//     Padding hd 80 to 128 would cost 1.6x the tensor work.  The last tile
-//     issues O += P V in a step of its own, a warp whose rows kept their
-//     max skips the output's rescale (exactly 1), whether a softcap
-//     applies is a template argument (kCap), and the grid runs (batch,
-//     head) pairs in groups of 8, heaviest tile first within a group, so
-//     a wave reads the K/V of few heads.  Each warpgroup stores its own 64
-//     output rows.
-//   - bfloat16 at head dims 16 and 32 (the smoke configs' 8, padded to
-//     16), flash_bf16: four warps of 16 query rows each over a 64-query
-//     tile, mma.sync m16n8k16 fed by ldmatrix, K and V double-buffered by
-//     cp.async over 32-key tiles: at these widths wgmma's 64-row tiles and
-//     TMA boxes of 64 columns do not pay, and the launch is the time.
-//   - float32 and float16, flash_f32: 256 threads on the CUDA cores, each
-//     owning 4 query rows x 4 keys of the score tile and 4 rows x hd/16
-//     columns of the output.  K rows are padded to hd + 1 floats so the 16
-//     keys a warp reads at one depth lie in distinct banks.  This form
-//     exists for float32 parity; above hd 64 its tile passes the 48 KB
-//     default of dynamic shared memory (78,336 bytes at hd 80) and launch()
-//     opts in.  float16 runs the same body with q, k and v widened to f32
-//     as they are staged and the output rounded once to f16, so it
-//     computes what the reference computes (everything in f32, P too) and
-//     its output is the f32 body's on the widened inputs rounded once, its
-//     lse the f32 body's, bit for bit.  (An f16 tensor-core body is later
-//     work.)
+//   - 16-bit at head dims 64, 80 and 96 (granite-moe's and whisper-tiny's
+//     64, zamba2-2.7b's shared block at 80, phi-3-mini's 96),
+//     flash_wgmma_ws: the same tiles (128 queries, two consumer
+//     warpgroups, K/V tiles of 128 keys, S = Q K^T in m64n128k16 steps,
+//     S_{i+1} issued with O += P_i V_i; at hd 96 tiles of 112 keys, so the
+//     larger output fits the registers) with three changes.  What bounds
+//     it: an admitted pair costs 4 hd flops (256 at hd 64) of the tensor
+//     cores' 4,096 a clock per SM, and one exponential of the SFU's 16 a
+//     clock, so at hd 64 the exponentials take as long as the products (at
+//     hd 80 four fifths, at hd 96 two thirds) and a body that runs them one
+//     after the other cannot pass half the flop bound.  (1) The warpgroups
+//     take turns on two named barriers: each waits for its turn, issues its
+//     products and hands the turn over, so one warpgroup's softmax can run
+//     while the other's products are on the tensor cores (tools/ab_flash.py
+//     times it against free issue: about even so far; the softmax alone
+//     takes most of the time).  (2) Registers are no longer scarce (S 64
+//     floats, O 32 to 48, P 32; 168 a thread with nine warps), so a
+//     producer warp of its own keeps the ring full (6 stages of 32 KB at
+//     hd 64, 5 of 40 KB at hd 80, 4 of 42 KB at hd 96); with thread 0 as
+//     the producer it was slower at every shape timed.  (3) Rows of 160 bytes (hd 80) or 192 (hd 96) fit no
+//     swizzle atom: each Q, K, V and output tile is two TMA boxes, columns
+//     0-63 128-byte swizzled and the rest, 16 columns 32-byte swizzled at
+//     hd 80 or 32 columns 64-byte swizzled at hd 96, so S takes one or two
+//     more k-steps from the second box and O += P V is a pair, m64n64k16
+//     plus m64n16k16 or m64n32k16 (accumulators 32 + 8 or 32 + 16 floats).
+//     Padding to 128 would cost 1.6x (hd 80) or 1.33x (hd 96) the tensor
+//     work and a padded copy of q, k and v.  The last tile issues O += P V
+//     in a step of its own, a warp whose rows kept their max skips the
+//     output's rescale (exactly 1), whether a softcap applies is a
+//     template argument (kCap), and the grid runs (batch, head) pairs in
+//     groups of 8, heaviest tile first within a group, so a wave reads the
+//     K/V of few heads.  Each warpgroup stores its own 64 output rows.
+//   - 16-bit at head dims 16 and 32 (the smoke configs' 8, padded to 16),
+//     flash_bf16 (named for its first type): four warps of 16 query rows
+//     each over a 64-query tile, mma.sync m16n8k16 fed by ldmatrix, K and
+//     V double-buffered by cp.async over 32-key tiles: at these widths
+//     wgmma's 64-row tiles and TMA boxes of 64 columns do not pay, and the
+//     launch is the time.
+//   - float32, flash_f32: 256 threads on the CUDA cores, each owning 4
+//     query rows x 4 keys of the score tile and 4 rows x hd/16 columns of
+//     the output.  K rows are padded to hd + 1 floats so the 16 keys a warp
+//     reads at one depth lie in distinct banks.  This form exists for
+//     float32 parity; above hd 64 its tile passes the 48 KB default of
+//     dynamic shared memory (78,336 bytes at hd 80) and launch() opts in.
 // Other head dims up to 256 reach a built one zero-padded by the caller
 // (the zero columns add nothing to q . k, and the scale is the true hd's).
 // Masked scores take the finite sentinel -1e30, as the Pallas kernel does,
@@ -160,7 +165,7 @@ __device__ __forceinline__ void live_keys(const Params& p, int q0, int q_last,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 at head dims 16 and 32: mma.sync
+// 16-bit at head dims 16 and 32: mma.sync
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
@@ -200,20 +205,45 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(smem_addr(p)));
 }
 
-// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// The 16-bit input types of the tensor-core bodies.  Their products'
+// PTX strings differ only in the type, so each wrapper below is one asm
+// statement written as a macro of the type's name, issued for T by
+// TYPED_ASM: ".bf16.bf16" or ".f16.f16", accumulating in f32 either way.
+template <typename T>
+constexpr bool kHalf = std::is_same<T, __half>::value;
+
+#define TYPED_ASM(T, ASM)  \
+  if constexpr (kHalf<T>) { \
+    ASM(".f16.f16");        \
+  } else {                  \
+    ASM(".bf16.bf16");      \
+  }
+
+// c += a (16x16, row) * b (16x8, col), T in, f32 accumulate.
+template <typename T>
+__device__ __forceinline__ void mma_16(float (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+#define MMA_16(AB)                                                        \
+  asm volatile(                                                           \
+      "mma.sync.aligned.m16n8k16.row.col.f32" AB ".f32 "                  \
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "                    \
+      "{%0, %1, %2, %3};\n"                                               \
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])                    \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1))
+  TYPED_ASM(T, MMA_16)
+#undef MMA_16
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// two floats rounded to T, packed as one 32-bit register (lo first)
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kHalf<T>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
 __device__ __forceinline__ float tanh_approx(float x) {
@@ -229,16 +259,17 @@ template <int HD>
 constexpr size_t kBf16SmemBytes =
     (size_t)(kBlockQ + 4 * kBf16BlockK) * (HD + 8) * sizeof(__nv_bfloat16);
 
-template <int HD>
+// T: the type of q, k, v and out (__nv_bfloat16 or __half)
+template <int HD, typename T>
 __global__ void __launch_bounds__(128) flash_bf16(Params p) {
   constexpr int BK = kBf16BlockK;
-  constexpr int LD = HD + 8;   // smem row, bf16 elements (16-byte pad)
+  constexpr int LD = HD + 8;   // smem row, 16-bit elements (16-byte pad)
   constexpr int CH = HD / 8;   // 16-byte chunks per row
   constexpr int NS = BK / 8;   // score n-tiles per warp
   constexpr int NO = HD / 8;   // output n-tiles per warp
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* kvs = qs + kBlockQ * LD;  // stage s: K, then V, BK rows each
+  T* qs = reinterpret_cast<T*>(smem_raw);
+  T* kvs = qs + kBlockQ * LD;  // stage s: K, then V, BK rows each
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int nq = (p.s + kBlockQ - 1) / kBlockQ;
@@ -247,19 +278,18 @@ __global__ void __launch_bounds__(128) flash_bf16(Params p) {
   const int head = blockIdx.y, batch = blockIdx.z;
   const int kvh = head / (p.h / p.kh);
   const int64_t q_step = (int64_t)p.h * HD, kv_step = (int64_t)p.kh * HD;
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) +
-                            ((int64_t)batch * p.s * p.h + head) * HD;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) +
-                            ((int64_t)batch * p.t * p.kh + kvh) * HD;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) +
-                            ((int64_t)batch * p.t * p.kh + kvh) * HD;
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.out) +
-                      ((int64_t)batch * p.s * p.h + head) * HD;
+  const T* qg =
+      static_cast<const T*>(p.q) + ((int64_t)batch * p.s * p.h + head) * HD;
+  const T* kg =
+      static_cast<const T*>(p.k) + ((int64_t)batch * p.t * p.kh + kvh) * HD;
+  const T* vg =
+      static_cast<const T*>(p.v) + ((int64_t)batch * p.t * p.kh + kvh) * HD;
+  T* og = static_cast<T*>(p.out) + ((int64_t)batch * p.s * p.h + head) * HD;
 
   // start the copies of kv tile k0 into stage st (rows past T zero-filled)
   auto load_kv = [&](int k0, int st) {
-    __nv_bfloat16* ks = kvs + st * 2 * BK * LD;
-    __nv_bfloat16* vs = ks + BK * LD;
+    T* ks = kvs + st * 2 * BK * LD;
+    T* vs = ks + BK * LD;
     for (int e = tid; e < BK * CH; e += blockDim.x) {
       const int r = e / CH, c = e - r * CH, kj = k0 + r;
       const int64_t off = min(kj, p.t - 1) * kv_step + c * 8;
@@ -300,8 +330,8 @@ __global__ void __launch_bounds__(128) flash_bf16(Params p) {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const __nv_bfloat16* ks = kvs + st * 2 * BK * LD;
-    const __nv_bfloat16* vs = ks + BK * LD;
+    const T* ks = kvs + st * 2 * BK * LD;
+    const T* vs = ks + BK * LD;
     // a tile whose every (row, key) pair is admitted skips the mask
     const bool full = k0 + BK <= p.t && (!p.causal || k0 + BK - 1 <= q0) &&
                       (p.window <= 0 || q_last - k0 < p.window);
@@ -319,8 +349,8 @@ __global__ void __launch_bounds__(128) flash_bf16(Params p) {
         uint32_t b[4];
         ldmatrix_x4(b, ks + (np * 16 + (mat >> 1) * 8 + mrow) * LD + kk * 16 +
                            (mat & 1) * 8);
-        mma_bf16(sc[2 * np], a, b[0], b[1]);
-        mma_bf16(sc[2 * np + 1], a, b[2], b[3]);
+        mma_16<T>(sc[2 * np], a, b[0], b[1]);
+        mma_16<T>(sc[2 * np + 1], a, b[2], b[3]);
       }
     }
 
@@ -376,17 +406,17 @@ __global__ void __launch_bounds__(128) flash_bf16(Params p) {
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       uint32_t a[4];
-      a[0] = pack_bf16(sc[2 * kk][0], sc[2 * kk][1]);
-      a[1] = pack_bf16(sc[2 * kk][2], sc[2 * kk][3]);
-      a[2] = pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
-      a[3] = pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
+      a[0] = pack2<T>(sc[2 * kk][0], sc[2 * kk][1]);
+      a[1] = pack2<T>(sc[2 * kk][2], sc[2 * kk][3]);
+      a[2] = pack2<T>(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
+      a[3] = pack2<T>(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
 #pragma unroll
       for (int dp = 0; dp < HD / 16; ++dp) {
         uint32_t b[4];
         ldmatrix_x4_trans(b, vs + (kk * 16 + (mat & 1) * 8 + mrow) * LD +
                                  dp * 16 + (mat >> 1) * 8);
-        mma_bf16(acc[2 * dp], a, b[0], b[1]);
-        mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
+        mma_16<T>(acc[2 * dp], a, b[0], b[1]);
+        mma_16<T>(acc[2 * dp + 1], a, b[2], b[3]);
       }
     }
     __syncthreads();  // this stage is free for the tile after next
@@ -405,18 +435,18 @@ __global__ void __launch_bounds__(128) flash_bf16(Params p) {
     if (qi >= p.s) continue;
     if (p.lse != nullptr && (lane & 3) == 0)
       store_lse(p, batch, head, qi, m[i], l[i]);
-    __nv_bfloat16* orow = og + qi * q_step + (lane & 3) * 2;
+    T* orow = og + qi * q_step + (lane & 3) * 2;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
       *reinterpret_cast<uint32_t*>(orow + n * 8) =
-          pack_bf16(acc[n][2 * i] / l[i], acc[n][2 * i + 1] / l[i]);
+          pack2<T>(acc[n][2 * i] / l[i], acc[n][2 * i + 1] / l[i]);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 at head dims 128 and 256: wgmma fed by TMA (the helpers below
-// serve the hd 64/80 body too)
+// 16-bit at head dims 128 and 256: wgmma fed by TMA (the helpers below
+// serve the hd 64/80/96 body too)
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -484,13 +514,21 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
-// The descriptor of an operand stored as 32-byte rows (16 bf16 columns)
+// The descriptor of an operand stored as 32-byte rows (16 16-bit columns)
 // with the 32-byte swizzle, its 8-row groups 256 bytes apart: K-major, one
 // 16-element k-step is a whole row; MN-major, 16 columns are the whole N
 // extent, so the leading byte offset is unused either way.
 __device__ __forceinline__ uint64_t sw32_desc(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
          ((uint64_t)(256 >> 4) << 32) | (3ull << 62);
+}
+
+// The same for 64-byte rows (32 16-bit columns) with the 64-byte swizzle,
+// 8-row groups 512 bytes apart: K-major, the two k-steps of a row start 0
+// and 32 bytes in; MN-major, 32 columns are the whole N extent.
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)(512 >> 4) << 32) | (2ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -523,168 +561,247 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 }
 
 // d (64 x 64, f32) {=, +=} a (64 x 16, smem, K-major) b (16 x 64, smem,
-// K-major): scale_d 0 overwrites d, 1 accumulates
+// K-major), T in: scale_d 0 overwrites d, 1 accumulates
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+#define WGMMA_SS_N64(AB) \
+  asm volatile(                                                                        \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                     \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32" AB " {"                             \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "         \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                               \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),        \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),      \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),  \
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
+        "+f"(d[30]), "+f"(d[31])                                                       \
+      : "l"(da), "l"(db), "r"(scale_d))
+  TYPED_ASM(T, WGMMA_SS_N64)
+#undef WGMMA_SS_N64
+}
+
+// d (64 x 112, f32) {=, +=} a (64 x 16, smem, K-major) b (16 x 112, smem,
+// K-major), T in: scale_d 0 overwrites d, 1 accumulates
+template <typename T>
+__device__ __forceinline__ void wgmma_ss_n112(float (&d)[56], uint64_t da,
                                               uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+#define WGMMA_SS_N112(AB) \
+  asm volatile(                                                                          \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %58, 0;\n"                                       \
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32" AB " {"                              \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "           \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55"                                           \
+      "}, %56, %57, p, 1, 1, 0, 0;\n}\n"                                                 \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),          \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),        \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),    \
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),    \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),    \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),    \
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),    \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),    \
+        "+f"(d[54]), "+f"(d[55])                                                         \
+      : "l"(da), "l"(db), "r"(scale_d))
+  TYPED_ASM(T, WGMMA_SS_N112)
+#undef WGMMA_SS_N112
 }
 
 // d (64 x 128, f32) {=, +=} a (64 x 16, smem, K-major) b (16 x 128, smem,
-// K-major): scale_d 0 overwrites d, 1 accumulates
+// K-major), T in: scale_d 0 overwrites d, 1 accumulates
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
                                               uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+#define WGMMA_SS_N128(AB) \
+  asm volatile(                                                                          \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                       \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32" AB " {"                              \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "           \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"   \
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                                                 \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),          \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),        \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),    \
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),    \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),    \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),    \
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),    \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),    \
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),    \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                               \
+      : "l"(da), "l"(db), "r"(scale_d))
+  TYPED_ASM(T, WGMMA_SS_N128)
+#undef WGMMA_SS_N128
 }
 
-// d (64 x 128, f32) += a (64 x 16, registers) b (16 x 128, smem, MN-major)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 x 256, f32) += a (64 x 16, registers) b (16 x 256, smem, MN-major)
+// d (64 x 256, f32) += a (64 x 16, registers) b (16 x 256, smem, MN-major),
+// T in
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
                                               const uint32_t (&a)[4],
                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
-        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-        "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+#define WGMMA_RS_N256(AB) \
+  asm volatile(                                                                                        \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"                                                    \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32" AB " {"                                            \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                         \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "               \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "               \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "               \
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "               \
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "               \
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "   \
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127" \
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"                                            \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),                        \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                      \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),                  \
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),                  \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),                  \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),                  \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),                  \
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),                  \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),                  \
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),                  \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),                  \
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),                  \
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),                  \
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),                  \
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),                  \
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),                  \
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),                \
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),            \
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),            \
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),            \
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),            \
+        "+f"(d[126]), "+f"(d[127])                                                                     \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+  TYPED_ASM(T, WGMMA_RS_N256)
+#undef WGMMA_RS_N256
 }
 
-// d (64 x 64, f32) += a (64 x 16, registers) b (16 x 64, smem, MN-major)
+// d (64 x 128, f32) += a (64 x 16, registers) b (16 x 128, smem, MN-major),
+// T in
+template <typename T>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+#define WGMMA_RS_N128(AB) \
+  asm volatile(                                                                          \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                                       \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32" AB " {"                              \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "           \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"   \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                                   \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),          \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),        \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),    \
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),    \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),    \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),    \
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),    \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),    \
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),    \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                               \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+  TYPED_ASM(T, WGMMA_RS_N128)
+#undef WGMMA_RS_N128
+}
+
+// d (64 x 64, f32) += a (64 x 16, registers) b (16 x 64, smem, MN-major),
+// T in
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                              const uint32_t (&a)[4],
                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+#define WGMMA_RS_N64(AB) \
+  asm volatile(                                                                        \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                     \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32" AB " {"                             \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "         \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                                 \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),        \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),      \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),  \
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
+        "+f"(d[30]), "+f"(d[31])                                                       \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+  TYPED_ASM(T, WGMMA_RS_N64)
+#undef WGMMA_RS_N64
 }
 
-// d (64 x 16, f32) += a (64 x 16, registers) b (16 x 16, smem, MN-major)
+// d (64 x 32, f32) += a (64 x 16, registers) b (16 x 32, smem, MN-major),
+// T in
+template <typename T>
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+#define WGMMA_RS_N32(AB) \
+  asm volatile(                                                                   \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                                \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32" AB " {"                        \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"      \
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"                            \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])                        \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+  TYPED_ASM(T, WGMMA_RS_N32)
+#undef WGMMA_RS_N32
+}
+
+// d (64 x 16, f32) += a (64 x 16, registers) b (16 x 16, smem, MN-major),
+// T in
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
                                              const uint32_t (&a)[4],
                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+#define WGMMA_RS_N16(AB) \
+  asm volatile(                                                                 \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"                              \
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32" AB " {"                      \
+      "%0, %1, %2, %3, %4, %5, %6, %7"                                          \
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"                            \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+        "+f"(d[6]), "+f"(d[7])                                                  \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+  TYPED_ASM(T, WGMMA_RS_N16)
+#undef WGMMA_RS_N16
 }
 
-template <int BK>
+template <int BK, typename T>
 __device__ __forceinline__ void wgmma_scores(float (&d)[BK / 2], uint64_t da,
                                              uint64_t db, int scale_d) {
   if constexpr (BK == 64) {
-    wgmma_ss_n64(d, da, db, scale_d);
+    wgmma_ss_n64<T>(d, da, db, scale_d);
+  } else if constexpr (BK == 112) {
+    wgmma_ss_n112<T>(d, da, db, scale_d);
   } else {
-    wgmma_ss_n128(d, da, db, scale_d);
+    wgmma_ss_n128<T>(d, da, db, scale_d);
   }
 }
 
-template <int HD>
+template <int HD, typename T>
 __device__ __forceinline__ void wgmma_values(float (&d)[HD / 2],
                                              const uint32_t (&a)[4],
                                              uint64_t db) {
   if constexpr (HD == 256) {
-    wgmma_rs_n256(d, a, db);
+    wgmma_rs_n256<T>(d, a, db);
   } else {
-    wgmma_rs_n128(d, a, db);
+    wgmma_rs_n128<T>(d, a, db);
   }
 }
 
@@ -788,7 +905,8 @@ __device__ __forceinline__ void online_softmax(float (&sc)[NS * 4],
   }
 }
 
-template <int HD>
+// T: the type of q, k, v and out (__nv_bfloat16 or __half)
+template <int HD, typename T>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
@@ -884,10 +1002,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
       const uint32_t box = kk >> 2, in_row = (kk & 3) * 32;
-      wgmma_scores<BK>(sc,
-                       sw128_desc(q_rows + box * Tile::kQBox + in_row, 16),
-                       sw128_desc(ks + box * Tile::kKBox + in_row, 16),
-                       kk > 0);
+      wgmma_scores<BK, T>(sc,
+                          sw128_desc(q_rows + box * Tile::kQBox + in_row, 16),
+                          sw128_desc(ks + box * Tile::kKBox + in_row, 16),
+                          kk > 0);
     }
     wgmma_commit();
   };
@@ -899,11 +1017,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const uint32_t vs = k_smem(st) + Tile::kKBytes;
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_values<HD>(acc, pa[kk],
-                       sw128_desc(vs + kk * 16 * 128, Tile::kKBox));
+      wgmma_values<HD, T>(acc, pa[kk],
+                          sw128_desc(vs + kk * 16 * 128, Tile::kKBox));
     wgmma_commit();
   };
-  // P (in sc) to the bf16 A fragments: rows (r, r + 8) x keys 16 (n / 2) ..
+  // P (in sc) to the A fragments in T: rows (r, r + 8) x keys 16 (n / 2) ..
   // + 15; the output rescaled by corr
   float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f}, corr[2] = {1.f, 1.f};
   auto softmax_tile = [&](int k0) {
@@ -916,8 +1034,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   auto to_values = [&]() {
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
-      pa[n >> 1][(n & 1) * 2] = pack_bf16(sc[4 * n], sc[4 * n + 1]);
-      pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(sc[4 * n + 2], sc[4 * n + 3]);
+      pa[n >> 1][(n & 1) * 2] = pack2<T>(sc[4 * n], sc[4 * n + 1]);
+      pa[n >> 1][(n & 1) * 2 + 1] = pack2<T>(sc[4 * n + 2], sc[4 * n + 3]);
     }
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
@@ -1002,7 +1120,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       const uint32_t off = (n >> 3) * Tile::kQBox + row * 128 + chunk * 16 +
                            (lane & 3) * 4;
       *reinterpret_cast<uint32_t*>(gbase + off) =
-          pack_bf16(acc[4 * n + 2 * r] * l[r], acc[4 * n + 2 * r + 1] * l[r]);
+          pack2<T>(acc[4 * n + 2 * r] * l[r], acc[4 * n + 2 * r + 1] * l[r]);
     }
   }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -1016,21 +1134,30 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 at head dims 64 and 80: wgmma fed by TMA, a producer warp, and
+// 16-bit at head dims 64, 80 and 96: wgmma fed by TMA, a producer warp, and
 // two consumer warpgroups that take turns on the tensor cores
 // ---------------------------------------------------------------------------
 
 constexpr int kWsThreads = 288;   // two consumer warpgroups, a producer warp
 constexpr int kGroup = 8;         // (batch, head) pairs a group of the grid
 
-// 128 queries a block, 64 per consumer warpgroup; K/V tiles of 128 keys.
-// Columns 0-63 of every tile are one box of 128-byte rows (128-byte
-// swizzle); at hd 80 columns 64-79 are a second box right after it, of
-// 32-byte rows (32-byte swizzle): a 160-byte row fits no swizzle atom.
+// 128 queries a block, 64 per consumer warpgroup; K/V tiles of 128 keys,
+// 112 at hd 96.  Columns 0-63 of every tile are one box of 128-byte rows
+// (128-byte swizzle); past 64 columns the rest is a second box right after
+// it: at hd 80 16 columns, 32-byte rows (32-byte swizzle), at hd 96 32
+// columns, 64-byte rows (64-byte swizzle): a row of 160 or 192 bytes fits
+// no swizzle atom.  Nine warps leave a consumer 168 registers; at hd 96
+// the output's 16 more floats put 128-key tiles 8 registers over (32
+// bytes spilled and a slower body: tools/ab_flash.py's hd96_bk128 variant
+// times it).  ref.ws_block_k keeps the same rule for the CPU model.
 template <int HD>
 struct WsTile {
-  static constexpr int BK = 128;
+  static constexpr int BK = HD == 96 ? 112 : 128;
   static constexpr int kNarrow = HD - 64;            // columns past 64
+  static constexpr int kNarrowRow = kNarrow * 2;     // bytes a row of them
+  // the 16-byte chunk index of the second box's swizzle is XORed with row
+  // bits from this one up (rows of 32 bytes: bit 2; of 64: bit 1)
+  static constexpr int kSwizzleShift = kNarrow == 16 ? 2 : 1;
   static constexpr int kQWide = kWgBlockQ * 128;     // bytes of Q's first box
   static constexpr int kKWide = BK * 128;
   static constexpr int kQBytes = kWgBlockQ * HD * 2;
@@ -1040,13 +1167,14 @@ struct WsTile {
   static constexpr int kBarOffset = kQBytes + 2 * kStages * kKBytes;
   static constexpr size_t kSmemBytes = kBarOffset + 8 * (1 + 4 * kStages) +
                                        1024;
-  static_assert(HD == 64 || HD == 80, "head dims 64 and 80");
+  static_assert(HD == 64 || HD == 80 || HD == 96, "head dims 64, 80, 96");
   static_assert(kStages >= 2, "two K/V stages must fit");
 };
 
 // kCap: 1 when a softcap applies.  Fixed per instantiation, since a test
-// of it among the scores costs instructions on every one.
-template <int HD, int kCap>
+// of it among the scores costs instructions on every one.  T: the type of
+// q, k, v and out (__nv_bfloat16 or __half).
+template <int HD, int kCap, typename T>
 __global__ void __launch_bounds__(kWsThreads, 1)
     flash_wgmma_ws(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tq2,
@@ -1158,38 +1286,51 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   const int row0 = q0 + rq;
   const int qa = q0 + 64 * wg, qb = min(qa + 63, p.s - 1);
   const uint32_t q_rows = qs + wg * 64 * 128;
-  const uint32_t q_rows2 = qs + Tile::kQWide + wg * 64 * 32;
+  const uint32_t q_rows2 = qs + Tile::kQWide + wg * 64 * Tile::kNarrowRow;
   // a tile whose every (row, key) pair is admitted skips the mask
   auto full_tile = [&](int k0) {
     return k0 + BK <= p.t && (!p.causal || k0 + BK - 1 <= qa) &&
            (p.window <= 0 || qb - k0 < p.window);
   };
   // S = Q K^T for the tile in stage st, both operands K-major from shared
-  // memory: 4 k-steps in the first box, at hd 80 a fifth in the second
+  // memory: 4 k-steps in the first box, at hd 80 a fifth in the second, at
+  // hd 96 a fifth and a sixth
   float sc[BK / 2];
   auto issue_scores = [&](int st) {
     const uint32_t ks = k_smem(st);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_ss_n128(sc, sw128_desc(q_rows + kk * 32, 16),
-                    sw128_desc(ks + kk * 32, 16), kk > 0);
-    if constexpr (kSplit)
-      wgmma_ss_n128(sc, sw32_desc(q_rows2), sw32_desc(ks + Tile::kKWide), 1);
+      wgmma_scores<BK, T>(sc, sw128_desc(q_rows + kk * 32, 16),
+                          sw128_desc(ks + kk * 32, 16), kk > 0);
+    if constexpr (Tile::kNarrow == 16) {
+      wgmma_scores<BK, T>(sc, sw32_desc(q_rows2),
+                          sw32_desc(ks + Tile::kKWide), 1);
+    } else if constexpr (Tile::kNarrow == 32) {
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+        wgmma_scores<BK, T>(sc, sw64_desc(q_rows2 + kk * 32),
+                            sw64_desc(ks + Tile::kKWide + kk * 32), 1);
+    }
     wgmma_commit();
   };
   // O += P V for the tile in stage st, P from registers, V MN-major from
-  // shared memory: columns 0-63 in one product, at hd 80 columns 64-79 in
-  // a second (accumulator split 32 + 8 floats)
+  // shared memory: columns 0-63 in one product, past them a second
+  // (accumulators 32 + 8 floats at hd 80, 32 + 16 at hd 96)
+  constexpr int kAcc2 = kSplit ? Tile::kNarrow / 2 : 1;
   uint32_t pa[BK / 16][4];
   float acc[32];
-  float acc2[kSplit ? 8 : 1];
+  float acc2[kAcc2];
   auto issue_values = [&](int st) {
     const uint32_t vs = k_smem(st) + Tile::kKBytes;
+    const uint32_t vs2 = vs + Tile::kKWide;
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      wgmma_rs_n64(acc, pa[kk], sw128_desc(vs + kk * 16 * 128, Tile::kKWide));
-      if constexpr (kSplit)
-        wgmma_rs_n16(acc2, pa[kk], sw32_desc(vs + Tile::kKWide + kk * 16 * 32));
+      wgmma_rs_n64<T>(acc, pa[kk],
+                      sw128_desc(vs + kk * 16 * 128, Tile::kKWide));
+      if constexpr (Tile::kNarrow == 16)
+        wgmma_rs_n16<T>(acc2, pa[kk], sw32_desc(vs2 + kk * 16 * 32));
+      else if constexpr (Tile::kNarrow == 32)
+        wgmma_rs_n32<T>(acc2, pa[kk], sw64_desc(vs2 + kk * 16 * 64));
     }
     wgmma_commit();
   };
@@ -1204,13 +1345,13 @@ __global__ void __launch_bounds__(kWsThreads, 1)
                                      corr);
     }
   };
-  // P (in sc) to the bf16 A fragments: rows (r, r + 8) x keys 16 (n / 2) ..
-  // + 15; the output rescaled by corr
+  // P (in sc) to the A fragments in T: rows (r, r + 8) x keys 16 (n / 2)
+  // .. + 15; the output rescaled by corr
   auto to_values = [&]() {
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
-      pa[n >> 1][(n & 1) * 2] = pack_bf16(sc[4 * n], sc[4 * n + 1]);
-      pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(sc[4 * n + 2], sc[4 * n + 3]);
+      pa[n >> 1][(n & 1) * 2] = pack2<T>(sc[4 * n], sc[4 * n + 1]);
+      pa[n >> 1][(n & 1) * 2 + 1] = pack2<T>(sc[4 * n + 2], sc[4 * n + 3]);
     }
     // a warp none of whose rows raised its max leaves the output as it is
     // (corr is exactly 1 then)
@@ -1219,7 +1360,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       for (int i = 0; i < 32; ++i) acc[i] *= corr[(i >> 1) & 1];
       if constexpr (kSplit) {
 #pragma unroll
-        for (int i = 0; i < 8; ++i) acc2[i] *= corr[(i >> 1) & 1];
+        for (int i = 0; i < kAcc2; ++i) acc2[i] *= corr[(i >> 1) & 1];
       }
     }
   };
@@ -1227,7 +1368,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < (kSplit ? 8 : 1); ++i) acc2[i] = 0.f;
+  for (int i = 0; i < kAcc2; ++i) acc2[i] = 0.f;
   mbar_wait(qbar, 0);
   if (n_tiles > 0) {
     if (wg == 1) your_turn();   // warpgroup 0 goes first
@@ -1303,14 +1444,18 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       const uint32_t off = row * 128 + ((n ^ (row & 7)) * 16) +
                            (lane & 3) * 4;
       *reinterpret_cast<uint32_t*>(gbase + off) =
-          pack_bf16(acc[4 * n + 2 * r] * l[r], acc[4 * n + 2 * r + 1] * l[r]);
+          pack2<T>(acc[4 * n + 2 * r] * l[r], acc[4 * n + 2 * r + 1] * l[r]);
     }
     if constexpr (kSplit) {
+      // the second box: 16-byte chunks n of a kNarrowRow-byte row, swizzled
+      // as the narrow maps are (32 or 64 bytes)
+      constexpr int kChunks = Tile::kNarrow / 8;
 #pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        const uint32_t off = Tile::kQWide + row * 32 +
-                             ((n ^ ((row >> 2) & 1)) * 16) + (lane & 3) * 4;
-        *reinterpret_cast<uint32_t*>(gbase + off) = pack_bf16(
+      for (int n = 0; n < kChunks; ++n) {
+        const int chunk = n ^ ((row >> Tile::kSwizzleShift) & (kChunks - 1));
+        const uint32_t off = Tile::kQWide + row * Tile::kNarrowRow +
+                             chunk * 16 + (lane & 3) * 4;
+        *reinterpret_cast<uint32_t*>(gbase + off) = pack2<T>(
             acc2[4 * n + 2 * r] * l[r], acc2[4 * n + 2 * r + 1] * l[r]);
       }
     }
@@ -1352,16 +1497,7 @@ __device__ __forceinline__ float max16(float x) {
   return x;
 }
 
-// an input element in f32 (exact), an output rounded once to its type
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-__device__ __forceinline__ void store_out(float* o, float x) { *o = x; }
-__device__ __forceinline__ void store_out(__half* o, float x) {
-  *o = __float2half_rn(x);
-}
-
-// T: the type of q, k, v and out (float, or __half widened on load)
-template <int HD, typename T>
+template <int HD>
 __global__ void __launch_bounds__(kF32Threads) flash_f32(Params p) {
   constexpr int BK = kF32BlockK, LDK = HD + 1, LDP = BK + 1, NC = HD / 16;
   extern __shared__ float smem[];
@@ -1379,17 +1515,18 @@ __global__ void __launch_bounds__(kF32Threads) flash_f32(Params p) {
   const int head = blockIdx.y, batch = blockIdx.z;
   const int kvh = head / (p.h / p.kh);
   const int64_t q_step = (int64_t)p.h * HD, kv_step = (int64_t)p.kh * HD;
-  const T* qg = static_cast<const T*>(p.q) +
-                ((int64_t)batch * p.s * p.h + head) * HD;
-  const T* kg = static_cast<const T*>(p.k) +
-                ((int64_t)batch * p.t * p.kh + kvh) * HD;
-  const T* vg = static_cast<const T*>(p.v) +
-                ((int64_t)batch * p.t * p.kh + kvh) * HD;
-  T* og = static_cast<T*>(p.out) + ((int64_t)batch * p.s * p.h + head) * HD;
+  const float* qg = static_cast<const float*>(p.q) +
+                    ((int64_t)batch * p.s * p.h + head) * HD;
+  const float* kg = static_cast<const float*>(p.k) +
+                    ((int64_t)batch * p.t * p.kh + kvh) * HD;
+  const float* vg = static_cast<const float*>(p.v) +
+                    ((int64_t)batch * p.t * p.kh + kvh) * HD;
+  float* og = static_cast<float*>(p.out) +
+              ((int64_t)batch * p.s * p.h + head) * HD;
 
   for (int e = tid; e < kBlockQ * HD; e += kF32Threads) {
     const int r = e / HD, d = e - r * HD, qi = q0 + r;
-    qs[e] = qi < p.s ? to_f32(qg[qi * q_step + d]) : 0.f;
+    qs[e] = qi < p.s ? qg[qi * q_step + d] : 0.f;
   }
 
   float acc[4][NC], m[4], l[4];
@@ -1408,8 +1545,8 @@ __global__ void __launch_bounds__(kF32Threads) flash_f32(Params p) {
     for (int e = tid; e < BK * HD; e += kF32Threads) {
       const int r = e / HD, d = e - r * HD, kj = k0 + r;
       const bool in = kj < p.t;
-      ks[r * LDK + d] = in ? to_f32(kg[kj * kv_step + d]) : 0.f;
-      vs[r * HD + d] = in ? to_f32(vg[kj * kv_step + d]) : 0.f;
+      ks[r * LDK + d] = in ? kg[kj * kv_step + d] : 0.f;
+      vs[r * HD + d] = in ? vg[kj * kv_step + d] : 0.f;
     }
     __syncthreads();
 
@@ -1482,7 +1619,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_f32(Params p) {
     if (p.lse != nullptr && tx == 0) store_lse(p, batch, head, qi, m[i], li);
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      store_out(og + qi * q_step + tx + 16 * c, acc[i][c] / li);
+      og[qi * q_step + tx + 16 * c] = acc[i][c] / li;
   }
 }
 
@@ -1525,10 +1662,12 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 (B, rows, heads, hd) tensor as a 4-d map (hd, heads, rows, B):
-// boxes of box_cols columns (64, 128-byte swizzled; or 16, 32-byte
-// swizzled) x one head x box_rows rows x one sequence; rows past `rows`
-// read as zeros and are not written, per sequence
+// A 16-bit (B, rows, heads, hd) tensor of T as a 4-d map (hd, heads, rows,
+// B): boxes of box_cols columns (64, 128-byte swizzled; 32, 64-byte
+// swizzled; or 16, 32-byte swizzled: a box row is the swizzle's span) x one
+// head x box_rows rows x one sequence; rows past `rows` read as zeros and
+// are not written, per sequence
+template <typename T>
 bool make_map(CUtensorMap* map, const void* ptr, int hd, int heads, int rows,
               int b, int box_rows, int box_cols = 64) {
   const EncodeTiled fn = encode_tiled();
@@ -1540,77 +1679,84 @@ bool make_map(CUtensorMap* map, const void* ptr, int hd, int heads, int rows,
   const cuuint32_t box[4] = {(cuuint32_t)box_cols, 1, (cuuint32_t)box_rows,
                              1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                           : CU_TENSOR_MAP_SWIZZLE_32B,
+  return fn(map,
+            kHalf<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            4, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE,
+            box_cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+            : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                             : CU_TENSOR_MAP_SWIZZLE_32B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <int HD, typename T>
 int launch_wgmma(const Params& p, int b, cudaStream_t stream) {
   using Tile = WgTile<HD>;
   CUtensorMap tq, tk, tv, to;
-  if (!make_map(&tq, p.q, HD, p.h, p.s, b, kWgBlockQ) ||
-      !make_map(&tk, p.k, HD, p.kh, p.t, b, Tile::BK) ||
-      !make_map(&tv, p.v, HD, p.kh, p.t, b, Tile::BK) ||
-      !make_map(&to, p.out, HD, p.h, p.s, b, kWgBlockQ))
+  if (!make_map<T>(&tq, p.q, HD, p.h, p.s, b, kWgBlockQ) ||
+      !make_map<T>(&tk, p.k, HD, p.kh, p.t, b, Tile::BK) ||
+      !make_map<T>(&tv, p.v, HD, p.kh, p.t, b, Tile::BK) ||
+      !make_map<T>(&to, p.out, HD, p.h, p.s, b, kWgBlockQ))
     return (int)cudaErrorNotSupported;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_wgmma<HD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)Tile::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((p.s + kWgBlockQ - 1) / kWgBlockQ, p.h, b);
-  flash_wgmma<HD><<<grid, kWgThreads, Tile::kSmemBytes, stream>>>(tq, tk, tv,
-                                                                  to, p);
+  flash_wgmma<HD, T><<<grid, kWgThreads, Tile::kSmemBytes, stream>>>(
+      tq, tk, tv, to, p);
   return (int)cudaGetLastError();
 }
 
-template <int HD, int kCap>
+template <int HD, int kCap, typename T>
 int launch_ws(const Params& p, int b, cudaStream_t stream) {
   using Tile = WsTile<HD>;
-  // at hd 80 each tensor is two maps over the same memory: columns 0-63
-  // and 64-79 (at hd 64 the second is never read)
+  // at hd 80 and 96 each tensor is two maps over the same memory: columns
+  // 0-63 and 64-(hd - 1) (at hd 64 the second is never read)
   constexpr int kCols2 = Tile::kNarrow > 0 ? Tile::kNarrow : 64;
   CUtensorMap tq, tq2, tk, tk2, tv, tv2, to, to2;
-  if (!make_map(&tq, p.q, HD, p.h, p.s, b, kWgBlockQ) ||
-      !make_map(&tq2, p.q, HD, p.h, p.s, b, kWgBlockQ, kCols2) ||
-      !make_map(&tk, p.k, HD, p.kh, p.t, b, Tile::BK) ||
-      !make_map(&tk2, p.k, HD, p.kh, p.t, b, Tile::BK, kCols2) ||
-      !make_map(&tv, p.v, HD, p.kh, p.t, b, Tile::BK) ||
-      !make_map(&tv2, p.v, HD, p.kh, p.t, b, Tile::BK, kCols2) ||
-      !make_map(&to, p.out, HD, p.h, p.s, b, 64) ||
-      !make_map(&to2, p.out, HD, p.h, p.s, b, 64, kCols2))
+  if (!make_map<T>(&tq, p.q, HD, p.h, p.s, b, kWgBlockQ) ||
+      !make_map<T>(&tq2, p.q, HD, p.h, p.s, b, kWgBlockQ, kCols2) ||
+      !make_map<T>(&tk, p.k, HD, p.kh, p.t, b, Tile::BK) ||
+      !make_map<T>(&tk2, p.k, HD, p.kh, p.t, b, Tile::BK, kCols2) ||
+      !make_map<T>(&tv, p.v, HD, p.kh, p.t, b, Tile::BK) ||
+      !make_map<T>(&tv2, p.v, HD, p.kh, p.t, b, Tile::BK, kCols2) ||
+      !make_map<T>(&to, p.out, HD, p.h, p.s, b, 64) ||
+      !make_map<T>(&to2, p.out, HD, p.h, p.s, b, 64, kCols2))
     return (int)cudaErrorNotSupported;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_wgmma_ws<HD, kCap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)Tile::kSmemBytes);
+      flash_wgmma_ws<HD, kCap, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Tile::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   // one dimension over (batch, head, query tile), in the kernel's order
   const dim3 grid(p.h * b * ((p.s + kWgBlockQ - 1) / kWgBlockQ));
-  flash_wgmma_ws<HD, kCap><<<grid, kWsThreads, Tile::kSmemBytes, stream>>>(
-      tq, tq2, tk, tk2, tv, tv2, to, to2, p);
+  flash_wgmma_ws<HD, kCap, T>
+      <<<grid, kWsThreads, Tile::kSmemBytes, stream>>>(tq, tq2, tk, tk2, tv,
+                                                       tv2, to, to2, p);
   return (int)cudaGetLastError();
+}
+
+// the tensor-core body of a 16-bit type T at head dim HD
+template <int HD, typename T>
+int launch_16(const Params& p, int b, cudaStream_t stream) {
+  if constexpr (HD >= 128) {
+    return launch_wgmma<HD, T>(p, b, stream);
+  } else if constexpr (HD >= 64) {
+    return p.softcap > 0.f ? launch_ws<HD, 1, T>(p, b, stream)
+                           : launch_ws<HD, 0, T>(p, b, stream);
+  } else {
+    return launch(flash_bf16<HD, T>, 128, kBf16SmemBytes<HD>, p, b, stream);
+  }
 }
 
 template <int HD>
 int launch_hd(int dtype, const Params& p, int b, cudaStream_t stream) {
-  if (dtype == 1) {
-    if constexpr (HD >= 128) {
-      return launch_wgmma<HD>(p, b, stream);
-    } else if constexpr (HD >= 64) {
-      return p.softcap > 0.f ? launch_ws<HD, 1>(p, b, stream)
-                             : launch_ws<HD, 0>(p, b, stream);
-    } else {
-      return launch(flash_bf16<HD>, 128, kBf16SmemBytes<HD>, p, b, stream);
-    }
-  }
-  if (dtype == 2)
-    return launch(flash_f32<HD, __half>, kF32Threads,
-                  F32Tile<HD>::kSmemBytes, p, b, stream);
-  return launch(flash_f32<HD, float>, kF32Threads, F32Tile<HD>::kSmemBytes,
-                p, b, stream);
+  if (dtype == 1) return launch_16<HD, __nv_bfloat16>(p, b, stream);
+  if (dtype == 2) return launch_16<HD, __half>(p, b, stream);
+  return launch(flash_f32<HD>, kF32Threads, F32Tile<HD>::kSmemBytes, p, b,
+                stream);
 }
 
 }  // namespace
@@ -1638,6 +1784,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 32: return launch_hd<32>(dtype, p, b, st);
     case 64: return launch_hd<64>(dtype, p, b, st);
     case 80: return launch_hd<80>(dtype, p, b, st);
+    case 96: return launch_hd<96>(dtype, p, b, st);
     case 128: return launch_hd<128>(dtype, p, b, st);
     case 256: return launch_hd<256>(dtype, p, b, st);
     default: return (int)cudaErrorInvalidValue;
@@ -1654,14 +1801,15 @@ int tiling(int* bk, int* stages, int* smem_bytes) {
 }
 }  // namespace
 
-// The bf16 tiling of a wgmma body at head dim hd (64 and 80: flash_wgmma_ws;
-// 128 and 256: flash_wgmma): keys a tile, K/V stages and dynamic shared
-// memory; returns -1 for another head dim.
+// The tiling of a wgmma body at head dim hd, bf16 and f16 alike (64, 80
+// and 96: flash_wgmma_ws; 128 and 256: flash_wgmma): keys a tile, K/V
+// stages and dynamic shared memory; returns -1 for another head dim.
 extern "C" int flash_attention_tiling(int hd, int* bk, int* stages,
                                       int* smem_bytes) {
   switch (hd) {
     case 64: return tiling<WsTile<64>>(bk, stages, smem_bytes);
     case 80: return tiling<WsTile<80>>(bk, stages, smem_bytes);
+    case 96: return tiling<WsTile<96>>(bk, stages, smem_bytes);
     case 128: return tiling<WgTile<128>>(bk, stages, smem_bytes);
     case 256: return tiling<WgTile<256>>(bk, stages, smem_bytes);
     default: return -1;

@@ -4,11 +4,12 @@
 
 :func:`flash_attention` takes the plain version in ``kernels/ref.py`` for a
 CPU tensor and launches the kernel (:func:`attend`) for a CUDA one.  The
-kernel is built for the head dims in :data:`HEAD_DIMS`; any other head
-dim up to the largest (the smoke configs' 8, phi-3-mini's 96) is
-zero-padded to the next built one by :func:`pad_head_dim`, which changes no
-score, and the output sliced back.  Head dims past 256 are ROADMAP B item 4.
-It takes float32, bfloat16 and float16 (:data:`DTYPES`).
+kernel is built for the head dims in :data:`HEAD_DIMS` (phi-3-mini's 96
+among them); any other head dim up to the largest (the smoke configs' 8)
+is zero-padded to the next built one by :func:`pad_head_dim`, which
+changes no score, and the output sliced back.  Head dims past 256 are
+ROADMAP B item 4.  It takes float32, bfloat16 and float16
+(:data:`DTYPES`): bf16 and f16 run the same tensor-core bodies.
 
 The kernel is forward-only and takes no part in autograd: on the card a
 call with grad enabled and an input that requires grad raises (training
@@ -30,12 +31,13 @@ FLASH = Kernel("flash_attention.cu", "flash_attention_launch",
                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 
-# The head dims the kernel is built for, and the body each runs in bf16:
-# 16 and 32 mma.sync (flash_bf16), 64 and 80 the warp-specialised wgmma
-# body (flash_wgmma_ws: a producer warp, two consumer warpgroups taking
-# turns), 128 and 256 wgmma with thread 0 as producer (flash_wgmma); f32
-# and f16 run every one on the CUDA cores (flash_f32, f16 widened on load)
-HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+# The head dims the kernel is built for, and the body each runs in bf16 and
+# f16 (each body templated on the 16-bit type): 16 and 32 mma.sync
+# (flash_bf16), 64, 80 and 96 the warp-specialised wgmma body
+# (flash_wgmma_ws: a producer warp, two consumer warpgroups taking turns;
+# columns past 64 a second TMA box), 128 and 256 wgmma with thread 0 as
+# producer (flash_wgmma); f32 runs every one on the CUDA cores (flash_f32)
+HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
@@ -63,7 +65,7 @@ def padded_head_dim(hd: int) -> int:
 
 def pad_head_dim(q, k, v):
     """(q, k, v) with a head dim outside :data:`HEAD_DIMS` zero-padded to
-    :func:`padded_head_dim` (8 -> 16, 24 -> 32, 96 -> 128, 160 -> 256),
+    :func:`padded_head_dim` (8 -> 16, 24 -> 32, 88 -> 96, 160 -> 256),
     contiguous, and the scale of the true head dim (``hd ** -0.5``); a
     built head dim passes through.  The zero columns add nothing to q . k,
     in any float type, and the output's padded columns (the zero columns of
@@ -84,11 +86,12 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     a multiple of Kh -> (B, S, H, hd) in q's type; with ``return_lse`` also
     each query row's log-sum-exp, (B, Kh, H / Kh, S) float32 (the
     reference's ``_flash_fwd_impl`` layout, the scale of the true head
-    dim).  bf16 runs ``mma.sync`` at built hd 16 and 32, ``wgmma`` fed by
-    TMA at 64 and up (see :data:`HEAD_DIMS`); f32 the CUDA cores, and f16
-    the f32 body on f16 widened as it loads, its output rounded once to
-    f16.  Each launch is counted on ``FLASH`` under :func:`launch_key` with
-    the true head dim and q's type."""
+    dim).  bf16 and f16 run ``mma.sync`` at built hd 16 and 32, ``wgmma``
+    fed by TMA at 64 and up (see :data:`HEAD_DIMS`), P rounded to the input
+    type for P V and the output rounded once; f32 the CUDA cores.  A built
+    head dim (96 included) makes no copy of q, k or v.  Each launch is
+    counted on ``FLASH`` under :func:`launch_key` with the true head dim
+    and q's type."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.dtype not in DTYPES:
             raise NotImplementedError(
@@ -146,10 +149,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0, return_lse: bool = False):
     """q (B, S, H, hd), k and v (B, T, Kh, hd) -> (B, S, H, hd), and with
     ``return_lse`` the rows' log-sum-exp (B, Kh, H / Kh, S).  The
-    reference's ``cq``/``ck`` TPU tiles have no counterpart: in bf16 the
-    kernel tiles by 128 queries at head dims 64 to 256 (64 below, and in
-    f32 and f16) and takes any S and T; a head dim outside
-    :data:`HEAD_DIMS` runs padded (8 to 16, 96 to 128)."""
+    reference's ``cq``/``ck`` TPU tiles have no counterpart: in bf16 and
+    f16 the kernel tiles by 128 queries at head dims 64 to 256 (64 below,
+    and in f32) and takes any S and T; a head dim outside
+    :data:`HEAD_DIMS` runs padded (8 to 16, 88 to 96)."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap, return_lse=return_lse)

@@ -256,7 +256,7 @@ class FlashAttentionFn(torch.autograd.Function):
     tensor), or the plain version on the CPU; it saves q, k, v, out and
     lse.  Backward: :func:`flash_attention_bwd`, plain PyTorch, as the
     reference's VJP is jnp.  The head dim's own scale holds for a padded
-    one (hd 8, 96, ...), and f16 goes through the same entry."""
+    one (hd 8, 88, ...), and f16 goes through the same entry."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, kernel):

@@ -256,22 +256,32 @@ def flash_attention_ref_rows(q, k, v, *, causal: bool = True,
 LOG2E = 1.4426950408889634
 
 
+def ws_block_k(hd: int) -> int:
+    """Keys a tile of the CUDA kernel's ``flash_wgmma_ws`` body at head dim
+    ``hd`` (its ``WsTile::BK``): 128, and 112 at hd 96, where a 128-key
+    tile spills."""
+    return 112 if hd == 96 else 128
+
+
 def flash_attention_tiled_ref(q, k, v, *, block_q: int = 128,
-                              block_k: int = 128, causal: bool = True,
+                              block_k=None, causal: bool = True,
                               window: int = 0, softcap: float = 0.0,
                               scale=None, return_lse: bool = False):
-    """The CUDA kernel's tile walk at head dims 64 and 80
-    (``flash_wgmma_ws``), with the arguments and result of
+    """The CUDA kernel's tile walk at head dims 64, 80 and 96
+    (``flash_wgmma_ws``, in bf16 or f16), with the arguments and result of
     :func:`flash_attention_ref`.  Each tile of ``block_q`` queries walks the
-    live key tiles as the kernel's ``live_keys`` computes them: from the
+    live key tiles of ``block_k`` keys (:func:`ws_block_k` unless given) as
+    the kernel's ``live_keys`` computes them: from the
     window's start rounded down to a tile to one past its last query's
     last admitted key.  The running max and sum stay in f32; uncapped, the
     scale folds into ``exp2`` (scores and max stay raw); P is summed in f32
-    and rounded to the input type before P V, which at hd 80 runs as
-    columns 0-63 and 64-79; the output is the sum times ``1 / l``."""
+    and rounded to the input type (bf16 or f16) before P V, which at hd 80
+    and 96 runs as columns 0-63 and 64-(hd - 1); the output is the sum
+    times ``1 / l``, rounded once to the input type."""
     b, s, h, hd = q.shape
     t, kh = k.shape[1], k.shape[2]
     scale = hd ** -0.5 if scale is None else scale
+    block_k = ws_block_k(hd) if block_k is None else block_k
     unit = LOG2E if softcap else scale * LOG2E
     qf = q.float().reshape(b, s, kh, h // kh, hd).permute(0, 2, 3, 1, 4)
     kf = k.float().permute(0, 2, 1, 3)[:, :, None]       # (B, Kh, 1, T, hd)

@@ -385,7 +385,7 @@ class TestFlashAttention:
         np.testing.assert_allclose(port.reshape(2, s, -1).numpy(),
                                    np.asarray(want), atol=1e-5)
 
-    # the CUDA body at hd 64 and 80 walks 128 x 128 tiles; its CPU model
+    # the CUDA body at hd 64, 80 and 96 walks 128 x 128 tiles; its CPU model
     # (ref.flash_attention_tiled_ref) in f32 against the interpret-mode
     # Pallas kernel: (S, H, Kh, window, causal, softcap, the Pallas tile)
     TILED_CASES = [
@@ -398,7 +398,7 @@ class TestFlashAttention:
         (160, 4, 2, 40, False, 30.0, 32),
     ]
 
-    @pytest.mark.parametrize("hd", [64, 80])
+    @pytest.mark.parametrize("hd", [64, 80, 96])
     @pytest.mark.parametrize("s,h,kh,window,causal,cap,tile", TILED_CASES)
     def test_tiled_model_matches_jax_kernel_interpret(self, hd, s, h, kh,
                                                       window, causal, cap,
@@ -412,7 +412,7 @@ class TestFlashAttention:
             ck=tile, interpret=True, **kw)
         np.testing.assert_allclose(port.numpy(), np.asarray(out), atol=1e-5)
 
-    @pytest.mark.parametrize("hd", [64, 80])
+    @pytest.mark.parametrize("hd", [64, 80, 96])
     @pytest.mark.parametrize("s,h,kh,window,causal,cap,tile", TILED_CASES)
     def test_tiled_model_lse_matches_the_vjp_residual(self, hd, s, h, kh,
                                                       window, causal, cap,
@@ -433,6 +433,35 @@ class TestFlashAttention:
                                    atol=1e-5)
         np.testing.assert_allclose(port.reshape(1, s, -1).numpy(),
                                    np.asarray(res[3]), atol=1e-5)
+
+    @pytest.mark.parametrize("hd", [64, 80, 96])
+    def test_tiled_model_in_f16_matches_jax_kernel_interpret(self, hd):
+        """The body's f16 instantiation: the tiled model on f16 inputs (P
+        rounded to f16 before P V) against the Pallas kernel in f16, which
+        keeps P in f32.  Rounding P moves the f32 output by at most half an
+        f16 step (2^-11) of max |v|, and each side rounds its output once
+        (half a step of |out| each): atol 2^-11 max |v| + 1e-5, rtol one
+        f16 step, 2^-10."""
+        s, h, kh, window, causal, cap, tile = self.TILED_CASES[3]
+        q, k, v = (torch.from_numpy(a).half()
+                   for a in _qkv(hd + s + 1, 1, s, h, kh, hd))
+        kw = {"causal": causal, "window": window, "softcap": cap}
+        port = tref.flash_attention_tiled_ref(q, k, v, **kw)
+        out = jfa.flash_attention_pallas(
+            *(jnp.asarray(x.numpy()) for x in (q, k, v)), cq=tile, ck=tile,
+            interpret=True, **kw)
+        assert port.dtype == torch.float16 and out.dtype == jnp.float16
+        np.testing.assert_allclose(
+            port.float().numpy(), np.asarray(out, dtype=np.float32),
+            rtol=2.0 ** -10,
+            atol=2.0 ** -11 * v.float().abs().max().item() + 1e-5)
+        # the f32 model on the same (widened) inputs is the f16 one's
+        # yardstick too: P rounded to f16 is the only other rounding
+        wide = tref.flash_attention_tiled_ref(q.float(), k.float(),
+                                              v.float(), **kw)
+        np.testing.assert_allclose(
+            port.float().numpy(), wide.numpy(), rtol=2.0 ** -10,
+            atol=2.0 ** -11 * v.float().abs().max().item() + 1e-5)
 
     def test_bf16_stays_bf16(self):
         q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
