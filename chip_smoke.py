@@ -416,10 +416,13 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 TOL = {"rtol": 1e-5, "atol": 1e-5}
 # H100 SXM data-sheet peaks (700 W): device memory, f32 outside the tensor
-# cores (the DLRM kernels) and bf16 on the tensor cores (flash attention)
+# cores (the DLRM kernels), bf16 on the tensor cores (flash attention) and
+# TF32 on the tensor cores (the f32 flash body: three TF32 products for
+# each f32 one, so its bound is 3 x its flops over this rate)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 BATCH = 512
 N_BATCHES = 4
 # DLRMEngine(batch_size=512, microbatches=4) pools and interacts 128 samples
@@ -575,11 +578,14 @@ def hold(name, out, plain, tol, rel=None):
 
 def check_kernel(name, replaces, source, kernel_fn, plain_fn, library_fn,
                  *, n_bytes, flops, flush, tol=TOL, rel=None,
-                 peak_flops=F32_FLOPS, library_tol=None):
+                 peak_flops=F32_FLOPS, library_tol=None, truth_fn=None):
     """Hold one kernel against its plain version and time the three (the
     plain version over 3 calls after 1 warm-up where one call took over
     PLAIN_SLOW_S, as wkv_row times the chunked WKV).  The library call is
-    held at ``library_tol`` (``tol`` unless given)."""
+    held at ``library_tol`` (``tol`` unless given).  Given ``truth_fn`` (the
+    plain version evaluated in f64), the kernel is held against it instead
+    and the f32 plain version's own distance from it is logged; the library
+    call is held against it too."""
     out = kernel_fn()
     again = kernel_fn()
     torch.cuda.synchronize()
@@ -589,10 +595,22 @@ def check_kernel(name, replaces, source, kernel_fn, plain_fn, library_fn,
     slow = time.perf_counter() - t0 > PLAIN_SLOW_S
     if not torch.equal(out, again):
         raise AssertionError(f"{name}: two kernel runs differ")
-    err, fro, need = hold(name, out, plain, tol, rel)
+    truth = plain if truth_fn is None else truth_fn()
+    err, fro, need = hold(name, out, truth, tol, rel)
+    if truth_fn is not None:
+        perr, pfro, _ = errors(plain, truth, tol["rtol"])
+        log(f"[kernel] {name}: held against the plain version in f64; the "
+            f"f32 plain version's own max_abs_err {perr:.3e} (relative "
+            f"Frobenius {pfro:.3e}), the kernel's {err:.3e} ({fro:.3e}); "
+            f"kernel vs the f32 plain version "
+            f"{errors(out, plain, tol['rtol'])[0]:.3e}")
     if library_fn is not None:
-        hold(f"{name} library", library_fn(), plain, library_tol or tol,
-             rel)
+        lerr = hold(f"{name} library", library_fn(), truth,
+                    library_tol or tol, rel)[0]
+        if truth_fn is not None:
+            log(f"[kernel] {name}: the library call's max_abs_err {lerr:.3e} "
+                f"against the plain version in f64")
+    del truth
     log(f"[kernel] {name}: relative Frobenius error {fro:.3e}, least atol "
         f"passing at rtol {tol['rtol']}: {need:.3e}, median |plain| "
         f"{plain.float().abs().median().item():.3e}")
@@ -618,7 +636,8 @@ def check_kernel(name, replaces, source, kernel_fn, plain_fn, library_fn,
 # row or input type of the DLRM kernels, the 16-bit flash bodies and the
 # WKV passes
 KERNEL_NAMES = re.compile(r"(?<=\d)(flash_wgmma_ws|flash_wgmma|flash_bf16|"
-                          r"flash_f32|wkv_state_pass|wkv_output_pass|"
+                          r"flash_3xtf32|tf32_round_probe|"
+                          r"wkv_state_pass|wkv_output_pass|"
                           r"bag_pool|"
                           r"dot_interaction_empty_kernel|"
                           r"dot_interaction)((?:I?Li\d+E)*)"
@@ -627,19 +646,22 @@ TYPE_SUFFIX = {"f": "_f32", "13__nv_bfloat16": "_bf16", "6__half": "_f16"}
 WKV_CODES = {"_f32": 0, "_bf16": 1, "_f16": 2}
 # the wgmma flash bodies keep their accumulators (128 registers at hd 256;
 # scores, P and output beside a producer warp at hd 64/80/96) only if
-# nothing spills, the bag keeps two batches of rows in flight in registers,
-# and the WKV passes keep their state slices and output rows there:
-# their reports must show no stack and no spill stores
+# nothing spills, the f32 body its output, scores and split P beside the
+# TF32 splits of its operands, the bag keeps two batches of rows in flight
+# in registers, and the WKV passes keep their state slices and output rows
+# there: their reports must show no stack and no spill stores
 WGMMA_FLASH = tuple(f"{body}_{t}" for body in ("flash_wgmma",
                                                "flash_wgmma_ws")
                     for t in ("bf16", "f16"))
-NO_SPILL = WGMMA_FLASH + ("bag_pool_f32", "bag_pool_bf16") + tuple(
+F32_FLASH = "flash_3xtf32"
+NO_SPILL = WGMMA_FLASH + (F32_FLASH, "bag_pool_f32", "bag_pool_bf16") + tuple(
     f"wkv_{p}_pass_{t}" for p in ("state", "output")
     for t in ("f32", "bf16", "f16"))
-# every instantiation of the 16-bit flash bodies that flash_attention.cu
-# must build, (name with type, template arguments): each head dim in both
+# every flash body that flash_attention.cu must build, (name with type,
+# template arguments): each 16-bit body at each of its head dims in both
 # types (the warp-specialised body with and without the softcap); the f32
-# body ("flash_f32", no type) at every head dim, and on no other type
+# body ("flash_3xtf32", no type: f32 alone) at every head dim, with and
+# without the softcap
 FLASH_BUILT = {(f"{body}_{t}", arg) for t in ("bf16", "f16")
                for body, args in (
                    ("flash_bf16", ("16", "32")),
@@ -648,8 +670,9 @@ FLASH_BUILT = {(f"{body}_{t}", arg) for t in ("bf16", "f16")
                                             for cap in (0, 1))),
                    ("flash_wgmma", ("128", "256")))
                for arg in args} | {
-                   ("flash_f32", str(hd))
-                   for hd in (16, 32, 64, 80, 96, 128, 256)}
+                   (F32_FLASH, f"{hd},{cap}")
+                   for hd in (16, 32, 64, 80, 96, 128, 256)
+                   for cap in (0, 1)}
 
 
 def ptxas_report(text: str) -> list:
@@ -698,7 +721,7 @@ def build_report(logs: dict) -> None:
                     f"flash_attention.cu built {sorted(built - FLASH_BUILT)}"
                     f" beyond and lacks {sorted(FLASH_BUILT - built)}")
             log(f"[build] flash_attention.cu: {len(built)} kernels, every "
-                f"16-bit body in bf16 and f16, flash_f32 on f32 alone")
+                f"16-bit body in bf16 and f16, {F32_FLASH} on f32 alone")
         for name, arg, used, stack, spill in report:
             extra = ""
             if name in WGMMA_FLASH:
@@ -714,6 +737,18 @@ def build_report(logs: dict) -> None:
                     raise AssertionError(
                         f"{name}<{arg}>: BK {bk.value}, but the tiled model "
                         f"walks {ref.ws_block_k(hd)} keys a tile")
+            elif name == F32_FLASH:
+                hd = int(arg.split(",")[0])
+                bk, st, sm = (ctypes.c_int(), ctypes.c_int(), ctypes.c_int())
+                lib.flash_attention_f32_tiling(
+                    hd, ctypes.byref(bk), ctypes.byref(st), ctypes.byref(sm))
+                extra = (f"; BK {bk.value} keys, {st.value} K/V stages, "
+                         f"{sm.value} bytes of dynamic shared memory")
+                # the CPU model of the f32 body walks its key tiles
+                if bk.value != ref.f32_tc_tiles(hd)[1]:
+                    raise AssertionError(
+                        f"{name}<{arg}>: BK {bk.value}, but the f32 model "
+                        f"walks {ref.f32_tc_tiles(hd)[1]} keys a tile")
             elif name.startswith("wkv_"):
                 # the state pass's template is <K, T> (any V), the output
                 # pass's <K, V, T>
@@ -2887,12 +2922,18 @@ def bf16_dlrm_phase(cfg, dev, card, cap):
 
 
 def flash_row(name, gen, dev, b, s, h, kh, hd, *, window=0, cap=0.0,
-              causal=True, dtype=torch.bfloat16):
+              causal=True, dtype=torch.bfloat16, lse=False):
     """One flash-kernel row: q (at FLASH_Q_SCALE), k, v of shape (b, s,
     heads, hd) in ``dtype`` from ``gen``, the kernel held against its plain
     version and timed (check_kernel: two runs bit-identical; bf16 and f16
     at FLASH_TOL and FLASH_REL on the tensor cores' peak, which NVIDIA
-    gives as one for both, f32 at TOL on the CUDA cores'; an f16 row's
+    gives as one for both, f32 at TOL on their TF32 peak for three times
+    the flops (3xTF32), against the plain version evaluated in f64: the f32
+    plain version sums each score over hd in one f32 order and lay up to
+    1.65e-5 from the exact function at hd 256 on an H100 (q at
+    FLASH_Q_SCALE), the 3xTF32 kernel 6.4e-6, so TOL holds between the
+    kernel and the exact function, not between two f32 evaluations; an
+    f16 row's
     errors logged beside the bf16 kernel's on the same values rounded to
     bf16), beside
     scaled_dot_product_attention where one PyTorch call computes the
@@ -2900,8 +2941,10 @@ def flash_row(name, gen, dev, b, s, h, kh, hd, *, window=0, cap=0.0,
     softcap, without the window and, for a non-causal row, with the causal
     mask must fail the check.  Where the plain version's whole f32 scores
     would take over a quarter of the card's memory, it runs FLASH_PLAIN_ROWS
-    query rows at a time (``ref.flash_attention_ref_rows``).  Returns (row,
-    launch key)."""
+    query rows at a time (``ref.flash_attention_ref_rows``).  With ``lse``
+    the kernel is timed writing the rows' log-sum-exp too (the training
+    path's call), and its lse is held at LSE_TOL against the plain
+    version's, two runs bit-identical.  Returns (row, launch key)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
@@ -2926,14 +2969,38 @@ def flash_row(name, gen, dev, b, s, h, kh, hd, *, window=0, cap=0.0,
     else:
         def plain_fn():
             return ref.flash_attention_ref(q, k, v, **kw)
+    truth_fn = None
+    if f32:
+        def truth_fn():
+            return ref.flash_attention_ref(q.double(), k.double(),
+                                           v.double(), **kw).float()
+    if lse:
+        def kernel_fn():
+            return fa.flash_attention(q, k, v, return_lse=True, **kw)[0]
+    else:
+        def kernel_fn():
+            return fa.flash_attention(q, k, v, **kw)
     row = check_kernel(
         name, "src/repro/kernels/flash_attention.py:97",
         "src/repro_torch/kernels/csrc/flash_attention.cu",
-        lambda: fa.flash_attention(q, k, v, **kw), plain_fn,
+        kernel_fn, plain_fn,
         library, n_bytes=q.element_size() * (2 * q.numel() + 2 * k.numel()),
         flops=4 * hd * admitted_pairs(s, window, causal) * b * h, flush=None,
         tol=TOL if f32 else FLASH_TOL, rel=None if f32 else FLASH_REL,
-        peak_flops=F32_FLOPS if f32 else BF16_FLOPS)
+        peak_flops=TF32_FLOPS / 3 if f32 else BF16_FLOPS, truth_fn=truth_fn)
+    if lse:
+        got, again = (fa.flash_attention(q, k, v, return_lse=True, **kw)[1]
+                      for _ in range(2))
+        wide = (x.double() if f32 else x for x in (q, k, v))
+        want = ref.flash_attention_ref(*wide, return_lse=True,
+                                       **kw)[1].float()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name}: two lse runs differ")
+        err, _, _ = hold(f"{name} lse", got, want, LSE_TOL[dtype])
+        against = ", the plain version in f64" if f32 else ""
+        log(f"[kernel] {name}: lse max_abs_err {err:.3e} (atol "
+            f"{LSE_TOL[dtype]['atol']}{against}), two runs bit-identical")
+        del got, again, want
     if row["library_ms"] is not None:
         log(f"[kernel] {name}: kernel {row['ms']:.4f} ms beside "
             f"scaled_dot_product_attention {row['library_ms']:.4f} ms in "
@@ -5700,6 +5767,89 @@ def hybrid_flash_phase(dev):
     return rows
 
 
+# phase 19a': the f32 body (3xTF32) at more heads than zamba2's, B 2,
+# causal: (label, config module, S, with lse); granite-moe's heads with lse
+# (the f32 training path's call), qwen3-14b's (GQA) at S 1024, and gemma2's
+# local layer (softcap, window) over the LM prompt
+F32_FLASH_ROWS = (("granite_heads_f32_lse", "granite_moe_3b_a800m", 1024,
+                   True),
+                  ("qwen3_heads_f32", "qwen3_14b", 1024, False),
+                  ("gemma2_local_f32", "gemma2_9b", LM_PROMPT, False))
+# the 16-bit mma.sync body (flash_bf16, hd 16 and 32) in bf16, which no
+# served model runs: (label, B, S, H, Kh, hd), causal
+BF16_SMALL_ROWS = (("hd16_bf16", 4, 1024, 8, 2, 16),
+                   ("hd32_bf16", 4, 1024, 8, 2, 32))
+
+
+def tf32_probe_values() -> torch.Tensor:
+    """Float32 inputs for the TF32 rounding probe: ties (the 14th bit set,
+    the 13 below clear) both ways and signs, a value just under a tie,
+    subnormals (the smallest, a half step, one that rounds up into the
+    normals), the largest finite values (one rounds to inf), zeros,
+    infinities, NaN, and 4096 normal draws from the seed."""
+    bits = [0x3F801000, 0xBF801000, 0x3F803000, 0x3F800FFF, 0x3F801001,
+            0x00000001, 0x00001000, 0x00003000, 0x007FF000, 0x807FFFFF,
+            0x7F7FE000, 0x7F7FEFFF, 0x7F7FF000, 0xFF7FFFFF, 0x00000000,
+            0x80000000, 0x7F800000, 0xFF800000, 0x7FC00000]
+    special = torch.tensor(np.array(bits, dtype=np.uint32).view(np.int32))
+    draws = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        4096).astype(np.float32) * 1e3)
+    return torch.cat([special.view(torch.float32), draws])
+
+
+def tf32_flash_phase(dev):
+    """Phase 19a': the f32 body's TF32 rounding (``tf32_round_probe``, the
+    body's own device function) bit for bit against ``ref.tf32_round`` on
+    :func:`tf32_probe_values` (NaN only as NaN); then flash rows for the f32
+    body at F32_FLASH_ROWS (TOL, two runs bit-identical, beside SDPA where
+    one call computes the layer) and for the bf16 ``flash_bf16`` body at
+    BF16_SMALL_ROWS.  Returns (row, launch key) pairs."""
+    import importlib
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ref
+
+    x = tf32_probe_values()
+    xd = x.to(dev)
+    y = torch.empty_like(xd)
+    fn = _build.library("flash_attention.cu").flash_attention_tf32_round
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(xd.data_ptr(), y.data_ptr(), x.numel(),
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention_tf32_round: CUDA error {err}")
+    got, want = y.cpu(), ref.tf32_round(x)
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan) or not torch.equal(
+            got[~nan].view(torch.int32), want[~nan].view(torch.int32)):
+        bad = (got.view(torch.int32) != want.view(torch.int32)) & ~nan
+        raise AssertionError(
+            f"cvt.rna.tf32 differs from ref.tf32_round at "
+            f"{[hex(int(v)) for v in x[bad][:8].view(torch.int32)]}: card "
+            f"{[hex(int(v)) for v in got[bad][:8].view(torch.int32)]}")
+    log(f"[tf32] the f32 body's TF32 rounding equals ref.tf32_round bit for "
+        f"bit on {x.numel()} values (ties, subnormals, the largest finite "
+        f"values, zeros, infinities, NaN, 4096 draws)")
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 11)
+    rows = []
+    for label, module, s, lse in F32_FLASH_ROWS:
+        cfg = importlib.import_module(f"repro_torch.configs.{module}").CONFIG
+        window = cfg.sliding_window if cfg.layer_pattern == "local_global" \
+            else 0
+        rows.append(flash_row(
+            f"flash_attention/{label}", gen, dev, LM_BATCH, s, cfg.n_heads,
+            cfg.n_kv_heads, cfg.head_dim, window=window,
+            cap=cfg.attn_logit_softcap, dtype=torch.float32, lse=lse))
+    for label, b, s, h, kh, hd in BF16_SMALL_ROWS:
+        rows.append(flash_row(f"flash_attention/{label}", gen, dev, b, s, h,
+                              kh, hd))
+    return rows
+
+
 def smoke_serve_phase():
     """Phase 19b: ``launch/serve.py --arch <arch> --smoke`` on the card (f32
     smoke configs, hd 8: each prefill launches the kernel once a layer)
@@ -6054,8 +6204,9 @@ def plain_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
 
 def lse_phase(dev):
     """Phase 20a: each body of B5 asked for lse: lse against the plain
-    version's, and the output bit-identical to a serving call's (null lse)
-    on the same inputs."""
+    version's (for f32 inputs the plain version in f64, as ``flash_row``
+    holds the f32 rows), and the output bit-identical to a serving call's
+    (null lse) on the same inputs."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
@@ -6068,8 +6219,11 @@ def lse_phase(dev):
         kw = {"causal": causal, "window": window, "softcap": cap}
         served = fa.attend(q, k, v, **kw)
         out, lse = fa.attend(q, k, v, return_lse=True, **kw)
-        plain, plain_lse = ref.flash_attention_ref(q, k, v, return_lse=True,
+        # f32 against the plain version in f64 (flash_row says why)
+        wide = (x.double() if dt == torch.float32 else x for x in (q, k, v))
+        plain, plain_lse = ref.flash_attention_ref(*wide, return_lse=True,
                                                    **kw)
+        plain, plain_lse = plain.to(dt), plain_lse.float()
         torch.cuda.synchronize()
         if not torch.equal(out, served):
             raise AssertionError(f"lse {label}: the output with lse differs "
@@ -7211,6 +7365,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         (zamba_row, zkey), (zamba_f32_row, _), (hd8_row, hd8_key) = \
             hybrid_flash_phase(dev)
+        tf32_rows = tf32_flash_phase(dev)
         smoke_by_key = smoke_serve_phase()
         zamba2_parity_phase(dev)
         zamba_by_key = zamba2_serve_phase(dev, card)
@@ -7256,12 +7411,14 @@ def main() -> int:
     # run, where no model launches them
     zamba_row["launches"] = zamba_by_key.get(zkey, 0)
     hd8_row["launches"] = smoke_by_key.get(hd8_key, 0)
-    for row, key in domain_rows:
+    # the f32 rows and the bf16 hd 16/32 rows read every served run too:
+    # the served models are bf16 at other heads
+    for row, key in domain_rows + tf32_rows:
         row["launches"] = sum(k.get(key, 0) for k in served + (
             zamba_by_key, smoke_by_key))
     rows += [zamba_row, zamba_f32_row, hd8_row, train_row, members_row,
              hybrid_row, ssm_row, members_train_row] + [
-                 row for row, _ in domain_rows]
+                 row for row, _ in domain_rows + tf32_rows]
     for row, key in wkv_rows:
         row["launches"] = wkv_by_key.get(key, 0)
         rows.append(row)

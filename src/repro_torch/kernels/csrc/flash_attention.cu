@@ -30,14 +30,14 @@
 // from window - 1 keys before its first query when windowed, so dead tiles
 // cost nothing.  Heavy (late) query tiles are scheduled first.  The
 // running max, sum and output accumulator stay in registers in float32.
-// Four bodies, by type and head dim.  The three tensor-core bodies are
-// templated on their 16-bit input type T, bfloat16 or float16: wgmma and
-// mma.sync take both in the same shapes at the same rate, accumulating in
-// f32, so a body's f16 instantiation differs from its bf16 one only in the
-// PTX type of its products, the type P is rounded to for P V, the tensor
-// maps' element type and the output's rounding.  Scores, the running max,
-// sum and lse stay f32 in both (P <= 1 and |out| <= max |v|: nothing
-// overflows f16's range).
+// Four bodies, by type and head dim, all on the tensor cores.  The three
+// 16-bit bodies are templated on their input type T, bfloat16 or float16:
+// wgmma and mma.sync take both in the same shapes at the same rate,
+// accumulating in f32, so a body's f16 instantiation differs from its bf16
+// one only in the PTX type of its products, the type P is rounded to for
+// P V, the tensor maps' element type and the output's rounding.  Scores,
+// the running max, sum and lse stay f32 in both (P <= 1 and |out| <= max
+// |v|: nothing overflows f16's range).
 //   - 16-bit at head dims 128 and 256 (the dense, MoE and VLM shapes),
 //     flash_wgmma: 128 queries a block, two warpgroups of 64 rows.  Q
 //     arrives once and K/V tiles of BK keys (64 at hd 256, 128 at hd 128)
@@ -100,12 +100,27 @@
 //     V double-buffered by cp.async over 32-key tiles: at these widths
 //     wgmma's 64-row tiles and TMA boxes of 64 columns do not pay, and the
 //     launch is the time.
-//   - float32, flash_f32: 256 threads on the CUDA cores, each owning 4
-//     query rows x 4 keys of the score tile and 4 rows x hd/16 columns of
-//     the output.  K rows are padded to hd + 1 floats so the 16 keys a warp
-//     reads at one depth lie in distinct banks.  This form exists for
-//     float32 parity; above hd 64 its tile passes the 48 KB default of
-//     dynamic shared memory (78,336 bytes at hd 80) and launch() opts in.
+//   - float32 at every head dim, flash_3xtf32: the tensor cores in TF32
+//     (495 TFLOP/s dense against 67 on the CUDA cores), each f32 product
+//     taken as three.  An operand x is split into big = tf32(x) and small =
+//     x - big, which the tensor cores read to TF32 by truncation, and a . b
+//     = big.big + big.small + small.big leaves about 2^-21 of each product:
+//     within a few f32 ulps, where one TF32 product keeps about three
+//     decimal digits.  mma.sync m16n8k8 (TF32 wgmma takes only K-major
+//     operands from shared memory, and V is MN-major for P V): four warps
+//     of 16 query rows over K and V tiles brought by cp.async into two
+//     stages, each warp splitting the fragments it loads.  The K
+//     fragment's columns take the keys of each 8-key group in the order 0,
+//     4, 1, 5, 2, 6, 3, 7, so a thread's score accumulators are its P
+//     fragment for P V with no shuffle.  The tensor cores sum in f32 but
+//     truncate, so no accumulator lives long on them: each two 8-deep steps
+//     of Q K^T (one at hd 256) and each output tile's P V over one key tile
+//     are summed from zero and added on the CUDA cores.  Scores, max, sum
+//     and output stay f32; the softcap runs on tanhf (tanh.approx keeps 11
+//     bits), the exponentials on exp2 with the scale folded in when
+//     uncapped.  What bounds it: mma.sync's TF32 rate (on an H100 with the
+//     splits removed the body still took 0.30 of its 0.37 ms at zamba2's
+//     f32 row, tools/ab_flash.py --f32), not the tensor cores' peak.
 // Other head dims up to 256 reach a built one zero-padded by the caller
 // (the zero columns add nothing to q . k, and the scale is the true hd's).
 // Masked scores take the finite sentinel -1e30, as the Pallas kernel does,
@@ -1471,44 +1486,99 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// float32 on the CUDA cores
+// float32 on the tensor cores: 3xTF32 mma.sync
 // ---------------------------------------------------------------------------
 
-constexpr int kF32Threads = 256;
-constexpr int kF32BlockK = 64;
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero),
+// as the f32 bit pattern with the low 13 bits clear
+__device__ __forceinline__ uint32_t tf32_round(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r & 0xffffe000u;
+}
 
+// x = big + small to about 2^-21 of x: big = tf32(x), and small = x - big
+// (exact) as it stands, of which the tensor cores read the top 19 bits
+// (TF32 by truncation: under 2^-10 of small, and |small| <= 2^-11 |x|;
+// rounding it too cost a conversion a split for no change measured)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_round(x);
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// c += a (16x8, row) * b (8x8, col), TF32 in, f32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b in 3xTF32: the cross terms first, then big . big (small . small,
+// under 2^-22 of the product, is dropped)
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4],
+                                           const uint32_t (&b_big)[2],
+                                           const uint32_t (&b_small)[2]) {
+  mma_tf32(c, a_small, b_big);
+  mma_tf32(c, a_big, b_small);
+  mma_tf32(c, a_big, b_big);
+}
+
+// The f32 body's tiling: four warps of 16 query rows (kBlockQ a block)
+// over key tiles of BK keys, brought by cp.async into two stages; each
+// warp splits the Q, K and V fragments it loads (three operations an
+// element).  Splitting each K and V tile once per block into shared memory
+// instead, or giving a warp two 16-row tiles so each K and V fragment
+// feeds two products, ran no faster (tools/ab_flash.py --f32).  BK keeps
+// kMinBlocks blocks an SM (at hd 256 three, which caps a thread at 168
+// registers: at 255 ptxas spilled 12 to 20 bytes however the loops were
+// unrolled, tools/ab_flash.py --f32); Q K^T takes kSteps 8-deep steps on
+// the tensor cores before adding them to S on the CUDA cores, its depth
+// loop unrolled kUnroll steps at a time.  Row strides (floats) keep the
+// fragment loads free of bank conflicts: a warp reads Q and K at rows g (8
+// of them) and columns t (4), so their stride is 4 times an odd number; V
+// at rows t and columns g, so its stride is 8 times an odd number.
 template <int HD>
-struct F32Tile {
+struct Tf32Tile {
+  static constexpr int BK = HD <= 96 ? 32 : (HD <= 128 ? 16 : 8);
+  static constexpr int kStages = 2;
+  static constexpr int kThreads = 128;
+  static constexpr int kSteps = HD <= 128 ? 2 : 1;
+  static constexpr int kUnroll = HD <= 128 ? HD / 8 / kSteps : 4;
+  static constexpr int kMinBlocks = HD <= 128 ? 2 : 3;
+  static constexpr int LDQ = HD + 4, LDK = HD + 4, LDV = HD + 8;
+  static constexpr int kStage = BK * (LDK + LDV);  // floats: K, then V
   static constexpr size_t kSmemBytes =
-      sizeof(float) * ((size_t)kBlockQ * HD + kF32BlockK * (HD + 1) +
-                       kF32BlockK * HD + kBlockQ * (kF32BlockK + 1));
+      sizeof(float) * ((size_t)kBlockQ * LDQ + (size_t)kStages * kStage);
 };
 
-__device__ __forceinline__ float sum16(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
+// kCap: whether a softcap applies (tanhf, exact to f32; without it the
+// scores stay raw and the scale folds into exp2's unit)
+template <int HD, int kCap>
+__global__ void __launch_bounds__(Tf32Tile<HD>::kThreads,
+                                  Tf32Tile<HD>::kMinBlocks)
+    flash_3xtf32(Params p) {
+  using Tile = Tf32Tile<HD>;
+  constexpr int BK = Tile::BK, KS = Tile::kSteps, KV = Tile::kStage;
+  constexpr int LDQ = Tile::LDQ, LDK = Tile::LDK, LDV = Tile::LDV;
+  constexpr int CH = HD / 4;  // 16-byte chunks a row
+  constexpr int NS = BK / 8;  // 8-key score tiles a warp
+  constexpr int NO = HD / 8;  // 8-column output tiles a warp
+  constexpr int US = Tile::kUnroll;
+  static_assert(Tile::kThreads == 2 * kBlockQ && NS * 4 <= 32 &&
+                    (HD / 8) % KS == 0,
+                "tiling");
+  extern __shared__ __align__(16) float smem_f32[];
+  float* qs = smem_f32;             // [kBlockQ][LDQ]
+  float* kvs = qs + kBlockQ * LDQ;  // stage s: K [BK][LDK], then V [BK][LDV]
 
-__device__ __forceinline__ float max16(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kF32Threads) flash_f32(Params p) {
-  constexpr int BK = kF32BlockK, LDK = HD + 1, LDP = BK + 1, NC = HD / 16;
-  extern __shared__ float smem[];
-  float* qs = smem;              // [64][HD]
-  float* ks = qs + kBlockQ * HD;  // [BK][HD + 1]
-  float* vs = ks + BK * LDK;      // [BK][HD]
-  float* ps = vs + BK * HD;       // [64][BK + 1]
-
-  // thread (ty, tx): query rows ty + 16 i, keys tx + 16 j, columns tx + 16 c;
-  // a row's 16 threads are 16 lanes of one warp
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;  // fragment row group, column
   const int nq = (p.s + kBlockQ - 1) / kBlockQ;
   const int q0 = (nq - 1 - (int)blockIdx.x) * kBlockQ;
   const int q_last = min(q0 + kBlockQ, p.s) - 1;
@@ -1517,110 +1587,212 @@ __global__ void __launch_bounds__(kF32Threads) flash_f32(Params p) {
   const int64_t q_step = (int64_t)p.h * HD, kv_step = (int64_t)p.kh * HD;
   const float* qg = static_cast<const float*>(p.q) +
                     ((int64_t)batch * p.s * p.h + head) * HD;
-  const float* kg = static_cast<const float*>(p.k) +
-                    ((int64_t)batch * p.t * p.kh + kvh) * HD;
-  const float* vg = static_cast<const float*>(p.v) +
-                    ((int64_t)batch * p.t * p.kh + kvh) * HD;
-  float* og = static_cast<float*>(p.out) +
-              ((int64_t)batch * p.s * p.h + head) * HD;
 
-  for (int e = tid; e < kBlockQ * HD; e += kF32Threads) {
-    const int r = e / HD, d = e - r * HD, qi = q0 + r;
-    qs[e] = qi < p.s ? qg[qi * q_step + d] : 0.f;
-  }
-
-  float acc[4][NC], m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kMasked;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
+  // start the copies of kv tile k0 into stage st (rows past T zero-filled);
+  // the K and V pointers are formed from the parameters at each call, and
+  // the output's at the end, so none is held across the key loop
+  auto load_kv = [&](int k0, int st) {
+    const int64_t base = ((int64_t)batch * p.t * p.kh + kvh) * HD;
+    const float* kg = static_cast<const float*>(p.k) + base;
+    const float* vg = static_cast<const float*>(p.v) + base;
+    float* ks = kvs + st * KV;
+    float* vs = ks + BK * LDK;
+    for (int e = tid; e < BK * CH; e += Tile::kThreads) {
+      const int r = e / CH, c = e - r * CH, kj = k0 + r;
+      const int64_t off = min(kj, p.t - 1) * kv_step + c * 4;
+      const int n = kj < p.t ? 16 : 0;
+      cp_async16(ks + r * LDK + c * 4, kg + off, n);
+      cp_async16(vs + r * LDV + c * 4, vg + off, n);
+    }
+  };
 
   int lo, hi;
   live_keys(p, q0, q_last, BK, &lo, &hi);
-  for (int k0 = lo; k0 < hi; k0 += BK) {
-    __syncthreads();  // the previous tile's K, V and P are no longer read
-    for (int e = tid; e < BK * HD; e += kF32Threads) {
-      const int r = e / HD, d = e - r * HD, kj = k0 + r;
-      const bool in = kj < p.t;
-      ks[r * LDK + d] = in ? kg[kj * kv_step + d] : 0.f;
-      vs[r * HD + d] = in ? vg[kj * kv_step + d] : 0.f;
-    }
-    __syncthreads();
+  for (int e = tid; e < kBlockQ * CH; e += Tile::kThreads) {
+    const int r = e / CH, c = e - r * CH, qi = q0 + r;
+    cp_async16(qs + r * LDQ + c * 4, qg + min(qi, p.s - 1) * q_step + c * 4,
+               qi < p.s ? 16 : 0);
+  }
+  if (lo < hi) load_kv(lo, 0);
+  cp_async_commit();  // Q and the first kv tile
 
-    float sc[4][4];
+  float acc[NO][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * HD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ks[(tx + 16 * j) * LDK + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(a[i], b[j], sc[i][j]);
-    }
+  for (int n = 0; n < NO; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
+  const int wq0 = q0 + warp * 16;  // the warp's rows: wq0 + g, wq0 + g + 8
+  const int row0 = wq0 + g;
+  const float unit = kCap ? kLog2e : p.scale * kLog2e;
+  const float inv_cap = kCap ? 1.f / p.softcap : 0.f;
+  const float* qw = qs + (warp * 16 + g) * LDQ + t;
+  // the B fragment's column g holds key kperm of each 8-key group, so that
+  // a thread's score accumulators (c0, c1, c2, c3) are its P fragment for
+  // P V as they stand: rows g, g, g + 8, g + 8 at keys t, t + 4, t, t + 4
+  const int kperm = (g >> 1) + 4 * (g & 1);
 
+  int it = 0;
+  for (int k0 = lo; k0 < hi; k0 += BK, ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // this tile landed; every warp is done with the last
+    const float* ks = kvs + (it & 1) * KV;
+    const float* vs = ks + BK * LDK;
+    // the next tile flies while this one is computed; its stage held the
+    // tile before this one, which every warp has finished
+    if (k0 + BK < hi) load_kv(k0 + BK, (it + 1) & 1);
+    cp_async_commit();
+    // a tile whose every (row, key) pair of this warp is admitted skips
+    // the mask
+    const bool full = k0 + BK <= p.t &&
+                      (!p.causal || k0 + BK - 1 <= wq0) &&
+                      (p.window <= 0 || wq0 + 15 - k0 < p.window);
+
+    // S = Q K^T: each group of KS 8-deep steps summed from zero on the
+    // tensor cores, then added to S on the CUDA cores (the tensor cores
+    // truncate their f32 sums: no accumulator lives long on them)
+    float sc[NS][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty + 16 * i;
-      bool ok[4];
-      float mx = kMasked;
+    for (int n = 0; n < NS; ++n)
+      sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+#pragma unroll US
+    for (int k8 = 0; k8 < HD / 8; k8 += KS) {
+      uint32_t qb[KS][4], qsm[KS][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float x = sc[i][j] * p.scale;
-        if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
-        ok[j] = admitted(p, qi, k0 + tx + 16 * j);
-        sc[i][j] = ok[j] ? x : kMasked;
-        mx = fmaxf(mx, sc[i][j]);
+      for (int s = 0; s < KS; ++s) {
+        const float* qr = qw + (k8 + s) * 8;
+        split_tf32(qr[0], qb[s][0], qsm[s][0]);
+        split_tf32(qr[8 * LDQ], qb[s][1], qsm[s][1]);
+        split_tf32(qr[4], qb[s][2], qsm[s][2]);
+        split_tf32(qr[8 * LDQ + 4], qb[s][3], qsm[s][3]);
       }
-      const float m_new = fmaxf(m[i], max16(mx));
-      const float corr = expf(m[i] - m_new);
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        uint32_t kb[KS][2], ksm[KS][2];
+#pragma unroll
+        for (int s = 0; s < KS; ++s) {
+          const int off = (n * 8 + kperm) * LDK + (k8 + s) * 8 + t;
+          split_tf32(ks[off], kb[s][0], ksm[s][0]);
+          split_tf32(ks[off + 4], kb[s][1], ksm[s][1]);
+        }
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int s = 0; s < KS; ++s)
+          mma_3xtf32(d, qb[s], qsm[s], kb[s], ksm[s]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] += d[e];
+      }
+    }
+
+    // softcap, mask; row max over the quad that shares a row
+    uint32_t ok = 0;
+    float mx[2] = {kMasked, kMasked};
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[n][e];
+        if constexpr (kCap != 0) x = p.softcap * tanhf(x * p.scale * inv_cap);
+        if (full || admitted(p, row0 + (e >> 1) * 8,
+                             k0 + n * 8 + t + (e & 1) * 4)) {
+          ok |= 1u << (n * 4 + e);
+        } else {
+          x = kMasked;
+        }
+        sc[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float corr[2], mu[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      corr[i] = exp2f((m[i] - m_new) * unit);
       m[i] = m_new;
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float pe = ok[j] ? expf(sc[i][j] - m_new) : 0.f;
-        ps[(ty + 16 * i) * LDP + tx + 16 * j] = pe;
-        rs += pe;
-      }
-      l[i] = l[i] * corr + rs;  // per-thread partial; summed at the end
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= corr;
+      mu[i] = m_new * unit;
+      l[i] *= corr[i];  // per-thread partial sums; the quad sums at the end
     }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[(ty + 16 * i) * LDP + kk];
+    for (int n = 0; n < NS; ++n) {
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float vv = vs[kk * HD + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
+      for (int e = 0; e < 4; ++e) {
+        const float pe = (ok >> (n * 4 + e)) & 1u
+                             ? exp2f(fmaf(sc[n][e], unit, -mu[e >> 1]))
+                             : 0.f;
+        sc[n][e] = pe;
+        l[e >> 1] += pe;
       }
+    }
+    // a warp whose rows all kept their max skips the rescale (exactly 1)
+    if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        acc[n][0] *= corr[0];
+        acc[n][1] *= corr[0];
+        acc[n][2] *= corr[1];
+        acc[n][3] *= corr[1];
+      }
+    }
+
+    // O += P V: P split once (its A fragment is (c0, c2, c1, c3)); each
+    // 8-column output tile sums the tile's keys from zero, then is added
+    // to O on the CUDA cores
+    uint32_t pb[NS][4], psm[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      split_tf32(sc[n][0], pb[n][0], psm[n][0]);
+      split_tf32(sc[n][2], pb[n][1], psm[n][1]);
+      split_tf32(sc[n][1], pb[n][2], psm[n][2]);
+      split_tf32(sc[n][3], pb[n][3], psm[n][3]);
+    }
+#pragma unroll
+    for (int dn = 0; dn < NO; ++dn) {
+      float o[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        const int off = (n * 8 + t) * LDV + dn * 8 + g;
+        uint32_t vb[2], vsm[2];
+        split_tf32(vs[off], vb[0], vsm[0]);
+        split_tf32(vs[off + 4 * LDV], vb[1], vsm[1]);
+        mma_3xtf32(o, pb[n], psm[n], vb, vsm);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[dn][e] += o[e];
     }
   }
+  cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float li = fmaxf(sum16(l[i]), 1e-30f);
-    const int qi = q0 + ty + 16 * i;
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] = fmaxf(l[i], 1e-30f);
+  }
+  float* og = static_cast<float*>(p.out) +
+              ((int64_t)batch * p.s * p.h + head) * HD;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = row0 + i * 8;
     if (qi >= p.s) continue;
-    if (p.lse != nullptr && tx == 0) store_lse(p, batch, head, qi, m[i], li);
+    // uncapped, m is in raw score units
+    if (p.lse != nullptr && t == 0)
+      store_lse(p, batch, head, qi,
+                kCap || m[i] == kMasked ? m[i] : m[i] * p.scale, l[i]);
+    float* orow = og + qi * q_step + 2 * t;
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
-      og[qi * q_step + tx + 16 * c] = acc[i][c] / li;
+    for (int n = 0; n < NO; ++n) {
+      *reinterpret_cast<float2*>(orow + n * 8) =
+          make_float2(acc[n][2 * i] / l[i], acc[n][2 * i + 1] / l[i]);
+    }
   }
+}
+
+// The f32 body's TF32 rounding, element by element: a probe that holds the
+// CPU model (ref.tf32_round) to the card's cvt.rna, bit for bit
+__global__ void tf32_round_probe(const float* x, float* y, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = __uint_as_float(tf32_round(x[i]));
 }
 
 // ---------------------------------------------------------------------------
@@ -1755,8 +1927,12 @@ template <int HD>
 int launch_hd(int dtype, const Params& p, int b, cudaStream_t stream) {
   if (dtype == 1) return launch_16<HD, __nv_bfloat16>(p, b, stream);
   if (dtype == 2) return launch_16<HD, __half>(p, b, stream);
-  return launch(flash_f32<HD>, kF32Threads, F32Tile<HD>::kSmemBytes, p, b,
-                stream);
+  using Tile = Tf32Tile<HD>;
+  return p.softcap > 0.f
+             ? launch(flash_3xtf32<HD, 1>, Tile::kThreads, Tile::kSmemBytes,
+                      p, b, stream)
+             : launch(flash_3xtf32<HD, 0>, Tile::kThreads, Tile::kSmemBytes,
+                      p, b, stream);
 }
 
 }  // namespace
@@ -1814,6 +1990,32 @@ extern "C" int flash_attention_tiling(int hd, int* bk, int* stages,
     case 256: return tiling<WgTile<256>>(bk, stages, smem_bytes);
     default: return -1;
   }
+}
+
+// The tiling of the f32 body (flash_3xtf32) at head dim hd: keys a tile,
+// K/V stages and dynamic shared memory; returns -1 for another head dim.
+extern "C" int flash_attention_f32_tiling(int hd, int* bk, int* stages,
+                                          int* smem_bytes) {
+  switch (hd) {
+    case 16: return tiling<Tf32Tile<16>>(bk, stages, smem_bytes);
+    case 32: return tiling<Tf32Tile<32>>(bk, stages, smem_bytes);
+    case 64: return tiling<Tf32Tile<64>>(bk, stages, smem_bytes);
+    case 80: return tiling<Tf32Tile<80>>(bk, stages, smem_bytes);
+    case 96: return tiling<Tf32Tile<96>>(bk, stages, smem_bytes);
+    case 128: return tiling<Tf32Tile<128>>(bk, stages, smem_bytes);
+    case 256: return tiling<Tf32Tile<256>>(bk, stages, smem_bytes);
+    default: return -1;
+  }
+}
+
+// y = the f32 body's TF32 rounding of x (n floats on the card).
+extern "C" int flash_attention_tf32_round(const void* x, void* y, int n,
+                                          void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  tf32_round_probe<<<(n + 255) / 256, 256, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(y), n);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* cuda_error_string(int err) {

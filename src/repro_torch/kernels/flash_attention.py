@@ -36,7 +36,8 @@ FLASH = Kernel("flash_attention.cu", "flash_attention_launch",
 # (flash_bf16), 64, 80 and 96 the warp-specialised wgmma body
 # (flash_wgmma_ws: a producer warp, two consumer warpgroups taking turns;
 # columns past 64 a second TMA box), 128 and 256 wgmma with thread 0 as
-# producer (flash_wgmma); f32 runs every one on the CUDA cores (flash_f32)
+# producer (flash_wgmma); f32 runs every one on the tensor cores in
+# 3xTF32, three TF32 products for each f32 one (flash_3xtf32)
 HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -88,7 +89,9 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     reference's ``_flash_fwd_impl`` layout, the scale of the true head
     dim).  bf16 and f16 run ``mma.sync`` at built hd 16 and 32, ``wgmma``
     fed by TMA at 64 and up (see :data:`HEAD_DIMS`), P rounded to the input
-    type for P V and the output rounded once; f32 the CUDA cores.  A built
+    type for P V and the output rounded once; f32 ``mma.sync`` in 3xTF32
+    (each product as big.big + big.small + small.big of TF32 splits, within
+    a few f32 ulps; ``ref.flash_attention_f32_tc_ref``).  A built
     head dim (96 included) makes no copy of q, k or v.  Each launch is
     counted on ``FLASH`` under :func:`launch_key` with the true head dim
     and q's type."""

@@ -7,9 +7,10 @@ The WKV has two: the exact recurrence (the oracle, and the model's decode
 path) and the chunked form (the CUDA kernel's plain version).  The bag, the
 interaction and the WKV kernels also have a CPU model of the order in which
 each kernel sums (``embedding_bag_split_ref``, ``dot_interaction_split_ref``,
-``rwkv6_wkv_two_pass_ref``), and the flash kernel's hd 64/80 body one of its
-tile walk (``flash_attention_tiled_ref``), held against the reference by
-the tests.
+``rwkv6_wkv_two_pass_ref``), and the flash kernel's hd 64/80/96 body and
+its f32 body one each of their tile walks (``flash_attention_tiled_ref``,
+``flash_attention_f32_tc_ref``, with ``tf32_round`` the model of the f32
+body's TF32 rounding), held against the reference by the tests.
 
 Ids are clamped to ``[0, R-1]`` (and table ids to ``[0, T-1]``) explicitly:
 JAX clamps out-of-bounds gathers silently, torch indexing raises.
@@ -183,12 +184,13 @@ NEG_INF = -1e30
 def _attend_rows(q, k, v, q0: int, k0: int, *, causal: bool, window: int,
                  softcap: float, scale):
     """Query rows ``q0 .. q0 + S - 1`` against keys ``k0 .. k0 + T - 1`` ->
-    (out in f32 (B, Kh, G, S, hd) before the division, the rows' max, the
-    clamped sum, the (S, T) admitted-key mask)."""
+    (out (B, Kh, G, S, hd) before the division, the rows' max, the clamped
+    sum, the (S, T) admitted-key mask), in f32, or in f64 for f64 inputs."""
     b, s, h, hd = q.shape
     t, kh = k.shape[1], k.shape[2]
-    qf = q.float().reshape(b, s, kh, h // kh, hd)
-    sc = torch.einsum("bskgd,btkd->bkgst", qf, k.float()).mul_(
+    wide = torch.promote_types(q.dtype, torch.float32)
+    qf = q.to(wide).reshape(b, s, kh, h // kh, hd)
+    sc = torch.einsum("bskgd,btkd->bkgst", qf, k.to(wide)).mul_(
         hd ** -0.5 if scale is None else scale)
     if softcap:
         sc.div_(softcap).tanh_().mul_(softcap)
@@ -203,7 +205,7 @@ def _attend_rows(q, k, v, q0: int, k0: int, *, causal: bool, window: int,
     m = sc.amax(-1, keepdim=True)
     sc.sub_(m).exp_().masked_fill_(~ok, 0.0)
     den = sc.sum(-1, keepdim=True).clamp_min_(1e-30)
-    out = torch.einsum("bkgst,btkd->bkgsd", sc, v.float()).div_(den)
+    out = torch.einsum("bkgst,btkd->bkgsd", sc, v.to(wide)).div_(den)
     return out, m, den, ok
 
 
@@ -214,8 +216,11 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     of the Pallas flash kernel.  Scores in f32 times ``scale`` (hd**-0.5
     unless given: a head dim padded with zeros keeps its own), then the tanh
     softcap, then the causal/window mask; p = exp(s - max) on admitted keys,
-    0 elsewhere; out = (p @ v) / max(sum p, 1e-30) in f32.  Query head h
-    reads kv head h // (H / Kh).  Materializes the (B, H, S, T) scores.
+    0 elsewhere; out = (p @ v) / max(sum p, 1e-30) in f32 (in f64 for f64
+    inputs: the yardstick of the f32 kernel on the card, whose 3xTF32 sums
+    lie nearer the exact function than an f32 one does at large head
+    dims).  Query head h reads kv head h // (H / Kh).  Materializes the
+    (B, H, S, T) scores.
     ``return_lse`` also returns each row's log-sum-exp max + log(max(sum
     p, 1e-30)), (B, Kh, H / Kh, S) f32, with the max taken as 0 for a row
     that admits no key (the reference's ``_flash_fwd_impl`` guard)."""
@@ -332,6 +337,144 @@ def flash_attention_tiled_ref(q, k, v, *, block_q: int = 128,
         lse[..., q0:q1] = torch.where(m == NEG_INF, 0.0,
                                       m if softcap else m * scale) + l.log()
     out = out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd).to(q.dtype)
+    return (out, lse) if return_lse else out
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (float32) rounded to TF32 as ``cvt.rna.tf32.f32`` does on its
+    bits: the 13 low mantissa bits dropped, to nearest with ties away from
+    zero (the magnitude's bits plus 0x1000, then masked), the sign kept.
+    Subnormals round on the same bits (the smallest ones to zero, a half
+    step up to 2^-136); a finite value past the largest TF32 one by half a
+    step or more becomes inf; inf and NaN pass as they are."""
+    bits = x.float().contiguous().view(torch.int32)
+    mag = bits & 0x7FFFFFFF
+    rounded = ((mag + 0x1000) & ~0x1FFF) | (bits & ~0x7FFFFFFF)
+    return torch.where(mag < 0x7F800000, rounded, bits).view(torch.float32)
+
+
+def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (float32) cut to TF32 toward zero: its 13 low mantissa bits
+    cleared, as the tensor cores read an operand that is not TF32."""
+    bits = x.float().contiguous().view(torch.int32)
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """(big, small) as the f32 body's tensor cores see them: big =
+    tf32(x) (``cvt.rna``), small = x - big (exact) cut to TF32 by the
+    tensor cores (:func:`tf32_truncate`): x's value as two TF32 terms, to
+    under 2^-21 of x."""
+    big = tf32_round(x)
+    return big, tf32_truncate(x - big)
+
+
+def f32_tc_tiles(hd: int) -> tuple:
+    """(queries, keys) a tile of the CUDA kernel's f32 body
+    (``flash_3xtf32``: ``kBlockQ`` and its ``Tf32Tile::BK``) at head dim
+    ``hd``: 64 queries (four warps of 16 rows); 32 keys up to hd 96, 16 at
+    128, 8 at 256."""
+    return 64, 32 if hd <= 96 else 16 if hd <= 128 else 8
+
+
+def _tc_products(a, b, split: bool):
+    """a (..., M, K) @ b (..., N, K)^T as the f32 body's tensor cores take
+    it, K in 8-deep steps: with ``split`` each step's three TF32 products
+    (small.big, big.small, big.big, :func:`split_tf32`) summed from zero in
+    f32, else the one product of the TF32-rounded operands; the steps' sums
+    added in f32."""
+    *lead, m, kd = a.shape
+    n = b.shape[-2]
+    ac = a.reshape(*lead, m, kd // 8, 8)
+    bc = b.reshape(*lead, n, kd // 8, 8)
+
+    def prod(x, y):
+        return torch.einsum("...mcd,...ncd->...cmn", x, y)
+
+    if split:
+        (ab, asm), (bb, bsm) = split_tf32(ac), split_tf32(bc)
+        steps = prod(asm, bb) + prod(ab, bsm) + prod(ab, bb)
+    else:
+        steps = prod(tf32_round(ac), tf32_round(bc))
+    return steps.sum(-3)
+
+
+def flash_attention_f32_tc_ref(q, k, v, *, causal: bool = True,
+                               window: int = 0, softcap: float = 0.0,
+                               scale=None, return_lse: bool = False,
+                               split: bool = True):
+    """The CUDA kernel's f32 body (``flash_3xtf32``) as a tile walk, with
+    the arguments and result of :func:`flash_attention_ref` on float32
+    inputs whose head dim is a multiple of 8.  Each query tile walks the
+    key tiles (:func:`f32_tc_tiles`) from the window's start rounded down
+    to a tile (zero-filled past T), as ``live_keys`` does.
+    S = Q K^T and each tile's P V take their products on the model of the
+    tensor cores (:func:`_tc_products`): 3xTF32, or with ``split=False``
+    one TF32 product each (single-pass TF32, which keeps about three
+    decimal digits).  The softcap is ``cap * tanh(s * scale / cap)``;
+    uncapped, the scores stay raw and the scale folds into exp2's unit.
+    The running max and sum stay f32, each tile's P V is added to the f32
+    output after its rescale, and the output is the sum over max(l,
+    1e-30)."""
+    b, s, h, hd = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    if q.dtype != torch.float32 or hd % 8:
+        raise ValueError(f"the f32 body takes float32 at a head dim that is "
+                         f"a multiple of 8, got {q.dtype} at {hd}")
+    scale = hd ** -0.5 if scale is None else scale
+    block_q, block_k = f32_tc_tiles(hd)
+    unit = LOG2E if softcap else scale * LOG2E
+    qf = q.reshape(b, s, kh, h // kh, hd).permute(0, 2, 3, 1, 4)
+    pad = -t % block_k
+    kf = torch.nn.functional.pad(k.permute(0, 2, 1, 3),
+                                 (0, 0, 0, pad))[:, :, None]
+    vf = torch.nn.functional.pad(v.permute(0, 2, 1, 3),
+                                 (0, 0, 0, pad))[:, :, None]
+    out = torch.empty_like(qf)
+    lse = torch.empty(qf.shape[:-1], dtype=torch.float32, device=q.device)
+    for q0 in range(0, s, block_q):
+        q1 = min(q0 + block_q, s)
+        qi = torch.arange(q0, q1, device=q.device)[:, None]
+        lo, hi = 0, t
+        if causal:
+            hi = min(hi, q1)
+        if window > 0:
+            lo = max(0, q0 - window + 1)
+        lo = lo // block_k * block_k
+        m = torch.full(qf.shape[:-2] + (q1 - q0,), NEG_INF,
+                       dtype=torch.float32, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(m.shape + (hd,), dtype=torch.float32,
+                          device=q.device)
+        for k0 in range(lo, hi, block_k):
+            k1 = k0 + block_k
+            kt = kf[..., k0:k1, :].expand(-1, -1, h // kh, -1, -1)
+            vt = vf[..., k0:k1, :].expand(-1, -1, h // kh, -1, -1)
+            sc = _tc_products(qf[..., q0:q1, :], kt, split)
+            if softcap:
+                sc = softcap * torch.tanh(sc * scale * (1.0 / softcap))
+            kj = torch.arange(k0, k1, device=q.device)[None, :]
+            ok = kj < t
+            if causal:
+                ok = ok & (kj <= qi)
+            if window:
+                ok = ok & ((qi - kj) < window)
+            sc = sc.masked_fill(~ok, NEG_INF)
+            m_new = torch.maximum(m, sc.amax(-1))
+            corr = torch.exp2((m - m_new) * unit)
+            p = torch.exp2(sc * unit - (m_new * unit)[..., None])
+            p = p.masked_fill(~ok, 0.0)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + _tc_products(
+                p, vt.transpose(-1, -2), split)
+            m = m_new
+        l = l.clamp_min(1e-30)
+        out[..., q0:q1, :] = acc / l[..., None]
+        # uncapped, m is in raw score units; a row that admitted no key
+        # kept the sentinel
+        lse[..., q0:q1] = torch.where(m == NEG_INF, 0.0,
+                                      m if softcap else m * scale) + l.log()
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd)
     return (out, lse) if return_lse else out
 
 

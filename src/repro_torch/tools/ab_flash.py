@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""A/B timing of the bf16 hd 64/80/96 flash body's design choices on one GPU.
+"""A/B timing of a flash body's design choices on one GPU: the bf16 hd
+64/80/96 body, or with ``--f32`` the f32 body (3xTF32).
 
 Run from the repository root:
 
-    python3 src/repro_torch/tools/ab_flash.py [--parent DIR]
+    python3 src/repro_torch/tools/ab_flash.py [--f32] [--parent DIR]
 
 It builds ``src/repro_torch/kernels/csrc/flash_attention.cu`` as it ships
 and once per variant in ``VARIANTS`` (a copy of the source under
@@ -27,6 +28,15 @@ are medians of CUDA event timings (``chip_smoke.time_ms``), taken in turns
 (shape, library) and one ``[ab-build]`` line per library (ptxas registers
 and spills of ``flash_wgmma_ws``); exits non-zero if a design variant fails
 its check, and 2 without a card.
+
+With ``--f32`` the substitutions are ``VARIANTS_F32`` and ``PROBES_F32``
+within ``flash_3xtf32`` (and its ``Tf32Tile``), the inputs are float32 at
+``SHAPES_F32`` (zamba2-2.7b's f32 row, granite-moe's and qwen3-14b's heads
+at S 1024, gemma2-9b's local layer), and each library's output is held
+against the function computed in float64 on the card at
+``chip_smoke.TOL``; the f32 plain version's own distance from it is
+printed beside (an f32 sum over hd products with q at 4x unit scale is
+itself some 1e-5 off at hd 256).
 """
 from __future__ import annotations
 
@@ -95,6 +105,70 @@ PROBES = {
                       '"f"(x));', "y = x;", False)],
 }
 # (label, B, S, H, Kh, hd, causal, lse)
+# the f32 body: its tile (per head dim, see Tf32Tile), its launch bound,
+# and how it splits and sums
+# the f32 body's Tf32Tile lines that variants rewrite
+BK_F32 = "  static constexpr int BK = HD <= 96 ? 32 : (HD <= 128 ? 16 : 8);"
+UNROLL_F32 = ("  static constexpr int kUnroll = "
+              "HD <= 128 ? HD / 8 / kSteps : 4;")
+
+
+MIN_BLOCKS_F32 = "  static constexpr int kMinBlocks = HD <= 128 ? 2 : 3;"
+
+
+def HD256_F32(threads):
+    """The substitution that bounds the body's launch at hd 256 as one of
+    ``threads`` threads and two blocks an SM."""
+    return ("__launch_bounds__(Tf32Tile<HD>::kThreads,\n"
+            "                                  Tf32Tile<HD>::kMinBlocks)",
+            f"__launch_bounds__(HD <= 128 ? 128 : {threads},\n"
+            f"                                  HD <= 128 ? "
+            f"Tf32Tile<HD>::kMinBlocks : 2)", False)
+
+
+VARIANTS_F32 = {
+    # twice the keys a tile
+    "bk_double": [(BK_F32, "  static constexpr int BK = HD <= 96 ? 64 : "
+                   "(HD <= 128 ? 32 : 16);", False)],
+    # each 8-deep step of Q K^T added to S on the CUDA cores
+    "steps_1": [("  static constexpr int kSteps = HD <= 128 ? 2 : 1;",
+                 "  static constexpr int kSteps = 1;", False)],
+    # a launch bound of three blocks an SM up to hd 128 too (168 registers)
+    "min_blocks_3": [(MIN_BLOCKS_F32, "  static constexpr int kMinBlocks = "
+                      "3;", False)],
+    # small rounded to TF32 by cvt.rna too (as big is)
+    "small_rounded": [("  small = __float_as_uint(x - __uint_as_float(big));",
+                       "  small = tf32_round(x - __uint_as_float(big));",
+                       False)],
+    # hd 256: two blocks an SM (255 registers, where ptxas spills), alone,
+    # with Q K^T's depth loop 8 steps at a time and two steps a group, or
+    # with a launch bound of 136, 144 or 160 threads, which caps a thread
+    # at 240, 227 or 204 registers (the block has 128)
+    "hd256_mb2": [HD256_F32(128)],
+    "hd256_mb2_steps_2_unroll_8": [
+        HD256_F32(128),
+        (UNROLL_F32, UNROLL_F32.replace(": 4;", ": 8;"), False),
+        ("  static constexpr int kSteps = HD <= 128 ? 2 : 1;",
+         "  static constexpr int kSteps = 2;", False)],
+    "hd256_cap_240": [HD256_F32(136)],
+    "hd256_cap_227": [HD256_F32(144)],
+    "hd256_cap_204": [HD256_F32(160)],
+}
+PROBES_F32 = {
+    # the operands passed as they are, no split (big = x, small = 0)
+    "probe_no_split": [("  big = tf32_round(x);\n"
+                        "  small = __float_as_uint(x - __uint_as_float(big));",
+                        "  big = __float_as_uint(x);\n  small = 0u;", False)],
+    # one TF32 product where there are three
+    "probe_one_product": [("  mma_tf32(c, a_small, b_big);\n"
+                           "  mma_tf32(c, a_big, b_small);\n", "", False)],
+}
+BODY_F32 = "flash_3xtf32(Params"
+# (label, B, S, H, Kh, hd, window, softcap), causal
+SHAPES_F32 = (("zamba2_heads_f32", 2, 1024, 32, 32, 80, 0, 0.0),
+              ("granite_heads_f32", 2, 1024, 24, 8, 64, 0, 0.0),
+              ("qwen3_heads_f32", 2, 1024, 40, 8, 128, 0, 0.0),
+              ("gemma2_local_f32", 2, 4608, 16, 8, 256, 4096, 50.0))
 SHAPES = (("granite_train_lse", 1, 4096, 24, 8, 64, True, True),
           ("zamba2_heads", 2, 4608, 32, 32, 80, True, False),
           ("whisper_encoder", 2, 1536, 6, 6, 64, False, False),
@@ -102,29 +176,32 @@ SHAPES = (("granite_train_lse", 1, 4096, 24, 8, 64, True, True),
 INVALID_VALUE = 1   # cudaErrorInvalidValue: a head dim a library lacks
 
 
-def variant_source(text: str, subs) -> str:
+def variant_source(text: str, subs, body: str = BODY) -> str:
     """``text`` with each (old, new[, within the body]) substitution made
-    once, within ``flash_wgmma_ws`` unless the third item is False; raises
-    if one does not apply."""
+    once, within ``body`` (``flash_wgmma_ws``) unless the third item is
+    False; raises if one does not apply."""
     for sub in subs:
         old, new = sub[:2]
-        at = text.index(BODY) if (len(sub) < 3 or sub[2]) else 0
+        at = text.index(body) if (len(sub) < 3 or sub[2]) else 0
         if old not in text[at:]:
             raise ValueError(f"substitution does not apply: {old[:60]!r}")
         text = text[:at] + text[at:].replace(old, new, 1)
     return text
 
 
-def build(parent) -> dict:
+def build(parent, f32=False) -> dict:
     """{name: ctypes entry point} for the shipped source, every variant and
     probe, and the parent's source (one nvcc each, all at once); prints each
-    one's ptxas report of the hd 64/80/96 body."""
+    one's ptxas report of the hd 64/80/96 body (with ``f32``, of the f32
+    body, from ``VARIANTS_F32`` and ``PROBES_F32``)."""
     out = ROOT / "build" / "ab"
     out.mkdir(parents=True, exist_ok=True)
     shipped = (ROOT / SOURCE).read_text()
     sources = {"shipped": shipped}
-    sources.update({n: variant_source(shipped, s)
-                    for n, s in {**VARIANTS, **PROBES}.items()})
+    subs = {**VARIANTS_F32, **PROBES_F32} if f32 else {**VARIANTS, **PROBES}
+    sources.update({n: variant_source(shipped, s,
+                                      BODY_F32 if f32 else BODY)
+                    for n, s in subs.items()})
     if parent is not None:
         sources["parent"] = (Path(parent) / SOURCE).read_text()
     procs = {}
@@ -144,7 +221,7 @@ def build(parent) -> dict:
         fn.argtypes, fn.restype = FLASH.argtypes, ctypes.c_int
         libs[name] = fn
         for kernel, arg, used, stack, spill in cs.ptxas_report(log):
-            if kernel.startswith("flash_wgmma_ws"):
+            if kernel.startswith(cs.F32_FLASH if f32 else "flash_wgmma_ws"):
                 print(f"[ab-build] {name} {kernel}<{arg}>: {used}; "
                       f"stack {stack} bytes, spill stores {spill} bytes",
                       flush=True)
@@ -155,12 +232,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", help="root of another checkout whose flash "
                     "source is timed beside the shipped one")
+    ap.add_argument("--f32", action="store_true", help="the f32 body's "
+                    "variants at SHAPES_F32")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("ab_flash: no CUDA device", file=sys.stderr)
         return 2
     print(f"[ab] card {cs.card_identity()}", flush=True)
-    libs = build(args.parent)
+    libs = build(args.parent, args.f32)
+    if args.f32:
+        return main_f32(libs)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(cs.SEED)
@@ -223,6 +304,93 @@ def main() -> int:
             torch.cuda.empty_cache()
     if failed:
         print(f"[ab] failed: {failed}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def exact_attention(q, k, v, *, window, softcap):
+    """(B, S, H, hd) causal attention of f32 q, k, v computed in float64."""
+    b, s, h, hd = q.shape
+    g = h // k.shape[2]
+    kd = k.double().repeat_interleave(g, dim=2)
+    vd = v.double().repeat_interleave(g, dim=2)
+    sc = torch.einsum("bshd,bthd->bhst", q.double(), kd) * hd ** -0.5
+    if softcap:
+        sc = softcap * torch.tanh(sc / softcap)
+    i = torch.arange(s, device=q.device)[:, None]
+    j = torch.arange(s, device=q.device)[None, :]
+    ok = j <= i
+    if window:
+        ok = ok & ((i - j) < window)
+    p = sc.masked_fill(~ok, float("-inf")).softmax(-1)
+    return torch.einsum("bhst,bthd->bshd", p, vd)
+
+
+def main_f32(libs) -> int:
+    """The f32 body's variants at SHAPES_F32: each held at chip_smoke.TOL
+    against the float64 function and timed in turns beside SDPA (where it
+    computes the layer) and the f32 plain version's distance."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cs.SEED)
+    failed = []
+    with torch.no_grad():
+        for label, b, s, h, kh, hd, window, cap in SHAPES_F32:
+            q, k, v = ((torch.randn((b, s, n, hd), generator=gen, device=dev)
+                        * sc) for n, sc in ((h, cs.FLASH_Q_SCALE), (kh, 1.0),
+                                            (kh, 1.0)))
+            out = torch.empty_like(q)
+
+            def run(fn, q=q, k=k, v=v, out=out, b=b, s=s, h=h, kh=kh, hd=hd,
+                    window=window, cap=cap):
+                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         out.data_ptr(), None, 0, b, s, s, h, kh, hd, 1,
+                         window, hd ** -0.5, cap,
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"flash_attention_launch: {err}")
+                return out
+
+            truth = exact_attention(q, k, v, window=window, softcap=cap)
+            plain = ref.flash_attention_ref(q, k, v, window=window,
+                                            softcap=cap)
+            plain_err = (plain.double() - truth).abs().max().item()
+            del plain
+            checks = {}
+            for name, fn in libs.items():
+                first = run(fn).clone()
+                again = run(fn)
+                torch.cuda.synchronize()
+                err = (first.double() - truth).abs().max().item()
+                ok = torch.equal(first, again) and torch.allclose(
+                    first.double(), truth, **cs.TOL)
+                checks[name] = (ok, err)
+                if not ok and not name.startswith("probe"):
+                    failed.append(f"{label} {name}")
+            names = list(libs)
+            times = {n: [] for n in names}
+            for order in (names, names[::-1]):
+                for n in order:
+                    times[n].append(cs.time_ms(lambda n=n: run(libs[n])))
+            for n in names:
+                ok, err = checks[n]
+                held = ("probe, not held" if n.startswith("probe")
+                        else "held" if ok else "FAILED")
+                print(f"[ab-f32] {label} {n}: {times[n][0]:.4f} "
+                      f"{times[n][1]:.4f} ms; max |out - f64| {err:.3e} "
+                      f"({held})", flush=True)
+            line = (f"[ab-f32] {label}: the f32 plain version's max |out - "
+                    f"f64| {plain_err:.3e}")
+            if not window and not cap:
+                sdpa = cs.time_ms(lambda: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    is_causal=True, enable_gqa=True))
+                line += f"; scaled_dot_product_attention {sdpa:.4f} ms"
+            print(line, flush=True)
+            del q, k, v, out, truth
+            torch.cuda.empty_cache()
+    if failed:
+        print(f"[ab-f32] failed: {failed}", file=sys.stderr)
         return 1
     return 0
 

@@ -12,19 +12,28 @@ It builds ``src/repro_torch/kernels/csrc/flash_attention.cu`` as it ships
 ``build/``, started first), and calls both libraries' entry points
 through ctypes on the same seeded inputs:
 
-- bf16 and f32 at every head dim both build (16, 32, 64, 80, 128, 256),
-  causal with GQA, not causal, and windowed with a softcap, with lse: the
-  two outputs and lse must be equal bit for bit (``[parent-ab]`` counts
-  the cases that are and lists the ones that are not);
-- ``ROWS`` (f16 at qwen3-14b's and zamba2-2.7b's heads, hd 96 bf16 at
-  phi-3-mini's), timed in turns, other, shipped, shipped, other (medians of
+- bf16 and f16 at every head dim (16, 32, 64, 80, 96, 128, 256), causal
+  with GQA, not causal, and windowed with a softcap, with lse: the two
+  outputs and lse must be equal bit for bit (``[parent-ab]`` counts the
+  cases that are and lists the ones that are not);
+- f32 at the same cases: the f32 body may sum in another order than the
+  other checkout's (3xTF32 tensor-core products against the CUDA cores'
+  FMA chains), so neither is held to the other's bits.  The shipped
+  output must be within ``chip_smoke.TOL`` and its lse within
+  ``LSE_TOL[float32]`` of the plain version evaluated in f64 (the exact
+  function, as ``chip_smoke.flash_row`` holds the f32 rows);
+  ``[parent-f32]`` gives the largest distance of the shipped body, the
+  other library and the f32 plain version from it, and the shipped body's
+  from the other library's;
+- ``ROWS`` (every f32 row of ``chip_smoke.py``, and three 16-bit rows as
+  a control), timed in turns, other, shipped, shipped, other (medians of
   CUDA event timings, ``chip_smoke.time_ms``), beside
-  ``scaled_dot_product_attention``.  The shipped side is ``attend``; a head
-  dim the other library lacks (it returns cudaErrorInvalidValue) runs there
-  zero-padded to the next of ``OTHER_HEAD_DIMS`` and sliced back, as
-  ``attend`` did before that head dim was built.
+  ``scaled_dot_product_attention`` where one call computes the layer.  The
+  shipped side is ``attend``; a head dim outside ``fa.HEAD_DIMS`` (the
+  smoke configs' 8) runs zero-padded on both sides.
 
-Exits 1 if a bf16 or f32 case differs, and 2 without a card.
+Exits 1 if a bf16 or f16 case differs or an f32 case of the shipped body
+is out of tolerance, and 2 without a card.
 """
 import argparse
 import ctypes
@@ -42,21 +51,26 @@ sys.path.insert(0, str(ROOT / "src"))
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 
 SOURCE = Path("src/repro_torch/kernels/csrc/flash_attention.cu")
 CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# the head dims built before hd 96 was
-OTHER_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
-# (label, B, S, H, Kh, hd, type), causal
-ROWS = (("qwen3_heads_f16", 2, 4608, 40, 8, 128, torch.float16),
-        ("zamba2_heads_f16", 2, 1024, 32, 32, 80, torch.float16),
-        ("phi3_heads_hd96", 2, 4608, 32, 32, 96, torch.bfloat16))
-INVALID_VALUE = 1   # cudaErrorInvalidValue
+# (label, B, S, H, Kh, hd, window, softcap, type), causal: chip_smoke's f32
+# rows (zamba2's and the smoke configs' heads, F32_FLASH_ROWS), then f16 at
+# qwen3-14b's heads and hd 96 bf16 at phi-3-mini's
+ROWS = (("zamba2_heads_f32", 2, 1024, 32, 32, 80, 0, 0.0, torch.float32),
+        ("smoke_hd8_f32", 4, 8, 8, 2, 8, 0, 0.0, torch.float32),
+        ("granite_heads_f32", 2, 1024, 24, 8, 64, 0, 0.0, torch.float32),
+        ("qwen3_heads_f32", 2, 1024, 40, 8, 128, 0, 0.0, torch.float32),
+        ("gemma2_local_f32", 2, 4608, 16, 8, 256, 4096, 50.0,
+         torch.float32),
+        ("qwen3_heads_f16", 2, 4608, 40, 8, 128, 0, 0.0, torch.float16),
+        ("phi3_heads_hd96", 2, 4608, 32, 32, 96, 0, 0.0, torch.bfloat16))
 
 
 def call(fn, q, k, v, hd_true, causal=True, window=0, cap=0.0, lse=False):
-    """(out, lse or None) of one library's flash_attention_launch, or None
-    if it takes no such head dim."""
+    """(out, lse or None) of one library's flash_attention_launch at a
+    built head dim."""
     b, s, h, hd = q.shape
     out = torch.empty_like(q)
     ls = torch.empty((b, h, s), device=q.device) if lse else None
@@ -64,8 +78,6 @@ def call(fn, q, k, v, hd_true, causal=True, window=0, cap=0.0, lse=False):
              None if ls is None else ls.data_ptr(), CODES[q.dtype], b, s,
              k.shape[1], h, k.shape[2], hd, int(causal), window,
              hd_true ** -0.5, cap, torch.cuda.current_stream().cuda_stream)
-    if err == INVALID_VALUE:
-        return None
     if err:
         raise RuntimeError(f"flash_attention_launch: error {err}")
     return out, ls
@@ -97,10 +109,14 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
-    same, differ = 0, []
+    same, differ, f32_bad = 0, [], []
+    f32_err = {"out": 0.0, "lse": 0.0, "other out": 0.0, "other lse": 0.0,
+               "f32 plain out": 0.0, "f32 plain lse": 0.0,
+               "out vs other": 0.0}
+    lse_tol = cs.LSE_TOL[torch.float32]
     with torch.no_grad():
-        for dt in (torch.bfloat16, torch.float32):
-            for hd in OTHER_HEAD_DIMS:
+        for dt in (torch.bfloat16, torch.float16, torch.float32):
+            for hd in fa.HEAD_DIMS:
                 for b, s, h, kh, causal, window, cap in (
                         (2, 1000, 8, 4, True, 0, 0.0),
                         (1, 777, 4, 4, False, 0, 0.0),
@@ -112,44 +128,80 @@ def main() -> int:
                     got = [call(libs[n], q, k, v, hd, causal, window, cap,
                                 lse=True) for n in ("parent", "change")]
                     torch.cuda.synchronize()
-                    if torch.equal(got[0][0], got[1][0]) and \
-                            torch.equal(got[0][1], got[1][1]):
-                        same += 1
-                    else:
-                        differ.append((str(dt), hd, causal, window, cap))
-        print(f"[parent-ab] bf16 and f32 out and lse bit for bit the other "
+                    case = (str(dt), hd, causal, window, cap)
+                    if dt != torch.float32:
+                        if torch.equal(got[0][0], got[1][0]) and \
+                                torch.equal(got[0][1], got[1][1]):
+                            same += 1
+                        else:
+                            differ.append(case)
+                        continue
+                    kw = {"causal": causal, "window": window,
+                          "softcap": cap}
+                    truth, truth_lse = ref.flash_attention_ref(
+                        q.double(), k.double(), v.double(), return_lse=True,
+                        **kw)
+                    plain, plain_lse = ref.flash_attention_ref(
+                        q, k, v, return_lse=True, **kw)
+                    truth_lse = truth_lse.reshape(b, h, s)
+                    plain_lse = plain_lse.reshape(b, h, s)
+                    for part, x, y in (
+                            ("out", got[1][0], truth),
+                            ("lse", got[1][1], truth_lse),
+                            ("other out", got[0][0], truth),
+                            ("other lse", got[0][1], truth_lse),
+                            ("f32 plain out", plain, truth),
+                            ("f32 plain lse", plain_lse, truth_lse),
+                            ("out vs other", got[1][0], got[0][0])):
+                        f32_err[part] = max(f32_err[part], (
+                            x.double() - y.double()).abs().max().item())
+                    if not torch.allclose(got[1][0].double(), truth,
+                                          **cs.TOL):
+                        f32_bad.append(("out",) + case)
+                    if not torch.allclose(got[1][1].double(), truth_lse,
+                                          **lse_tol):
+                        f32_bad.append(("lse",) + case)
+        print(f"[parent-ab] bf16 and f16 out and lse bit for bit the other "
               f"library's: {same} cases; differ: {differ}", flush=True)
+        print(f"[parent-f32] f32 out within {cs.TOL} and lse within "
+              f"{lse_tol} of the plain version in f64 at "
+              f"{3 * len(fa.HEAD_DIMS)} cases; largest distances from it "
+              f"{ {k: f'{e:.3e}' for k, e in f32_err.items()} }; out of "
+              f"tolerance: {f32_bad}", flush=True)
 
-        for label, b, s, h, kh, hd, dt in ROWS:
+        for label, b, s, h, kh, hd, window, cap, dt in ROWS:
             q, k, v = ((torch.randn((b, s, n, hd), generator=gen,
                                     device=dev) * sc).to(dt)
                        for n, sc in ((h, cs.FLASH_Q_SCALE), (kh, 1.0),
                                      (kh, 1.0)))
+            kw = {"window": window, "softcap": cap}
 
-            def other(q=q, k=k, v=v, hd=hd):
-                got = call(libs["parent"], q, k, v, hd)
-                if got is not None:
-                    return got[0]
-                to = min(d for d in OTHER_HEAD_DIMS if d > hd)
-                qp, kp, vp = (F.pad(x, (0, to - hd)).contiguous()
-                              for x in (q, k, v))
-                return call(libs["parent"], qp, kp, vp, hd)[0][
-                    ..., :hd].contiguous()
+            def other(q=q, k=k, v=v, hd=hd, kw=kw):
+                # padded and sliced inside the timed call, as attend does
+                qp, kp, vp, _ = fa.pad_head_dim(q, k, v)
+                out = call(libs["parent"], qp, kp, vp, hd, True,
+                           kw["window"], kw["softcap"])[0]
+                return out if qp is q else out[..., :hd].contiguous()
 
-            def shipped(q=q, k=k, v=v):
-                return fa.attend(q, k, v)
+            def shipped(q=q, k=k, v=v, kw=kw):
+                return fa.attend(q, k, v, **kw)
 
             times = {"other": [], "shipped": []}
             for n in ("other", "shipped", "shipped", "other"):
                 times[n].append(cs.time_ms(other if n == "other"
                                            else shipped))
-            sdpa = cs.time_ms(lambda q=q, k=k, v=v: (
-                F.scaled_dot_product_attention(
-                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    is_causal=True, enable_gqa=True)))
-            print(f"[parent-ab] {label}: other {times['other']} ms, shipped "
-                  f"{times['shipped']} ms, SDPA {sdpa:.4f} ms", flush=True)
-    return 1 if differ else 0
+            line = (f"[parent-ab] {label}: other {times['other']} ms, "
+                    f"shipped {times['shipped']} ms")
+            if not window and not cap:
+                sdpa = cs.time_ms(lambda q=q, k=k, v=v: (
+                    F.scaled_dot_product_attention(
+                        q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), is_causal=True,
+                        enable_gqa=True)))
+                line += f", SDPA {sdpa:.4f} ms"
+            print(line, flush=True)
+            del q, k, v
+    return 1 if differ or f32_bad else 0
 
 
 if __name__ == "__main__":
