@@ -246,7 +246,7 @@ Phases, each on lines of its own:
      ``[whisper-*]`` lines;
  19. after freeing whisper-tiny, the hybrid family: (a) the flash kernel
      held against its plain version at zamba2-2.7b's served shape (B 2,
-     S 4608, H = Kh = 32, hd 80 on the ``mma.sync`` body, causal) in bf16
+     S 4608, H = Kh = 32, hd 80 on the ``wgmma`` body, causal) in bf16
      as in 6, beside scaled_dot_product_attention, and in f32 at S 1024
      (rtol = atol = 1e-5), and at the smoke configs' hd 8 (zero-padded to
      16) in f32 and bf16 at the serve CLI's shape (4 x 8 tokens, H 8 over
@@ -265,13 +265,14 @@ Phases, each on lines of its own:
  20. training, after zamba2-2.7b and outside ``torch.no_grad()``: (a) each
      body of the flash kernel asked for each row's log-sum-exp (hd 64, 80
      and 96 on the warp-specialised wgmma body, one of them with a window
-     and a softcap, 32 on mma.sync, 128 and 256 on wgmma in bf16; hd 32,
-     80 and 128 in f16; 64, 80 and the padded 8 in f32): lse against the
-     plain version's, the output bit-identical to a serving call's; the
-     CPU model of the hd 64/80/96 body's tile walk
+     and a softcap, and 32, 16 (with a window and a softcap) and the padded
+     8 on the same body at narrow rows, 128 and 256 on wgmma in bf16; hd
+     32, 80 and 128 in f16; 64, 80 and the padded 8 in f32): lse against
+     the plain version's, the output bit-identical to a serving call's;
+     the CPU model of the hd 16-96 body's tile walk
      (``ref.flash_attention_tiled_ref``) run on the card against the
-     kernel at hd 64, 80 and 96 in bf16 and at hd 96 in f16 (output at the
-     flash tolerance, lse at 1e-3); (b) ``ops.FlashAttentionFn``'s gradients at
+     kernel at hd 32, 64, 80 and 96 in bf16 and at hd 16 and 96 in f16
+     (output at the flash tolerance, lse at 1e-3); (b) ``ops.FlashAttentionFn``'s gradients at
      granite-moe-3b-a800m's train shape (B 1, S 4096, H 24 over Kh 8, hd
      64, bf16; relative Frobenius 2e-2) and in f32 at S 1024 (1e-4)
      against autograd through the plain attention, and the row
@@ -635,7 +636,7 @@ def check_kernel(name, replaces, source, kernel_fn, plain_fn, library_fn,
 # "18_dot_interaction_cu"), then its integer template arguments and the
 # row or input type of the DLRM kernels, the 16-bit flash bodies and the
 # WKV passes
-KERNEL_NAMES = re.compile(r"(?<=\d)(flash_wgmma_ws|flash_wgmma|flash_bf16|"
+KERNEL_NAMES = re.compile(r"(?<=\d)(flash_wgmma_ws|flash_wgmma|"
                           r"flash_3xtf32|tf32_round_probe|"
                           r"wkv_state_pass|wkv_output_pass|"
                           r"bag_pool|"
@@ -645,7 +646,7 @@ KERNEL_NAMES = re.compile(r"(?<=\d)(flash_wgmma_ws|flash_wgmma|flash_bf16|"
 TYPE_SUFFIX = {"f": "_f32", "13__nv_bfloat16": "_bf16", "6__half": "_f16"}
 WKV_CODES = {"_f32": 0, "_bf16": 1, "_f16": 2}
 # the wgmma flash bodies keep their accumulators (128 registers at hd 256;
-# scores, P and output beside a producer warp at hd 64/80/96) only if
+# scores, P and output beside a producer warp at hd 16 to 96) only if
 # nothing spills, the f32 body its output, scores and split P beside the
 # TF32 splits of its operands, the bag keeps two batches of rows in flight
 # in registers, and the WKV passes keep their state slices and output rows
@@ -659,14 +660,14 @@ NO_SPILL = WGMMA_FLASH + (F32_FLASH, "bag_pool_f32", "bag_pool_bf16") + tuple(
     for t in ("f32", "bf16", "f16"))
 # every flash body that flash_attention.cu must build, (name with type,
 # template arguments): each 16-bit body at each of its head dims in both
-# types (the warp-specialised body with and without the softcap); the f32
+# types (the warp-specialised body, hd 16 to 96, with and without the
+# softcap); the f32
 # body ("flash_3xtf32", no type: f32 alone) at every head dim, with and
 # without the softcap
 FLASH_BUILT = {(f"{body}_{t}", arg) for t in ("bf16", "f16")
                for body, args in (
-                   ("flash_bf16", ("16", "32")),
                    ("flash_wgmma_ws", tuple(f"{hd},{cap}"
-                                            for hd in (64, 80, 96)
+                                            for hd in (16, 32, 64, 80, 96)
                                             for cap in (0, 1))),
                    ("flash_wgmma", ("128", "256")))
                for arg in args} | {
@@ -731,7 +732,7 @@ def build_report(logs: dict) -> None:
                                            ctypes.byref(st), ctypes.byref(sm))
                 extra = (f"; BK {bk.value} keys, {st.value} K/V stages, "
                          f"{sm.value} bytes of dynamic shared memory")
-                # the CPU model of the hd 64/80/96 body walks its key tiles
+                # the CPU model of the hd 16-96 body walks its key tiles
                 if name.startswith("flash_wgmma_ws") and \
                         bk.value != ref.ws_block_k(hd):
                     raise AssertionError(
@@ -5775,10 +5776,28 @@ F32_FLASH_ROWS = (("granite_heads_f32_lse", "granite_moe_3b_a800m", 1024,
                    True),
                   ("qwen3_heads_f32", "qwen3_14b", 1024, False),
                   ("gemma2_local_f32", "gemma2_9b", LM_PROMPT, False))
-# the 16-bit mma.sync body (flash_bf16, hd 16 and 32) in bf16, which no
-# served model runs: (label, B, S, H, Kh, hd), causal
+# the 16-bit body at narrow rows (flash_wgmma_ws at hd 16 and 32) in
+# bf16, which no served model runs: (label, B, S, H, Kh, hd), causal; the
+# short shape of the earlier rows, then an LM prompt's length
 BF16_SMALL_ROWS = (("hd16_bf16", 4, 1024, 8, 2, 16),
-                   ("hd32_bf16", 4, 1024, 8, 2, 32))
+                   ("hd32_bf16", 4, 1024, 8, 2, 32),
+                   ("hd32_bf16_s4608", 2, 4608, 32, 8, 32),
+                   ("hd16_bf16_s4608", 2, 4608, 32, 8, 16))
+# exponentials the SFU gives a clock per SM: a flash body spends one an
+# admitted pair, which at hd 16 and 32 outlasts the pair's products
+SFU_EXP_PER_CLOCK = 16
+
+
+def sfu_ms(pairs: int, dev) -> tuple:
+    """(ms, SMs, MHz): the least time the card's SFUs take for one
+    exponential of each of ``pairs`` admitted pairs, at the SM clock
+    ``nvidia-smi`` reports as the card's maximum."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return pairs / (sms * SFU_EXP_PER_CLOCK * mhz * 1e6) * 1e3, sms, mhz
 
 
 def tf32_probe_values() -> torch.Tensor:
@@ -5802,8 +5821,9 @@ def tf32_flash_phase(dev):
     body's own device function) bit for bit against ``ref.tf32_round`` on
     :func:`tf32_probe_values` (NaN only as NaN); then flash rows for the f32
     body at F32_FLASH_ROWS (TOL, two runs bit-identical, beside SDPA where
-    one call computes the layer) and for the bf16 ``flash_bf16`` body at
-    BF16_SMALL_ROWS.  Returns (row, launch key) pairs."""
+    one call computes the layer) and for the bf16 body at hd 16 and 32 at
+    BF16_SMALL_ROWS, each with its SFU floor (:func:`sfu_ms`) beside its
+    flop bound.  Returns (row, launch key) pairs."""
     import importlib
 
     from repro_torch.kernels import _build
@@ -5847,6 +5867,15 @@ def tf32_flash_phase(dev):
     for label, b, s, h, kh, hd in BF16_SMALL_ROWS:
         rows.append(flash_row(f"flash_attention/{label}", gen, dev, b, s, h,
                               kh, hd))
+        pairs = admitted_pairs(s, 0) * b * h
+        sfu, sms, mhz = sfu_ms(pairs, dev)
+        row = rows[-1][0]
+        log(f"[kernel] flash_attention/{label}: SFU floor {sfu:.4f} ms "
+            f"({pairs} admitted pairs, one exponential each, {sms} SMs x "
+            f"{SFU_EXP_PER_CLOCK} a clock at {mhz:.0f} MHz), flop bound "
+            f"{row['bound_ms']:.4f} ms, kernel {row['ms']:.4f} ms "
+            f"({row['ms'] / sfu:.2f}x the SFU floor), SDPA "
+            f"{row['library_ms']:.4f} ms")
     return rows
 
 
@@ -6163,11 +6192,15 @@ LSE_CASES = (
     ("wgmma_ws hd 80, window, softcap", 1, 1100, 8, 2, 80, torch.bfloat16,
      300, 50.0, True),
     ("wgmma_ws hd 96", 2, 1000, 8, 4, 96, torch.bfloat16, 0, 0.0, True),
-    ("mma.sync hd 32", 2, 600, 4, 2, 32, torch.bfloat16, 0, 0.0, True),
+    ("wgmma_ws hd 32", 2, 600, 4, 2, 32, torch.bfloat16, 0, 0.0, True),
+    ("wgmma_ws hd 16, window, softcap", 1, 1100, 8, 2, 16, torch.bfloat16,
+     300, 50.0, True),
+    ("wgmma_ws hd 8 padded", 4, 8, 8, 2, 8, torch.bfloat16, 0, 0.0, True),
     ("wgmma hd 128", 1, 1100, 16, 8, 128, torch.bfloat16, 0, 0.0, True),
     ("wgmma hd 256, window, softcap", 1, 1100, 16, 8, 256, torch.bfloat16,
      300, 50.0, True),
-    ("mma.sync hd 32, f16", 2, 600, 4, 2, 32, torch.float16, 0, 0.0, True),
+    ("wgmma_ws hd 32, f16", 2, 600, 4, 2, 32, torch.float16, 0, 0.0,
+     True),
     ("wgmma_ws hd 80, window, softcap, f16", 1, 1100, 8, 2, 80,
      torch.float16, 300, 50.0, True),
     ("wgmma hd 128, f16", 1, 1100, 16, 8, 128, torch.float16, 0, 0.0, True),
@@ -6238,9 +6271,11 @@ def lse_phase(dev):
     torch.cuda.empty_cache()
 
 
-# the CPU model of the hd 64/80/96 body's tile walk held against the kernel
+# the CPU model of the hd 16-96 body's tile walk held against the kernel
 # on the card: (label, B, S, H, Kh, hd, window, causal, type)
 TILED_CASES = (
+    ("hd 32, GQA", 2, 1000, 8, 2, 32, 0, True, torch.bfloat16),
+    ("hd 16, window 300, f16", 1, 1100, 8, 2, 16, 300, True, torch.float16),
     ("hd 64", 1, TRAIN_SEQ, 24, 8, 64, 0, True, torch.bfloat16),
     ("hd 80, window 300", 2, 1000, 8, 8, 80, 300, True, torch.bfloat16),
     ("hd 96, GQA", 1, 1100, 8, 2, 96, 0, True, torch.bfloat16),
@@ -6248,9 +6283,9 @@ TILED_CASES = (
 
 
 def tiled_model_phase(dev):
-    """Phase 20a': ``ref.flash_attention_tiled_ref`` (the hd 64/80/96
-    body's tile walk: 128 x 128 tiles from the window's start rounded
-    down, f32 running max and sum, the scale folded into exp2, P rounded to
+    """Phase 20a': ``ref.flash_attention_tiled_ref`` (the hd 16-96
+    body's tile walk: 128-query tiles over ``ref.ws_block_k`` keys from
+    the window's start rounded down, f32 running max and sum, the scale folded into exp2, P rounded to
     the input type before P V, hd 80's and 96's P V in columns 0-63 and
     the rest) run on the card against the kernel in bf16 and f16, output
     at FLASH_TOL and FLASH_REL and lse at LSE_TOL, beside the plain

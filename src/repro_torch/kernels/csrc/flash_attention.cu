@@ -30,12 +30,12 @@
 // from window - 1 keys before its first query when windowed, so dead tiles
 // cost nothing.  Heavy (late) query tiles are scheduled first.  The
 // running max, sum and output accumulator stay in registers in float32.
-// Four bodies, by type and head dim, all on the tensor cores.  The three
+// Three bodies, by type and head dim, all on the tensor cores.  The two
 // 16-bit bodies are templated on their input type T, bfloat16 or float16:
-// wgmma and mma.sync take both in the same shapes at the same rate,
-// accumulating in f32, so a body's f16 instantiation differs from its bf16
-// one only in the PTX type of its products, the type P is rounded to for
-// P V, the tensor maps' element type and the output's rounding.  Scores,
+// wgmma takes both in the same shapes at the same rate, accumulating in
+// f32, so a body's f16 instantiation differs from its bf16 one only in the
+// PTX type of its products, the type P is rounded to for P V, the tensor
+// maps' element type and the output's rounding.  Scores,
 // the running max, sum and lse stay f32 in both (P <= 1 and |out| <= max
 // |v|: nothing overflows f16's range).
 //   - 16-bit at head dims 128 and 256 (the dense, MoE and VLM shapes),
@@ -73,11 +73,12 @@
 //     clock, so at hd 64 the exponentials take as long as the products (at
 //     hd 80 four fifths, at hd 96 two thirds) and a body that runs them one
 //     after the other cannot pass half the flop bound.  (1) The warpgroups
-//     take turns on two named barriers: each waits for its turn, issues its
-//     products and hands the turn over, so one warpgroup's softmax can run
-//     while the other's products are on the tensor cores (tools/ab_flash.py
-//     times it against free issue: about even so far; the softmax alone
-//     takes most of the time).  (2) Registers are no longer scarce (S 64
+//     take turns on two named barriers (WsTile::kTurns, at these head dims
+//     only): each waits for its turn, issues its products and hands the
+//     turn over, so one warpgroup's softmax can run while the other's
+//     products are on the tensor cores (tools/ab_flash.py times it against
+//     free issue: about even so far; the softmax alone takes most of the
+//     time).  (2) Registers are no longer scarce (S 64
 //     floats, O 32 to 48, P 32; 168 a thread with nine warps), so a
 //     producer warp of its own keeps the ring full (6 stages of 32 KB at
 //     hd 64, 5 of 40 KB at hd 80, 4 of 42 KB at hd 96); with thread 0 as
@@ -94,12 +95,41 @@
 //     template argument (kCap), and the grid runs (batch, head) pairs in
 //     groups of 8, heaviest tile first within a group, so a wave reads the
 //     K/V of few heads.  Each warpgroup stores its own 64 output rows.
-//   - 16-bit at head dims 16 and 32 (the smoke configs' 8, padded to 16),
-//     flash_bf16 (named for its first type): four warps of 16 query rows
-//     each over a 64-query tile, mma.sync m16n8k16 fed by ldmatrix, K and
-//     V double-buffered by cp.async over 32-key tiles: at these widths
-//     wgmma's 64-row tiles and TMA boxes of 64 columns do not pay, and the
-//     launch is the time.
+//   - 16-bit at head dims 16 and 32 (no served model; the smoke configs'
+//     8 in bf16 or f16, padded to 16), the same flash_wgmma_ws at narrow
+//     rows.  It replaces flash_bf16, an mma.sync body (64 queries
+//     over 32-key tiles, each with two __syncthreads, a cp.async wait and
+//     Q's fragments reloaded by ldmatrix, the softcap tested and the scale
+//     multiplied on every score), which ran 1.46x (hd 16) and 1.81x (hd
+//     32) scaled_dot_product_attention's time at B 4, S 1024, H 8 over Kh
+//     2: there the time is the longest block's chain of 32 short tiles,
+//     not the launch.  What bounds a body here: an admitted pair costs 4
+//     hd flops (64 at hd 16, 128 at hd 32) of the tensor cores' ~4,096 a
+//     clock per SM, and one exponential of the SFU's 16, so the
+//     exponentials take 2x (hd 32) to 4x (hd 16) as long as the products
+//     and set the floor: the 16.8 M admitted pairs of that shape take
+//     ~4-4.5 us of the SFU (132 SMs at 1.755-1.98 GHz), the 680 M of B 2,
+//     S 4608, H 32 ~0.16-0.18 ms.  What the design does: the products,
+//     the loads and the other warpgroup's softmax run beside the
+//     exponentials.  A row of 32 or 64 bytes is one TMA box, 32- or
+//     64-byte swizzled, with no 128-byte box: S = Q K^T is one k-step from
+//     it (hd 16, sw32_desc) or two (hd 32, sw64_desc), and O += P V one
+//     m64n16k16 or m64n32k16 a 16-key step (8 or 16 accumulators).  Tiles
+//     of 64 keys in a fixed ring of 4 stages, two blocks an SM (at most
+//     112 registers a thread: scores 32, P 16, output 16; ptxas takes
+//     93-96), and the warpgroups issue freely, without turns.  Measured
+//     (tools/ab_flash.py --narrow, H100 SXM at 700 W): at B 4, S 1024
+//     every tiling tried ran 0.0240-0.0266 ms (a wave's longest chain of
+//     tiles, not throughput; 128-key tiles at one block an SM within 3%);
+//     at B 2, S 4608, H 32 over Kh 8 this one ran 0.368 ms (hd 32) and
+//     0.333 (hd 16) against 0.409 and 0.359 for one block an SM over
+//     128-key tiles, 0.404 and 0.369 with every stage that fits (13 at hd
+//     32), 2 or 8 stages within 2.5%, and turns 0-6% slower.  Nor does
+//     the SFU bound it yet: with no exponential at all the hd 32 row ran
+//     0.334 ms, with no softmax 0.181, and taking a quarter (an eighth) of
+//     the exponentials on the FMA pipe (2^floor(x) times a cubic) ran 19%
+//     (11%) slower, so the softmax's other instructions (scale, max, sum,
+//     packing P) set the time.
 //   - float32 at every head dim, flash_3xtf32: the tensor cores in TF32
 //     (495 TFLOP/s dense against 67 on the CUDA cores), each f32 product
 //     taken as three.  An operand x is split into big = tf32(x) and small =
@@ -180,7 +210,7 @@ __device__ __forceinline__ void live_keys(const Params& p, int q0, int q_last,
 }
 
 // ---------------------------------------------------------------------------
-// 16-bit at head dims 16 and 32: mma.sync
+// helpers: shared memory, cp.async, the 16-bit types' asm
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
@@ -204,22 +234,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
 // The 16-bit input types of the tensor-core bodies.  Their products'
 // PTX strings differ only in the type, so each wrapper below is one asm
 // statement written as a macro of the type's name, issued for T by
@@ -233,21 +247,6 @@ constexpr bool kHalf = std::is_same<T, __half>::value;
   } else {                  \
     ASM(".bf16.bf16");      \
   }
-
-// c += a (16x16, row) * b (16x8, col), T in, f32 accumulate.
-template <typename T>
-__device__ __forceinline__ void mma_16(float (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-#define MMA_16(AB)                                                        \
-  asm volatile(                                                           \
-      "mma.sync.aligned.m16n8k16.row.col.f32" AB ".f32 "                  \
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "                    \
-      "{%0, %1, %2, %3};\n"                                               \
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])                    \
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1))
-  TYPED_ASM(T, MMA_16)
-#undef MMA_16
-}
 
 // two floats rounded to T, packed as one 32-bit register (lo first)
 template <typename T>
@@ -267,201 +266,9 @@ __device__ __forceinline__ float tanh_approx(float x) {
   return y;
 }
 
-// head dims 16 and 32: 32 keys a tile, K and V double-buffered
-constexpr int kBf16BlockK = 32;
-
-template <int HD>
-constexpr size_t kBf16SmemBytes =
-    (size_t)(kBlockQ + 4 * kBf16BlockK) * (HD + 8) * sizeof(__nv_bfloat16);
-
-// T: the type of q, k, v and out (__nv_bfloat16 or __half)
-template <int HD, typename T>
-__global__ void __launch_bounds__(128) flash_bf16(Params p) {
-  constexpr int BK = kBf16BlockK;
-  constexpr int LD = HD + 8;   // smem row, 16-bit elements (16-byte pad)
-  constexpr int CH = HD / 8;   // 16-byte chunks per row
-  constexpr int NS = BK / 8;   // score n-tiles per warp
-  constexpr int NO = HD / 8;   // output n-tiles per warp
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* qs = reinterpret_cast<T*>(smem_raw);
-  T* kvs = qs + kBlockQ * LD;  // stage s: K, then V, BK rows each
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int nq = (p.s + kBlockQ - 1) / kBlockQ;
-  const int q0 = (nq - 1 - (int)blockIdx.x) * kBlockQ;
-  const int q_last = min(q0 + kBlockQ, p.s) - 1;
-  const int head = blockIdx.y, batch = blockIdx.z;
-  const int kvh = head / (p.h / p.kh);
-  const int64_t q_step = (int64_t)p.h * HD, kv_step = (int64_t)p.kh * HD;
-  const T* qg =
-      static_cast<const T*>(p.q) + ((int64_t)batch * p.s * p.h + head) * HD;
-  const T* kg =
-      static_cast<const T*>(p.k) + ((int64_t)batch * p.t * p.kh + kvh) * HD;
-  const T* vg =
-      static_cast<const T*>(p.v) + ((int64_t)batch * p.t * p.kh + kvh) * HD;
-  T* og = static_cast<T*>(p.out) + ((int64_t)batch * p.s * p.h + head) * HD;
-
-  // start the copies of kv tile k0 into stage st (rows past T zero-filled)
-  auto load_kv = [&](int k0, int st) {
-    T* ks = kvs + st * 2 * BK * LD;
-    T* vs = ks + BK * LD;
-    for (int e = tid; e < BK * CH; e += blockDim.x) {
-      const int r = e / CH, c = e - r * CH, kj = k0 + r;
-      const int64_t off = min(kj, p.t - 1) * kv_step + c * 8;
-      const int n = kj < p.t ? 16 : 0;
-      cp_async16(ks + r * LD + c * 8, kg + off, n);
-      cp_async16(vs + r * LD + c * 8, vg + off, n);
-    }
-  };
-
-  int lo, hi;
-  live_keys(p, q0, q_last, BK, &lo, &hi);
-  for (int e = tid; e < kBlockQ * CH; e += blockDim.x) {
-    const int r = e / CH, c = e - r * CH, qi = q0 + r;
-    cp_async16(qs + r * LD + c * 8, qg + min(qi, p.s - 1) * q_step + c * 8,
-               qi < p.s ? 16 : 0);
-  }
-  if (lo < hi) load_kv(lo, 0);
-  cp_async_commit();  // Q and the first kv tile
-
-  float acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
-  const int row0 = q0 + warp * 16 + (lane >> 2);  // rows row0, row0 + 8
-  const int mat = lane >> 3, mrow = lane & 7;     // ldmatrix addressing
-  const float inv_cap = p.softcap > 0.f ? 1.f / p.softcap : 0.f;
-
-  int st = 0;
-  for (int k0 = lo; k0 < hi; k0 += BK, st ^= 1) {
-    // the next tile's copies fly while this one is computed; the other
-    // stage was released by the barrier that ended the previous iteration
-    if (k0 + BK < hi) {
-      load_kv(k0 + BK, st ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const T* ks = kvs + st * 2 * BK * LD;
-    const T* vs = ks + BK * LD;
-    // a tile whose every (row, key) pair is admitted skips the mask
-    const bool full = k0 + BK <= p.t && (!p.causal || k0 + BK - 1 <= q0) &&
-                      (p.window <= 0 || q_last - k0 < p.window);
-
-    float sc[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t a[4];
-      ldmatrix_x4(a, qs + (warp * 16 + (mat & 1) * 8 + mrow) * LD + kk * 16 +
-                         (mat >> 1) * 8);
-#pragma unroll
-      for (int np = 0; np < BK / 16; ++np) {
-        uint32_t b[4];
-        ldmatrix_x4(b, ks + (np * 16 + (mat >> 1) * 8 + mrow) * LD + kk * 16 +
-                           (mat & 1) * 8);
-        mma_16<T>(sc[2 * np], a, b[0], b[1]);
-        mma_16<T>(sc[2 * np + 1], a, b[2], b[3]);
-      }
-    }
-
-    // scale, softcap, mask; row max over the quad that shares a row
-    uint32_t ok = 0;
-    float mx[2] = {kMasked, kMasked};
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = row0 + (e >> 1) * 8;
-        const int kj = k0 + n * 8 + (lane & 3) * 2 + (e & 1);
-        float x = sc[n][e] * p.scale;
-        if (p.softcap > 0.f) x = p.softcap * tanh_approx(x * inv_cap);
-        if (full || admitted(p, qi, kj)) {
-          ok |= 1u << (n * 4 + e);
-        } else {
-          x = kMasked;
-        }
-        sc[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float corr[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      corr[i] = exp2f((m[i] - m_new) * kLog2e);
-      m[i] = m_new;
-      l[i] *= corr[i];  // per-thread partial sums; the quad sums at the end
-    }
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pe = (ok >> (n * 4 + e)) & 1u
-                             ? exp2f((sc[n][e] - m[e >> 1]) * kLog2e)
-                             : 0.f;
-        sc[n][e] = pe;
-        l[e >> 1] += pe;
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      acc[n][0] *= corr[0];
-      acc[n][1] *= corr[0];
-      acc[n][2] *= corr[1];
-      acc[n][3] *= corr[1];
-    }
-
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack2<T>(sc[2 * kk][0], sc[2 * kk][1]);
-      a[1] = pack2<T>(sc[2 * kk][2], sc[2 * kk][3]);
-      a[2] = pack2<T>(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
-      a[3] = pack2<T>(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < HD / 16; ++dp) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, vs + (kk * 16 + (mat & 1) * 8 + mrow) * LD +
-                                 dp * 16 + (mat >> 1) * 8);
-        mma_16<T>(acc[2 * dp], a, b[0], b[1]);
-        mma_16<T>(acc[2 * dp + 1], a, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // this stage is free for the tile after next
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    l[i] = fmaxf(l[i], 1e-30f);
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qi = row0 + i * 8;
-    if (qi >= p.s) continue;
-    if (p.lse != nullptr && (lane & 3) == 0)
-      store_lse(p, batch, head, qi, m[i], l[i]);
-    T* orow = og + qi * q_step + (lane & 3) * 2;
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      *reinterpret_cast<uint32_t*>(orow + n * 8) =
-          pack2<T>(acc[n][2 * i] / l[i], acc[n][2 * i + 1] / l[i]);
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // 16-bit at head dims 128 and 256: wgmma fed by TMA (the helpers below
-// serve the hd 64/80/96 body too)
+// serve the hd 16-96 body too)
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -1149,8 +956,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// 16-bit at head dims 64, 80 and 96: wgmma fed by TMA, a producer warp, and
-// two consumer warpgroups that take turns on the tensor cores
+// 16-bit at head dims 16, 32, 64, 80 and 96: wgmma fed by TMA, a producer
+// warp, and two consumer warpgroups (at 64-96 taking turns on the tensor
+// cores)
 // ---------------------------------------------------------------------------
 
 constexpr int kWsThreads = 288;   // two consumer warpgroups, a producer warp
@@ -1164,33 +972,48 @@ constexpr int kGroup = 8;         // (batch, head) pairs a group of the grid
 // no swizzle atom.  Nine warps leave a consumer 168 registers; at hd 96
 // the output's 16 more floats put 128-key tiles 8 registers over (32
 // bytes spilled and a slower body: tools/ab_flash.py's hd96_bk128 variant
-// times it).  ref.ws_block_k keeps the same rule for the CPU model.
+// times it).  At hd 16 and 32 a row is 32 or 64 bytes, so the whole tile
+// is one narrow box and there is no 128-byte one (kWide 0); tiles of 64
+// keys in a fixed ring of 4 stages, two blocks an SM (kMinBlocks: 112
+// registers a thread hold scores 32, P 16 and the output 16 floats), where
+// filling shared memory with stages would leave one block an SM
+// (tools/ab_flash.py --narrow times the other tilings).  ref.ws_block_k
+// keeps the same rule for the CPU model.
 template <int HD>
 struct WsTile {
-  static constexpr int BK = HD == 96 ? 112 : 128;
-  static constexpr int kNarrow = HD - 64;            // columns past 64
+  static constexpr int BK = HD < 64 ? 64 : (HD == 96 ? 112 : 128);
+  static constexpr int kMinBlocks = HD < 64 ? 2 : 1;   // blocks an SM
+  // whether the two consumer warpgroups take turns on the tensor cores: at
+  // hd 16 and 32 (two blocks an SM) free issue measured as fast or faster
+  static constexpr bool kTurns = HD >= 64;
+  static constexpr int kWide = HD < 64 ? 0 : 64;     // 128-byte box columns
+  static constexpr int kNarrow = HD - kWide;         // columns past them
   static constexpr int kNarrowRow = kNarrow * 2;     // bytes a row of them
-  // the 16-byte chunk index of the second box's swizzle is XORed with row
+  // the 16-byte chunk index of the narrow box's swizzle is XORed with row
   // bits from this one up (rows of 32 bytes: bit 2; of 64: bit 1)
   static constexpr int kSwizzleShift = kNarrow == 16 ? 2 : 1;
-  static constexpr int kQWide = kWgBlockQ * 128;     // bytes of Q's first box
-  static constexpr int kKWide = BK * 128;
+  static constexpr int kQWide = kWgBlockQ * kWide * 2;   // bytes of Q's box
+  static constexpr int kKWide = BK * kWide * 2;
   static constexpr int kQBytes = kWgBlockQ * HD * 2;
   static constexpr int kKBytes = BK * HD * 2;
   // as many K/V stages as fit beside Q, 1 KB of alignment and the barriers
-  static constexpr int kStages = (kMaxSmem - kQBytes - 2048) / (2 * kKBytes);
+  // (at hd 16 and 32 a fixed ring)
+  static constexpr int kStages =
+      HD < 64 ? 4 : (kMaxSmem - kQBytes - 2048) / (2 * kKBytes);
   static constexpr int kBarOffset = kQBytes + 2 * kStages * kKBytes;
   static constexpr size_t kSmemBytes = kBarOffset + 8 * (1 + 4 * kStages) +
                                        1024;
-  static_assert(HD == 64 || HD == 80 || HD == 96, "head dims 64, 80, 96");
-  static_assert(kStages >= 2, "two K/V stages must fit");
+  static_assert(HD == 16 || HD == 32 || HD == 64 || HD == 80 || HD == 96,
+                "head dims 16, 32, 64, 80, 96");
+  static_assert(kStages >= 2 && kSmemBytes * kMinBlocks <= kMaxSmem,
+                "two K/V stages must fit, kMinBlocks times");
 };
 
 // kCap: 1 when a softcap applies.  Fixed per instantiation, since a test
 // of it among the scores costs instructions on every one.  T: the type of
 // q, k, v and out (__nv_bfloat16 or __half).
 template <int HD, int kCap, typename T>
-__global__ void __launch_bounds__(kWsThreads, 1)
+__global__ void __launch_bounds__(kWsThreads, WsTile<HD>::kMinBlocks)
     flash_wgmma_ws(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tq2,
                    const __grid_constant__ CUtensorMap tk,
@@ -1202,7 +1025,9 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   using Tile = WsTile<HD>;
   constexpr int BK = Tile::BK, NST = Tile::kStages;
   constexpr int NS = BK / 8;   // score n8 blocks per thread
-  constexpr bool kSplit = Tile::kNarrow > 0;
+  // which boxes a row has: 64 columns 128-byte swizzled (hd >= 64), and
+  // the rest past them (hd 80, 96) or the whole row (hd 16, 32)
+  constexpr bool kWideBox = Tile::kWide > 0, kNarrowBox = Tile::kNarrow > 0;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;   // swizzle atoms 1024-aligned
@@ -1261,23 +1086,28 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     // refill and was slower here.
     if (lane == 0) {
       mbar_expect(qbar, Tile::kQBytes);
-      tma_load(qs, &tq, qbar, 0, head, q0, batch);
-      if constexpr (kSplit)
-        tma_load(qs + Tile::kQWide, &tq2, qbar, 64, head, q0, batch);
+      if constexpr (kWideBox) tma_load(qs, &tq, qbar, 0, head, q0, batch);
+      if constexpr (kNarrowBox)
+        tma_load(qs + Tile::kQWide, &tq2, qbar, Tile::kWide, head, q0,
+                 batch);
       for (int j = 0; j < n_tiles; ++j) {
         const int st = j % NST, free_parity = ((j / NST) & 1) ^ 1;
         const int k0 = lo + j * BK;
         const uint32_t ks = k_smem(st), vs = ks + Tile::kKBytes;
         mbar_wait(free_k(st), free_parity);
         mbar_expect(full_k(st), Tile::kKBytes);
-        tma_load(ks, &tk, full_k(st), 0, kvh, k0, batch);
-        if constexpr (kSplit)
-          tma_load(ks + Tile::kKWide, &tk2, full_k(st), 64, kvh, k0, batch);
+        if constexpr (kWideBox)
+          tma_load(ks, &tk, full_k(st), 0, kvh, k0, batch);
+        if constexpr (kNarrowBox)
+          tma_load(ks + Tile::kKWide, &tk2, full_k(st), Tile::kWide, kvh,
+                   k0, batch);
         mbar_wait(free_v(st), free_parity);
         mbar_expect(full_v(st), Tile::kKBytes);
-        tma_load(vs, &tv, full_v(st), 0, kvh, k0, batch);
-        if constexpr (kSplit)
-          tma_load(vs + Tile::kKWide, &tv2, full_v(st), 64, kvh, k0, batch);
+        if constexpr (kWideBox)
+          tma_load(vs, &tv, full_v(st), 0, kvh, k0, batch);
+        if constexpr (kNarrowBox)
+          tma_load(vs + Tile::kKWide, &tv2, full_v(st), Tile::kWide, kvh,
+                   k0, batch);
       }
     }
     return;
@@ -1288,12 +1118,15 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   // and hands the turn over, so one warpgroup's softmax runs while the
   // other's products are on the tensor cores.  Warpgroup 0 goes first;
   // warpgroup 1 hands no turn over after its last issue, so every wait is
-  // matched by exactly one hand-over.
+  // matched by exactly one hand-over.  Without Tile::kTurns each issues
+  // whenever it is ready.
   auto my_turn = [&]() {
-    asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
+    if constexpr (Tile::kTurns)
+      asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
   };
   auto your_turn = [&]() {
-    asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
+    if constexpr (Tile::kTurns)
+      asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
   };
 
   const int wq = (tid / 32) & 3;           // warp within it: 16 rows each
@@ -1308,40 +1141,46 @@ __global__ void __launch_bounds__(kWsThreads, 1)
            (p.window <= 0 || qb - k0 < p.window);
   };
   // S = Q K^T for the tile in stage st, both operands K-major from shared
-  // memory: 4 k-steps in the first box, at hd 80 a fifth in the second, at
-  // hd 96 a fifth and a sixth
+  // memory: 4 k-steps in the wide box, then one (16 columns: hd 80 and 16)
+  // or two (32 columns: hd 96 and 32) in the narrow box
   float sc[BK / 2];
   auto issue_scores = [&](int st) {
     const uint32_t ks = k_smem(st);
+    if constexpr (kWideBox) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_scores<BK, T>(sc, sw128_desc(q_rows + kk * 32, 16),
-                          sw128_desc(ks + kk * 32, 16), kk > 0);
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_scores<BK, T>(sc, sw128_desc(q_rows + kk * 32, 16),
+                            sw128_desc(ks + kk * 32, 16), kk > 0);
+    }
     if constexpr (Tile::kNarrow == 16) {
       wgmma_scores<BK, T>(sc, sw32_desc(q_rows2),
-                          sw32_desc(ks + Tile::kKWide), 1);
+                          sw32_desc(ks + Tile::kKWide), kWideBox);
     } else if constexpr (Tile::kNarrow == 32) {
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk)
         wgmma_scores<BK, T>(sc, sw64_desc(q_rows2 + kk * 32),
-                            sw64_desc(ks + Tile::kKWide + kk * 32), 1);
+                            sw64_desc(ks + Tile::kKWide + kk * 32),
+                            kWideBox || kk > 0);
     }
     wgmma_commit();
   };
   // O += P V for the tile in stage st, P from registers, V MN-major from
-  // shared memory: columns 0-63 in one product, past them a second
-  // (accumulators 32 + 8 floats at hd 80, 32 + 16 at hd 96)
-  constexpr int kAcc2 = kSplit ? Tile::kNarrow / 2 : 1;
+  // shared memory: columns 0-63 in one product, the narrow box's in a
+  // second (accumulators 32 + 8 floats at hd 80, 32 + 16 at hd 96; 8 at hd
+  // 16, 16 at hd 32)
+  constexpr int kAcc = kWideBox ? 32 : 1;
+  constexpr int kAcc2 = kNarrowBox ? Tile::kNarrow / 2 : 1;
   uint32_t pa[BK / 16][4];
-  float acc[32];
+  float acc[kAcc];
   float acc2[kAcc2];
   auto issue_values = [&](int st) {
     const uint32_t vs = k_smem(st) + Tile::kKBytes;
     const uint32_t vs2 = vs + Tile::kKWide;
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      wgmma_rs_n64<T>(acc, pa[kk],
-                      sw128_desc(vs + kk * 16 * 128, Tile::kKWide));
+      if constexpr (kWideBox)
+        wgmma_rs_n64<T>(acc, pa[kk],
+                        sw128_desc(vs + kk * 16 * 128, Tile::kKWide));
       if constexpr (Tile::kNarrow == 16)
         wgmma_rs_n16<T>(acc2, pa[kk], sw32_desc(vs2 + kk * 16 * 32));
       else if constexpr (Tile::kNarrow == 32)
@@ -1371,17 +1210,21 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     // a warp none of whose rows raised its max leaves the output as it is
     // (corr is exactly 1 then)
     if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+      if constexpr (kWideBox) {
 #pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] *= corr[(i >> 1) & 1];
-      if constexpr (kSplit) {
+        for (int i = 0; i < kAcc; ++i) acc[i] *= corr[(i >> 1) & 1];
+      }
+      if constexpr (kNarrowBox) {
 #pragma unroll
         for (int i = 0; i < kAcc2; ++i) acc2[i] *= corr[(i >> 1) & 1];
       }
     }
   };
 
+  if constexpr (kWideBox) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+  }
 #pragma unroll
   for (int i = 0; i < kAcc2; ++i) acc2[i] = 0.f;
   mbar_wait(qbar, 0);
@@ -1411,7 +1254,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     mbar_wait(full_v(st), parity);
     if constexpr (kNext) mbar_wait(full_k(st1), parity1);
     fence_regs(sc);
-    fence_regs(acc);
+    if constexpr (kWideBox) fence_regs(acc);
     fence_regs(acc2);
     fence_regs(pa);
     my_turn();
@@ -1426,7 +1269,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       softmax_tile(lo + (i + 1) * BK);
     }
     wgmma_wait<0>();
-    fence_regs(acc);
+    if constexpr (kWideBox) fence_regs(acc);
     fence_regs(acc2);
     fence_regs(pa);
     if (lane == 0) mbar_arrive(free_v(st));
@@ -1454,15 +1297,17 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = rq + 8 * r;
+    if constexpr (kWideBox) {
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const uint32_t off = row * 128 + ((n ^ (row & 7)) * 16) +
-                           (lane & 3) * 4;
-      *reinterpret_cast<uint32_t*>(gbase + off) =
-          pack2<T>(acc[4 * n + 2 * r] * l[r], acc[4 * n + 2 * r + 1] * l[r]);
+      for (int n = 0; n < 8; ++n) {
+        const uint32_t off = row * 128 + ((n ^ (row & 7)) * 16) +
+                             (lane & 3) * 4;
+        *reinterpret_cast<uint32_t*>(gbase + off) = pack2<T>(
+            acc[4 * n + 2 * r] * l[r], acc[4 * n + 2 * r + 1] * l[r]);
+      }
     }
-    if constexpr (kSplit) {
-      // the second box: 16-byte chunks n of a kNarrowRow-byte row, swizzled
+    if constexpr (kNarrowBox) {
+      // the narrow box: 16-byte chunks n of a kNarrowRow-byte row, swizzled
       // as the narrow maps are (32 or 64 bytes)
       constexpr int kChunks = Tile::kNarrow / 8;
 #pragma unroll
@@ -1478,8 +1323,9 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   asm volatile("bar.sync %0, 128;\n" ::"r"(3 + wg) : "memory");
   if (tid % 128 == 0) {
-    tma_store(&to, q_rows, 0, head, qa, batch);
-    if constexpr (kSplit) tma_store(&to2, q_rows2, 64, head, qa, batch);
+    if constexpr (kWideBox) tma_store(&to, q_rows, 0, head, qa, batch);
+    if constexpr (kNarrowBox)
+      tma_store(&to2, q_rows2, Tile::kWide, head, qa, batch);
     asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   }
@@ -1885,22 +1731,29 @@ int launch_wgmma(const Params& p, int b, cudaStream_t stream) {
 template <int HD, int kCap, typename T>
 int launch_ws(const Params& p, int b, cudaStream_t stream) {
   using Tile = WsTile<HD>;
-  // at hd 80 and 96 each tensor is two maps over the same memory: columns
-  // 0-63 and 64-(hd - 1) (at hd 64 the second is never read)
+  // each tensor is two maps over the same memory: at hd 80 and 96 columns
+  // 0-63 and 64-(hd - 1) (at hd 64 the second is never read), at hd 16 and
+  // 32 the whole row in the second (the first, the same, is never read)
+  constexpr int kCols1 = Tile::kWide > 0 ? 64 : HD;
   constexpr int kCols2 = Tile::kNarrow > 0 ? Tile::kNarrow : 64;
   CUtensorMap tq, tq2, tk, tk2, tv, tv2, to, to2;
-  if (!make_map<T>(&tq, p.q, HD, p.h, p.s, b, kWgBlockQ) ||
+  if (!make_map<T>(&tq, p.q, HD, p.h, p.s, b, kWgBlockQ, kCols1) ||
       !make_map<T>(&tq2, p.q, HD, p.h, p.s, b, kWgBlockQ, kCols2) ||
-      !make_map<T>(&tk, p.k, HD, p.kh, p.t, b, Tile::BK) ||
+      !make_map<T>(&tk, p.k, HD, p.kh, p.t, b, Tile::BK, kCols1) ||
       !make_map<T>(&tk2, p.k, HD, p.kh, p.t, b, Tile::BK, kCols2) ||
-      !make_map<T>(&tv, p.v, HD, p.kh, p.t, b, Tile::BK) ||
+      !make_map<T>(&tv, p.v, HD, p.kh, p.t, b, Tile::BK, kCols1) ||
       !make_map<T>(&tv2, p.v, HD, p.kh, p.t, b, Tile::BK, kCols2) ||
-      !make_map<T>(&to, p.out, HD, p.h, p.s, b, 64) ||
+      !make_map<T>(&to, p.out, HD, p.h, p.s, b, 64, kCols1) ||
       !make_map<T>(&to2, p.out, HD, p.h, p.s, b, 64, kCols2))
     return (int)cudaErrorNotSupported;
-  const cudaError_t err = cudaFuncSetAttribute(
+  cudaError_t err = cudaFuncSetAttribute(
       flash_wgmma_ws<HD, kCap, T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Tile::kSmemBytes);
+  // more than one block an SM: ask for the carveout that holds them all
+  if (err == cudaSuccess && Tile::kMinBlocks > 1)
+    err = cudaFuncSetAttribute(flash_wgmma_ws<HD, kCap, T>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   // one dimension over (batch, head, query tile), in the kernel's order
   const dim3 grid(p.h * b * ((p.s + kWgBlockQ - 1) / kWgBlockQ));
@@ -1915,11 +1768,9 @@ template <int HD, typename T>
 int launch_16(const Params& p, int b, cudaStream_t stream) {
   if constexpr (HD >= 128) {
     return launch_wgmma<HD, T>(p, b, stream);
-  } else if constexpr (HD >= 64) {
+  } else {
     return p.softcap > 0.f ? launch_ws<HD, 1, T>(p, b, stream)
                            : launch_ws<HD, 0, T>(p, b, stream);
-  } else {
-    return launch(flash_bf16<HD, T>, 128, kBf16SmemBytes<HD>, p, b, stream);
   }
 }
 
@@ -1977,12 +1828,14 @@ int tiling(int* bk, int* stages, int* smem_bytes) {
 }
 }  // namespace
 
-// The tiling of a wgmma body at head dim hd, bf16 and f16 alike (64, 80
-// and 96: flash_wgmma_ws; 128 and 256: flash_wgmma): keys a tile, K/V
-// stages and dynamic shared memory; returns -1 for another head dim.
+// The tiling of a wgmma body at head dim hd, bf16 and f16 alike (16, 32,
+// 64, 80 and 96: flash_wgmma_ws; 128 and 256: flash_wgmma): keys a tile,
+// K/V stages and dynamic shared memory; returns -1 for another head dim.
 extern "C" int flash_attention_tiling(int hd, int* bk, int* stages,
                                       int* smem_bytes) {
   switch (hd) {
+    case 16: return tiling<WsTile<16>>(bk, stages, smem_bytes);
+    case 32: return tiling<WsTile<32>>(bk, stages, smem_bytes);
     case 64: return tiling<WsTile<64>>(bk, stages, smem_bytes);
     case 80: return tiling<WsTile<80>>(bk, stages, smem_bytes);
     case 96: return tiling<WsTile<96>>(bk, stages, smem_bytes);

@@ -32,12 +32,13 @@ FLASH = Kernel("flash_attention.cu", "flash_attention_launch",
                + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 
 # The head dims the kernel is built for, and the body each runs in bf16 and
-# f16 (each body templated on the 16-bit type): 16 and 32 mma.sync
-# (flash_bf16), 64, 80 and 96 the warp-specialised wgmma body
-# (flash_wgmma_ws: a producer warp, two consumer warpgroups taking turns;
-# columns past 64 a second TMA box), 128 and 256 wgmma with thread 0 as
-# producer (flash_wgmma); f32 runs every one on the tensor cores in
-# 3xTF32, three TF32 products for each f32 one (flash_3xtf32)
+# f16 (each body templated on the 16-bit type): 16, 32, 64, 80 and 96 the
+# warp-specialised wgmma body (flash_wgmma_ws: a producer warp, two
+# consumer warpgroups taking turns; columns past 64 a second TMA box, and
+# at 16 and 32 the whole row one narrow box over 64-key tiles, two blocks
+# an SM), 128 and 256 wgmma with thread 0 as producer (flash_wgmma); f32
+# runs every one on the tensor cores in 3xTF32, three TF32 products for
+# each f32 one (flash_3xtf32)
 HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -87,9 +88,10 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     a multiple of Kh -> (B, S, H, hd) in q's type; with ``return_lse`` also
     each query row's log-sum-exp, (B, Kh, H / Kh, S) float32 (the
     reference's ``_flash_fwd_impl`` layout, the scale of the true head
-    dim).  bf16 and f16 run ``mma.sync`` at built hd 16 and 32, ``wgmma``
-    fed by TMA at 64 and up (see :data:`HEAD_DIMS`), P rounded to the input
-    type for P V and the output rounded once; f32 ``mma.sync`` in 3xTF32
+    dim).  bf16 and f16 run ``wgmma`` fed by TMA at every built hd, the
+    warp-specialised body at 16 to 96 (see :data:`HEAD_DIMS`), P rounded
+    to the input type for P V and the output rounded once; f32 ``mma.sync``
+    in 3xTF32
     (each product as big.big + big.small + small.big of TF32 splits, within
     a few f32 ulps; ``ref.flash_attention_f32_tc_ref``).  A built
     head dim (96 included) makes no copy of q, k or v.  Each launch is
@@ -153,9 +155,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q (B, S, H, hd), k and v (B, T, Kh, hd) -> (B, S, H, hd), and with
     ``return_lse`` the rows' log-sum-exp (B, Kh, H / Kh, S).  The
     reference's ``cq``/``ck`` TPU tiles have no counterpart: in bf16 and
-    f16 the kernel tiles by 128 queries at head dims 64 to 256 (64 below,
-    and in f32) and takes any S and T; a head dim outside
-    :data:`HEAD_DIMS` runs padded (8 to 16, 88 to 96)."""
+    f16 the kernel tiles by 128 queries at every head dim, over 64 keys at
+    hd 16 and 32, 128 at 64 and 80, 112 at 96, 128 at 128 and 64 at 256
+    (in f32 by 64 queries, ``ref.f32_tc_tiles``), and takes any S and T; a
+    head dim outside :data:`HEAD_DIMS` runs padded (8 to 16, 88 to 96)."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap, return_lse=return_lse)

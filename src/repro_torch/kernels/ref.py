@@ -263,16 +263,16 @@ LOG2E = 1.4426950408889634
 
 def ws_block_k(hd: int) -> int:
     """Keys a tile of the CUDA kernel's ``flash_wgmma_ws`` body at head dim
-    ``hd`` (its ``WsTile::BK``): 128, and 112 at hd 96, where a 128-key
-    tile spills."""
-    return 112 if hd == 96 else 128
+    ``hd`` (its ``WsTile::BK``): 64 at hd 16 and 32 (two blocks an SM),
+    128 at 64 and 80, and 112 at hd 96, where a 128-key tile spills."""
+    return 64 if hd < 64 else 112 if hd == 96 else 128
 
 
 def flash_attention_tiled_ref(q, k, v, *, block_q: int = 128,
                               block_k=None, causal: bool = True,
                               window: int = 0, softcap: float = 0.0,
                               scale=None, return_lse: bool = False):
-    """The CUDA kernel's tile walk at head dims 64, 80 and 96
+    """The CUDA kernel's tile walk at head dims 16, 32, 64, 80 and 96
     (``flash_wgmma_ws``, in bf16 or f16), with the arguments and result of
     :func:`flash_attention_ref`.  Each tile of ``block_q`` queries walks the
     live key tiles of ``block_k`` keys (:func:`ws_block_k` unless given) as

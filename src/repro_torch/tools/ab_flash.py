@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """A/B timing of a flash body's design choices on one GPU: the bf16 hd
-64/80/96 body, or with ``--f32`` the f32 body (3xTF32).
+64/80/96 body, with ``--narrow`` the same body at hd 16 and 32, or with
+``--f32`` the f32 body (3xTF32).
 
 Run from the repository root:
 
-    python3 src/repro_torch/tools/ab_flash.py [--f32] [--parent DIR]
+    python3 src/repro_torch/tools/ab_flash.py [--narrow | --f32] [--parent DIR]
 
 It builds ``src/repro_torch/kernels/csrc/flash_attention.cu`` as it ships
 and once per variant in ``VARIANTS`` (a copy of the source under
@@ -28,6 +29,12 @@ are medians of CUDA event timings (``chip_smoke.time_ms``), taken in turns
 (shape, library) and one ``[ab-build]`` line per library (ptxas registers
 and spills of ``flash_wgmma_ws``); exits non-zero if a design variant fails
 its check, and 2 without a card.
+
+With ``--narrow`` the substitutions are ``VARIANTS_NARROW`` and ``PROBES``
+(the tilings of hd 16 and 32 and part of the exponentials on the FMA
+pipe) and the shapes ``SHAPES_NARROW`` (B 4, S 1024, H 8 over Kh 2, and
+B 2, S 4608, H 32 over Kh 8, causal, at hd 16 and 32); the rest is as
+above, and the ``[ab-build]`` lines give the hd 16 and 32 kernels.
 
 With ``--f32`` the substitutions are ``VARIANTS_F32`` and ``PROBES_F32``
 within ``flash_3xtf32`` (and its ``Tf32Tile``), the inputs are float32 at
@@ -60,13 +67,10 @@ from repro_torch.kernels.flash_attention import FLASH  # noqa: E402
 SOURCE = Path("src/repro_torch/kernels/csrc/flash_attention.cu")
 BODY = "flash_wgmma_ws(const"   # substitutions apply from here on
 
-TURNS = [('    asm volatile("bar.sync %0, 256;\\n" ::"r"(1 + wg) : "memory");',
-          ""),
-         ('    asm volatile("bar.arrive %0, 256;\\n" ::"r"(2 - wg) : "memory");',
-          "")]
+TURNS = "  static constexpr bool kTurns = HD >= 64;"
 VARIANTS = {
     # the warpgroups issue whenever they are ready, with no turns
-    "no_turns": TURNS,
+    "no_turns": [(TURNS, TURNS.replace("HD >= 64", "false"), False)],
     # heaviest query tiles first across every (batch, head) pair at once
     "all_heads_first": [("constexpr int kGroup = 8;",
                          "constexpr int kGroup = 1 << 20;", False)],
@@ -78,21 +82,25 @@ VARIANTS = {
                         "corr[1] != 1.f)) {", "    {")],
     # 128-key tiles at hd 96 too (ptxas spills there at nine warps' 168
     # registers a thread)
-    "hd96_bk128": [("  static constexpr int BK = HD == 96 ? 112 : 128;",
-                    "  static constexpr int BK = 128;", False)],
+    "hd96_bk128": [("  static constexpr int BK = HD < 64 ? 64 : "
+                    "(HD == 96 ? 112 : 128);",
+                    "  static constexpr int BK = HD < 64 ? 64 : 128;",
+                    False)],
 }
 NO_SOFTMAX = [("  auto softmax_tile = [&](int k0) {\n",
                "  auto softmax_tile = [&](int k0) {\n    return;\n")]
 NO_PRODUCTS = [
-    ("      wgmma_scores<BK, T>(sc, sw128_desc(q_rows + kk * 32, 16),\n"
-     "                          sw128_desc(ks + kk * 32, 16), kk > 0);", ";"),
-    ("      wgmma_scores<BK, T>(sc, sw32_desc(q_rows2),\n"
-     "                          sw32_desc(ks + Tile::kKWide), 1);", ";"),
-    ("        wgmma_scores<BK, T>(sc, sw64_desc(q_rows2 + kk * 32),\n"
-     "                            sw64_desc(ks + Tile::kKWide + kk * 32), 1);",
+    ("        wgmma_scores<BK, T>(sc, sw128_desc(q_rows + kk * 32, 16),\n"
+     "                            sw128_desc(ks + kk * 32, 16), kk > 0);",
      ";"),
-    ("      wgmma_rs_n64<T>(acc, pa[kk],\n"
-     "                      sw128_desc(vs + kk * 16 * 128, Tile::kKWide));",
+    ("      wgmma_scores<BK, T>(sc, sw32_desc(q_rows2),\n"
+     "                          sw32_desc(ks + Tile::kKWide), kWideBox);",
+     ";"),
+    ("        wgmma_scores<BK, T>(sc, sw64_desc(q_rows2 + kk * 32),\n"
+     "                            sw64_desc(ks + Tile::kKWide + kk * 32),\n"
+     "                            kWideBox || kk > 0);", ";"),
+    ("        wgmma_rs_n64<T>(acc, pa[kk],\n"
+     "                        sw128_desc(vs + kk * 16 * 128, Tile::kKWide));",
      ";"),
     ("wgmma_rs_n16<T>(acc2, pa[kk], sw32_desc(vs2 + kk * 16 * 32));", ";"),
     ("wgmma_rs_n32<T>(acc2, pa[kk], sw64_desc(vs2 + kk * 16 * 64));", ";")]
@@ -104,7 +112,78 @@ PROBES = {
     "probe_no_exp": [('asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : '
                       '"f"(x));', "y = x;", False)],
 }
+# the hd 16 and 32 tiling's lines in WsTile, which the narrow variants
+# rewrite (outside the body)
+BK_NARROW = "  static constexpr int BK = HD < 64 ? 64 : (HD == 96 ? 112 : 128);"
+BLOCKS_NARROW = "  static constexpr int kMinBlocks = HD < 64 ? 2 : 1;"
+STAGES_NARROW = "      HD < 64 ? 4 : (kMaxSmem - kQBytes - 2048) / (2 * kKBytes);"
+
+
+def narrow_tile(bk: int, blocks: int, stages=None) -> list:
+    """Substitutions giving hd 16 and 32 tiles of ``bk`` keys, a launch
+    bound of ``blocks`` blocks an SM and a ring of ``stages`` (None: as
+    many as fit beside Q)."""
+    ring = (f"      HD < 64 ? {stages} : " if stages else "      ") + \
+        "(kMaxSmem - kQBytes - 2048) / (2 * kKBytes);"
+    return [(BK_NARROW, BK_NARROW.replace("HD < 64 ? 64", f"HD < 64 ? {bk}"),
+             False),
+            (BLOCKS_NARROW, BLOCKS_NARROW.replace("? 2", f"? {blocks}"),
+             False),
+            (STAGES_NARROW, ring, False)]
+
+
+# 2^x on the FMA pipe for x <= 0: Cody-Waite, 2^floor(x) times a cubic in
+# the fraction, fitted to 2^f on [0, 1) at a relative error under 8.6e-5
+# (P is rounded to bf16's 2^-9 or f16's 2^-12 after it); below -126 the
+# power's exponent would leave the normals, so x is clamped there (2^-126
+# rounds to 0 in P V as ex2.approx.ftz's subnormals do)
+EXP2_FMA = """__device__ __forceinline__ float exp2_fma(float x) {
+  x = fmaxf(x, -126.f);
+  const float j = floorf(x);
+  const float f = x - j;
+  const float p = fmaf(fmaf(fmaf(0.07706641405820847f, f,
+                                 0.22764569520950317f), f,
+                            0.6951166391372681f), f, 1.f);
+  return __int_as_float(__float_as_int(p) + ((int)j << 23));
+}
+
+"""
+EX2_LINE = "      float pe = ex2_approx(fmaf(sc[4 * n + e], unit, -ml[e >> 1]));"
+
+
+def exp2_share(every: int) -> list:
+    """Substitutions that take the exponentials of one score block in
+    ``every`` on the FMA pipe (:data:`EXP2_FMA`) and the rest on the
+    SFU."""
+    return [("__device__ __forceinline__ float ex2_approx(float x) {",
+             EXP2_FMA + "__device__ __forceinline__ float ex2_approx(float "
+             "x) {", False),
+            (EX2_LINE,
+             "      const float xe = fmaf(sc[4 * n + e], unit, -ml[e >> 1]);\n"
+             f"      float pe = n % {every} == {every - 1} ? exp2_fma(xe) : "
+             "ex2_approx(xe);", False)]
+
+
+VARIANTS_NARROW = {
+    # one block an SM over 128-key tiles, the ring of 4 stages kept
+    "narrow_bk128_one_block": narrow_tile(128, 1, 4),
+    # one block an SM over 128-key tiles, as many stages as fit (13 at hd
+    # 32): the tile the wide rows' habit would give
+    "narrow_bk128_fill": narrow_tile(128, 1),
+    # 64-key tiles, two blocks an SM, a ring of 2 or 8 stages
+    "narrow_stages_2": narrow_tile(64, 2, 2),
+    "narrow_stages_8": narrow_tile(64, 2, 8),
+    # the warpgroups take turns on the tensor cores, as at hd 64 to 96
+    "narrow_turns": [(TURNS, TURNS.replace("HD >= 64", "true"), False)],
+    # a quarter or an eighth of the exponentials on the FMA pipe
+    "narrow_exp2_fma_quarter": exp2_share(4),
+    "narrow_exp2_fma_eighth": exp2_share(8),
+}
 # (label, B, S, H, Kh, hd, causal, lse)
+SHAPES_NARROW = (("hd16_bf16", 4, 1024, 8, 2, 16, True, False),
+                 ("hd32_bf16", 4, 1024, 8, 2, 32, True, False),
+                 ("hd32_bf16_s4608", 2, 4608, 32, 8, 32, True, False),
+                 ("hd16_bf16_s4608", 2, 4608, 32, 8, 16, True, False))
 # the f32 body: its tile (per head dim, see Tf32Tile), its launch bound,
 # and how it splits and sums
 # the f32 body's Tf32Tile lines that variants rewrite
@@ -189,16 +268,18 @@ def variant_source(text: str, subs, body: str = BODY) -> str:
     return text
 
 
-def build(parent, f32=False) -> dict:
+def build(parent, f32=False, narrow=False) -> dict:
     """{name: ctypes entry point} for the shipped source, every variant and
     probe, and the parent's source (one nvcc each, all at once); prints each
-    one's ptxas report of the hd 64/80/96 body (with ``f32``, of the f32
+    one's ptxas report of the hd 64/80/96 body (with ``narrow``, of its hd
+    16 and 32 kernels, from ``VARIANTS_NARROW``; with ``f32``, of the f32
     body, from ``VARIANTS_F32`` and ``PROBES_F32``)."""
     out = ROOT / "build" / "ab"
     out.mkdir(parents=True, exist_ok=True)
     shipped = (ROOT / SOURCE).read_text()
     sources = {"shipped": shipped}
-    subs = {**VARIANTS_F32, **PROBES_F32} if f32 else {**VARIANTS, **PROBES}
+    subs = ({**VARIANTS_F32, **PROBES_F32} if f32 else
+            {**(VARIANTS_NARROW if narrow else VARIANTS), **PROBES})
     sources.update({n: variant_source(shipped, s,
                                       BODY_F32 if f32 else BODY)
                     for n, s in subs.items()})
@@ -221,6 +302,8 @@ def build(parent, f32=False) -> dict:
         fn.argtypes, fn.restype = FLASH.argtypes, ctypes.c_int
         libs[name] = fn
         for kernel, arg, used, stack, spill in cs.ptxas_report(log):
+            if narrow and arg and arg.split(",")[0] not in ("16", "32"):
+                continue
             if kernel.startswith(cs.F32_FLASH if f32 else "flash_wgmma_ws"):
                 print(f"[ab-build] {name} {kernel}<{arg}>: {used}; "
                       f"stack {stack} bytes, spill stores {spill} bytes",
@@ -234,12 +317,14 @@ def main() -> int:
                     "source is timed beside the shipped one")
     ap.add_argument("--f32", action="store_true", help="the f32 body's "
                     "variants at SHAPES_F32")
+    ap.add_argument("--narrow", action="store_true", help="the hd 16 and "
+                    "32 variants at SHAPES_NARROW")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("ab_flash: no CUDA device", file=sys.stderr)
         return 2
     print(f"[ab] card {cs.card_identity()}", flush=True)
-    libs = build(args.parent, args.f32)
+    libs = build(args.parent, args.f32, args.narrow)
     if args.f32:
         return main_f32(libs)
     dev = torch.device("cuda")
@@ -247,7 +332,8 @@ def main() -> int:
     gen.manual_seed(cs.SEED)
     failed = []
     with torch.no_grad():
-        for label, b, s, h, kh, hd, causal, want_lse in SHAPES:
+        for label, b, s, h, kh, hd, causal, want_lse in (
+                SHAPES_NARROW if args.narrow else SHAPES):
             q, k, v = ((torch.randn((b, s, n, hd), generator=gen, device=dev)
                         * sc).to(torch.bfloat16)
                        for n, sc in ((h, cs.FLASH_Q_SCALE), (kh, 1.0),

@@ -385,20 +385,21 @@ class TestFlashAttention:
         np.testing.assert_allclose(port.reshape(2, s, -1).numpy(),
                                    np.asarray(want), atol=1e-5)
 
-    # the CUDA body at hd 64, 80 and 96 walks 128 x 128 tiles; its CPU model
+    # the CUDA body at hd 16 to 96 walks 128-query tiles over
+    # ref.ws_block_k(hd) keys (64 at hd 16 and 32); its CPU model
     # (ref.flash_attention_tiled_ref) in f32 against the interpret-mode
     # Pallas kernel: (S, H, Kh, window, causal, softcap, the Pallas tile)
     TILED_CASES = [
         (256, 2, 2, 0, True, 0.0, 128),
         # S not a multiple of 128, GQA, not causal
         (288, 4, 2, 0, False, 0.0, 96),
-        # the window's first live tile (keys 0-127) admits no key of the
-        # query tile's rows past 134
+        # the window's first live tile (keys 0-127; 64-127 at 64-key
+        # tiles) admits no key of the query tile's rows past 134
         (288, 4, 1, 8, True, 0.0, 96),
         (160, 4, 2, 40, False, 30.0, 32),
     ]
 
-    @pytest.mark.parametrize("hd", [64, 80, 96])
+    @pytest.mark.parametrize("hd", [16, 32, 64, 80, 96])
     @pytest.mark.parametrize("s,h,kh,window,causal,cap,tile", TILED_CASES)
     def test_tiled_model_matches_jax_kernel_interpret(self, hd, s, h, kh,
                                                       window, causal, cap,
@@ -412,7 +413,7 @@ class TestFlashAttention:
             ck=tile, interpret=True, **kw)
         np.testing.assert_allclose(port.numpy(), np.asarray(out), atol=1e-5)
 
-    @pytest.mark.parametrize("hd", [64, 80, 96])
+    @pytest.mark.parametrize("hd", [16, 32, 64, 80, 96])
     @pytest.mark.parametrize("s,h,kh,window,causal,cap,tile", TILED_CASES)
     def test_tiled_model_lse_matches_the_vjp_residual(self, hd, s, h, kh,
                                                       window, causal, cap,
@@ -434,7 +435,7 @@ class TestFlashAttention:
         np.testing.assert_allclose(port.reshape(1, s, -1).numpy(),
                                    np.asarray(res[3]), atol=1e-5)
 
-    @pytest.mark.parametrize("hd", [64, 80, 96])
+    @pytest.mark.parametrize("hd", [16, 32, 64, 80, 96])
     def test_tiled_model_in_f16_matches_jax_kernel_interpret(self, hd):
         """The body's f16 instantiation: the tiled model on f16 inputs (P
         rounded to f16 before P V) against the Pallas kernel in f16, which
