@@ -471,7 +471,10 @@ WKV_HEADS = 32
 WKV_TOL = {"rtol": 1e-4, "atol": 2e-3}
 WKV_REL = 1e-5
 # B6 beyond the served f32 K = V = 64 (phase 9b): (label, B, S, H, K, V,
-# type of r, k, v and logw); H K stays 2048 as in rwkv6-1.6b
+# type of r, k, v and logw); H K stays 2048 as in rwkv6-1.6b (1536 at K 48
+# and 96); widths that are not built run zero-padded (48 at 64, 96 at 128),
+# widths past 128 cut into tiles (V 160 into 5 of 32, 256 and 512 into 128;
+# K 256 and 512 into key slices of 64)
 WKV_DOMAIN_ROWS = (
     ("prefill_32k_bf16", 1, 32_768, 32, 64, 64, torch.bfloat16),
     ("b8_s4096_bf16", 8, 4_096, 32, 64, 64, torch.bfloat16),
@@ -481,7 +484,36 @@ WKV_DOMAIN_ROWS = (
     ("k128_v128", 8, 4_096, 16, 128, 128, torch.float32),
     ("k128_v128_bf16", 8, 4_096, 16, 128, 128, torch.bfloat16),
     ("k64_v128", 8, 4_096, 32, 64, 128, torch.float32),
-    ("k64_v128_bf16", 8, 4_096, 32, 64, 128, torch.bfloat16))
+    ("k64_v128_bf16", 8, 4_096, 32, 64, 128, torch.bfloat16),
+    ("k48_v48", 8, 4_096, 32, 48, 48, torch.float32),
+    ("k48_v48_bf16", 8, 4_096, 32, 48, 48, torch.bfloat16),
+    ("k96_v160", 8, 4_096, 16, 96, 160, torch.float32),
+    ("k256_v256", 8, 4_096, 8, 256, 256, torch.float32),
+    ("k256_v256_bf16", 8, 4_096, 8, 256, 256, torch.bfloat16),
+    ("k512_v512", 8, 4_096, 4, 512, 512, torch.float32))
+# widths held but not timed (phase 9b): rows whose bytes are no multiple
+# of 16, which the wrapper copies padded (K 1 and 17 in 16 bits, K 17 in
+# f32), and f16 past the built widths: (B, S, H, K, V, type)
+WKV_PADDED_CASES = ((2, 1_000, 4, 1, 1, torch.bfloat16),
+                    (2, 1_000, 4, 17, 40, torch.float32),
+                    (2, 1_000, 4, 17, 40, torch.float16),
+                    (2, 1_000, 4, 160, 96, torch.float16))
+# B5 past head dim 256 (phase 9c): (label, B, S, H, Kh, hd, type, window,
+# softcap, lse); every row causal
+FLASH_WIDE_ROWS = (
+    ("hd512_bf16", 2, 4_608, 8, 2, 512, torch.bfloat16, 0, 0.0, False),
+    ("hd512_f16", 2, 4_608, 8, 2, 512, torch.float16, 0, 0.0, False),
+    ("hd512_window4096_cap50_bf16", 2, 4_608, 8, 2, 512, torch.bfloat16,
+     4_096, 50.0, False),
+    ("hd320_bf16", 2, 4_608, 8, 2, 320, torch.bfloat16, 0, 0.0, True),
+    ("hd512_s1024_f32", 2, 1_024, 8, 2, 512, torch.float32, 0, 0.0, True),
+    ("hd1024_bf16", 1, 1_024, 4, 1, 1024, torch.bfloat16, 0, 0.0, False))
+# past hd 256 scaled_dot_product_attention runs its MATH backend, which in
+# f32 sums each score over hd in one f32 order, as the f32 plain version
+# does: at hd 512 (q at FLASH_Q_SCALE) both lie 2.0e-5 to 2.4e-5 from the
+# function evaluated in f64 (H100 SXM), past TOL, which holds the kernel
+# (8.0e-6): the library call is held at this instead
+F32_LIBRARY_TOL = {"rtol": 0.0, "atol": 5e-5}
 # one step of a 16-bit type at 1 (2^-(mantissa bits)): a kernel and a plain
 # version that round an f32 result once each may land one step apart
 T_STEP = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
@@ -636,13 +668,14 @@ def check_kernel(name, replaces, source, kernel_fn, plain_fn, library_fn,
 # "18_dot_interaction_cu"), then its integer template arguments and the
 # row or input type of the DLRM kernels, the 16-bit flash bodies and the
 # WKV passes
-KERNEL_NAMES = re.compile(r"(?<=\d)(flash_wgmma_ws|flash_wgmma|"
-                          r"flash_3xtf32|tf32_round_probe|"
+KERNEL_NAMES = re.compile(r"(?<=\d)(flash_wgmma_wide|flash_wgmma_ws|"
+                          r"flash_wgmma|flash_3xtf32_wide|flash_3xtf32|"
+                          r"tf32_round_probe|"
                           r"wkv_state_pass|wkv_output_pass|"
                           r"bag_pool|"
                           r"dot_interaction_empty_kernel|"
                           r"dot_interaction)((?:I?Li\d+E)*)"
-                          r"(f|13__nv_bfloat16|6__half)?")
+                          r"(f|13__nv_bfloat16|6__half)?((?:Li\d+E)*)")
 TYPE_SUFFIX = {"f": "_f32", "13__nv_bfloat16": "_bf16", "6__half": "_f16"}
 WKV_CODES = {"_f32": 0, "_bf16": 1, "_f16": 2}
 # the wgmma flash bodies keep their accumulators (128 registers at hd 256;
@@ -655,7 +688,12 @@ WGMMA_FLASH = tuple(f"{body}_{t}" for body in ("flash_wgmma",
                                                "flash_wgmma_ws")
                     for t in ("bf16", "f16"))
 F32_FLASH = "flash_3xtf32"
-NO_SPILL = WGMMA_FLASH + (F32_FLASH, "bag_pool_f32", "bag_pool_bf16") + tuple(
+# the bodies past hd 256: depth boxes and value slices, templated on the
+# softcap (and the 16-bit one on its type), not on the head dim
+WIDE_FLASH = tuple(f"flash_wgmma_wide_{t}" for t in ("bf16", "f16"))
+F32_WIDE_FLASH = "flash_3xtf32_wide"
+NO_SPILL = WGMMA_FLASH + WIDE_FLASH + (
+    F32_FLASH, F32_WIDE_FLASH, "bag_pool_f32", "bag_pool_bf16") + tuple(
     f"wkv_{p}_pass_{t}" for p in ("state", "output")
     for t in ("f32", "bf16", "f16"))
 # every flash body that flash_attention.cu must build, (name with type,
@@ -663,7 +701,8 @@ NO_SPILL = WGMMA_FLASH + (F32_FLASH, "bag_pool_f32", "bag_pool_bf16") + tuple(
 # types (the warp-specialised body, hd 16 to 96, with and without the
 # softcap); the f32
 # body ("flash_3xtf32", no type: f32 alone) at every head dim, with and
-# without the softcap
+# without the softcap; past hd 256 one 16-bit body in both types and one
+# f32 body, with and without the softcap
 FLASH_BUILT = {(f"{body}_{t}", arg) for t in ("bf16", "f16")
                for body, args in (
                    ("flash_wgmma_ws", tuple(f"{hd},{cap}"
@@ -673,6 +712,8 @@ FLASH_BUILT = {(f"{body}_{t}", arg) for t in ("bf16", "f16")
                for arg in args} | {
                    (F32_FLASH, f"{hd},{cap}")
                    for hd in (16, 32, 64, 80, 96, 128, 256)
+                   for cap in (0, 1)} | {
+                   (name, f"{cap}") for name in WIDE_FLASH + (F32_WIDE_FLASH,)
                    for cap in (0, 1)}
 
 
@@ -684,9 +725,9 @@ def ptxas_report(text: str) -> list:
     for line in text.splitlines():
         if "Function properties for" in line:
             m = KERNEL_NAMES.search(line.split("Function properties for")[1])
-            name, arg = ((m.group(1), ",".join(re.findall(r"Li(\d+)E",
-                                                         m.group(2)))
-                          or None) if m else ("?", None))
+            name, arg = ((m.group(1), ",".join(re.findall(
+                r"Li(\d+)E", m.group(2) + m.group(4))) or None)
+                         if m else ("?", None))
             if m and m.group(3):
                 # the bag's row type, the interaction's input type, the
                 # flash f32 body's and the WKV passes' load type
@@ -722,7 +763,8 @@ def build_report(logs: dict) -> None:
                     f"flash_attention.cu built {sorted(built - FLASH_BUILT)}"
                     f" beyond and lacks {sorted(FLASH_BUILT - built)}")
             log(f"[build] flash_attention.cu: {len(built)} kernels, every "
-                f"16-bit body in bf16 and f16, {F32_FLASH} on f32 alone")
+                f"16-bit body in bf16 and f16, {F32_FLASH} and "
+                f"{F32_WIDE_FLASH} on f32 alone")
         for name, arg, used, stack, spill in report:
             extra = ""
             if name in WGMMA_FLASH:
@@ -750,20 +792,50 @@ def build_report(logs: dict) -> None:
                     raise AssertionError(
                         f"{name}<{arg}>: BK {bk.value}, but the f32 model "
                         f"walks {ref.f32_tc_tiles(hd)[1]} keys a tile")
+            elif name in WIDE_FLASH + (F32_WIDE_FLASH,):
+                # one body at every head dim past 256: its tiling at 512
+                bk, st, sm = (ctypes.c_int(), ctypes.c_int(), ctypes.c_int())
+                tiling = (lib.flash_attention_tiling if name in WIDE_FLASH
+                          else lib.flash_attention_f32_tiling)
+                tiling(512, ctypes.byref(bk), ctypes.byref(st),
+                       ctypes.byref(sm))
+                want = (ref.WIDE_BLOCK_K if name in WIDE_FLASH
+                        else ref.f32_tc_tiles(512)[1])
+                extra = (f"; BK {bk.value} keys, {st.value} depth stages, "
+                         f"{sm.value} bytes of dynamic shared memory")
+                if bk.value != want:
+                    raise AssertionError(
+                        f"{name}<{arg}>: BK {bk.value}, but its model walks "
+                        f"{want} keys a tile")
             elif name.startswith("wkv_"):
                 # the state pass's template is <K, T> (any V), the output
-                # pass's <K, V, T>
+                # pass's <K, V, T, sliced>: K and V the tiles
                 widths = [int(x) for x in arg.split(",")]
                 smem = lib.rwkv6_wkv_smem(
                     1 if "state" in name else 2,
                     WKV_CODES[name[name.rindex("_"):]], widths[0],
-                    widths[-1])
+                    widths[min(1, len(widths) - 1)])
                 extra = f"; {smem} bytes of dynamic shared memory"
             log(f"[build] {src} {name}{f'<{arg}>' if arg else ''}: {used}; "
                 f"stack {stack} bytes, spill stores {spill} bytes{extra}")
             if name in NO_SPILL and (stack or spill):
                 spills.append(f"{name}<{arg}> spills: stack {stack} bytes, "
                               f"spill stores {spill} bytes")
+    if "rwkv6_wkv.cu" in logs:
+        # the wrapper's width rule (padding and tiles) is the kernel's
+        from repro_torch.kernels import rwkv6_wkv as wk
+
+        lib = _build.library("rwkv6_wkv.cu")
+        for w in range(1, 1025):
+            wp = wk.padded_width(w)
+            if (lib.rwkv6_wkv_padded_width(w), lib.rwkv6_wkv_tile_width(
+                    wp, 0), lib.rwkv6_wkv_tile_width(wp, 1)) != (
+                    wp, wk.tile_width(wp), wk.tile_width(wp, key=True)):
+                raise AssertionError(f"rwkv6_wkv width {w}: the wrapper's "
+                                     f"padding or tiles differ from the "
+                                     f"kernel's")
+        log("[build] rwkv6_wkv.cu: the wrapper's widths and tiles are the "
+            "kernel's at every width up to 1024")
     if spills:
         raise AssertionError("; ".join(spills))
 
@@ -2922,8 +2994,19 @@ def bf16_dlrm_phase(cfg, dev, card, cap):
     return out
 
 
+def sdpa_backend(q, k, v, causal: bool) -> str:
+    """The backend scaled_dot_product_attention runs on q, k, v (B, S, H,
+    hd) as ``flash_row``'s library call passes them."""
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=causal, enable_gqa=True)).name
+
+
 def flash_row(name, gen, dev, b, s, h, kh, hd, *, window=0, cap=0.0,
-              causal=True, dtype=torch.bfloat16, lse=False):
+              causal=True, dtype=torch.bfloat16, lse=False, entry=False,
+              library_tol=None):
     """One flash-kernel row: q (at FLASH_Q_SCALE), k, v of shape (b, s,
     heads, hd) in ``dtype`` from ``gen``, the kernel held against its plain
     version and timed (check_kernel: two runs bit-identical; bf16 and f16
@@ -2945,9 +3028,13 @@ def flash_row(name, gen, dev, b, s, h, kh, hd, *, window=0, cap=0.0,
     query rows at a time (``ref.flash_attention_ref_rows``).  With ``lse``
     the kernel is timed writing the rows' log-sum-exp too (the training
     path's call), and its lse is held at LSE_TOL against the plain
-    version's, two runs bit-identical.  Returns (row, launch key)."""
+    version's, two runs bit-identical.  With ``entry`` the kernel's output
+    must equal, bit for bit, ``ops.flash_attention_op``'s and that of its
+    autograd forward (``FlashAttentionFn``, inputs that require grad).
+    The library call's backend is logged, and the call held at
+    ``library_tol`` where given.  Returns (row, launch key)."""
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
 
     q, k, v = ((torch.randn((b, s, n, hd), generator=gen, device=dev)
                 * scale).to(dtype)
@@ -2962,6 +3049,10 @@ def flash_row(name, gen, dev, b, s, h, kh, hd, *, window=0, cap=0.0,
             return F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 is_causal=causal, enable_gqa=True).transpose(1, 2)
+
+        log(f"[kernel] {name}: the library call runs "
+            f"scaled_dot_product_attention's "
+            f"{sdpa_backend(q, k, v, causal)} backend")
     scores = b * h * s * s * 4
     if scores > torch.cuda.get_device_properties(dev).total_memory // 4:
         def plain_fn():
@@ -2988,7 +3079,20 @@ def flash_row(name, gen, dev, b, s, h, kh, hd, *, window=0, cap=0.0,
         library, n_bytes=q.element_size() * (2 * q.numel() + 2 * k.numel()),
         flops=4 * hd * admitted_pairs(s, window, causal) * b * h, flush=None,
         tol=TOL if f32 else FLASH_TOL, rel=None if f32 else FLASH_REL,
-        peak_flops=TF32_FLOPS / 3 if f32 else BF16_FLOPS, truth_fn=truth_fn)
+        peak_flops=TF32_FLOPS / 3 if f32 else BF16_FLOPS, truth_fn=truth_fn,
+        library_tol=library_tol)
+    if entry:
+        out = kernel_fn()
+        via = ops.flash_attention_op(q, k, v, **kw)
+        with torch.enable_grad():
+            fwd = ops.flash_attention_op(
+                *(x.detach().requires_grad_() for x in (q, k, v)), **kw)
+        if not (torch.equal(out, via) and torch.equal(out, fwd.detach())):
+            raise AssertionError(f"{name}: ops.flash_attention_op or its "
+                                 f"autograd forward differs from the kernel")
+        log(f"[kernel] {name}: ops.flash_attention_op and its autograd "
+            f"forward (FlashAttentionFn) bit for bit the kernel's output")
+        del out, via, fwd
     if lse:
         got, again = (fa.flash_attention(q, k, v, return_lse=True, **kw)[1]
                       for _ in range(2))
@@ -3377,11 +3481,14 @@ def wkv_domains_phase(dev):
     away), and each 16-bit kernel held bit for bit to the f32 kernel on the
     widened inputs with its output rounded once (the bf16 row at B 8 also
     with an f32 logw, the model path's mix, and with r, k, v and logw in
-    three types, which the wrapper widens to f32); timed as ``wkv_row``.  Every
-    variant must have launched under its own key.  Returns (row, launch
+    three types, which the wrapper widens to f32); timed as ``wkv_row``.  Each
+    output must equal, bit for bit, ``ops.rwkv6_wkv_op``'s and that of its
+    autograd forward (``Rwkv6WkvFn``, inputs that require grad).
+    ``WKV_PADDED_CASES`` are held (16-bit ones bit for bit) but not timed.
+    Every variant must have launched under its own key.  Returns (row, launch
     key) pairs: no served model runs these variants, so the rows read 0
     launches on the main path."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels import rwkv6_wkv as wk
 
     gen = torch.Generator(device=dev)
@@ -3401,7 +3508,15 @@ def wkv_domains_phase(dev):
         if out[0].dtype != dtype or out[1].dtype != torch.float32:
             raise AssertionError(f"{name}: out {out[0].dtype}, state "
                                  f"{out[1].dtype}; want {dtype}, float32")
-        del again
+        via = ops.rwkv6_wkv_op(*x)
+        with torch.enable_grad():
+            fwd = ops.rwkv6_wkv_op(*(t.detach().requires_grad_()
+                                     for t in x))
+        if not all(torch.equal(a, c) and torch.equal(a, f.detach())
+                   for a, c, f in zip(out, via, fwd)):
+            raise AssertionError(f"{name}: ops.rwkv6_wkv_op or its autograd "
+                                 f"forward differs from the kernel")
+        del again, via, fwd
         plain = ref.rwkv6_wkv_chunked_ref(*x)
         step = T_STEP.get(dtype, 0.0)
         err, fro, need = hold(
@@ -3450,11 +3565,36 @@ def wkv_domains_phase(dev):
             f"{fro:.3e}, least atol passing at rtol "
             f"{WKV_TOL['rtol'] + step:.3e}: {need:.3e}; state max_abs_err "
             f"{s_err:.3e}, relative Frobenius error {s_fro:.3e}; two runs "
-            f"bit-identical{bits}")
+            f"bit-identical, ops.rwkv6_wkv_op and its autograd forward "
+            f"(Rwkv6WkvFn) bit for bit the kernel{bits}")
         rows.append((wkv_row(name, x, max(err, s_err)),
                      wk.launch_key(b, s, h, kk, vv, dtype)))
         del x, out
         torch.cuda.empty_cache()
+    for b, s, h, kk, vv, dtype in WKV_PADDED_CASES:
+        name = f"rwkv6_wkv K {kk} V {vv} {str(dtype)[6:]}"
+        x32 = wkv_inputs(b, s, gen, dev, h=h, kk=kk, vv=vv)
+        x = tuple(t.to(dtype) for t in x32[:4]) + x32[4:]
+        out, again = (wk.rwkv6_wkv(*x) for _ in range(2))
+        if not all(torch.equal(a, c) for a, c in zip(out, again)):
+            raise AssertionError(f"{name}: two kernel runs differ")
+        plain = ref.rwkv6_wkv_chunked_ref(*x)
+        step = T_STEP.get(dtype, 0.0)
+        err = hold(f"{name} out", out[0], plain[0],
+                   {"rtol": WKV_TOL["rtol"] + step, "atol": WKV_TOL["atol"]},
+                   WKV_REL + step)[0]
+        s_err = hold(f"{name} state", out[1], plain[1], WKV_TOL, WKV_REL)[0]
+        if dtype != torch.float32:
+            wide = wk.rwkv6_wkv(*(t.float() for t in x[:4]), *x[4:])
+            if not (torch.equal(out[0], wide[0].to(dtype))
+                    and torch.equal(out[1], wide[1])):
+                raise AssertionError(f"{name}: not the f32 kernel on the "
+                                     f"widened inputs rounded once")
+        log(f"[kernel] {name} (B {b} x S {s} x H {h}): out max_abs_err "
+            f"{err:.3e}, state {s_err:.3e}; two runs bit-identical"
+            + ("" if dtype == torch.float32 else ", bit for bit the f32 "
+               "kernel on the widened inputs"))
+        del x32, x, out, again, plain
     for row, key in rows:
         if wk.WKV.by_key[key] - before.get(key, 0) < 2:
             raise AssertionError(f"{row['name']}: its kernel variant {key} "
@@ -3475,11 +3615,19 @@ def flash_domains_phase(dev):
     its output and nothing else (no padded copy).  Every row must have
     launched at least twice under its own key, which carries the true head
     dim and the type (the bf16 comparison runs count under bf16 keys).
-    Returns (row, launch key) pairs: each row reads its key's launches on
-    the main path, 0 where no served model has hd 96 or runs f16."""
+    Past hd 256, ``FLASH_WIDE_ROWS``: the bodies that stream the depth in
+    boxes and cut the output into value slices, bf16 and f16 at hd 512 and
+    B 2 x S 4608 (H 8 over Kh 2), windowed with a softcap, at hd 320 (with
+    the lse) and 1024, and f32 at hd 512 (S 1024, with the lse, held
+    against the plain version in f64), each also through
+    ``ops.flash_attention_op`` and its autograd forward; hd 300 (a padded
+    copy to 304) in bf16 and f32 held but not timed.  Returns (row,
+    launch key) pairs: each row reads its key's launches on the main path,
+    0 where no served model has hd 96 or past 256, or runs f16."""
     from repro_torch.configs.qwen3_14b import CONFIG as QWEN
     from repro_torch.configs.zamba2_2_7b import CONFIG as ZAMBA
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 10)
@@ -3510,6 +3658,35 @@ def flash_domains_phase(dev):
             flash_row("flash_attention/qwen3_heads_f16", gen, dev, LM_BATCH,
                       LM_PROMPT, QWEN.n_heads, QWEN.n_kv_heads,
                       QWEN.head_dim, dtype=torch.float16)]
+    for label, b, s, h, kh, hd, dtype, window, cap, lse in FLASH_WIDE_ROWS:
+        rows.append(flash_row(
+            f"flash_attention/{label}", gen, dev, b, s, h, kh, hd,
+            window=window, cap=cap, dtype=dtype, lse=lse, entry=True,
+            library_tol=F32_LIBRARY_TOL if dtype == torch.float32 else None))
+    # hd 300 is no multiple of 8: q, k and v go to the body copied padded to
+    # 304 (a window and a softcap, GQA, the lse), held but not timed
+    for dtype in (torch.bfloat16, torch.float32):
+        kw = {"window": 100, "softcap": 50.0}
+        q, k, v = ((torch.randn((2, 300, n, 300), generator=gen, device=dev)
+                    * scale).to(dtype)
+                   for n, scale in ((8, FLASH_Q_SCALE), (2, 1.0), (2, 1.0)))
+        (out, lse), (again, lse2) = (fa.flash_attention(
+            q, k, v, return_lse=True, **kw) for _ in range(2))
+        if not (torch.equal(out, again) and torch.equal(lse, lse2)):
+            raise AssertionError(f"hd 300 {dtype}: two kernel runs differ")
+        f32 = dtype == torch.float32
+        want, want_lse = ref.flash_attention_ref(
+            *(x.double() if f32 else x for x in (q, k, v)), return_lse=True,
+            **kw)
+        err = hold(f"hd 300 {dtype}", out, want.to(dtype),
+                   TOL if f32 else FLASH_TOL, None if f32 else FLASH_REL)[0]
+        l_err = hold(f"hd 300 {dtype} lse", lse, want_lse.float(),
+                     LSE_TOL[dtype])[0]
+        log(f"[kernel] flash_attention hd 300 (row width "
+            f"{fa.row_width(300)}: a padded copy), {dtype}, window 100, "
+            f"softcap 50: max_abs_err {err:.3e}, lse {l_err:.3e}; two runs "
+            f"bit-identical")
+        del q, k, v, out, again, lse, lse2, want, want_lse
     for row, key in rows:
         if fa.FLASH.by_key[key] - before.get(key, 0) < 2:
             raise AssertionError(f"{row['name']}: its kernel variant {key} "

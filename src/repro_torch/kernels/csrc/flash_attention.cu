@@ -151,8 +151,17 @@
 //     uncapped.  What bounds it: mma.sync's TF32 rate (on an H100 with the
 //     splits removed the body still took 0.30 of its 0.37 ms at zamba2's
 //     f32 row, tools/ab_flash.py --f32), not the tensor cores' peak.
+//   - past hd 256 (no served model; the reference kernel takes any hd),
+//     flash_wgmma_wide in bf16/f16 and flash_3xtf32_wide in f32: neither
+//     Q's rows nor a K tile fits at the whole depth beside a K/V ring (at
+//     hd 512 Q's 128 rows alone are 128 KB), nor a warpgroup's m64n{hd}
+//     output in 255 registers, so Q K^T streams the depth in 64-column
+//     boxes and the output's columns are cut into slices, one a block (256
+//     in 16-bit, 192 in f32), each slice recomputing S: Q K^T costs
+//     ceil(hd / slice) times its flops.  See the bodies' notes below.
 // Other head dims up to 256 reach a built one zero-padded by the caller
-// (the zero columns add nothing to q . k, and the scale is the true hd's).
+// (the zero columns add nothing to q . k, and the scale is the true hd's);
+// past 256 the bodies read any multiple of 8 and zero-fill the rest.
 // Masked scores take the finite sentinel -1e30, as the Pallas kernel does,
 // and their probability is 0 by the admitted test, so a row whose first
 // live tile admits none of its keys never forms exp(-inf + inf).  No
@@ -181,6 +190,7 @@ struct Params {
   void* out;
   float* lse;  // (B, H, S) or null
   int s, t, h, kh, causal, window;
+  int hd;      // the rows' width in memory (the bodies past 256 read it)
   float scale, softcap;
 };
 
@@ -1634,6 +1644,538 @@ __global__ void __launch_bounds__(Tf32Tile<HD>::kThreads,
   }
 }
 
+// ---------------------------------------------------------------------------
+// past head dim 256: depth boxes and value slices, in bf16/f16 and in f32
+// ---------------------------------------------------------------------------
+
+// The 16-bit body past hd 256 (flash_wgmma_wide): two warpgroups of 64
+// query rows, thread 0 also the producer, as flash_wgmma.  Q's 128 rows
+// at hd 512 alone take 128 KB and one 64-key K tile another 64 KB, and a
+// warpgroup's m64n{hd} output would take hd / 2 registers a thread, so
+// neither the depth nor the output's width is held whole.  The depth
+// streams through a ring of kStages stages, each one 64-column box of Q's
+// 128 rows (16 KB) and of the K tile's 64 keys (8 KB), 128-byte swizzled:
+// S = Q K^T takes four k-steps of m64n64k16 from each box in turn, summed
+// on the tensor cores in f32 (a box's products are issued as it lands,
+// the box before it released once its products are done).  The output's
+// columns are cut into slices of DV = 256, one slice a block (grid z):
+// O += P V is the hd 256 body's m64n256k16 from a V stage of the slice's
+// four 64-column boxes of the tile's keys (32 KB; 2 stages), and each
+// slice recomputes S, so Q K^T costs ceil(hd / 256) times its flops (2x
+// at hd 320 and 512, 4x at 1024).  Shared memory: 6 depth stages (144
+// KB), 2 V stages (64 KB), barriers and 1 KB of alignment: 214,144 bytes.
+// Registers a thread: the output 128, S 32, P 16, beside addresses.  A
+// producer warp of its own, as flash_wgmma_ws has, makes nine warps, three
+// on one of the SM's four register files, which caps a thread at 168: the
+// first build so spilled about 1 KB a thread.  So thread 0 refills a depth
+// stage once both warpgroups released its box, and a V stage once both
+// finished its P V, and eight warps keep 255 registers.  Columns past hd
+// read as zeros: the tensor maps take the
+// true hd (a multiple of 8: 16-byte rows) and zero-fill the last depth
+// box; a V box wholly past hd is zeroed once and never loaded; the output
+// is stored from registers, columns past hd and rows past S skipped.  The
+// lse is written by the first slice's blocks.
+struct WideTile {
+  static constexpr int BK = 64;                    // keys a tile
+  static constexpr int DV = 256;                   // value columns a block
+  static constexpr int kQBox = kWgBlockQ * 128;    // 128 rows x 64 columns
+  static constexpr int kKBox = BK * 128;           // 64 keys x 64 columns
+  static constexpr int kQKBytes = kQBox + kKBox;   // a depth stage
+  static constexpr int kVBytes = (DV / 64) * kKBox;
+  static constexpr int kVStages = 2;
+  static constexpr int kStages =
+      (kMaxSmem - kVStages * kVBytes - 2048) / kQKBytes;
+  static constexpr int kVOffset = kStages * kQKBytes;
+  static constexpr int kBarOffset = kVOffset + kVStages * kVBytes;
+  static constexpr size_t kSmemBytes =
+      kBarOffset + 8 * (2 * kStages + 2 * kVStages) + 1024;
+  static_assert(kStages >= 2 && kSmemBytes <= kMaxSmem,
+                "two depth stages must fit beside the V stages");
+};
+
+// kCap: 1 when a softcap applies; T: the type of q, k, v and out
+// (__nv_bfloat16 or __half)
+template <int kCap, typename T>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_wgmma_wide(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, Params p) {
+  using Tile = WideTile;
+  constexpr int BK = Tile::BK, NST = Tile::kStages, NV = Tile::kVStages;
+  constexpr int NS = BK / 8;         // score n8 blocks per thread
+  constexpr int NO = Tile::DV / 8;   // output n8 blocks per thread
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;   // swizzle atoms 1024-aligned
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t bars = base + Tile::kBarOffset;
+  auto qk_smem = [&](int st) { return base + st * Tile::kQKBytes; };
+  auto v_smem = [&](int st) {
+    return base + Tile::kVOffset + st * Tile::kVBytes;
+  };
+  // per stage: landed, and read by both warpgroups
+  auto full_qk = [&](int st) { return bars + 8 * st; };
+  auto free_qk = [&](int st) { return bars + 8 * (NST + st); };
+  auto full_v = [&](int st) { return bars + 8 * (2 * NST + st); };
+  auto free_v = [&](int st) { return bars + 8 * (2 * NST + NV + st); };
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  // the warpgroup, broadcast from lane 0 so the compiler sees it uniform
+  // across the warp
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int nq = (p.s + kWgBlockQ - 1) / kWgBlockQ;
+  const int q0 = (nq - 1 - (int)blockIdx.x) * kWgBlockQ;
+  const int q_last = min(q0 + kWgBlockQ, p.s) - 1;
+  const int head = blockIdx.y;
+  const int n_slices = (p.hd + Tile::DV - 1) / Tile::DV;
+  const int batch = (int)blockIdx.z / n_slices;
+  const int v0 = ((int)blockIdx.z - batch * n_slices) * Tile::DV;
+  const int kvh = head / (p.h / p.kh);
+  const int nd = (p.hd + 63) / 64;   // depth boxes a tile
+  // the slice's V boxes that hold a column of v
+  const int v_boxes = min(Tile::DV / 64, (p.hd - v0 + 63) / 64);
+  int lo, hi;
+  live_keys(p, q0, q_last, BK, &lo, &hi);
+  const int n_tiles = lo < hi ? (hi - lo + BK - 1) / BK : 0;
+  const int n_boxes = n_tiles * nd;
+
+  // depth box i (tile i / nd, columns 64 (i % nd) ..) into stage i % NST
+  // and tile j's V boxes into stage j % NV, each once both warpgroups
+  // released what the stage held
+  auto produce_box = [&](int i) {
+    const int st = i % NST, j = i / nd, d = i - j * nd;
+    mbar_wait(free_qk(st), ((i / NST) & 1) ^ 1);
+    mbar_expect(full_qk(st), Tile::kQKBytes);
+    tma_load(qk_smem(st), &tq, full_qk(st), 64 * d, head, q0, batch);
+    tma_load(qk_smem(st) + Tile::kQBox, &tk, full_qk(st), 64 * d, kvh,
+             lo + j * BK, batch);
+  };
+  auto produce_v = [&](int j) {
+    const int sv = j % NV;
+    mbar_wait(free_v(sv), ((j / NV) & 1) ^ 1);
+    mbar_expect(full_v(sv), v_boxes * Tile::kKBox);
+    for (int e = 0; e < v_boxes; ++e)
+      tma_load(v_smem(sv) + e * Tile::kKBox, &tv, full_v(sv), v0 + 64 * e,
+               kvh, lo + j * BK, batch);
+  };
+  if (tid == 0) {
+    for (int st = 0; st < NST; ++st) {
+      mbar_init(full_qk(st), 1);
+      mbar_init(free_qk(st), 8);   // one arrival per warp
+    }
+    for (int st = 0; st < NV; ++st) {
+      mbar_init(full_v(st), 1);
+      mbar_init(free_v(st), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the V boxes wholly past hd stay zero in every stage
+  for (int st = 0; st < NV; ++st)
+    for (int e = v_boxes; e < Tile::DV / 64; ++e)
+      for (int i = tid; i < Tile::kKBox / 16; i += kWgThreads)
+        reinterpret_cast<uint4*>(gbase + Tile::kVOffset + st * Tile::kVBytes +
+                                 e * Tile::kKBox)[i] = make_uint4(0, 0, 0, 0);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  if (tid == 0) {
+    for (int i = 0; i < NST && i < n_boxes; ++i) produce_box(i);
+    for (int j = 0; j < NV && j < n_tiles; ++j) produce_v(j);
+  }
+  __syncwarp();
+
+  const int wq = (tid / 32) & 3;           // warp within it: 16 rows each
+  const int rq = 64 * wg + 16 * wq + (lane >> 2);   // rows rq, rq + 8
+  const int row0 = q0 + rq;
+  const int qa = q0 + 64 * wg, qb = min(qa + 63, p.s - 1);
+  // a tile whose every (row, key) pair is admitted skips the mask
+  auto full_tile = [&](int k0) {
+    return k0 + BK <= p.t && (!p.causal || k0 + BK - 1 <= qa) &&
+           (p.window <= 0 || qb - k0 < p.window);
+  };
+  float sc[BK / 2];
+  uint32_t pa[BK / 16][4];
+  float acc[NO * 4];
+  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f}, corr[2] = {1.f, 1.f};
+  const float inv_cap = kCap ? 1.f / p.softcap : 0.f;
+  // S (+)= Q K^T over the depth box in stage st: the warpgroup's 64 rows
+  // of Q and the tile's keys, both K-major; `more` 0 overwrites S
+  auto issue_box = [&](int st, int more) {
+    const uint32_t qs = qk_smem(st) + wg * 64 * 128;
+    const uint32_t ks = qk_smem(st) + Tile::kQBox;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_n64<T>(sc, sw128_desc(qs + kk * 32, 16),
+                      sw128_desc(ks + kk * 32, 16), more || kk > 0);
+    wgmma_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < NO * 4; ++i) acc[i] = 0.f;
+
+  // box i read: the warp releases its stage, and thread 0 refills it with
+  // box i + NST
+  auto release_box = [&](int i) {
+    if (lane == 0) mbar_arrive(free_qk(i % NST));
+    if (tid == 0 && i + NST < n_boxes) produce_box(i + NST);
+    __syncwarp();
+  };
+  int g = 0;   // depth boxes consumed
+  for (int j = 0; j < n_tiles; ++j, g += nd) {
+    const int k0 = lo + j * BK;
+    mbar_wait(full_qk(g % NST), (g / NST) & 1);
+    fence_regs(sc);
+    wgmma_fence();
+    issue_box(g % NST, 0);
+    for (int i = g + 1; i < g + nd; ++i) {
+      mbar_wait(full_qk(i % NST), (i / NST) & 1);
+      fence_regs(sc);
+      wgmma_fence();
+      issue_box(i % NST, 1);
+      wgmma_wait<1>();   // the box before: its products are done
+      fence_regs(sc);
+      release_box(i - 1);
+    }
+    wgmma_wait<0>();
+    fence_regs(sc);
+    release_box(g + nd - 1);
+    if (full_tile(k0)) {
+      online_softmax<NS, false, kCap>(sc, p, row0, k0, lane, inv_cap, m, l,
+                                      corr);
+    } else {
+      online_softmax<NS, true, kCap>(sc, p, row0, k0, lane, inv_cap, m, l,
+                                     corr);
+    }
+    // P (in sc) to the A fragments in T; the output rescaled by corr (a
+    // warp none of whose rows raised its max leaves it as it is)
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      pa[n >> 1][(n & 1) * 2] = pack2<T>(sc[4 * n], sc[4 * n + 1]);
+      pa[n >> 1][(n & 1) * 2 + 1] = pack2<T>(sc[4 * n + 2], sc[4 * n + 3]);
+    }
+    if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+      for (int i = 0; i < NO * 4; ++i) acc[i] *= corr[(i >> 1) & 1];
+    }
+    // O += P V over the slice's 256 columns, V MN-major from shared memory
+    const int sv = j % NV;
+    mbar_wait(full_v(sv), (j / NV) & 1);
+    fence_regs(acc);
+    fence_regs(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs_n256<T>(acc, pa[kk],
+                       sw128_desc(v_smem(sv) + kk * 16 * 128, Tile::kKBox));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(pa);
+    if (lane == 0) mbar_arrive(free_v(sv));
+    if (tid == 0 && j + NV < n_tiles) produce_v(j + NV);
+    __syncwarp();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+    // m is in raw score units uncapped (the scale went into the exponent),
+    // in tanh units capped (the softcap went there)
+    const int qi = row0 + 8 * r;
+    if (p.lse != nullptr && v0 == 0 && (lane & 3) == 0 && qi < p.s)
+      store_lse(p, batch, head, qi,
+                m[r] == kMasked ? m[r] : m[r] * (kCap ? p.softcap : p.scale),
+                l[r]);
+    l[r] = 1.f / l[r];
+  }
+  // the output from registers: rows past S and columns past hd skipped
+  T* og = static_cast<T*>(p.out);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    if (qi >= p.s) continue;
+    T* orow = og + (((int64_t)batch * p.s + qi) * p.h + head) * p.hd + v0 +
+              2 * (lane & 3);
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      if (v0 + 8 * n + 2 * (lane & 3) < p.hd)
+        *reinterpret_cast<uint32_t*>(orow + 8 * n) = pack2<T>(
+            acc[4 * n + 2 * r] * l[r], acc[4 * n + 2 * r + 1] * l[r]);
+  }
+}
+
+// The f32 body past hd 256 (flash_3xtf32_wide): flash_3xtf32's four warps
+// of 16 query rows and its 3xTF32 products, cut as the 16-bit body is.
+// Q's 64 rows at the whole depth would take 66 KB at hd 256 and 132 KB at
+// 512 beside K and V, and the output hd / 2 registers a thread, so the
+// depth comes in chunks of DC = 64 columns, Q's 64 rows and the tile's 32
+// keys (17 KB + 8.5 KB), two chunks in flight by cp.async, each summed into
+// S by eight 8-deep steps of three TF32 products; the output's columns are
+// cut into slices of DV = 192 (grid z), and P V runs on the slice's V tile
+// (32 keys x 192 columns, 25 KB) as flash_3xtf32's does: each 8-column
+// output tile sums the tile's keys from zero on the tensor cores, then is
+// added to O on the CUDA cores.  Shared memory 77,824 bytes, two blocks an
+// SM; the output takes 96 registers a thread.  The tiling is the fastest
+// that does not spill of the eleven in tools/f32_wide_tilings.py (slices
+// of 128 to 256 columns, 8- to 32-key tiles, two or three blocks an SM,
+// the depth steps unrolled 2 to 8 at a time), timed at B 2, S 1024, H 8
+// over Kh 2, hd 512 on an H100 SXM (700 W): 1.87 ms; 256-column slices
+// over 16 keys 2.04 ms spilling 4 bytes, 2.15 ms unrolled two steps at a
+// time without; 8 keys at three blocks (168 registers) spilled 624 bytes.
+// Each slice recomputes S (Q K^T ceil(hd / 192) times: 3x at hd 512);
+// output tiles wholly past hd are skipped.
+struct Tf32WideTile {
+  static constexpr int BK = 32;    // keys a tile
+  static constexpr int DC = 64;    // depth columns a chunk
+  static constexpr int DV = 192;   // value columns a block
+  static constexpr int kStages = 2;
+  static constexpr int kThreads = 128;
+  static constexpr int kMinBlocks = 2;
+  static constexpr int LDQ = DC + 4, LDK = DC + 4, LDV = DV + 8;
+  static constexpr int kChunk = kBlockQ * LDQ + BK * LDK;  // floats: Q, K
+  static constexpr size_t kSmemBytes =
+      sizeof(float) * ((size_t)kStages * kChunk + (size_t)BK * LDV);
+};
+
+template <int kCap>
+__global__ void __launch_bounds__(Tf32WideTile::kThreads,
+                                  Tf32WideTile::kMinBlocks)
+    flash_3xtf32_wide(Params p) {
+  using Tile = Tf32WideTile;
+  constexpr int BK = Tile::BK, DC = Tile::DC, DV = Tile::DV;
+  constexpr int LDQ = Tile::LDQ, LDK = Tile::LDK, LDV = Tile::LDV;
+  constexpr int NS = BK / 8;  // 8-key score tiles a warp
+  constexpr int NO = DV / 8;  // 8-column output tiles a warp
+  extern __shared__ __align__(16) float smem_f32[];
+  float* vs = smem_f32 + Tile::kStages * Tile::kChunk;  // [BK][LDV]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;  // fragment row group, column
+  const int nq = (p.s + kBlockQ - 1) / kBlockQ;
+  const int q0 = (nq - 1 - (int)blockIdx.x) * kBlockQ;
+  const int q_last = min(q0 + kBlockQ, p.s) - 1;
+  const int head = blockIdx.y;
+  const int n_slices = (p.hd + DV - 1) / DV;
+  const int batch = (int)blockIdx.z / n_slices;
+  const int v0 = ((int)blockIdx.z - batch * n_slices) * DV;
+  const int kvh = head / (p.h / p.kh);
+  const int nd = (p.hd + DC - 1) / DC;
+  const int64_t q_step = (int64_t)p.h * p.hd, kv_step = (int64_t)p.kh * p.hd;
+
+  // depth chunk d (columns DC d ..) of Q's rows and of the keys from k0
+  // into stage st; rows past S or T and columns past hd zero-filled
+  auto load_qk = [&](int k0, int d, int st) {
+    const float* qg = static_cast<const float*>(p.q) +
+                      ((int64_t)batch * p.s * p.h + head) * p.hd;
+    const float* kg = static_cast<const float*>(p.k) +
+                      ((int64_t)batch * p.t * p.kh + kvh) * p.hd;
+    float* qs = smem_f32 + st * Tile::kChunk;
+    float* ks = qs + kBlockQ * LDQ;
+    constexpr int CH = DC / 4;  // 16-byte chunks a row
+    for (int e = tid; e < (kBlockQ + BK) * CH; e += Tile::kThreads) {
+      const int r = e / CH, c = e - r * CH, col = d * DC + c * 4;
+      if (r < kBlockQ) {
+        const int qi = q0 + r;
+        const bool ok = qi < p.s && col < p.hd;
+        cp_async16(qs + r * LDQ + c * 4, qg + (ok ? qi * q_step + col : 0),
+                   ok ? 16 : 0);
+      } else {
+        const int kj = k0 + r - kBlockQ;
+        const bool ok = kj < p.t && col < p.hd;
+        cp_async16(ks + (r - kBlockQ) * LDK + c * 4,
+                   kg + (ok ? kj * kv_step + col : 0), ok ? 16 : 0);
+      }
+    }
+  };
+  // the slice's columns of the keys from k0
+  auto load_v = [&](int k0) {
+    const float* vg = static_cast<const float*>(p.v) +
+                      ((int64_t)batch * p.t * p.kh + kvh) * p.hd;
+    constexpr int CH = DV / 4;
+    for (int e = tid; e < BK * CH; e += Tile::kThreads) {
+      const int r = e / CH, c = e - r * CH, kj = k0 + r, col = v0 + c * 4;
+      const bool ok = kj < p.t && col < p.hd;
+      cp_async16(vs + r * LDV + c * 4, vg + (ok ? kj * kv_step + col : 0),
+                 ok ? 16 : 0);
+    }
+  };
+
+  int lo, hi;
+  live_keys(p, q0, q_last, BK, &lo, &hi);
+  const int n_tiles = lo < hi ? (hi - lo + BK - 1) / BK : 0;
+  if (n_tiles > 0) load_qk(lo, 0, 0);
+  cp_async_commit();
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
+  const int wq0 = q0 + warp * 16;  // the warp's rows: wq0 + g, wq0 + g + 8
+  const int row0 = wq0 + g;
+  const float unit = kCap ? kLog2e : p.scale * kLog2e;
+  const float inv_cap = kCap ? 1.f / p.softcap : 0.f;
+  // the B fragment's column g holds key kperm of each 8-key group (as in
+  // flash_3xtf32): a thread's score accumulators are its P fragment
+  const int kperm = (g >> 1) + 4 * (g & 1);
+
+  int gc = 0;   // depth chunks consumed; chunk gc sits in stage gc & 1
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = lo + j * BK;
+    float sc[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+      sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+    for (int d = 0; d < nd; ++d, ++gc) {
+      // the next chunk flies while this one is summed (after the last
+      // chunk, this tile's V: the last tile's P V is done)
+      if (d + 1 < nd) {
+        load_qk(k0, d + 1, (gc + 1) & 1);
+      } else {
+        load_v(k0);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();  // chunk gc landed
+      const float* qs = smem_f32 + (gc & 1) * Tile::kChunk;
+      const float* ks = qs + kBlockQ * LDQ;
+      const float* qw = qs + (warp * 16 + g) * LDQ + t;
+#pragma unroll 2
+      for (int k8 = 0; k8 < DC / 8; ++k8) {
+        uint32_t qb[4], qsm[4];
+        const float* qr = qw + k8 * 8;
+        split_tf32(qr[0], qb[0], qsm[0]);
+        split_tf32(qr[8 * LDQ], qb[1], qsm[1]);
+        split_tf32(qr[4], qb[2], qsm[2]);
+        split_tf32(qr[8 * LDQ + 4], qb[3], qsm[3]);
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          const int off = (n * 8 + kperm) * LDK + k8 * 8 + t;
+          uint32_t kb[2], ksm[2];
+          split_tf32(ks[off], kb[0], ksm[0]);
+          split_tf32(ks[off + 4], kb[1], ksm[1]);
+          float dd[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_3xtf32(dd, qb, qsm, kb, ksm);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[n][e] += dd[e];
+        }
+      }
+      __syncthreads();  // every warp is done with stage gc & 1
+    }
+    // the next tile's first chunk flies while this tile's P V runs
+    if (j + 1 < n_tiles) load_qk(k0 + BK, 0, gc & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // V landed
+    const bool full = k0 + BK <= p.t &&
+                      (!p.causal || k0 + BK - 1 <= wq0) &&
+                      (p.window <= 0 || wq0 + 15 - k0 < p.window);
+
+    // softcap, mask; row max over the quad that shares a row
+    uint32_t ok = 0;
+    float mx[2] = {kMasked, kMasked};
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[n][e];
+        if constexpr (kCap != 0) x = p.softcap * tanhf(x * p.scale * inv_cap);
+        if (full || admitted(p, row0 + (e >> 1) * 8,
+                             k0 + n * 8 + t + (e & 1) * 4)) {
+          ok |= 1u << (n * 4 + e);
+        } else {
+          x = kMasked;
+        }
+        sc[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float corr[2], mu[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      corr[i] = exp2f((m[i] - m_new) * unit);
+      m[i] = m_new;
+      mu[i] = m_new * unit;
+      l[i] *= corr[i];  // per-thread partial sums; the quad sums at the end
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pe = (ok >> (n * 4 + e)) & 1u
+                             ? exp2f(fmaf(sc[n][e], unit, -mu[e >> 1]))
+                             : 0.f;
+        sc[n][e] = pe;
+        l[e >> 1] += pe;
+      }
+    }
+    if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        acc[n][0] *= corr[0];
+        acc[n][1] *= corr[0];
+        acc[n][2] *= corr[1];
+        acc[n][3] *= corr[1];
+      }
+    }
+
+    // O += P V over the slice, P split once (its A fragment is (c0, c2,
+    // c1, c3)); output tiles wholly past hd are skipped
+    uint32_t pb[NS][4], psm[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      split_tf32(sc[n][0], pb[n][0], psm[n][0]);
+      split_tf32(sc[n][2], pb[n][1], psm[n][1]);
+      split_tf32(sc[n][1], pb[n][2], psm[n][2]);
+      split_tf32(sc[n][3], pb[n][3], psm[n][3]);
+    }
+#pragma unroll
+    for (int dn = 0; dn < NO; ++dn) {
+      if (v0 + dn * 8 >= p.hd) continue;
+      float o[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        const int off = (n * 8 + t) * LDV + dn * 8 + g;
+        uint32_t vb[2], vsm[2];
+        split_tf32(vs[off], vb[0], vsm[0]);
+        split_tf32(vs[off + 4 * LDV], vb[1], vsm[1]);
+        mma_3xtf32(o, pb[n], psm[n], vb, vsm);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[dn][e] += o[e];
+    }
+    __syncthreads();  // every warp is done with V
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] = fmaxf(l[i], 1e-30f);
+  }
+  float* og = static_cast<float*>(p.out) +
+              ((int64_t)batch * p.s * p.h + head) * p.hd;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = row0 + i * 8;
+    if (qi >= p.s) continue;
+    // uncapped, m is in raw score units
+    if (p.lse != nullptr && t == 0 && v0 == 0)
+      store_lse(p, batch, head, qi,
+                kCap || m[i] == kMasked ? m[i] : m[i] * p.scale, l[i]);
+    float* orow = og + qi * q_step + v0 + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      if (v0 + n * 8 + 2 * t < p.hd)
+        *reinterpret_cast<float2*>(orow + n * 8) =
+            make_float2(acc[n][2 * i] / l[i], acc[n][2 * i + 1] / l[i]);
+  }
+}
+
 // The f32 body's TF32 rounding, element by element: a probe that holds the
 // CPU model (ref.tf32_round) to the card's cvt.rna, bit for bit
 __global__ void tf32_round_probe(const float* x, float* y, int n) {
@@ -1763,6 +2305,49 @@ int launch_ws(const Params& p, int b, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// the 16-bit body past hd 256 (p.hd a multiple of 8)
+template <int kCap, typename T>
+int launch_wgmma_wide(const Params& p, int b, cudaStream_t stream) {
+  using Tile = WideTile;
+  CUtensorMap tq, tk, tv;
+  if (!make_map<T>(&tq, p.q, p.hd, p.h, p.s, b, kWgBlockQ) ||
+      !make_map<T>(&tk, p.k, p.hd, p.kh, p.t, b, Tile::BK) ||
+      !make_map<T>(&tv, p.v, p.hd, p.kh, p.t, b, Tile::BK))
+    return (int)cudaErrorNotSupported;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_wgmma_wide<kCap, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Tile::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  // (query tile, head, batch x value slice)
+  const dim3 grid((p.s + kWgBlockQ - 1) / kWgBlockQ, p.h,
+                  b * ((p.hd + Tile::DV - 1) / Tile::DV));
+  flash_wgmma_wide<kCap, T>
+      <<<grid, kWgThreads, Tile::kSmemBytes, stream>>>(tq, tk, tv, p);
+  return (int)cudaGetLastError();
+}
+
+// the f32 body past hd 256 (p.hd a multiple of 8)
+template <int kCap>
+int launch_3xtf32_wide(const Params& p, int b, cudaStream_t stream) {
+  using Tile = Tf32WideTile;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_3xtf32_wide<kCap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Tile::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((p.s + kBlockQ - 1) / kBlockQ, p.h,
+                  b * ((p.hd + Tile::DV - 1) / Tile::DV));
+  flash_3xtf32_wide<kCap>
+      <<<grid, Tile::kThreads, Tile::kSmemBytes, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int kCap>
+int launch_wide(int dtype, const Params& p, int b, cudaStream_t stream) {
+  if (dtype == 1) return launch_wgmma_wide<kCap, __nv_bfloat16>(p, b, stream);
+  if (dtype == 2) return launch_wgmma_wide<kCap, __half>(p, b, stream);
+  return launch_3xtf32_wide<kCap>(p, b, stream);
+}
+
 // the tensor-core body of a 16-bit type T at head dim HD
 template <int HD, typename T>
 int launch_16(const Params& p, int b, cudaStream_t stream) {
@@ -1790,7 +2375,8 @@ int launch_hd(int dtype, const Params& p, int b, cudaStream_t stream) {
 
 // dtype: 0 float32, 1 bfloat16, 2 float16.  q, out (B, S, H, hd) and k, v
 // (B, T, Kh, hd), contiguous, 16-byte aligned; lse null, or (B, H, S)
-// float32.
+// float32.  hd: one of 16, 32, 64, 80, 96, 128 and 256, or past 256 a
+// multiple of 8 (the bodies past 256 zero-fill to a multiple of 64).
 // Returns a cudaError_t; an unsupported head dim or type is
 // cudaErrorInvalidValue and launches nothing.
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -1803,8 +2389,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (dtype < 0 || dtype > 2 || b < 1 || s < 1 || t < 1 || kh < 1 ||
       h % kh != 0)
     return (int)cudaErrorInvalidValue;
-  const Params p{q, k, v, out, static_cast<float*>(lse), s, t, h, kh,
-                 causal, window, scale, softcap};
+  const Params p{q,  k,      v,      out, static_cast<float*>(lse),
+                 s,  t,      h,      kh,  causal,
+                 window, hd, scale, softcap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 16: return launch_hd<16>(dtype, p, b, st);
@@ -1814,7 +2401,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 96: return launch_hd<96>(dtype, p, b, st);
     case 128: return launch_hd<128>(dtype, p, b, st);
     case 256: return launch_hd<256>(dtype, p, b, st);
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      if (hd <= 256 || hd % 8) return (int)cudaErrorInvalidValue;
+      return softcap > 0.f ? launch_wide<1>(dtype, p, b, st)
+                           : launch_wide<0>(dtype, p, b, st);
   }
 }
 
@@ -1829,8 +2419,9 @@ int tiling(int* bk, int* stages, int* smem_bytes) {
 }  // namespace
 
 // The tiling of a wgmma body at head dim hd, bf16 and f16 alike (16, 32,
-// 64, 80 and 96: flash_wgmma_ws; 128 and 256: flash_wgmma): keys a tile,
-// K/V stages and dynamic shared memory; returns -1 for another head dim.
+// 64, 80 and 96: flash_wgmma_ws; 128 and 256: flash_wgmma; past 256:
+// flash_wgmma_wide, its depth stages): keys a tile, K/V stages and dynamic
+// shared memory; returns -1 for another head dim.
 extern "C" int flash_attention_tiling(int hd, int* bk, int* stages,
                                       int* smem_bytes) {
   switch (hd) {
@@ -1841,12 +2432,16 @@ extern "C" int flash_attention_tiling(int hd, int* bk, int* stages,
     case 96: return tiling<WsTile<96>>(bk, stages, smem_bytes);
     case 128: return tiling<WgTile<128>>(bk, stages, smem_bytes);
     case 256: return tiling<WgTile<256>>(bk, stages, smem_bytes);
-    default: return -1;
+    default:
+      return hd > 256 && hd % 8 == 0
+                 ? tiling<WideTile>(bk, stages, smem_bytes)
+                 : -1;
   }
 }
 
-// The tiling of the f32 body (flash_3xtf32) at head dim hd: keys a tile,
-// K/V stages and dynamic shared memory; returns -1 for another head dim.
+// The tiling of the f32 body (flash_3xtf32; past 256 flash_3xtf32_wide, its
+// depth chunks in flight) at head dim hd: keys a tile, K/V stages and
+// dynamic shared memory; returns -1 for another head dim.
 extern "C" int flash_attention_f32_tiling(int hd, int* bk, int* stages,
                                           int* smem_bytes) {
   switch (hd) {
@@ -1857,7 +2452,10 @@ extern "C" int flash_attention_f32_tiling(int hd, int* bk, int* stages,
     case 96: return tiling<Tf32Tile<96>>(bk, stages, smem_bytes);
     case 128: return tiling<Tf32Tile<128>>(bk, stages, smem_bytes);
     case 256: return tiling<Tf32Tile<256>>(bk, stages, smem_bytes);
-    default: return -1;
+    default:
+      return hd > 256 && hd % 8 == 0
+                 ? tiling<Tf32WideTile>(bk, stages, smem_bytes)
+                 : -1;
   }
 }
 

@@ -8,8 +8,8 @@
 //   S_t   = diag(exp(logw_t)) S_{t-1} + k_t v_t^T,   S_{-1} = state0,
 // and the kernel returns out (B, S, H, V) and S_{S-1} (B, H, K, V).
 //
-// The domain (the reference kernel's, cut to what is built): K and V each
-// in {32, 64, 128}; r, k, v and out in one type T, float32, bfloat16 or
+// The domain (the reference kernel's, whose BlockSpecs take any K and V):
+// any K, V >= 1; r, k, v and out in one type T, float32, bfloat16 or
 // float16; logw in T or in float32; u, state0, the state and the scratch
 // in float32.  Every T is widened to f32 as it leaves shared memory (the
 // reference widens on load too), the products, sums and exponentials are
@@ -17,6 +17,26 @@
 // to T (round to nearest even).  So the T kernel's output is the f32
 // kernel's output on the widened inputs rounded once to T, bit for bit,
 // and its state is that kernel's state, bit for bit.
+//
+// Widths.  A width up to 128 runs at the next of 32, 64 and 128, past 128
+// at the next multiple of 32 (padded_width), with zero columns added: a
+// padded key column has r = k = logw = u = 0 and state0 rows 0, so its
+// decay is 2^0 = 1, its decayed key 0, its state rows stay 0 and every FMA
+// on it adds an exact 0; a padded value column has v = 0 and gives zero
+// output and state columns, which are not stored.  The tensor maps take
+// the rows' true width and boxes of the padded one, so TMA zero-fills the
+// columns past a row (a row whose bytes are not a multiple of 16, TMA's
+// stride, is copied padded by the wrapper); an f32 box of 32 columns that
+// lies wholly past the row is not loaded but zeroed by the threads.  u,
+// state0, the state and the scratch are laid out at the padded widths.  A
+// padded width past 128 is cut into tiles, so the passes' shapes stay the
+// ones built for K, V in {32, 64, 128}: a block's shared memory holds one
+// tile of K and one of V (at K = V = 256 the output pass's chunk-start
+// state alone would be 256 KB, the state pass's buffers past 227 KB).  V
+// into tiles of 128, 64 or 32 columns (the largest that divides it,
+// tile_width), K into key slices of 64 or 32 (key_tile_width): an output
+// pass that walks key slices of 128 spilled 8 to 24 bytes even at 255
+// registers.
 //
 // What bounds it on the H100: bytes.  At the served rwkv6-1.6b prefill
 // (B 1, S 32768, H 32, K = V = 64, f32) the function reads r, k, v and logw
@@ -29,28 +49,37 @@
 // Design: two passes over chunks of C = 32 tokens, split along what is
 // truly sequential.  With L_t the inclusive cumulative log-decay of a chunk
 // (base 2 inside the kernel):
-//   pass 1, the state pass, grid (b, h, 16-column value slice), walks the
-//     chunks in order and carries only the recurrence
+//   pass 1, the state pass, grid (b, h, key slice, 16-column value slice),
+//     walks the chunks in order and carries only the recurrence
 //       S <- diag(2^L_{C-1}) S + sum_s (k_s * 2^(L_{C-1} - L_s)) v_s^T,
 //     writing the state at the start of every chunk to a scratch tensor
 //     (B, H, n_chunks, K, V) and the final state to the output.  No
-//     pairwise score is formed there: a chunk is one rank-C update.  Four
+//     pairwise score is formed there: a chunk is one rank-C update.  A
+//     key row's recurrence reads only its own column's decay and key, so
+//     the key rows are cut into slices of the K tile over the grid.  Four
 //     update warps apply chunk c's update (each thread K / 32 key rows of
 //     four columns) while K / 16 decay warps form chunk c + 1's decayed keys
 //     (32 columns of 16 tokens a warp), and a loader warp keeps up to five
 //     chunks' rows in flight by TMA, so one barrier a chunk is the whole
 //     sequential chain.  T rows stay T in shared memory and are widened as
 //     the decay and update warps read them.
-//   pass 2, the output pass, grid (chunk, b * h), fully parallel (32,768
-//     blocks at the served prefill): each block forms its chunk's 32 x 32
-//     pairwise scores once for all V value columns (in 2 x 2 blocks, two
-//     threads to a block over the halves of k) and writes
+//   pass 2, the output pass, grid (chunk, b * h, value slice of the V
+//     tile), fully parallel (32,768 blocks at the served prefill): each
+//     block forms its chunk's 32 x 32 pairwise scores once for all its
+//     value columns (in 2 x 2 blocks, two threads to a block over the
+//     halves of k) and writes
 //       out_t = (r_t * 2^L_{t-1}) . S_c + sum_{s<t} score_ts v_s
 //               + (r_t . (u * k_t)) v_t
 //     from the chunk-start state S_c, each thread accumulating four rows
-//     of V / 32 value columns.  T rows land by TMA in a staging buffer and
-//     one widening copy writes them into the f32 tiles the body reads; an
-//     f32 logw beside T rows lands in its tile directly.
+//     of V / 32 value columns.  Past a K of 128 the block walks the key
+//     slices in order (kSliced), loading each slice's r, k, logw, u and
+//     rows of S_c and adding its part of the scores, the bonus and the
+//     cross term to sums that stay in registers; v, the intra-chunk term
+//     and the stores follow once.  Each value slice recomputes the scores:
+//     the output pass's exponentials and score products are paid vt / V
+//     times (twice at V = 256, four times at 512).  T rows land by TMA in a
+//     staging buffer and one widening copy writes them into the f32 tiles
+//     the body reads; an f32 logw beside T rows lands in its tile directly.
 // Rows arrive by TMA (one instruction a tile; cp.async of 16 bytes a
 // thread spent more issue slots on the copies than the products took);
 // the output pass's f32 tiles are 128-byte swizzled, so the scores' reads
@@ -59,6 +88,9 @@
 // read once: 0.32 ms of traffic beside the function's own bytes.  C = 64
 // would halve it but double the pairs per chunk of the output pass, whose
 // exponentials already take longer than its bytes; C = 32 is kept.  At
+// B 8, S 4096, H 8, K = V = 256 the scratch is 2.15 GB (B H S/32 K V 4
+// bytes), at H 4, K = V = 512 4.29 GB: it grows with K V, where the
+// function's own bytes grow with K + V.  At
 // K = V = 128 the output pass's chunk-start state alone is 64 KB, so one
 // block fits an SM where four do at 64.
 // What bounds it now (H100 SXM, found by removing one part at a time):
@@ -72,8 +104,9 @@
 // s <= a, so it is <= 0 and nothing overflows, however fast the decay: the
 // pairwise decay is exponentiated per (t, s, k) and never factorised into
 // 2^L_t 2^-L_s.  Products run on the CUDA cores in float32 FMA.  No
-// atomics: one thread owns each output, state and scratch element, so two
-// runs give the same bits.  Any S >= 1: the tensor maps zero-fill rows
+// atomics: one thread owns each output, state and scratch element, and a
+// key slice's sums are added in slice order, so two runs give the same
+// bits.  Any S >= 1: the tensor maps zero-fill rows
 // past S of each sequence (r = k = v = logw = 0 leaves the state as it
 // is), and those rows are not written.
 #include <cuda.h>
@@ -184,6 +217,16 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// one box of a 2-d tensor map (cols, rows) into shared memory
+__device__ __forceinline__ void tma_load2(void* dst, const CUtensorMap* map,
+                                          uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // `bytes` contiguous bytes into shared memory
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
                                           int bytes, uint32_t bar) {
@@ -265,15 +308,19 @@ __device__ __forceinline__ void decay_keys(StateSmem<K, T>& sm, int buf,
   if (!half) sm.etot[out][j] = ex2((acc + add) * kLog2e);
 }
 
-// nv: the value width V (nv / 16 slice blocks a head); w32: logw is f32
-// (always, for T = float)
+// nv and kt: the padded value and key widths (the state's row length and
+// its rows); a head's key rows are cut into kt / K slices of K rows, each
+// run by `vslices` blocks of kVS value columns (the columns of v that hold
+// a value: past them the state's columns are never read into a stored
+// output, and are left unwritten); w32: logw is f32 (always, for T = float)
 template <int K, typename T>
 __global__ void __launch_bounds__(StateShape<K>::kBlock)
 wkv_state_pass(const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tw,
                const __grid_constant__ CUtensorMap tv,
                const float* __restrict__ s0, float* __restrict__ starts,
-               float* __restrict__ sout, int s, int h, int nv, int w32) {
+               float* __restrict__ sout, int s, int h, int nv, int kt,
+               int vslices, int w32) {
   using Shape = StateShape<K>;
   constexpr int kKR = Shape::kKR;
   constexpr int kStateThreads = Shape::kThreads;
@@ -282,9 +329,11 @@ wkv_state_pass(const __grid_constant__ CUtensorMap tk,
   StateSmem<K, T>& sm = *reinterpret_cast<StateSmem<K, T>*>(
       smem_raw + (((raw + 127) & ~127u) - raw));
   const int tid = threadIdx.x;
-  const int slices = nv / kVS;
-  const int bh = blockIdx.x / slices;
-  const int v0 = (blockIdx.x % slices) * kVS;
+  const int per_bh = vslices * (kt / K);
+  const int bh = blockIdx.x / per_bh;
+  const int slice = blockIdx.x - bh * per_bh;
+  const int k0 = (slice / vslices) * K;   // the block's key rows
+  const int v0 = (slice % vslices) * kVS;
   const int b = bh / h, hh = bh % h;
   const int n_chunks = (s + kC - 1) / kC;
   const bool wf = kIsF32<T> || w32;
@@ -299,8 +348,8 @@ wkv_state_pass(const __grid_constant__ CUtensorMap tk,
     mbar_wait(smem_addr(&sm.done[buf]), ((c / kBufs) & 1) ^ 1);
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     mbar_expect(bar, bytes);
-    tma_load(&sm.k[buf][0][0], &tk, bar, 0, hh, c * kC, b);
-    tma_load(&sm.w[buf][0][0], &tw, bar, 0, hh, c * kC, b);
+    tma_load(&sm.k[buf][0][0], &tk, bar, k0, hh, c * kC, b);
+    tma_load(&sm.w[buf][0][0], &tw, bar, k0, hh, c * kC, b);
     tma_load(&sm.v[buf][0][0], &tv, bar, v0, hh, c * kC, b);
   };
   auto wait_rows = [&](int c) {
@@ -328,10 +377,10 @@ wkv_state_pass(const __grid_constant__ CUtensorMap tk,
   // the update warps own the state: key rows kr .. kr + kKR - 1 and
   // columns cv .. cv + kCV - 1
   const int kr = (tid / (kVS / kCV)) * kKR, cv = (tid % (kVS / kCV)) * kCV;
-  const int64_t chunk_elems = (int64_t)K * nv;
+  const int64_t chunk_elems = (int64_t)kt * nv;
   float st[kKR][kCV];
   float* const s_row =
-      starts + ((int64_t)bh * n_chunks * K + kr) * nv + v0 + cv;
+      starts + ((int64_t)bh * n_chunks * kt + k0 + kr) * nv + v0 + cv;
   const bool updater = tid < kUpdateThreads;
   if (updater) {
 #pragma unroll
@@ -339,7 +388,7 @@ wkv_state_pass(const __grid_constant__ CUtensorMap tk,
 #pragma unroll
       for (int i = 0; i < kCV; i += 4) {
         const float4 a = *reinterpret_cast<const float4*>(
-            s0 + ((int64_t)bh * K + kr + r) * nv + v0 + cv + i);
+            s0 + ((int64_t)bh * kt + k0 + kr + r) * nv + v0 + cv + i);
         st[r][i] = a.x; st[r][i + 1] = a.y; st[r][i + 2] = a.z;
         st[r][i + 3] = a.w;
       }
@@ -411,7 +460,8 @@ wkv_state_pass(const __grid_constant__ CUtensorMap tk,
     for (int r = 0; r < kKR; ++r)
 #pragma unroll
       for (int i = 0; i < kCV; i += 4)
-        *reinterpret_cast<float4*>(sout + ((int64_t)bh * K + kr + r) * nv +
+        *reinterpret_cast<float4*>(sout + ((int64_t)bh * kt + k0 + kr + r) *
+                                              nv +
                                    v0 + cv + i) =
             make_float4(st[r][i], st[r][i + 1], st[r][i + 2], st[r][i + 3]);
   }
@@ -477,13 +527,16 @@ struct alignas(1024) OutSmem : OutStage<K, V, T> {
 // blocks of the output pass an SM holds by shared memory (228 KB, 1 KB of
 // it reserved a block, 1 KB of alignment slack): the register budget
 // ptxas is given, at most 4, and at most 2 at K = 128, whose score loop
-// spilled at the 80 registers of 3 blocks
+// spilled at the 80 registers of 3 blocks.  A body that walks key slices
+// (kSliced) carries its partial scores, bonus and output rows across them
+// and spilled 4 to 128 bytes at the 128 registers of 2 blocks: it is
+// given one block's budget.
 template <int K, int V, typename T>
 constexpr int kSmemBlocks =
     (int)(228 * 1024 / (sizeof(OutSmem<K, V, T>) + 2048));
-template <int K, int V, typename T>
+template <int K, int V, typename T, int kSliced>
 constexpr int kOutBlocks =
-    kSmemBlocks<K, V, T> < 1 ? 1
+    kSmemBlocks<K, V, T> < 1 || kSliced ? 1
     : kSmemBlocks<K, V, T> > (K == 128 ? 2 : 4) ? (K == 128 ? 2 : 4)
                                                 : kSmemBlocks<K, V, T>;
 
@@ -548,15 +601,32 @@ __device__ __forceinline__ void store_cols(T* dst, const float (&o)[N]) {
   }
 }
 
-// w32: logw is f32 (always, for T = float)
-template <int K, int V, typename T>
-__global__ void __launch_bounds__(kThreads, (kOutBlocks<K, V, T>))
+// 32 x 32 floats of a swizzled f32 tile (one 32-column box) set to 0: a
+// box that lies wholly past the row's true width is not loaded
+__device__ __forceinline__ void zero_box(float* tile, int box, int tid) {
+  reinterpret_cast<float4*>(tile + box * kC * 32)[tid] =
+      make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// One block: chunk blockIdx.x of (b, h) = blockIdx.y, value columns v0 ..
+// v0 + V - 1 (v0 = V blockIdx.z).  K and V are the tile widths; kk and vv
+// the rows' widths in memory (columns past them read as zeros), kt the
+// padded key width of u and the chunk-start states (ts: the scratch as
+// rows of its padded value width).  kSliced 0: K is the whole key width
+// (kt = K) and the body runs once; 1: the block walks kt / K key slices,
+// reloading r, k, logw, u and the state's rows for each and carrying the
+// partial scores, bonus and cross term in registers across them; v, the
+// scores' mix and the intra-chunk term follow once.  w32: logw is f32
+// (always, for T = float).
+template <int K, int V, typename T, int kSliced>
+__global__ void __launch_bounds__(kThreads, (kOutBlocks<K, V, T, kSliced>))
 wkv_output_pass(const __grid_constant__ CUtensorMap tr,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tw,
                 const __grid_constant__ CUtensorMap tv,
-                const float* __restrict__ u, const float* __restrict__ starts,
-                T* __restrict__ out, int s, int h, int w32) {
+                const __grid_constant__ CUtensorMap ts,
+                const float* __restrict__ u, T* __restrict__ out, int s,
+                int h, int w32, int kk, int vv, int kt) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // the swizzle pattern follows address bits, so the tiles sit 1024-aligned
   const uint32_t raw = smem_addr(smem_raw);
@@ -564,149 +634,23 @@ wkv_output_pass(const __grid_constant__ CUtensorMap tr,
       smem_raw + (((raw + 1023) & ~1023u) - raw));
   const int tid = threadIdx.x, lane = tid & 31;
   const int c = blockIdx.x, bh = blockIdx.y;
+  const int v0 = blockIdx.z * V;
   const int n_chunks = gridDim.x;
   const int b = bh / h, hh = bh % h;
-  const int64_t stride = (int64_t)h * V;
-  const int64_t row0 = (int64_t)b * s * stride + (int64_t)hh * V;
+  const int64_t stride = (int64_t)h * vv;
+  const int64_t row0 = (int64_t)b * s * stride + (int64_t)hh * vv + v0;
   const int t0 = c * kC;
   const bool wf = kIsF32<T> || w32;
-
+  const int n_slices = kSliced ? kt / K : 1;
+  // the 32-column f32 boxes of v that hold a column of it
+  const int v_boxes = min(V / 32, (vv - v0 + 31) / 32);
   const uint32_t bar = smem_addr(&sm.full);
-  if (tid == 0) {
-    mbar_init(bar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    mbar_expect(bar, kC * ((2 * K + V) * (int)sizeof(T) +
-                           K * (wf ? 4 : (int)sizeof(T))) +
-                         K * V * 4 + K * 4);
-    if constexpr (kIsF32<T>) {
-      const CUtensorMap* maps[3] = {&tr, &tk, &tv};
-      float* tiles[3] = {sm.r, sm.k, sm.v};
-      for (int i = 0; i < 3; ++i)
-        for (int box = 0; box < (i == 2 ? V : K) / 32; ++box)
-          tma_load(tiles[i] + box * kC * 32, maps[i], bar, 32 * box, hh, t0,
-                   b);
-    } else {
-      OutStage<K, V, T>& stage = sm;
-      tma_load(stage.r, &tr, bar, 0, hh, t0, b);
-      tma_load(stage.k, &tk, bar, 0, hh, t0, b);
-      tma_load(stage.v, &tv, bar, 0, hh, t0, b);
-      if (!wf) tma_load(stage.w, &tw, bar, 0, hh, t0, b);
-    }
-    if (wf)
-      for (int box = 0; box < K / 32; ++box)
-        tma_load(sm.lin + box * kC * 32, &tw, bar, 32 * box, hh, t0, b);
-    bulk_load(&sm.state[0][0], starts + ((int64_t)bh * n_chunks + c) * K * V,
-              K * V * 4, bar);
-    bulk_load(sm.u, u + hh * K, K * 4, bar);
-  }
-  __syncthreads();
-  mbar_wait(bar, 0);
-  if constexpr (!kIsF32<T>) {
-    const OutStage<K, V, T>& stage = sm;
-    widen_tile<K>(stage.r, sm.r, tid);
-    widen_tile<K>(stage.k, sm.k, tid);
-    widen_tile<V>(stage.v, sm.v, tid);
-    if (!wf) widen_tile<K>(stage.w, sm.lin, tid);
-    __syncthreads();
-  }
 
-  // 1. warps 0-3: L_t in place of logw (lane l of warp q owns column
-  //    16 q + (l & 15) of each 64-column group over the 16 tokens of half
-  //    l >> 4); warps 4-7: the u bonus, four lanes a token
-  if (tid < 128) {
-    const int half = lane >> 4, tb = half * 16;
-#pragma unroll
-    for (int j0 = 0; j0 < K; j0 += 64) {
-      const int j = j0 + (tid >> 5) * 16 + (lane & 15);
-      if (j < K) {      // a whole warp or none (K = 32: warps 0-1)
-        float lv[16];
-        float acc = 0.0f;
-#pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          acc += sm.lin[sw(tb + i, j)];
-          lv[i] = acc;
-        }
-        const float tot0 = __shfl_up_sync(0xffffffffu, acc, 16);
-        const float add = half ? tot0 : 0.0f;
-#pragma unroll
-        for (int i = 0; i < 16; ++i)
-          sm.lin[sw(tb + i, j)] = (lv[i] + add) * kLog2e;
-      }
-    }
-  } else {
-    constexpr int kQ = K / 4;
-    const int t = (tid - 128) >> 2, q = (tid & 3) * kQ;
-    float acc = 0.0f;
-#pragma unroll
-    for (int j = q; j < q + kQ; ++j)
-      acc = fmaf(sm.r[sw(t, j)] * sm.u[j], sm.k[sw(t, j)], acc);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-    if ((tid & 3) == 0) sm.bonus[t] = acc;
-  }
-  __syncthreads();
-
-  // 2. the pairwise scores, once for all value columns
-  if (tid < 2 * kOffBlocks) {
-    int a, bb;
-    off_block(tid >> 1, &a, &bb);
-    const int t0 = 2 * a, t1 = t0 + 1, s0 = 2 * bb, s1 = s0 + 1;
-    const int q0 = (tid & 1) * (K / 8);
-    const uint32_t r0 = row_key(sm.r, t0), r1 = row_key(sm.r, t1);
-    const uint32_t l0 = row_key(sm.lin, t0 - 1), l1 = row_key(sm.lin, t0);
-    const uint32_t k0 = row_key(sm.k, s0), k1 = row_key(sm.k, s1);
-    const uint32_t m0 = row_key(sm.lin, s0), m1 = row_key(sm.lin, s1);
-    float a00 = 0.0f, a01 = 0.0f, a10 = 0.0f, a11 = 0.0f;
-#pragma unroll
-    for (int q = 0; q < K / 8; ++q) {
-      const float4 x0 = lds4(r0, q0 + q), x1 = lds4(r1, q0 + q);
-      const float4 la0 = lds4(l0, q0 + q), la1 = lds4(l1, q0 + q);
-      const float4 y0 = lds4(k0, q0 + q), y1 = lds4(k1, q0 + q);
-      const float4 n0 = lds4(m0, q0 + q), n1 = lds4(m1, q0 + q);
-      a00 = score4(a00, x0, la0, y0, n0);
-      a01 = score4(a01, x0, la0, y1, n1);
-      a10 = score4(a10, x1, la1, y0, n0);
-      a11 = score4(a11, x1, la1, y1, n1);
-    }
-    // the two halves of k sit in neighbouring lanes
-    const unsigned mask = tid < 2 * kOffBlocks - 16 ? 0xffffffffu : 0xffffu;
-    a00 += __shfl_xor_sync(mask, a00, 1);
-    a01 += __shfl_xor_sync(mask, a01, 1);
-    a10 += __shfl_xor_sync(mask, a10, 1);
-    a11 += __shfl_xor_sync(mask, a11, 1);
-    if ((tid & 1) == 0) {
-      sm.mix[s0][t0] = a00;
-      sm.mix[s1][t0] = a01;
-      sm.mix[s0][t1] = a10;
-      sm.mix[s1][t1] = a11;
-    }
-  } else {
-    const int t1 = 2 * (tid - 2 * kOffBlocks) + 1, s0 = t1 - 1;
-    const uint32_t r1 = row_key(sm.r, t1), l1 = row_key(sm.lin, s0);
-    const uint32_t k0 = row_key(sm.k, s0);
-    float a10 = 0.0f;
-#pragma unroll
-    for (int q = 0; q < K / 4; ++q)
-      a10 = score4(a10, lds4(r1, q), lds4(l1, q), lds4(k0, q), lds4(l1, q));
-    sm.mix[s0][t1] = a10;
-  }
-  __syncthreads();
-
-  // 3. r decayed from the chunk's start, transposed over k (no longer
-  //    read); the bonus on the diagonal of mix and zeros above it
-  for (int e = tid; e < kC * K; e += kThreads) {
-    const int t = e % kC, j = e / kC;
-    sm.at[j][t] = sm.r[sw(t, j)] * (t ? ex2(sm.lin[sw(t - 1, j)]) : 1.0f);
-  }
-  for (int e = tid; e < kC * kC; e += kThreads) {
-    const int t = e % kC, s2 = e / kC;
-    if (s2 >= t) sm.mix[s2][t] = s2 == t ? sm.bonus[t] : 0.0f;
-  }
-  __syncthreads();
-
-  // 4. rows 4 g .. 4 g + 3 (g = warp) of value columns kN l .. kN l +
-  //    kN - 1 (l = lane, kN = V / 32): per k or token, one 16-byte load the
-  //    warp shares and one load of kN columns feed 4 kN FMAs
+  // carried across key slices: the thread's partial scores (a00, a01, a10,
+  // a11 of its 2 x 2 block; a10 alone on the diagonal's neighbours), its
+  // quarter of a token's bonus, and its output rows
+  float sc[4] = {0.f, 0.f, 0.f, 0.f};
+  float bonus = 0.f;
   constexpr int kN = V / 32;
   const int tr4 = 4 * (tid >> 5), cn = kN * lane;
   float o[4][kN];
@@ -714,6 +658,9 @@ wkv_output_pass(const __grid_constant__ CUtensorMap tr,
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int n = 0; n < kN; ++n) o[i][n] = 0.f;
+  // rows 4 g .. 4 g + 3 (g = warp) of value columns kN l .. kN l + kN - 1
+  // (l = lane, kN = V / 32): per k or token, one 16-byte load the warp
+  // shares and one load of kN columns feed 4 kN FMAs
   auto accumulate = [&](const float* rows4, const float* cols) {
     const float4 p = *reinterpret_cast<const float4*>(rows4);
     float x[kN];
@@ -726,14 +673,205 @@ wkv_output_pass(const __grid_constant__ CUtensorMap tr,
       o[3][n] = fmaf(p.w, x[n], o[3][n]);
     }
   };
+  // the two halves of k sit in neighbouring lanes: the partial scores'
+  // sums into mix, and the bonus's four quarters into bonus
+  auto write_scores = [&]() {
+    if (tid < 2 * kOffBlocks) {
+      int a, bb;
+      off_block(tid >> 1, &a, &bb);
+      const int s0 = 2 * bb, s1 = s0 + 1, q0 = 2 * a, q1 = q0 + 1;
+      const unsigned mask = tid < 2 * kOffBlocks - 16 ? 0xffffffffu : 0xffffu;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[i] += __shfl_xor_sync(mask, sc[i], 1);
+      if ((tid & 1) == 0) {
+        sm.mix[s0][q0] = sc[0];
+        sm.mix[s1][q0] = sc[1];
+        sm.mix[s0][q1] = sc[2];
+        sm.mix[s1][q1] = sc[3];
+      }
+    } else {
+      const int q1 = 2 * (tid - 2 * kOffBlocks) + 1;
+      sm.mix[q1 - 1][q1] = sc[0];
+    }
+  };
+  auto write_bonus = [&]() {
+    bonus += __shfl_xor_sync(0xffffffffu, bonus, 1);
+    bonus += __shfl_xor_sync(0xffffffffu, bonus, 2);
+    if ((tid & 3) == 0) sm.bonus[(tid - 128) >> 2] = bonus;
+  };
+  // the bonus on the diagonal of mix and zeros above it
+  auto fill_mix = [&]() {
+    for (int e = tid; e < kC * kC; e += kThreads) {
+      const int t = e % kC, s2 = e / kC;
+      if (s2 >= t) sm.mix[s2][t] = s2 == t ? sm.bonus[t] : 0.0f;
+    }
+  };
+
+  for (int ks = 0; ks < n_slices; ++ks) {
+    const int k0 = ks * K;
+    // the 32-column f32 boxes of the slice's key columns that hold one
+    const int k_boxes = min(K / 32, (kk - k0 + 31) / 32);
+    // every read of the last slice's tiles is done
+    if (kSliced && ks > 0) __syncthreads();
+    if (tid == 0) {
+      if (ks == 0) {
+        mbar_init(bar, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      } else {
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      }
+      int bytes = K * V * 4 + K * 4;    // the state's rows and u
+      if constexpr (kIsF32<T>) {
+        bytes += 2 * k_boxes * kC * 32 * 4;
+        if (ks == 0) bytes += v_boxes * kC * 32 * 4;
+      } else {
+        bytes += (2 + (wf ? 0 : 1)) * kC * K * (int)sizeof(T);
+        if (ks == 0) bytes += kC * V * (int)sizeof(T);
+      }
+      if (wf) bytes += k_boxes * kC * 32 * 4;
+      mbar_expect(bar, bytes);
+      if constexpr (kIsF32<T>) {
+        for (int box = 0; box < k_boxes; ++box) {
+          tma_load(sm.r + box * kC * 32, &tr, bar, k0 + 32 * box, hh, t0, b);
+          tma_load(sm.k + box * kC * 32, &tk, bar, k0 + 32 * box, hh, t0, b);
+        }
+        if (ks == 0)
+          for (int box = 0; box < v_boxes; ++box)
+            tma_load(sm.v + box * kC * 32, &tv, bar, v0 + 32 * box, hh, t0,
+                     b);
+      } else {
+        OutStage<K, V, T>& stage = sm;
+        tma_load(stage.r, &tr, bar, k0, hh, t0, b);
+        tma_load(stage.k, &tk, bar, k0, hh, t0, b);
+        if (ks == 0) tma_load(stage.v, &tv, bar, v0, hh, t0, b);
+        if (!wf) tma_load(stage.w, &tw, bar, k0, hh, t0, b);
+      }
+      if (wf)
+        for (int box = 0; box < k_boxes; ++box)
+          tma_load(sm.lin + box * kC * 32, &tw, bar, k0 + 32 * box, hh, t0,
+                   b);
+      tma_load2(&sm.state[0][0], &ts, bar, v0,
+                ((int)bh * n_chunks + c) * kt + k0);
+      bulk_load(sm.u, u + hh * kt + k0, K * 4, bar);
+    }
+    // the f32 boxes wholly past a row's width read as zeros
+    if constexpr (kIsF32<T>) {
+      for (int box = k_boxes; box < K / 32; ++box) {
+        zero_box(sm.r, box, tid);
+        zero_box(sm.k, box, tid);
+      }
+      if (ks == 0)
+        for (int box = v_boxes; box < V / 32; ++box) zero_box(sm.v, box, tid);
+    }
+    if (wf)
+      for (int box = k_boxes; box < K / 32; ++box) zero_box(sm.lin, box, tid);
+    __syncthreads();
+    mbar_wait(bar, ks & 1);
+    if constexpr (!kIsF32<T>) {
+      const OutStage<K, V, T>& stage = sm;
+      widen_tile<K>(stage.r, sm.r, tid);
+      widen_tile<K>(stage.k, sm.k, tid);
+      if (ks == 0) widen_tile<V>(stage.v, sm.v, tid);
+      if (!wf) widen_tile<K>(stage.w, sm.lin, tid);
+      __syncthreads();
+    }
+
+    // 1. warps 0-3: L_t in place of logw (lane l of warp q owns column
+    //    16 q + (l & 15) of each 64-column group over the 16 tokens of half
+    //    l >> 4); warps 4-7: the u bonus, four lanes a token
+    if (tid < 128) {
+      const int half = lane >> 4, tb = half * 16;
+#pragma unroll
+      for (int j0 = 0; j0 < K; j0 += 64) {
+        const int j = j0 + (tid >> 5) * 16 + (lane & 15);
+        if (j < K) {      // a whole warp or none (K = 32: warps 0-1)
+          float lv[16];
+          float acc = 0.0f;
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            acc += sm.lin[sw(tb + i, j)];
+            lv[i] = acc;
+          }
+          const float tot0 = __shfl_up_sync(0xffffffffu, acc, 16);
+          const float add = half ? tot0 : 0.0f;
+#pragma unroll
+          for (int i = 0; i < 16; ++i)
+            sm.lin[sw(tb + i, j)] = (lv[i] + add) * kLog2e;
+        }
+      }
+    } else {
+      constexpr int kQ = K / 4;
+      const int t = (tid - 128) >> 2, q = (tid & 3) * kQ;
+#pragma unroll
+      for (int j = q; j < q + kQ; ++j)
+        bonus = fmaf(sm.r[sw(t, j)] * sm.u[j], sm.k[sw(t, j)], bonus);
+      if constexpr (!kSliced) write_bonus();
+    }
+    __syncthreads();
+
+    // 2. the pairwise scores, once for all value columns
+    if (tid < 2 * kOffBlocks) {
+      int a, bb;
+      off_block(tid >> 1, &a, &bb);
+      const int q0 = 2 * a, q1 = q0 + 1, s0 = 2 * bb, s1 = s0 + 1;
+      const int h0 = (tid & 1) * (K / 8);
+      const uint32_t r0 = row_key(sm.r, q0), r1 = row_key(sm.r, q1);
+      const uint32_t l0 = row_key(sm.lin, q0 - 1), l1 = row_key(sm.lin, q0);
+      const uint32_t k0k = row_key(sm.k, s0), k1k = row_key(sm.k, s1);
+      const uint32_t m0 = row_key(sm.lin, s0), m1 = row_key(sm.lin, s1);
+#pragma unroll
+      for (int q = 0; q < K / 8; ++q) {
+        const float4 x0 = lds4(r0, h0 + q), x1 = lds4(r1, h0 + q);
+        const float4 la0 = lds4(l0, h0 + q), la1 = lds4(l1, h0 + q);
+        const float4 y0 = lds4(k0k, h0 + q), y1 = lds4(k1k, h0 + q);
+        const float4 n0 = lds4(m0, h0 + q), n1 = lds4(m1, h0 + q);
+        sc[0] = score4(sc[0], x0, la0, y0, n0);
+        sc[1] = score4(sc[1], x0, la0, y1, n1);
+        sc[2] = score4(sc[2], x1, la1, y0, n0);
+        sc[3] = score4(sc[3], x1, la1, y1, n1);
+      }
+    } else {
+      const int q1 = 2 * (tid - 2 * kOffBlocks) + 1, s0 = q1 - 1;
+      const uint32_t r1 = row_key(sm.r, q1), l1 = row_key(sm.lin, s0);
+      const uint32_t k0k = row_key(sm.k, s0);
+#pragma unroll
+      for (int q = 0; q < K / 4; ++q)
+        sc[0] = score4(sc[0], lds4(r1, q), lds4(l1, q), lds4(k0k, q),
+                       lds4(l1, q));
+    }
+    if constexpr (!kSliced) write_scores();
+    __syncthreads();
+
+    // 3. r decayed from the chunk's start, transposed over k (no longer
+    //    read)
+    for (int e = tid; e < kC * K; e += kThreads) {
+      const int t = e % kC, j = e / kC;
+      sm.at[j][t] = sm.r[sw(t, j)] * (t ? ex2(sm.lin[sw(t - 1, j)]) : 1.0f);
+    }
+    if constexpr (!kSliced) fill_mix();
+    __syncthreads();
+
+    // 4. the cross term, from the slice's rows of the chunk-start state
 #pragma unroll 8
-  for (int j = 0; j < K; ++j) accumulate(&sm.at[j][tr4], &sm.state[j][cn]);
+    for (int j = 0; j < K; ++j) accumulate(&sm.at[j][tr4], &sm.state[j][cn]);
+  }
+
+  if constexpr (kSliced) {
+    write_scores();
+    if (tid >= 128) write_bonus();
+    __syncthreads();
+    fill_mix();
+    __syncthreads();
+  }
+  // 5. the intra-chunk term and the u bonus (the diagonal of mix)
   for (int s2 = 0; s2 < tr4 + 4; ++s2)
     accumulate(&sm.mix[s2][tr4], &sm.v[sw(s2, cn)]);
+  if (v0 + cn < vv) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    if (t0 + tr4 + i < s)
-      store_cols(out + row0 + (t0 + tr4 + i) * stride + cn, o[i]);
+    for (int i = 0; i < 4; ++i)
+      if (t0 + tr4 + i < s)
+        store_cols(out + row0 + (t0 + tr4 + i) * stride + cn, o[i]);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -793,6 +931,40 @@ bool make_map(CUtensorMap* map, const void* ptr, int code, int b, int s,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The chunk-start states (B, H, n_chunks, kt, vt) f32 as a 2-d map of
+// B H n_chunks kt rows of vt columns: boxes of K rows x V columns, the
+// output pass's slice of a chunk's state
+bool make_state_map(CUtensorMap* map, const void* ptr, int64_t rows, int vt,
+                    int box_rows, int box_cols) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)vt, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)vt * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The padded width a width runs at: 32, 64 or 128 up to 128 (the next of
+// them), past it the next multiple of 32.
+int padded_width(int w) {
+  return w <= 32 ? 32 : w <= 64 ? 64 : w <= 128 ? 128 : (w + 31) / 32 * 32;
+}
+
+// The tile a padded V is cut into: itself up to 128, past it the largest
+// of 128, 64 and 32 that divides it.
+int tile_width(int wp) {
+  return wp <= 128 ? wp : wp % 128 == 0 ? 128 : wp % 64 == 0 ? 64 : 32;
+}
+
+// The slice a padded K is cut into: itself up to 128, past it 64 or 32.
+int key_tile_width(int wp) {
+  return wp <= 128 ? wp : wp % 64 == 0 ? 64 : 32;
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -802,10 +974,12 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
 }
 
+// kk, vv: the widths of the rows in memory; kt, vt: the padded widths of u,
+// state0, the state and the scratch
 struct Args {
   const void *r, *k, *v, *logw, *u, *state0;
   void *out, *state, *scratch;
-  int b, s, h, wcode, passes;
+  int b, s, h, wcode, passes, kk, vv, kt, vt;
 };
 
 template <int K>
@@ -833,6 +1007,7 @@ size_t out_smem_v(int code, int vv) {
                     : out_smem<K, 128>(code);
 }
 
+// K, V: the tiles of the padded widths a.kt, a.vt
 template <int K, int V, typename T>
 int launch_wkv(const Args& a, cudaStream_t st) {
   constexpr int code = kCode<T>;
@@ -840,18 +1015,19 @@ int launch_wkv(const Args& a, cudaStream_t st) {
   const int w32 = a.wcode == 0;
   if (a.passes & 1) {
     CUtensorMap tk, tw, tv;
-    if (!make_map(&tk, a.k, code, a.b, a.s, a.h, K, K, false) ||
-        !make_map(&tw, a.logw, a.wcode, a.b, a.s, a.h, K, K, false) ||
-        !make_map(&tv, a.v, code, a.b, a.s, a.h, V, kVS, false))
+    if (!make_map(&tk, a.k, code, a.b, a.s, a.h, a.kk, K, false) ||
+        !make_map(&tw, a.logw, a.wcode, a.b, a.s, a.h, a.kk, K, false) ||
+        !make_map(&tv, a.v, code, a.b, a.s, a.h, a.vv, kVS, false))
       return (int)cudaErrorNotSupported;
     const size_t smem = sizeof(StateSmem<K, T>) + 128;
     cudaError_t err = allow_smem(wkv_state_pass<K, T>, smem);
     if (err != cudaSuccess) return (int)err;
+    const int vslices = (a.vv + kVS - 1) / kVS;
     wkv_state_pass<K, T>
-        <<<a.b * a.h * (V / kVS), StateShape<K>::kBlock, smem, st>>>(
-            tk, tw, tv, static_cast<const float*>(a.state0),
-            static_cast<float*>(a.scratch), static_cast<float*>(a.state), a.s,
-            a.h, V, w32);
+        <<<a.b * a.h * vslices * (a.kt / K), StateShape<K>::kBlock, smem,
+           st>>>(tk, tw, tv, static_cast<const float*>(a.state0),
+                 static_cast<float*>(a.scratch), static_cast<float*>(a.state),
+                 a.s, a.h, a.vt, a.kt, vslices, w32);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -860,88 +1036,120 @@ int launch_wkv(const Args& a, cudaStream_t st) {
     // dense box a tile into the staging buffer
     const bool f32 = code == 0;
     const int cols_k = f32 ? 32 : K, cols_v = f32 ? 32 : V;
-    CUtensorMap tr, tk, tw, tv;
-    if (!make_map(&tr, a.r, code, a.b, a.s, a.h, K, cols_k, f32) ||
-        !make_map(&tk, a.k, code, a.b, a.s, a.h, K, cols_k, f32) ||
-        !make_map(&tw, a.logw, a.wcode, a.b, a.s, a.h, K, w32 ? 32 : K,
+    CUtensorMap tr, tk, tw, tv, ts;
+    if (!make_map(&tr, a.r, code, a.b, a.s, a.h, a.kk, cols_k, f32) ||
+        !make_map(&tk, a.k, code, a.b, a.s, a.h, a.kk, cols_k, f32) ||
+        !make_map(&tw, a.logw, a.wcode, a.b, a.s, a.h, a.kk, w32 ? 32 : K,
                   w32) ||
-        !make_map(&tv, a.v, code, a.b, a.s, a.h, V, cols_v, f32))
+        !make_map(&tv, a.v, code, a.b, a.s, a.h, a.vv, cols_v, f32) ||
+        !make_state_map(&ts, a.scratch,
+                        (int64_t)a.b * a.h * n_chunks * a.kt, a.vt, K, V))
       return (int)cudaErrorNotSupported;
     const size_t smem = sizeof(OutSmem<K, V, T>) + 1024;
-    cudaError_t err = allow_smem(wkv_output_pass<K, V, T>, smem);
-    if (err != cudaSuccess) return (int)err;
-    wkv_output_pass<K, V, T><<<dim3(n_chunks, a.b * a.h), kThreads, smem,
-                               st>>>(
-        tr, tk, tw, tv, static_cast<const float*>(a.u),
-        static_cast<const float*>(a.scratch), static_cast<T*>(a.out), a.s,
-        a.h, w32);
+    const dim3 grid(n_chunks, a.b * a.h, a.vt / V);
+    cudaError_t err;
+    if (a.kt > K) {
+      // key slices are 64 or 32 wide (key_tile_width)
+      if constexpr (K < 128) {
+        err = allow_smem(wkv_output_pass<K, V, T, 1>, smem);
+        if (err != cudaSuccess) return (int)err;
+        wkv_output_pass<K, V, T, 1><<<grid, kThreads, smem, st>>>(
+            tr, tk, tw, tv, ts, static_cast<const float*>(a.u),
+            static_cast<T*>(a.out), a.s, a.h, w32, a.kk, a.vv, a.kt);
+      } else {
+        return (int)cudaErrorInvalidValue;
+      }
+    } else {
+      err = allow_smem(wkv_output_pass<K, V, T, 0>, smem);
+      if (err != cudaSuccess) return (int)err;
+      wkv_output_pass<K, V, T, 0><<<grid, kThreads, smem, st>>>(
+          tr, tk, tw, tv, ts, static_cast<const float*>(a.u),
+          static_cast<T*>(a.out), a.s, a.h, w32, a.kk, a.vv, a.kt);
+    }
   }
   return (int)cudaGetLastError();
 }
 
 template <int K, typename T>
-int launch_v(int vv, const Args& a, cudaStream_t st) {
-  switch (vv) {
+int launch_v(int tv, const Args& a, cudaStream_t st) {
+  switch (tv) {
     case 32: return launch_wkv<K, 32, T>(a, st);
     case 64: return launch_wkv<K, 64, T>(a, st);
-    case 128: return launch_wkv<K, 128, T>(a, st);
-    default: return (int)cudaErrorInvalidValue;
+    default: return launch_wkv<K, 128, T>(a, st);
   }
 }
 
 template <typename T>
-int launch_kv(int kk, int vv, const Args& a, cudaStream_t st) {
-  switch (kk) {
-    case 32: return launch_v<32, T>(vv, a, st);
-    case 64: return launch_v<64, T>(vv, a, st);
-    case 128: return launch_v<128, T>(vv, a, st);
-    default: return (int)cudaErrorInvalidValue;
+int launch_kv(int tk, int tv, const Args& a, cudaStream_t st) {
+  switch (tk) {
+    case 32: return launch_v<32, T>(tv, a, st);
+    case 64: return launch_v<64, T>(tv, a, st);
+    default: return launch_v<128, T>(tv, a, st);
   }
 }
-
-bool width_ok(int w) { return w == 32 || w == 64 || w == 128; }
 
 }  // namespace
 
 // r, k, v, out in the type `dtype` (0 float32, 1 bfloat16, 2 float16);
-// logw in `wdtype` (dtype, or 0); u, state0, state float32; K, V each 32,
-// 64 or 128.  scratch: (B, H, ceil(S / 32), K, V) float32, the chunk-start
-// states.  passes: 1 the state pass, 2 the output pass (reads the scratch
-// the state pass wrote), 3 both in order (the WKV).  Returns a cudaError_t;
-// anything outside that domain is cudaErrorInvalidValue and launches
-// nothing.
+// logw in `wdtype` (dtype, or 0); r, k and logw rows of kk columns, v and
+// out rows of vv, each row's bytes a multiple of 16 (TMA's stride; the
+// tiles' columns past a row read as zeros).  u (H, kt), state0 and state
+// (B, H, kt, vt) and the scratch (B, H, ceil(S / 32), kt, vt), the
+// chunk-start states, in float32 at the padded widths kt, vt
+// (rwkv6_wkv_padded_width).  passes: 1 the state pass, 2 the output pass
+// (reads the scratch the state pass wrote), 3 both in order (the WKV).
+// Returns a cudaError_t; anything outside that domain is
+// cudaErrorInvalidValue and launches nothing.
 extern "C" int rwkv6_wkv_launch(const void* r, const void* k, const void* v,
                                 const void* logw, const void* u,
                                 const void* state0, void* out, void* state,
                                 void* scratch, int b, int s, int h, int kk,
                                 int vv, int dtype, int wdtype, int passes,
                                 void* stream) {
-  // the output pass's grid is (n_chunks, B H)
-  if (b < 1 || s < 1 || h < 1 || passes < 1 || passes > 3 || b * h > 65535 ||
-      !width_ok(kk) || !width_ok(vv) || dtype < 0 || dtype > 2 ||
-      (wdtype != 0 && wdtype != dtype))
+  if (dtype < 0 || dtype > 2 || (wdtype != 0 && wdtype != dtype))
     return (int)cudaErrorInvalidValue;
-  const Args a{r, k, v, logw, u, state0, out, state, scratch, b, s, h,
-               wdtype, passes};
+  const int es = dtype == 0 ? 4 : 2, wes = wdtype == 0 ? 4 : 2;
+  // the output pass's grid is (n_chunks, B H, vt / V)
+  if (b < 1 || s < 1 || h < 1 || passes < 1 || passes > 3 || b * h > 65535 ||
+      kk < 1 || vv < 1 || kk * es % 16 || kk * wes % 16 || vv * es % 16)
+    return (int)cudaErrorInvalidValue;
+  const int kt = padded_width(kk), vt = padded_width(vv);
+  const Args a{r,      k,  v,  logw,    u,      state0, out, state, scratch,
+               b,      s,  h,  wdtype,  passes, kk,     vv,  kt,    vt};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int tk = key_tile_width(kt), tv = tile_width(vt);
   switch (dtype) {
-    case 0: return launch_kv<float>(kk, vv, a, st);
-    case 1: return launch_kv<__nv_bfloat16>(kk, vv, a, st);
-    default: return launch_kv<__half>(kk, vv, a, st);
+    case 0: return launch_kv<float>(tk, tv, a, st);
+    case 1: return launch_kv<__nv_bfloat16>(tk, tv, a, st);
+    default: return launch_kv<__half>(tk, tv, a, st);
   }
 }
 
+// The padded width a width of K or V runs at (u, the states).
+extern "C" int rwkv6_wkv_padded_width(int w) {
+  return w < 1 ? -1 : padded_width(w);
+}
+
+// The tile a padded width is cut into: the passes' V (key 0) or K (key 1).
+extern "C" int rwkv6_wkv_tile_width(int wp, int key) {
+  if (wp < 1 || padded_width(wp) != wp) return -1;
+  return key ? key_tile_width(wp) : tile_width(wp);
+}
+
 // Dynamic shared memory of the state pass (1) or the output pass (2) at
-// type `dtype` and widths K, V; -1 outside the domain.
+// type `dtype` and widths K, V (the passes' tiles of their padded widths);
+// -1 outside the domain.
 extern "C" int rwkv6_wkv_smem(int pass, int dtype, int kk, int vv) {
-  if (!width_ok(kk) || !width_ok(vv) || dtype < 0 || dtype > 2) return -1;
+  if (kk < 1 || vv < 1 || dtype < 0 || dtype > 2) return -1;
+  const int tk = key_tile_width(padded_width(kk));
+  const int tv = tile_width(padded_width(vv));
   if (pass == 1)
-    return (int)(kk == 32   ? state_smem<32>(dtype)
-                 : kk == 64 ? state_smem<64>(dtype)
+    return (int)(tk == 32   ? state_smem<32>(dtype)
+                 : tk == 64 ? state_smem<64>(dtype)
                             : state_smem<128>(dtype));
-  return (int)(kk == 32   ? out_smem_v<32>(dtype, vv)
-               : kk == 64 ? out_smem_v<64>(dtype, vv)
-                          : out_smem_v<128>(dtype, vv));
+  return (int)(tk == 32   ? out_smem_v<32>(dtype, tv)
+               : tk == 64 ? out_smem_v<64>(dtype, tv)
+                          : out_smem_v<128>(dtype, tv));
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -261,6 +261,11 @@ def flash_attention_ref_rows(q, k, v, *, causal: bool = True,
 LOG2E = 1.4426950408889634
 
 
+# the 16-bit body past hd 256 (flash_wgmma_wide): keys a tile, columns a
+# depth box of Q K^T, output columns a block
+WIDE_BLOCK_K, WIDE_DEPTH, WIDE_SLICE = 64, 64, 256
+
+
 def ws_block_k(hd: int) -> int:
     """Keys a tile of the CUDA kernel's ``flash_wgmma_ws`` body at head dim
     ``hd`` (its ``WsTile::BK``): 64 at hd 16 and 32 (two blocks an SM),
@@ -273,25 +278,37 @@ def flash_attention_tiled_ref(q, k, v, *, block_q: int = 128,
                               window: int = 0, softcap: float = 0.0,
                               scale=None, return_lse: bool = False):
     """The CUDA kernel's tile walk at head dims 16, 32, 64, 80 and 96
-    (``flash_wgmma_ws``, in bf16 or f16), with the arguments and result of
-    :func:`flash_attention_ref`.  Each tile of ``block_q`` queries walks the
-    live key tiles of ``block_k`` keys (:func:`ws_block_k` unless given) as
-    the kernel's ``live_keys`` computes them: from the
+    (``flash_wgmma_ws``) and past 256 (``flash_wgmma_wide``), in bf16 or
+    f16, with the arguments and result of :func:`flash_attention_ref`.
+    Each tile of ``block_q`` queries walks the live key tiles of
+    ``block_k`` keys (:func:`ws_block_k`, past 256 :data:`WIDE_BLOCK_K`,
+    unless given) as the kernel's ``live_keys`` computes them: from the
     window's start rounded down to a tile to one past its last query's
-    last admitted key.  The running max and sum stay in f32; uncapped, the
-    scale folds into ``exp2`` (scores and max stay raw); P is summed in f32
-    and rounded to the input type (bf16 or f16) before P V, which at hd 80
-    and 96 runs as columns 0-63 and 64-(hd - 1); the output is the sum
-    times ``1 / l``, rounded once to the input type."""
+    last admitted key.  Past hd 256 each tile's scores are summed in f32
+    over depth boxes of :data:`WIDE_DEPTH` columns in order.  The running
+    max and sum stay in f32; uncapped, the scale folds into ``exp2``
+    (scores and max stay raw); P is summed in f32 and rounded to the input
+    type (bf16 or f16) before P V, which at hd 80 and 96 runs as columns
+    0-63 and 64-(hd - 1), past 256 as value slices of :data:`WIDE_SLICE`
+    columns; the output is the sum times ``1 / l``, rounded once to the
+    input type."""
     b, s, h, hd = q.shape
     t, kh = k.shape[1], k.shape[2]
     scale = hd ** -0.5 if scale is None else scale
-    block_k = ws_block_k(hd) if block_k is None else block_k
+    wide = hd > 256
+    if block_k is None:
+        block_k = WIDE_BLOCK_K if wide else ws_block_k(hd)
     unit = LOG2E if softcap else scale * LOG2E
     qf = q.float().reshape(b, s, kh, h // kh, hd).permute(0, 2, 3, 1, 4)
     kf = k.float().permute(0, 2, 1, 3)[:, :, None]       # (B, Kh, 1, T, hd)
     vf = v.float().permute(0, 2, 1, 3)[:, :, None]
-    cols = [(0, min(hd, 64))] + ([(64, hd)] if hd > 64 else [])
+    if wide:
+        cols = [(c, min(c + WIDE_SLICE, hd)) for c in range(0, hd, WIDE_SLICE)]
+        depth = [(d, min(d + WIDE_DEPTH, hd))
+                 for d in range(0, hd, WIDE_DEPTH)]
+    else:
+        cols = [(0, min(hd, 64))] + ([(64, hd)] if hd > 64 else [])
+        depth = [(0, hd)]
     out = torch.empty_like(qf)
     lse = torch.empty(qf.shape[:-1], dtype=torch.float32, device=q.device)
     for q0 in range(0, s, block_q):
@@ -310,7 +327,11 @@ def flash_attention_tiled_ref(q, k, v, *, block_q: int = 128,
                           device=q.device)
         for k0 in range(lo, hi, block_k):
             k1 = min(k0 + block_k, t)
-            sc = qf[..., q0:q1, :] @ kf[..., k0:k1, :].transpose(-1, -2)
+            sc = None
+            for d0, d1 in depth:
+                box = qf[..., q0:q1, d0:d1] @ kf[..., k0:k1, d0:d1].transpose(
+                    -1, -2)
+                sc = box if sc is None else sc + box
             if softcap:
                 sc = softcap * torch.tanh(sc * (scale / softcap))
             kj = torch.arange(k0, k1, device=q.device)[None, :]
@@ -371,10 +392,11 @@ def split_tf32(x: torch.Tensor):
 
 def f32_tc_tiles(hd: int) -> tuple:
     """(queries, keys) a tile of the CUDA kernel's f32 body
-    (``flash_3xtf32``: ``kBlockQ`` and its ``Tf32Tile::BK``) at head dim
-    ``hd``: 64 queries (four warps of 16 rows); 32 keys up to hd 96, 16 at
-    128, 8 at 256."""
-    return 64, 32 if hd <= 96 else 16 if hd <= 128 else 8
+    (``flash_3xtf32``: ``kBlockQ`` and its ``Tf32Tile::BK``; past 256
+    ``flash_3xtf32_wide``'s ``Tf32WideTile::BK``) at head dim ``hd``: 64
+    queries (four warps of 16 rows); 32 keys up to hd 96, 16 at 128, 8 at
+    256 and 32 past it."""
+    return 64, 32 if hd <= 96 or hd > 256 else 16 if hd <= 128 else 8
 
 
 def _tc_products(a, b, split: bool):
@@ -567,13 +589,30 @@ def _chunks(x, chunk: int):
     return x.reshape(b, -1, chunk, h, d)
 
 
-def wkv_chunk_states_ref(k, v, logw, state0, chunk: int = 32):
+def _slices(width: int, tile):
+    """(start, stop) of each ``tile``-wide slice of ``width`` (one slice
+    without a tile)."""
+    tile = tile or width
+    return [(a, min(a + tile, width)) for a in range(0, width, tile)]
+
+
+def wkv_chunk_states_ref(k, v, logw, state0, chunk: int = 32,
+                         k_tile=None):
     """Pass 1 of the two-pass WKV (the CUDA kernel's state pass): the only
     sequential part, S <- diag(e^L_{C-1}) S + sum_s (k_s e^(L_{C-1} - L_s))
     v_s^T, chunk by chunk, with no pairwise scores.  k, logw (B,S,H,K),
     v (B,S,H,V), state0 (B,H,K,V), any float types, widened to f32 ->
     (the state at the start of every chunk (B, H, n_chunks, K, V), the
-    final state (B,H,K,V)), both f32."""
+    final state (B,H,K,V)), both f32.  With ``k_tile`` the key rows run
+    ``k_tile`` at a time, each slice on its own, as the kernel's grid cuts
+    them past K 128 (a key row's recurrence reads only its own column's
+    decay and key)."""
+    if k_tile is not None and k_tile < k.shape[-1]:
+        parts = [wkv_chunk_states_ref(k[..., a:b], v, logw[..., a:b],
+                                      state0[:, :, a:b], chunk)
+                 for a, b in _slices(k.shape[-1], k_tile)]
+        return (torch.cat([x[0] for x in parts], dim=3),
+                torch.cat([x[1] for x in parts], dim=2))
     k, v, logw, state0 = _widen(k, v, logw, state0)
     linc, ltot = _chunked_decays(logw, chunk)
     kdec = _chunks(k, chunk) * torch.exp(ltot - linc)       # (B,nc,C,H,K)
@@ -586,36 +625,54 @@ def wkv_chunk_states_ref(k, v, logw, state0, chunk: int = 32):
     return torch.stack(starts, dim=2), state
 
 
-def wkv_chunk_outputs_ref(r, k, v, logw, u, starts, chunk: int = 32):
+def wkv_chunk_outputs_ref(r, k, v, logw, u, starts, chunk: int = 32,
+                          k_tile=None, v_tile=None):
     """Pass 2 of the two-pass WKV (the CUDA kernel's output pass): every
     chunk at once from its chunk-start state ``starts`` (B, H, n_chunks, K,
     V), out_t = (r_t e^L_{t-1}) S_c + sum_{s<t} score_ts v_s +
     (r_t . (u k_t)) v_t, with the pairwise decay exponentiated per
     (t, s, k) from L_{t-1} - L_s <= 0, in f32 on widened inputs.  -> out
-    (B,S,H,V) in r's type, rounded once."""
+    (B,S,H,V) in r's type, rounded once.  As the kernel cuts a width past
+    128: the value columns run ``v_tile`` at a time (each slice forms the
+    scores anew), and within a slice the key columns ``k_tile`` at a time,
+    each key slice's scores, bonus and cross term added in slice order."""
     out_dtype = r.dtype
     r, k, v, logw, u, starts = _widen(r, k, v, logw, u, starts)
     s = r.shape[1]
     linc, _ = _chunked_decays(logw, chunk)
     lexc = linc - _chunks(logw.float(), chunk)
     rc, kc, vc = (_chunks(x, chunk) for x in (r, k, v))
-    cross = torch.einsum("bcthk,bhckv->bcthv", rc * torch.exp(lexc), starts)
     below = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                   device=r.device), -1)[:, :, None, None]
-    diff = lexc[:, :, :, None] - linc[:, :, None]           # (B,nc,t,s,H,K)
-    wdiff = torch.exp(diff.masked_fill(~below, float("-inf")))
-    scores = torch.einsum("bcthk,bcshk,bctshk->bchts", rc, kc, wdiff)
-    intra = torch.einsum("bchts,bcshv->bcthv", scores, vc)
-    bonus = (rc * u[None, None, None] * kc).sum(-1, keepdim=True)
-    out = cross + intra + bonus * vc
+    outs = []
+    for v0, v1 in _slices(v.shape[-1], v_tile):
+        cross = scores = bonus = 0.0
+        for k0, k1 in _slices(k.shape[-1], k_tile):
+            rk, kk_, lin, lex = (x[..., k0:k1] for x in (rc, kc, linc, lexc))
+            cross = cross + torch.einsum("bcthk,bhckv->bcthv",
+                                         rk * torch.exp(lex),
+                                         starts[:, :, :, k0:k1, v0:v1])
+            diff = lex[:, :, :, None] - lin[:, :, None]     # (B,nc,t,s,H,K)
+            wdiff = torch.exp(diff.masked_fill(~below, float("-inf")))
+            scores = scores + torch.einsum("bcthk,bcshk,bctshk->bchts", rk,
+                                           kk_, wdiff)
+            bonus = bonus + (rk * u[None, None, None, :, k0:k1] * kk_).sum(
+                -1, keepdim=True)
+        vs = vc[..., v0:v1]
+        intra = torch.einsum("bchts,bcshv->bcthv", scores, vs)
+        outs.append(cross + intra + bonus * vs)
+    out = torch.cat(outs, dim=-1)
     return out.reshape(r.shape[0], -1, *out.shape[3:])[:, :s].to(out_dtype)
 
 
-def rwkv6_wkv_two_pass_ref(r, k, v, logw, u, state0, chunk: int = 32):
+def rwkv6_wkv_two_pass_ref(r, k, v, logw, u, state0, chunk: int = 32,
+                           k_tile=None, v_tile=None):
     """The WKV split as the CUDA kernel splits it: the chunk-start states
     by :func:`wkv_chunk_states_ref`, then every chunk's outputs from them
-    by :func:`wkv_chunk_outputs_ref`.  Same arguments and result as
-    :func:`rwkv6_wkv_chunked_ref` (out in r's type, the state in f32);
-    ragged S is padded with zero tokens."""
-    starts, state = wkv_chunk_states_ref(k, v, logw, state0, chunk)
-    return wkv_chunk_outputs_ref(r, k, v, logw, u, starts, chunk), state
+    by :func:`wkv_chunk_outputs_ref`, with the kernel's key and value
+    slices where given (``rwkv6_wkv.tile_width`` of the padded widths).
+    Same arguments and result as :func:`rwkv6_wkv_chunked_ref` (out in r's
+    type, the state in f32); ragged S is padded with zero tokens."""
+    starts, state = wkv_chunk_states_ref(k, v, logw, state0, chunk, k_tile)
+    return wkv_chunk_outputs_ref(r, k, v, logw, u, starts, chunk, k_tile,
+                                 v_tile), state

@@ -227,7 +227,8 @@ class TestFlashDomain:
     def test_pad_rule_for_every_head_dim(self):
         """Every hd from 1 to 256 runs at the least built head dim at or
         above it, zero columns added and the scale of hd kept; a built one
-        passes through; past 256 the kernel refuses (ROADMAP B item 4)."""
+        passes through; past 256 a head dim runs at the next multiple of 64
+        (the body past 256), laid out at the next multiple of 8."""
         for hd in range(1, 257):
             to = min(b for b in tfa.HEAD_DIMS if b >= hd)
             assert tfa.padded_head_dim(hd) == to
@@ -242,5 +243,8 @@ class TestFlashDomain:
                 assert xp.shape == (1, 2, 1, to) and xp.is_contiguous()
                 assert torch.equal(xp[..., :hd], x)
                 assert not xp[..., hd:].any()
-        with pytest.raises(NotImplementedError, match="ROADMAP B item 4"):
-            tfa.padded_head_dim(257)
+        assert tfa.padded_head_dim(257) == 320
+        q = torch.ones((1, 2, 1, 257))
+        qp, _, _, scale = tfa.pad_head_dim(q, q, q)
+        assert qp.shape[-1] == tfa.row_width(257) == 264
+        assert scale == 257 ** -0.5 and not qp[..., 257:].any()

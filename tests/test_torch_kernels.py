@@ -473,11 +473,12 @@ class TestFlashAttention:
                                         window=8)
         torch.testing.assert_close(out.float(), want, rtol=0, atol=2e-2)
 
-    # hd 264 is past the largest built head dim (ROADMAP B item 4; any hd
-    # up to 256 runs zero-padded) and float64 outside the kernel's types
+    # hd 264 runs on the body past 256 (any head dim runs: the CPU tensors
+    # stop it at the device check) and float64 is outside the kernel's
+    # types
     @pytest.mark.parametrize("change,err", [
-        ({"hd": 264}, NotImplementedError), ({"dtype": torch.float64},
-                                             NotImplementedError),
+        ({"hd": 264}, RuntimeError), ({"dtype": torch.float64},
+                                      NotImplementedError),
         ({"kh": 3}, ValueError), ({"transpose": True}, ValueError),
     ])
     def test_launcher_rejects_what_the_kernel_does_not_take(self, change,
@@ -637,10 +638,11 @@ class TestRwkv6Wkv:
         assert got[0].dtype == torch.float32
         assert all(torch.equal(a, b) for a, b in zip(got, want))
 
-    # K 48 and V 96 lie outside the built widths {32, 64, 128} and float64
-    # outside the kernel's types (ROADMAP B item 3)
+    # K 48 and V 96 run zero-padded to 64 and 128 (any width runs: the CPU
+    # tensors stop them at the device check); float64 is outside the
+    # kernel's types
     @pytest.mark.parametrize("change,err", [
-        ({"kk": 48}, NotImplementedError), ({"vv": 96}, NotImplementedError),
+        ({"kk": 48}, RuntimeError), ({"vv": 96}, RuntimeError),
         ({"dtype": torch.float64}, NotImplementedError),
         ({"u_heads": 3}, ValueError), ({"state_b": 2}, ValueError),
         ({"transpose": True}, ValueError), ({}, RuntimeError),
@@ -652,6 +654,7 @@ class TestRwkv6Wkv:
         r = r.to(change.get("dtype", torch.float32))
         if "vv" in change:
             v = torch.zeros(v.shape[:-1] + (change["vv"],))
+            s0 = torch.zeros(s0.shape[:-1] + (change["vv"],))
         if "u_heads" in change:
             u = torch.zeros(change["u_heads"], u.shape[1])
         if "state_b" in change:
